@@ -1,0 +1,127 @@
+"""Shared CLI plumbing (counterpart of ``tpugan/cli/common.py``): the same
+flags, plus ``--device {cuda,cpu}``, and the model factory for ``--mtype 1``.
+
+What later slices bring raises :class:`NotImplementedError` naming the
+ROADMAP slice: other mtypes, converted checkpoints (so ``--random_init`` is
+required), ablation encoders, ``--space_shards`` above 1 and ``--multihost``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+import os
+from typing import Any, NamedTuple
+
+import torch
+
+from tpugan_torch.runtime import resolve_device
+
+_LATER = {
+    2: "StyleGAN2 (mtype 2) comes with ROADMAP slice 3 (SG2-1024 case 2)",
+    3: "PGGAN (mtype 3) comes with ROADMAP slice 7 (PGGAN, eval, I/O, CLIs)",
+    4: "BigGAN (mtype 4) comes with ROADMAP slice 5 (BigGAN and E_BIG)",
+}
+
+
+def add_common_args(parser: argparse.ArgumentParser, training: bool = True):
+    if training:
+        parser.add_argument("--iterations", type=int, default=210000)
+        parser.add_argument("--lr", type=float, default=0.0015)
+        parser.add_argument("--beta_1", type=float, default=0.0)
+        parser.add_argument("--batch_size", type=int, default=2)
+    parser.add_argument("--experiment_dir", default=None)
+    parser.add_argument("--checkpoint_dir_GAN", default=None)
+    parser.add_argument("--config_dir", default=None)  # BigGAN config JSON
+    parser.add_argument("--checkpoint_dir_E", default=None)
+    parser.add_argument("--img_size", type=int, default=1024)
+    parser.add_argument("--img_channels", type=int, default=3)
+    parser.add_argument("--z_dim", type=int, default=512)
+    parser.add_argument("--mtype", type=int, default=2)
+    parser.add_argument("--start_features", type=int, default=16)
+    parser.add_argument("--random_init", action="store_true",
+                        help="random weights instead of converted checkpoints")
+    parser.add_argument("--ablation", type=int, default=0, choices=range(0, 9),
+                        help="ablation ladder step (ablation_utils/1..8); 0 = off")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--space_shards", type=int, default=1)
+    parser.add_argument("--lpips_weights", default=None,
+                        help="official lpips (vgg) state dict; random heads if absent")
+    parser.add_argument("--vgg_weights", default=None,
+                        help="torchvision vgg16 state dict (grad-cam path)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="span several hosts (not in the port yet)")
+    parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                        help="run on the GPU (default; raises if there is none) or the CPU")
+    return parser
+
+
+class GanBundle(NamedTuple):
+    """Frozen generator closures + encoder for one mtype, on ``device``.
+
+    ``synth(z, noise)`` / ``resynth(w, batch, noise)`` close over the frozen
+    generator; ``generator`` and ``encoder`` give the noise shapes."""
+
+    synth: Any  # (z, noise) -> SynthBatch
+    resynth: Any  # (w, batch, noise) -> images [N, H, W, C]
+    encoder: Any  # nn.Module
+    z_dim: int
+    layer_count: int
+    num_style_layers: int
+    generator: Any  # nn.Module (frozen)
+    device: torch.device
+    img_size: int
+
+
+def _layer_count(img_size: int) -> int:
+    return int(math.log2(img_size)) - 1
+
+
+def build_bundle(args) -> GanBundle:
+    """Construct the frozen G (+ mapping) and the encoder E for args.mtype,
+    from random weights seeded by ``args.seed``, on ``args.device``."""
+    if getattr(args, "multihost", False):
+        raise NotImplementedError("--multihost comes with ROADMAP slice 7 (parallelism)")
+    if getattr(args, "space_shards", 1) != 1:
+        raise NotImplementedError("--space_shards > 1 comes with ROADMAP slice 7 (parallelism)")
+    if args.mtype in _LATER:
+        raise NotImplementedError(_LATER[args.mtype])
+    if args.mtype != 1:
+        raise ValueError(f"unknown mtype {args.mtype}")
+    if not args.random_init or args.checkpoint_dir_E:
+        raise NotImplementedError(
+            "loading converted checkpoints comes with ROADMAP slice 7 (io/convert); "
+            "pass --random_init and no --checkpoint_dir_E"
+        )
+    if getattr(args, "ablation", 0):
+        raise NotImplementedError("ablation encoders come with ROADMAP slice 3 (E_Blur variants)")
+    device = resolve_device(getattr(args, "device", "cuda"))
+
+    from tpugan_torch.models import Encoder, StyleGANv1Generator, StyleGANv1Mapping
+    from tpugan_torch.train.e_align import build_stylegan1_pipeline
+
+    layer_count = _layer_count(args.img_size)
+    g = torch.Generator(device="cpu").manual_seed(args.seed)
+    gen = StyleGANv1Generator(
+        startf=args.start_features, maxf=512, layer_count=layer_count, latent_size=512,
+        generator=g,
+    ).to(device)
+    gm = StyleGANv1Mapping(num_layers=2 * layer_count, mapping_layers=8, generator=g).to(device)
+    enc = Encoder(
+        startf=args.start_features, maxf=512, layer_count=layer_count, latent_size=512,
+        use_blur=getattr(args, "case", 1) == 2, generator=g,
+    ).to(device)
+    synth, resynth = build_stylegan1_pipeline(gen, gm, lod=layer_count - 1)
+    return GanBundle(
+        synth, resynth, enc, 512, layer_count, 2 * layer_count, gen, device, args.img_size
+    )
+
+
+def make_result_dirs(experiment_dir, default_name: str):
+    """Mirror the reference's result tree (E_align_cropping_s1.py:318-331)."""
+    base = experiment_dir or os.path.join("./result", default_name)
+    imgs = os.path.join(base, "imgs")
+    models = os.path.join(base, "models")
+    for d in (base, imgs, models):
+        os.makedirs(d, exist_ok=True)
+    return base, imgs, models

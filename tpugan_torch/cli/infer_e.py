@@ -1,0 +1,90 @@
+"""Qualitative encoder evaluation (counterpart of ``tpugan/cli/infer_e.py``).
+
+``python -m tpugan_torch.cli.infer_e --mtype 1 --img_size 256
+--start_features 64 --random_init`` — fixed-seed synthetic images through
+z -> Mapping -> G -> E -> G, written as side-by-side grids. One request is
+:func:`run`: :func:`draw_request` draws its latents and noise from the seed,
+:func:`serve` computes ``(imgs1, imgs2)``; ``main`` only adds the files.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tpugan_torch.cli.common import GanBundle, add_common_args, build_bundle, make_result_dirs
+from tpugan_torch.train.e_align import draw_noise, make_encode_fn
+from tpugan_torch.utils import iteration_generator
+
+
+class Request(NamedTuple):
+    """One request's inputs: z [N, z_dim] and the noise of each pass
+    (synthesis, encoder, resynthesis)."""
+
+    z: torch.Tensor
+    noise_g: list
+    noise_e: list
+    noise_g2: list
+
+    def to(self, device) -> "Request":
+        def move(blocks):
+            return [tuple(n.to(device) for n in block) for block in blocks]
+
+        return Request(self.z.to(device), move(self.noise_g), move(self.noise_e), move(self.noise_g2))
+
+
+def draw_request(bundle: GanBundle, batch_size: int, seed: int) -> Request:
+    """Draw a request's inputs from the seed (``seed % 30000``) on the
+    bundle's device."""
+    g = iteration_generator(seed, bundle.device)
+    z = torch.randn(batch_size, bundle.z_dim, generator=g, device=bundle.device)
+    g_shapes = bundle.generator.noise_shapes(batch_size)
+    noise_g = draw_noise(g_shapes, g)
+    noise_e = draw_noise(bundle.encoder.noise_shapes(batch_size, bundle.img_size), g)
+    noise_g2 = draw_noise(g_shapes, g)
+    return Request(z, noise_g, noise_e, noise_g2)
+
+
+def serve(bundle: GanBundle, request: Request):
+    """imgs1 = G(M(z)); imgs2 = G(E(imgs1)); both [N, H, W, C] in [-1, 1]."""
+    batch = bundle.synth(request.z, request.noise_g)
+    _, w2 = make_encode_fn(bundle.encoder)(batch, request.noise_e)
+    imgs2 = bundle.resynth(w2, batch, request.noise_g2)
+    return batch.imgs1, imgs2
+
+
+def run(bundle: GanBundle, batch_size: int, seed: int):
+    """One request: ``serve(draw_request(seed))``."""
+    return serve(bundle, draw_request(bundle, batch_size, seed))
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="encoder qualitative eval")
+    add_common_args(parser, training=True)
+    parser.add_argument("--seed_eval", type=int, default=30000)
+    parser.add_argument("--count", type=int, default=3)
+    parser.add_argument("--gradcam", action="store_true", help="dump CAM heatmaps")
+    args = parser.parse_args(argv)
+    if args.gradcam:
+        raise NotImplementedError("--gradcam comes with ROADMAP slice 6 (Grad-CAM)")
+
+    from tpugan_torch.io.image import save_image_grid, to_unit
+
+    bundle = build_bundle(args)
+    _, imgs_dir, _ = make_result_dirs(args.experiment_dir, f"mtype{args.mtype}-inferE")
+    for seed in range(args.seed_eval, args.seed_eval + args.count):
+        imgs1, imgs2 = run(bundle, args.batch_size, seed)
+        grid = np.concatenate([to_unit(imgs1), to_unit(imgs2)], axis=0)
+        save_image_grid(
+            os.path.join(imgs_dir, f"infer_seed{seed}.png"), np.clip(grid, 0, 1),
+            nrow=args.batch_size,
+        )
+    print(imgs_dir)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,56 @@
+"""Image files (counterpart of ``tpugan/io/image.py``'s writers).
+
+Images are NHWC, in [-1, 1] inside the models and [0, 1] at the file
+boundary. Pillow is imported only when a file is written.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+
+def _numpy(images) -> np.ndarray:
+    if isinstance(images, torch.Tensor):
+        return images.detach().cpu().numpy()
+    return np.asarray(images)
+
+
+def save_image(path, img) -> None:
+    """[H, W, 3] in [0, 1] -> file."""
+    from PIL import Image
+
+    arr = np.clip(_numpy(img) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    Image.fromarray(arr).save(path)
+
+
+def save_image_grid(path, imgs, nrow: int = 8, padding: int = 2) -> None:
+    """[N, H, W, 3] in [0, 1] -> one grid image (torchvision save_image
+    semantics: ``nrow`` images per row, zero padding)."""
+    imgs = _numpy(imgs)
+    n, h, w, c = imgs.shape
+    ncol = min(nrow, n)
+    nrows = -(-n // ncol)
+    grid = np.zeros(
+        (nrows * h + padding * (nrows + 1), ncol * w + padding * (ncol + 1), c),
+        dtype=np.float32,
+    )
+    for idx in range(n):
+        r, col = divmod(idx, ncol)
+        y = padding + r * (h + padding)
+        x = padding + col * (w + padding)
+        grid[y : y + h, x : x + w] = imgs[idx]
+    save_image(path, grid)
+
+
+def to_unit(images) -> np.ndarray:
+    """[-1, 1] model range -> [0, 1] file range."""
+    return _numpy(images) * 0.5 + 0.5
+
+
+def from_unit(images) -> np.ndarray:
+    """[0, 1] file range -> [-1, 1] model range."""
+    return _numpy(images) * 2.0 - 1.0

@@ -1,0 +1,115 @@
+"""Build and load the port's CUDA kernels (``tpugan_torch/csrc``).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
+a plain C entry point and loaded with :mod:`ctypes` (no PyTorch headers, so a
+build takes seconds). Libraries go to ``tpugan_torch/_build/`` under a name
+that hashes the source and the flags, so an edited source is rebuilt.
+Nothing is built at import: :func:`build` runs on first use, or ahead of it.
+
+``launches`` counts, per kernel, the launches its wrapper made, so a run can
+show that its path went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_c_int = ctypes.c_int
+_c_ptr = ctypes.c_void_p
+# kernel name -> (source, C symbol, argtypes)
+KERNELS = {
+    "upfirdn2d": (
+        "upfirdn2d.cu",
+        "tpugan_upfirdn2d_f32",
+        [_c_ptr, _c_ptr, ctypes.c_int64] + [_c_int] * 9
+        + [ctypes.POINTER(ctypes.c_float), _c_int, _c_ptr],
+    ),
+}
+
+launches = {name: 0 for name in KERNELS}
+
+_funcs: dict = {}
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    candidate = Path(home) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
+
+
+def library_path(name: str) -> Path:
+    source = CSRC / KERNELS[name][0]
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build(names=None) -> dict[str, str]:
+    """Compile the named kernels (all by default) that are not built yet,
+    one ``nvcc`` per source, all started together. Returns the compiler's
+    output (``-Xptxas -v``: registers, shared memory, spills) by name;
+    raises if any build fails."""
+    names = list(KERNELS) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = None
+    running = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        nvcc = nvcc or nvcc_path()
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in running.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode == 0:
+            os.replace(tmp, out)  # atomic: a concurrent builder sees all or nothing
+        else:
+            failed.append(name)
+    if failed:
+        raise RuntimeError(
+            "nvcc failed for " + ", ".join(failed) + ":\n"
+            + "\n".join(logs[name] for name in failed)
+        )
+    return logs
+
+
+def kernel(name: str):
+    """The C entry point of kernel ``name``, built and loaded on first use."""
+    with _lock:
+        fn = _funcs.get(name)
+        if fn is None:
+            build([name])
+            _, symbol, argtypes = KERNELS[name]
+            fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _funcs[name] = fn
+    return fn

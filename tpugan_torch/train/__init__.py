@@ -1,0 +1,3 @@
+from tpugan_torch.train.e_align import SynthBatch, build_stylegan1_pipeline, make_encode_fn
+
+__all__ = ["SynthBatch", "build_stylegan1_pipeline", "make_encode_fn"]
