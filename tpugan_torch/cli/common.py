@@ -1,5 +1,7 @@
 """Shared CLI plumbing (counterpart of ``tpugan/cli/common.py``): the same
-flags, plus ``--device {cuda,cpu}``, and the model factory for ``--mtype 1``.
+flags, plus ``--device {cuda,cpu}``, and the model factory for ``--mtype 1``
+(StyleGANv1 with the case-1 encoder) and ``--mtype 4`` (BigGAN-deep with
+E_BIG).
 
 What later slices bring raises :class:`NotImplementedError` naming the
 ROADMAP slice: other mtypes, converted checkpoints (so ``--random_init`` is
@@ -20,7 +22,6 @@ from tpugan_torch.runtime import resolve_device
 _LATER = {
     2: "StyleGAN2 (mtype 2) comes with ROADMAP slice 3 (SG2-1024 case 2)",
     3: "PGGAN (mtype 3) comes with ROADMAP slice 7 (PGGAN, eval, I/O, CLIs)",
-    4: "BigGAN (mtype 4) comes with ROADMAP slice 5 (BigGAN and E_BIG)",
 }
 
 
@@ -59,10 +60,12 @@ def add_common_args(parser: argparse.ArgumentParser, training: bool = True):
 class GanBundle(NamedTuple):
     """Frozen generator closures + encoder for one mtype, on ``device``.
 
-    ``synth(z, noise)`` / ``resynth(w, batch, noise)`` close over the frozen
-    generator; ``generator`` and ``encoder`` give the noise shapes."""
+    ``synth(z, noise)`` (mtype 1) or ``synth(zt, label)`` (mtype 4) and
+    ``resynth(w, batch, noise)`` close over the frozen generator;
+    ``generator`` and ``encoder`` give the noise shapes (and BigGAN's
+    config)."""
 
-    synth: Any  # (z, noise) -> SynthBatch
+    synth: Any  # (z, noise) or (zt, label) -> SynthBatch
     resynth: Any  # (w, batch, noise) -> images [N, H, W, C]
     encoder: Any  # nn.Module
     z_dim: int
@@ -71,6 +74,7 @@ class GanBundle(NamedTuple):
     generator: Any  # nn.Module (frozen)
     device: torch.device
     img_size: int
+    mtype: int = 1
 
 
 def _layer_count(img_size: int) -> int:
@@ -86,7 +90,7 @@ def build_bundle(args) -> GanBundle:
         raise NotImplementedError("--space_shards > 1 comes with ROADMAP slice 7 (parallelism)")
     if args.mtype in _LATER:
         raise NotImplementedError(_LATER[args.mtype])
-    if args.mtype != 1:
+    if args.mtype not in (1, 4):
         raise ValueError(f"unknown mtype {args.mtype}")
     if not args.random_init or args.checkpoint_dir_E:
         raise NotImplementedError(
@@ -96,12 +100,14 @@ def build_bundle(args) -> GanBundle:
     if getattr(args, "ablation", 0):
         raise NotImplementedError("ablation encoders come with ROADMAP slice 3 (E_Blur variants)")
     device = resolve_device(getattr(args, "device", "cuda"))
+    layer_count = _layer_count(args.img_size)
+    g = torch.Generator(device="cpu").manual_seed(args.seed)
+    if args.mtype == 4:
+        return _build_biggan_bundle(args, layer_count, g, device)
 
     from tpugan_torch.models import Encoder, StyleGANv1Generator, StyleGANv1Mapping
     from tpugan_torch.train.e_align import build_stylegan1_pipeline
 
-    layer_count = _layer_count(args.img_size)
-    g = torch.Generator(device="cpu").manual_seed(args.seed)
     gen = StyleGANv1Generator(
         startf=args.start_features, maxf=512, layer_count=layer_count, latent_size=512,
         generator=g,
@@ -114,6 +120,34 @@ def build_bundle(args) -> GanBundle:
     synth, resynth = build_stylegan1_pipeline(gen, gm, lod=layer_count - 1)
     return GanBundle(
         synth, resynth, enc, 512, layer_count, 2 * layer_count, gen, device, args.img_size
+    )
+
+
+def _build_biggan_bundle(args, layer_count: int, g: torch.Generator,
+                         device: torch.device) -> GanBundle:
+    """BigGAN-deep (the config from ``--config_dir`` or the zoo layout for
+    ``--img_size`` with ``--z_dim``) and E_BIG, in eval mode: the spectral
+    norms read their stored ``u`` and ``v``."""
+    from tpugan_torch.models import BigGAN, BigGANConfig, BigGANEncoder
+    from tpugan_torch.train.e_align import build_biggan_pipeline
+
+    cfg = (
+        BigGANConfig.from_json_file(args.config_dir)
+        if args.config_dir
+        else BigGANConfig.for_resolution(args.img_size, z_dim=args.z_dim)
+    )
+    if cfg.output_dim != args.img_size:
+        raise ValueError(f"the BigGAN config makes {cfg.output_dim}px images, "
+                         f"but --img_size is {args.img_size}")
+    model = BigGAN(cfg, generator=g).eval().to(device)
+    enc = BigGANEncoder(
+        startf=args.start_features, maxf=512, layer_count=layer_count,
+        cond_dim=2 * cfg.z_dim, z_dim=cfg.z_dim, img_size=args.img_size, generator=g,
+    ).eval().to(device)
+    synth, resynth = build_biggan_pipeline(model)
+    return GanBundle(
+        synth, resynth, enc, cfg.z_dim, layer_count, 2 * layer_count, model, device,
+        args.img_size, mtype=4,
     )
 
 

@@ -2,8 +2,10 @@
 
 ``python -m tpugan_torch.cli.infer_e --mtype 1 --img_size 256
 --start_features 64 --random_init`` — fixed-seed synthetic images through
-z -> Mapping -> G -> E -> G, written as side-by-side grids. One request is
-:func:`run`: :func:`draw_request` draws its latents and noise from the seed,
+z -> Mapping -> G -> E -> G, written as side-by-side grids. ``--mtype 4
+--img_size 256 --start_features 64 --z_dim 128`` serves BigGAN-deep-256
+with E_BIG instead: truncated z and a class label -> G -> E_BIG -> G. One
+request is :func:`run`: :func:`draw_request` draws its inputs from the seed,
 :func:`serve` computes ``(imgs1, imgs2)``; ``main`` only adds the files.
 """
 
@@ -17,30 +19,43 @@ import numpy as np
 import torch
 
 from tpugan_torch.cli.common import GanBundle, add_common_args, build_bundle, make_result_dirs
-from tpugan_torch.train.e_align import draw_noise, make_encode_fn
-from tpugan_torch.utils import iteration_generator
+from tpugan_torch.train.e_align import BIGGAN_TRUNCATION, draw_noise, make_encode_fn
+from tpugan_torch.utils import iteration_generator, one_hot, truncated_noise_sample
 
 
 class Request(NamedTuple):
-    """One request's inputs: z [N, z_dim] and the noise of each pass
-    (synthesis, encoder, resynthesis)."""
+    """One request's inputs: z [N, z_dim] (BigGAN: truncated), the noise of
+    each pass (synthesis, encoder, resynthesis; ``None`` for BigGAN's
+    generator, which has none) and BigGAN's one-hot label [N, classes]."""
 
     z: torch.Tensor
-    noise_g: list
+    noise_g: list | None
     noise_e: list
-    noise_g2: list
+    noise_g2: list | None
+    label: torch.Tensor | None = None
 
     def to(self, device) -> "Request":
         def move(blocks):
+            if blocks is None:
+                return None
             return [tuple(n.to(device) for n in block) for block in blocks]
 
-        return Request(self.z.to(device), move(self.noise_g), move(self.noise_e), move(self.noise_g2))
+        return Request(self.z.to(device), move(self.noise_g), move(self.noise_e),
+                       move(self.noise_g2), None if self.label is None else self.label.to(device))
 
 
 def draw_request(bundle: GanBundle, batch_size: int, seed: int) -> Request:
     """Draw a request's inputs from the seed (``seed % 30000``) on the
-    bundle's device."""
+    bundle's device. BigGAN's request is a truncated z, one class shared by
+    the batch (cli/common.py:277-281 of ``tpugan``) and E_BIG's noise."""
     g = iteration_generator(seed, bundle.device)
+    if bundle.mtype == 4:
+        classes = bundle.generator.config.num_classes
+        zt = truncated_noise_sample(batch_size, bundle.z_dim, BIGGAN_TRUNCATION, generator=g)
+        flag = torch.randint(0, classes, (1,), generator=g, device=bundle.device)
+        label = one_hot(flag.expand(batch_size), classes)
+        noise_e = draw_noise(bundle.encoder.noise_shapes(batch_size, bundle.img_size), g)
+        return Request(zt, None, noise_e, None, label)
     z = torch.randn(batch_size, bundle.z_dim, generator=g, device=bundle.device)
     g_shapes = bundle.generator.noise_shapes(batch_size)
     noise_g = draw_noise(g_shapes, g)
@@ -50,8 +65,13 @@ def draw_request(bundle: GanBundle, batch_size: int, seed: int) -> Request:
 
 
 def serve(bundle: GanBundle, request: Request):
-    """imgs1 = G(M(z)); imgs2 = G(E(imgs1)); both [N, H, W, C] in [-1, 1]."""
-    batch = bundle.synth(request.z, request.noise_g)
+    """imgs1 = G(M(z)); imgs2 = G(E(imgs1)); both [N, H, W, C] in [-1, 1].
+    BigGAN: (imgs1, cond) = G(zt, label); (c, z2) = E(imgs1, cond);
+    imgs2 = G(z2, label)."""
+    if request.label is None:
+        batch = bundle.synth(request.z, request.noise_g)
+    else:
+        batch = bundle.synth(request.z, request.label)
     _, w2 = make_encode_fn(bundle.encoder)(batch, request.noise_e)
     imgs2 = bundle.resynth(w2, batch, request.noise_g2)
     return batch.imgs1, imgs2

@@ -2,14 +2,18 @@
 
 The JAX package's variables arrive as nested dicts of **numpy** arrays (the
 caller converts them; this module imports no JAX). The port's modules carry
-the same names as ``tpugan``'s param tree, so the walk is name for name;
-only the layouts differ:
+the same names as ``tpugan``'s variable trees, so the walk is name for name:
+``params`` into the module's parameters, ``buffers`` (BigGAN batch norms'
+running statistics) and ``sn`` (spectral norms' ``u`` and ``v``) into its
+buffers. Only the layouts differ:
 
-* conv kernels, HWIO ``[kh, kw, in, out]`` -> OIHW ``[out, in, kh, kw]``;
+* conv kernels (Eq or plain), HWIO ``[kh, kw, in, out]`` -> OIHW
+  ``[out, in, kh, kw]``;
 * transposed-conv kernels, HWIO -> ``[in, out, kh, kw]``;
-* dense kernels ``[in, out]`` -> ``[out, in]``;
+* dense kernels (Eq, plain or spectral-normalised) ``[in, out]`` ->
+  ``[out, in]``;
 * the generator's ``const`` ``[1, 4, 4, C]`` -> NCHW ``[1, C, 4, 4]``;
-* noise weights and biases unchanged.
+* everything else (noise weights, biases, ``gamma``, buffers) unchanged.
 """
 
 from __future__ import annotations
@@ -21,22 +25,29 @@ import torch
 from torch import nn
 
 from tpugan_torch.nn.layers import EqConv, EqLinear
+from tpugan_torch.nn.spectral import SNDense
+
+_DENSE = (EqLinear, nn.Linear, SNDense)
+# the collections copied, and whether each goes to parameters or buffers
+_COLLECTIONS = (("params", "parameters"), ("buffers", "buffers"), ("sn", "buffers"))
 
 
 def _convert(owner: nn.Module, name: str, value: np.ndarray) -> np.ndarray:
     if name == "kernel":
-        if isinstance(owner, EqLinear):
+        if isinstance(owner, _DENSE):
             return value.T
         if isinstance(owner, EqConv):
             return value.transpose((2, 3, 0, 1) if owner.transpose else (3, 2, 0, 1))
-        raise TypeError(f"'kernel' under {type(owner).__name__}, which is not an Eq layer")
+        if isinstance(owner, nn.Conv2d):
+            return value.transpose(3, 2, 0, 1)
+        raise TypeError(f"'kernel' under {type(owner).__name__}, which is not a conv or dense layer")
     if name == "const":
         return value.transpose(0, 3, 1, 2)
     return value
 
 
-def _walk(module: nn.Module, params: Mapping, prefix: str, out: dict) -> None:
-    for key, value in params.items():
+def _walk(module: nn.Module, tree: Mapping, prefix: str, out: dict) -> None:
+    for key, value in tree.items():
         if isinstance(value, Mapping):
             _walk(getattr(module, key), value, f"{prefix}{key}.", out)
         else:
@@ -45,26 +56,30 @@ def _walk(module: nn.Module, params: Mapping, prefix: str, out: dict) -> None:
 
 
 def load_variables(module: nn.Module, variables: Mapping, unused=()) -> nn.Module:
-    """Copy ``variables["params"]`` (a ``tpugan`` mapping, generator or
-    encoder) into ``module`` in place and return it.
+    """Copy a ``tpugan`` variable mapping (generator or encoder) into
+    ``module`` in place and return it: ``params`` into its parameters,
+    ``buffers`` and ``sn`` into its buffers.
 
-    flax makes a submodule's params only when it runs, so a generator
+    flax makes a submodule's variables only when it runs, so a generator
     initialised at one lod has no ``to_rgb`` of the others: name such
     submodules in ``unused``; they keep their values. Raises unless every
-    other parameter of ``module`` is set, with its exact shape, and no leaf
-    is left over."""
-    tensors: dict = {}
-    _walk(module, variables["params"], "", tensors)
-    own = dict(module.named_parameters())
+    other parameter and buffer of ``module`` is set, with its exact shape,
+    and no leaf is left over."""
     skip = tuple(f"{name}." for name in unused)
-    missing = sorted(n for n in set(own) - set(tensors) if not n.startswith(skip))
-    extra = sorted(set(tensors) - set(own))
-    if missing or extra:
-        raise KeyError(f"param trees differ: missing {missing}, unexpected {extra}")
-    with torch.no_grad():
-        for name, value in tensors.items():
-            p = own[name]
-            if tuple(value.shape) != tuple(p.shape):
-                raise ValueError(f"{name}: shape {value.shape} does not fit {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32)))
+    for kind in ("parameters", "buffers"):
+        tensors: dict = {}
+        for collection, target in _COLLECTIONS:
+            if target == kind:
+                _walk(module, variables.get(collection, {}), "", tensors)
+        own = dict(getattr(module, f"named_{kind}")())
+        missing = sorted(n for n in set(own) - set(tensors) if not n.startswith(skip))
+        extra = sorted(set(tensors) - set(own))
+        if missing or extra:
+            raise KeyError(f"{kind} differ: missing {missing}, unexpected {extra}")
+        with torch.no_grad():
+            for name, value in tensors.items():
+                t = own[name]
+                if tuple(value.shape) != tuple(t.shape):
+                    raise ValueError(f"{name}: shape {value.shape} does not fit {tuple(t.shape)}")
+                t.copy_(torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32)))
     return module

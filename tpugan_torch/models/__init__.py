@@ -1,4 +1,12 @@
-from tpugan_torch.models.encoders import Encoder, EncoderBlock
+from tpugan_torch.models.biggan import (
+    BigGAN,
+    BigGANBatchNorm,
+    BigGANConfig,
+    BigGANGenerator,
+    GenBlock,
+    SelfAttn,
+)
+from tpugan_torch.models.encoders import BigGANEncoder, BigGANEncoderBlock, Encoder, EncoderBlock
 from tpugan_torch.models.stylegan1 import (
     DecodeBlock,
     StyleGANv1Generator,
@@ -7,9 +15,17 @@ from tpugan_torch.models.stylegan1 import (
 )
 
 __all__ = [
+    "BigGAN",
+    "BigGANBatchNorm",
+    "BigGANConfig",
+    "BigGANEncoder",
+    "BigGANEncoderBlock",
+    "BigGANGenerator",
     "DecodeBlock",
     "Encoder",
     "EncoderBlock",
+    "GenBlock",
+    "SelfAttn",
     "StyleGANv1Generator",
     "StyleGANv1Mapping",
     "truncation_coefs",

@@ -1,6 +1,6 @@
-"""The trainable StyleGAN encoder E, NCHW (counterpart of
-``tpugan/models/encoders.py``: ``EncoderBlock``'s v2 forward and
-``Encoder``).
+"""The trainable encoders, NCHW (counterpart of
+``tpugan/models/encoders.py``: ``EncoderBlock``'s v2 forward, ``Encoder``,
+``BigGANEncoderBlock`` and ``BigGANEncoder``).
 
 ``use_blur=False`` is case 1 (E.py); ``use_blur=True`` is case 2 (E_Blur.py),
 which blurs before the downsampling conv and fuses that conv (stride 2,
@@ -9,6 +9,10 @@ more. Each block reads the per-channel (mean, std) of its input and of its
 first conv's output as style codes, and the per-block (w2, w1) pairs come
 out deepest-first so ``w[:, 2i]`` and ``w[:, 2i+1]`` line up with generator
 layer i. Noise is an explicit argument, as in the generator.
+
+E_BIG (:class:`BigGANEncoder`) conditions every block on BigGAN's condition
+vector through spectral-normalised batch norms and ends in two heads, the
+condition vector and z.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from tpugan_torch.nn.layers import EqConv, EqLinear
+from tpugan_torch.models.biggan import BigGANBatchNorm
+from tpugan_torch.nn.layers import EqConv, EqLinear, plain_conv
 from tpugan_torch.ops.basic import (
     downscale2d,
     instance_moments,
@@ -133,3 +138,101 @@ class Encoder(nn.Module):
             x, w1, w2 = getattr(self, f"block_{i}")(x, ni)
             styles.append(torch.stack([w2, w1], dim=1))
         return x, torch.cat(styles[::-1], dim=1)
+
+
+class BigGANEncoderBlock(nn.Module):
+    """E_BIG's BEBlock: conditional, spectral-normalised BigGAN batch norms
+    (eps 1e-12, the truncation fixed at 0.4) before each conv, noise, bias,
+    lrelu; a second conv, a 1x1 residual conv when the width changes and a
+    2x average-pool downsample, except in the last block. Keeps the
+    reference's second lrelu on width-changing blocks."""
+
+    def __init__(self, in_features: int, out_features: int, cond_dim: int = 256,
+                 n_stats: int = 51, has_second_conv: bool = True, truncation: float = 0.4,
+                 generator=None):
+        super().__init__()
+        cin, cout = in_features, out_features
+        self.has_second_conv = has_second_conv
+        self.truncation = truncation
+
+        def bn():
+            return BigGANBatchNorm(cin, cond_dim, n_stats=n_stats, eps=1e-12, conditional=True,
+                                   sn=True, generator=generator)
+
+        self.batch_norm_1 = bn()
+        self.conv_1 = EqConv(cin, cin, 3, padding=1, use_bias=False, generator=generator)
+        self.noise_weight_1 = nn.Parameter(torch.zeros(cin))
+        self.bias_1 = nn.Parameter(torch.zeros(cin))
+        self.conv_3 = None
+        if has_second_conv:
+            self.batch_norm_2 = bn()
+            self.conv_2 = EqConv(cin, cout, 3, padding=1, use_bias=False, generator=generator)
+            self.noise_weight_2 = nn.Parameter(torch.zeros(cout))
+            self.bias_2 = nn.Parameter(torch.zeros(cout))
+            if cin != cout:
+                self.batch_norm_3 = bn()
+                self.conv_3 = EqConv(cin, cout, 1, generator=generator)
+
+    def forward(self, x, cond_vector, noise: Optional[Sequence[torch.Tensor]] = None):
+        t = self.truncation
+        residual = x
+        x = self.conv_1(self.batch_norm_1(x, t, cond_vector))
+        x = noise_inject(x, self.noise_weight_1, noise[0] if noise is not None else None)
+        x = leaky_relu(x + self.bias_1[None, :, None, None], 0.2)
+        if not self.has_second_conv:
+            return x
+        x = self.conv_2(self.batch_norm_2(x, t, cond_vector))
+        x = noise_inject(x, self.noise_weight_2, noise[1] if noise is not None else None)
+        x = leaky_relu(x + self.bias_2[None, :, None, None], 0.2)
+        if self.conv_3 is not None:
+            residual = self.conv_3(self.batch_norm_3(residual, t, cond_vector))
+            x = leaky_relu(x, 0.2)  # the reference's double lrelu
+        return downscale2d(x + residual)
+
+
+class BigGANEncoder(nn.Module):
+    """E_BIG: images [N, C, R, R] and BigGAN's condition vector [N, cond_dim]
+    -> (condition vector [N, cond_dim], z [N, z_dim]).
+
+    ``from_rgb`` is a plain conv with bias. The first head reads the last
+    block's features flattened in (h, w, c) order, as ``tpugan``'s NHWC
+    reshape gives them; its fan-in depends on the image size, which the
+    constructor therefore takes."""
+
+    def __init__(self, startf: int = 64, maxf: int = 512, layer_count: int = 7,
+                 channels: int = 3, cond_dim: int = 256, z_dim: int = 128, *, img_size: int,
+                 generator=None):
+        super().__init__()
+        self.layer_count = layer_count
+        self.from_rgb = plain_conv(channels, startf, 1, generator=generator)
+        inputs, outputs = startf, startf * 2
+        for i in range(layer_count):
+            self.add_module(f"block_{i}", BigGANEncoderBlock(
+                inputs, outputs, cond_dim, has_second_conv=i + 1 != layer_count,
+                generator=generator,
+            ))
+            last_width = inputs  # the last block keeps its input width
+            inputs = min(maxf, inputs * 2)
+            outputs = min(maxf, outputs * 2)
+        side = img_size >> (layer_count - 1)
+        if side < 1:
+            raise ValueError(f"{layer_count} blocks do not fit a {img_size}px image")
+        self.new_final_1 = EqLinear(last_width * side * side, cond_dim, gain=1.0,
+                                    generator=generator)
+        self.new_final_2 = EqLinear(cond_dim, z_dim, gain=1.0, generator=generator)
+
+    def noise_shapes(self, batch: int, resolution: int) -> list:
+        """Noise shapes per block for ``resolution``-pixel input: both convs
+        of block i run at ``resolution >> i``; the last block has one."""
+        return [
+            ((batch, 1, resolution >> i, resolution >> i),) * (1 if i + 1 == self.layer_count else 2)
+            for i in range(self.layer_count)
+        ]
+
+    def forward(self, x, cond_vector, noise=None):
+        x = leaky_relu(self.from_rgb(x), 0.2)
+        for i in range(self.layer_count):
+            ni = noise[i] if noise is not None else None
+            x = getattr(self, f"block_{i}")(x, cond_vector, ni)
+        c_v = self.new_final_1(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
+        return c_v, self.new_final_2(c_v)

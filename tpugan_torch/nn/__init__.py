@@ -1,3 +1,4 @@
 from tpugan_torch.nn.layers import EqConv, EqLinear
+from tpugan_torch.nn.spectral import SNDense
 
-__all__ = ["EqConv", "EqLinear"]
+__all__ = ["EqConv", "EqLinear", "SNDense"]

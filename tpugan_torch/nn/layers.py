@@ -7,6 +7,8 @@ with no runtime scaling, even for ``lrmul != 1``. Each layer records its
 equalization coefficients as ``weight_coef`` and ``bias_coef`` (the
 ``kernel_coef`` and ``bias_coef`` of ``tpugan``'s ``lreq`` collection) for
 the optimizer; see :func:`tpugan_torch.ops.eq_lr.lreq_coefs`.
+:func:`plain_conv` and :func:`plain_linear` make the plain layers that
+``tpugan`` writes as flax ``nn.Conv`` / ``nn.Dense``, with flax's init.
 
 Parameters are made on the CPU from an optional :class:`torch.Generator`;
 move the finished model with ``.to(device)``.
@@ -21,6 +23,38 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpugan_torch.ops.eq_lr import eq_lr_std, transform_kernel_2d
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    """flax's default kernel init in place: a normal of variance 1/fan_in
+    truncated at two standard deviations (fan_in = all dims but the first,
+    the output dim, of a torch weight)."""
+    fan_in = weight[0].numel()
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # the truncation's std correction
+    return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def plain_conv(cin: int, cout: int, k: int, bias: bool = True,
+               generator: torch.Generator | None = None) -> nn.Conv2d:
+    """A same-padded ``nn.Conv2d`` with flax's default init (lecun-normal
+    weight, zero bias), for the layers ``tpugan`` writes as ``nn.Conv``."""
+    conv = nn.Conv2d(cin, cout, k, padding=k // 2, bias=bias)
+    with torch.no_grad():
+        lecun_normal_(conv.weight, generator)
+        if bias:
+            conv.bias.zero_()
+    return conv
+
+
+def plain_linear(cin: int, cout: int, bias: bool = True,
+                 generator: torch.Generator | None = None) -> nn.Linear:
+    """An ``nn.Linear`` with flax's default init, for ``tpugan``'s ``nn.Dense``."""
+    lin = nn.Linear(cin, cout, bias=bias)
+    with torch.no_grad():
+        lecun_normal_(lin.weight, generator)
+        if bias:
+            lin.bias.zero_()
+    return lin
 
 
 class EqLinear(nn.Module):

@@ -1,1 +1,2 @@
-"""Tensor ops on NCHW tensors; ``upfirdn`` dispatches to the CUDA kernel."""
+"""Tensor ops on NCHW tensors; ``upfirdn`` and ``attention`` dispatch to the
+CUDA kernels."""

@@ -38,6 +38,11 @@ KERNELS = {
         [_c_ptr, _c_ptr, ctypes.c_int64] + [_c_int] * 9
         + [ctypes.POINTER(ctypes.c_float), _c_int, _c_ptr],
     ),
+    "sagan_attention": (
+        "sagan_attention.cu",
+        "tpugan_sagan_attention_f32",
+        [_c_ptr] * 5 + [_c_int] * 6 + [_c_ptr],
+    ),
 }
 
 launches = {name: 0 for name in KERNELS}

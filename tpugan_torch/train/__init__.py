@@ -1,3 +1,8 @@
-from tpugan_torch.train.e_align import SynthBatch, build_stylegan1_pipeline, make_encode_fn
+from tpugan_torch.train.e_align import (
+    SynthBatch,
+    build_biggan_pipeline,
+    build_stylegan1_pipeline,
+    make_encode_fn,
+)
 
-__all__ = ["SynthBatch", "build_stylegan1_pipeline", "make_encode_fn"]
+__all__ = ["SynthBatch", "build_biggan_pipeline", "build_stylegan1_pipeline", "make_encode_fn"]

@@ -1,28 +1,37 @@
 """Serving pieces of encoder alignment (counterpart of
-``tpugan/train/e_align.py``): the frozen StyleGANv1 synth/resynth closures
-and the encode closure. The training step comes with the training slice.
+``tpugan/train/e_align.py``): the frozen generators' synth/resynth closures
+(StyleGANv1, mtype 1; BigGAN, mtype 4) and the encode closure. The training
+step comes with the training slice.
 
 Images cross this boundary NHWC, as in ``tpugan``; the models run NCHW.
-Noise is explicit everywhere: the caller draws it (:func:`draw_noise`) or
-passes ``None`` for no injection.
+Noise and labels are explicit everywhere: the caller draws them
+(:func:`draw_noise`, ``cli/infer_e.draw_request``) or passes ``None`` for no
+noise injection.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
+from tpugan_torch.models.biggan import BigGAN
+from tpugan_torch.models.encoders import BigGANEncoder
 from tpugan_torch.models.stylegan1 import StyleGANv1Generator, StyleGANv1Mapping, truncation_coefs
+
+# BigGAN's truncation in the encoder pipeline (E_align_cropping_s1.py:140-150)
+BIGGAN_TRUNCATION = 0.4
 
 
 class SynthBatch(NamedTuple):
-    """A frozen-generator sample: latents [N, 2L, latent], target images
-    [N, H, W, C] and the generator const [N, C, 4, 4]."""
+    """A frozen-generator sample: latents, target images [N, H, W, C], the
+    generator const [N, C, 4, 4] (BigGAN: the condition vector [N, 2 z_dim])
+    and, for BigGAN, the one-hot class label."""
 
     w1: torch.Tensor
     imgs1: torch.Tensor
     const1: torch.Tensor
+    label: Any = None
 
 
 def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -71,11 +80,42 @@ def build_stylegan1_pipeline(
     return synth, resynth
 
 
+def build_biggan_pipeline(model: BigGAN, truncation: float = BIGGAN_TRUNCATION):
+    """Frozen BigGAN synth/resynth closures (mtype 4):
+    ``(imgs1, cond) = G(zt, label)`` and ``imgs2 = G(w2, label)`` with the
+    same label (E_align_cropping_s1.py:140-162).
+
+    ``synth(zt, label) -> SynthBatch`` takes the truncated latents and the
+    one-hot labels the caller drew; ``resynth(w2, batch, noise=None)``
+    regenerates with ``batch.label``. BigGAN has no generator noise.
+    """
+
+    @torch.no_grad()
+    def synth(zt: torch.Tensor, label: torch.Tensor) -> SynthBatch:
+        imgs1, cond = model(zt, label, truncation)
+        return SynthBatch(w1=zt, imgs1=nchw_to_nhwc(imgs1), const1=cond, label=label)
+
+    @torch.no_grad()
+    def resynth(w2: torch.Tensor, batch: SynthBatch, noise=None) -> torch.Tensor:
+        if noise is not None:
+            raise ValueError("BigGAN takes no generator noise")
+        imgs2, _ = model(w2, batch.label, truncation)
+        return nchw_to_nhwc(imgs2)
+
+    return synth, resynth
+
+
 def make_encode_fn(encoder):
-    """Encode closure: ``(batch, noise) -> (const2, w2)`` on ``batch.imgs1``."""
+    """Encode closure: ``(batch, noise) -> (const2, w2)`` on ``batch.imgs1``;
+    a conditional encoder (E_BIG) also reads the condition vector
+    ``batch.const1`` (E_align_cropping_s1.py:155)."""
+    conditional = isinstance(encoder, BigGANEncoder)
 
     @torch.no_grad()
     def encode(batch: SynthBatch, noise=None):
-        return encoder(nhwc_to_nchw(batch.imgs1), noise)
+        imgs = nhwc_to_nchw(batch.imgs1)
+        if conditional:
+            return encoder(imgs, batch.const1, noise)
+        return encoder(imgs, noise)
 
     return encode
