@@ -132,12 +132,13 @@ def time_ms(torch, fn, iters=50, warmup=5):
 def device_kernels(torch, fn, iters):
     """Device time (ms) and count per call of each kernel and copy that
     ``iters`` calls of ``fn`` ran, from torch.profiler (CUPTI). A trace
-    with no device time at all is taken again, twice at most."""
+    with no device time at all is taken again, twice at most, and each
+    retake prints a line."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(1, 4):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -149,6 +150,7 @@ def device_kernels(torch, fn, iters):
         }
         if found:
             return found
+        say(f"profiler: trace {attempt} of 3 saw no device time; taking it again")
     raise RuntimeError("chip_smoke: three profiler traces in a row saw no device time")
 
 
@@ -262,12 +264,11 @@ def latent_stds(torch, infer_e, bundle, seed):
     them. A trained E_BIG returns z2 close to zt; with flax's random init
     z2 comes out far wider, and BigGAN's conditional batch norms, which
     scale by 1 + a linear map of [z2, embedding], then overflow fp32 in the
-    resynthesis pass."""
-    from tpugan_torch.train.e_align import make_encode_fn
-
+    resynthesis pass (tpugan's own init does the same:
+    tests/test_torch_init.py)."""
     request = infer_e.draw_request(bundle, BATCH, seed)
     batch = bundle.synth(request.z, request.label)
-    _, z2 = make_encode_fn(bundle.encoder)(batch, request.noise_e)
+    _, z2 = bundle.encode(batch, request.noise_e)
     return request.z.std().item(), z2.std().item()
 
 
@@ -299,12 +300,19 @@ def biggan_path(torch, dev, parser, smi, bandwidth, fp32_peak):
         f"{cfg.num_classes} classes, n_stats {cfg.n_stats}, z_dim {cfg.z_dim}) + E_BIG (startf 64, "
         f"maxf 512, layer_count {bundle.layer_count}) built in {time.perf_counter() - t0:.2f} s")
     seed = REQUEST_SEEDS[0]
+    # the CLI's own weights first: the synthesis is finite, the resynthesis
+    # from E_BIG's wide z2 overflows
+    imgs1, imgs2 = infer_e.run(bundle, BATCH, seed)
+    check(bool(torch.isfinite(imgs1).all()), "BigGAN imgs1 of the CLI's weights is not finite")
+    not_finite = (~torch.isfinite(imgs2)).float().mean().item()
     zt_std, z2_std = latent_stds(torch, infer_e, bundle, seed)
+    say(f"the CLI's weights (flax's random init): z2 std {z2_std:.4f} against zt std {zt_std:.4f}; "
+        f"imgs1 finite, {not_finite * 100:.2f}% of imgs2 not finite (a wide z2 overflows fp32 in "
+        "BigGAN's conditional batch norms, with tpugan's own init too: tests/test_torch_init.py)")
     factor = zt_std / z2_std
     scale_z_head(torch, bundle.encoder, factor)
-    say(f"E_BIG z head (new_final_2) scaled by {factor:.4e}: z2 std {z2_std:.4f} with flax's random "
-        f"init against zt std {zt_std:.4f}; unscaled, the resynthesis pass overflows fp32 in "
-        "BigGAN's conditional batch norms (a trained E_BIG returns z2 close to zt)")
+    say(f"from here on E_BIG's z head (new_final_2) is scaled by {factor:.4e}, so z2 has zt's std "
+        "(a trained E_BIG returns z2 close to zt)")
 
     # the kernel on the path's own q/k/v, captured from one request
     captured = []

@@ -43,7 +43,6 @@ from tpugan_torch.models import (
 )
 from tpugan_torch.nn.spectral import SNDense
 from tpugan_torch.ops import cuda
-from tpugan_torch.train.e_align import make_encode_fn
 
 torch.set_num_threads(1)
 
@@ -291,7 +290,7 @@ def test_mtype4_request_matches_tpugan(rng, tmp_path):
     request = infer_e.Request(zt, None, port_noise, None, label)
     imgs1, imgs2 = infer_e.serve(bundle, request)
     batch = bundle.synth(zt, label)
-    c2, w2 = make_encode_fn(bundle.encoder)(batch, port_noise)
+    c2, w2 = bundle.encode(batch, port_noise)
     np.testing.assert_allclose(imgs1.numpy(), np.asarray(jbatch.imgs1), **MODEL_TOL)
     np.testing.assert_allclose(batch.const1.numpy(), np.asarray(jbatch.const1), **MODEL_TOL)
     np.testing.assert_allclose(c2.numpy(), np.asarray(jc2), **MODEL_TOL)

@@ -61,12 +61,13 @@ class GanBundle(NamedTuple):
     """Frozen generator closures + encoder for one mtype, on ``device``.
 
     ``synth(z, noise)`` (mtype 1) or ``synth(zt, label)`` (mtype 4) and
-    ``resynth(w, batch, noise)`` close over the frozen generator;
-    ``generator`` and ``encoder`` give the noise shapes (and BigGAN's
-    config)."""
+    ``resynth(w, batch, noise)`` close over the frozen generator,
+    ``encode(batch, noise)`` over the encoder; ``generator`` and
+    ``encoder`` give the noise shapes (and BigGAN's config)."""
 
     synth: Any  # (z, noise) or (zt, label) -> SynthBatch
     resynth: Any  # (w, batch, noise) -> images [N, H, W, C]
+    encode: Any  # (batch, noise) -> (const2, w2)
     encoder: Any  # nn.Module
     z_dim: int
     layer_count: int
@@ -106,7 +107,7 @@ def build_bundle(args) -> GanBundle:
         return _build_biggan_bundle(args, layer_count, g, device)
 
     from tpugan_torch.models import Encoder, StyleGANv1Generator, StyleGANv1Mapping
-    from tpugan_torch.train.e_align import build_stylegan1_pipeline
+    from tpugan_torch.train.e_align import build_stylegan1_pipeline, make_encode_fn
 
     gen = StyleGANv1Generator(
         startf=args.start_features, maxf=512, layer_count=layer_count, latent_size=512,
@@ -119,7 +120,8 @@ def build_bundle(args) -> GanBundle:
     ).to(device)
     synth, resynth = build_stylegan1_pipeline(gen, gm, lod=layer_count - 1)
     return GanBundle(
-        synth, resynth, enc, 512, layer_count, 2 * layer_count, gen, device, args.img_size
+        synth, resynth, make_encode_fn(enc), enc, 512, layer_count, 2 * layer_count, gen, device,
+        args.img_size,
     )
 
 
@@ -129,7 +131,7 @@ def _build_biggan_bundle(args, layer_count: int, g: torch.Generator,
     ``--img_size`` with ``--z_dim``) and E_BIG, in eval mode: the spectral
     norms read their stored ``u`` and ``v``."""
     from tpugan_torch.models import BigGAN, BigGANConfig, BigGANEncoder
-    from tpugan_torch.train.e_align import build_biggan_pipeline
+    from tpugan_torch.train.e_align import build_biggan_pipeline, make_encode_fn
 
     cfg = (
         BigGANConfig.from_json_file(args.config_dir)
@@ -146,8 +148,8 @@ def _build_biggan_bundle(args, layer_count: int, g: torch.Generator,
     ).eval().to(device)
     synth, resynth = build_biggan_pipeline(model)
     return GanBundle(
-        synth, resynth, enc, cfg.z_dim, layer_count, 2 * layer_count, model, device,
-        args.img_size, mtype=4,
+        synth, resynth, make_encode_fn(enc, conditional=True), enc, cfg.z_dim, layer_count,
+        2 * layer_count, model, device, args.img_size, mtype=4,
     )
 
 

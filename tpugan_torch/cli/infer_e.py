@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from tpugan_torch.cli.common import GanBundle, add_common_args, build_bundle, make_result_dirs
-from tpugan_torch.train.e_align import BIGGAN_TRUNCATION, draw_noise, make_encode_fn
+from tpugan_torch.train.e_align import BIGGAN_TRUNCATION, draw_noise
 from tpugan_torch.utils import iteration_generator, one_hot, truncated_noise_sample
 
 
@@ -68,11 +68,8 @@ def serve(bundle: GanBundle, request: Request):
     """imgs1 = G(M(z)); imgs2 = G(E(imgs1)); both [N, H, W, C] in [-1, 1].
     BigGAN: (imgs1, cond) = G(zt, label); (c, z2) = E(imgs1, cond);
     imgs2 = G(z2, label)."""
-    if request.label is None:
-        batch = bundle.synth(request.z, request.noise_g)
-    else:
-        batch = bundle.synth(request.z, request.label)
-    _, w2 = make_encode_fn(bundle.encoder)(batch, request.noise_e)
+    batch = bundle.synth(request.z, request.label if bundle.mtype == 4 else request.noise_g)
+    _, w2 = bundle.encode(batch, request.noise_e)
     imgs2 = bundle.resynth(w2, batch, request.noise_g2)
     return batch.imgs1, imgs2
 

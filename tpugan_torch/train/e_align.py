@@ -16,7 +16,6 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from tpugan_torch.models.biggan import BigGAN
-from tpugan_torch.models.encoders import BigGANEncoder
 from tpugan_torch.models.stylegan1 import StyleGANv1Generator, StyleGANv1Mapping, truncation_coefs
 
 # BigGAN's truncation in the encoder pipeline (E_align_cropping_s1.py:140-150)
@@ -80,10 +79,11 @@ def build_stylegan1_pipeline(
     return synth, resynth
 
 
-def build_biggan_pipeline(model: BigGAN, truncation: float = BIGGAN_TRUNCATION):
+def build_biggan_pipeline(model: BigGAN):
     """Frozen BigGAN synth/resynth closures (mtype 4):
     ``(imgs1, cond) = G(zt, label)`` and ``imgs2 = G(w2, label)`` with the
-    same label (E_align_cropping_s1.py:140-162).
+    same label (E_align_cropping_s1.py:140-162), both at
+    ``BIGGAN_TRUNCATION``, the truncation ``draw_request`` draws ``zt`` at.
 
     ``synth(zt, label) -> SynthBatch`` takes the truncated latents and the
     one-hot labels the caller drew; ``resynth(w2, batch, noise=None)``
@@ -92,24 +92,23 @@ def build_biggan_pipeline(model: BigGAN, truncation: float = BIGGAN_TRUNCATION):
 
     @torch.no_grad()
     def synth(zt: torch.Tensor, label: torch.Tensor) -> SynthBatch:
-        imgs1, cond = model(zt, label, truncation)
+        imgs1, cond = model(zt, label, BIGGAN_TRUNCATION)
         return SynthBatch(w1=zt, imgs1=nchw_to_nhwc(imgs1), const1=cond, label=label)
 
     @torch.no_grad()
     def resynth(w2: torch.Tensor, batch: SynthBatch, noise=None) -> torch.Tensor:
         if noise is not None:
             raise ValueError("BigGAN takes no generator noise")
-        imgs2, _ = model(w2, batch.label, truncation)
+        imgs2, _ = model(w2, batch.label, BIGGAN_TRUNCATION)
         return nchw_to_nhwc(imgs2)
 
     return synth, resynth
 
 
-def make_encode_fn(encoder):
+def make_encode_fn(encoder, conditional: bool = False):
     """Encode closure: ``(batch, noise) -> (const2, w2)`` on ``batch.imgs1``;
-    a conditional encoder (E_BIG) also reads the condition vector
+    a ``conditional`` encoder (E_BIG) also reads the condition vector
     ``batch.const1`` (E_align_cropping_s1.py:155)."""
-    conditional = isinstance(encoder, BigGANEncoder)
 
     @torch.no_grad()
     def encode(batch: SynthBatch, noise=None):
