@@ -23,7 +23,15 @@ Phases:
      kernel on the path's own q/k/v, requests with launch counts, a request
      replayed on the CPU with every SelfAttn gamma set non-zero, latency,
      device time by kernel, and the attention kernel's times at the path's
-     shape.
+     shape;
+  6. the E_BIG train step of ``tpugan_torch.cli.e_align`` (mtype 4, full
+     width, batch 2): one case-2 step on the CLI's own weights, then case 2
+     with every gamma at 1 and E_BIG's z head scaled, with launch counts,
+     the attention backward kernel on the step's own inputs, case 1 and its
+     lean step as ``tpugan``'s scripts/bench_biggan256.py measures them, a
+     case-2 step replayed on the CPU at a reduced width, step times, device
+     time by kernel, peak memory, and the backward kernel's times at the
+     path's shape.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -32,6 +40,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -45,6 +54,7 @@ CARD_SPECS = (
     ("H100", 3.35e12, 67e12),
     ("H200", 4.8e12, 67e12),
 )
+CARD = "cuda"  # the device every phase runs on; the replays' second side is the CPU
 SEED = 0
 REQUEST_SEEDS = (30000, 30001, 30002)  # infer_e's --seed_eval default and the next two
 BATCH = 2
@@ -92,9 +102,33 @@ ATTENTION_CASES = (
     ((2, 4096, 32), (2, 1024, 32), (2, 1024, 128), 1.0, 2e-5, 2e-5, True),
 )
 LSE_TOL = 1e-5  # tests/test_attention.py:54
+# the attention backward: tests/test_attention.py:59-80's case, then odd
+# lengths, one key, widths that are not multiples of 4, dk 128 with dv 256
+# and BigGAN-128's widths: (q, k, v shapes, input scale)
+ATTENTION_BWD_CASES = (
+    ((2, 256, 16), (2, 384, 16), (2, 384, 32), 2.0),
+    ((1, 37, 8), (1, 19, 8), (1, 19, 24), 2.0),
+    ((2, 100, 16), (2, 25, 16), (2, 25, 40), 2.0),
+    ((1, 5, 4), (1, 1, 4), (1, 1, 4), 1.0),
+    ((1, 50, 13), (1, 33, 13), (1, 33, 30), 1.0),
+    ((2, 70, 20), (2, 45, 20), (2, 45, 130), 1.0),
+    ((1, 130, 128), (1, 70, 128), (1, 70, 256), 0.3),
+    ((2, 4096, 32), (2, 1024, 32), (2, 1024, 128), 1.0),
+)
+BWD_TOL = 2e-4  # abs and rel, tests/test_attention.py:78
 BIGGAN_SIZE = 256
 BIGGAN_Z_DIM = 128
 ATTN_GAMMA = 1.0  # every SelfAttn.gamma in the CUDA-vs-CPU BigGAN check (random init gives 0)
+TRAIN_STEPS = 3  # counted steps of each train-step variant
+TIMED_STEPS = 12  # host-clock steps of each variant, after 2 warm-up steps
+# the CPU replay of a case-2 step: BigGAN-deep-256's layout at channel width
+# 32 (the path has 128) and E_BIG at start_features 16 (64), so the host's
+# CPU runs it in seconds; the card runs the same configuration
+REPLAY_CHANNEL_WIDTH = 32
+REPLAY_START_FEATURES = 16
+REPLAY_LOSS_RTOL = 1e-4  # loss_tsa, fp32 on both sides
+REPLAY_GRAD_TOL = 1e-3  # max |err| of a gradient leaf over its max |value|
+REPLAY_LEAVES = ("block_0.conv_1.weight", "new_final_2.weight")
 
 
 def check(cond, msg):
@@ -104,6 +138,13 @@ def check(cond, msg):
 
 def say(*parts):
     print(*parts, flush=True)
+
+
+def expected_launches(**counts):
+    """Launch counts of every kernel: the ones given, 0 for the others."""
+    from tpugan_torch.ops import cuda
+
+    return {name: counts.get(name, 0) for name in cuda.KERNELS}
 
 
 def card_specs(name):
@@ -131,9 +172,10 @@ def time_ms(torch, fn, iters=50, warmup=5):
 
 def device_kernels(torch, fn, iters):
     """Device time (ms) and count per call of each kernel and copy that
-    ``iters`` calls of ``fn`` ran, from torch.profiler (CUPTI). A trace
-    with no device time at all is taken again, twice at most, and each
-    retake prints a line."""
+    ``iters`` calls of ``fn`` ran, from torch.profiler (CUPTI). User
+    annotations (``Optimizer.step#...``) span kernels already counted and are
+    left out. A trace with no device time at all is taken again, twice at
+    most, and each retake prints a line."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -147,6 +189,7 @@ def device_kernels(torch, fn, iters):
             e.key: (e.device_time_total / iters / 1e3, e.count / iters)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)
         }
         if found:
             return found
@@ -292,7 +335,7 @@ def biggan_path(torch, dev, parser, smi, bandwidth, fp32_peak):
             "--z_dim", str(BIGGAN_Z_DIM), "--random_init", "--batch_size", str(BATCH),
             "--seed", str(SEED)]
     t0 = time.perf_counter()
-    bundle = common.build_bundle(parser.parse_args(argv + ["--device", "cuda"]))
+    bundle = common.build_bundle(parser.parse_args(argv + ["--device", CARD]))
     torch.cuda.synchronize()
     cfg = bundle.generator.config
     say(f"bundle: mtype 4, BigGAN-deep-{cfg.output_dim} (channel_width {cfg.channel_width}, "
@@ -345,7 +388,7 @@ def biggan_path(torch, dev, parser, smi, bandwidth, fp32_peak):
                   f"BigGAN {label} shape {tuple(img.shape)}")
             check(bool(torch.isfinite(img).all()), f"BigGAN {label} of seed {s} is not finite")
     launches = dict(cuda.launches)
-    want = {"upfirdn2d": 0, "sagan_attention": 2 * len(REQUEST_SEEDS)}
+    want = expected_launches(sagan_attention=2 * len(REQUEST_SEEDS))
     check(launches == want, f"BigGAN path launches {launches}, expected {want}")
     say(f"BigGAN path: {len(REQUEST_SEEDS)} requests, launches {launches} "
         "(2 per request: the synthesis and the resynthesis pass)")
@@ -434,6 +477,375 @@ def biggan_path(torch, dev, parser, smi, bandwidth, fp32_peak):
     }
 
 
+def compare_attention_bwd(torch, label, q, k, v, o, lse, do):
+    """The attention backward kernels against their plain version on one
+    input (the forward's o and lse given); returns the max |err| over dq, dk
+    and dv."""
+    from tpugan_torch.ops.attention import sagan_attention_bwd_cuda, sagan_attention_bwd_plain
+
+    got = sagan_attention_bwd_cuda(q, k, v, o, lse, do)
+    want = sagan_attention_bwd_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    errs = []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        check(g.shape == w.shape, f"{label}: {name} shape {tuple(g.shape)} vs {tuple(w.shape)}")
+        err = (g - w).abs().max().item()
+        check(torch.allclose(g, w, rtol=BWD_TOL, atol=BWD_TOL),
+              f"{label}: {name} disagrees with the plain version, max |err| {err:.3e}")
+        errs.append(err)
+    say(f"parity {label}: max |err| dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} "
+        f"(rtol and atol {BWD_TOL:g})")
+    return max(errs)
+
+
+def attention_bwd_parity(torch, dev, gen):
+    """The attention backward kernels against their plain version (TF32 off)
+    on ATTENTION_BWD_CASES, and out-of-contract calls refused; returns the
+    max |err|."""
+    from tpugan_torch.ops import cuda
+    from tpugan_torch.ops.attention import sagan_attention_bwd_cuda, sagan_attention_plain
+
+    cuda.reset_launches()
+    max_err = 0.0
+    for q_shape, k_shape, v_shape, scale in ATTENTION_BWD_CASES:
+        q = torch.randn(q_shape, device=dev, generator=gen) * scale
+        k = torch.randn(k_shape, device=dev, generator=gen) * scale
+        v = torch.randn(v_shape, device=dev, generator=gen)
+        do = torch.randn(q_shape[0], q_shape[1], v_shape[2], device=dev, generator=gen)
+        o, lse = sagan_attention_plain(q, k, v, return_lse=True)
+        label = f"attention backward q{q_shape} k{k_shape} v{v_shape} x{scale:g}"
+        max_err = max(max_err, compare_attention_bwd(torch, label, q, k, v, o, lse, do))
+    n = len(ATTENTION_BWD_CASES)
+    want = {"sagan_attention_bwd_dq": n, "sagan_attention_bwd_dkv": n}
+    check({k_: cuda.launches[k_] for k_ in want} == want, f"backward launch count {cuda.launches}")
+    q = torch.randn(2, 8, 16, device=dev, generator=gen)
+    o, lse = sagan_attention_plain(q, q, q, return_lse=True)
+    refused = {
+        "fp16 do": lambda: sagan_attention_bwd_cuda(q, q, q, o, lse, o.half()),
+        "non-contiguous o": lambda: sagan_attention_bwd_cuda(q, q, q, o.transpose(0, 1), lse, o),
+        "dk 129": lambda: sagan_attention_bwd_cuda(q.new_zeros(2, 8, 129), q.new_zeros(2, 8, 129),
+                                                   q, o, lse, o),
+        "dv 257": lambda: sagan_attention_bwd_cuda(q, q, q.new_zeros(2, 8, 257), q.new_zeros(2, 8, 257),
+                                                   lse, q.new_zeros(2, 8, 257)),
+        "CPU tensors": lambda: sagan_attention_bwd_cuda(q.cpu(), q.cpu(), q.cpu(), o.cpu(), lse.cpu(),
+                                                        o.cpu()),
+    }
+    for name, call in refused.items():
+        try:
+            call()
+        except (TypeError, ValueError):
+            continue
+        raise RuntimeError(f"chip_smoke: out-of-contract backward call ({name}) was not refused")
+    check({k_: cuda.launches[k_] for k_ in want} == want, "a refused backward call launched")
+    say(f"attention backward parity: {n} cases (max |err| {max_err:.3e}); {len(refused)} "
+        f"out-of-contract calls refused: {', '.join(refused)}")
+    return max_err
+
+
+def step_times(torch, step, state, label, first):
+    """Host-clock time of TIMED_STEPS train steps, each ending in a
+    synchronize, after two warm-up steps; returns the median (ms)."""
+    lat = []
+    for i in range(TIMED_STEPS + 2):
+        t0 = time.perf_counter()
+        step(state, first + i)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    lat = sorted(lat[2:])
+    say(f"step time, {label} ({len(lat)} steps): median {statistics.median(lat):.3f} ms, "
+        f"min {lat[0]:.3f}, max {lat[-1]:.3f}")
+    return statistics.median(lat)
+
+
+def step_device_time(torch, step, state, median, first):
+    """A step's device time by kernel (torch.profiler over 3 steps), the
+    B3/B4 kernels' share, and the step's peak device memory."""
+    it = iter(range(first, first + 100))
+    kernels = device_kernels(torch, lambda: step(state, next(it)), iters=3)
+    busy = sum(ms for ms, _ in kernels.values())
+    say(f"device time per step {busy:.3f} ms over {sum(n for _, n in kernels.values()):.0f} kernels "
+        f"and copies = {busy / median * 100:.1f}% of the median step time; by name:")
+    for kname, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
+        say(f"  {ms:8.3f} ms  x{n:5.0f}  {kname[:100]}")
+    for symbol in ("sagan_attention_kernel", "attention_dq_kernel", "attention_dkv_kernel"):
+        own = sum(ms for kname, (ms, _) in kernels.items() if symbol in kname)
+        say(f"  {symbol}: {own:.3f} ms per step, {own / busy * 100:.2f}% of device time")
+    torch.cuda.reset_peak_memory_stats()
+    step(state, next(it))
+    torch.cuda.synchronize()
+    say(f"peak device memory of a step: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+
+def encoder_snapshot(encoder):
+    params = {n: p.detach().clone() for n, p in encoder.named_parameters()}
+    uv = {n: b.clone() for n, b in encoder.named_buffers() if n.endswith((".u", ".v"))}
+    return params, uv
+
+
+def replay_case2_on_cpu(torch, dev, e_align):
+    """One case-2 step of a reduced configuration on the card and on the CPU
+    on the same explicit inputs: loss_tsa and the first gradient (of
+    loss_tsa) of REPLAY_LEAVES."""
+    import tempfile
+
+    from tpugan_torch.cli import infer_e
+    from tpugan_torch.losses.lpips import random_lpips_fn
+    from tpugan_torch.models import BigGANConfig
+    from tpugan_torch.ops import cuda
+    from tpugan_torch.runtime import resolve_device
+    from tpugan_torch.train.e_align import info_scalars
+
+    cfg = BigGANConfig.for_resolution(BIGGAN_SIZE, z_dim=BIGGAN_Z_DIM, channel_width=REPLAY_CHANNEL_WIDTH)
+    with tempfile.TemporaryDirectory() as tmp:
+        config = f"{tmp}/config.json"
+        with open(config, "w") as f:
+            f.write(cfg.to_json_string())
+        argv = ["--mtype", "4", "--img_size", str(BIGGAN_SIZE), "--start_features",
+                str(REPLAY_START_FEATURES), "--z_dim", str(BIGGAN_Z_DIM), "--random_init",
+                "--config_dir", config, "--case", "2", "--iterations", "1", "--batch_size",
+                str(BATCH), "--seed", str(SEED)]
+        parser = e_align.make_parser()
+        cpu_args = parser.parse_args(argv + ["--device", "cpu"])
+        probe = e_align.build_trainer(cpu_args)
+        zt_std, z2_std = latent_stds(torch, infer_e, probe.bundle, REQUEST_SEEDS[0])
+        factor = zt_std / z2_std
+        request = infer_e.draw_request(probe.bundle, BATCH, 0)
+        del probe
+        runs = []
+        for device, req in ((CARD, request.to(dev)), ("cpu", request)):
+            args = parser.parse_args(argv + ["--device", device])
+            trainer = e_align.build_trainer(args, random_lpips_fn(resolve_device(device)),
+                                            draw=lambda it, r=req: r)
+            scale_z_head(torch, trainer.state.encoder, factor)
+            set_attention_gamma(torch, trainer.bundle.generator, ATTN_GAMMA)
+            names = [n for n, _ in trainer.state.encoder.named_parameters()]
+            grads = []
+            opt_step = trainer.state.optimizer.step
+            trainer.state.optimizer.step = lambda g=None: (grads.append(g), opt_step(g))
+            cuda.reset_launches()
+            t0 = time.perf_counter()
+            _, info = trainer.step(trainer.state, 0)
+            if not runs:  # the card's run
+                torch.cuda.synchronize()
+                check(cuda.launches["sagan_attention_bwd_dkv"] == 1, f"replay launches {cuda.launches}")
+            else:
+                check(not any(cuda.launches.values()), "the CPU replay launched a kernel")
+            seconds = time.perf_counter() - t0
+            first = {n: grads[0][names.index(n)].detach().cpu() for n in REPLAY_LEAVES}
+            runs.append((info_scalars(info)["loss_tsa"], first, seconds))
+            del trainer
+    (loss_g, grads_g, sec_g), (loss_c, grads_c, sec_c) = runs
+    say(f"replay of a case-2 step on the CPU: BigGAN-deep-{BIGGAN_SIZE}'s layout at channel width "
+        f"{REPLAY_CHANNEL_WIDTH}, E_BIG at start_features {REPLAY_START_FEATURES}, batch {BATCH}, "
+        f"random LPIPS, gamma {ATTN_GAMMA:g}, z head scaled by {factor:.4e}; the step took "
+        f"{sec_g:.2f} s on the card (first call) and {sec_c:.2f} s on the CPU")
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    say(f"  loss_tsa cuda {loss_g:.6f}, cpu {loss_c:.6f}: rel err {loss_err:.3e} (limit {REPLAY_LOSS_RTOL:g})")
+    check(math.isfinite(loss_c) and loss_err <= REPLAY_LOSS_RTOL, "the replayed loss_tsa disagrees")
+    for name in REPLAY_LEAVES:
+        g, c = grads_g[name], grads_c[name]
+        scale = c.abs().max().item()
+        err = (g - c).abs().max().item()
+        say(f"  first gradient (of loss_tsa) of {name}: max |err| {err:.3e} against max |g| "
+            f"{scale:.3e} (limit {REPLAY_GRAD_TOL:g} of it)")
+        check(scale > 0 and err <= REPLAY_GRAD_TOL * scale, f"the replayed gradient of {name} disagrees")
+
+
+def training_path(torch, dev, smi, bandwidth, fp32_peak):
+    """Phase 6: the E_BIG train step (mtype 4, full width, batch 2). Returns
+    the attention backward's entry of the kernel table."""
+    import torch.nn.functional as F
+
+    from tpugan_torch.cli import e_align, infer_e
+    from tpugan_torch.losses.lpips import random_lpips_fn
+    from tpugan_torch.ops import attention, cuda
+    from tpugan_torch.ops.attention import sagan_attention_bwd_cuda, sagan_attention_bwd_plain
+    from tpugan_torch.train.e_align import info_scalars
+
+    parser = e_align.make_parser()
+    argv = ["--mtype", "4", "--img_size", str(BIGGAN_SIZE), "--start_features", "64",
+            "--z_dim", str(BIGGAN_Z_DIM), "--random_init", "--iterations", "1000",
+            "--batch_size", str(BATCH), "--seed", str(SEED), "--device", CARD]
+    lpips = random_lpips_fn(dev)
+    seed = REQUEST_SEEDS[0]
+
+    # the CLI's own weights: one case-2 step
+    t0 = time.perf_counter()
+    trainer = e_align.build_trainer(parser.parse_args(argv + ["--case", "2"]), lpips)
+    torch.cuda.synchronize()
+    say(f"trainer: mtype 4, case 2, BigGAN-deep-{BIGGAN_SIZE} frozen + E_BIG (startf 64) training, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    zt_std, z2_std = latent_stds(torch, infer_e, trainer.bundle, seed)
+    factor = zt_std / z2_std
+    _, info = trainer.step(trainer.state, 0)
+    scalars = info_scalars(info)
+    params_finite = all(bool(torch.isfinite(p).all()) for p in trainer.state.encoder.parameters())
+    say(f"case 2 on the CLI's weights (flax's init, every gamma 0, z2 std {z2_std:.4f}): loss_tsa "
+        f"{scalars['loss_tsa']}, loss_mtv {scalars['loss_mtv']}; E_BIG's parameters finite after "
+        f"the step: {params_finite} (the resynthesis overflows fp32, in tpugan too)")
+    del trainer, info
+
+    # case 2 with the attention in the images and a z2 of zt's spread
+    trainer = e_align.build_trainer(parser.parse_args(argv + ["--case", "2"]), lpips)
+    state, gen = trainer.state, trainer.bundle.generator
+    scale_z_head(torch, state.encoder, factor)
+    check(set_attention_gamma(torch, gen, ATTN_GAMMA) == 1, "expected one SelfAttn")
+    say(f"case 2 from here on: every SelfAttn gamma {ATTN_GAMMA:g}, E_BIG's z head scaled by "
+        f"{factor:.4e}")
+    captured = []
+    real_bwd = attention.sagan_attention_bwd_cuda
+
+    def capture(*args):
+        captured.append(tuple(x.detach().clone() for x in args))
+        return real_bwd(*args)
+
+    attention.sagan_attention_bwd_cuda = capture
+    try:
+        trainer.step(state, 1)
+    finally:
+        attention.sagan_attention_bwd_cuda = real_bwd
+    check(len(captured) == 1, f"a case-2 step ran the attention backward {len(captured)} times")
+    q, k, v, o, lse, do = captured[0]
+    scores = torch.bmm(q, k.transpose(1, 2)).abs().max().item()
+    say(f"the step's own backward inputs: q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}, "
+        f"max |q k^T| {scores:.2f}, max |do| {do.abs().max().item():.3e}")
+    check(do.abs().max().item() > 0, "the attention's upstream gradient is zero")
+    bwd_err = compare_attention_bwd(torch, "attention backward, the case-2 step's own inputs",
+                                    q, k, v, o, lse, do)
+
+    # the main path: counted steps
+    params0, uv0 = encoder_snapshot(state.encoder)
+    gen0 = [p.detach().clone() for p in gen.parameters()]
+    lse_flags = []
+    real_fwd = attention.sagan_attention_cuda
+
+    def spy(q_, k_, v_, return_lse=False):
+        lse_flags.append(return_lse)
+        return real_fwd(q_, k_, v_, return_lse)
+
+    attention.sagan_attention_cuda = spy
+    cuda.reset_launches()
+    try:
+        for it in range(2, 2 + TRAIN_STEPS):
+            _, info = trainer.step(state, it)
+            scalars = info_scalars(info)
+            check(all(math.isfinite(x) for x in scalars.values()), f"case-2 step {it}: a loss is not finite")
+    finally:
+        attention.sagan_attention_cuda = real_fwd
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    want = expected_launches(sagan_attention=2 * TRAIN_STEPS, sagan_attention_bwd_dq=TRAIN_STEPS,
+                             sagan_attention_bwd_dkv=TRAIN_STEPS)
+    check(launches == want, f"case-2 launches {launches}, expected {want}")
+    b4_launches = launches["sagan_attention_bwd_dq"] + launches["sagan_attention_bwd_dkv"]
+    check(lse_flags == [False, True] * TRAIN_STEPS, f"forward forms per step {lse_flags}")
+    moved = sum(not torch.equal(p, params0[n]) for n, p in state.encoder.named_parameters())
+    uv_moved = sum(not torch.equal(b, uv0[n]) for n, b in state.encoder.named_buffers() if n in uv0)
+    check(moved == len(params0) and uv_moved == len(uv0), f"E_BIG moved {moved}/{len(params0)} "
+          f"parameters and {uv_moved}/{len(uv0)} u/v buffers")
+    check(all(torch.equal(a, b) and b.grad is None for a, b in zip(gen0, gen.parameters())),
+          "the frozen BigGAN moved")
+    say(f"case-2 path: {TRAIN_STEPS} steps, launches {launches} (per step: the synthesis's forward "
+        f"without lse, the resynthesis's with lse, one dq and one dkv); loss_tsa {scalars['loss_tsa']:.4f}, "
+        f"loss_mtv {scalars['loss_mtv']:.4f}; all {moved} E_BIG parameters and {uv_moved} u/v "
+        f"buffers moved, BigGAN's {len(gen0)} did not")
+    del gen0
+
+    say(f"training times below: {smi}; step times from the host clock, device times from torch.profiler")
+    median = step_times(torch, trainer.step, state, "case 2, fp32, TF32 off", 100)
+    step_device_time(torch, trainer.step, state, median, 200)
+
+    # B4 at the path's shape, on the step's own inputs
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=1.0)
+    library = lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do, retain_graph=True)  # noqa: E731
+    lib_err = max((a - b).abs().max().item() / b.abs().max().item()
+                  for a, b in zip(library(), sagan_attention_bwd_plain(q, k, v, o, lse, do)))
+    check(lib_err < 1e-4, f"scaled_dot_product_attention's backward differs by {lib_err:.3e} (rel)")
+    calls = {
+        "ms": lambda: sagan_attention_bwd_cuda(q, k, v, o, lse, do),
+        "plain_ms": lambda: sagan_attention_bwd_plain(q, k, v, o, lse, do),
+        "library_ms": library,
+    }
+    row, names, split = {}, {}, {}
+    for key, fn in calls.items():
+        kernels = device_kernels(torch, fn, iters=20)
+        row[key] = sum(ms for ms, _ in kernels.values())
+        names[key] = sorted(kernels, key=lambda name: -kernels[name][0])
+        if key == "ms":
+            split = {kname: ms for kname, (ms, _) in kernels.items()}
+    n, lq, dk = q.shape
+    lk, dv = v.shape[1], v.shape[2]
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel() + do.numel() + lse.numel())
+    flops = 2 * n * lq * lk * (4 * dk + 3 * dv)
+    row["bound_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
+    row["bound_by"] = "bytes" if nbytes / bandwidth >= flops / fp32_peak else "operations"
+    issue = {key: time_ms(torch, fn, iters=20) for key, fn in calls.items()}
+    shape = f"q [{n}, {lq}, {dk}], k [{n}, {lk}, {dk}], v [{n}, {lk}, {dv}]"
+    say(f"attention backward at the path's shape ({shape}): device time kernel "
+        f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, library "
+        f"{row['library_ms'] * 1e3:.2f} us; bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: "
+        f"{flops / 1e9:.3f} GFLOP at {fp32_peak / 1e12:.0f} TFLOP/s fp32 outside the tensor cores, "
+        f"{nbytes / 1e6:.3f} MB at {bandwidth / 1e12:.2f} TB/s); back to back per call: "
+        + ", ".join(f"{k_} {v_ * 1e3:.2f} us" for k_, v_ in issue.items()))
+    for kname, ms in sorted(split.items(), key=lambda kv: -kv[1]):
+        say(f"  kernel call's device time: {ms * 1e3:8.2f} us  {kname[:90]}")
+    say(f"  library call: the backward of scaled_dot_product_attention(q, k, v, scale=1.0) ran "
+        f"{', '.join(name[:70] for name in names['library_ms'][:6])} (max |err| {lib_err:.3e} "
+        "of max |value| against the plain version)")
+    say(f"  plain version ran {', '.join(name[:60] for name in names['plain_ms'][:6])}")
+    del trainer, state, sdpa_out, qg, kg, vg
+    torch.cuda.empty_cache()
+
+    # case 1 and its lean step, as scripts/bench_biggan256.py measures them:
+    # the CLI's weights, random-weight LPIPS
+    trainer = e_align.build_trainer(parser.parse_args(argv + ["--case", "1"]), lpips)
+    state = trainer.state
+    params0, uv0 = encoder_snapshot(state.encoder)
+    for label, step, per_step in (("full", trainer.step, 2), ("lean", trainer.lean, 1)):
+        cuda.reset_launches()
+        for it in range(TRAIN_STEPS):
+            _, info = step(state, 300 + it)
+        torch.cuda.synchronize()
+        launches = dict(cuda.launches)
+        want = expected_launches(sagan_attention=per_step * TRAIN_STEPS)
+        check(launches == want, f"case-1 {label} launches {launches}, expected {want}")
+        scalars = info_scalars(info)
+        check(math.isfinite(scalars["loss_mtv"]), f"case-1 {label}: loss_mtv is not finite")
+        images = [key for key in scalars if key.startswith(("loss_imgs", "loss_medium", "loss_small"))]
+        say(f"case-1 {label} path: {TRAIN_STEPS} steps, launches {launches}; loss_mtv "
+            f"{scalars['loss_mtv']:.4f}; {sum(math.isfinite(scalars[k_]) for k_ in images)} of "
+            f"{len(images)} log-only image scalars finite on the CLI's weights")
+    moved = sum(not torch.equal(p, params0[n]) for n, p in state.encoder.named_parameters())
+    check(moved > 0 and all(bool(torch.isfinite(p).all()) for p in state.encoder.parameters()),
+          "case 1 did not train E_BIG, or left it not finite")
+    median = step_times(torch, trainer.step, state, "case 1 full, fp32, TF32 off", 400)
+    step_device_time(torch, trainer.step, state, median, 500)
+    median = step_times(torch, trainer.lean, state, "case 1 lean, fp32, TF32 off", 600)
+    step_device_time(torch, trainer.lean, state, median, 700)
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    replay_case2_on_cpu(torch, dev, e_align)
+    return {
+        "name": "sagan_attention_bwd",
+        "route": "cuda",
+        "source": "tpugan_torch/csrc/sagan_attention_bwd.cu",
+        "replaces": "tpugan/ops/pallas/attention.py:149,168 (sagan_attention_bwd_pallas: _dq_kernel, "
+                    "_dkv_kernel)",
+        "launches": b4_launches,
+        "max_abs_err": bwd_err,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+        "library_kernels": [name[:100] for name in names["library_ms"]],
+        "times_are": f"one call (delta, dq and dkv) at the BigGAN-{BIGGAN_SIZE} case-2 step's shape "
+                     f"({shape}), on a step's own inputs",
+    }
+
+
 def main() -> int:
     import torch
 
@@ -448,7 +860,7 @@ def main() -> int:
     from tpugan_torch.ops.upfirdn import setup_fir_kernel, upfirdn2d_cuda, upfirdn2d_plain
     from tpugan_torch.runtime import parity_mode
 
-    dev = torch.device("cuda")
+    dev = torch.device(CARD)
     # ---- 1. the card and the build ----------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -463,7 +875,7 @@ def main() -> int:
     say(f"build: {sorted(cuda.KERNELS)} in {time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(word in line for word in ("entry function", "registers", "spill", "rror")):
                 say(f"  ptxas[{name}]: {line.strip()}")
 
     # ---- 2. kernels against their plain versions --------------------------
@@ -508,6 +920,7 @@ def main() -> int:
     say(f"parity: {len(cases)} cases within {KERNEL_TOL:g} (max |err| {max_err:.3e}); "
         f"{len(refused)} out-of-contract calls refused")
     attn_err = attention_parity(torch, dev, gen)
+    bwd_err = attention_bwd_parity(torch, dev, gen)
 
     # ---- 3. the main path -----------------------------------------------------
     parser = argparse.ArgumentParser()
@@ -515,7 +928,7 @@ def main() -> int:
     argv = ["--mtype", "1", "--img_size", str(IMG_SIZE), "--start_features", "64", "--random_init",
             "--batch_size", str(BATCH), "--seed", str(SEED)]
     t0 = time.perf_counter()
-    bundle = common.build_bundle(parser.parse_args(argv + ["--device", "cuda"]))
+    bundle = common.build_bundle(parser.parse_args(argv + ["--device", CARD]))
     torch.cuda.synchronize()
     say(f"bundle: mtype 1 at {IMG_SIZE}px (startf 64, maxf 512, layer_count {bundle.layer_count}) "
         f"built in {time.perf_counter() - t0:.2f} s")
@@ -531,7 +944,7 @@ def main() -> int:
             check(bool(torch.isfinite(img).all()), f"{label} of seed {seed} is not finite")
     launches = dict(cuda.launches)
     want = blurs_per_request * len(REQUEST_SEEDS)
-    check(launches == {"upfirdn2d": want, "sagan_attention": 0},
+    check(launches == expected_launches(upfirdn2d=want),
           f"main path launches {launches}, expected {want} upfirdn2d and no attention")
     say(f"main path: {len(REQUEST_SEEDS)} requests, launches {launches} "
         f"({blurs_per_request} per request)")
@@ -593,6 +1006,10 @@ def main() -> int:
 
     attn = biggan_path(torch, dev, parser, smi, bandwidth, fp32_peak)
     attn["max_abs_err"] = max(attn["max_abs_err"], attn_err)
+    del bundle, cpu
+    torch.cuda.empty_cache()
+    attn_bwd = training_path(torch, dev, smi, bandwidth, fp32_peak)
+    attn_bwd["max_abs_err"] = max(attn_bwd["max_abs_err"], bwd_err)
 
     say(f"card: {smi}")
     say(json.dumps({"kernels": [{
@@ -610,7 +1027,7 @@ def main() -> int:
         "library_ms": per_decode["library_ms"],
         "times_are": f"sum over the {len(PATH_BLURS)} blur shapes of one decode at batch {BATCH}",
         "per_shape": rows,
-    }, attn]}))
+    }, attn, attn_bwd]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -81,10 +81,10 @@ def test_cpu_tensor_takes_plain_version_without_launch(rng):
     q, k, v = (torch.from_numpy(a) for a in qkv(rng, (1, 16, 8), (1, 4, 8), (1, 4, 8)))
     attention.sagan_attention(q, k, v)
     attention.sagan_attention(q, k, v, return_lse=True)
-    assert cuda.launches == {"upfirdn2d": 0, "sagan_attention": 0}
+    assert not any(cuda.launches.values())
     with pytest.raises(ValueError, match="CUDA tensors"):
         attention.sagan_attention_cuda(q, k, v)
-    assert cuda.launches == {"upfirdn2d": 0, "sagan_attention": 0}
+    assert not any(cuda.launches.values())
 
 
 REFUSED = {

@@ -133,8 +133,10 @@ def test_sndense_eval_matches(rng, use_bias):
     port = load_variables(SNDense(12, 7, use_bias=use_bias), variables).eval()
     np.testing.assert_allclose(port(torch.from_numpy(x)).detach().numpy(), np.asarray(ref),
                                **LAYER_TOL)
-    with pytest.raises(NotImplementedError, match="power iteration"):
-        port.train()(torch.from_numpy(x))
+    # the training forward reads the same stored pair; train steps advance it
+    # with power_iterate (tests/test_torch_losses.py)
+    torch.testing.assert_close(port.train()(torch.from_numpy(x)), port.eval()(torch.from_numpy(x)),
+                               rtol=0, atol=0)
 
 
 BN_FORMS = {
@@ -309,7 +311,7 @@ def test_mtype4_request_runs_on_cpu_without_a_launch_and_is_seeded(tmp_path):
     imgs1, imgs2 = infer_e.serve(bundle, request)
     assert imgs1.shape == imgs2.shape == (2, 16, 16, 3)
     assert torch.isfinite(imgs1).all() and torch.isfinite(imgs2).all()
-    assert cuda.launches == {"upfirdn2d": 0, "sagan_attention": 0}
+    assert not any(cuda.launches.values())
     again = infer_e.run(common.build_bundle(_parse(common, *_tiny_args(config, "--device", "cpu"))), 2, 0)
     torch.testing.assert_close(again[1], imgs2, rtol=0, atol=0)
     with pytest.raises(ValueError, match="no generator noise"):

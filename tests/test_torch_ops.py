@@ -121,10 +121,10 @@ def test_cpu_tensor_takes_plain_version_without_launch(rng):
     x = nchw(rng.randn(1, 8, 8, 4).astype(np.float32))
     upfirdn.blur3x3(x)
     upfirdn.upfirdn2d(x, upfirdn.setup_fir_kernel((1, 3, 3, 1)), up=2, pad=(2, 1))
-    assert cuda.launches == {"upfirdn2d": 0, "sagan_attention": 0}
+    assert not any(cuda.launches.values())
     with pytest.raises(ValueError, match="CUDA tensor"):
         upfirdn.upfirdn2d_cuda(x, upfirdn.setup_fir_kernel((1, 2, 1)), pad=(1, 1))
-    assert cuda.launches == {"upfirdn2d": 0, "sagan_attention": 0}
+    assert not any(cuda.launches.values())
 
 
 REFUSED = {

@@ -119,7 +119,7 @@ def test_request_runs_on_cpu_without_a_launch_and_is_seeded():
     imgs1, imgs2 = infer_e.run(bundle, 2, 30000)
     assert imgs1.shape == imgs2.shape == (2, 32, 32, 3)
     assert torch.isfinite(imgs1).all() and torch.isfinite(imgs2).all()
-    assert cuda.launches == {"upfirdn2d": 0, "sagan_attention": 0}
+    assert not any(cuda.launches.values())
     again = infer_e.run(common.build_bundle(_args("--device", "cpu")), 2, 0)  # 30000 % 30000
     torch.testing.assert_close(again[1], imgs2, rtol=0, atol=0)
 

@@ -5,7 +5,8 @@ E_BIG).
 
 What later slices bring raises :class:`NotImplementedError` naming the
 ROADMAP slice: other mtypes, converted checkpoints (so ``--random_init`` is
-required), ablation encoders, ``--space_shards`` above 1 and ``--multihost``.
+required), ablation encoders, ``--space_shards`` above 1, ``--multihost``
+and ``--lpips_weights``.
 """
 
 from __future__ import annotations
@@ -151,6 +152,34 @@ def _build_biggan_bundle(args, layer_count: int, g: torch.Generator,
         synth, resynth, make_encode_fn(enc, conditional=True), enc, cfg.z_dim, layer_count,
         2 * layer_count, model, device, args.img_size, mtype=4,
     )
+
+
+def warn_random_weights(flag: str, consequence: str) -> None:
+    """Unmissable warning that a perceptual net is random or disabled, which
+    makes results incomparable with the reference."""
+    import sys
+
+    bar = "!" * 74
+    print(
+        f"\n{bar}\nWARNING: --{flag} not provided — {consequence}.\n"
+        f"Results will NOT be comparable to the reference pipeline.\n{bar}\n",
+        file=sys.stderr,
+        flush=True,
+    )
+
+
+def build_lpips_fn(args):
+    """The LPIPS closure of ``--lpips_weights``. The reference always trains
+    with real LPIPS (E_align_cropping_s1.py:98); without weights the term is
+    disabled, loudly, as in ``tpugan``. Converting the official weights
+    comes with ROADMAP slice 7 (io/convert)."""
+    if getattr(args, "lpips_weights", None):
+        raise NotImplementedError(
+            "--lpips_weights needs the LPIPS converter, which comes with ROADMAP slice 7 "
+            "(io/convert)"
+        )
+    warn_random_weights("lpips_weights", "the LPIPS loss term is DISABLED")
+    return None
 
 
 def make_result_dirs(experiment_dir, default_name: str):

@@ -1,0 +1,143 @@
+"""Aligned encoder training (counterpart of ``tpugan/cli/e_align.py``;
+E_align_cropping_s1.py / E_align_s2.py).
+
+``python -m tpugan_torch.cli.e_align --mtype 4 --img_size 256
+--start_features 64 --z_dim 128 --random_init --case {1,2}
+--iterations 5`` trains E_BIG against a frozen BigGAN-deep-256. Case 1
+logs its image losses without gradient and, unless ``--eager_metrics``,
+skips them on off-tick iterations (the lean step); case 2 trains through
+them. Every ``--log_every`` iterations a JSON record goes to stdout and
+``Loss.txt``, and a grid of imgs1 over imgs2 to ``imgs/``.
+
+:func:`build_trainer` makes the state and the step functions; ``main``
+loops and writes. What later slices bring raises :class:`NotImplementedError`
+naming the ROADMAP slice: ``--mtype 1`` (slice 2), ``--bf16``, ``--remat``
+and ``--remat_policy`` (slice 3), and ``--resume`` and checkpoints (slice 7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+
+from tpugan_torch.cli import infer_e
+from tpugan_torch.cli.common import (
+    GanBundle,
+    add_common_args,
+    build_bundle,
+    build_lpips_fn,
+    make_result_dirs,
+)
+from tpugan_torch.optim import lreq_adam
+from tpugan_torch.train.e_align import (
+    EncoderTrainState,
+    build_biggan_pipeline,
+    info_scalars,
+    init_train_state,
+    make_align_visuals,
+    make_encode_fn,
+    make_train_step,
+)
+
+
+def make_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="the training args")
+    add_common_args(parser, training=True)
+    parser.add_argument("--case", type=int, default=1, choices=(1, 2))
+    parser.add_argument("--remat", action="store_true",
+                        help="rematerialise activations (not in the port yet)")
+    parser.add_argument("--remat_policy", default=None, choices=("conv_outs",),
+                        help="selective remat (not in the port yet)")
+    parser.add_argument("--bf16", action="store_true", help="bfloat16 compute (not in the port yet)")
+    parser.add_argument("--log_every", type=int, default=100)
+    parser.add_argument("--checkpoint_every", type=int, default=5000)
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the latest checkpoint (not in the port yet)")
+    parser.add_argument("--eager_metrics", action="store_true",
+                        help="compute the log-only image losses on every iteration; by default "
+                             "(case 1) off-tick steps skip them, with the same trajectory")
+    return parser
+
+
+class Trainer(NamedTuple):
+    bundle: GanBundle
+    state: EncoderTrainState
+    step: Callable  # the full step
+    lean: Optional[Callable]  # case 1's off-tick step, or None
+    visuals: Callable
+
+
+def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
+    """The encoder's train state and step functions for ``args``, on
+    ``args.device``, from random weights seeded by ``args.seed``. ``draw(
+    iteration) -> Request`` replaces the iteration's seeded draws (a replay
+    of given inputs)."""
+    if args.mtype != 4:
+        raise NotImplementedError(
+            f"e_align --mtype {args.mtype}: only mtype 4 (E_BIG) trains in the port yet; "
+            "mtype 1 comes with ROADMAP slice 2 (the case-1 train step)"
+        )
+    if args.bf16:
+        raise NotImplementedError("--bf16 comes with ROADMAP slice 3 (precision)")
+    if args.remat or args.remat_policy is not None:
+        raise NotImplementedError("--remat and --remat_policy come with ROADMAP slice 3")
+    if args.resume:
+        raise NotImplementedError("--resume comes with ROADMAP slice 7 (io/checkpoint)")
+    if args.iterations > args.checkpoint_every:
+        raise NotImplementedError(
+            f"--iterations {args.iterations} reaches --checkpoint_every {args.checkpoint_every}, "
+            "and saving checkpoints comes with ROADMAP slice 7 (io/checkpoint)"
+        )
+    bundle = build_bundle(args)
+    bundle.generator.requires_grad_(False)
+    synth_fn, resynth = build_biggan_pipeline(bundle.generator, train=True)
+    encode = make_encode_fn(bundle.encoder, conditional=True, train=True)
+
+    if draw is None:
+        def draw(iteration):
+            return infer_e.draw_request(bundle, args.batch_size, iteration)
+
+    def synth(request):
+        return synth_fn(request.z, request.label)
+
+    state = init_train_state(bundle.encoder, lreq_adam(bundle.encoder, args.lr))
+    step = make_train_step(encode, synth, resynth, draw, case=args.case, lpips_fn=lpips_fn)
+    lean = None
+    if args.case == 1 and not args.eager_metrics:
+        lean = make_train_step(encode, synth, resynth, draw, case=1, compute_image_losses=False)
+    return Trainer(bundle, state, step, lean, make_align_visuals(encode, synth, resynth, draw))
+
+
+def main(argv=None):
+    args = make_parser().parse_args(argv)
+    from tpugan_torch.io.image import save_image_grid, to_unit
+
+    trainer = build_trainer(args, build_lpips_fn(args))
+    name = f"mtype{args.mtype}-{args.img_size}-case{args.case}"
+    base, imgs_dir, _ = make_result_dirs(args.experiment_dir, name)
+    state = trainer.state
+    with open(os.path.join(base, "Loss.txt"), "a") as loss_log:
+        for iteration in range(args.iterations):
+            on_tick = iteration % args.log_every == 0
+            step_fn = trainer.step if (on_tick or trainer.lean is None) else trainer.lean
+            vis = trainer.visuals(state, iteration) if on_tick else None
+            state, info = step_fn(state, iteration)
+            if not on_tick:
+                continue
+            rec = {"iteration": iteration, "epoch": iteration // 30000, **info_scalars(info)}
+            print(json.dumps(rec), flush=True)
+            loss_log.write(json.dumps(rec) + "\n")
+            loss_log.flush()
+            grid = np.concatenate([to_unit(vis["imgs1"]), to_unit(vis["imgs2"])], axis=0)
+            save_image_grid(
+                os.path.join(imgs_dir, f"ep{iteration // 30000}_iter{iteration % 30000}.jpg"),
+                np.clip(grid, 0, 1), nrow=args.batch_size,
+            )
+
+
+if __name__ == "__main__":
+    main()

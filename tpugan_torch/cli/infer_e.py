@@ -13,49 +13,23 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from tpugan_torch.cli.common import GanBundle, add_common_args, build_bundle, make_result_dirs
-from tpugan_torch.train.e_align import BIGGAN_TRUNCATION, draw_noise
-from tpugan_torch.utils import iteration_generator, one_hot, truncated_noise_sample
-
-
-class Request(NamedTuple):
-    """One request's inputs: z [N, z_dim] (BigGAN: truncated), the noise of
-    each pass (synthesis, encoder, resynthesis; ``None`` for BigGAN's
-    generator, which has none) and BigGAN's one-hot label [N, classes]."""
-
-    z: torch.Tensor
-    noise_g: list | None
-    noise_e: list
-    noise_g2: list | None
-    label: torch.Tensor | None = None
-
-    def to(self, device) -> "Request":
-        def move(blocks):
-            if blocks is None:
-                return None
-            return [tuple(n.to(device) for n in block) for block in blocks]
-
-        return Request(self.z.to(device), move(self.noise_g), move(self.noise_e),
-                       move(self.noise_g2), None if self.label is None else self.label.to(device))
+from tpugan_torch.train.e_align import Request, draw_biggan_request, draw_noise
+from tpugan_torch.utils import iteration_generator
 
 
 def draw_request(bundle: GanBundle, batch_size: int, seed: int) -> Request:
     """Draw a request's inputs from the seed (``seed % 30000``) on the
     bundle's device. BigGAN's request is a truncated z, one class shared by
     the batch (cli/common.py:277-281 of ``tpugan``) and E_BIG's noise."""
-    g = iteration_generator(seed, bundle.device)
     if bundle.mtype == 4:
-        classes = bundle.generator.config.num_classes
-        zt = truncated_noise_sample(batch_size, bundle.z_dim, BIGGAN_TRUNCATION, generator=g)
-        flag = torch.randint(0, classes, (1,), generator=g, device=bundle.device)
-        label = one_hot(flag.expand(batch_size), classes)
-        noise_e = draw_noise(bundle.encoder.noise_shapes(batch_size, bundle.img_size), g)
-        return Request(zt, None, noise_e, None, label)
+        return draw_biggan_request(bundle.encoder, bundle.generator.config.num_classes,
+                                   bundle.z_dim, bundle.img_size, batch_size, seed, bundle.device)
+    g = iteration_generator(seed, bundle.device)
     z = torch.randn(batch_size, bundle.z_dim, generator=g, device=bundle.device)
     g_shapes = bundle.generator.noise_shapes(batch_size)
     noise_g = draw_noise(g_shapes, g)

@@ -5,7 +5,8 @@ caller converts them; this module imports no JAX). The port's modules carry
 the same names as ``tpugan``'s variable trees, so the walk is name for name:
 ``params`` into the module's parameters, ``buffers`` (BigGAN batch norms'
 running statistics) and ``sn`` (spectral norms' ``u`` and ``v``) into its
-buffers. Only the layouts differ:
+buffers. Generators, encoders, VGG16's features and LPIPS (plain 3x3 and
+1x1 convs) all load this way. Only the layouts differ:
 
 * conv kernels (Eq or plain), HWIO ``[kh, kw, in, out]`` -> OIHW
   ``[out, in, kh, kw]``;

@@ -1,11 +1,13 @@
-"""Spectral-normalised dense layer (counterpart of ``tpugan/nn/spectral.py``).
+"""Spectral-normalised dense layer and its power iteration (counterpart of
+``tpugan/nn/spectral.py``).
 
 E_BIG's conditional batch norms scale and shift by spectral-normalised
-linears. Only the eval forward is ported: ``sigma = u . (W v)`` from the
-stored ``u`` [out] and ``v`` [in] buffers (``tpugan``'s ``sn`` collection),
-with no power iteration. The training forward, which advances ``u`` and
-``v`` once per call, comes with the training slice; until then a module in
-training mode raises.
+linears. The forward always reads ``sigma = u . (W v)`` from the stored
+``u`` [out] and ``v`` [in] buffers (``tpugan``'s ``sn`` collection), and the
+gradient flows through sigma into the weight. Training advances the pair
+once per step with :func:`power_iterate`, before the encoder runs, as
+``tpugan``'s train step does (``tpugan/train/e_align.py:328``); that is
+torch's in-forward buffer update, moved out of the forward.
 """
 
 from __future__ import annotations
@@ -40,10 +42,21 @@ class SNDense(nn.Module):
         return self.u.float() @ self.weight.float() @ self.v.float()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "SNDense's training forward (one power iteration per call) comes with "
-                "ROADMAP slice 5b (E_BIG training); call .eval() to use the stored u and v"
-            )
         w = self.weight / self.sigma().to(self.weight.dtype)
         return F.linear(x, w, self.bias)
+
+
+@torch.no_grad()
+def power_iterate(module: nn.Module, n_iter: int = 1, eps: float = 1e-12) -> None:
+    """Advance the ``u``/``v`` pair of every :class:`SNDense` in ``module``,
+    in place and without gradient, by ``n_iter`` power iterations against
+    its current weight: ``v = normalize(W^T u)``, then ``u = normalize(W v)``.
+    ``eps`` is the normalisation's, as in ``tpugan``."""
+    for m in module.modules():
+        if isinstance(m, SNDense):
+            w, u = m.weight, m.u
+            for _ in range(n_iter):
+                v = _l2_normalize(w.t() @ u, eps)
+                u = _l2_normalize(w @ v, eps)
+            m.u.copy_(u)
+            m.v.copy_(v)

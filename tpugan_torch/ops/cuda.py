@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels (``tpugan_torch/csrc``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
-a plain C entry point and loaded with :mod:`ctypes` (no PyTorch headers, so a
-build takes seconds). Libraries go to ``tpugan_torch/_build/`` under a name
-that hashes the source and the flags, so an edited source is rebuilt.
+plain C entry points and loaded with :mod:`ctypes` (no PyTorch headers, so a
+build takes seconds). A kernel is one entry point; several kernels may share
+a source and so a library. Libraries go to ``tpugan_torch/_build/`` under a
+name that hashes the source and the flags, so an edited source is rebuilt.
 Nothing is built at import: :func:`build` runs on first use, or ahead of it.
 
 ``launches`` counts, per kernel, the launches its wrapper made, so a run can
@@ -43,11 +44,22 @@ KERNELS = {
         "tpugan_sagan_attention_f32",
         [_c_ptr] * 5 + [_c_int] * 6 + [_c_ptr],
     ),
+    "sagan_attention_bwd_dq": (
+        "sagan_attention_bwd.cu",
+        "tpugan_sagan_attention_bwd_dq_f32",
+        [_c_ptr] * 7 + [_c_int] * 6 + [_c_ptr],
+    ),
+    "sagan_attention_bwd_dkv": (
+        "sagan_attention_bwd.cu",
+        "tpugan_sagan_attention_bwd_dkv_f32",
+        [_c_ptr] * 8 + [_c_int] * 6 + [_c_ptr],
+    ),
 }
 
 launches = {name: 0 for name in KERNELS}
 
 _funcs: dict = {}
+_libs: dict = {}
 _lock = threading.Lock()
 
 
@@ -68,29 +80,31 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library that holds kernel ``name``: one per source."""
     source = CSRC / KERNELS[name][0]
     digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=None) -> dict[str, str]:
-    """Compile the named kernels (all by default) that are not built yet,
-    one ``nvcc`` per source, all started together. Returns the compiler's
-    output (``-Xptxas -v``: registers, shared memory, spills) by name;
-    raises if any build fails."""
+    """Compile the sources of the named kernels (all by default) that are
+    not built yet, one ``nvcc`` per source, all started together. Returns
+    the compiler's output (``-Xptxas -v``: registers, shared memory, spills)
+    by source; raises if any build fails."""
     names = list(KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = None
     running = {}
     for name in names:
+        source = KERNELS[name][0]
         out = library_path(name)
-        if out.exists():
+        if source in running or out.exists():
             continue
         nvcc = nvcc or nvcc_path()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, out)
+        running[source] = (proc, tmp, out)
     logs, failed = {}, []
     for name, (proc, tmp, out) in running.items():
         logs[name], _ = proc.communicate()
@@ -112,8 +126,12 @@ def kernel(name: str):
         fn = _funcs.get(name)
         if fn is None:
             build([name])
+            path = library_path(name)
+            lib = _libs.get(path)
+            if lib is None:
+                lib = _libs[path] = ctypes.CDLL(str(path))
             _, symbol, argtypes = KERNELS[name]
-            fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+            fn = getattr(lib, symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _funcs[name] = fn

@@ -9,7 +9,9 @@ multiplies the taps.
 Dispatch: a CPU tensor takes :func:`upfirdn2d_plain`; a CUDA tensor launches
 the hand-written kernel (``csrc/upfirdn2d.cu``) through
 :func:`upfirdn2d_cuda`, which raises on any input outside the kernel's
-contract. Nothing falls back.
+contract. Nothing falls back. The kernel has no gradient yet (the FIR
+adjoint comes with ROADMAP slice 3), so a CUDA input that requires one is
+refused rather than given an output that silently drops it.
 """
 
 from __future__ import annotations
@@ -41,13 +43,17 @@ def _taps(kernel, gain: float) -> np.ndarray:
     return np.ascontiguousarray(k * np.float32(gain))
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    return x.device.type != "cpu"
+
+
 def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
               pad: tuple[int, int] = (0, 0), gain: float = 1.0) -> torch.Tensor:
     """Upsample by ``up`` (zero-stuffing), pad, FIR-filter, downsample by
     ``down``. x: [N, C, H, W]; kernel: [kh, kw], applied depthwise."""
-    if x.device.type == "cpu":
-        return upfirdn2d_plain(x, kernel, up, down, pad, gain)
-    return upfirdn2d_cuda(x, kernel, up, down, pad, gain)
+    if _on_card(x):
+        return upfirdn2d_cuda(x, kernel, up, down, pad, gain)
+    return upfirdn2d_plain(x, kernel, up, down, pad, gain)
 
 
 def upfirdn2d_plain(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
@@ -72,7 +78,8 @@ def upfirdn2d_cuda(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
     """Launch ``csrc/upfirdn2d.cu`` on PyTorch's current stream.
 
     Takes contiguous fp32 NCHW CUDA tensors, up and down in {1, 2}, kernels
-    up to 8x8 and non-negative pads; raises on anything else.
+    up to 8x8 and non-negative pads, that need no gradient; raises on
+    anything else.
     """
     if x.dtype != torch.float32:
         raise TypeError(f"upfirdn2d_cuda takes float32, got {x.dtype}")
@@ -92,6 +99,11 @@ def upfirdn2d_cuda(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
     wo = (w * up + p0 + p1 - kw) // down + 1
     if ho < 1 or wo < 1:
         raise ValueError(f"empty output {ho}x{wo} for input {h}x{w}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        raise NotImplementedError(
+            "upfirdn2d_cuda has no gradient yet: the FIR adjoint comes with ROADMAP slice 3 "
+            "(SG2-1024 case 2); call it under torch.no_grad() or on a tensor that needs none"
+        )
     if not x.is_cuda:
         raise ValueError(f"upfirdn2d_cuda needs a CUDA tensor, got one on {x.device}")
     y = torch.empty((n, c, ho, wo), dtype=x.dtype, device=x.device)

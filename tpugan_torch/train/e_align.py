@@ -1,22 +1,32 @@
-"""Serving pieces of encoder alignment (counterpart of
-``tpugan/train/e_align.py``): the frozen generators' synth/resynth closures
-(StyleGANv1, mtype 1; BigGAN, mtype 4) and the encode closure. The training
-step comes with the training slice.
+"""Encoder alignment (counterpart of ``tpugan/train/e_align.py``): the
+frozen generators' synth/resynth closures (StyleGANv1, mtype 1; BigGAN,
+mtype 4), the encode closure, and the train step of cases 1 and 2.
 
 Images cross this boundary NHWC, as in ``tpugan``; the models run NCHW.
 Noise and labels are explicit everywhere: the caller draws them
-(:func:`draw_noise`, ``cli/infer_e.draw_request``) or passes ``None`` for no
+(:func:`draw_noise`, :func:`draw_biggan_request`) or passes ``None`` for no
 noise injection.
+
+The serving closures run under ``torch.no_grad()``. The train step takes
+closures made with ``train=True``: an encode that records gradients and a
+resynthesis differentiable with respect to w2, through a generator whose
+parameters take no gradient, as ``jax.grad`` with respect to the encoder's
+parameters computes only activation gradients there.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from tpugan_torch.losses.space_loss import SpaceLossInfo, space_loss, zero_space_info
 from tpugan_torch.models.biggan import BigGAN
 from tpugan_torch.models.stylegan1 import StyleGANv1Generator, StyleGANv1Mapping, truncation_coefs
+from tpugan_torch.nn.spectral import SNDense, power_iterate
+from tpugan_torch.optim.lreq_adam import LREQAdam
+from tpugan_torch.utils import iteration_generator, one_hot, truncated_noise_sample
 
 # BigGAN's truncation in the encoder pipeline (E_align_cropping_s1.py:140-150)
 BIGGAN_TRUNCATION = 0.4
@@ -41,6 +51,27 @@ def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2).contiguous()
 
 
+class Request(NamedTuple):
+    """One pass's inputs: z [N, z_dim] (BigGAN: truncated), the noise of
+    each pass (synthesis, encoder, resynthesis; ``None`` for BigGAN's
+    generator, which has none) and BigGAN's one-hot label [N, classes]."""
+
+    z: torch.Tensor
+    noise_g: list | None
+    noise_e: list
+    noise_g2: list | None
+    label: torch.Tensor | None = None
+
+    def to(self, device) -> "Request":
+        def move(blocks):
+            if blocks is None:
+                return None
+            return [tuple(n.to(device) for n in block) for block in blocks]
+
+        return Request(self.z.to(device), move(self.noise_g), move(self.noise_e),
+                       move(self.noise_g2), None if self.label is None else self.label.to(device))
+
+
 def draw_noise(shapes, generator: torch.Generator) -> list:
     """One standard-normal tensor per shape of a model's ``noise_shapes``,
     drawn in order on the generator's device."""
@@ -48,6 +79,19 @@ def draw_noise(shapes, generator: torch.Generator) -> list:
         tuple(torch.randn(s, generator=generator, device=generator.device) for s in block)
         for block in shapes
     ]
+
+
+def draw_biggan_request(encoder, num_classes: int, z_dim: int, img_size: int,
+                        batch_size: int, seed: int, device) -> Request:
+    """The mtype-4 draws of seed ``seed % 30000`` on ``device``, in order:
+    truncated zt, one class shared by the batch (``tpugan/cli/common.py:
+    273-283``), E_BIG's noise. Requests and train steps draw alike."""
+    g = iteration_generator(seed, device)
+    zt = truncated_noise_sample(batch_size, z_dim, BIGGAN_TRUNCATION, generator=g)
+    flag = torch.randint(0, num_classes, (1,), generator=g, device=device)
+    label = one_hot(flag.expand(batch_size), num_classes)
+    noise_e = draw_noise(encoder.noise_shapes(batch_size, img_size), g)
+    return Request(zt, None, noise_e, None, label)
 
 
 def build_stylegan1_pipeline(
@@ -79,15 +123,18 @@ def build_stylegan1_pipeline(
     return synth, resynth
 
 
-def build_biggan_pipeline(model: BigGAN):
+def build_biggan_pipeline(model: BigGAN, train: bool = False):
     """Frozen BigGAN synth/resynth closures (mtype 4):
     ``(imgs1, cond) = G(zt, label)`` and ``imgs2 = G(w2, label)`` with the
     same label (E_align_cropping_s1.py:140-162), both at
-    ``BIGGAN_TRUNCATION``, the truncation ``draw_request`` draws ``zt`` at.
+    ``BIGGAN_TRUNCATION``, the truncation ``draw_biggan_request`` draws
+    ``zt`` at.
 
     ``synth(zt, label) -> SynthBatch`` takes the truncated latents and the
     one-hot labels the caller drew; ``resynth(w2, batch, noise=None)``
-    regenerates with ``batch.label``. BigGAN has no generator noise.
+    regenerates with ``batch.label``. BigGAN has no generator noise. With
+    ``train`` the resynthesis records the graph back to w2 (the model's own
+    parameters should take no gradient: ``model.requires_grad_(False)``).
     """
 
     @torch.no_grad()
@@ -95,26 +142,218 @@ def build_biggan_pipeline(model: BigGAN):
         imgs1, cond = model(zt, label, BIGGAN_TRUNCATION)
         return SynthBatch(w1=zt, imgs1=nchw_to_nhwc(imgs1), const1=cond, label=label)
 
-    @torch.no_grad()
     def resynth(w2: torch.Tensor, batch: SynthBatch, noise=None) -> torch.Tensor:
         if noise is not None:
             raise ValueError("BigGAN takes no generator noise")
         imgs2, _ = model(w2, batch.label, BIGGAN_TRUNCATION)
         return nchw_to_nhwc(imgs2)
 
-    return synth, resynth
+    return synth, (resynth if train else torch.no_grad()(resynth))
 
 
-def make_encode_fn(encoder, conditional: bool = False):
+def make_encode_fn(encoder, conditional: bool = False, train: bool = False):
     """Encode closure: ``(batch, noise) -> (const2, w2)`` on ``batch.imgs1``;
     a ``conditional`` encoder (E_BIG) also reads the condition vector
-    ``batch.const1`` (E_align_cropping_s1.py:155)."""
+    ``batch.const1`` (E_align_cropping_s1.py:155). With ``train`` it records
+    the graph for the encoder's gradients."""
 
-    @torch.no_grad()
     def encode(batch: SynthBatch, noise=None):
         imgs = nhwc_to_nchw(batch.imgs1)
         if conditional:
             return encoder(imgs, batch.const1, noise)
         return encoder(imgs, noise)
 
-    return encode
+    return encode if train else torch.no_grad()(encode)
+
+
+# ---------------------------------------------------------------------------
+# the train step (tpugan/train/e_align.py:38-97, 156-435)
+
+
+class StepInfo(NamedTuple):
+    loss_imgs: SpaceLossInfo
+    loss_medium: SpaceLossInfo
+    loss_small: SpaceLossInfo
+    loss_w: SpaceLossInfo
+    loss_c: SpaceLossInfo
+    loss_tsa: torch.Tensor
+    loss_mtv: torch.Tensor
+
+
+def info_scalars(info: StepInfo) -> dict:
+    """The reference's full scalar set (every SpaceLossInfo field of every
+    loss group, and the totals) as floats, with one host sync."""
+    names, values = [], []
+    for name, val in info._asdict().items():
+        if hasattr(val, "_asdict"):
+            for field, v in val._asdict().items():
+                names.append(f"{name}_{field}")
+                values.append(v)
+        else:
+            names.append(name)
+            values.append(val)
+    host = torch.stack([v.detach().float().reshape(()) for v in values]).tolist()
+    return dict(zip(names, host))
+
+
+def attention_crops(imgs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """AT1/AT2 center crops for aligned data (NHWC): AT1 keeps the height
+    and the middle 3/4 of the width (E_align_cropping_s1.py:188); AT2 crops
+    both by 1/8 + 1/32 per side (:193-199)."""
+    h, w = imgs.shape[1], imgs.shape[2]
+    at1 = imgs[:, :, w // 8 : w - w // 8, :]
+    dh = h // 8 + h // 32
+    dw = w // 8 + w // 32
+    return at1, imgs[:, dh : h - dh, dw : w - dw, :]
+
+
+@dataclasses.dataclass
+class EncoderTrainState:
+    """The encoder (its parameters and its spectral norms' ``u``/``v``
+    buffers, which the step updates in place), its optimizer and the count
+    of steps taken."""
+
+    encoder: torch.nn.Module
+    optimizer: LREQAdam
+    step: int = 0
+
+
+def init_train_state(encoder: torch.nn.Module, optimizer: LREQAdam) -> EncoderTrainState:
+    return EncoderTrainState(encoder=encoder, optimizer=optimizer)
+
+
+def _later(what: str, slice_name: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} comes with ROADMAP {slice_name}")
+
+
+def make_train_step(
+    encode: Callable,
+    synth: Callable[[Request], SynthBatch],
+    resynth: Callable,
+    draw: Callable[[int], Request],
+    case: int = 1,
+    lpips_fn=None,
+    compute_image_losses: bool = True,
+    sequential_image_steps: bool = False,
+    remat: bool = False,
+    remat_policy: Optional[str] = None,
+    bf16: bool = False,
+    mesh=None,
+):
+    """Build the per-iteration train step ``step(state, iteration) ->
+    (state, StepInfo)``, which updates ``state`` in place.
+
+    ``draw(iteration)`` gives the iteration's inputs (seed ``iteration %
+    30000``), ``synth(request)`` the frozen generator's batch (no
+    gradient), ``encode(batch, noise)`` and ``resynth(w2, batch, noise)``
+    the train-mode closures. Each step first advances the encoder's
+    spectral norms by one power iteration (``tpugan/train/e_align.py:328``).
+
+    * case 1 (E_align_cropping_s1.py): the image losses are computed without
+      gradient and only logged; one update on ``0.01 * loss_w``.
+    * case 2 (E_align_s2.py): ``loss_tsa = imgs + 5*AT1 + 9*AT2``; the
+      gradients of loss_tsa and of ``0.01 * loss_w`` are both taken at the
+      iteration's initial parameters from one forward, then applied by two
+      sequential optimizer updates (:364-385).
+
+    ``compute_image_losses=False`` is the lean case-1 step of off-tick
+    iterations: no resynthesis and no image losses, their info zero; the
+    parameter trajectory is the full step's, bit for bit.
+    """
+    if sequential_image_steps:
+        raise _later("sequential_image_steps (ablations 7 and 8)", "slice 3")
+    if remat or remat_policy is not None:
+        raise _later("remat and remat_policy", "slice 3")
+    if bf16:
+        raise _later("bf16", "slice 3")
+    if mesh is not None:
+        raise _later("a device mesh", "slice 7 (parallelism)")
+    if case not in (1, 2):
+        raise ValueError(f"case must be 1 or 2, got {case}")
+    image_weights = (1.0, 1.0, 1.0) if case == 1 else (1.0, 5.0, 9.0)
+    latent_weights = (1.0, 0.0)  # loss_c is left out in both scripts (:216)
+    detach_image_losses = case == 1
+    if not compute_image_losses and not detach_image_losses:
+        raise ValueError(
+            "compute_image_losses=False needs detached (log-only) image losses; with "
+            "gradients through them (case 2) the lean step would change the trajectory"
+        )
+
+    def image_losses(batch: SynthBatch, w2, noise_g2):
+        imgs2 = resynth(w2, batch, noise_g2)
+        l_imgs, i_imgs = space_loss(batch.imgs1, imgs2, lpips_fn=lpips_fn)
+        at1_1, at2_1 = attention_crops(batch.imgs1)
+        at1_2, at2_2 = attention_crops(imgs2)
+        l_med, i_med = space_loss(at1_1, at1_2, lpips_fn=lpips_fn)
+        l_small, i_small = space_loss(at2_1, at2_2, lpips_fn=lpips_fn)
+        wi, wm, ws = image_weights
+        return wi * l_imgs + wm * l_med + ws * l_small, (i_imgs, i_med, i_small)
+
+    def losses(batch: SynthBatch, request: Request):
+        const2, w2 = encode(batch, request.noise_e)
+        if not compute_image_losses:
+            loss_tsa = torch.zeros((), device=w2.device)
+            infos = (zero_space_info(w2.device),) * 3
+        elif detach_image_losses:
+            # the reference detaches both sides of every image-space loss
+            # (E_align_cropping_s1.py:185-201): log-only, no gradient
+            with torch.no_grad():
+                loss_tsa, infos = image_losses(batch, w2, request.noise_g2)
+        else:
+            loss_tsa, infos = image_losses(batch, w2, request.noise_g2)
+        l_w, i_w = space_loss(batch.w1, w2, image_space=False)
+        l_c, i_c = space_loss(batch.const1, const2, image_space=False)
+        ww, wc = latent_weights
+        loss_mtv = 0.01 * (ww * l_w + wc * l_c)
+        info = StepInfo(*infos, loss_w=i_w, loss_c=i_c, loss_tsa=loss_tsa, loss_mtv=loss_mtv)
+        return loss_tsa, loss_mtv, _detached(info)
+
+    def step(state: EncoderTrainState, iteration: int):
+        request = draw(iteration)
+        batch = synth(request)
+        power_iterate(state.encoder)
+        params = list(state.encoder.parameters())
+        loss_tsa, loss_mtv, info = losses(batch, request)
+        if case == 1:
+            state.optimizer.step(torch.autograd.grad(loss_mtv, params, allow_unused=True))
+        else:
+            g_tsa = torch.autograd.grad(loss_tsa, params, retain_graph=True, allow_unused=True)
+            g_mtv = torch.autograd.grad(loss_mtv, params, allow_unused=True)
+            state.optimizer.step(g_tsa)
+            state.optimizer.step(g_mtv)
+        state.step += 1
+        return state, info
+
+    return step
+
+
+def _detached(info: StepInfo) -> StepInfo:
+    def leaf(x):
+        return SpaceLossInfo(*(v.detach() for v in x)) if isinstance(x, SpaceLossInfo) else x.detach()
+
+    return StepInfo(*(leaf(x) for x in info))
+
+
+def make_align_visuals(encode, synth, resynth, draw):
+    """The on-tick reconstruction grid of the aligned CLI
+    (E_align_cropping_s1.py:282-285): the iteration's imgs1 and imgs2 at
+    the iteration's initial parameters, after the same single power
+    iteration the step applies before encoding. The spectral norms' buffers
+    are put back afterwards, so the step that follows starts from the same
+    pair. Returns ``visuals(state, iteration) -> {"imgs1", "imgs2"}``."""
+
+    @torch.no_grad()
+    def visuals(state: EncoderTrainState, iteration: int):
+        request = draw(iteration)
+        batch = synth(request)
+        sn = [m for m in state.encoder.modules() if isinstance(m, SNDense)]
+        saved = [(m.u.clone(), m.v.clone()) for m in sn]
+        power_iterate(state.encoder)
+        _, w2 = encode(batch, request.noise_e)
+        imgs2 = resynth(w2, batch, request.noise_g2)
+        for m, (u, v) in zip(sn, saved):
+            m.u.copy_(u)
+            m.v.copy_(v)
+        return {"imgs1": batch.imgs1, "imgs2": imgs2}
+
+    return visuals
