@@ -104,7 +104,8 @@ ATTENTION_CASES = (
 LSE_TOL = 1e-5  # tests/test_attention.py:54
 # the attention backward: tests/test_attention.py:59-80's case, then odd
 # lengths, one key, widths that are not multiples of 4, dk 128 with dv 256
-# and BigGAN-128's widths: (q, k, v shapes, input scale)
+# BigGAN-128's widths and BigGAN-256's (the path's template instance, at O(1)
+# values): (q, k, v shapes, input scale)
 ATTENTION_BWD_CASES = (
     ((2, 256, 16), (2, 384, 16), (2, 384, 32), 2.0),
     ((1, 37, 8), (1, 19, 8), (1, 19, 24), 2.0),
@@ -114,8 +115,13 @@ ATTENTION_BWD_CASES = (
     ((2, 70, 20), (2, 45, 20), (2, 45, 130), 1.0),
     ((1, 130, 128), (1, 70, 128), (1, 70, 256), 0.3),
     ((2, 4096, 32), (2, 1024, 32), (2, 1024, 128), 1.0),
+    ((2, 4096, 64), (2, 1024, 64), (2, 1024, 256), 1.0),
 )
 BWD_TOL = 2e-4  # abs and rel, tests/test_attention.py:78
+# and max |err| of each gradient at most this share of the size of its summed
+# terms (compare_attention_bwd), which holds the kernel where the values are
+# far below BWD_TOL, as on a step's own inputs
+BWD_MAX_SHARE = 1e-3
 BIGGAN_SIZE = 256
 BIGGAN_Z_DIM = 128
 ATTN_GAMMA = 1.0  # every SelfAttn.gamma in the CUDA-vs-CPU BigGAN check (random init gives 0)
@@ -485,16 +491,27 @@ def compare_attention_bwd(torch, label, q, k, v, o, lse, do):
 
     got = sagan_attention_bwd_cuda(q, k, v, o, lse, do)
     want = sagan_attention_bwd_plain(q, k, v, o, lse, do)
+    # the size of each gradient's summed terms before they cancel, which is
+    # what fp32 rounding scales with: a gradient that is zero by construction
+    # (one key: ds = p (dp - delta) = 0) has a max |value| of rounding noise
+    p = torch.exp(torch.bmm(q, k.transpose(1, 2)) - lse)
+    ds_terms = p * (torch.bmm(do.abs(), v.abs().transpose(1, 2)) + (do * o).sum(-1, keepdim=True).abs())
+    terms = (torch.bmm(ds_terms, k.abs()), torch.bmm(ds_terms.transpose(1, 2), q.abs()),
+             torch.bmm(p.transpose(1, 2), do.abs()))
     torch.cuda.synchronize()
-    errs = []
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+    errs, parts = [], []
+    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, terms):
         check(g.shape == w.shape, f"{label}: {name} shape {tuple(g.shape)} vs {tuple(w.shape)}")
         err = (g - w).abs().max().item()
-        check(torch.allclose(g, w, rtol=BWD_TOL, atol=BWD_TOL),
-              f"{label}: {name} disagrees with the plain version, max |err| {err:.3e}")
+        scale, term = w.abs().max().item(), t.max().item()
+        check(torch.allclose(g, w, rtol=BWD_TOL, atol=BWD_TOL) and err <= BWD_MAX_SHARE * term,
+              f"{label}: {name} disagrees with the plain version, max |err| {err:.3e}; max |value| "
+              f"{scale:.3e}, terms {term:.3e}")
         errs.append(err)
-    say(f"parity {label}: max |err| dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} "
-        f"(rtol and atol {BWD_TOL:g})")
+        parts.append(f"{name} {err:.3e} ({scale:.3e}, {term:.3e})")
+    del p, ds_terms, terms
+    say(f"parity {label}: max |err| (max |value|, terms) " + ", ".join(parts)
+        + f" (rtol and atol {BWD_TOL:g}, and at most {BWD_MAX_SHARE:g} of the terms)")
     return max(errs)
 
 
@@ -777,7 +794,10 @@ def training_path(torch, dev, smi, bandwidth, fp32_peak):
     n, lq, dk = q.shape
     lk, dv = v.shape[1], v.shape[2]
     nbytes = 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel() + do.numel() + lse.numel())
-    flops = 2 * n * lq * lk * (4 * dk + 3 * dv)
+    # the backward's own products: s = q k^T, dp = do v^T, dv = p^T do,
+    # dq = ds k, dk = ds^T q. The kernel's split into dq and dkv computes s
+    # and dp twice, which is the design's cost and not the function's.
+    flops = 2 * n * lq * lk * (3 * dk + 2 * dv)
     row["bound_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
     row["bound_by"] = "bytes" if nbytes / bandwidth >= flops / fp32_peak else "operations"
     issue = {key: time_ms(torch, fn, iters=20) for key, fn in calls.items()}

@@ -164,6 +164,25 @@ def test_cuda_route_carries_q_k_v_gradients(rng, on_card):
     assert cuda.launches["sagan_attention"] == 2 and cuda.launches["sagan_attention_bwd_dkv"] == 1
 
 
+@pytest.mark.parametrize("route", ["cpu", "cuda"])
+@pytest.mark.parametrize("wanted", ["q", "k", "v"])
+def test_lse_form_refuses_a_gradient(rng, monkeypatch, route, wanted):
+    """The ``(out, lse)`` form has no autograd graph, so when any one input
+    wants a gradient it raises on either route instead of handing back
+    outputs without one; under no_grad the same call runs."""
+    if route == "cuda":
+        monkeypatch.setattr(attention, "_on_card", lambda x: True)
+        monkeypatch.setattr(attention, "sagan_attention_cuda",
+                            _detached_plain(attention.check_attention_args, attention.sagan_attention_plain))
+    t = dict(zip("qkv", (torch.from_numpy(a) for a in qkv(rng, (2, 12, 8), (2, 5, 8), (2, 5, 16)))))
+    t[wanted].requires_grad_()
+    with pytest.raises(ValueError, match="no gradient"):
+        attention.sagan_attention(t["q"], t["k"], t["v"], return_lse=True)
+    with torch.no_grad():
+        out, lse = attention.sagan_attention(t["q"], t["k"], t["v"], return_lse=True)
+    assert out.shape == (2, 12, 16) and lse.shape == (2, 12, 1) and out.grad_fn is None
+
+
 def test_cuda_route_reaches_selfattn_weights(rng, on_card):
     """A SelfAttn on the CUDA route: theta, phi and g get the gradient they
     get from plain autograd on the CPU."""

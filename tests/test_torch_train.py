@@ -265,18 +265,6 @@ def test_lean_step_matches_tpugan_and_is_bitwise_the_full_trajectory(setup):
         make_train_step(None, None, None, None, case=2, compute_image_losses=False)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(sequential_image_steps=True), "slice 3"),
-    (dict(remat=True), "slice 3"),
-    (dict(remat_policy="conv_outs"), "slice 3"),
-    (dict(bf16=True), "slice 3"),
-    (dict(mesh=object()), "slice 7"),
-])
-def test_train_step_options_of_later_slices_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        make_train_step(None, None, None, None, case=2, **kw)
-
-
 def _tiny_argv(tmp_path, *extra):
     config = tmp_path / "config.json"
     config.write_text(BigGANConfig(**CFG).to_json_string())

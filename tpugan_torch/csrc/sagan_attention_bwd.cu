@@ -14,11 +14,12 @@
 // dv <= 256. At BigGAN-256's attention layer N = 2, Lq = 4096, Lk = 1024,
 // dk = 64, dv = 256.
 //
-// Bound: operations. Per batch item the dq kernel computes s = q k^T,
-// dp = do v^T and dq = ds k, the dkv kernel s, dp, dv = p^T do and
-// dk = ds^T q: 2 Lq Lk (4 dk + 3 dv) FLOPs, 17.18 GFLOP at the BigGAN-256
-// shape against 15 MB of inputs and outputs. Neither the scores nor p
-// reach device memory.
+// Bound: operations. The backward needs s = q k^T, dp = do v^T,
+// dv = p^T do, dq = ds k and dk = ds^T q: 2 Lq Lk (3 dk + 2 dv) FLOPs per
+// batch item, 11.81 GFLOP at the BigGAN-256 shape against 26 MB of inputs
+// and outputs. This design does more: the dq kernel computes s, dp and dq,
+// the dkv kernel s and dp again, then dv and dk, so 2 Lq Lk (4 dk + 3 dv)
+// FLOPs, 17.18 GFLOP. Neither the scores nor p reach device memory.
 //
 // Design (plain fp32 FMAs, no TF32 and no tensor cores, as the Pallas
 // kernels compute in fp32; no atomics, so the result does not depend on the

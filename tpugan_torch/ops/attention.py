@@ -35,11 +35,13 @@ def _on_card(x: torch.Tensor) -> bool:
 
 
 def sagan_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_lse: bool = False):
-    """``softmax(q k^T) v``; ``(out, lse)`` when ``return_lse`` (no gradient
-    in that form). Differentiable with respect to q, k and v."""
-    if not return_lse and torch.is_grad_enabled() and (
-        q.requires_grad or k.requires_grad or v.requires_grad
-    ):
+    """``softmax(q k^T) v``, differentiable with respect to q, k and v; or
+    ``(out, lse)`` when ``return_lse``, a form with no gradient that raises
+    when one is wanted, on either device."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if return_lse:
+            raise ValueError("sagan_attention(..., return_lse=True) carries no gradient: call it "
+                             "under torch.no_grad() or on detached inputs")
         return _SaganAttention.apply(q, k, v)
     if _on_card(q):
         return sagan_attention_cuda(q, k, v, return_lse)

@@ -222,10 +222,6 @@ def init_train_state(encoder: torch.nn.Module, optimizer: LREQAdam) -> EncoderTr
     return EncoderTrainState(encoder=encoder, optimizer=optimizer)
 
 
-def _later(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} comes with ROADMAP {slice_name}")
-
-
 def make_train_step(
     encode: Callable,
     synth: Callable[[Request], SynthBatch],
@@ -234,11 +230,6 @@ def make_train_step(
     case: int = 1,
     lpips_fn=None,
     compute_image_losses: bool = True,
-    sequential_image_steps: bool = False,
-    remat: bool = False,
-    remat_policy: Optional[str] = None,
-    bf16: bool = False,
-    mesh=None,
 ):
     """Build the per-iteration train step ``step(state, iteration) ->
     (state, StepInfo)``, which updates ``state`` in place.
@@ -260,14 +251,6 @@ def make_train_step(
     iterations: no resynthesis and no image losses, their info zero; the
     parameter trajectory is the full step's, bit for bit.
     """
-    if sequential_image_steps:
-        raise _later("sequential_image_steps (ablations 7 and 8)", "slice 3")
-    if remat or remat_policy is not None:
-        raise _later("remat and remat_policy", "slice 3")
-    if bf16:
-        raise _later("bf16", "slice 3")
-    if mesh is not None:
-        raise _later("a device mesh", "slice 7 (parallelism)")
     if case not in (1, 2):
         raise ValueError(f"case must be 1 or 2, got {case}")
     image_weights = (1.0, 1.0, 1.0) if case == 1 else (1.0, 5.0, 9.0)
