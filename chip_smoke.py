@@ -27,11 +27,12 @@ Phases:
   6. the E_BIG train step of ``tpugan_torch.cli.e_align`` (mtype 4, full
      width, batch 2): one case-2 step on the CLI's own weights, then case 2
      with every gamma at 1 and E_BIG's z head scaled, with launch counts,
-     the attention backward kernel on the step's own inputs, case 1 and its
+     the attention backward kernels on the step's own inputs (against the
+     plain version in float64, and twice, bitwise equal), case 1 and its
      lean step as ``tpugan``'s scripts/bench_biggan256.py measures them, a
      case-2 step replayed on the CPU at a reduced width, step times, device
-     time by kernel, peak memory, and the backward kernel's times at the
-     path's shape.
+     time by kernel, peak memory, and the backward kernels' times at the
+     path's shape beside three bounds (3xTF32, fp32 FMAs, the design's own).
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -46,13 +47,15 @@ import subprocess
 import sys
 import time
 
-# (name substring, memory bytes/s, fp32 FLOP/s outside the tensor cores),
-# first match wins; NVIDIA data sheets, dense rates
+# (name substring, memory bytes/s, fp32 FLOP/s outside the tensor cores,
+# dense TF32 tensor-core FLOP/s), first match wins; NVIDIA data sheets,
+# dense rates (the sheets' TF32 figures are with sparsity, twice these: 756
+# TFLOP/s for H100 PCIe, 835 for H100 NVL, 989 for H100 SXM and H200)
 CARD_SPECS = (
-    ("H100 PCIe", 2.0e12, 51e12),
-    ("H100 NVL", 3.9e12, 60e12),
-    ("H100", 3.35e12, 67e12),
-    ("H200", 4.8e12, 67e12),
+    ("H100 PCIe", 2.0e12, 51e12, 378e12),
+    ("H100 NVL", 3.9e12, 60e12, 417.5e12),
+    ("H100", 3.35e12, 67e12, 495e12),
+    ("H200", 4.8e12, 67e12, 495e12),
 )
 CARD = "cuda"  # the device every phase runs on; the replays' second side is the CPU
 SEED = 0
@@ -105,7 +108,8 @@ LSE_TOL = 1e-5  # tests/test_attention.py:54
 # the attention backward: tests/test_attention.py:59-80's case, then odd
 # lengths, one key, widths that are not multiples of 4, dk 128 with dv 256
 # BigGAN-128's widths and BigGAN-256's (the path's template instance, at O(1)
-# values): (q, k, v shapes, input scale)
+# values), and the path's widths at lengths that are not multiples of the
+# kernels' 32- and 64-row tiles: (q, k, v shapes, input scale)
 ATTENTION_BWD_CASES = (
     ((2, 256, 16), (2, 384, 16), (2, 384, 32), 2.0),
     ((1, 37, 8), (1, 19, 8), (1, 19, 24), 2.0),
@@ -116,6 +120,7 @@ ATTENTION_BWD_CASES = (
     ((1, 130, 128), (1, 70, 128), (1, 70, 256), 0.3),
     ((2, 4096, 32), (2, 1024, 32), (2, 1024, 128), 1.0),
     ((2, 4096, 64), (2, 1024, 64), (2, 1024, 256), 1.0),
+    ((1, 4100, 64), (1, 1000, 64), (1, 1000, 256), 1.0),
 )
 BWD_TOL = 2e-4  # abs and rel, tests/test_attention.py:78
 # and max |err| of each gradient at most this share of the size of its summed
@@ -154,9 +159,9 @@ def expected_launches(**counts):
 
 
 def card_specs(name):
-    for key, bandwidth, fp32 in CARD_SPECS:
+    for key, bandwidth, fp32, tf32 in CARD_SPECS:
         if key in name:
-            return bandwidth, fp32
+            return bandwidth, fp32, tf32
     raise RuntimeError(f"chip_smoke: no memory/compute peaks known for {name!r}")
 
 
@@ -486,11 +491,18 @@ def biggan_path(torch, dev, parser, smi, bandwidth, fp32_peak):
 def compare_attention_bwd(torch, label, q, k, v, o, lse, do):
     """The attention backward kernels against their plain version on one
     input (the forward's o and lse given); returns the max |err| over dq, dk
-    and dv."""
+    and dv.
+
+    The plain version runs in float64 on the same fp32 inputs and its result
+    is rounded to fp32: the kernels sum in another order than cuBLAS, and at
+    the path's widths the fp32 plain version is itself up to about 2e-4 from
+    that result (printed as "fp32 plain"), so a comparison with it would
+    measure two summation orders and not the kernels' error."""
     from tpugan_torch.ops.attention import sagan_attention_bwd_cuda, sagan_attention_bwd_plain
 
     got = sagan_attention_bwd_cuda(q, k, v, o, lse, do)
-    want = sagan_attention_bwd_plain(q, k, v, o, lse, do)
+    fp32 = sagan_attention_bwd_plain(q, k, v, o, lse, do)
+    want = [x.float() for x in sagan_attention_bwd_plain(*(x.double() for x in (q, k, v, o, lse, do)))]
     # the size of each gradient's summed terms before they cancel, which is
     # what fp32 rounding scales with: a gradient that is zero by construction
     # (one key: ds = p (dp - delta) = 0) has a max |value| of rounding noise
@@ -500,7 +512,7 @@ def compare_attention_bwd(torch, label, q, k, v, o, lse, do):
              torch.bmm(p.transpose(1, 2), do.abs()))
     torch.cuda.synchronize()
     errs, parts = [], []
-    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, terms):
+    for name, g, w, f, t in zip(("dq", "dk", "dv"), got, want, fp32, terms):
         check(g.shape == w.shape, f"{label}: {name} shape {tuple(g.shape)} vs {tuple(w.shape)}")
         err = (g - w).abs().max().item()
         scale, term = w.abs().max().item(), t.max().item()
@@ -508,9 +520,11 @@ def compare_attention_bwd(torch, label, q, k, v, o, lse, do):
               f"{label}: {name} disagrees with the plain version, max |err| {err:.3e}; max |value| "
               f"{scale:.3e}, terms {term:.3e}")
         errs.append(err)
-        parts.append(f"{name} {err:.3e} ({scale:.3e}, {term:.3e})")
+        parts.append(f"{name} {err:.3e} ({scale:.3e}, {term:.3e}; fp32 plain {(f - w).abs().max().item():.3e}, "
+                     f"kernel vs fp32 plain {(g - f).abs().max().item():.3e})")
     del p, ds_terms, terms
-    say(f"parity {label}: max |err| (max |value|, terms) " + ", ".join(parts)
+    say(f"parity {label}: max |err| against the plain version in float64 (max |value|, terms; the "
+        "fp32 plain version's own max |err|, and the kernel's against it) " + ", ".join(parts)
         + f" (rtol and atol {BWD_TOL:g}, and at most {BWD_MAX_SHARE:g} of the terms)")
     return max(errs)
 
@@ -668,7 +682,7 @@ def replay_case2_on_cpu(torch, dev, e_align):
         check(scale > 0 and err <= REPLAY_GRAD_TOL * scale, f"the replayed gradient of {name} disagrees")
 
 
-def training_path(torch, dev, smi, bandwidth, fp32_peak):
+def training_path(torch, dev, smi, bandwidth, fp32_peak, tf32_peak):
     """Phase 6: the E_BIG train step (mtype 4, full width, batch 2). Returns
     the attention backward's entry of the kernel table."""
     import torch.nn.functional as F
@@ -729,6 +743,13 @@ def training_path(torch, dev, smi, bandwidth, fp32_peak):
     check(do.abs().max().item() > 0, "the attention's upstream gradient is zero")
     bwd_err = compare_attention_bwd(torch, "attention backward, the case-2 step's own inputs",
                                     q, k, v, o, lse, do)
+    first, again = (sagan_attention_bwd_cuda(q, k, v, o, lse, do) for _ in range(2))
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(first, again)),
+          "two runs of the attention backward on the same inputs differ")
+    say("attention backward, the case-2 step's own inputs: two runs bitwise equal (no atomics; the "
+        "cluster sums in rank order)")
+    del first, again
 
     # the main path: counted steps
     params0, uv0 = encoder_snapshot(state.encoder)
@@ -795,21 +816,46 @@ def training_path(torch, dev, smi, bandwidth, fp32_peak):
     lk, dv = v.shape[1], v.shape[2]
     nbytes = 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel() + do.numel() + lse.numel())
     # the backward's own products: s = q k^T, dp = do v^T, dv = p^T do,
-    # dq = ds k, dk = ds^T q. The kernel's split into dq and dkv computes s
-    # and dp twice, which is the design's cost and not the function's.
+    # dq = ds k, dk = ds^T q, each fp32-accurate product three TF32 ones on
+    # the tensor cores (3xTF32); beside it the fp32-FMA bound of earlier PRs
     flops = 2 * n * lq * lk * (3 * dk + 2 * dv)
-    row["bound_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
-    row["bound_by"] = "bytes" if nbytes / bandwidth >= flops / fp32_peak else "operations"
+    row["bound_ms"] = max(nbytes / bandwidth, 3 * flops / tf32_peak) * 1e3
+    row["bound_by"] = "bytes" if nbytes / bandwidth >= 3 * flops / tf32_peak else "operations"
+    row["bound_fp32_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
+    # this design's floor: the dq kernel (s, dp, dq; writes p and ds to the
+    # scratch) and then the dkv kernel (dv, dk; reads the scratch), each at
+    # the larger of its 3xTF32 operations and its bytes
+    scratch = 8 * n * -(-lq // attention.SCRATCH_ROWS) * attention.SCRATCH_ROWS \
+        * -(-lk // attention.SCRATCH_KEYS) * attention.SCRATCH_KEYS
+    kernels_work = (
+        (3 * 2 * n * lq * lk * (2 * dk + dv), nbytes - 4 * (k.numel() + v.numel()) + scratch),
+        (3 * 2 * n * lq * lk * (dk + dv), scratch + 4 * (q.numel() + do.numel() + k.numel() + v.numel())),
+    )
+    row["design_floor_ms"] = sum(max(ops / tf32_peak, b / bandwidth) for ops, b in kernels_work) * 1e3
     issue = {key: time_ms(torch, fn, iters=20) for key, fn in calls.items()}
     shape = f"q [{n}, {lq}, {dk}], k [{n}, {lk}, {dk}], v [{n}, {lk}, {dv}]"
     say(f"attention backward at the path's shape ({shape}): device time kernel "
         f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, library "
-        f"{row['library_ms'] * 1e3:.2f} us; bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: "
-        f"{flops / 1e9:.3f} GFLOP at {fp32_peak / 1e12:.0f} TFLOP/s fp32 outside the tensor cores, "
-        f"{nbytes / 1e6:.3f} MB at {bandwidth / 1e12:.2f} TB/s); back to back per call: "
+        f"{row['library_ms'] * 1e3:.2f} us; back to back per call: "
         + ", ".join(f"{k_} {v_ * 1e3:.2f} us" for k_, v_ in issue.items()))
+    say(f"  bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: 3 x {flops / 1e9:.3f} GFLOP, the "
+        f"function's products in 3xTF32, at {tf32_peak / 1e12:g} TFLOP/s dense TF32; "
+        f"{nbytes / 1e6:.3f} MB at {bandwidth / 1e12:.2f} TB/s); the fp32-FMA bound of earlier PRs "
+        f"{row['bound_fp32_ms'] * 1e3:.2f} us ({flops / 1e9:.3f} GFLOP at {fp32_peak / 1e12:.0f} "
+        f"TFLOP/s fp32 outside the tensor cores); this design's floor {row['design_floor_ms'] * 1e3:.2f} "
+        f"us (dq kernel then dkv kernel, each at the larger of its 3xTF32 operations and its bytes, "
+        f"the p/ds scratch of {scratch / 1e6:.3f} MB written by one and read by the other)")
+    row["split_ms"] = {}
     for kname, ms in sorted(split.items(), key=lambda kv: -kv[1]):
         say(f"  kernel call's device time: {ms * 1e3:8.2f} us  {kname[:90]}")
+        part = next((p_ for p_ in ("dq", "dkv") if f"attention_{p_}_kernel" in kname), "delta")
+        row["split_ms"][part] = row["split_ms"].get(part, 0.0) + ms
+    useful = flops / (row["split_ms"]["dq"] + row["split_ms"]["dkv"]) / 1e9
+    say(f"  dq {row['split_ms']['dq'] * 1e3:.2f} us, dkv {row['split_ms']['dkv'] * 1e3:.2f} us, delta "
+        f"{row['split_ms']['delta'] * 1e3:.2f} us; the function's {flops / 1e9:.3f} GFLOP at {useful:.1f} "
+        f"TFLOP/s ({3 * useful:.1f} TFLOP/s of TF32 products) over the two kernels; "
+        f"{row['bound_ms'] / row['ms'] * 100:.1f}% of the bound, "
+        f"{row['design_floor_ms'] / row['ms'] * 100:.1f}% of the design's floor")
     say(f"  library call: the backward of scaled_dot_product_attention(q, k, v, scale=1.0) ran "
         f"{', '.join(name[:70] for name in names['library_ms'][:6])} (max |err| {lib_err:.3e} "
         "of max |value| against the plain version)")
@@ -860,9 +906,15 @@ def training_path(torch, dev, smi, bandwidth, fp32_peak):
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
+        "bound_fp32_ms": row["bound_fp32_ms"],
+        "design_floor_ms": row["design_floor_ms"],
+        "tf32_peak_tflops": tf32_peak / 1e12,
+        "fp32_peak_tflops": fp32_peak / 1e12,
+        "split_ms": row["split_ms"],
         "library_kernels": [name[:100] for name in names["library_ms"]],
         "times_are": f"one call (delta, dq and dkv) at the BigGAN-{BIGGAN_SIZE} case-2 step's shape "
-                     f"({shape}), on a step's own inputs",
+                     f"({shape}), on a step's own inputs; bound_ms counts the function's products in "
+                     "3xTF32 at the dense TF32 rate, bound_fp32_ms in fp32 FMAs",
     }
 
 
@@ -887,7 +939,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    bandwidth, fp32_peak = card_specs(kind)
+    bandwidth, fp32_peak, tf32_peak = card_specs(kind)
     say(f"card: {smi}")
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
@@ -1028,7 +1080,7 @@ def main() -> int:
     attn["max_abs_err"] = max(attn["max_abs_err"], attn_err)
     del bundle, cpu
     torch.cuda.empty_cache()
-    attn_bwd = training_path(torch, dev, smi, bandwidth, fp32_peak)
+    attn_bwd = training_path(torch, dev, smi, bandwidth, fp32_peak, tf32_peak)
     attn_bwd["max_abs_err"] = max(attn_bwd["max_abs_err"], bwd_err)
 
     say(f"card: {smi}")

@@ -251,4 +251,104 @@ def test_backward_kernels_are_registered_for_sm90a():
         assert f'extern "C" int {symbol}' in text
     assert f"kMaxDk = {attention.MAX_DK}" in text and f"kMaxDv = {attention.MAX_DV}" in text
     assert "sagan_attention_bwd_pallas" in text
-    assert len(dq[2]) == 14 and len(dkv[2]) == 15  # 7 (8) pointers, 6 ints and the stream
+    assert f"kDkvKeys = {attention.SCRATCH_KEYS};" in text and f"kDkvRows = {attention.SCRATCH_ROWS};" in text
+    assert len(dq[2]) == 15 and len(dkv[2]) == 12  # 8 (5) pointers, 6 ints and the stream
+
+
+# ---- the kernels' 3xTF32 arithmetic, emulated ---------------------------------
+#
+# csrc/sagan_attention_bwd.cu forms every product on the tensor cores as
+# lo_a hi_b + hi_a lo_b + hi_a hi_b, with hi = x rounded to TF32 to nearest
+# (ties away from zero, as cvt.rna.tf32.f32) and lo = x - hi, of which the
+# tensor cores read the top 10 mantissa bits (toward zero). The emulation
+# forms the split products exactly (float64) so that what it shows is the
+# split's precision: that it holds the backward's contract against the plain
+# version, where one TF32 pass does not.
+
+
+def _tf32(x: torch.Tensor, nearest: bool) -> torch.Tensor:
+    """x rounded to TF32 (10 mantissa bits): to nearest with ties away from
+    zero (half a TF32 ulp added to the magnitude, the 13 low bits cleared),
+    or toward zero (the low bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    if nearest:
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _mm(a, b, passes, lo_nearest):
+    """a @ b (fp32 [N, M, K] @ [N, K, P]) from TF32 products: one pass
+    (hi hi) or three (lo hi + hi lo + hi hi), each exact, summed in float64
+    and rounded to fp32."""
+    hi_a, hi_b = _tf32(a, True), _tf32(b, True)
+    mm = lambda x, y: torch.bmm(x.double(), y.double())  # noqa: E731
+    if passes == 1:
+        return mm(hi_a, hi_b).float()
+    lo_a, lo_b = _tf32(a - hi_a, lo_nearest), _tf32(b - hi_b, lo_nearest)
+    return (mm(lo_a, hi_b) + mm(hi_a, lo_b) + mm(hi_a, hi_b)).float()
+
+
+def _tf32_bwd(q, k, v, o, lse, do, passes=3, lo_nearest=False):
+    """The backward as the kernels compute it: the five products in TF32
+    passes, exp, delta and the masks in fp32."""
+    mm = lambda a, b: _mm(a, b, passes, lo_nearest)  # noqa: E731
+    p = torch.exp(mm(q, k.transpose(1, 2)) - lse)
+    delta = (do * o).sum(-1, keepdim=True)
+    ds = p * (mm(do, v.transpose(1, 2)) - delta)
+    return mm(ds, k), mm(ds.transpose(1, 2), q), mm(p.transpose(1, 2), do)
+
+
+def _bwd_errors(rng, shapes):
+    """(emulated, plain, summed terms) per gradient, as chip_smoke.py's
+    compare_attention_bwd holds them."""
+    q, k, v = (torch.from_numpy(a) for a in qkv(rng, *shapes[:3], scale=shapes[3]))
+    do = torch.from_numpy(rng.randn(q.shape[0], q.shape[1], v.shape[2]).astype(np.float32))
+    o, lse = attention.sagan_attention_plain(q, k, v, return_lse=True)
+    p = torch.exp(torch.bmm(q, k.transpose(1, 2)) - lse)
+    ds_terms = p * (torch.bmm(do.abs(), v.abs().transpose(1, 2)) + (do * o).sum(-1, keepdim=True).abs())
+    terms = (torch.bmm(ds_terms, k.abs()), torch.bmm(ds_terms.transpose(1, 2), q.abs()),
+             torch.bmm(p.transpose(1, 2), do.abs()))
+    return (q, k, v, o, lse, do), attention.sagan_attention_bwd_plain(q, k, v, o, lse, do), terms
+
+
+BWD_MAX_SHARE = 1e-3  # chip_smoke.py: max |err| of a gradient over the size of its summed terms
+# tests/test_attention.py:59-80's case, odd lengths, and BigGAN-128's attention
+# layer (64 x 64 positions, keys max-pooled to 32 x 32; dk 32, dv 128)
+TF32_CASES = [
+    ((2, 256, 16), (2, 384, 16), (2, 384, 32), 2.0),
+    ((1, 37, 8), (1, 19, 8), (1, 19, 24), 2.0),
+    ((1, 50, 13), (1, 33, 13), (1, 33, 30), 1.0),
+    ((1, 4096, 32), (1, 1024, 32), (1, 1024, 128), 1.0),
+]
+
+
+@pytest.mark.parametrize("lo_nearest", [False, True], ids=["lo_toward_zero", "lo_nearest"])
+@pytest.mark.parametrize("shapes", TF32_CASES, ids=lambda s: "x".join(map(str, s[0][1:] + s[2][1:])))
+def test_3xtf32_products_hold_the_backward_contract(rng, shapes, lo_nearest):
+    """Three TF32 passes meet BWD_TOL and BWD_MAX_SHARE against the plain
+    version, with lo read toward zero (as the kernels feed it) or rounded
+    to nearest (cvt.rna.tf32.f32)."""
+    args, want, terms = _bwd_errors(rng, shapes)
+    got = _tf32_bwd(*args, passes=3, lo_nearest=lo_nearest)
+    for name, g, w, t in zip(("dq", "dk", "dv"), got, want, terms):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **BWD_TOL, err_msg=name)
+        assert float((g - w).abs().max()) <= BWD_MAX_SHARE * float(t.max()), name
+
+
+def test_one_tf32_pass_misses_the_backward_contract(rng):
+    """The same comparison has teeth: one TF32 pass (hi hi only) misses
+    BWD_TOL at BigGAN-128's widths."""
+    args, want, _ = _bwd_errors(rng, TF32_CASES[-1])
+    got = _tf32_bwd(*args, passes=1)
+    worst = max(float(((g - w).abs() - BWD_TOL["rtol"] * w.abs()).max()) for g, w in zip(got, want))
+    assert worst > 10 * BWD_TOL["atol"]
+
+
+def test_tf32_rounding_is_cvt_rna():
+    """_tf32's nearest rounding: ties away from zero, carries into the
+    exponent, leaves TF32 values alone."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2.0 ** -23, 2 - ulp / 2, 1 + ulp, 0.0])
+    want = torch.tensor([1 + ulp, -(1 + ulp), 1.0, 2.0, 1 + ulp, 0.0])
+    assert torch.equal(_tf32(x, True), want)
+    assert torch.equal(_tf32(x[:1], False), torch.tensor([1.0]))

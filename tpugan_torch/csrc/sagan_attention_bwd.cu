@@ -17,35 +17,89 @@
 // Bound: operations. The backward needs s = q k^T, dp = do v^T,
 // dv = p^T do, dq = ds k and dk = ds^T q: 2 Lq Lk (3 dk + 2 dv) FLOPs per
 // batch item, 11.81 GFLOP at the BigGAN-256 shape against 26 MB of inputs
-// and outputs. This design does more: the dq kernel computes s, dp and dq,
-// the dkv kernel s and dp again, then dv and dk, so 2 Lq Lk (4 dk + 3 dv)
-// FLOPs, 17.18 GFLOP. Neither the scores nor p reach device memory.
+// and outputs. The products run on the tensor cores in 3xTF32, three TF32
+// products for each fp32-accurate one, so the least time is 3 x 11.81 GFLOP
+// at the card's dense TF32 rate: 71.6 us on an H100 SXM (495 TFLOP/s).
+// This design computes each product once: the dq kernel computes s, dp, p,
+// ds and dq, and hands p and ds to the dkv kernel through a scratch buffer
+// in device memory (8 bytes per query-key pair, 67 MB at the BigGAN-256
+// shape), which adds 134 MB of traffic (40 us at 3.35 TB/s) instead of the
+// 5.4 GFLOP that computing s and dp a second time would cost.
 //
-// Design (plain fp32 FMAs, no TF32 and no tensor cores, as the Pallas
-// kernels compute in fp32; no atomics, so the result does not depend on the
-// order in which blocks run):
-//  * dq: one block of 256 threads per (batch item, tile of 32 query rows).
-//    Q, dO, lse and delta stay in shared memory; tiles of 64 keys of K and V
-//    are copied with cp.async into one of two stages, so the next tile's
-//    copy runs under this tile's arithmetic (one stage where two do not fit).
-//  * dkv: one cluster of 4 blocks per (batch item, tile of 64 keys). K and V
-//    stay in shared memory; block r of the cluster streams the query tiles
-//    r, r + 4, r + 8, ... through two stages. A grid of 64-key tiles alone
-//    would be 32 blocks at the BigGAN shape, a quarter of the card's SMs;
-//    the split makes it 128. The four partial sums of dk and dv meet in
-//    distributed shared memory, and each block adds up a quarter of the rows
-//    over the cluster in rank order.
-//  * per tile each thread computes a 2 x 4 piece of s and of dp with float4
-//    reads along the head dimension. Rows are padded by 4 floats and a
-//    thread's 4 keys are 16 apart, so neighbouring threads read neighbouring
-//    rows in different banks. p = exp(s - lse) and ds = p (dp - delta) go to
-//    shared memory (dq: ds transposed; dkv: p and ds);
-//  * the accumulations are register tiles: dq's 4 rows x NCK * 32 columns
-//    per warp, dkv's 8 keys x (NCK + NC) * 32 columns per warp, a lane
-//    holding NCK (and NC) columns, read from shared memory as float2/float4.
+// Precision: 3xTF32. Every operand x is split into hi, x rounded to TF32 to
+// nearest with ties away from zero (cvt.rna.tf32.f32's rounding), and
+// lo = x - hi, exact in fp32; a b is formed as lo_a hi_b + hi_a lo_b +
+// hi_a hi_b with fp32 accumulation. The tensor cores read lo's top 10
+// mantissa bits (rounding toward zero) and the dropped lo_a lo_b is about
+// 2^-22 of the product. One TF32 product keeps about three digits, which
+// does not hold the 2e-4 contract at the path's magnitudes (dk reaches 77).
+// exp, the delta subtraction and the masks stay in fp32. The tensor cores
+// align and truncate when they add into an accumulator, so no accumulator
+// takes a long chain of mma: each 3xTF32 product starts from zero and is
+// added to a running sum with an fp32 add that rounds to nearest (add()).
+//
+// Instructions: all five products are mma.sync.m16n8k8 TF32 (warp-level,
+// fragments in registers), not the warpgroup wgmma. Why:
+//  * TF32 wgmma reads both shared-memory operands K-major only, with no
+//    transpose for 32-bit types. Three B operands lie the other way as the
+//    data sit: k for dq = ds k, do for dv = p^T do and q for dk = ds^T q
+//    (their contraction runs over rows). mma.sync loads those fragments with
+//    32-bit shared-memory reads, so one fp32 copy of a tile serves both
+//    orders and no transposed copy is made.
+//  * The 3xTF32 split is done in registers as a fragment is loaded, so
+//    shared memory holds one fp32 plane of each tile; a wgmma B operand
+//    would need its hi and lo planes in shared memory, twice the staged
+//    bytes at dv = 256.
+//  * s and dp (q k^T, do v^T) could meet wgmma's rules; they stay on
+//    mma.sync here so that p and ds come out in the registers of the warp
+//    that writes them. Moving them to wgmma is left for later work.
+//  The accumulator layout of one product (row g, columns 2t and 2t + 1 of
+//  each 8-column tile, g = lane / 4, t = lane % 4) is not the A-fragment
+//  layout of the next (columns t and t + 4). Where p or ds feed a product
+//  from registers (dq) or through the scratch (dkv), the contraction index
+//  is permuted the same way on both operands: the A fragment's k = t is
+//  column 2t of the accumulator, k = t + 4 is 2t + 1, and the B fragment
+//  reads rows 2t and 2t + 1 of the other operand.
+//
+// Design (no atomics, so the result does not depend on the order in which
+// blocks run):
+//  * dq: one block of 8 warps per (batch item, 64 query rows). Q, dO, lse
+//    and delta stay in shared memory; tiles of 32 keys of K and V are copied
+//    with cp.async into two stages, so the next tile's copy runs under this
+//    tile's products. Warp w owns query rows 16 (w % 4) and keys 16 (w / 4)
+//    of each tile: s and dp for its 16 x 16 piece (fragments read with
+//    ldmatrix), p and ds in registers, ds k into its 16 x dk accumulator,
+//    and p and ds to the scratch. The two warps of a row block sum their
+//    partials through shared memory in a fixed order at the end.
+//  * the scratch holds, for each (batch item, 64 keys, 32 query rows), p^T
+//    and then ds^T as [key][slot] with row 8 J + 2u of the tile at slot
+//    8 J + u and row 8 J + 2u + 1 at slot 8 J + u + 4: the dkv kernel's A
+//    fragments in the permuted order above, 16 KB to copy as it lies. Rows
+//    past Lq hold zeros; keys past Lk are not written and feed only rows of
+//    dk and dv that are not written either.
+//  * dkv: one cluster of 4 blocks of 8 warps per (batch item, 64 keys);
+//    block r streams the query tiles r, r + 4, r + 8, ... of 32 rows (Q,
+//    dO, p^T and ds^T) through two cp.async stages. A grid of 64-key tiles
+//    alone would be 32 blocks at the BigGAN shape, a quarter of the card's
+//    SMs; the split makes it 128. Warp w adds p^T do and ds^T q into dv and
+//    dk for keys 32 (w % 2) and a quarter (w / 2) of the columns, each B
+//    fragment serving two 16-key A fragments. The four partial sums of dk
+//    and dv meet in distributed shared memory, and each block adds up 16 of
+//    the rows over the cluster in rank order.
+//  * shared-memory rows are padded to 4 floats past a multiple of 32, so
+//    every fragment read (rows g and columns t, or rows 2t and columns g)
+//    hits 32 distinct banks.
+//  * the split is three integer and fp32 operations (add half a TF32 ulp
+//    to the bits, clear the 13 low bits, subtract); cvt.rna.tf32.f32
+//    compiles to a longer sequence on sm_90a. A NaN or inf x gives a NaN lo,
+//    so the product is NaN as it should be.
 //  Keys past Lk and rows past Lq are copied as zeros, masked out of p, and
-//  not written. Left for later work: TF32 or bf16 tensor-core products
-//  (wgmma), and more blocks per SM.
+//  not written. Shared memory per block: dq 168 KB, dkv 121 KB at the path's
+//  widths (201 and 137 KB at dk 128, dv 256), one block of 8 warps per SM.
+//  What holds it back: mma.sync and not wgmma, with every B fragment read
+//  from shared memory and split beside its three mma; two warps per
+//  scheduler to hide the reads' and the mma's latency; and the scratch's
+//  round trip through device memory.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -57,44 +111,27 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 32;        // query rows per tile
-constexpr int kBK = 64;        // keys per tile
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kDqRows = 64;    // dq: query rows per block
+constexpr int kDqKeys = 32;    // dq: keys per streamed tile
+constexpr int kDkvKeys = 64;   // dkv: keys per cluster
+constexpr int kDkvRows = 32;   // dkv: query rows per streamed tile
 constexpr int kCluster = 4;    // dkv blocks that share one key tile
-constexpr int kLdt = kBQ + 4;  // dq's transposed ds tile, [key][query]
-constexpr int kLdp = kBK + 4;  // dkv's p and ds tiles, [query][key]
+constexpr int kLdp = kDkvRows + 4;  // dkv's p^T and ds^T planes, [key][slot]
+constexpr int kPlane = kDkvKeys * kDkvRows;  // floats of one p^T or ds^T tile of the scratch
 constexpr int kMaxDk = 128;
 constexpr int kMaxDv = 256;
 constexpr int kMaxSharedBytes = 227 * 1024;
 
 // shared floats of each kernel for padded row widths ldk, ldv
-__host__ __device__ constexpr int dq_floats(int ldk, int ldv, int stages) {
-  return kBQ * (ldk + ldv + 2) + stages * kBK * (ldk + ldv) + kBK * kLdt;
+__host__ __device__ constexpr int dq_floats(int ldk, int ldv) {
+  return kDqRows * (ldk + ldv + 2) + 2 * kDqKeys * (ldk + ldv);
 }
-__host__ __device__ constexpr int dkv_floats(int ldk, int ldv, int stages) {
-  return kBK * (ldk + ldv) + stages * kBQ * (ldk + ldv + 2) + 2 * kBQ * kLdp;
+__host__ __device__ constexpr int dkv_floats(int ldk, int ldv) {
+  return 2 * (kDkvRows * (ldk + ldv) + 2 * kDkvKeys * kLdp);
 }
-
-template <int W>
-struct Vec;
-template <>
-struct Vec<2> {
-  __device__ static void load(const float* p, float* out) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-  }
-};
-template <>
-struct Vec<4> {
-  __device__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
-  }
-};
+static_assert(sizeof(float) * dq_floats(kMaxDk + 4, kMaxDv + 4) <= kMaxSharedBytes, "dq smem");
+static_assert(sizeof(float) * dkv_floats(kMaxDk + 4, kMaxDv + 4) <= kMaxSharedBytes, "dkv smem");
 
 // asynchronous global -> shared copies; an invalid source fills zeros
 __device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) {
@@ -116,20 +153,20 @@ __device__ __forceinline__ void copy_wait() {
 // rows [r0, r0 + R) of a row-major [len, d] matrix into dst [R][ld], columns
 // [0, CW): zeros past row len and past column d. 16-byte copies when vec4
 // (d % 4 == 0 and a 16-byte aligned matrix).
-template <int R, int CW>
+template <int NTH, int R, int CW>
 __device__ __forceinline__ void copy_tile(float* dst, int ld, const float* src, int r0, int len,
                                           int d, bool vec4, int t) {
   const int rn = min(R, len - r0);
   const float* base = src + static_cast<int64_t>(r0) * d;
   if (vec4) {
     constexpr int kv = CW / 4;
-    for (int i = t; i < R * kv; i += kThreads) {
+    for (int i = t; i < R * kv; i += NTH) {
       const int r = i / kv, c = (i - r * kv) * 4;
       const bool ok = r < rn && c < d;
       copy16(dst + r * ld + c, ok ? base + static_cast<int64_t>(r) * d + c : src, ok);
     }
   } else {
-    for (int i = t; i < R * CW; i += kThreads) {
+    for (int i = t; i < R * CW; i += NTH) {
       const int r = i / CW, c = i - r * CW;
       const bool ok = r < rn && c < d;
       copy4(dst + r * ld + c, ok ? base + static_cast<int64_t>(r) * d + c : src, ok);
@@ -137,300 +174,468 @@ __device__ __forceinline__ void copy_tile(float* dst, int ld, const float* src, 
   }
 }
 
-// entries [r0, r0 + kBQ) of a length-len row vector (lse, delta)
+// entries [r0, r0 + R) of a length-len row vector (lse, delta)
+template <int NTH, int R>
 __device__ __forceinline__ void copy_rows(float* dst, const float* src, int r0, int len, int t) {
-  for (int i = t; i < kBQ; i += kThreads) {
+  for (int i = t; i < R; i += NTH) {
     const bool ok = r0 + i < len;
     copy4(dst + i, ok ? src + r0 + i : src, ok);
   }
 }
 
-// s[i][j] = sum over d < n of a[ra + i][d] * b[kc + 16 j][d], for i < 2 and
-// j < 4; rows of a and b zero-padded to a multiple of 4 columns
-__device__ __forceinline__ void tile_dot(const float* a, int lda, const float* b, int ldb, int n,
-                                         int ra, int kc, float (&s)[2][4]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-  const float* a0 = a + ra * lda;
-  const float* b0 = b + kc * ldb;
-#pragma unroll 2
-  for (int d = 0; d < n; d += 4) {
-    float4 x[2], y[4];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) x[i] = *reinterpret_cast<const float4*>(a0 + i * lda + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = *reinterpret_cast<const float4*>(b0 + 16 * j * ldb + d);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(x[i].x, y[j].x, s[i][j]);
-        s[i][j] = fmaf(x[i].y, y[j].y, s[i][j]);
-        s[i][j] = fmaf(x[i].z, y[j].z, s[i][j]);
-        s[i][j] = fmaf(x[i].w, y[j].w, s[i][j]);
-      }
-  }
+// ---- 3xTF32 fragments -------------------------------------------------------
+
+// x = hi + lo for the tensor cores: hi is x rounded to TF32 (10 mantissa
+// bits) to nearest with ties away from zero, as cvt.rna.tf32.f32 rounds, by
+// adding half a TF32 ulp to the magnitude and clearing the 13 low bits; lo =
+// x - hi is exact in fp32 and goes to the tensor cores as it is, which read
+// its top 10 mantissa bits (rounding toward zero). Three integer and fp32
+// operations, where cvt.rna.tf32.f32 compiles to a longer sequence. A NaN x
+// gives a NaN lo, so a NaN still reaches the product.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-template <int NCK, int NC, int STAGES>
-__global__ void __launch_bounds__(kThreads)
+// d += a b, one m16n8k8 TF32 tensor-core product with fp32 accumulation.
+// volatile: the compiler must not move it into code that only some lanes of
+// the warp run (mma.sync.aligned needs every lane).
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct FragA {  // 16 x 8: rows g, g + 8 and columns t, t + 4 as a0 (g, t), a1 (g + 8, t), a2, a3
+  uint32_t hi[4], lo[4];
+};
+struct FragB {  // 8 x 8: b0 (k t, n g), b1 (k t + 4, n g)
+  uint32_t hi[2], lo[2];
+};
+
+// Fragments are read from shared memory as fp32 into registers first, all of
+// a step's reads together, and split afterwards, so that the reads' latency
+// is paid once per step and not once per product.
+
+// A from a row-major tile a[m][k] at p[m * ld + k]
+__device__ __forceinline__ void ld_a(float (&r)[4], const float* p, int ld, int g, int t) {
+  r[0] = p[g * ld + t];
+  r[1] = p[(g + 8) * ld + t];
+  r[2] = p[g * ld + t + 4];
+  r[3] = p[(g + 8) * ld + t + 4];
+}
+
+// B from a tile stored k-major in the permuted order of make_a: k = t at
+// row 2t and k = t + 4 at row 2t + 1, b[.][n] at column n
+__device__ __forceinline__ void ld_b_kn(float (&r)[2], const float* p, int ld, int g, int t) {
+  r[0] = p[2 * t * ld + g];
+  r[1] = p[(2 * t + 1) * ld + g];
+}
+
+__device__ __forceinline__ void make_a(FragA& f, const float (&r)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split(r[e], f.hi[e], f.lo[e]);
+}
+__device__ __forceinline__ void make_b(FragB& f, const float (&r)[2]) {
+  split(r[0], f.hi[0], f.lo[0]);
+  split(r[1], f.hi[1], f.lo[1]);
+}
+
+// A from an accumulator fragment c (rows g, g + 8; columns 2t, 2t + 1), with
+// k = t taken from column 2t and k = t + 4 from column 2t + 1
+__device__ __forceinline__ void make_a_acc(FragA& f, const float (&c)[4]) {
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
+}
+
+// acc += d with fp32 adds that round to nearest. The tensor cores align and
+// truncate when they add into an accumulator, so a long chain of mma into
+// one accumulator drifts (7e-4 on dq at the path's widths, against 2e-4):
+// each chain starts from zero and is short, and the running sums are kept
+// outside the tensor cores.
+__device__ __forceinline__ void add(float (&acc)[4], const float (&d)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += d[e];
+}
+
+// Four 8 x 8 matrices of 16-bit values from shared memory, one per register:
+// with fp32 data, four 8-row x 4-column fp32 matrices, lane l getting
+// element (l / 4, l % 4) of each. Lane l gives the address of row l % 8 of
+// matrix l / 8; rows are 16 bytes, 16-byte aligned.
+__device__ __forceinline__ void ldsm4(float (&r)[4], const float* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  uint32_t x[4];
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
+               : "r"(a));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) r[e] = __uint_as_float(x[e]);
+}
+
+// s[j] = a b^T for rows [0, 16) of a and rows [8 j, 8 j + 8) of b, j < 2,
+// over KD columns (both row-major, zero past their width; KD a multiple of
+// 16): s[j] is an accumulator fragment, rows g and g + 8 of a, rows 8 j + 2t
+// and 8 j + 2t + 1 of b. Each step of 8 columns reads A's fragment with one
+// ldmatrix (matrices: rows 0-7 and 8-15 at columns 0-3, then at 4-7) and
+// both B fragments with another (rows 0-7 at columns 0-3 and 4-7, then rows
+// 8-15); the next 16 columns' reads are in flight under this step's
+// products. The hi hi products of 16 columns are added to the sum by add();
+// the two corrections, 2^-11 of it, sum in tensor-core accumulators of their
+// own.
+template <int KD>
+__device__ __forceinline__ void scores(float (&s)[2][4], const float* a, int lda, const float* b,
+                                       int ldb, int lane) {
+  const int mi = lane >> 3, ri = lane & 7;
+  const float* pa = a + (ri + (mi & 1) * 8) * lda + (mi >> 1) * 4;
+  const float* pb = b + (ri + (mi >> 1) * 8) * ldb + (mi & 1) * 4;
+  float big[2][4] = {}, c1[2][4] = {}, c2[2][4] = {};
+  float ra[2][4], rb[2][4];
+  auto fetch = [&](int kk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ldsm4(ra[h], pa + kk + 8 * h);
+      ldsm4(rb[h], pb + kk + 8 * h);
+    }
+  };
+  fetch(0);
+#pragma unroll 2
+  for (int kk = 0; kk < KD; kk += 16) {
+    FragA fa[2];
+    FragB fb[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      make_a(fa[h], ra[h]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float r2[2] = {rb[h][2 * j], rb[h][2 * j + 1]};
+        make_b(fb[h][j], r2);
+      }
+    }
+    if (kk + 16 < KD) fetch(kk + 16);
+    // independent chains side by side: each mma waits on one four steps back
+    float d[2][4] = {};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) mma(c1[j], fa[h].lo, fb[h][j].hi[0], fb[h][j].hi[1]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) mma(c2[j], fa[h].hi, fb[h][j].lo[0], fb[h][j].lo[1]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) mma(d[j], fa[h].hi, fb[h][j].hi[0], fb[h][j].hi[1]);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) add(big[j], d[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = big[j][e] + (c1[j][e] + c2[j][e]);
+}
+
+// d[m][i] = a[m] b[i] in 3xTF32 for 2 x G independent products, issued side
+// by side (all lo hi, then all hi lo, then all hi hi) so that no mma waits
+// on the one before it
+template <int G>
+__device__ __forceinline__ void mma3_grid(float (&d)[2][G][4], const FragA (&a)[2],
+                                          const FragB (&b)[G]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < G; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[m][i][e] = 0.f;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < G; ++i) mma(d[m][i], a[m].lo, b[i].hi[0], b[i].hi[1]);
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < G; ++i) mma(d[m][i], a[m].hi, b[i].lo[0], b[i].lo[1]);
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int i = 0; i < G; ++i) mma(d[m][i], a[m].hi, b[i].hi[0], b[i].hi[1]);
+}
+
+// ---- kernels ----------------------------------------------------------------
+
+template <int CK, int CV>
+__global__ void __launch_bounds__(kThreads, 1)
 attention_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ lse,
                     const float* __restrict__ delta, const float* __restrict__ dout,
-                    float* __restrict__ dq, int lq, int lk, int dk, int dv, int k_vec4,
-                    int v_vec4) {
-  constexpr int CK = NCK * 32, CV = NC * 32, LDK = CK + 4, LDV = CV + 4;
-  constexpr int W = NCK >= 4 ? 4 : NCK;
-  constexpr int G = NCK / W;
+                    float* __restrict__ dq, float* __restrict__ pds, int lq, int lk, int dk,
+                    int dv, int k_vec4, int v_vec4) {
+  constexpr int LDK = CK + 4, LDV = CV + 4, NT = CK / 8;
+  constexpr int SF = kDqKeys * (LDK + LDV);  // one stage: K, V
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* qs = smem;                    // [kBQ][LDK]
-  float* dos = qs + kBQ * LDK;         // [kBQ][LDV]
-  float* ls = dos + kBQ * LDV;         // [kBQ]
-  float* des = ls + kBQ;               // [kBQ]
-  float* stage0 = des + kBQ;           // STAGES x (K [kBK][LDK], V [kBK][LDV])
-  float* dst = stage0 + STAGES * kBK * (LDK + LDV);  // ds transposed, [kBK][kLdt]
+  float* qs = smem;                     // [kDqRows][LDK]
+  float* dos = qs + kDqRows * LDK;      // [kDqRows][LDV]
+  float* ls = dos + kDqRows * LDV;      // [kDqRows]
+  float* des = ls + kDqRows;            // [kDqRows]
+  float* stage0 = des + kDqRows;        // 2 x (K [kDqKeys][LDK], V [kDqKeys][LDV])
 
-  const int t = threadIdx.x;
+  const int t = threadIdx.x, w = t >> 5, g = (t & 31) >> 2, tg = t & 3;
+  const int r0 = (w & 3) * 16;   // this warp's query rows
+  const int c0 = (w >> 2) * 16;  // and keys of each tile
   const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = blockIdx.x * kDqRows;
+  const int nqt = (lq + kDkvRows - 1) / kDkvRows, nkb = (lk + kDkvKeys - 1) / kDkvKeys;
+  float* pdb = pds + static_cast<int64_t>(b) * nkb * nqt * 2 * kPlane;
   const float* kb = k + static_cast<int64_t>(b) * lk * dk;
   const float* vb = v + static_cast<int64_t>(b) * lk * dv;
 
-  copy_tile<kBQ, CK>(qs, LDK, q + static_cast<int64_t>(b) * lq * dk, q0, lq, dk, k_vec4, t);
-  copy_tile<kBQ, CV>(dos, LDV, dout + static_cast<int64_t>(b) * lq * dv, q0, lq, dv, v_vec4, t);
-  copy_rows(ls, lse + static_cast<int64_t>(b) * lq, q0, lq, t);
-  copy_rows(des, delta + static_cast<int64_t>(b) * lq, q0, lq, t);
+  copy_tile<kThreads, kDqRows, CK>(qs, LDK, q + static_cast<int64_t>(b) * lq * dk, q0, lq, dk, k_vec4, t);
+  copy_tile<kThreads, kDqRows, CV>(dos, LDV, dout + static_cast<int64_t>(b) * lq * dv, q0, lq, dv, v_vec4, t);
+  copy_rows<kThreads, kDqRows>(ls, lse + static_cast<int64_t>(b) * lq, q0, lq, t);
+  copy_rows<kThreads, kDqRows>(des, delta + static_cast<int64_t>(b) * lq, q0, lq, t);
   copy_commit();
 
   auto issue = [&](int tile, int st) {
-    float* ks = stage0 + st * kBK * (LDK + LDV);
-    copy_tile<kBK, CK>(ks, LDK, kb, tile * kBK, lk, dk, k_vec4, t);
-    copy_tile<kBK, CV>(ks + kBK * LDK, LDV, vb, tile * kBK, lk, dv, v_vec4, t);
+    float* ks = stage0 + st * SF;
+    copy_tile<kThreads, kDqKeys, CK>(ks, LDK, kb, tile * kDqKeys, lk, dk, k_vec4, t);
+    copy_tile<kThreads, kDqKeys, CV>(ks + kDqKeys * LDK, LDV, vb, tile * kDqKeys, lk, dv, v_vec4, t);
     copy_commit();
   };
 
-  const int sr = (t >> 4) * 2, kc = t & 15;  // this thread's 2 x 4 piece of s and dp
-  const int tx = t & 31, rw = (t >> 5) * 4;  // and its 4 rows x NCK columns of dq
-  float acc[4][NCK];
+  float acc[NT][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int c = 0; c < NCK; ++c) acc[i][c] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  const int ntiles = (lk + kBK - 1) / kBK;
-  if (STAGES == 2) issue(0, 0);
+  const int ntiles = (lk + kDqKeys - 1) / kDqKeys;
+  issue(0, 0);
   for (int it = 0; it < ntiles; ++it) {
-    const int st = STAGES == 2 ? (it & 1) : 0;
-    const int kn = min(kBK, lk - it * kBK);
-    __syncthreads();  // the stage about to be refilled and dst are free
-    if (STAGES == 2) {
-      if (it + 1 < ntiles) {
-        issue(it + 1, st ^ 1);
-        copy_wait<1>();  // this tile's copies (and the resident ones) are done
-      } else {
-        copy_wait<0>();
-      }
+    const int st = it & 1;
+    const int kn = min(kDqKeys, lk - it * kDqKeys);
+    __syncthreads();  // the stage about to be refilled is free
+    if (it + 1 < ntiles) {
+      issue(it + 1, st ^ 1);
+      copy_wait<1>();  // this tile's copies (and the resident ones) are done
     } else {
-      issue(it, 0);
       copy_wait<0>();
     }
     __syncthreads();
-    const float* ks = stage0 + st * kBK * (LDK + LDV);
-    const float* vs = ks + kBK * LDK;
+    const float* ks = stage0 + st * SF;
+    const float* vs = ks + kDqKeys * LDK;
 
     float s[2][4], dp[2][4];
-    tile_dot(qs, LDK, ks, LDK, dk, sr, kc, s);
-    tile_dot(dos, LDV, vs, LDV, dv, sr, kc, dp);
+    scores<CK>(s, qs + r0 * LDK, LDK, ks + c0 * LDK, LDK, t & 31);
+    scores<CV>(dp, dos + r0 * LDV, LDV, vs + c0 * LDV, LDV, t & 31);
+    FragA a[2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int key = kc + 16 * j;
-      float ds[2];
+    for (int j = 0; j < 2; ++j) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float p = key < kn ? expf(s[i][j] - ls[sr + i]) : 0.f;
-        ds[i] = p * (dp[i][j] - des[sr + i]);
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + g + (e >> 1) * 8;
+        const int key = c0 + 8 * j + 2 * tg + (e & 1);
+        const float ex = expf(s[j][e] - ls[row]);  // no branch: every lane reaches the mma
+        const int qq = q0 + row, kk = it * kDqKeys + key;
+        const float p = key < kn && qq < lq ? ex : 0.f;
+        dp[j][e] = p * (dp[j][e] - des[row]);  // ds
+        // p and ds to the scratch tile (kk / 64, qq / 32) as the dkv kernel
+        // reads them: [key][slot], row 8 J + 2u of the tile at slot 8 J + u,
+        // 8 J + 2u + 1 at 8 J + u + 4 (make_a_acc's order)
+        if (qq < nqt * kDkvRows) {
+          float* tile = pdb + (static_cast<int64_t>(kk / kDkvKeys) * nqt + qq / kDkvRows) * 2 * kPlane;
+          const int at = (kk % kDkvKeys) * kDkvRows + (qq & 24) + (g >> 1) + 4 * (g & 1);
+          tile[at] = p;
+          tile[kPlane + at] = dp[j][e];
+        }
       }
-      *reinterpret_cast<float2*>(dst + key * kLdt + sr) = make_float2(ds[0], ds[1]);
+      make_a_acc(a[j], dp[j]);
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kn; ++j) {
-      const float4 d4 = *reinterpret_cast<const float4*>(dst + j * kLdt + rw);
-      const float dv4[4] = {d4.x, d4.y, d4.z, d4.w};
-      float kv[NCK];
+    // dq += ds k over this tile's 16 keys of the warp, 4 column tiles a step
 #pragma unroll
-      for (int g = 0; g < G; ++g) Vec<W>::load(ks + j * LDK + g * 32 * W + W * tx, kv + g * W);
+    for (int c = 0; c < NT; c += 4) {
+      float rb[4][2][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int n = 0; n < 4; ++n)
 #pragma unroll
-        for (int c = 0; c < NCK; ++c) acc[i][c] = fmaf(dv4[i], kv[c], acc[i][c]);
+        for (int j = 0; j < 2; ++j) ld_b_kn(rb[n][j], ks + (c0 + 8 * j) * LDK + 8 * (c + n), LDK, g, tg);
+      float d[4][4] = {};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        FragB f[4];
+#pragma unroll
+        for (int n = 0; n < 4; ++n) make_b(f[n], rb[n][j]);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mma(d[n], a[j].lo, f[n].hi[0], f[n].hi[1]);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mma(d[n], a[j].hi, f[n].lo[0], f[n].lo[1]);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) mma(d[n], a[j].hi, f[n].hi[0], f[n].hi[1]);
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) add(acc[c + n], d[n]);
     }
   }
 
+  // the two key halves: warps 4-7 hand their sums to warps 0-3
+  copy_wait<0>();
+  __syncthreads();
+  float* red = stage0;  // [kDqRows][CK]
+  if (w >= 4) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + rw + i;
-    if (r >= lq) continue;
-    float* row = dq + (static_cast<int64_t>(b) * lq + r) * dk;
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+      for (int e = 0; e < 4; ++e)
+        red[(r0 + g + (e >> 1) * 8) * CK + 8 * n + 2 * tg + (e & 1)] = acc[n][e];
+  }
+  __syncthreads();
+  if (w < 4) {
 #pragma unroll
-      for (int e = 0; e < W; ++e) {
-        const int col = g * 32 * W + W * tx + e;
-        if (col < dk) row[col] = acc[i][g * W + e];
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = r0 + g + (e >> 1) * 8, col = 8 * n + 2 * tg + (e & 1);
+        if (q0 + row < lq && col < dk)
+          dq[(static_cast<int64_t>(b) * lq + q0 + row) * dk + col] = acc[n][e] + red[row * CK + col];
       }
   }
 }
 
-template <int NCK, int NC, int STAGES>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-attention_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ lse,
-                     const float* __restrict__ delta, const float* __restrict__ dout,
-                     float* __restrict__ dk_out, float* __restrict__ dv_out, int lq, int lk,
-                     int dk, int dv, int k_vec4, int v_vec4) {
-  constexpr int CK = NCK * 32, CV = NC * 32, LDK = CK + 4, LDV = CV + 4;
-  constexpr int WK = NCK >= 4 ? 4 : NCK, GK = NCK / WK;
-  constexpr int WV = NC >= 4 ? 4 : NC, GV = NC / WV;
-  constexpr int SF = kBQ * (LDK + LDV + 2);  // one stage: Q, dO, lse, delta
+template <int CK, int CV>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+attention_dkv_kernel(const float* __restrict__ q, const float* __restrict__ dout,
+                     const float* __restrict__ pds, float* __restrict__ dk_out,
+                     float* __restrict__ dv_out, int lq, int lk, int dk, int dv, int k_vec4,
+                     int v_vec4) {
+  constexpr int LDK = CK + 4, LDV = CV + 4;
+  constexpr int QK = CK / 4, QV = CV / 4;  // each warp's quarter of the dk and dv columns
+  constexpr int NK = QK / 8, NV = QV / 8;
+  // one stage: Q [kDkvRows][LDK], dO [kDkvRows][LDV], p^T and ds^T [kDkvKeys][kLdp]
+  constexpr int SF = kDkvRows * (LDK + LDV) + 2 * kDkvKeys * kLdp;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* ks = smem;                     // [kBK][LDK]
-  float* vs = ks + kBK * LDK;           // [kBK][LDV]
-  float* stage0 = vs + kBK * LDV;       // STAGES x SF
-  float* ps = stage0 + STAGES * SF;     // p, [kBQ][kLdp]
-  float* dss = ps + kBQ * kLdp;         // ds, [kBQ][kLdp]
 
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int t = threadIdx.x;
-  const int j0 = blockIdx.y * kBK;
+  const int t = threadIdx.x, w = t >> 5, g = (t & 31) >> 2, tg = t & 3;
+  const int m0 = (w & 1) * 32;  // this warp's 32 keys
+  const int cq = w >> 1;        // and quarter of the columns
+  const int j0 = blockIdx.y * kDkvKeys;
   const int b = blockIdx.z;
-  const int kn = min(kBK, lk - j0);
+  const int kn = min(kDkvKeys, lk - j0);
+  const int nqt = (lq + kDkvRows - 1) / kDkvRows;
   const float* qb = q + static_cast<int64_t>(b) * lq * dk;
   const float* dob = dout + static_cast<int64_t>(b) * lq * dv;
-  const float* lb = lse + static_cast<int64_t>(b) * lq;
-  const float* deb = delta + static_cast<int64_t>(b) * lq;
-
-  copy_tile<kBK, CK>(ks, LDK, k + static_cast<int64_t>(b) * lk * dk, j0, lk, dk, k_vec4, t);
-  copy_tile<kBK, CV>(vs, LDV, v + static_cast<int64_t>(b) * lk * dv, j0, lk, dv, v_vec4, t);
-  copy_commit();
+  const float* pdb = pds + (static_cast<int64_t>(b) * gridDim.y + blockIdx.y) * nqt * 2 * kPlane;
 
   auto issue = [&](int tile, int st) {
-    float* qs = stage0 + st * SF;
-    float* dos = qs + kBQ * LDK;
-    float* ls = dos + kBQ * LDV;
-    copy_tile<kBQ, CK>(qs, LDK, qb, tile * kBQ, lq, dk, k_vec4, t);
-    copy_tile<kBQ, CV>(dos, LDV, dob, tile * kBQ, lq, dv, v_vec4, t);
-    copy_rows(ls, lb, tile * kBQ, lq, t);
-    copy_rows(ls + kBQ, deb, tile * kBQ, lq, t);
+    float* qs = smem + st * SF;
+    float* dos = qs + kDkvRows * LDK;
+    float* pt = dos + kDkvRows * LDV;
+    copy_tile<kThreads, kDkvRows, CK>(qs, LDK, qb, tile * kDkvRows, lq, dk, k_vec4, t);
+    copy_tile<kThreads, kDkvRows, CV>(dos, LDV, dob, tile * kDkvRows, lq, dv, v_vec4, t);
+    // p^T and ds^T: 2 x kDkvKeys rows of kDkvRows floats, contiguous in the scratch
+    copy_tile<kThreads, 2 * kDkvKeys, kDkvRows>(pt, kLdp, pdb + static_cast<int64_t>(tile) * 2 * kPlane,
+                                                0, 2 * kDkvKeys, kDkvRows, true, t);
     copy_commit();
   };
 
-  const int sr = (t >> 4) * 2, kc = t & 15;  // this thread's 2 x 4 piece of s and dp
-  const int tx = t & 31, kw = (t >> 5) * 8;  // and its 8 keys x (NCK + NC) columns of dk, dv
-  float acc_k[8][NCK], acc_v[8][NC];
+  float acc_k[2][NK][4], acc_v[2][NV][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int m = 0; m < 2; ++m) {
 #pragma unroll
-    for (int c = 0; c < NCK; ++c) acc_k[i][c] = 0.f;
+    for (int n = 0; n < NK; ++n)
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc_v[i][c] = 0.f;
+      for (int e = 0; e < 4; ++e) acc_k[m][n][e] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NV; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_v[m][n][e] = 0.f;
   }
 
   // this block's query tiles: rank, rank + kCluster, ...
-  const int nq = (lq + kBQ - 1) / kBQ;
-  const int mine = rank < nq ? (nq - rank + kCluster - 1) / kCluster : 0;
-  if (STAGES == 2 && mine > 0) issue(rank, 0);
+  const int mine = rank < nqt ? (nqt - rank + kCluster - 1) / kCluster : 0;
+  if (mine > 0) issue(rank, 0);
   for (int it = 0; it < mine; ++it) {
-    const int tile = rank + it * kCluster;
-    const int st = STAGES == 2 ? (it & 1) : 0;
-    const int qn = min(kBQ, lq - tile * kBQ);
-    __syncthreads();  // the stage about to be refilled, ps and dss are free
-    if (STAGES == 2) {
-      if (it + 1 < mine) {
-        issue(tile + kCluster, st ^ 1);
-        copy_wait<1>();
-      } else {
-        copy_wait<0>();
-      }
+    const int st = it & 1;
+    __syncthreads();  // the stage about to be refilled is free
+    if (it + 1 < mine) {
+      issue(rank + (it + 1) * kCluster, st ^ 1);
+      copy_wait<1>();
     } else {
-      issue(tile, 0);
       copy_wait<0>();
     }
     __syncthreads();
-    const float* qs = stage0 + st * SF;
-    const float* dos = qs + kBQ * LDK;
-    const float* ls = dos + kBQ * LDV;
-    const float* des = ls + kBQ;
+    const float* qs = smem + st * SF;
+    const float* dos = qs + kDkvRows * LDK;
+    const float* pt = dos + kDkvRows * LDV;  // p^T, then ds^T
 
-    float s[2][4], dp[2][4];
-    tile_dot(qs, LDK, ks, LDK, dk, sr, kc, s);
-    tile_dot(dos, LDV, vs, LDV, dv, sr, kc, dp);
+    // dv += p^T do and dk += ds^T q for keys [m0, m0 + 32), column quarter
+    // cq, in steps of 8 rows; each B fragment serves both 16-key halves
+#pragma unroll 1
+    for (int jj = 0; jj < kDkvRows / 8; ++jj) {
+      float ra[2][2][4], rv[NV][2], rk[NK][2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const bool row_ok = sr + i < qn;
-      const float m = ls[sr + i], de = des[sr + i];
+      for (int m = 0; m < 2; ++m)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = kc + 16 * j;
-        const float p = row_ok && key < kn ? expf(s[i][j] - m) : 0.f;
-        ps[(sr + i) * kLdp + key] = p;
-        dss[(sr + i) * kLdp + key] = p * (dp[i][j] - de);
+        for (int x = 0; x < 2; ++x)
+          ld_a(ra[x][m], pt + (x * kDkvKeys + m0 + 16 * m) * kLdp + 8 * jj, kLdp, g, tg);
+#pragma unroll
+      for (int n = 0; n < NV; ++n) ld_b_kn(rv[n], dos + 8 * jj * LDV + cq * QV + 8 * n, LDV, g, tg);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) ld_b_kn(rk[n], qs + 8 * jj * LDK + cq * QK + 8 * n, LDK, g, tg);
+      FragA ap[2], ad[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        make_a(ap[m], ra[0][m]);
+        make_a(ad[m], ra[1][m]);
       }
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int r = 0; r < qn; ++r) {
-      const float4 p0 = *reinterpret_cast<const float4*>(ps + r * kLdp + kw);
-      const float4 p1 = *reinterpret_cast<const float4*>(ps + r * kLdp + kw + 4);
-      const float4 d0 = *reinterpret_cast<const float4*>(dss + r * kLdp + kw);
-      const float4 d1 = *reinterpret_cast<const float4*>(dss + r * kLdp + kw + 4);
-      const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-      const float dv8[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-      float ov[NC], qv[NCK];
+      constexpr int GV = NV < 4 ? NV : 4;
 #pragma unroll
-      for (int g = 0; g < GV; ++g) Vec<WV>::load(dos + r * LDV + g * 32 * WV + WV * tx, ov + g * WV);
+      for (int h = 0; h < NV; h += GV) {
+        FragB f[GV];
+        float d[2][GV][4];
 #pragma unroll
-      for (int g = 0; g < GK; ++g) Vec<WK>::load(qs + r * LDK + g * 32 * WK + WK * tx, qv + g * WK);
+        for (int i = 0; i < GV; ++i) make_b(f[i], rv[h + i]);
+        mma3_grid(d, ap, f);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+        for (int m = 0; m < 2; ++m)
 #pragma unroll
-        for (int c = 0; c < NC; ++c) acc_v[i][c] = fmaf(pv[i], ov[c], acc_v[i][c]);
-#pragma unroll
-        for (int c = 0; c < NCK; ++c) acc_k[i][c] = fmaf(dv8[i], qv[c], acc_k[i][c]);
+          for (int i = 0; i < GV; ++i) add(acc_v[m][h + i], d[m][i]);
       }
+      FragB f[NK];
+      float d[2][NK][4];
+#pragma unroll
+      for (int i = 0; i < NK; ++i) make_b(f[i], rk[i]);
+      mma3_grid(d, ad, f);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int i = 0; i < NK; ++i) add(acc_k[m][i], d[m][i]);
     }
   }
 
-  // the partial sums to shared memory: dk [kBK][CK], then dv [kBK][CV]
+  // the partial sums to shared memory: dk [kDkvKeys][CK], then dv [kDkvKeys][CV]
   copy_wait<0>();
   __syncthreads();
   float* red_k = smem;
-  float* red_v = smem + kBK * CK;
+  float* red_v = smem + kDkvKeys * CK;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int m = 0; m < 2; ++m)
 #pragma unroll
-    for (int g = 0; g < GK; ++g)
+    for (int e = 0; e < 4; ++e) {
+      const int key = m0 + 16 * m + g + (e >> 1) * 8, col = 2 * tg + (e & 1);
 #pragma unroll
-      for (int e = 0; e < WK; ++e)
-        red_k[(kw + i) * CK + g * 32 * WK + WK * tx + e] = acc_k[i][g * WK + e];
+      for (int n = 0; n < NK; ++n) red_k[key * CK + cq * QK + 8 * n + col] = acc_k[m][n][e];
 #pragma unroll
-    for (int g = 0; g < GV; ++g)
-#pragma unroll
-      for (int e = 0; e < WV; ++e)
-        red_v[(kw + i) * CV + g * 32 * WV + WV * tx + e] = acc_v[i][g * WV + e];
-  }
+      for (int n = 0; n < NV; ++n) red_v[key * CV + cq * QV + 8 * n + col] = acc_v[m][n][e];
+    }
   cluster.sync();
 
   // this block adds up rows [rank * kRows, (rank + 1) * kRows) over the
   // cluster's blocks, in rank order
-  constexpr int kRows = kBK / kCluster;
+  constexpr int kRows = kDkvKeys / kCluster;
   const float* parts_k[kCluster];
   const float* parts_v[kCluster];
 #pragma unroll
@@ -457,59 +662,50 @@ attention_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 struct Args {
   const float *q, *k, *v, *lse, *delta, *dout;
-  float *dq, *dk, *dv;
+  float *dq, *dk, *dv, *pds;
   int n, lq, lk, dkd, dvd, k_vec4, v_vec4;
   cudaStream_t stream;
 };
 
-template <int NCK, int NC, int STAGES>
+template <int CK, int CV>
 cudaError_t launch_dq(const Args& a) {
-  const size_t bytes = sizeof(float) * static_cast<size_t>(dq_floats(NCK * 32 + 4, NC * 32 + 4, STAGES));
-  const cudaError_t set = cudaFuncSetAttribute(attention_dq_kernel<NCK, NC, STAGES>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(bytes));
+  constexpr int bytes = static_cast<int>(sizeof(float)) * dq_floats(CK + 4, CV + 4);
+  const cudaError_t set = cudaFuncSetAttribute(attention_dq_kernel<CK, CV>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (set != cudaSuccess) return set;
-  const dim3 grid((a.lq + kBQ - 1) / kBQ, a.n);
-  attention_dq_kernel<NCK, NC, STAGES><<<grid, kThreads, bytes, a.stream>>>(
-      a.q, a.k, a.v, a.lse, a.delta, a.dout, a.dq, a.lq, a.lk, a.dkd, a.dvd, a.k_vec4, a.v_vec4);
-  return cudaGetLastError();
-}
-
-template <int NCK, int NC, int STAGES>
-cudaError_t launch_dkv(const Args& a) {
-  const size_t bytes = sizeof(float) * static_cast<size_t>(dkv_floats(NCK * 32 + 4, NC * 32 + 4, STAGES));
-  const cudaError_t set = cudaFuncSetAttribute(attention_dkv_kernel<NCK, NC, STAGES>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(bytes));
-  if (set != cudaSuccess) return set;
-  const dim3 grid(kCluster, (a.lk + kBK - 1) / kBK, a.n);
-  attention_dkv_kernel<NCK, NC, STAGES><<<grid, kThreads, bytes, a.stream>>>(
-      a.q, a.k, a.v, a.lse, a.delta, a.dout, a.dk, a.dv, a.lq, a.lk, a.dkd, a.dvd, a.k_vec4,
+  const dim3 grid((a.lq + kDqRows - 1) / kDqRows, a.n);
+  attention_dq_kernel<CK, CV><<<grid, kThreads, bytes, a.stream>>>(
+      a.q, a.k, a.v, a.lse, a.delta, a.dout, a.dq, a.pds, a.lq, a.lk, a.dkd, a.dvd, a.k_vec4,
       a.v_vec4);
   return cudaGetLastError();
 }
 
-// two stages where they fit in a block's shared memory, else one
-template <int NCK, int NC>
-cudaError_t launch_widths(const Args& a, bool dkv) {
-  constexpr int ldk = NCK * 32 + 4, ldv = NC * 32 + 4;
-  if (dkv) {
-    if (sizeof(float) * dkv_floats(ldk, ldv, 2) <= kMaxSharedBytes) return launch_dkv<NCK, NC, 2>(a);
-    return launch_dkv<NCK, NC, 1>(a);
-  }
-  if (sizeof(float) * dq_floats(ldk, ldv, 2) <= kMaxSharedBytes) return launch_dq<NCK, NC, 2>(a);
-  return launch_dq<NCK, NC, 1>(a);
+template <int CK, int CV>
+cudaError_t launch_dkv(const Args& a) {
+  constexpr int bytes = static_cast<int>(sizeof(float)) * dkv_floats(CK + 4, CV + 4);
+  const cudaError_t set = cudaFuncSetAttribute(attention_dkv_kernel<CK, CV>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (set != cudaSuccess) return set;
+  const dim3 grid(kCluster, (a.lk + kDkvKeys - 1) / kDkvKeys, a.n);
+  attention_dkv_kernel<CK, CV><<<grid, kThreads, bytes, a.stream>>>(
+      a.q, a.dout, a.pds, a.dk, a.dv, a.lq, a.lk, a.dkd, a.dvd, a.k_vec4, a.v_vec4);
+  return cudaGetLastError();
 }
 
-template <int NCK>
+template <int CK, int CV>
+cudaError_t launch_widths(const Args& a, bool dkv) {
+  return dkv ? launch_dkv<CK, CV>(a) : launch_dq<CK, CV>(a);
+}
+
+template <int CK>
 cudaError_t launch_dv(const Args& a, bool dkv) {
-  if (a.dvd <= 64) return launch_widths<NCK, 2>(a, dkv);
-  if (a.dvd <= 128) return launch_widths<NCK, 4>(a, dkv);
-  return launch_widths<NCK, 8>(a, dkv);
+  if (a.dvd <= 64) return launch_widths<CK, 64>(a, dkv);
+  if (a.dvd <= 128) return launch_widths<CK, 128>(a, dkv);
+  return launch_widths<CK, 256>(a, dkv);
 }
 
 int launch(Args a, int device, bool dkv) {
-  if (a.n < 1 || a.n > 65535 || a.lq < 1 || a.lk < 1 || (a.lk + kBK - 1) / kBK > 65535 ||
+  if (a.n < 1 || a.n > 65535 || a.lq < 1 || a.lk < 1 || (a.lk + kDkvKeys - 1) / kDkvKeys > 65535 ||
       a.dkd < 1 || a.dkd > kMaxDk || a.dvd < 1 || a.dvd > kMaxDv) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -519,7 +715,7 @@ int launch(Args a, int device, bool dkv) {
   const auto aligned = [](const float* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   a.k_vec4 = a.dkd % 4 == 0 && aligned(a.q) && aligned(a.k);
   a.v_vec4 = a.dvd % 4 == 0 && aligned(a.v) && aligned(a.dout);
-  const cudaError_t rc = a.dkd <= 64 ? launch_dv<2>(a, dkv) : launch_dv<4>(a, dkv);
+  const cudaError_t rc = a.dkd <= 64 ? launch_dv<64>(a, dkv) : launch_dv<128>(a, dkv);
   return static_cast<int>(rc);
 }
 
@@ -532,20 +728,20 @@ int launch(Args a, int device, bool dkv) {
 // outside the kernels' contract).
 extern "C" int tpugan_sagan_attention_bwd_dq_f32(const float* q, const float* k, const float* v,
                                                  const float* lse, const float* delta,
-                                                 const float* dout, float* dq, int n, int lq,
-                                                 int lk, int dk, int dv, int device,
+                                                 const float* dout, float* dq, float* pds, int n,
+                                                 int lq, int lk, int dk, int dv, int device,
                                                  void* stream) {
-  const Args a{q,  k,  v,  lse, delta, dout, dq, nullptr, nullptr,
+  const Args a{q,  k,  v,  lse, delta, dout, dq, nullptr, nullptr, pds,
                n,  lq, lk, dk,  dv,    0,    0,  static_cast<cudaStream_t>(stream)};
   return launch(a, device, false);
 }
 
-extern "C" int tpugan_sagan_attention_bwd_dkv_f32(const float* q, const float* k, const float* v,
-                                                  const float* lse, const float* delta,
-                                                  const float* dout, float* dk_out, float* dv_out,
+extern "C" int tpugan_sagan_attention_bwd_dkv_f32(const float* q, const float* dout,
+                                                  const float* pds, float* dk_out, float* dv_out,
                                                   int n, int lq, int lk, int dk, int dv,
                                                   int device, void* stream) {
-  const Args a{q,  k,  v,  lse, delta, dout, nullptr, dk_out, dv_out,
-               n,  lq, lk, dk,  dv,    0,    0,       static_cast<cudaStream_t>(stream)};
+  const Args a{q, nullptr, nullptr, nullptr, nullptr, dout, nullptr, dk_out, dv_out,
+               const_cast<float*>(pds), n, lq, lk, dk, dv, 0, 0,
+               static_cast<cudaStream_t>(stream)};
   return launch(a, device, true);
 }

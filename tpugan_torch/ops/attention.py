@@ -28,6 +28,10 @@ from tpugan_torch.ops import cuda
 
 MAX_DK = 128  # csrc/sagan_attention.cu and sagan_attention_bwd.cu kMaxDk
 MAX_DV = 256  # csrc/sagan_attention.cu and sagan_attention_bwd.cu kMaxDv
+# the backward's p/ds scratch comes in tiles of SCRATCH_KEYS keys x SCRATCH_ROWS
+# query rows (csrc/sagan_attention_bwd.cu kDkvKeys, kDkvRows)
+SCRATCH_KEYS = 64
+SCRATCH_ROWS = 32
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -158,9 +162,10 @@ def sagan_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def sagan_attention_bwd_cuda(q, k, v, o, lse, do):
-    """Launch ``csrc/sagan_attention_bwd.cu``'s two kernels (dq, then dk and
-    dv) on PyTorch's current stream; ``delta = rowsum(do * o)`` is computed
-    here in plain PyTorch, as ``tpugan`` computes it outside its kernels.
+    """Launch ``csrc/sagan_attention_bwd.cu``'s two kernels on PyTorch's
+    current stream: dq, which also writes p and ds to a scratch tensor, then
+    dk and dv from that scratch. ``delta = rowsum(do * o)`` is computed here
+    in plain PyTorch, as ``tpugan`` computes it outside its kernels.
 
     Takes the contract of :func:`check_attention_bwd_args` on CUDA tensors
     of one device; raises on anything else. Returns ``(dq, dk, dv)``.
@@ -171,12 +176,16 @@ def sagan_attention_bwd_cuda(q, k, v, o, lse, do):
     dq = torch.empty_like(q)
     dk_out = torch.empty_like(k)
     dv_out = torch.empty_like(v)
+    tiles = -(-lk // SCRATCH_KEYS) * -(-lq // SCRATCH_ROWS)
+    pds = torch.empty(n * tiles * 2 * SCRATCH_KEYS * SCRATCH_ROWS, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    ins = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lse.data_ptr(), delta.data_ptr(), do.data_ptr())
     dims = (n, lq, lk, dk, dv, q.device.index, stream)
-    for name, outs in (("sagan_attention_bwd_dq", (dq,)),
-                       ("sagan_attention_bwd_dkv", (dk_out, dv_out))):
-        rc = cuda.kernel(name)(*ins, *(x.data_ptr() for x in outs), *dims)
+    calls = (
+        ("sagan_attention_bwd_dq", (q, k, v, lse, delta, do, dq, pds)),
+        ("sagan_attention_bwd_dkv", (q, do, pds, dk_out, dv_out)),
+    )
+    for name, args in calls:
+        rc = cuda.kernel(name)(*(x.data_ptr() for x in args), *dims)
         if rc != 0:
             raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
         cuda.launches[name] += 1

@@ -47,12 +47,12 @@ KERNELS = {
     "sagan_attention_bwd_dq": (
         "sagan_attention_bwd.cu",
         "tpugan_sagan_attention_bwd_dq_f32",
-        [_c_ptr] * 7 + [_c_int] * 6 + [_c_ptr],
+        [_c_ptr] * 8 + [_c_int] * 6 + [_c_ptr],
     ),
     "sagan_attention_bwd_dkv": (
         "sagan_attention_bwd.cu",
         "tpugan_sagan_attention_bwd_dkv_f32",
-        [_c_ptr] * 8 + [_c_int] * 6 + [_c_ptr],
+        [_c_ptr] * 5 + [_c_int] * 6 + [_c_ptr],
     ),
 }
 
