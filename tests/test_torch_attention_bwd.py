@@ -8,7 +8,8 @@ tests/test_attention.py:78's 2e-4. The CUDA entry points cannot run here, so
 the route tests swap each kernel wrapper for its plain version, after the
 wrapper's own argument checks, with an output that carries no gradient, as
 the kernels' outputs do; the dispatchers are told the tensors are on the
-card. That is the route a CUDA tensor takes.
+card. That is the route a CUDA tensor takes. The kernels' 3xTF32 arithmetic
+is emulated here and held to the backward's contract.
 """
 
 import jax

@@ -302,7 +302,7 @@ __device__ __forceinline__ void scores(float (&s)[2][4], const float* a, int lda
     }
   };
   fetch(0);
-#pragma unroll 2
+#pragma unroll 4
   for (int kk = 0; kk < KD; kk += 16) {
     FragA fa[2];
     FragB fb[2][2];
@@ -391,8 +391,10 @@ attention_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + static_cast<int64_t>(b) * lk * dk;
   const float* vb = v + static_cast<int64_t>(b) * lk * dv;
 
-  copy_tile<kThreads, kDqRows, CK>(qs, LDK, q + static_cast<int64_t>(b) * lq * dk, q0, lq, dk, k_vec4, t);
-  copy_tile<kThreads, kDqRows, CV>(dos, LDV, dout + static_cast<int64_t>(b) * lq * dv, q0, lq, dv, v_vec4, t);
+  const float* qb = q + static_cast<int64_t>(b) * lq * dk;
+  const float* dob = dout + static_cast<int64_t>(b) * lq * dv;
+  copy_tile<kThreads, kDqRows, CK>(qs, LDK, qb, q0, lq, dk, k_vec4, t);
+  copy_tile<kThreads, kDqRows, CV>(dos, LDV, dob, q0, lq, dv, v_vec4, t);
   copy_rows<kThreads, kDqRows>(ls, lse + static_cast<int64_t>(b) * lq, q0, lq, t);
   copy_rows<kThreads, kDqRows>(des, delta + static_cast<int64_t>(b) * lq, q0, lq, t);
   copy_commit();
@@ -400,7 +402,8 @@ attention_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   auto issue = [&](int tile, int st) {
     float* ks = stage0 + st * SF;
     copy_tile<kThreads, kDqKeys, CK>(ks, LDK, kb, tile * kDqKeys, lk, dk, k_vec4, t);
-    copy_tile<kThreads, kDqKeys, CV>(ks + kDqKeys * LDK, LDV, vb, tile * kDqKeys, lk, dv, v_vec4, t);
+    copy_tile<kThreads, kDqKeys, CV>(ks + kDqKeys * LDK, LDV, vb, tile * kDqKeys, lk, dv, v_vec4,
+                                     t);
     copy_commit();
   };
 
@@ -444,7 +447,8 @@ attention_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
         // reads them: [key][slot], row 8 J + 2u of the tile at slot 8 J + u,
         // 8 J + 2u + 1 at 8 J + u + 4 (make_a_acc's order)
         if (qq < nqt * kDkvRows) {
-          float* tile = pdb + (static_cast<int64_t>(kk / kDkvKeys) * nqt + qq / kDkvRows) * 2 * kPlane;
+          const int64_t at_tile = static_cast<int64_t>(kk / kDkvKeys) * nqt + qq / kDkvRows;
+          float* tile = pdb + at_tile * 2 * kPlane;
           const int at = (kk % kDkvKeys) * kDkvRows + (qq & 24) + (g >> 1) + 4 * (g & 1);
           tile[at] = p;
           tile[kPlane + at] = dp[j][e];
@@ -459,7 +463,8 @@ attention_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
-        for (int j = 0; j < 2; ++j) ld_b_kn(rb[n][j], ks + (c0 + 8 * j) * LDK + 8 * (c + n), LDK, g, tg);
+        for (int j = 0; j < 2; ++j)
+          ld_b_kn(rb[n][j], ks + (c0 + 8 * j) * LDK + 8 * (c + n), LDK, g, tg);
       float d[4][4] = {};
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -497,7 +502,8 @@ attention_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int row = r0 + g + (e >> 1) * 8, col = 8 * n + 2 * tg + (e & 1);
         if (q0 + row < lq && col < dk)
-          dq[(static_cast<int64_t>(b) * lq + q0 + row) * dk + col] = acc[n][e] + red[row * CK + col];
+          dq[(static_cast<int64_t>(b) * lq + q0 + row) * dk + col] =
+              acc[n][e] + red[row * CK + col];
       }
   }
 }
@@ -536,8 +542,8 @@ attention_dkv_kernel(const float* __restrict__ q, const float* __restrict__ dout
     copy_tile<kThreads, kDkvRows, CK>(qs, LDK, qb, tile * kDkvRows, lq, dk, k_vec4, t);
     copy_tile<kThreads, kDkvRows, CV>(dos, LDV, dob, tile * kDkvRows, lq, dv, v_vec4, t);
     // p^T and ds^T: 2 x kDkvKeys rows of kDkvRows floats, contiguous in the scratch
-    copy_tile<kThreads, 2 * kDkvKeys, kDkvRows>(pt, kLdp, pdb + static_cast<int64_t>(tile) * 2 * kPlane,
-                                                0, 2 * kDkvKeys, kDkvRows, true, t);
+    const float* from = pdb + static_cast<int64_t>(tile) * 2 * kPlane;
+    copy_tile<kThreads, 2 * kDkvKeys, kDkvRows>(pt, kLdp, from, 0, 2 * kDkvKeys, kDkvRows, true, t);
     copy_commit();
   };
 
