@@ -336,18 +336,12 @@ __device__ __forceinline__ void scores(float (&s)[2][4], const float* a, int lda
     for (int e = 0; e < 4; ++e) s[j][e] = big[j][e] + (c1[j][e] + c2[j][e]);
 }
 
-// d[m][i] = a[m] b[i] in 3xTF32 for 2 x G independent products, issued side
-// by side (all lo hi, then all hi lo, then all hi hi) so that no mma waits
-// on the one before it
+// d[m][i] += a[m] b[i] in 3xTF32 for 2 x G independent products, issued
+// side by side (all lo hi, then all hi lo, then all hi hi) so that no mma
+// waits on the one before it
 template <int G>
 __device__ __forceinline__ void mma3_grid(float (&d)[2][G][4], const FragA (&a)[2],
                                           const FragB (&b)[G]) {
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int i = 0; i < G; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) d[m][i][e] = 0.f;
 #pragma unroll
   for (int m = 0; m < 2; ++m)
 #pragma unroll
@@ -578,47 +572,66 @@ attention_dkv_kernel(const float* __restrict__ q, const float* __restrict__ dout
     const float* pt = dos + kDkvRows * LDV;  // p^T, then ds^T
 
     // dv += p^T do and dk += ds^T q for keys [m0, m0 + 32), column quarter
-    // cq, in steps of 8 rows; each B fragment serves both 16-key halves
+    // cq; each B fragment serves both 16-key halves, and each chain on the
+    // tensor cores covers two steps of 8 rows before add()
 #pragma unroll 1
-    for (int jj = 0; jj < kDkvRows / 8; ++jj) {
-      float ra[2][2][4], rv[NV][2], rk[NK][2];
+    for (int jp = 0; jp < kDkvRows / 8; jp += 2) {
+      FragA ap[2][2], ad[2][2];
 #pragma unroll
-      for (int m = 0; m < 2; ++m)
+      for (int js = 0; js < 2; ++js)
 #pragma unroll
-        for (int x = 0; x < 2; ++x)
-          ld_a(ra[x][m], pt + (x * kDkvKeys + m0 + 16 * m) * kLdp + 8 * jj, kLdp, g, tg);
+        for (int m = 0; m < 2; ++m) {
+          float r[2][4];
 #pragma unroll
-      for (int n = 0; n < NV; ++n) ld_b_kn(rv[n], dos + 8 * jj * LDV + cq * QV + 8 * n, LDV, g, tg);
-#pragma unroll
-      for (int n = 0; n < NK; ++n) ld_b_kn(rk[n], qs + 8 * jj * LDK + cq * QK + 8 * n, LDK, g, tg);
-      FragA ap[2], ad[2];
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        make_a(ap[m], ra[0][m]);
-        make_a(ad[m], ra[1][m]);
-      }
-      constexpr int GV = NV < 4 ? NV : 4;
+          for (int x = 0; x < 2; ++x)
+            ld_a(r[x], pt + (x * kDkvKeys + m0 + 16 * m) * kLdp + 8 * (jp + js), kLdp, g, tg);
+          make_a(ap[js][m], r[0]);
+          make_a(ad[js][m], r[1]);
+        }
+      constexpr int GV = NV < 2 ? NV : 2;
 #pragma unroll
       for (int h = 0; h < NV; h += GV) {
-        FragB f[GV];
-        float d[2][GV][4];
+        float rv[2][GV][2];
 #pragma unroll
-        for (int i = 0; i < GV; ++i) make_b(f[i], rv[h + i]);
-        mma3_grid(d, ap, f);
+        for (int js = 0; js < 2; ++js)
+#pragma unroll
+          for (int i = 0; i < GV; ++i)
+            ld_b_kn(rv[js][i], dos + 8 * (jp + js) * LDV + cq * QV + 8 * (h + i), LDV, g, tg);
+        float d[2][GV][4] = {};
+#pragma unroll
+        for (int js = 0; js < 2; ++js) {
+          FragB f[GV];
+#pragma unroll
+          for (int i = 0; i < GV; ++i) make_b(f[i], rv[js][i]);
+          mma3_grid(d, ap[js], f);
+        }
 #pragma unroll
         for (int m = 0; m < 2; ++m)
 #pragma unroll
           for (int i = 0; i < GV; ++i) add(acc_v[m][h + i], d[m][i]);
       }
-      FragB f[NK];
-      float d[2][NK][4];
+      constexpr int GK = NK < 2 ? NK : 2;
 #pragma unroll
-      for (int i = 0; i < NK; ++i) make_b(f[i], rk[i]);
-      mma3_grid(d, ad, f);
+      for (int h = 0; h < NK; h += GK) {
+        float rk[2][GK][2];
 #pragma unroll
-      for (int m = 0; m < 2; ++m)
+        for (int js = 0; js < 2; ++js)
 #pragma unroll
-        for (int i = 0; i < NK; ++i) add(acc_k[m][i], d[m][i]);
+          for (int i = 0; i < GK; ++i)
+            ld_b_kn(rk[js][i], qs + 8 * (jp + js) * LDK + cq * QK + 8 * (h + i), LDK, g, tg);
+        float d[2][GK][4] = {};
+#pragma unroll
+        for (int js = 0; js < 2; ++js) {
+          FragB f[GK];
+#pragma unroll
+          for (int i = 0; i < GK; ++i) make_b(f[i], rk[js][i]);
+          mma3_grid(d, ad[js], f);
+        }
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int i = 0; i < GK; ++i) add(acc_k[m][h + i], d[m][i]);
+      }
     }
   }
 
