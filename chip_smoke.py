@@ -181,12 +181,14 @@ def time_ms(torch, fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def device_kernels(torch, fn, iters):
+def device_kernels(torch, fn, iters, expect=()):
     """Device time (ms) and count per call of each kernel and copy that
     ``iters`` calls of ``fn`` ran, from torch.profiler (CUPTI). User
     annotations (``Optimizer.step#...``) span kernels already counted and are
-    left out. A trace with no device time at all is taken again, twice at
-    most, and each retake prints a line."""
+    left out. A trace with no device time at all, or one that holds fewer
+    than one launch per call of a kernel whose symbol is in ``expect`` (one
+    trace recorded a single launch of 20), is taken again, twice at most,
+    and each retake prints a line."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -202,10 +204,12 @@ def device_kernels(torch, fn, iters):
             if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0
             and not getattr(e, "is_user_annotation", False)
         }
-        if found:
+        short = [sym for sym in expect if sum(n for key, (_, n) in found.items() if sym in key) < 1]
+        if found and not short:
             return found
-        say(f"profiler: trace {attempt} of 3 saw no device time; taking it again")
-    raise RuntimeError("chip_smoke: three profiler traces in a row saw no device time")
+        say(f"profiler: trace {attempt} of 3 saw no device time or missed launches of {short}; "
+            "taking it again")
+    raise RuntimeError("chip_smoke: three profiler traces in a row saw no device time or missed launches")
 
 
 def request_latency(torch, run, seed, label):
@@ -449,7 +453,8 @@ def biggan_path(torch, dev, parser, smi, bandwidth, fp32_peak):
     row = {}
     names = {}
     for key, fn in calls.items():
-        kernels = device_kernels(torch, fn, iters=20)
+        expect = ("sagan_attention_kernel",) if key == "ms" else ()
+        kernels = device_kernels(torch, fn, iters=20, expect=expect)
         row[key] = sum(ms for ms, _ in kernels.values())
         names[key] = sorted(kernels, key=lambda name: -kernels[name][0])
     nbytes = 4 * (q.numel() + k.numel() + v.numel() + n * lq * dv)
@@ -807,7 +812,8 @@ def training_path(torch, dev, smi, bandwidth, fp32_peak, tf32_peak):
     }
     row, names, split = {}, {}, {}
     for key, fn in calls.items():
-        kernels = device_kernels(torch, fn, iters=20)
+        expect = ("attention_dq_kernel", "attention_dkv_kernel") if key == "ms" else ()
+        kernels = device_kernels(torch, fn, iters=20, expect=expect)
         row[key] = sum(ms for ms, _ in kernels.values())
         names[key] = sorted(kernels, key=lambda name: -kernels[name][0])
         if key == "ms":
@@ -1062,7 +1068,8 @@ def main() -> int:
         flops = 2 * 9 * x.numel()
         row = {"shape": [BATCH, c, r, r]}
         for key, fn in calls.items():
-            row[key] = sum(ms for ms, _ in device_kernels(torch, fn, iters=20).values())
+            expect = ("upfirdn2d_kernel",) if key == "ms" else ()
+            row[key] = sum(ms for ms, _ in device_kernels(torch, fn, iters=20, expect=expect).values())
         row["bound_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
         row["bound_by"] = "bytes" if nbytes / bandwidth >= flops / fp32_peak else "operations"
         rows.append(row)
