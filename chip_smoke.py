@@ -186,9 +186,9 @@ def device_kernels(torch, fn, iters, expect=()):
     ``iters`` calls of ``fn`` ran, from torch.profiler (CUPTI). User
     annotations (``Optimizer.step#...``) span kernels already counted and are
     left out. A trace with no device time at all, or one that holds fewer
-    than one launch per call of a kernel whose symbol is in ``expect`` (one
-    trace recorded a single launch of 20), is taken again, twice at most,
-    and each retake prints a line."""
+    than one launch per call of a kernel whose symbol is in ``expect``, is
+    taken again, twice at most, and each retake prints a line. When every
+    trace missed launches, raises MissedLaunches with the last one."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -209,7 +209,32 @@ def device_kernels(torch, fn, iters, expect=()):
             return found
         say(f"profiler: trace {attempt} of 3 saw no device time or missed launches of {short}; "
             "taking it again")
-    raise RuntimeError("chip_smoke: three profiler traces in a row saw no device time or missed launches")
+    if found:
+        raise MissedLaunches(found)
+    raise RuntimeError("chip_smoke: three profiler traces in a row saw no device time")
+
+
+class MissedLaunches(RuntimeError):
+    def __init__(self, found):
+        super().__init__("chip_smoke: three profiler traces in a row missed kernel launches")
+        self.found = found
+
+
+def kernel_ms(torch, fn, expect):
+    """Device time per call of ``fn`` (ms), the kernels a trace of it saw,
+    and where the time comes from: torch.profiler, or CUDA events around 20
+    back-to-back calls where three traces in a row missed launches of a
+    kernel in ``expect`` (on the card, traces of the attention forward after
+    the BigGAN path's profiled requests recorded 1 launch of 20, or none,
+    while the same calls traced alone record all 20)."""
+    try:
+        kernels = device_kernels(torch, fn, iters=20, expect=expect)
+        return sum(ms for ms, _ in kernels.values()), kernels, "torch.profiler"
+    except MissedLaunches as missed:
+        ms = time_ms(torch, fn, iters=20)
+        say(f"profiler: three traces missed launches of {list(expect)}; CUDA events instead: "
+            f"{ms * 1e3:.2f} us per call")
+        return ms, missed.found, "CUDA events"
 
 
 def request_latency(torch, run, seed, label):
@@ -453,9 +478,11 @@ def biggan_path(torch, dev, parser, smi, bandwidth, fp32_peak):
     row = {}
     names = {}
     for key, fn in calls.items():
-        expect = ("sagan_attention_kernel",) if key == "ms" else ()
-        kernels = device_kernels(torch, fn, iters=20, expect=expect)
-        row[key] = sum(ms for ms, _ in kernels.values())
+        if key == "ms":
+            row[key], kernels, row["ms_from"] = kernel_ms(torch, fn, ("sagan_attention_kernel",))
+        else:
+            kernels = device_kernels(torch, fn, iters=20)
+            row[key] = sum(ms for ms, _ in kernels.values())
         names[key] = sorted(kernels, key=lambda name: -kernels[name][0])
     nbytes = 4 * (q.numel() + k.numel() + v.numel() + n * lq * dv)
     flops = 2 * n * lq * lk * (dk + dv)
@@ -488,6 +515,7 @@ def biggan_path(torch, dev, parser, smi, bandwidth, fp32_peak):
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
+        "ms_from": row["ms_from"],
         "library_kernels": [name[:100] for name in names["library_ms"]],
         "times_are": f"one call at the BigGAN-{BIGGAN_SIZE} path's shape ({shape}), on a request's own inputs",
     }
@@ -812,12 +840,14 @@ def training_path(torch, dev, smi, bandwidth, fp32_peak, tf32_peak):
     }
     row, names, split = {}, {}, {}
     for key, fn in calls.items():
-        expect = ("attention_dq_kernel", "attention_dkv_kernel") if key == "ms" else ()
-        kernels = device_kernels(torch, fn, iters=20, expect=expect)
-        row[key] = sum(ms for ms, _ in kernels.values())
-        names[key] = sorted(kernels, key=lambda name: -kernels[name][0])
         if key == "ms":
+            row[key], kernels, row["ms_from"] = kernel_ms(torch, fn, ("attention_dq_kernel",
+                                                                    "attention_dkv_kernel"))
             split = {kname: ms for kname, (ms, _) in kernels.items()}
+        else:
+            kernels = device_kernels(torch, fn, iters=20)
+            row[key] = sum(ms for ms, _ in kernels.values())
+        names[key] = sorted(kernels, key=lambda name: -kernels[name][0])
     n, lq, dk = q.shape
     lk, dv = v.shape[1], v.shape[2]
     nbytes = 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel() + do.numel() + lse.numel())
@@ -851,16 +881,19 @@ def training_path(torch, dev, smi, bandwidth, fp32_peak, tf32_peak):
         f"TFLOP/s fp32 outside the tensor cores); this design's floor {row['design_floor_ms'] * 1e3:.2f} "
         f"us (dq kernel then dkv kernel, each at the larger of its 3xTF32 operations and its bytes, "
         f"the p/ds scratch of {scratch / 1e6:.3f} MB written by one and read by the other)")
-    row["split_ms"] = {}
-    for kname, ms in sorted(split.items(), key=lambda kv: -kv[1]):
-        say(f"  kernel call's device time: {ms * 1e3:8.2f} us  {kname[:90]}")
-        part = next((p_ for p_ in ("dq", "dkv") if f"attention_{p_}_kernel" in kname), "delta")
-        row["split_ms"][part] = row["split_ms"].get(part, 0.0) + ms
-    useful = flops / (row["split_ms"]["dq"] + row["split_ms"]["dkv"]) / 1e9
-    say(f"  dq {row['split_ms']['dq'] * 1e3:.2f} us, dkv {row['split_ms']['dkv'] * 1e3:.2f} us, delta "
-        f"{row['split_ms']['delta'] * 1e3:.2f} us; the function's {flops / 1e9:.3f} GFLOP at {useful:.1f} "
-        f"TFLOP/s ({3 * useful:.1f} TFLOP/s of TF32 products) over the two kernels; "
-        f"{row['bound_ms'] / row['ms'] * 100:.1f}% of the bound, "
+    # the call's time by kernel, where the trace held every launch
+    row["split_ms"] = None
+    if row["ms_from"] == "torch.profiler":
+        row["split_ms"] = {"dq": 0.0, "dkv": 0.0, "delta": 0.0}
+        for kname, ms in sorted(split.items(), key=lambda kv: -kv[1]):
+            say(f"  kernel call's device time: {ms * 1e3:8.2f} us  {kname[:90]}")
+            part = next((p_ for p_ in ("dq", "dkv") if f"attention_{p_}_kernel" in kname), "delta")
+            row["split_ms"][part] += ms
+        useful = flops / (row["split_ms"]["dq"] + row["split_ms"]["dkv"]) / 1e9
+        say(f"  dq {row['split_ms']['dq'] * 1e3:.2f} us, dkv {row['split_ms']['dkv'] * 1e3:.2f} us, "
+            f"delta {row['split_ms']['delta'] * 1e3:.2f} us; the function's {flops / 1e9:.3f} GFLOP at "
+            f"{useful:.1f} TFLOP/s ({3 * useful:.1f} TFLOP/s of TF32 products) over the two kernels")
+    say(f"  {row['bound_ms'] / row['ms'] * 100:.1f}% of the bound, "
         f"{row['design_floor_ms'] / row['ms'] * 100:.1f}% of the design's floor")
     say(f"  library call: the backward of scaled_dot_product_attention(q, k, v, scale=1.0) ran "
         f"{', '.join(name[:70] for name in names['library_ms'][:6])} (max |err| {lib_err:.3e} "
@@ -917,6 +950,7 @@ def training_path(torch, dev, smi, bandwidth, fp32_peak, tf32_peak):
         "tf32_peak_tflops": tf32_peak / 1e12,
         "fp32_peak_tflops": fp32_peak / 1e12,
         "split_ms": row["split_ms"],
+        "ms_from": row["ms_from"],
         "library_kernels": [name[:100] for name in names["library_ms"]],
         "times_are": f"one call (delta, dq and dkv) at the BigGAN-{BIGGAN_SIZE} case-2 step's shape "
                      f"({shape}), on a step's own inputs; bound_ms counts the function's products in "
@@ -1068,8 +1102,10 @@ def main() -> int:
         flops = 2 * 9 * x.numel()
         row = {"shape": [BATCH, c, r, r]}
         for key, fn in calls.items():
-            expect = ("upfirdn2d_kernel",) if key == "ms" else ()
-            row[key] = sum(ms for ms, _ in device_kernels(torch, fn, iters=20, expect=expect).values())
+            if key == "ms":
+                row[key], _, row["ms_from"] = kernel_ms(torch, fn, ("upfirdn2d_kernel",))
+            else:
+                row[key] = sum(ms for ms, _ in device_kernels(torch, fn, iters=20).values())
         row["bound_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
         row["bound_by"] = "bytes" if nbytes / bandwidth >= flops / fp32_peak else "operations"
         rows.append(row)
