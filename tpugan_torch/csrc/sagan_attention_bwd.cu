@@ -254,9 +254,9 @@ __device__ __forceinline__ void make_a_acc(FragA& f, const float (&c)[4]) {
 
 // acc += d with fp32 adds that round to nearest. The tensor cores align and
 // truncate when they add into an accumulator, so a long chain of mma into
-// one accumulator drifts (7e-4 on dq at the path's widths, against 2e-4):
-// each chain starts from zero and is short, and the running sums are kept
-// outside the tensor cores.
+// one accumulator drifts past the 2e-4 contract at the path's widths: each
+// chain starts from zero and is short, and the running sums are kept outside
+// the tensor cores.
 __device__ __forceinline__ void add(float (&acc)[4], const float (&d)[4]) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) acc[e] += d[e];
