@@ -220,21 +220,32 @@ class MissedLaunches(RuntimeError):
         self.found = found
 
 
-def kernel_ms(torch, fn, expect):
+def kernel_ms(torch, fn, expect, device_bound=False):
     """Device time per call of ``fn`` (ms), the kernels a trace of it saw,
     and where the time comes from: torch.profiler, or CUDA events around 20
     back-to-back calls where three traces in a row missed launches of a
-    kernel in ``expect`` (on the card, traces of the attention forward after
-    the BigGAN path's profiled requests recorded 1 launch of 20, or none,
-    while the same calls traced alone record all 20)."""
-    try:
-        kernels = device_kernels(torch, fn, iters=20, expect=expect)
-        return sum(ms for ms, _ in kernels.values()), kernels, "torch.profiler"
-    except MissedLaunches as missed:
-        ms = time_ms(torch, fn, iters=20)
-        say(f"profiler: three traces missed launches of {list(expect)}; CUDA events instead: "
-            f"{ms * 1e3:.2f} us per call")
-        return ms, missed.found, "CUDA events"
+    kernel in ``expect``. On the card, traces taken after the paths'
+    profiled requests and steps recorded 1 launch of 20, none, or 20
+    launches at half the kernel's time, while the same calls traced alone
+    record all 20. For a call whose back-to-back time is the device's
+    (``device_bound``: long kernels, not the small blurs, whose back-to-back
+    time is the host's), a trace under 0.9 of that time is taken again too."""
+    events = time_ms(torch, fn, iters=20)
+    kernels = {}
+    for attempt in range(1, 4):
+        try:
+            kernels = device_kernels(torch, fn, iters=20, expect=expect)
+        except MissedLaunches as missed:
+            kernels = missed.found
+            break
+        total = sum(ms for ms, _ in kernels.values())
+        if not device_bound or total >= 0.9 * events:
+            return total, kernels, "torch.profiler"
+        say(f"profiler: trace {attempt} of 3 held {total * 1e3:.2f} us per call, under 0.9 of the "
+            f"CUDA events' {events * 1e3:.2f} us; taking it again")
+    say(f"profiler: no complete trace of {list(expect)}; CUDA events instead: {events * 1e3:.2f} us "
+        "per call")
+    return events, kernels, "CUDA events"
 
 
 def request_latency(torch, run, seed, label):
@@ -479,7 +490,8 @@ def biggan_path(torch, dev, parser, smi, bandwidth, fp32_peak):
     names = {}
     for key, fn in calls.items():
         if key == "ms":
-            row[key], kernels, row["ms_from"] = kernel_ms(torch, fn, ("sagan_attention_kernel",))
+            row[key], kernels, row["ms_from"] = kernel_ms(torch, fn, ("sagan_attention_kernel",),
+                                                          device_bound=True)
         else:
             kernels = device_kernels(torch, fn, iters=20)
             row[key] = sum(ms for ms, _ in kernels.values())
@@ -841,8 +853,8 @@ def training_path(torch, dev, smi, bandwidth, fp32_peak, tf32_peak):
     row, names, split = {}, {}, {}
     for key, fn in calls.items():
         if key == "ms":
-            row[key], kernels, row["ms_from"] = kernel_ms(torch, fn, ("attention_dq_kernel",
-                                                                    "attention_dkv_kernel"))
+            row[key], kernels, row["ms_from"] = kernel_ms(
+                torch, fn, ("attention_dq_kernel", "attention_dkv_kernel"), device_bound=True)
             split = {kname: ms for kname, (ms, _) in kernels.items()}
         else:
             kernels = device_kernels(torch, fn, iters=20)
