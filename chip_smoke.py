@@ -9,16 +9,18 @@ a machine without a GPU or a directory without the repository.
 Phases:
   1. the card (name and power limit, from nvidia-smi) and the kernel build;
   2. each kernel against its plain PyTorch version on the card, at the main
-     paths' shapes and at the TPU kernels' contract cases (TF32 off), and
-     out-of-contract calls refused;
+     paths' shapes and at the TPU kernels' contract cases (TF32 off), the
+     FIR kernel also at its tiles' edge cases and slice 3's FIRs, and
+     out-of-contract calls (and FIR launch plans) refused;
   3. the StyleGANv1 Cat256 path: the bundle (random weights from a seed,
      batch 2) answers requests through ``tpugan_torch.cli.infer_e.run``
      while the kernels' launches are counted; one request is replayed on
      the CPU, where the plain versions run, and compared;
   4. its times: request latency, the device time of a request by kernel,
-     and the FIR kernel's device time beside its plain version, one library
-     call for the same function and the least time the card could take
-     (its bound);
+     and the FIR kernel's device time at each blur shape beside its plain
+     version, one library call for the same function and the least time
+     the card could take (its bound), the two largest also with L2
+     flushed, summed for B1 and B2; slice 3's FIRs timed for the record;
   5. the BigGAN-deep-256 + E_BIG path (mtype 4) the same way: the attention
      kernel on the path's own q/k/v, requests with launch counts, a request
      replayed on the CPU with every SelfAttn gamma set non-zero, latency,
@@ -86,6 +88,46 @@ EXTRA_CASES = (
     (2, 1, (1, 3, 3, 1), (2, 1), (2, 5, 5, 3), 4.0),
     (1, 1, (1, 7, 21, 35, 35, 21, 7, 1), (4, 3), (1, 12, 10, 5), 1.0),
 )
+TAPS8 = (1, 7, 21, 35, 35, 21, 7, 1)
+# the tiled design's edges (label, up, down, taps, pad, NHWC shape, gain):
+# rows and plane bases off 16-byte boundaries (4-byte copies), a tall
+# narrow plane (row bands, the last one short) and a wide short one (2-D
+# tiles), 512 + 3 small planes (the last block holds fewer), 8x8 taps with
+# up 2 (both pad parities) and down 2 (odd sizes), a pad past the taps,
+# and non-separable taps with kh != kw
+TILE_CASES = (
+    ("planes 5x7", 1, 1, (1, 2, 1), (1, 1), (2, 5, 7, 6), 1.0),
+    ("planes 9x11", 1, 1, (1, 2, 1), (1, 1), (1, 9, 11, 64), 1.0),
+    ("tall narrow", 1, 1, (1, 2, 1), (1, 1), (1, 300, 20, 3), 1.0),
+    ("wide short", 1, 1, (1, 2, 1), (1, 1), (1, 3, 1030, 3), 1.0),
+    ("515 planes", 1, 1, (1, 2, 1), (1, 1), (1, 8, 8, 515), 1.0),
+    ("8x8 taps up2", 2, 1, TAPS8, (4, 3), (2, 19, 23, 5), 4.0),
+    ("8x8 taps up2 odd pad", 2, 1, TAPS8, (3, 4), (1, 16, 12, 3), 4.0),
+    ("8x8 taps down2", 1, 2, TAPS8, (3, 3), (2, 37, 29, 5), 1.0),
+    ("8x8 taps up2 down2", 2, 2, TAPS8, (3, 4), (1, 13, 11, 3), 1.0),
+    ("pad (5, 4)", 1, 1, (1, 2, 1), (5, 4), (2, 12, 16, 4), 1.0),
+    ("taps 3x5", 1, 1, ((1, 2, 0, -1, 3), (2, 4, 1, 0, 1), (0, 1, 5, 2, 1)), (2, 3), (2, 17, 36, 3), 1.0),
+    ("taps 2x7 up2", 2, 1, ((1, 2, 3, 4, 3, 2, 1), (0, 1, 1, 2, 1, 1, 0)), (3, 3), (1, 10, 9, 3), 4.0),
+)
+# slice 3's FIRs at their sizes (label, up, down, taps, pad, NCHW shape,
+# gain): the same-size 4-tap FIR after SG2-1024's transposed conv
+# (tpugan/models/stylegan2.py:233-244), the ToRGB skip's up-2 (:424),
+# E_Blur's blur, and a down-2 4-tap FIR; held to the plain version and
+# timed for the record
+SLICE3_FIRS = (
+    ("SG2 4-tap FIR", 1, 1, (1, 3, 3, 1), (1, 1), (2, 32, 1025, 1025), 4.0),
+    ("SG2 ToRGB skip up-2", 2, 1, (1, 3, 3, 1), (2, 1), (2, 3, 512, 512), 4.0),
+    ("E_Blur blur", 1, 1, (1, 2, 1), (1, 1), (2, 16, 1024, 1024), 1.0),
+    ("down-2 4-tap FIR", 1, 2, (1, 3, 3, 1), (1, 1), (2, 3, 1024, 1024), 1.0),
+)
+# the blur shapes also timed with L2 flushed before each call (their inputs
+# and outputs are 33.6 and 67.1 MB; the L2 holds 50 MB)
+FLUSHED_BLURS = ((128, 128), (64, 256))
+FLUSH_BYTES = 256 * 2**20
+# B1 and B2 of tpugan's dispatch (tpugan/ops/upfirdn.py:145-166): C % 128 == 0
+# goes to B1, else 128 % C == 0 to B2
+B1_BLURS = tuple(cr for cr in PATH_BLURS if cr[0] % 128 == 0)
+B2_BLURS = tuple(cr for cr in PATH_BLURS if cr[0] % 128 != 0)
 KERNEL_TOL = 1e-5  # abs and rel, the Pallas kernels' own contract
 CPU_GPU_ATOL = 1e-3  # whole request, fp32 on both sides: cuDNN vs CPU conv summation order
 # tests/test_attention.py's cases: (q, k, v shapes, input scale, rtol, atol, check lse);
@@ -970,6 +1012,207 @@ def training_path(torch, dev, smi, bandwidth, fp32_peak, tf32_peak):
     }
 
 
+def fir_parity(torch, dev, gen):
+    """The FIR kernel against its plain version on the path's blurs, the
+    Pallas kernels' contract cases, the tiled design's edges and slice 3's
+    FIRs at their sizes; out-of-contract calls and plans refused. Returns
+    the max |err|."""
+    from tpugan_torch.ops import cuda, upfirdn
+    from tpugan_torch.ops.upfirdn import setup_fir_kernel, upfirdn2d_cuda, upfirdn2d_plain
+
+    cases = [(f"blur {c}x{r}x{r}", 1, 1, (1, 2, 1), (1, 1), (BATCH, r, r, c), 1.0)
+             for c, r in PATH_BLURS]
+    cases += [(f"B1 up{u} down{d}", u, d, t, p, s, 1.0) for u, d, t, p, s in B1_CASES]
+    cases += [("B2", 1, 1, t, p, s, 1.0) for t, p, s in B2_CASES]
+    cases += [(f"up{u} down{d} gain{g:g}", u, d, t, p, s, g) for u, d, t, p, s, g in EXTRA_CASES]
+    cases += list(TILE_CASES)
+    cases += [(label, u, d, t, p, (n, h, w, c), g) for label, u, d, t, p, (n, c, h, w), g in SLICE3_FIRS]
+    max_err = 0.0
+    cuda.reset_launches()
+    for label, up, down, taps, pad, (n, h, w, c), gain in cases:
+        x = torch.randn(n, c, h, w, device=dev, generator=gen)
+        taps = setup_fir_kernel(taps)
+        kh, kw = taps.shape
+        plan = upfirdn.fir_plan(n * c, h, w, up, down, pad[0], kh, kw,
+                                (h * up + sum(pad) - kh) // down + 1, (w * up + sum(pad) - kw) // down + 1)
+        label = (f"{label} taps{taps.shape[0]}x{taps.shape[1]} pad{pad} NCHW{(n, c, h, w)} (strips "
+                 f"{plan.rh}x{plan.rw}, tile {plan.tile_rows}x{plan.tile_cols}, {plan.planes_per_block} "
+                 f"plane(s) a block, {plan.blocks} blocks, {'16' if plan.vec else '4'}-byte copies)")
+        got = upfirdn2d_cuda(x, taps, up, down, pad, gain)
+        want = upfirdn2d_plain(x, taps, up, down, pad, gain)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape, f"{label}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+        err = (got - want).abs().max().item()
+        max_err = max(max_err, err)
+        check(torch.allclose(got, want, rtol=KERNEL_TOL, atol=KERNEL_TOL),
+              f"{label}: kernel disagrees with plain version, max |err| {err:.3e}")
+        say(f"parity {label}: max |err| {err:.3e}")
+        del x, got, want
+    check(cuda.launches["upfirdn2d"] == len(cases), f"launch count {cuda.launches} != {len(cases)}")
+    blur = setup_fir_kernel((1, 2, 1))
+    x = torch.randn(1, 4, 8, 8, device=dev, generator=gen)
+    refused = [
+        lambda: upfirdn2d_cuda(x.half(), blur, pad=(1, 1)),
+        lambda: upfirdn2d_cuda(x.transpose(2, 3), blur, pad=(1, 1)),
+        lambda: upfirdn2d_cuda(x, blur, up=3, pad=(1, 1)),
+        lambda: upfirdn2d_cuda(x, setup_fir_kernel([1.0] * 9), pad=(4, 4)),
+        lambda: upfirdn2d_cuda(x, blur, pad=(-1, 1)),
+    ]
+    for i, call in enumerate(refused):
+        try:
+            call()
+        except (TypeError, ValueError):
+            continue
+        raise RuntimeError(f"chip_smoke: out-of-contract call {i} was not refused")
+    # plans the kernel cannot run, handed to the C entry point: it refuses
+    # them (cudaErrorInvalidValue) and launches nothing
+    fields = list(upfirdn.FirPlan.__dataclass_fields__)
+    y = torch.full_like(x, 7.0)
+    taps = upfirdn._taps(blur, 1.0)
+    good = upfirdn.fir_plan(4, 8, 8, 1, 1, 1, 3, 3, 8, 8).as_array()
+    bad_plans = {"a staged row short": ("in_rows", -1), "threads short": ("threads", -32),
+                 "a tile row short": ("tile_rows", -4), "odd phase at up 1": ("phase", 1)}
+    for name, (field, delta) in bad_plans.items():
+        plan = good.copy()
+        plan[fields.index(field)] += delta
+        rc = cuda.kernel("upfirdn2d")(
+            x.data_ptr(), y.data_ptr(), 4, 8, 8, 8, 8, 1, 1, 1, 3, 3, taps.ctypes.data,
+            plan.ctypes.data, x.device.index, torch.cuda.current_stream(dev).cuda_stream)
+        check(rc == 1, f"the C entry point took a plan with {name} (rc {rc})")
+    torch.cuda.synchronize()
+    check(bool((y == 7.0).all()), "a refused plan wrote the output")
+    check(cuda.launches["upfirdn2d"] == len(cases), "a refused call launched")
+    say(f"parity: {len(cases)} cases within {KERNEL_TOL:g} (max |err| {max_err:.3e}); "
+        f"{len(refused)} out-of-contract calls and {len(bad_plans)} plans refused "
+        f"({', '.join(bad_plans)})")
+    return max_err
+
+
+def flushed_ms(torch, fn, flush, symbol=None):
+    """Device time per call of ``fn`` with L2 flushed before each call by a
+    write of ``flush`` (FLUSH_BYTES, five times the L2), from torch.profiler
+    over 20 (write, call) pairs with the write's fill kernel left out; the
+    wrapper's host time per call is longer than the write, so CUDA events
+    around a call would time the host. None, with a line, where every trace
+    missed launches of ``symbol``."""
+    try:
+        kernels = device_kernels(torch, lambda: (flush.zero_(), fn()), iters=20,
+                                 expect=(symbol,) if symbol else ())
+    except MissedLaunches:
+        say(f"profiler: every trace of the L2-flushed calls missed launches of {symbol}")
+        return None
+    return sum(ms for name, (ms, _) in kernels.items() if "FillFunctor" not in name)
+
+
+def fir_row(torch, calls, nbytes, flops, bandwidth, fp32_peak):
+    """Device times (ms) of the kernel, plain and library calls in ``calls``
+    (a library call where given) and the bound of one call."""
+    row = {}
+    for key, fn in calls.items():
+        if key == "ms":
+            row[key], _, row["ms_from"] = kernel_ms(torch, fn, ("upfirdn2d_kernel",))
+        else:
+            row[key] = sum(ms for ms, _ in device_kernels(torch, fn, iters=20).values())
+    row["bound_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
+    row["bound_by"] = "bytes" if nbytes / bandwidth >= flops / fp32_peak else "operations"
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    return row
+
+
+def fir_times(torch, dev, gen, bandwidth, fp32_peak):
+    """The FIR kernel at the path's six blur shapes beside its plain version,
+    cuDNN's depthwise conv and its bound; the largest two also with L2
+    flushed; B1's and B2's sums; and, for the record, slice 3's FIRs.
+    Returns the kernel table's timing keys."""
+    import torch.nn.functional as F
+
+    from tpugan_torch.ops import upfirdn
+    from tpugan_torch.ops.upfirdn import setup_fir_kernel, upfirdn2d_cuda, upfirdn2d_plain
+
+    blur = setup_fir_kernel((1, 2, 1))
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    rows = []
+    for c, r in PATH_BLURS:
+        x = torch.randn(BATCH, c, r, r, device=dev, generator=gen)
+        w = torch.from_numpy(blur).to(dev).expand(c, 1, 3, 3).contiguous()
+        got = upfirdn2d_cuda(x, blur, pad=(1, 1))
+        check(torch.allclose(F.conv2d(x, w, padding=1, groups=c), got, rtol=KERNEL_TOL,
+                             atol=KERNEL_TOL), f"library call differs at {c}x{r}")
+        calls = {
+            "ms": lambda: upfirdn2d_cuda(x, blur, pad=(1, 1)),
+            "plain_ms": lambda: upfirdn2d_plain(x, blur, pad=(1, 1)),
+            "library_ms": lambda: F.conv2d(x, w, padding=1, groups=c),
+        }
+        nbytes = 2 * x.numel() * x.element_size()
+        plan = upfirdn.fir_plan(BATCH * c, r, r, 1, 1, 1, 3, 3, r, r)
+        row = {"shape": [BATCH, c, r, r], "kernel": "B1" if (c, r) in B1_BLURS else "B2",
+               **fir_row(torch, calls, nbytes, 2 * 9 * x.numel(), bandwidth, fp32_peak),
+               "plan": {k: getattr(plan, k) for k in ("rw", "tile_rows", "tile_cols",
+                                                       "planes_per_block", "blocks", "threads")}}
+        issue = {key: time_ms(torch, fn) for key, fn in calls.items()}
+        flushed = ""
+        if (c, r) in FLUSHED_BLURS:
+            row["flushed_ms"] = flushed_ms(torch, calls["ms"], flush, "upfirdn2d_kernel")
+            row["library_flushed_ms"] = flushed_ms(torch, calls["library_ms"], flush)
+            flushed = "; L2 flushed: " + ", ".join(
+                f"{name} {'not measured' if v is None else f'{v * 1e3:.2f} us'}" for name, v in
+                (("kernel", row["flushed_ms"]), ("library", row["library_flushed_ms"])))
+        rows.append(row)
+        say(f"blur {c}x{r}x{r} ({row['kernel']}): device time kernel {row['ms'] * 1e3:.2f} us, plain "
+            f"{row['plain_ms'] * 1e3:.2f} us, library {row['library_ms'] * 1e3:.2f} us; bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, {nbytes / 1e6:.3f} MB), "
+            f"{row['share_of_bound'] * 100:.1f}% of it{flushed}; plan {row['plan']}; back to back "
+            "per call: " + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in issue.items()))
+        del x, w, got
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    per_decode = {k: sum(r[k] for r in rows) for k in keys}
+    split = {name: {k: sum(r[k] for r in rows if r["kernel"] == name) for k in keys}
+             for name in ("B1", "B2")}
+    for name, part in split.items():
+        part["launches_per_request"] = 2 * len(B1_BLURS if name == "B1" else B2_BLURS)
+    say(f"per decode ({len(PATH_BLURS)} blurs): kernel {per_decode['ms'] * 1e3:.2f} us, plain "
+        f"{per_decode['plain_ms'] * 1e3:.2f} us, library {per_decode['library_ms'] * 1e3:.2f} us, "
+        f"bound {per_decode['bound_ms'] * 1e3:.2f} us; " + "; ".join(
+            f"{name} ({len(B1_BLURS if name == 'B1' else B2_BLURS)} shapes) kernel {p_['ms'] * 1e3:.2f} "
+            f"us, library {p_['library_ms'] * 1e3:.2f} us, bound {p_['bound_ms'] * 1e3:.2f} us"
+            for name, p_ in split.items()))
+
+    record = []
+    for label, up, down, taps, pad, shape, gain in SLICE3_FIRS:
+        x = torch.randn(shape, device=dev, generator=gen)
+        k = setup_fir_kernel(taps)
+        out = upfirdn2d_cuda(x, k, up, down, pad, gain)
+        calls = {
+            "ms": lambda: upfirdn2d_cuda(x, k, up, down, pad, gain),
+            "plain_ms": lambda: upfirdn2d_plain(x, k, up, down, pad, gain),
+        }
+        nbytes = 4 * (x.numel() + out.numel())
+        flops = 2 * out.numel() * k.size // (up * up)  # the taps on real samples
+        row = {"label": label, "shape": list(shape), "up": up, "down": down, "taps": len(taps),
+               "pad": list(pad), "gain": gain,
+               **fir_row(torch, calls, nbytes, flops, bandwidth, fp32_peak)}
+        record.append(row)
+        say(f"record only, {label} {list(shape)} up{up} down{down} taps{len(taps)} pad{pad}: kernel "
+            f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, bound "
+            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, {nbytes / 1e6:.3f} MB), "
+            f"{row['share_of_bound'] * 100:.1f}% of it")
+        del x, out
+    del flush
+    torch.cuda.empty_cache()
+    return {
+        "ms": per_decode["ms"],
+        "plain_ms": per_decode["plain_ms"],
+        "bound_ms": per_decode["bound_ms"],
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
+        "library_ms": per_decode["library_ms"],
+        "times_are": f"sum over the {len(PATH_BLURS)} blur shapes of one decode at batch {BATCH}; "
+                     "B1 and B2 split them as tpugan's dispatch does",
+        "split": split,
+        "per_shape": rows,
+        "record_only": record,
+    }
+
+
 def main() -> int:
     import torch
 
@@ -977,11 +1220,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
 
-    import torch.nn.functional as F
-
     from tpugan_torch.cli import common, infer_e
     from tpugan_torch.ops import cuda
-    from tpugan_torch.ops.upfirdn import setup_fir_kernel, upfirdn2d_cuda, upfirdn2d_plain
     from tpugan_torch.runtime import parity_mode
 
     dev = torch.device(CARD)
@@ -1005,44 +1245,7 @@ def main() -> int:
     # ---- 2. kernels against their plain versions --------------------------
     parity_mode()
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    blur = setup_fir_kernel((1, 2, 1))
-    cases = [(f"blur {c}x{r}x{r}", 1, 1, (1, 2, 1), (1, 1), (BATCH, r, r, c), 1.0)
-             for c, r in PATH_BLURS]
-    cases += [(f"B1 up{u} down{d}", u, d, t, p, s, 1.0) for u, d, t, p, s in B1_CASES]
-    cases += [("B2", 1, 1, t, p, s, 1.0) for t, p, s in B2_CASES]
-    cases += [(f"up{u} down{d} gain{g:g}", u, d, t, p, s, g) for u, d, t, p, s, g in EXTRA_CASES]
-    max_err = 0.0
-    cuda.reset_launches()
-    for label, up, down, taps, pad, (n, h, w, c), gain in cases:
-        label = f"{label} taps{len(taps)} pad{pad} NCHW{(n, c, h, w)}"
-        x = torch.randn(n, c, h, w, device=dev, generator=gen)
-        taps = setup_fir_kernel(taps)
-        got = upfirdn2d_cuda(x, taps, up, down, pad, gain)
-        want = upfirdn2d_plain(x, taps, up, down, pad, gain)
-        torch.cuda.synchronize()
-        check(got.shape == want.shape, f"{label}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
-        err = (got - want).abs().max().item()
-        max_err = max(max_err, err)
-        check(torch.allclose(got, want, rtol=KERNEL_TOL, atol=KERNEL_TOL),
-              f"{label}: kernel disagrees with plain version, max |err| {err:.3e}")
-        say(f"parity {label}: max |err| {err:.3e}")
-    check(cuda.launches["upfirdn2d"] == len(cases), f"launch count {cuda.launches} != {len(cases)}")
-    x = torch.randn(1, 4, 8, 8, device=dev, generator=gen)
-    refused = [
-        lambda: upfirdn2d_cuda(x.half(), blur, pad=(1, 1)),
-        lambda: upfirdn2d_cuda(x.transpose(2, 3), blur, pad=(1, 1)),
-        lambda: upfirdn2d_cuda(x, blur, up=3, pad=(1, 1)),
-        lambda: upfirdn2d_cuda(x, setup_fir_kernel([1.0] * 9), pad=(4, 4)),
-        lambda: upfirdn2d_cuda(x, blur, pad=(-1, 1)),
-    ]
-    for i, call in enumerate(refused):
-        try:
-            call()
-        except (TypeError, ValueError):
-            continue
-        raise RuntimeError(f"chip_smoke: out-of-contract call {i} was not refused")
-    say(f"parity: {len(cases)} cases within {KERNEL_TOL:g} (max |err| {max_err:.3e}); "
-        f"{len(refused)} out-of-contract calls refused")
+    fir_err = fir_parity(torch, dev, gen)
     attn_err = attention_parity(torch, dev, gen)
     bwd_err = attention_bwd_parity(torch, dev, gen)
 
@@ -1098,38 +1301,7 @@ def main() -> int:
     request_latency(torch, run, seed, "PyTorch defaults (cuDNN convolutions in TF32)")
     parity_mode()
 
-    rows = []
-    for c, r in PATH_BLURS:
-        x = torch.randn(BATCH, c, r, r, device=dev, generator=gen)
-        w = torch.from_numpy(blur).to(dev).expand(c, 1, 3, 3).contiguous()
-        got = upfirdn2d_cuda(x, blur, pad=(1, 1))
-        check(torch.allclose(F.conv2d(x, w, padding=1, groups=c), got, rtol=KERNEL_TOL,
-                             atol=KERNEL_TOL), f"library call differs at {c}x{r}")
-        calls = {
-            "ms": lambda: upfirdn2d_cuda(x, blur, pad=(1, 1)),
-            "plain_ms": lambda: upfirdn2d_plain(x, blur, pad=(1, 1)),
-            "library_ms": lambda: F.conv2d(x, w, padding=1, groups=c),
-        }
-        nbytes = 2 * x.numel() * x.element_size()
-        flops = 2 * 9 * x.numel()
-        row = {"shape": [BATCH, c, r, r]}
-        for key, fn in calls.items():
-            if key == "ms":
-                row[key], _, row["ms_from"] = kernel_ms(torch, fn, ("upfirdn2d_kernel",))
-            else:
-                row[key] = sum(ms for ms, _ in device_kernels(torch, fn, iters=20).values())
-        row["bound_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
-        row["bound_by"] = "bytes" if nbytes / bandwidth >= flops / fp32_peak else "operations"
-        rows.append(row)
-        issue = {key: time_ms(torch, fn) for key, fn in calls.items()}
-        say(f"blur {c}x{r}x{r}: device time kernel {row['ms'] * 1e3:.2f} us, plain "
-            f"{row['plain_ms'] * 1e3:.2f} us, library {row['library_ms'] * 1e3:.2f} us; bound "
-            f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, {nbytes / 1e6:.3f} MB); "
-            "back to back per call: " + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in issue.items()))
-    per_decode = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    say(f"per decode ({len(PATH_BLURS)} blurs): kernel {per_decode['ms'] * 1e3:.2f} us, plain "
-        f"{per_decode['plain_ms'] * 1e3:.2f} us, library {per_decode['library_ms'] * 1e3:.2f} us, "
-        f"bound {per_decode['bound_ms'] * 1e3:.2f} us")
+    fir = fir_times(torch, dev, gen, bandwidth, fp32_peak)
 
     attn = biggan_path(torch, dev, parser, smi, bandwidth, fp32_peak)
     attn["max_abs_err"] = max(attn["max_abs_err"], attn_err)
@@ -1146,14 +1318,8 @@ def main() -> int:
         "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas); "
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c)",
         "launches": launches["upfirdn2d"],
-        "max_abs_err": max_err,
-        "ms": per_decode["ms"],
-        "plain_ms": per_decode["plain_ms"],
-        "bound_ms": per_decode["bound_ms"],
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
-        "library_ms": per_decode["library_ms"],
-        "times_are": f"sum over the {len(PATH_BLURS)} blur shapes of one decode at batch {BATCH}",
-        "per_shape": rows,
+        "max_abs_err": fir_err,
+        **fir,
     }, attn, attn_bwd]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

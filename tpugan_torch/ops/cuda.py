@@ -36,8 +36,7 @@ KERNELS = {
     "upfirdn2d": (
         "upfirdn2d.cu",
         "tpugan_upfirdn2d_f32",
-        [_c_ptr, _c_ptr, ctypes.c_int64] + [_c_int] * 9
-        + [ctypes.POINTER(ctypes.c_float), _c_int, _c_ptr],
+        [_c_ptr, _c_ptr, ctypes.c_int64] + [_c_int] * 9 + [_c_ptr, _c_ptr, _c_int, _c_ptr],
     ),
     "sagan_attention": (
         "sagan_attention.cu",

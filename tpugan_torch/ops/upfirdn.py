@@ -16,7 +16,8 @@ refused rather than given an output that silently drops it.
 
 from __future__ import annotations
 
-import ctypes
+import functools
+from dataclasses import astuple, dataclass
 
 import numpy as np
 import torch
@@ -25,6 +26,14 @@ import torch.nn.functional as F
 from tpugan_torch.ops import cuda
 
 MAX_TAPS = 8  # csrc/upfirdn2d.cu kMaxTaps
+THREADS = 128  # kMaxThreads: threads of a block, at most
+STRIP_ROWS = 4  # kStripRows: output rows of a thread's strip
+MAX_SHARED_BYTES = 48 * 1024  # kMaxSharedBytes: a block's staged tile, at most
+MAX_STRIP_COLS = 128  # strips across a tile of a wide plane
+WIDE_STRIP_MIN_COLS = 32  # same-size FIRs on rows this wide take 4-column strips
+# blocks a launch should have before several small planes share one: two
+# per streaming multiprocessor of an H100 (132)
+MIN_BLOCKS = 264
 
 
 def setup_fir_kernel(taps) -> np.ndarray:
@@ -41,6 +50,113 @@ def _taps(kernel, gain: float) -> np.ndarray:
     if k.ndim != 2:
         raise ValueError(f"FIR kernel must be 2-D, got shape {k.shape}")
     return np.ascontiguousarray(k * np.float32(gain))
+
+
+@dataclass(frozen=True)
+class FirPlan:
+    """The launch plan of ``csrc/upfirdn2d.cu`` (its ``PlanField`` order).
+
+    A block owns ``planes_per_block`` planes and, in each, an output tile of
+    ``tile_rows`` x ``tile_cols`` at (tile_y * tile_rows, tile_x *
+    tile_cols); blocks run planes-group-major, then tile_y, then tile_x. It
+    stages ``in_rows`` input rows of ``in_stride`` floats per plane from row
+    ``(oy0*down - pad0 - phase) // up`` and column ``(ox0*down - pad0 -
+    phase) // up`` on; with ``vec`` (16-byte copies) the first column is
+    rounded down to a multiple of 4 and reads start ``lead`` columns in.
+    Each thread computes ``rh`` x ``rw`` outputs."""
+
+    rh: int
+    rw: int
+    tile_rows: int
+    tile_cols: int
+    tiles_y: int
+    tiles_x: int
+    planes_per_block: int
+    in_rows: int
+    in_stride: int
+    phase: int
+    vec: int
+    threads: int
+    blocks: int
+    shared_bytes: int
+
+    def as_array(self) -> np.ndarray:
+        return np.array(astuple(self), dtype=np.int32)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def strip_width(up: int, down: int, wo: int) -> int:
+    """Output columns of a thread's strip: a pair for up 2 (so each
+    column's phase is fixed); for a same-size FIR four (16-byte stores) on
+    rows of WIDE_STRIP_MIN_COLS or more, one on narrower ones, where more
+    threads a plane finish sooner; one otherwise."""
+    if (up, down) == (2, 1):
+        return 2
+    return 4 if (up, down) == (1, 1) and wo >= WIDE_STRIP_MIN_COLS else 1
+
+
+def fir_plan(planes: int, h: int, w: int, up: int, down: int, pad0: int, kh: int, kw: int,
+             ho: int, wo: int, aligned: bool = True, rw: int | None = None,
+             min_blocks: int | None = None) -> FirPlan:
+    """The launch plan for ``planes`` planes of h x w -> ho x wo.
+
+    Small planes (a whole plane in at most THREADS strips) go several to a
+    block, as many as keep ``min_blocks`` blocks; larger ones are cut into
+    bands of rows across the full width, or 2-D tiles of MAX_STRIP_COLS
+    strips for wide planes. A tile whose staged input exceeds
+    MAX_SHARED_BYTES holds fewer planes, then fewer rows, then fewer
+    columns. ``aligned``: the input's base is 16-byte aligned; with w % 4
+    == 0 every row is, and the tile is copied 16 bytes at a time."""
+    rh = STRIP_ROWS
+    rw = strip_width(up, down, wo) if rw is None else rw
+    min_blocks = MIN_BLOCKS if min_blocks is None else min_blocks
+    phase = -pad0 % up
+    vec = int(aligned and w % 4 == 0)
+
+    def staged(tile_rows, tile_cols):
+        rows = (phase + (tile_rows - 1) * down + kh - 1) // up + 1
+        cols = (phase + (tile_cols - 1) * down + kw - 1) // up + 1
+        return rows, (-(-(cols + 3) // 4) * 4 if vec else cols)
+
+    strip_cols, strip_rows = _cdiv(wo, rw), _cdiv(ho, rh)
+    if strip_cols * strip_rows <= THREADS:
+        per_block = min(THREADS // (strip_cols * strip_rows), max(1, _cdiv(planes, min_blocks)),
+                        max(1, planes))
+    else:
+        per_block = 1
+        strip_cols = min(strip_cols, MAX_STRIP_COLS)
+        strip_rows = min(strip_rows, THREADS // strip_cols)
+    while True:
+        in_rows, in_stride = staged(strip_rows * rh, strip_cols * rw)
+        if per_block * in_rows * in_stride * 4 <= MAX_SHARED_BYTES:
+            break
+        if per_block > 1:
+            per_block -= 1
+        elif strip_rows > 1:
+            strip_rows -= 1
+        else:
+            strip_cols = max(1, strip_cols // 2)
+    tile_rows, tile_cols = strip_rows * rh, strip_cols * rw
+    tiles_y, tiles_x = _cdiv(ho, tile_rows), _cdiv(wo, tile_cols)
+    return FirPlan(
+        rh=rh, rw=rw, tile_rows=tile_rows, tile_cols=tile_cols, tiles_y=tiles_y, tiles_x=tiles_x,
+        planes_per_block=per_block, in_rows=in_rows, in_stride=in_stride, phase=phase, vec=vec,
+        threads=_cdiv(per_block * strip_rows * strip_cols, 32) * 32,
+        blocks=_cdiv(planes, per_block) * tiles_y * tiles_x,
+        shared_bytes=per_block * in_rows * in_stride * 4,
+    )
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_array(*args) -> np.ndarray:
+    """fir_plan(*args) as the kernel reads it; a model's few shapes recur,
+    so the plan is made once per shape."""
+    plan = fir_plan(*args).as_array()
+    plan.flags.writeable = False
+    return plan
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -107,10 +223,13 @@ def upfirdn2d_cuda(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
     if not x.is_cuda:
         raise ValueError(f"upfirdn2d_cuda needs a CUDA tensor, got one on {x.device}")
     y = torch.empty((n, c, ho, wo), dtype=x.dtype, device=x.device)
+    if y.numel() == 0:
+        return y
+    plan = _plan_array(n * c, h, w, up, down, p0, kh, kw, ho, wo, x.data_ptr() % 16 == 0)
     fn = cuda.kernel("upfirdn2d")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), y.data_ptr(), n * c, h, w, ho, wo, up, down, p0, kh, kw,
-            taps.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), x.device.index, stream)
+            taps.ctypes.data, plan.ctypes.data, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"upfirdn2d kernel launch failed: cudaError {rc}")
     cuda.launches["upfirdn2d"] += 1
