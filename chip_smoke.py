@@ -1088,18 +1088,17 @@ def fir_parity(torch, dev, gen):
     return max_err
 
 
-def flushed_ms(torch, fn, flush, symbol=None):
+def flushed_ms(torch, fn, flush, expect):
     """Device time per call of ``fn`` with L2 flushed before each call by a
     write of ``flush`` (FLUSH_BYTES, five times the L2), from torch.profiler
     over 20 (write, call) pairs with the write's fill kernel left out; the
     wrapper's host time per call is longer than the write, so CUDA events
     around a call would time the host. None, with a line, where every trace
-    missed launches of ``symbol``."""
+    missed launches of a kernel in ``expect``."""
     try:
-        kernels = device_kernels(torch, lambda: (flush.zero_(), fn()), iters=20,
-                                 expect=(symbol,) if symbol else ())
+        kernels = device_kernels(torch, lambda: (flush.zero_(), fn()), iters=20, expect=expect)
     except MissedLaunches:
-        say(f"profiler: every trace of the L2-flushed calls missed launches of {symbol}")
+        say(f"profiler: every trace of the L2-flushed calls missed launches of {list(expect)}")
         return None
     return sum(ms for name, (ms, _) in kernels.items() if "FillFunctor" not in name)
 
@@ -1152,8 +1151,9 @@ def fir_times(torch, dev, gen, bandwidth, fp32_peak):
         issue = {key: time_ms(torch, fn) for key, fn in calls.items()}
         flushed = ""
         if (c, r) in FLUSHED_BLURS:
-            row["flushed_ms"] = flushed_ms(torch, calls["ms"], flush, "upfirdn2d_kernel")
-            row["library_flushed_ms"] = flushed_ms(torch, calls["library_ms"], flush)
+            library = tuple(device_kernels(torch, calls["library_ms"], iters=5))
+            row["flushed_ms"] = flushed_ms(torch, calls["ms"], flush, ("upfirdn2d_kernel",))
+            row["library_flushed_ms"] = flushed_ms(torch, calls["library_ms"], flush, library)
             flushed = "; L2 flushed: " + ", ".join(
                 f"{name} {'not measured' if v is None else f'{v * 1e3:.2f} us'}" for name, v in
                 (("kernel", row["flushed_ms"]), ("library", row["library_flushed_ms"])))

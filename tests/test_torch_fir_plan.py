@@ -91,10 +91,12 @@ def run_plan(x, taps, up, down, pad0, ho, wo, plan):
     return y
 
 
-def _case(planes, h, w, up, down, kshape, pad, aligned=True, min_blocks=upfirdn.MIN_BLOCKS,
-          gain=1.0, rw=None, taps=None):
+def _case(planes, h, w, up, down, kshape, pad, aligned=True, min_blocks=None, gain=1.0,
+          taps=None):
+    """``min_blocks`` stands in for upfirdn.MIN_BLOCKS, so that a few small
+    planes share blocks as the path's hundreds do."""
     return dict(planes=planes, h=h, w=w, up=up, down=down, kshape=kshape, pad=pad,
-                aligned=aligned, min_blocks=min_blocks, gain=gain, rw=rw, taps=taps)
+                aligned=aligned, min_blocks=min_blocks, gain=gain, taps=taps)
 
 
 CASES = {
@@ -106,7 +108,7 @@ CASES = {
     "blur_5x7_unaligned": _case(7, 5, 7, 1, 1, (3, 3), (1, 1), min_blocks=3, taps=(1, 2, 1)),
     "blur_aligned_base_off": _case(3, 8, 12, 1, 1, (3, 3), (1, 1), aligned=False),
     # a plane cut into row bands; a tall narrow one; a wide short one (2-D tiles)
-    "blur_64x64_bands": _case(2, 64, 64, 1, 1, (3, 3), (1, 1), taps=(1, 2, 1), rw=1),
+    "blur_64x64_bands": _case(2, 64, 64, 1, 1, (3, 3), (1, 1), taps=(1, 2, 1)),
     "blur_128x40_bands": _case(2, 128, 40, 1, 1, (3, 3), (1, 1), taps=(1, 2, 1)),
     "tall_narrow_300x20": _case(1, 300, 20, 1, 1, (3, 3), (1, 1)),
     "wide_short_3x1030": _case(2, 3, 1030, 1, 1, (3, 3), (1, 1)),
@@ -131,11 +133,13 @@ CASES = {
     "sg2_torgb_up2": _case(3, 16, 16, 2, 1, (4, 4), (2, 1), gain=4.0, taps=(1, 3, 3, 1)),
     "eblur_64x64": _case(4, 64, 64, 1, 1, (3, 3), (1, 1), taps=(1, 2, 1)),
     "down2_4tap_32": _case(3, 32, 32, 1, 2, (4, 4), (1, 1), taps=(1, 3, 3, 1)),
-    # strips of 4 columns for the same-size FIR (16-byte stores)
-    "rw4_blur_planes": _case(6, 8, 8, 1, 1, (3, 3), (1, 1), min_blocks=4, rw=4),
-    "rw4_blur_9x11": _case(3, 9, 11, 1, 1, (3, 3), (1, 1), rw=4),
-    "rw4_4tap_wide": _case(1, 5, 530, 1, 1, (4, 4), (2, 1), rw=4),
-    "rw4_7x5_pad": _case(2, 12, 13, 1, 1, (7, 5), (5, 2), rw=4),
+    # strips of 4 columns (same-size FIRs on rows of 32 or more): several
+    # planes to a block with a ragged last one, 4-byte copies and a row
+    # that ends inside a strip, 4 and 7x5 taps
+    "rw4_planes_16x32_ragged": _case(7, 16, 32, 1, 1, (3, 3), (1, 1), min_blocks=2),
+    "rw4_unaligned_9x35": _case(3, 9, 35, 1, 1, (3, 3), (1, 1)),
+    "rw4_4tap_wide": _case(1, 5, 530, 1, 1, (4, 4), (2, 1)),
+    "rw4_7x5_pad": _case(2, 12, 40, 1, 1, (7, 5), (5, 2)),
 }
 
 
@@ -169,16 +173,22 @@ def _inputs(case, rng):
     return x, k
 
 
+def _plan(case, monkeypatch):
+    if case["min_blocks"] is not None:
+        monkeypatch.setattr(upfirdn, "MIN_BLOCKS", case["min_blocks"])
+    kh, kw = case["kshape"]
+    up, down, (p0, p1), h, w = case["up"], case["down"], case["pad"], case["h"], case["w"]
+    ho, wo = (h * up + p0 + p1 - kh) // down + 1, (w * up + p0 + p1 - kw) // down + 1
+    return upfirdn.fir_plan(case["planes"], h, w, up, down, p0, kh, kw, ho, wo, case["aligned"]), ho, wo
+
+
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_plan_tile_by_tile_matches_plain(rng, name):
+def test_plan_tile_by_tile_matches_plain(rng, monkeypatch, name):
     case = CASES[name]
     x, k = _inputs(case, rng)
     up, down, (p0, p1) = case["up"], case["down"], case["pad"]
-    kh, kw = k.shape
-    h, w = case["h"], case["w"]
-    ho, wo = (h * up + p0 + p1 - kh) // down + 1, (w * up + p0 + p1 - kw) // down + 1
-    plan = upfirdn.fir_plan(case["planes"], h, w, up, down, p0, kh, kw, ho, wo,
-                            aligned=case["aligned"], rw=case["rw"], min_blocks=case["min_blocks"])
+    assert k.shape == case["kshape"]
+    plan, ho, wo = _plan(case, monkeypatch)
     got = run_plan(torch.from_numpy(x), torch.from_numpy(upfirdn._taps(k, case["gain"])),
                    up, down, p0, ho, wo, plan)
     want = upfirdn.upfirdn2d_plain(torch.from_numpy(x)[None], k, up, down, (p0, p1), case["gain"])[0]
@@ -188,15 +198,11 @@ def test_plan_tile_by_tile_matches_plain(rng, name):
     np.testing.assert_allclose(want.numpy(), np.asarray(ref)[0].transpose(2, 0, 1), **FIR_TOL)
 
 
-def test_plan_covers_what_the_name_says():
+def test_plan_covers_what_the_name_says(monkeypatch):
     """The named cases reach the layouts they are named for."""
     def plan(name):
-        c = CASES[name]
-        kh, kw = c["kshape"]
-        ho = (c["h"] * c["up"] + sum(c["pad"]) - kh) // c["down"] + 1
-        wo = (c["w"] * c["up"] + sum(c["pad"]) - kw) // c["down"] + 1
-        return upfirdn.fir_plan(c["planes"], c["h"], c["w"], c["up"], c["down"], c["pad"][0], kh,
-                                kw, ho, wo, c["aligned"], c["rw"], c["min_blocks"])
+        with monkeypatch.context() as mp:
+            return _plan(CASES[name], mp)[0]
 
     ragged = plan("blur_8x8_planes_ragged")
     assert ragged.planes_per_block == 3 and CASES["blur_8x8_planes_ragged"]["planes"] % 3 != 0
@@ -206,6 +212,10 @@ def test_plan_covers_what_the_name_says():
     assert plan("wide_short_3x1030").tiles_x > 1 and plan("wide_20x600_tiles").tiles_x > 1
     assert plan("up2_8x8_pad43").phase == 0 and plan("up2_8x8_pad34").phase == 1
     assert plan("tall_narrow_300x20").tiles_y * plan("tall_narrow_300x20").tile_rows != 300
+    ragged4 = plan("rw4_planes_16x32_ragged")
+    assert ragged4.rw == 4 and ragged4.planes_per_block > 1 and 7 % ragged4.planes_per_block != 0
+    assert plan("rw4_unaligned_9x35").rw == 4 and plan("rw4_unaligned_9x35").vec == 0
+    assert plan("tall_narrow_300x20").rw == 1 and plan("rw4_7x5_pad").rw == 4
 
 
 @pytest.mark.parametrize("channels,side", [(512, 8), (512, 16), (512, 32), (256, 64), (128, 128),

@@ -18,35 +18,53 @@
 //
 // Bound: bytes. The same-size 3x3 blur reads and writes each activation
 // element once (8 bytes in fp32) against 9 FMAs, far below the card's
-// operations-per-byte balance. So the design is about bytes in flight and
+// operations-per-byte balance. The first design (one thread per output,
+// four 64-bit divisions to find it, nine scalar loads through L1) ran at
+// 6-19% of the byte bound. This design is about bytes in flight and
 // instructions per output:
 //  * A block owns an output tile of one plane, or several whole small
-//    planes, and stages the input rows and columns the tile reads (halo
-//    included) in shared memory with cp.async: 16-byte copies when every
-//    row starts 16-byte aligned (w % 4 == 0 and an aligned base; the tile's
-//    first column is then rounded down to a multiple of 4 and the compute
-//    starts `lead` columns in), 4-byte copies otherwise. Padding and the
-//    halo outside the plane are the copies' zero fill.
+//    planes (so the 8x8 and 16x16 planes still give a few hundred blocks of
+//    useful size), and stages the input rows and columns the tile reads,
+//    halo included, in shared memory with cp.async: 16-byte copies when
+//    every row starts 16-byte aligned (w % 4 == 0 and an aligned base; the
+//    tile's first column is then rounded down to a multiple of 4 and the
+//    compute starts `lead` columns in), 4-byte copies otherwise. Padding
+//    and the halo outside the plane are the copies' zero fill. A row of the
+//    tile is copied by the smallest power-of-two group of lanes that covers
+//    it, so narrow planes keep the lanes busy.
 //  * The launch plan (tile rows and columns, staged rows and row stride,
 //    planes per block, the up-2 phase, the copy width, threads and blocks)
 //    comes from tpugan_torch/ops/upfirdn.py::fir_plan, where the CPU tests
-//    run it tile by tile; the entry point checks it before it launches.
-//    The block's index arithmetic is done once, in 32 bits, from blockIdx.
-//  * Each thread computes a strip of kStripRows rows by RW columns from
-//    shared memory, neighbouring threads on neighbouring columns, so a
-//    warp's shared reads and its stores are consecutive words.
+//    run it tile by tile; the entry point checks every property of it that
+//    the kernel relies on and refuses the launch otherwise. The block's
+//    index arithmetic is done once, in 32 bits, from blockIdx.
+//  * Each thread computes a strip of kStripRows = 4 rows by RW columns from
+//    shared memory, neighbouring threads on neighbouring strips: RW = 4 for
+//    a same-size FIR on rows of 32 or more (one 16-byte store per strip
+//    row), RW = 1 on narrower rows, where more threads per plane finish a
+//    latency-bound launch sooner (2.36 against 2.90 us at 8x8, 2.85 against
+//    3.66 at 16x16), RW = 2 for up 2 (a column pair, so each column's phase
+//    is fixed), RW = 1 for down 2. Blocks of at most 128 threads.
 //  * The path's FIRs are compile-time cases: the 3x3 blur and the 4x4 FIRs
 //    at (up, down) = (1, 1), (2, 1) and (1, 2); one runtime-tap case per
 //    (up, down) takes any other size up to 8x8. With compile-time taps a
-//    thread keeps each staged row it reads in registers and adds it into
-//    every output row of its strip that reads it.
-//  * Polyphase up-2, as the TPU kernel's _fir_axis_up2: the tile's first
+//    thread reads each staged row its strip needs once into registers and
+//    adds it into every output row that reads it.
+//  * Polyphase up-2, as the TPU kernel's _fir_axis_up2: a strip's first
 //    output row and column are even, so each output's phase is known at
 //    compile time (the pad's parity, PH, is a template parameter) and it
 //    sums only the taps that land on real samples. Down-2 computes only the
 //    kept outputs.
 // Each output sums its taps row-major (ty, then tx) with fmaf from 0, as
-// the first design did.
+// the first design did: on the card it equals the plain version (cuDNN's
+// depthwise conv) exactly in every parity case.
+// ptxas (sm_90a): 29-40 registers, no spills; no static shared memory, and
+// a dynamic tile of at most 48 KB (kMaxSharedBytes; 9.8 KB for a 32x64
+// band, 10.6 KB for an 8x256 band), so no opt-in attribute is needed.
+// Measured at the SGv1 decode's six blur shapes: 72-79% of the byte bound
+// at 128x128 and 64x256x256, 46-56% at 32x32 and 64x64, and launch
+// latency at 8x8 and 16x16 (PERF.md). Left for later work: overlapping a
+// block's next tile with its current one, bf16.
 
 #include <cuda_runtime.h>
 

@@ -29,7 +29,7 @@ MAX_TAPS = 8  # csrc/upfirdn2d.cu kMaxTaps
 THREADS = 128  # kMaxThreads: threads of a block, at most
 STRIP_ROWS = 4  # kStripRows: output rows of a thread's strip
 MAX_SHARED_BYTES = 48 * 1024  # kMaxSharedBytes: a block's staged tile, at most
-MAX_STRIP_COLS = 128  # strips across a tile of a wide plane
+MAX_STRIP_COLS = 64  # strips across a tile of a wide plane
 WIDE_STRIP_MIN_COLS = 32  # same-size FIRs on rows this wide take 4-column strips
 # blocks a launch should have before several small planes share one: two
 # per streaming multiprocessor of an H100 (132)
@@ -99,20 +99,18 @@ def strip_width(up: int, down: int, wo: int) -> int:
 
 
 def fir_plan(planes: int, h: int, w: int, up: int, down: int, pad0: int, kh: int, kw: int,
-             ho: int, wo: int, aligned: bool = True, rw: int | None = None,
-             min_blocks: int | None = None) -> FirPlan:
+             ho: int, wo: int, aligned: bool = True) -> FirPlan:
     """The launch plan for ``planes`` planes of h x w -> ho x wo.
 
     Small planes (a whole plane in at most THREADS strips) go several to a
-    block, as many as keep ``min_blocks`` blocks; larger ones are cut into
+    block, as many as keep MIN_BLOCKS blocks; larger ones are cut into
     bands of rows across the full width, or 2-D tiles of MAX_STRIP_COLS
     strips for wide planes. A tile whose staged input exceeds
     MAX_SHARED_BYTES holds fewer planes, then fewer rows, then fewer
     columns. ``aligned``: the input's base is 16-byte aligned; with w % 4
     == 0 every row is, and the tile is copied 16 bytes at a time."""
     rh = STRIP_ROWS
-    rw = strip_width(up, down, wo) if rw is None else rw
-    min_blocks = MIN_BLOCKS if min_blocks is None else min_blocks
+    rw = strip_width(up, down, wo)
     phase = -pad0 % up
     vec = int(aligned and w % 4 == 0)
 
@@ -123,7 +121,7 @@ def fir_plan(planes: int, h: int, w: int, up: int, down: int, pad0: int, kh: int
 
     strip_cols, strip_rows = _cdiv(wo, rw), _cdiv(ho, rh)
     if strip_cols * strip_rows <= THREADS:
-        per_block = min(THREADS // (strip_cols * strip_rows), max(1, _cdiv(planes, min_blocks)),
+        per_block = min(THREADS // (strip_cols * strip_rows), max(1, _cdiv(planes, MIN_BLOCKS)),
                         max(1, planes))
     else:
         per_block = 1
@@ -223,8 +221,6 @@ def upfirdn2d_cuda(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
     if not x.is_cuda:
         raise ValueError(f"upfirdn2d_cuda needs a CUDA tensor, got one on {x.device}")
     y = torch.empty((n, c, ho, wo), dtype=x.dtype, device=x.device)
-    if y.numel() == 0:
-        return y
     plan = _plan_array(n * c, h, w, up, down, p0, kh, kw, ho, wo, x.data_ptr() % 16 == 0)
     fn = cuda.kernel("upfirdn2d")
     stream = torch.cuda.current_stream(x.device).cuda_stream

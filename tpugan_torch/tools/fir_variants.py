@@ -9,9 +9,10 @@ the block size, the blocks wanted before planes share a block, the strips
 across a tile), checks the kernel against its plain version on contract
 cases and times it at the six blur shapes of a Cat256 decode at batch 2:
 the device time per call from torch.profiler with the input warm in L2,
-and with L2 flushed by writing a 256 MB buffer before each call. cuDNN's
-depthwise convolution is timed beside it the same way. Prints one line per
-shape and variant, and a JSON summary as the last line.
+and with L2 flushed by writing a 256 MB buffer before each call, and
+E_Blur's blur beside them. cuDNN's depthwise convolution is timed beside
+it the same way. Prints one line per shape and variant, and a JSON summary
+as the last line.
 """
 
 from __future__ import annotations
@@ -28,6 +29,9 @@ from tpugan_torch.ops import cuda, upfirdn
 from tpugan_torch.runtime import parity_mode
 
 SHAPES = ((512, 8), (512, 16), (512, 32), (256, 64), (128, 128), (64, 256))
+# timed beside them, outside the decode's sum: E_Blur's blur (16 x 1024^2),
+# where the tile's width is capped
+EXTRA_SHAPES = ((16, 1024),)
 BATCH = 2
 FLUSH_BYTES = 256 * 2**20
 ITERS = 20
@@ -83,7 +87,7 @@ VARIANTS = {
     "threads64": (None, {"THREADS": 64}),
     "min_blocks132": (None, {"MIN_BLOCKS": 132}),
     "min_blocks528": (None, {"MIN_BLOCKS": 528}),
-    "strip_cols32": (None, {"MAX_STRIP_COLS": 32}),
+    "strip_cols128": (None, {"MAX_STRIP_COLS": 128}),
 }
 
 
@@ -133,7 +137,7 @@ def main() -> int:
                 return 1
         rows = []
         blur = upfirdn.setup_fir_kernel((1, 2, 1))
-        for c, r in SHAPES:
+        for c, r in SHAPES + EXTRA_SHAPES:
             x = torch.randn(BATCH, c, r, r, device=dev, generator=gen)
             w = torch.from_numpy(blur).to(dev).expand(c, 1, 3, 3).contiguous()
             kern = lambda: upfirdn.upfirdn2d_cuda(x, blur, pad=(1, 1))  # noqa: E731
@@ -151,7 +155,7 @@ def main() -> int:
             print(f"{name} blur {c}x{r}x{r}: kernel {row['us']:.2f} us (L2 flushed "
                   f"{row['flushed_us']:.2f}), cuDNN {row['library_us']:.2f} us (flushed "
                   f"{row['library_flushed_us']:.2f}), byte bound {row['bound_us']:.2f} us", flush=True)
-        total = {k: sum(r_[k] for r_ in rows) for k in ("us", "library_us", "bound_us")}
+        total = {k: sum(r_[k] for r_ in rows[:len(SHAPES)]) for k in ("us", "library_us", "bound_us")}
         print(f"{name} per decode: kernel {total['us']:.2f} us, cuDNN {total['library_us']:.2f} us, "
               f"bound {total['bound_us']:.2f} us; parity max |err| {worst:.3e}", flush=True)
         summary["variants"][name] = {"per_shape": rows, "per_decode": total, "max_abs_err": worst}
