@@ -124,10 +124,6 @@ SLICE3_FIRS = (
 # and outputs are 33.6 and 67.1 MB; the L2 holds 50 MB)
 FLUSHED_BLURS = ((128, 128), (64, 256))
 FLUSH_BYTES = 256 * 2**20
-# B1 and B2 of tpugan's dispatch (tpugan/ops/upfirdn.py:145-166): C % 128 == 0
-# goes to B1, else 128 % C == 0 to B2
-B1_BLURS = tuple(cr for cr in PATH_BLURS if cr[0] % 128 == 0)
-B2_BLURS = tuple(cr for cr in PATH_BLURS if cr[0] % 128 != 0)
 KERNEL_TOL = 1e-5  # abs and rel, the Pallas kernels' own contract
 CPU_GPU_ATOL = 1e-3  # whole request, fp32 on both sides: cuDNN vs CPU conv summation order
 # tests/test_attention.py's cases: (q, k, v shapes, input scale, rtol, atol, check lse);
@@ -1033,8 +1029,8 @@ def fir_parity(torch, dev, gen):
         x = torch.randn(n, c, h, w, device=dev, generator=gen)
         taps = setup_fir_kernel(taps)
         kh, kw = taps.shape
-        plan = upfirdn.fir_plan(n * c, h, w, up, down, pad[0], kh, kw,
-                                (h * up + sum(pad) - kh) // down + 1, (w * up + sum(pad) - kw) // down + 1)
+        plan = upfirdn.fir_plan(n * c, h, w, up, down, pad[0], kh, kw, (h * up + sum(pad) - kh) // down + 1,
+                                (w * up + sum(pad) - kw) // down + 1, min_blocks=upfirdn.min_blocks(dev))
         label = (f"{label} taps{taps.shape[0]}x{taps.shape[1]} pad{pad} NCHW{(n, c, h, w)} (strips "
                  f"{plan.rh}x{plan.rw}, tile {plan.tile_rows}x{plan.tile_cols}, {plan.planes_per_block} "
                  f"plane(s) a block, {plan.blocks} blocks, {'16' if plan.vec else '4'}-byte copies)")
@@ -1069,15 +1065,13 @@ def fir_parity(torch, dev, gen):
     fields = list(upfirdn.FirPlan.__dataclass_fields__)
     y = torch.full_like(x, 7.0)
     taps = upfirdn._taps(blur, 1.0)
-    good = upfirdn.fir_plan(4, 8, 8, 1, 1, 1, 3, 3, 8, 8).as_array()
+    good = upfirdn.fir_plan(4, 8, 8, 1, 1, 1, 3, 3, 8, 8, min_blocks=upfirdn.min_blocks(dev)).as_array()
     bad_plans = {"a staged row short": ("in_rows", -1), "threads short": ("threads", -32),
                  "a tile row short": ("tile_rows", -4), "odd phase at up 1": ("phase", 1)}
     for name, (field, delta) in bad_plans.items():
         plan = good.copy()
         plan[fields.index(field)] += delta
-        rc = cuda.kernel("upfirdn2d")(
-            x.data_ptr(), y.data_ptr(), 4, 8, 8, 8, 8, 1, 1, 1, 3, 3, taps.ctypes.data,
-            plan.ctypes.data, x.device.index, torch.cuda.current_stream(dev).cuda_stream)
+        rc = launch_plan(torch, x, y, taps, 1, 1, 1, plan)
         check(rc == 1, f"the C entry point took a plan with {name} (rc {rc})")
     torch.cuda.synchronize()
     check(bool((y == 7.0).all()), "a refused plan wrote the output")
@@ -1086,6 +1080,18 @@ def fir_parity(torch, dev, gen):
         f"{len(refused)} out-of-contract calls and {len(bad_plans)} plans refused "
         f"({', '.join(bad_plans)})")
     return max_err
+
+
+def launch_plan(torch, x, y, taps, up, down, pad0, plan):
+    """The FIR kernel's C entry point on ``plan`` (an int array), uncounted:
+    for plans that upfirdn2d_cuda would not make. Returns its cudaError."""
+    from tpugan_torch.ops import cuda
+
+    n, c, h, w = x.shape
+    kh, kw = taps.shape
+    return cuda.kernel("upfirdn2d")(
+        x.data_ptr(), y.data_ptr(), n * c, h, w, y.shape[2], y.shape[3], up, down, pad0, kh, kw,
+        taps.ctypes.data, plan.ctypes.data, x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
 
 
 def flushed_ms(torch, fn, flush, expect):
@@ -1118,11 +1124,12 @@ def fir_row(torch, calls, nbytes, flops, bandwidth, fp32_peak):
     return row
 
 
-def fir_times(torch, dev, gen, bandwidth, fp32_peak):
+def fir_times(torch, dev, gen, bandwidth, fp32_peak, layout_launches):
     """The FIR kernel at the path's six blur shapes beside its plain version,
-    cuDNN's depthwise conv and its bound; the largest two also with L2
-    flushed; B1's and B2's sums; and, for the record, slice 3's FIRs.
-    Returns the kernel table's timing keys."""
+    cuDNN's depthwise conv and its bound, and with the other strip width
+    (1 and 4 columns); the largest two also with L2 flushed; B1's and B2's
+    sums, with the main path's launches of each (``layout_launches``); and,
+    for the record, slice 3's FIRs. Returns the kernel table's timing keys."""
     import torch.nn.functional as F
 
     from tpugan_torch.ops import upfirdn
@@ -1143,11 +1150,22 @@ def fir_times(torch, dev, gen, bandwidth, fp32_peak):
             "library_ms": lambda: F.conv2d(x, w, padding=1, groups=c),
         }
         nbytes = 2 * x.numel() * x.element_size()
-        plan = upfirdn.fir_plan(BATCH * c, r, r, 1, 1, 1, 3, 3, r, r)
-        row = {"shape": [BATCH, c, r, r], "kernel": "B1" if (c, r) in B1_BLURS else "B2",
+        plan = upfirdn.fir_plan(BATCH * c, r, r, 1, 1, 1, 3, 3, r, r, min_blocks=upfirdn.min_blocks(dev))
+        row = {"shape": [BATCH, c, r, r], "kernel": upfirdn.tpu_layout(c, 1, 1, 3, 3),
                **fir_row(torch, calls, nbytes, 2 * 9 * x.numel(), bandwidth, fp32_peak),
                "plan": {k: getattr(plan, k) for k in ("rw", "tile_rows", "tile_cols",
                                                        "planes_per_block", "blocks", "threads")}}
+        # the same blur with the other strip width, through the C entry point
+        other = upfirdn.fir_plan(BATCH * c, r, r, 1, 1, 1, 3, 3, r, r, min_blocks=upfirdn.min_blocks(dev),
+                                 rw=5 - plan.rw).as_array()
+        y = torch.empty_like(x)
+        taps = upfirdn._taps(blur, 1.0)
+        check(launch_plan(torch, x, y, taps, 1, 1, 1, other) == 0, f"strips of {5 - plan.rw} at {c}x{r}")
+        torch.cuda.synchronize()
+        check(torch.allclose(y, got, rtol=KERNEL_TOL, atol=KERNEL_TOL),
+              f"strips of {5 - plan.rw} at {c}x{r} differ from strips of {plan.rw}")
+        row["other_strip_ms"], _, row["other_strip_ms_from"] = kernel_ms(
+            torch, lambda: launch_plan(torch, x, y, taps, 1, 1, 1, other), ("upfirdn2d_kernel",))
         issue = {key: time_ms(torch, fn) for key, fn in calls.items()}
         flushed = ""
         if (c, r) in FLUSHED_BLURS:
@@ -1161,21 +1179,21 @@ def fir_times(torch, dev, gen, bandwidth, fp32_peak):
         say(f"blur {c}x{r}x{r} ({row['kernel']}): device time kernel {row['ms'] * 1e3:.2f} us, plain "
             f"{row['plain_ms'] * 1e3:.2f} us, library {row['library_ms'] * 1e3:.2f} us; bound "
             f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, {nbytes / 1e6:.3f} MB), "
-            f"{row['share_of_bound'] * 100:.1f}% of it{flushed}; plan {row['plan']}; back to back "
-            "per call: " + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in issue.items()))
-        del x, w, got
+            f"{row['share_of_bound'] * 100:.1f}% of it{flushed}; plan {row['plan']}; strips of "
+            f"{5 - plan.rw} column(s) {row['other_strip_ms'] * 1e3:.2f} us; back to back per call: "
+            + ", ".join(f"{k} {v * 1e3:.2f} us" for k, v in issue.items()))
+        del x, w, got, y
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     per_decode = {k: sum(r[k] for r in rows) for k in keys}
-    split = {name: {k: sum(r[k] for r in rows if r["kernel"] == name) for k in keys}
+    split = {name: {"launches": layout_launches[name],
+                    **{k: sum(r[k] for r in rows if r["kernel"] == name) for k in keys}}
              for name in ("B1", "B2")}
-    for name, part in split.items():
-        part["launches_per_request"] = 2 * len(B1_BLURS if name == "B1" else B2_BLURS)
     say(f"per decode ({len(PATH_BLURS)} blurs): kernel {per_decode['ms'] * 1e3:.2f} us, plain "
         f"{per_decode['plain_ms'] * 1e3:.2f} us, library {per_decode['library_ms'] * 1e3:.2f} us, "
         f"bound {per_decode['bound_ms'] * 1e3:.2f} us; " + "; ".join(
-            f"{name} ({len(B1_BLURS if name == 'B1' else B2_BLURS)} shapes) kernel {p_['ms'] * 1e3:.2f} "
-            f"us, library {p_['library_ms'] * 1e3:.2f} us, bound {p_['bound_ms'] * 1e3:.2f} us"
-            for name, p_ in split.items()))
+            f"{name} ({sum(r['kernel'] == name for r in rows)} shapes, {p_['launches']} launches on the "
+            f"main path) kernel {p_['ms'] * 1e3:.2f} us, library {p_['library_ms'] * 1e3:.2f} us, bound "
+            f"{p_['bound_ms'] * 1e3:.2f} us" for name, p_ in split.items()))
 
     record = []
     for label, up, down, taps, pad, shape, gain in SLICE3_FIRS:
@@ -1206,7 +1224,8 @@ def fir_times(torch, dev, gen, bandwidth, fp32_peak):
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
         "library_ms": per_decode["library_ms"],
         "times_are": f"sum over the {len(PATH_BLURS)} blur shapes of one decode at batch {BATCH}; "
-                     "B1 and B2 split them as tpugan's dispatch does",
+                     "B1 and B2 split them as tpugan's dispatch does, and each one's launches are "
+                     "the main path's, counted by that key (upfirdn.layout_launches)",
         "split": split,
         "per_shape": rows,
         "record_only": record,
@@ -1221,7 +1240,7 @@ def main() -> int:
         return 1
 
     from tpugan_torch.cli import common, infer_e
-    from tpugan_torch.ops import cuda
+    from tpugan_torch.ops import cuda, upfirdn
     from tpugan_torch.runtime import parity_mode
 
     dev = torch.device(CARD)
@@ -1263,6 +1282,7 @@ def main() -> int:
     check(blurs_per_request == 2 * len(PATH_BLURS), "PATH_BLURS does not match the generator")
 
     cuda.reset_launches()
+    upfirdn.reset_layout_launches()
     for seed in REQUEST_SEEDS:
         imgs1, imgs2 = infer_e.run(bundle, BATCH, seed)
         torch.cuda.synchronize()
@@ -1270,11 +1290,16 @@ def main() -> int:
             check(tuple(img.shape) == (BATCH, IMG_SIZE, IMG_SIZE, 3), f"{label} shape {tuple(img.shape)}")
             check(bool(torch.isfinite(img).all()), f"{label} of seed {seed} is not finite")
     launches = dict(cuda.launches)
+    layouts = dict(upfirdn.layout_launches)
     want = blurs_per_request * len(REQUEST_SEEDS)
     check(launches == expected_launches(upfirdn2d=want),
           f"main path launches {launches}, expected {want} upfirdn2d and no attention")
+    # tpugan's dispatch sends each blur by its channel count: two decodes a request
+    want_layouts = {key: 2 * len(REQUEST_SEEDS) * sum(upfirdn.tpu_layout(c, 1, 1, 3, 3) == key
+                                                      for c, _ in PATH_BLURS) for key in layouts}
+    check(layouts == want_layouts, f"main path FIR launches by TPU kernel {layouts}, expected {want_layouts}")
     say(f"main path: {len(REQUEST_SEEDS)} requests, launches {launches} "
-        f"({blurs_per_request} per request)")
+        f"({blurs_per_request} per request); upfirdn2d by the TPU kernel it replaces {layouts}")
 
     # the same explicit inputs, drawn on the CPU, through the plain versions there
     cpu = common.build_bundle(parser.parse_args(argv + ["--device", "cpu"]))
@@ -1301,7 +1326,7 @@ def main() -> int:
     request_latency(torch, run, seed, "PyTorch defaults (cuDNN convolutions in TF32)")
     parity_mode()
 
-    fir = fir_times(torch, dev, gen, bandwidth, fp32_peak)
+    fir = fir_times(torch, dev, gen, bandwidth, fp32_peak, layouts)
 
     attn = biggan_path(torch, dev, parser, smi, bandwidth, fp32_peak)
     attn["max_abs_err"] = max(attn["max_abs_err"], attn_err)

@@ -23,6 +23,7 @@ from tpugan_torch.ops import cuda, upfirdn
 torch.set_num_threads(1)
 
 FIR_TOL = dict(rtol=1e-5, atol=1e-5)  # the Pallas kernels' own contract
+H100_MIN_BLOCKS = 2 * 132  # upfirdn.min_blocks on an H100 SXM (132 SMs)
 
 
 def run_plan(x, taps, up, down, pad0, ho, wo, plan):
@@ -92,11 +93,13 @@ def run_plan(x, taps, up, down, pad0, ho, wo, plan):
 
 
 def _case(planes, h, w, up, down, kshape, pad, aligned=True, min_blocks=None, gain=1.0,
-          taps=None):
-    """``min_blocks`` stands in for upfirdn.MIN_BLOCKS, so that a few small
-    planes share blocks as the path's hundreds do."""
+          taps=None, rw=None):
+    """``min_blocks`` stands in for the card's (upfirdn.min_blocks), so that
+    a few small planes share blocks as the path's hundreds do; ``rw``
+    overrides the strip width as chip_smoke.py's timing of the other width
+    does."""
     return dict(planes=planes, h=h, w=w, up=up, down=down, kshape=kshape, pad=pad,
-                aligned=aligned, min_blocks=min_blocks, gain=gain, taps=taps)
+                aligned=aligned, min_blocks=min_blocks, gain=gain, taps=taps, rw=rw)
 
 
 CASES = {
@@ -140,6 +143,10 @@ CASES = {
     "rw4_unaligned_9x35": _case(3, 9, 35, 1, 1, (3, 3), (1, 1)),
     "rw4_4tap_wide": _case(1, 5, 530, 1, 1, (4, 4), (2, 1)),
     "rw4_7x5_pad": _case(2, 12, 40, 1, 1, (7, 5), (5, 2)),
+    # the other strip width at the path's blur: 1 column on wide rows, 4 on
+    # narrow ones with several planes to a block
+    "rw1_blur_64x64": _case(2, 64, 64, 1, 1, (3, 3), (1, 1), taps=(1, 2, 1), rw=1),
+    "rw4_blur_8x8_planes": _case(9, 8, 8, 1, 1, (3, 3), (1, 1), min_blocks=2, taps=(1, 2, 1), rw=4),
 }
 
 
@@ -173,22 +180,23 @@ def _inputs(case, rng):
     return x, k
 
 
-def _plan(case, monkeypatch):
-    if case["min_blocks"] is not None:
-        monkeypatch.setattr(upfirdn, "MIN_BLOCKS", case["min_blocks"])
+def _plan(case):
     kh, kw = case["kshape"]
     up, down, (p0, p1), h, w = case["up"], case["down"], case["pad"], case["h"], case["w"]
     ho, wo = (h * up + p0 + p1 - kh) // down + 1, (w * up + p0 + p1 - kw) // down + 1
-    return upfirdn.fir_plan(case["planes"], h, w, up, down, p0, kh, kw, ho, wo, case["aligned"]), ho, wo
+    plan = upfirdn.fir_plan(case["planes"], h, w, up, down, p0, kh, kw, ho, wo,
+                            min_blocks=case["min_blocks"] or H100_MIN_BLOCKS, aligned=case["aligned"],
+                            rw=case["rw"])
+    return plan, ho, wo
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_plan_tile_by_tile_matches_plain(rng, monkeypatch, name):
+def test_plan_tile_by_tile_matches_plain(rng, name):
     case = CASES[name]
     x, k = _inputs(case, rng)
     up, down, (p0, p1) = case["up"], case["down"], case["pad"]
     assert k.shape == case["kshape"]
-    plan, ho, wo = _plan(case, monkeypatch)
+    plan, ho, wo = _plan(case)
     got = run_plan(torch.from_numpy(x), torch.from_numpy(upfirdn._taps(k, case["gain"])),
                    up, down, p0, ho, wo, plan)
     want = upfirdn.upfirdn2d_plain(torch.from_numpy(x)[None], k, up, down, (p0, p1), case["gain"])[0]
@@ -198,11 +206,10 @@ def test_plan_tile_by_tile_matches_plain(rng, monkeypatch, name):
     np.testing.assert_allclose(want.numpy(), np.asarray(ref)[0].transpose(2, 0, 1), **FIR_TOL)
 
 
-def test_plan_covers_what_the_name_says(monkeypatch):
+def test_plan_covers_what_the_name_says():
     """The named cases reach the layouts they are named for."""
     def plan(name):
-        with monkeypatch.context() as mp:
-            return _plan(CASES[name], mp)[0]
+        return _plan(CASES[name])[0]
 
     ragged = plan("blur_8x8_planes_ragged")
     assert ragged.planes_per_block == 3 and CASES["blur_8x8_planes_ragged"]["planes"] % 3 != 0
@@ -216,6 +223,8 @@ def test_plan_covers_what_the_name_says(monkeypatch):
     assert ragged4.rw == 4 and ragged4.planes_per_block > 1 and 7 % ragged4.planes_per_block != 0
     assert plan("rw4_unaligned_9x35").rw == 4 and plan("rw4_unaligned_9x35").vec == 0
     assert plan("tall_narrow_300x20").rw == 1 and plan("rw4_7x5_pad").rw == 4
+    assert plan("rw1_blur_64x64").rw == 1 and plan("rw1_blur_64x64").tiles_y > 1
+    assert plan("rw4_blur_8x8_planes").rw == 4 and plan("rw4_blur_8x8_planes").planes_per_block > 1
 
 
 @pytest.mark.parametrize("channels,side", [(512, 8), (512, 16), (512, 32), (256, 64), (128, 128),
@@ -225,7 +234,8 @@ def test_path_blur_plans(channels, side):
     most 128 threads and 48 KB, 4-column strips from 32 x 32 on, several
     planes to a block up to 32 x 32, row bands from 64 x 64 on, and
     enough blocks for every SM."""
-    plan = upfirdn.fir_plan(2 * channels, side, side, 1, 1, 1, 3, 3, side, side)
+    plan = upfirdn.fir_plan(2 * channels, side, side, 1, 1, 1, 3, 3, side, side,
+                            min_blocks=H100_MIN_BLOCKS)
     assert plan.vec == 1 and plan.threads <= upfirdn.THREADS
     assert plan.shared_bytes <= upfirdn.MAX_SHARED_BYTES
     assert plan.blocks >= 256

@@ -127,6 +127,28 @@ def test_cpu_tensor_takes_plain_version_without_launch(rng):
     assert not any(cuda.launches.values())
 
 
+# (channels, up, down, kernel shape): both sides of each of tpugan's tests
+LAYOUT_CASES = [
+    (512, 1, 1, (3, 3)), (256, 2, 1, (4, 4)), (128, 1, 2, (4, 4)), (128, 2, 2, (4, 4)),
+    (64, 1, 1, (3, 3)), (16, 1, 1, (4, 4)), (3, 1, 1, (3, 3)), (64, 2, 1, (4, 4)),
+    (128, 1, 1, (3, 5)), (32, 1, 1, (2, 4)),
+]
+
+
+@pytest.mark.parametrize("c,up,down,kshape", LAYOUT_CASES)
+def test_tpu_layout_is_tpugan_dispatch(monkeypatch, c, up, down, kshape):
+    """A launch is counted in layout_launches under the TPU kernel that
+    tpugan's _dispatch runs for the same FIR."""
+    from tpugan.ops.pallas import upfirdn2d as mod
+
+    took = []
+    monkeypatch.setattr(mod, "upfirdn2d_pallas", lambda x, *a, **kw: took.append("B1") or x)
+    monkeypatch.setattr(mod, "upfirdn2d_pallas_small_c", lambda x, *a, **kw: took.append("B2") or x)
+    monkeypatch.setattr(jfir, "_upfirdn2d_xla", lambda x, *a: took.append("XLA") or x)
+    jfir._dispatch(jnp.zeros((1, 4, 4, c)), np.ones(kshape, np.float32), up, down, (1, 1), 1.0, True)
+    assert took == [upfirdn.tpu_layout(c, up, down, *kshape)]
+
+
 REFUSED = {
     "bf16": (lambda x: dict(x=x.bfloat16()), TypeError, "float32"),
     "non_contiguous": (lambda x: dict(x=x.transpose(2, 3)), ValueError, "contiguous"),

@@ -42,9 +42,11 @@
 //    shared memory, neighbouring threads on neighbouring strips: RW = 4 for
 //    a same-size FIR on rows of 32 or more (one 16-byte store per strip
 //    row), RW = 1 on narrower rows, where more threads per plane finish a
-//    latency-bound launch sooner (2.36 against 2.92 us at 8x8, 2.86 against
-//    3.69 at 16x16), RW = 2 for up 2 (a column pair, so each column's phase
-//    is fixed), RW = 1 for down 2. Blocks of at most 128 threads.
+//    latency-bound launch sooner (chip_smoke.py times every path blur with
+//    both widths; PERF.md), RW = 2 for up 2 (a column pair, so each
+//    column's phase is fixed), RW = 1 for down 2. Blocks of at most 128
+//    threads; small planes share a block while the launch keeps two blocks
+//    per SM.
 //  * The path's FIRs are compile-time cases: the 3x3 blur and the 4x4 FIRs
 //    at (up, down) = (1, 1), (2, 1) and (1, 2); one runtime-tap case per
 //    (up, down) takes any other size up to 8x8. With compile-time taps a
@@ -61,11 +63,11 @@
 // ptxas (sm_90a): 29-40 registers, no spills; no static shared memory, and
 // a dynamic tile of at most 48 KB (kMaxSharedBytes; 9.8 KB for a 32x64
 // band, 10.6 KB for an 8x256 band), so no opt-in attribute is needed.
-// Measured at the SGv1 decode's six blur shapes (tpugan_torch/tools/
-// fir_variants.py, H100 SXM at 700 W): 72-84% of the byte bound at
-// 128x128 and 64x256x256, 47-60% at 32x32 and 64x64, and launch latency
-// at 8x8 and 16x16 (PERF.md). Left for later work: overlapping a block's
-// next tile with its current one, bf16.
+// Measured at the SGv1 decode's six blur shapes (chip_smoke.py, H100 SXM
+// at 700 W): 73-84% of the byte bound at 128x128 and 64x256x256, 47-60% at
+// 32x32 and 64x64, and launch latency at 8x8 and 16x16 (PERF.md). Left
+// for later work: overlapping a block's next tile with its current one,
+// bf16.
 
 #include <cuda_runtime.h>
 

@@ -11,7 +11,9 @@ the hand-written kernel (``csrc/upfirdn2d.cu``) through
 :func:`upfirdn2d_cuda`, which raises on any input outside the kernel's
 contract. Nothing falls back. The kernel has no gradient yet (the FIR
 adjoint comes with ROADMAP slice 3), so a CUDA input that requires one is
-refused rather than given an output that silently drops it.
+refused rather than given an output that silently drops it. Each launch is
+counted in ``cuda.launches`` and, by the TPU kernel that tpugan runs for
+the same FIR (:func:`tpu_layout`), in :data:`layout_launches`.
 """
 
 from __future__ import annotations
@@ -31,9 +33,7 @@ STRIP_ROWS = 4  # kStripRows: output rows of a thread's strip
 MAX_SHARED_BYTES = 48 * 1024  # kMaxSharedBytes: a block's staged tile, at most
 MAX_STRIP_COLS = 64  # strips across a tile of a wide plane
 WIDE_STRIP_MIN_COLS = 32  # same-size FIRs on rows this wide take 4-column strips
-# blocks a launch should have before several small planes share one: two
-# per streaming multiprocessor of an H100 (132)
-MIN_BLOCKS = 264
+BLOCKS_PER_SM = 2  # blocks a launch should have per SM before small planes share one
 
 
 def setup_fir_kernel(taps) -> np.ndarray:
@@ -99,18 +99,21 @@ def strip_width(up: int, down: int, wo: int) -> int:
 
 
 def fir_plan(planes: int, h: int, w: int, up: int, down: int, pad0: int, kh: int, kw: int,
-             ho: int, wo: int, aligned: bool = True) -> FirPlan:
+             ho: int, wo: int, *, min_blocks: int, aligned: bool = True,
+             rw: int | None = None) -> FirPlan:
     """The launch plan for ``planes`` planes of h x w -> ho x wo.
 
     Small planes (a whole plane in at most THREADS strips) go several to a
-    block, as many as keep MIN_BLOCKS blocks; larger ones are cut into
-    bands of rows across the full width, or 2-D tiles of MAX_STRIP_COLS
-    strips for wide planes. A tile whose staged input exceeds
-    MAX_SHARED_BYTES holds fewer planes, then fewer rows, then fewer
-    columns. ``aligned``: the input's base is 16-byte aligned; with w % 4
-    == 0 every row is, and the tile is copied 16 bytes at a time."""
+    block, as many as keep ``min_blocks`` blocks (:func:`min_blocks`);
+    larger ones are cut into bands of rows across the full width, or 2-D
+    tiles of MAX_STRIP_COLS strips for wide planes. A tile whose staged
+    input exceeds MAX_SHARED_BYTES holds fewer planes, then fewer rows, then
+    fewer columns. ``aligned``: the input's base is 16-byte aligned; with
+    w % 4 == 0 every row is, and the tile is copied 16 bytes at a time.
+    ``rw``: the strip width, :func:`strip_width` unless given (a same-size
+    FIR runs with 1 or 4)."""
     rh = STRIP_ROWS
-    rw = strip_width(up, down, wo)
+    rw = strip_width(up, down, wo) if rw is None else rw
     phase = -pad0 % up
     vec = int(aligned and w % 4 == 0)
 
@@ -121,7 +124,7 @@ def fir_plan(planes: int, h: int, w: int, up: int, down: int, pad0: int, kh: int
 
     strip_cols, strip_rows = _cdiv(wo, rw), _cdiv(ho, rh)
     if strip_cols * strip_rows <= THREADS:
-        per_block = min(THREADS // (strip_cols * strip_rows), max(1, _cdiv(planes, MIN_BLOCKS)),
+        per_block = min(THREADS // (strip_cols * strip_rows), max(1, _cdiv(planes, min_blocks)),
                         max(1, planes))
     else:
         per_block = 1
@@ -148,13 +151,43 @@ def fir_plan(planes: int, h: int, w: int, up: int, down: int, pad0: int, kh: int
     )
 
 
+@functools.lru_cache(maxsize=None)
+def min_blocks(device: torch.device) -> int:
+    """BLOCKS_PER_SM blocks for each streaming multiprocessor of ``device``
+    (264 on an H100 SXM)."""
+    return BLOCKS_PER_SM * torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @functools.lru_cache(maxsize=256)
-def _plan_array(*args) -> np.ndarray:
-    """fir_plan(*args) as the kernel reads it; a model's few shapes recur,
-    so the plan is made once per shape."""
-    plan = fir_plan(*args).as_array()
+def _plan_array(*args, **kwargs) -> np.ndarray:
+    """fir_plan(...) as the kernel reads it; a model's few shapes recur, so
+    the plan is made once per shape."""
+    plan = fir_plan(*args, **kwargs).as_array()
     plan.flags.writeable = False
     return plan
+
+
+def tpu_layout(c: int, up: int, down: int, kh: int, kw: int) -> str:
+    """The TPU kernel that tpugan's dispatch (``tpugan/ops/upfirdn.py``,
+    ``_dispatch``) gives this FIR on C channels: "B1" (``upfirdn2d_pallas``,
+    C % 128 == 0), "B2" (``upfirdn2d_pallas_small_c``, same-size with
+    128 % C == 0), or "XLA" (none; tpugan runs its XLA form). The port runs
+    one kernel for all three; :data:`layout_launches` counts its launches
+    by this key."""
+    if kh == kw <= MAX_TAPS:
+        if (up, down) in ((1, 1), (1, 2), (2, 1)) and c % 128 == 0:
+            return "B1"
+        if (up, down) == (1, 1) and 128 % c == 0:
+            return "B2"
+    return "XLA"
+
+
+layout_launches = {"B1": 0, "B2": 0, "XLA": 0}
+
+
+def reset_layout_launches() -> None:
+    for key in layout_launches:
+        layout_launches[key] = 0
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -221,7 +254,8 @@ def upfirdn2d_cuda(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
     if not x.is_cuda:
         raise ValueError(f"upfirdn2d_cuda needs a CUDA tensor, got one on {x.device}")
     y = torch.empty((n, c, ho, wo), dtype=x.dtype, device=x.device)
-    plan = _plan_array(n * c, h, w, up, down, p0, kh, kw, ho, wo, x.data_ptr() % 16 == 0)
+    plan = _plan_array(n * c, h, w, up, down, p0, kh, kw, ho, wo, min_blocks=min_blocks(x.device),
+                       aligned=x.data_ptr() % 16 == 0)
     fn = cuda.kernel("upfirdn2d")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), y.data_ptr(), n * c, h, w, ho, wo, up, down, p0, kh, kw,
@@ -229,6 +263,7 @@ def upfirdn2d_cuda(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
     if rc != 0:
         raise RuntimeError(f"upfirdn2d kernel launch failed: cudaError {rc}")
     cuda.launches["upfirdn2d"] += 1
+    layout_launches[tpu_layout(c, up, down, kh, kw)] += 1
     return y
 
 
