@@ -10,12 +10,18 @@ Phases:
   1. the card (name and power limit, from nvidia-smi) and the kernel build;
   2. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes and at the TPU kernels' contract cases (TF32 off), the
-     FIR kernel also at its tiles' edge cases and slice 3's FIRs, and
-     out-of-contract calls (and FIR launch plans) refused;
+     FIR kernel also at its tiles' edge cases and slice 3's FIRs, its
+     adjoint (upfirdn2d's gradient) against autograd of the plain version,
+     the attention backward at every template instance, and
+     out-of-contract calls (and FIR launch plans) refused; then B3's and
+     B4's times at the BigGAN-256 paths' shape, before any path is
+     profiled;
   3. the StyleGANv1 Cat256 path: the bundle (random weights from a seed,
      batch 2) answers requests through ``tpugan_torch.cli.infer_e.run``
      while the kernels' launches are counted; one request is replayed on
-     the CPU, where the plain versions run, and compared;
+     the CPU, where the plain versions run, and compared; a gradient through
+     G -> E_Blur -> G with its FIR launches, forward and adjoint, counted,
+     held to the CPU in float64;
   4. its times: request latency, the device time of a request by kernel,
      and the FIR kernel's device time at each blur shape beside its plain
      version, one library call for the same function and the least time
@@ -23,9 +29,8 @@ Phases:
      flushed, summed for B1 and B2; slice 3's FIRs timed for the record;
   5. the BigGAN-deep-256 + E_BIG path (mtype 4) the same way: the attention
      kernel on the path's own q/k/v, requests with launch counts, a request
-     replayed on the CPU with every SelfAttn gamma set non-zero, latency,
-     device time by kernel, and the attention kernel's times at the path's
-     shape;
+     replayed on the CPU with every SelfAttn gamma set non-zero, latency
+     and device time by kernel;
   6. the E_BIG train step of ``tpugan_torch.cli.e_align`` (mtype 4, full
      width, batch 2): one case-2 step on the CLI's own weights, then case 2
      with every gamma at 1 and E_BIG's z head scaled, with launch counts,
@@ -33,8 +38,7 @@ Phases:
      plain version in float64, and twice, bitwise equal), case 1 and its
      lean step as ``tpugan``'s scripts/bench_biggan256.py measures them, a
      case-2 step replayed on the CPU at a reduced width, step times, device
-     time by kernel, peak memory, and the backward kernels' times at the
-     path's shape beside three bounds (3xTF32, fp32 FMAs, the design's own).
+     time by kernel and peak memory.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -120,6 +124,14 @@ SLICE3_FIRS = (
     ("E_Blur blur", 1, 1, (1, 2, 1), (1, 1), (2, 16, 1024, 1024), 1.0),
     ("down-2 4-tap FIR", 1, 2, (1, 3, 3, 1), (1, 1), (2, 3, 1024, 1024), 1.0),
 )
+# the FIR adjoint's other cases (label, up, down, taps, pad, NCHW shape,
+# gain): a pad past the taps (a negative adjoint pad, cropped in torch), and
+# kh != kw at up 2 (unequal front pads of H and W: stuffed and padded in
+# torch, then one launch at up 1)
+ADJOINT_CASES = (
+    ("pad past the taps", 1, 1, (1, 2, 1), (4, 3), (2, 16, 12, 10), 1.0),
+    ("taps 3x2 up2", 2, 1, ((1, 2), (3, 1), (0, 2)), (1, 1), (2, 3, 9, 7), 4.0),
+)
 # the blur shapes also timed with L2 flushed before each call (their inputs
 # and outputs are 33.6 and 67.1 MB; the L2 holds 50 MB)
 FLUSHED_BLURS = ((128, 128), (64, 256))
@@ -144,8 +156,10 @@ ATTENTION_CASES = (
 )
 LSE_TOL = 1e-5  # tests/test_attention.py:54
 # the attention backward: tests/test_attention.py:59-80's case, then odd
-# lengths, one key, widths that are not multiples of 4, dk 128 with dv 256
-# BigGAN-128's widths and BigGAN-256's (the path's template instance, at O(1)
+# lengths, one key, widths that are not multiples of 4, dk 128 with dv 256,
+# 64 and 128 and dk 64 with dv 128 (with the rest, every template instance
+# of the dq kernel: padded widths dk 64 or 128 by dv 64, 128 or 256),
+# BigGAN-128's widths and BigGAN-256's (the path's instance, at O(1)
 # values), and the path's widths at lengths that are not multiples of the
 # kernels' 32- and 64-row tiles: (q, k, v shapes, input scale)
 ATTENTION_BWD_CASES = (
@@ -156,6 +170,9 @@ ATTENTION_BWD_CASES = (
     ((1, 50, 13), (1, 33, 13), (1, 33, 30), 1.0),
     ((2, 70, 20), (2, 45, 20), (2, 45, 130), 1.0),
     ((1, 130, 128), (1, 70, 128), (1, 70, 256), 0.3),
+    ((1, 100, 128), (1, 80, 128), (1, 80, 64), 0.5),
+    ((1, 100, 128), (1, 80, 128), (1, 80, 128), 0.5),
+    ((1, 100, 64), (1, 80, 64), (1, 80, 128), 0.5),
     ((2, 4096, 32), (2, 1024, 32), (2, 1024, 128), 1.0),
     ((2, 4096, 64), (2, 1024, 64), (2, 1024, 256), 1.0),
     ((1, 4100, 64), (1, 1000, 64), (1, 1000, 256), 1.0),
@@ -165,6 +182,12 @@ BWD_TOL = 2e-4  # abs and rel, tests/test_attention.py:78
 # terms (compare_attention_bwd), which holds the kernel where the values are
 # far below BWD_TOL, as on a step's own inputs
 BWD_MAX_SHARE = 1e-3
+# B4's kernels: their launch counters, and their symbols in a profiler trace
+B4_KERNELS = ("sagan_attention_bwd_pack", "sagan_attention_bwd_dq", "sagan_attention_bwd_dkv")
+B4_SYMBOLS = ("attention_pack_kernel", "attention_dq_kernel", "attention_dkv_kernel")
+# the attention layer's shape on the BigGAN-256 paths (64 x 64 positions of
+# 512 channels, keys max-pooled to 32 x 32; batch 2): q, k, v
+ATTN_PATH_SHAPE = ((BATCH, 4096, 64), (BATCH, 1024, 64), (BATCH, 1024, 256))
 BIGGAN_SIZE = 256
 BIGGAN_Z_DIM = 128
 ATTN_GAMMA = 1.0  # every SelfAttn.gamma in the CUDA-vs-CPU BigGAN check (random init gives 0)
@@ -410,15 +433,12 @@ def scale_z_head(torch, encoder, factor):
         encoder.new_final_2.bias.mul_(factor)
 
 
-def biggan_path(torch, dev, parser, smi, bandwidth, fp32_peak):
+def biggan_path(torch, dev, parser, smi):
     """Phase 5: the mtype-4 path (BigGAN-deep-256 + E_BIG, batch 2). Returns
-    the attention kernel's entry of the kernel table."""
-    import torch.nn.functional as F
-
+    the attention kernel's launches on the path and its max |err|."""
     from tpugan_torch.cli import common, infer_e
     from tpugan_torch.models import biggan as biggan_model
     from tpugan_torch.ops import cuda
-    from tpugan_torch.ops.attention import sagan_attention_cuda, sagan_attention_plain
 
     argv = ["--mtype", "4", "--img_size", str(BIGGAN_SIZE), "--start_features", "64",
             "--z_dim", str(BIGGAN_Z_DIM), "--random_init", "--batch_size", str(BATCH),
@@ -512,63 +532,7 @@ def biggan_path(torch, dev, parser, smi, bandwidth, fp32_peak):
     median = request_latency(torch, run, seed, f"BigGAN-deep-{BIGGAN_SIZE} + E_BIG, fp32, TF32 off")
     request_device_time(torch, run, seed, median, "sagan_attention_kernel", "sagan_attention")
 
-    # the kernel at the path's shape, on the synthesis pass's own inputs
-    q, k, v = captured[0]
-    n, lq, dk = q.shape
-    lk, dv = v.shape[1], v.shape[2]
-    library = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)  # noqa: E731
-    lib_err = (library() - sagan_attention_plain(q, k, v)).abs().max().item()
-    check(lib_err < 1e-3, f"scaled_dot_product_attention differs by {lib_err:.3e}")
-    calls = {
-        "ms": lambda: sagan_attention_cuda(q, k, v),
-        "plain_ms": lambda: sagan_attention_plain(q, k, v),
-        "library_ms": library,
-    }
-    row = {}
-    names = {}
-    for key, fn in calls.items():
-        if key == "ms":
-            row[key], kernels, row["ms_from"] = kernel_ms(torch, fn, ("sagan_attention_kernel",),
-                                                          device_bound=True)
-        else:
-            kernels = device_kernels(torch, fn, iters=20)
-            row[key] = sum(ms for ms, _ in kernels.values())
-        names[key] = sorted(kernels, key=lambda name: -kernels[name][0])
-    nbytes = 4 * (q.numel() + k.numel() + v.numel() + n * lq * dv)
-    flops = 2 * n * lq * lk * (dk + dv)
-    row["bound_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
-    row["bound_by"] = "bytes" if nbytes / bandwidth >= flops / fp32_peak else "operations"
-    issue = {key: time_ms(torch, fn, iters=20) for key, fn in calls.items()}
-    shape = f"q [{n}, {lq}, {dk}], k [{n}, {lk}, {dk}], v [{n}, {lk}, {dv}]"
-    say(f"attention at the path's shape ({shape}): device time kernel {row['ms'] * 1e3:.2f} us, "
-        f"plain {row['plain_ms'] * 1e3:.2f} us, library {row['library_ms'] * 1e3:.2f} us; bound "
-        f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: {flops / 1e9:.3f} GFLOP at "
-        f"{fp32_peak / 1e12:.0f} TFLOP/s fp32 outside the tensor cores, {nbytes / 1e6:.3f} MB at "
-        f"{bandwidth / 1e12:.2f} TB/s); back to back per call: "
-        + ", ".join(f"{k_} {v_ * 1e3:.2f} us" for k_, v_ in issue.items()))
-    say(f"  library call: scaled_dot_product_attention(q, k, v, scale=1.0) ran "
-        f"{', '.join(name[:80] for name in names['library_ms'])} (max |err| {lib_err:.3e} against "
-        "the plain version)")
-    say(f"  plain version ran {', '.join(name[:60] for name in names['plain_ms'])}")
-    say("  the bound is for fp32 FMAs outside the tensor cores, as the kernel computes; a TF32 "
-        "tensor-core design would have a lower bound, and that design is a later PR's")
-    return {
-        "name": "sagan_attention",
-        "route": "cuda",
-        "source": "tpugan_torch/csrc/sagan_attention.cu",
-        "replaces": "tpugan/ops/pallas/attention.py:68 (sagan_attention_pallas); "
-                    "tpugan/ops/pallas/attention.py:77 (sagan_attention_pallas, return_lse=True)",
-        "launches": launches["sagan_attention"],
-        "max_abs_err": max_err,
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"],
-        "ms_from": row["ms_from"],
-        "library_kernels": [name[:100] for name in names["library_ms"]],
-        "times_are": f"one call at the BigGAN-{BIGGAN_SIZE} path's shape ({shape}), on a request's own inputs",
-    }
+    return {"launches": launches["sagan_attention"], "max_abs_err": max_err}
 
 
 def compare_attention_bwd(torch, label, q, k, v, o, lse, do):
@@ -630,7 +594,10 @@ def attention_bwd_parity(torch, dev, gen):
         label = f"attention backward q{q_shape} k{k_shape} v{v_shape} x{scale:g}"
         max_err = max(max_err, compare_attention_bwd(torch, label, q, k, v, o, lse, do))
     n = len(ATTENTION_BWD_CASES)
-    want = {"sagan_attention_bwd_dq": n, "sagan_attention_bwd_dkv": n}
+    want = {name: n for name in B4_KERNELS}
+    instances = {(64 if q_[2] <= 64 else 128, 64 if v_[2] <= 64 else 128 if v_[2] <= 128 else 256)
+                 for q_, _, v_, _ in ATTENTION_BWD_CASES}
+    check(len(instances) == 6, f"the backward cases reach the instances {sorted(instances)}, not all 6")
     check({k_: cuda.launches[k_] for k_ in want} == want, f"backward launch count {cuda.launches}")
     q = torch.randn(2, 8, 16, device=dev, generator=gen)
     o, lse = sagan_attention_plain(q, q, q, return_lse=True)
@@ -651,9 +618,145 @@ def attention_bwd_parity(torch, dev, gen):
             continue
         raise RuntimeError(f"chip_smoke: out-of-contract backward call ({name}) was not refused")
     check({k_: cuda.launches[k_] for k_ in want} == want, "a refused backward call launched")
-    say(f"attention backward parity: {n} cases (max |err| {max_err:.3e}); {len(refused)} "
-        f"out-of-contract calls refused: {', '.join(refused)}")
+    say(f"attention backward parity: {n} cases over the dq kernel's instances {sorted(instances)} "
+        f"(max |err| {max_err:.3e}); {len(refused)} out-of-contract calls refused: {', '.join(refused)}")
     return max_err
+
+
+def attention_times(torch, dev, gen, bandwidth, fp32_peak, tf32_peak):
+    """B3 and B4 at the BigGAN-256 paths' shape (ATTN_PATH_SHAPE, randn
+    inputs from the seed), timed before any path runs: traces taken after the
+    paths' profiled requests and steps have missed their launches (PR 5), so
+    the profiler sees these calls first. Each beside its plain version, one
+    library call for the same function and its bound. Returns the two kernel
+    table rows' timing keys."""
+    import torch.nn.functional as F
+
+    from tpugan_torch.ops import attention
+    from tpugan_torch.ops.attention import (
+        sagan_attention_bwd_cuda,
+        sagan_attention_bwd_plain,
+        sagan_attention_cuda,
+        sagan_attention_plain,
+    )
+
+    (n, lq, dk), (_, lk, _), (_, _, dv) = ATTN_PATH_SHAPE
+    q, k, v = (torch.randn(shape, device=dev, generator=gen) for shape in ATTN_PATH_SHAPE)
+    do = torch.randn(n, lq, dv, device=dev, generator=gen)
+    o, lse = sagan_attention_plain(q, k, v, return_lse=True)
+    shape = f"q [{n}, {lq}, {dk}], k [{n}, {lk}, {dk}], v [{n}, {lk}, {dv}]"
+
+    def timed(calls, expect):
+        row, names, kernels_of = {}, {}, {}
+        for key, fn in calls.items():
+            if key == "ms":
+                row[key], kernels, row["ms_from"] = kernel_ms(torch, fn, expect, device_bound=True)
+            else:
+                kernels = device_kernels(torch, fn, iters=20)
+                row[key] = sum(ms for ms, _ in kernels.values())
+            names[key] = sorted(kernels, key=lambda name: -kernels[name][0])
+            kernels_of[key] = kernels
+        issue = {key: time_ms(torch, fn, iters=20) for key, fn in calls.items()}
+        return row, names, kernels_of, issue
+
+    # B3: softmax(q k^T) v
+    library = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)  # noqa: E731
+    lib_err = (library() - sagan_attention_plain(q, k, v)).abs().max().item()
+    check(lib_err < 1e-3, f"scaled_dot_product_attention differs by {lib_err:.3e}")
+    b3, names, _, issue = timed({
+        "ms": lambda: sagan_attention_cuda(q, k, v),
+        "plain_ms": lambda: sagan_attention_plain(q, k, v),
+        "library_ms": library,
+    }, ("sagan_attention_kernel",))
+    nbytes = 4 * (q.numel() + k.numel() + v.numel() + n * lq * dv)
+    flops = 2 * n * lq * lk * (dk + dv)
+    b3["bound_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
+    b3["bound_by"] = "bytes" if nbytes / bandwidth >= flops / fp32_peak else "operations"
+    say(f"attention at the path's shape ({shape}), {b3['ms_from']}: device time kernel "
+        f"{b3['ms'] * 1e3:.2f} us, plain {b3['plain_ms'] * 1e3:.2f} us, library "
+        f"{b3['library_ms'] * 1e3:.2f} us; bound {b3['bound_ms'] * 1e3:.2f} us ({b3['bound_by']}: "
+        f"{flops / 1e9:.3f} GFLOP at {fp32_peak / 1e12:.0f} TFLOP/s fp32 outside the tensor cores, "
+        f"{nbytes / 1e6:.3f} MB at {bandwidth / 1e12:.2f} TB/s); back to back per call: "
+        + ", ".join(f"{k_} {v_ * 1e3:.2f} us" for k_, v_ in issue.items()))
+    say(f"  library call: scaled_dot_product_attention(q, k, v, scale=1.0) ran "
+        f"{', '.join(name[:80] for name in names['library_ms'])} (max |err| {lib_err:.3e} against "
+        "the plain version)")
+    b3["library_kernels"] = [name[:100] for name in names["library_ms"]]
+    b3["times_are"] = f"one call at the BigGAN-{BIGGAN_SIZE} paths' shape ({shape}), randn inputs"
+
+    # B4: dq, dk, dv
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=1.0)
+    library = lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do, retain_graph=True)  # noqa: E731
+    lib_err = max((a - b).abs().max().item() / b.abs().max().item()
+                  for a, b in zip(library(), sagan_attention_bwd_plain(q, k, v, o, lse, do)))
+    check(lib_err < 1e-4, f"scaled_dot_product_attention's backward differs by {lib_err:.3e} (rel)")
+    b4, names, kernels_of, issue = timed({
+        "ms": lambda: sagan_attention_bwd_cuda(q, k, v, o, lse, do),
+        "plain_ms": lambda: sagan_attention_bwd_plain(q, k, v, o, lse, do),
+        "library_ms": library,
+    }, B4_SYMBOLS)
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel() + do.numel() + lse.numel())
+    # the backward's own products: s = q k^T, dp = do v^T, dv = p^T do,
+    # dq = ds k, dk = ds^T q, each fp32-accurate product three TF32 ones on
+    # the tensor cores (3xTF32); beside it the fp32-FMA bound of earlier PRs
+    flops = 2 * n * lq * lk * (3 * dk + 2 * dv)
+    b4["bound_ms"] = max(nbytes / bandwidth, 3 * flops / tf32_peak) * 1e3
+    b4["bound_by"] = "bytes" if nbytes / bandwidth >= 3 * flops / tf32_peak else "operations"
+    b4["bound_fp32_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
+    # this design's floor: pack (reads q, k, v, do; writes k, v, k^T, q^T
+    # and do^T, hi and lo), dq (s, dp, dq; reads q, do, lse, delta and the
+    # packed k, v and k^T, writes dq, and p and ds to the scratch) and dkv
+    # (dv, dk; reads the scratch and the packed do^T and q^T, writes dk and
+    # dv), each at the larger of its 3xTF32 operations and its bytes
+    packed = 2 * 4 * (q.numel() + 2 * k.numel() + v.numel() + do.numel())
+    scratch = 8 * n * -(-lq // attention.SCRATCH_ROWS) * attention.SCRATCH_ROWS \
+        * -(-lk // attention.SCRATCH_KEYS) * attention.SCRATCH_KEYS
+    kernels_work = (
+        (0, 4 * (q.numel() + k.numel() + v.numel() + do.numel()) + packed),
+        (3 * 2 * n * lq * lk * (2 * dk + dv),
+         4 * (2 * q.numel() + do.numel() + 2 * lse.numel()) + 2 * 4 * (2 * k.numel() + v.numel()) + scratch),
+        (3 * 2 * n * lq * lk * (dk + dv),
+         scratch + 2 * 4 * (q.numel() + do.numel()) + 4 * (k.numel() + v.numel())),
+    )
+    b4["design_floor_ms"] = sum(max(ops / tf32_peak, b / bandwidth) for ops, b in kernels_work) * 1e3
+    b4["split_ms"] = None
+    say(f"attention backward at the path's shape ({shape}), {b4['ms_from']}: device time kernel "
+        f"{b4['ms'] * 1e3:.2f} us, plain {b4['plain_ms'] * 1e3:.2f} us, library "
+        f"{b4['library_ms'] * 1e3:.2f} us; back to back per call: "
+        + ", ".join(f"{k_} {v_ * 1e3:.2f} us" for k_, v_ in issue.items()))
+    say(f"  bound {b4['bound_ms'] * 1e3:.2f} us ({b4['bound_by']}: 3 x {flops / 1e9:.3f} GFLOP, the "
+        f"function's products in 3xTF32, at {tf32_peak / 1e12:g} TFLOP/s dense TF32; "
+        f"{nbytes / 1e6:.3f} MB at {bandwidth / 1e12:.2f} TB/s); the fp32-FMA bound of earlier PRs "
+        f"{b4['bound_fp32_ms'] * 1e3:.2f} us ({flops / 1e9:.3f} GFLOP at {fp32_peak / 1e12:.0f} "
+        f"TFLOP/s fp32 outside the tensor cores); this design's floor {b4['design_floor_ms'] * 1e3:.2f} "
+        f"us (pack, dq, dkv, each at the larger of its 3xTF32 operations and its bytes: the packed "
+        f"operands {packed / 1e6:.3f} MB, the p/ds scratch {scratch / 1e6:.3f} MB)")
+    if b4["ms_from"] == "torch.profiler":  # the call's time by kernel
+        b4["split_ms"] = {"pack": 0.0, "dq": 0.0, "dkv": 0.0, "delta": 0.0}
+        for kname, (ms, _) in sorted(kernels_of["ms"].items(), key=lambda kv: -kv[1][0]):
+            say(f"  kernel call's device time: {ms * 1e3:8.2f} us  {kname[:90]}")
+            part = next((p_ for p_ in ("pack", "dq", "dkv") if f"attention_{p_}_kernel" in kname), "delta")
+            b4["split_ms"][part] += ms
+        useful = flops / (b4["split_ms"]["dq"] + b4["split_ms"]["dkv"]) / 1e9
+        say("  " + ", ".join(f"{k_} {v_ * 1e3:.2f} us" for k_, v_ in b4["split_ms"].items())
+            + f"; the function's {flops / 1e9:.3f} GFLOP at {useful:.1f} TFLOP/s ({3 * useful:.1f} "
+            "TFLOP/s of TF32 products) over dq and dkv")
+    say(f"  {b4['bound_ms'] / b4['ms'] * 100:.1f}% of the bound, "
+        f"{b4['design_floor_ms'] / b4['ms'] * 100:.1f}% of the design's floor")
+    say(f"  library call: the backward of scaled_dot_product_attention(q, k, v, scale=1.0) ran "
+        f"{', '.join(name[:70] for name in names['library_ms'][:6])} (max |err| {lib_err:.3e} "
+        "of max |value| against the plain version)")
+    say(f"  plain version ran {', '.join(name[:60] for name in names['plain_ms'][:6])}")
+    b4["tf32_peak_tflops"] = tf32_peak / 1e12
+    b4["fp32_peak_tflops"] = fp32_peak / 1e12
+    b4["library_kernels"] = [name[:100] for name in names["library_ms"]]
+    b4["times_are"] = (f"one call (delta, pack, dq and dkv) at the BigGAN-{BIGGAN_SIZE} case-2 step's "
+                       f"shape ({shape}), randn inputs; bound_ms counts the function's products in "
+                       "3xTF32 at the dense TF32 rate, bound_fp32_ms in fp32 FMAs")
+    del sdpa_out, qg, kg, vg
+    torch.cuda.empty_cache()
+    return b3, b4
 
 
 def step_times(torch, step, state, label, first):
@@ -681,7 +784,7 @@ def step_device_time(torch, step, state, median, first):
         f"and copies = {busy / median * 100:.1f}% of the median step time; by name:")
     for kname, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
         say(f"  {ms:8.3f} ms  x{n:5.0f}  {kname[:100]}")
-    for symbol in ("sagan_attention_kernel", "attention_dq_kernel", "attention_dkv_kernel"):
+    for symbol in ("sagan_attention_kernel",) + B4_SYMBOLS:
         own = sum(ms for kname, (ms, _) in kernels.items() if symbol in kname)
         say(f"  {symbol}: {own:.3f} ms per step, {own / busy * 100:.2f}% of device time")
     torch.cuda.reset_peak_memory_stats()
@@ -765,15 +868,13 @@ def replay_case2_on_cpu(torch, dev, e_align):
         check(scale > 0 and err <= REPLAY_GRAD_TOL * scale, f"the replayed gradient of {name} disagrees")
 
 
-def training_path(torch, dev, smi, bandwidth, fp32_peak, tf32_peak):
+def training_path(torch, dev, smi):
     """Phase 6: the E_BIG train step (mtype 4, full width, batch 2). Returns
-    the attention backward's entry of the kernel table."""
-    import torch.nn.functional as F
-
+    the attention backward's launches on the path and its max |err|."""
     from tpugan_torch.cli import e_align, infer_e
     from tpugan_torch.losses.lpips import random_lpips_fn
     from tpugan_torch.ops import attention, cuda
-    from tpugan_torch.ops.attention import sagan_attention_bwd_cuda, sagan_attention_bwd_plain
+    from tpugan_torch.ops.attention import sagan_attention_bwd_cuda
     from tpugan_torch.train.e_align import info_scalars
 
     parser = e_align.make_parser()
@@ -855,10 +956,10 @@ def training_path(torch, dev, smi, bandwidth, fp32_peak, tf32_peak):
         attention.sagan_attention_cuda = real_fwd
     torch.cuda.synchronize()
     launches = dict(cuda.launches)
-    want = expected_launches(sagan_attention=2 * TRAIN_STEPS, sagan_attention_bwd_dq=TRAIN_STEPS,
-                             sagan_attention_bwd_dkv=TRAIN_STEPS)
+    want = expected_launches(sagan_attention=2 * TRAIN_STEPS, sagan_attention_bwd_pack=TRAIN_STEPS,
+                             sagan_attention_bwd_dq=TRAIN_STEPS, sagan_attention_bwd_dkv=TRAIN_STEPS)
     check(launches == want, f"case-2 launches {launches}, expected {want}")
-    b4_launches = launches["sagan_attention_bwd_dq"] + launches["sagan_attention_bwd_dkv"]
+    b4_launches = sum(launches[name] for name in B4_KERNELS)
     check(lse_flags == [False, True] * TRAIN_STEPS, f"forward forms per step {lse_flags}")
     moved = sum(not torch.equal(p, params0[n]) for n, p in state.encoder.named_parameters())
     uv_moved = sum(not torch.equal(b, uv0[n]) for n, b in state.encoder.named_buffers() if n in uv0)
@@ -867,8 +968,9 @@ def training_path(torch, dev, smi, bandwidth, fp32_peak, tf32_peak):
     check(all(torch.equal(a, b) and b.grad is None for a, b in zip(gen0, gen.parameters())),
           "the frozen BigGAN moved")
     say(f"case-2 path: {TRAIN_STEPS} steps, launches {launches} (per step: the synthesis's forward "
-        f"without lse, the resynthesis's with lse, one dq and one dkv); loss_tsa {scalars['loss_tsa']:.4f}, "
-        f"loss_mtv {scalars['loss_mtv']:.4f}; all {moved} E_BIG parameters and {uv_moved} u/v "
+        f"without lse, the resynthesis's with lse, one pack, one dq and one dkv); loss_tsa "
+        f"{scalars['loss_tsa']:.4f}, loss_mtv {scalars['loss_mtv']:.4f}; all {moved} E_BIG parameters and "
+        f"{uv_moved} u/v "
         f"buffers moved, BigGAN's {len(gen0)} did not")
     del gen0
 
@@ -876,80 +978,7 @@ def training_path(torch, dev, smi, bandwidth, fp32_peak, tf32_peak):
     median = step_times(torch, trainer.step, state, "case 2, fp32, TF32 off", 100)
     step_device_time(torch, trainer.step, state, median, 200)
 
-    # B4 at the path's shape, on the step's own inputs
-    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=1.0)
-    library = lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do, retain_graph=True)  # noqa: E731
-    lib_err = max((a - b).abs().max().item() / b.abs().max().item()
-                  for a, b in zip(library(), sagan_attention_bwd_plain(q, k, v, o, lse, do)))
-    check(lib_err < 1e-4, f"scaled_dot_product_attention's backward differs by {lib_err:.3e} (rel)")
-    calls = {
-        "ms": lambda: sagan_attention_bwd_cuda(q, k, v, o, lse, do),
-        "plain_ms": lambda: sagan_attention_bwd_plain(q, k, v, o, lse, do),
-        "library_ms": library,
-    }
-    row, names, split = {}, {}, {}
-    for key, fn in calls.items():
-        if key == "ms":
-            row[key], kernels, row["ms_from"] = kernel_ms(
-                torch, fn, ("attention_dq_kernel", "attention_dkv_kernel"), device_bound=True)
-            split = {kname: ms for kname, (ms, _) in kernels.items()}
-        else:
-            kernels = device_kernels(torch, fn, iters=20)
-            row[key] = sum(ms for ms, _ in kernels.values())
-        names[key] = sorted(kernels, key=lambda name: -kernels[name][0])
-    n, lq, dk = q.shape
-    lk, dv = v.shape[1], v.shape[2]
-    nbytes = 4 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel() + do.numel() + lse.numel())
-    # the backward's own products: s = q k^T, dp = do v^T, dv = p^T do,
-    # dq = ds k, dk = ds^T q, each fp32-accurate product three TF32 ones on
-    # the tensor cores (3xTF32); beside it the fp32-FMA bound of earlier PRs
-    flops = 2 * n * lq * lk * (3 * dk + 2 * dv)
-    row["bound_ms"] = max(nbytes / bandwidth, 3 * flops / tf32_peak) * 1e3
-    row["bound_by"] = "bytes" if nbytes / bandwidth >= 3 * flops / tf32_peak else "operations"
-    row["bound_fp32_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
-    # this design's floor: the dq kernel (s, dp, dq; writes p and ds to the
-    # scratch) and then the dkv kernel (dv, dk; reads the scratch), each at
-    # the larger of its 3xTF32 operations and its bytes
-    scratch = 8 * n * -(-lq // attention.SCRATCH_ROWS) * attention.SCRATCH_ROWS \
-        * -(-lk // attention.SCRATCH_KEYS) * attention.SCRATCH_KEYS
-    kernels_work = (
-        (3 * 2 * n * lq * lk * (2 * dk + dv), nbytes - 4 * (k.numel() + v.numel()) + scratch),
-        (3 * 2 * n * lq * lk * (dk + dv), scratch + 4 * (q.numel() + do.numel() + k.numel() + v.numel())),
-    )
-    row["design_floor_ms"] = sum(max(ops / tf32_peak, b / bandwidth) for ops, b in kernels_work) * 1e3
-    issue = {key: time_ms(torch, fn, iters=20) for key, fn in calls.items()}
-    shape = f"q [{n}, {lq}, {dk}], k [{n}, {lk}, {dk}], v [{n}, {lk}, {dv}]"
-    say(f"attention backward at the path's shape ({shape}): device time kernel "
-        f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, library "
-        f"{row['library_ms'] * 1e3:.2f} us; back to back per call: "
-        + ", ".join(f"{k_} {v_ * 1e3:.2f} us" for k_, v_ in issue.items()))
-    say(f"  bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: 3 x {flops / 1e9:.3f} GFLOP, the "
-        f"function's products in 3xTF32, at {tf32_peak / 1e12:g} TFLOP/s dense TF32; "
-        f"{nbytes / 1e6:.3f} MB at {bandwidth / 1e12:.2f} TB/s); the fp32-FMA bound of earlier PRs "
-        f"{row['bound_fp32_ms'] * 1e3:.2f} us ({flops / 1e9:.3f} GFLOP at {fp32_peak / 1e12:.0f} "
-        f"TFLOP/s fp32 outside the tensor cores); this design's floor {row['design_floor_ms'] * 1e3:.2f} "
-        f"us (dq kernel then dkv kernel, each at the larger of its 3xTF32 operations and its bytes, "
-        f"the p/ds scratch of {scratch / 1e6:.3f} MB written by one and read by the other)")
-    # the call's time by kernel, where the trace held every launch
-    row["split_ms"] = None
-    if row["ms_from"] == "torch.profiler":
-        row["split_ms"] = {"dq": 0.0, "dkv": 0.0, "delta": 0.0}
-        for kname, ms in sorted(split.items(), key=lambda kv: -kv[1]):
-            say(f"  kernel call's device time: {ms * 1e3:8.2f} us  {kname[:90]}")
-            part = next((p_ for p_ in ("dq", "dkv") if f"attention_{p_}_kernel" in kname), "delta")
-            row["split_ms"][part] += ms
-        useful = flops / (row["split_ms"]["dq"] + row["split_ms"]["dkv"]) / 1e9
-        say(f"  dq {row['split_ms']['dq'] * 1e3:.2f} us, dkv {row['split_ms']['dkv'] * 1e3:.2f} us, "
-            f"delta {row['split_ms']['delta'] * 1e3:.2f} us; the function's {flops / 1e9:.3f} GFLOP at "
-            f"{useful:.1f} TFLOP/s ({3 * useful:.1f} TFLOP/s of TF32 products) over the two kernels")
-    say(f"  {row['bound_ms'] / row['ms'] * 100:.1f}% of the bound, "
-        f"{row['design_floor_ms'] / row['ms'] * 100:.1f}% of the design's floor")
-    say(f"  library call: the backward of scaled_dot_product_attention(q, k, v, scale=1.0) ran "
-        f"{', '.join(name[:70] for name in names['library_ms'][:6])} (max |err| {lib_err:.3e} "
-        "of max |value| against the plain version)")
-    say(f"  plain version ran {', '.join(name[:60] for name in names['plain_ms'][:6])}")
-    del trainer, state, sdpa_out, qg, kg, vg
+    del trainer, state
     torch.cuda.empty_cache()
 
     # case 1 and its lean step, as scripts/bench_biggan256.py measures them:
@@ -982,30 +1011,7 @@ def training_path(torch, dev, smi, bandwidth, fp32_peak, tf32_peak):
     torch.cuda.empty_cache()
 
     replay_case2_on_cpu(torch, dev, e_align)
-    return {
-        "name": "sagan_attention_bwd",
-        "route": "cuda",
-        "source": "tpugan_torch/csrc/sagan_attention_bwd.cu",
-        "replaces": "tpugan/ops/pallas/attention.py:149,168 (sagan_attention_bwd_pallas: _dq_kernel, "
-                    "_dkv_kernel)",
-        "launches": b4_launches,
-        "max_abs_err": bwd_err,
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"],
-        "bound_fp32_ms": row["bound_fp32_ms"],
-        "design_floor_ms": row["design_floor_ms"],
-        "tf32_peak_tflops": tf32_peak / 1e12,
-        "fp32_peak_tflops": fp32_peak / 1e12,
-        "split_ms": row["split_ms"],
-        "ms_from": row["ms_from"],
-        "library_kernels": [name[:100] for name in names["library_ms"]],
-        "times_are": f"one call (delta, dq and dkv) at the BigGAN-{BIGGAN_SIZE} case-2 step's shape "
-                     f"({shape}), on a step's own inputs; bound_ms counts the function's products in "
-                     "3xTF32 at the dense TF32 rate, bound_fp32_ms in fp32 FMAs",
-    }
+    return {"launches": b4_launches, "max_abs_err": bwd_err}
 
 
 def fir_parity(torch, dev, gen):
@@ -1082,6 +1088,135 @@ def fir_parity(torch, dev, gen):
     return max_err
 
 
+def fir_adjoint(torch, dev, gen, bandwidth):
+    """The FIR's gradient (upfirdn2d's adjoint, one more launch of the
+    kernel) against torch.autograd of the plain version, within
+    KERNEL_TOL, at the path's blur shapes, slice 3's FIRs and ADJOINT_CASES;
+    the adjoint alone timed at the blur and slice-3 shapes. Returns the max
+    |err| and the timed rows."""
+    import numpy as np
+
+    from tpugan_torch.ops import cuda, upfirdn
+    from tpugan_torch.ops.upfirdn import setup_fir_kernel, upfirdn2d, upfirdn2d_plain
+
+    cases = [(f"blur {c}x{r}x{r}", 1, 1, (1, 2, 1), (1, 1), (BATCH, c, r, r), 1.0, True)
+             for c, r in PATH_BLURS]
+    cases += [(*case, True) for case in SLICE3_FIRS]
+    cases += [(*case, False) for case in ADJOINT_CASES]
+    max_err, rows = 0.0, []
+    for label, up, down, taps, pad, shape, gain, timed in cases:
+        k = np.asarray(taps, np.float32)
+        k = setup_fir_kernel(taps) if k.ndim == 1 else k / k.sum()
+        x = torch.randn(shape, device=dev, generator=gen).requires_grad_()
+        cuda.reset_launches()
+        upfirdn.reset_layout_launches()
+        y = upfirdn2d(x, k, up, down, pad, gain)
+        fwd = dict(upfirdn.layout_launches)
+        g = torch.randn(y.shape, device=dev, generator=gen)
+        (got,) = torch.autograd.grad(y, x, g)
+        torch.cuda.synchronize()
+        adj = {key: n - fwd[key] for key, n in upfirdn.layout_launches.items()}
+        check(cuda.launches["upfirdn2d"] == 2, f"{label}: {cuda.launches['upfirdn2d']} FIR launches, not 2")
+        xr = x.detach().requires_grad_()
+        (want,) = torch.autograd.grad(upfirdn2d_plain(xr, k, up, down, pad, gain), xr, g)
+        err = (got - want).abs().max().item()
+        max_err = max(max_err, err)
+        check(torch.allclose(got, want, rtol=KERNEL_TOL, atol=KERNEL_TOL),
+              f"adjoint {label}: the kernel's gradient disagrees with the plain version's, "
+              f"max |err| {err:.3e}")
+        n, c, h, w = shape
+        adjoint = upfirdn.adjoint(h, w, y.shape[2], y.shape[3], upfirdn._taps(k, gain), up, down,
+                                  (pad[0], pad[1], pad[0], pad[1]))
+        key = next(key_ for key_, n_ in adj.items() if n_)
+        msg = (f"adjoint {label} taps{k.shape[0]}x{k.shape[1]} up{up} down{down} pad{pad} NCHW{shape}: "
+               f"max |err| {err:.3e}; forward on {[k_ for k_, n_ in fwd.items() if n_]}, adjoint (up "
+               f"{adjoint[1]}, down {adjoint[2]}, pads {adjoint[3]}) on {key}")
+        if timed:
+            with torch.no_grad():
+                fn = lambda: upfirdn._fir(g, *adjoint)  # noqa: E731
+                ms, _, ms_from = kernel_ms(torch, fn, ("upfirdn2d_kernel",))
+            bound = 4 * (g.numel() + x.numel()) / bandwidth * 1e3
+            rows.append({"label": label, "shape": list(shape), "up": up, "down": down, "pad": list(pad),
+                         "kernel": key, "ms": ms, "ms_from": ms_from, "bound_ms": bound})
+            msg += f"; the adjoint alone {ms * 1e3:.2f} us ({ms_from}), bound {bound * 1e3:.2f} us (bytes)"
+        say(msg)
+        del x, y, g, got, want, xr
+    torch.cuda.empty_cache()
+    say(f"FIR adjoint parity: {len(cases)} cases within {KERNEL_TOL:g} of autograd of the plain "
+        f"version (max |err| {max_err:.3e}), one forward and one adjoint launch each")
+    return max_err, rows
+
+
+def sgv1_gradient(torch, dev, parser, argv):
+    """A full-width gradient through SGv1 Cat256's G -> E_Blur -> G: an MSE
+    between the resynthesis and the first pass, differentiated with respect
+    to every parameter of E_Blur (the case-2 encoder, a blur in every
+    block), from the same explicit inputs (the first pass's images drawn on
+    the CPU) on the card, on the CPU and on the CPU in float64, with the FIR
+    launches of the forward and of the backward counted on the card.
+
+    The reference is the float64 run: the gradient is ill-conditioned at
+    this size (the CPU's own fp32 gradient is about 1e-2 from it here, 7e-4
+    at 128 px, 1e-6 at 32 px), so the card's fp32 gradient is held within
+    CPU_GPU_ATOL or twice the CPU's fp32 error of it, whichever is larger.
+    Returns the launch counts."""
+    from tpugan_torch.cli import common, infer_e
+    from tpugan_torch.ops import cuda, upfirdn
+
+    bundles = []
+    for device in (CARD, "cpu"):
+        args = parser.parse_args(argv + ["--device", device])
+        args.case = 2  # E_Blur
+        bundles.append(common.build_bundle(args))
+    request = infer_e.draw_request(bundles[1], BATCH, REQUEST_SEEDS[0])
+    imgs = bundles[1].synth(request.z, request.noise_g).imgs1.permute(0, 3, 1, 2).contiguous()
+    runs = []
+    for bundle, device, dtype in ((bundles[0], dev, torch.float32), (bundles[1], "cpu", torch.float32),
+                                  (bundles[1], "cpu", torch.float64)):
+        bundle.encoder.to(dtype)
+        bundle.generator.to(dtype)
+        cast = lambda blocks: [tuple(n.to(device, dtype) for n in b_) for b_ in blocks]  # noqa: E731
+        x = imgs.to(device, dtype)
+        cuda.reset_launches()
+        upfirdn.reset_layout_launches()
+        _, w2 = bundle.encoder(x, cast(request.noise_e))
+        imgs2 = bundle.generator(w2, bundle.layer_count - 1, cast(request.noise_g2))
+        loss = (imgs2 - x).square().mean()
+        fwd = (cuda.launches["upfirdn2d"], dict(upfirdn.layout_launches))
+        names, params = zip(*bundle.encoder.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+        if device == dev:
+            torch.cuda.synchronize()
+        adj = (cuda.launches["upfirdn2d"] - fwd[0],
+               {key: n - fwd[1][key] for key, n in upfirdn.layout_launches.items()})
+        runs.append((loss.item(), [g_.detach().double().cpu() for g_ in grads], fwd, adj))
+        del w2, imgs2, loss, grads
+    (loss_g, grads_g, fwd, adj), (loss_c, grads_c, fwd_c, adj_c), (loss_r, grads_r, _, _) = runs
+    check(fwd_c[0] == adj_c[0] == 0, "the CPU's gradient launched the kernel")
+    blocks = sum(bundles[1].encoder.fused)
+    say(f"SGv1 Cat256 G -> E_Blur -> G gradient (batch {BATCH}, MSE of the resynthesis against the "
+        f"first pass, {len(names)} E_Blur parameters): FIR launches forward {fwd[0]} {fwd[1]}, "
+        f"adjoint {adj[0]} {adj[1]} ({len(PATH_BLURS)} in G's resynthesis, the rest in E_Blur's "
+        f"{bundles[1].layer_count} blocks, {blocks} with fused downsampling)")
+    check(fwd[0] > len(PATH_BLURS) and adj == fwd, "the backward's FIR launches are not the forward's, one "
+          "adjoint for each FIR (the blur at pad (1, 1) is its own adjoint, so under the same TPU kernel)")
+    scale = max(r.abs().max().item() for r in grads_r)
+    errs = {}
+    for label, loss, grads in (("cuda", loss_g, grads_g), ("cpu fp32", loss_c, grads_c)):
+        worst = max(zip(((a - r).abs().max().item() for a, r in zip(grads, grads_r)), names))
+        errs[label] = worst[0]
+        say(f"  {label} vs cpu float64: loss {loss:.6f} against {loss_r:.6f} (rel err "
+            f"{abs(loss - loss_r) / abs(loss_r):.3e}); gradients max |err| {worst[0]:.3e} (at {worst[1]}) "
+            f"against max |g| {scale:.3e}")
+    limit = max(CPU_GPU_ATOL, 2 * errs["cpu fp32"])
+    check(abs(loss_g - loss_r) / abs(loss_r) <= REPLAY_LOSS_RTOL and scale > 0 and errs["cuda"] <= limit,
+          f"the card's SGv1 gradient is {errs['cuda']:.3e} from float64, over {limit:.3e}")
+    say(f"  the card's gradient within {limit:.3e} of float64 (CPU_GPU_ATOL {CPU_GPU_ATOL:g}, or twice the "
+        "CPU fp32 run's own error)")
+    del bundles
+    return {"forward": fwd[0], "adjoint": adj[0], "adjoint_by_tpu_kernel": adj[1]}
+
+
 def launch_plan(torch, x, y, taps, up, down, pad0, plan):
     """The FIR kernel's C entry point on ``plan`` (an int array), uncounted:
     for plans that upfirdn2d_cuda would not make. Returns its cudaError."""
@@ -1124,12 +1259,14 @@ def fir_row(torch, calls, nbytes, flops, bandwidth, fp32_peak):
     return row
 
 
-def fir_times(torch, dev, gen, bandwidth, fp32_peak, layout_launches):
+def fir_times(torch, dev, gen, bandwidth, fp32_peak):
     """The FIR kernel at the path's six blur shapes beside its plain version,
     cuDNN's depthwise conv and its bound, and with the other strip width
     (1 and 4 columns); the largest two also with L2 flushed; B1's and B2's
-    sums, with the main path's launches of each (``layout_launches``); and,
-    for the record, slice 3's FIRs. Returns the kernel table's timing keys."""
+    sums; and, for the record, slice 3's FIRs. Timed before any path is
+    profiled: traces taken after the paths' profiled requests miss launches.
+    Returns the kernel table's timing keys (the caller adds B1's and B2's
+    launches on the main path)."""
     import torch.nn.functional as F
 
     from tpugan_torch.ops import upfirdn
@@ -1185,14 +1322,13 @@ def fir_times(torch, dev, gen, bandwidth, fp32_peak, layout_launches):
         del x, w, got, y
     keys = ("ms", "plain_ms", "library_ms", "bound_ms")
     per_decode = {k: sum(r[k] for r in rows) for k in keys}
-    split = {name: {"launches": layout_launches[name],
-                    **{k: sum(r[k] for r in rows if r["kernel"] == name) for k in keys}}
+    split = {name: {k: sum(r[k] for r in rows if r["kernel"] == name) for k in keys}
              for name in ("B1", "B2")}
     say(f"per decode ({len(PATH_BLURS)} blurs): kernel {per_decode['ms'] * 1e3:.2f} us, plain "
         f"{per_decode['plain_ms'] * 1e3:.2f} us, library {per_decode['library_ms'] * 1e3:.2f} us, "
         f"bound {per_decode['bound_ms'] * 1e3:.2f} us; " + "; ".join(
-            f"{name} ({sum(r['kernel'] == name for r in rows)} shapes, {p_['launches']} launches on the "
-            f"main path) kernel {p_['ms'] * 1e3:.2f} us, library {p_['library_ms'] * 1e3:.2f} us, bound "
+            f"{name} ({sum(r['kernel'] == name for r in rows)} shapes) kernel {p_['ms'] * 1e3:.2f} us, "
+            f"library {p_['library_ms'] * 1e3:.2f} us, bound "
             f"{p_['bound_ms'] * 1e3:.2f} us" for name, p_ in split.items()))
 
     record = []
@@ -1265,8 +1401,13 @@ def main() -> int:
     parity_mode()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     fir_err = fir_parity(torch, dev, gen)
+    adjoint_err, adjoint_rows = fir_adjoint(torch, dev, gen, bandwidth)
     attn_err = attention_parity(torch, dev, gen)
     bwd_err = attention_bwd_parity(torch, dev, gen)
+    say(f"attention times below, before any path is profiled: {smi}")
+    b3_times, b4_times = attention_times(torch, dev, gen, bandwidth, fp32_peak, tf32_peak)
+    say(f"FIR times below, before any path is profiled: {smi}")
+    fir = fir_times(torch, dev, gen, bandwidth, fp32_peak)
 
     # ---- 3. the main path -----------------------------------------------------
     parser = argparse.ArgumentParser()
@@ -1316,6 +1457,8 @@ def main() -> int:
         say(f"cuda vs cpu {label}: max |err| {err:.3e} (max |ref| {c.abs().max().item():.3f})")
         check(err <= CPU_GPU_ATOL, f"{label}: cuda and cpu differ by {err:.3e} > {CPU_GPU_ATOL:g}")
 
+    grad_launches = sgv1_gradient(torch, dev, parser, argv)
+
     # ---- 4. times ----------------------------------------------------------
     say(f"times below: {smi}; device times from torch.profiler, request times from the host clock")
 
@@ -1326,14 +1469,13 @@ def main() -> int:
     request_latency(torch, run, seed, "PyTorch defaults (cuDNN convolutions in TF32)")
     parity_mode()
 
-    fir = fir_times(torch, dev, gen, bandwidth, fp32_peak, layouts)
+    for name, part in fir["split"].items():
+        part["launches"] = layouts[name]
 
-    attn = biggan_path(torch, dev, parser, smi, bandwidth, fp32_peak)
-    attn["max_abs_err"] = max(attn["max_abs_err"], attn_err)
+    attn = biggan_path(torch, dev, parser, smi)
     del bundle, cpu
     torch.cuda.empty_cache()
-    attn_bwd = training_path(torch, dev, smi, bandwidth, fp32_peak, tf32_peak)
-    attn_bwd["max_abs_err"] = max(attn_bwd["max_abs_err"], bwd_err)
+    attn_bwd = training_path(torch, dev, smi)
 
     say(f"card: {smi}")
     say(json.dumps({"kernels": [{
@@ -1343,9 +1485,29 @@ def main() -> int:
         "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas); "
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c)",
         "launches": launches["upfirdn2d"],
-        "max_abs_err": fir_err,
+        "max_abs_err": max(fir_err, adjoint_err),
         **fir,
-    }, attn, attn_bwd]}))
+        "gradient_path_launches": grad_launches,
+        "adjoint": adjoint_rows,
+    }, {
+        "name": "sagan_attention",
+        "route": "cuda",
+        "source": "tpugan_torch/csrc/sagan_attention.cu",
+        "replaces": "tpugan/ops/pallas/attention.py:68 (sagan_attention_pallas); "
+                    "tpugan/ops/pallas/attention.py:77 (sagan_attention_pallas, return_lse=True)",
+        "launches": attn["launches"],
+        "max_abs_err": max(attn["max_abs_err"], attn_err),
+        **b3_times,
+    }, {
+        "name": "sagan_attention_bwd",
+        "route": "cuda",
+        "source": "tpugan_torch/csrc/sagan_attention_bwd.cu",
+        "replaces": "tpugan/ops/pallas/attention.py:149,168 (sagan_attention_bwd_pallas: _dq_kernel, "
+                    "_dkv_kernel)",
+        "launches": attn_bwd["launches"],
+        "max_abs_err": max(attn_bwd["max_abs_err"], bwd_err),
+        **b4_times,
+    }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

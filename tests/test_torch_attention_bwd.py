@@ -117,11 +117,26 @@ def _detached_plain(check, plain):
     return fake
 
 
+def _plain_fir_launch(x, taps, up, down, pad0, ho, wo, key):
+    """The FIR kernel's launch, swapped for the plain version after the
+    launch's own checks: ho x wo outputs from front pad ``pad0`` (the back
+    pads follow from ho and wo, as in the kernel), counted as the launch
+    counts them."""
+    upfirdn.check_launch(x, taps, up, down, pad0, ho, wo)
+    (h, w), (kh, kw) = x.shape[2:], taps.shape
+    pads = (pad0, (ho - 1) * down + kh - h * up - pad0, pad0, (wo - 1) * down + kw - w * up - pad0)
+    with torch.no_grad():
+        y = upfirdn._fir_plain(x, taps, up, down, pads)
+    cuda.launches["upfirdn2d"] += 1
+    upfirdn.layout_launches[key] += 1
+    return y
+
+
 @pytest.fixture
 def on_card(monkeypatch):
     """Route CPU tensors the way CUDA tensors go: the dispatchers take the
-    kernel wrappers, which are swapped for their plain versions and count
-    their launches."""
+    kernel wrappers (the FIR's launch), which are swapped for their plain
+    versions and count their launches."""
     cuda.reset_launches()
 
     def counted(name, fn):
@@ -134,6 +149,8 @@ def on_card(monkeypatch):
 
     monkeypatch.setattr(attention, "_on_card", lambda x: True)
     monkeypatch.setattr(upfirdn, "_on_card", lambda x: True)
+    monkeypatch.setattr(upfirdn, "_launch", _plain_fir_launch)
+    upfirdn.reset_layout_launches()
     monkeypatch.setattr(attention, "sagan_attention_cuda", counted(
         "sagan_attention", _detached_plain(attention.check_attention_args, attention.sagan_attention_plain)))
     monkeypatch.setattr(attention, "sagan_attention_bwd_cuda", counted(
@@ -202,19 +219,6 @@ def test_cuda_route_reaches_selfattn_weights(rng, on_card):
     assert float(routed["snconv1x1_phi.weight"].abs().max()) > 1e-3
 
 
-def test_upfirdn_cuda_refuses_a_tensor_that_needs_a_gradient(rng, on_card):
-    """upfirdn2d's kernel has no adjoint yet (ROADMAP slice 3): on the CUDA
-    route a tensor that needs a gradient is refused, not served an output
-    without one; under no_grad the same call reaches the kernel wrapper's
-    device check."""
-    x = nchw(rng.randn(1, 8, 8, 4).astype(np.float32)).requires_grad_()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        upfirdn.blur3x3(x)
-    with torch.no_grad(), pytest.raises(ValueError, match="CUDA tensor"):
-        upfirdn.blur3x3(x)
-    assert not any(cuda.launches.values())
-
-
 REFUSED = {
     "fp16_do": (lambda a: {**a, "do": a["do"].half()}, TypeError, "float32"),
     "non_contiguous_o": (lambda a: {**a, "o": a["o"].transpose(0, 1)}, ValueError, "contiguous"),
@@ -243,17 +247,22 @@ def test_backward_wrapper_refuses_out_of_contract_input(rng, name):
 
 
 def test_backward_kernels_are_registered_for_sm90a():
-    dq, dkv = cuda.KERNELS["sagan_attention_bwd_dq"], cuda.KERNELS["sagan_attention_bwd_dkv"]
-    assert dq[0] == dkv[0] == "sagan_attention_bwd.cu"
-    assert cuda.library_path("sagan_attention_bwd_dq") == cuda.library_path("sagan_attention_bwd_dkv")
+    names = ("sagan_attention_bwd_pack", "sagan_attention_bwd_dq", "sagan_attention_bwd_dkv")
+    pack, dq, dkv = (cuda.KERNELS[name] for name in names)
+    workspace = cuda.HELPERS["sagan_attention_bwd_workspace"]
+    assert pack[0] == dq[0] == dkv[0] == workspace[0] == "sagan_attention_bwd.cu"
+    assert len({cuda.library_path(name) for name in names + ("sagan_attention_bwd_workspace",)}) == 1
     assert cuda.library_path("sagan_attention_bwd_dq").name.startswith("libsagan_attention_bwd-")
     text = (cuda.CSRC / dq[0]).read_text()
-    for symbol in (dq[1], dkv[1]):
+    for symbol in (pack[1], dq[1], dkv[1]):
         assert f'extern "C" int {symbol}' in text
+    assert f'extern "C" int64_t {workspace[1]}' in text
     assert f"kMaxDk = {attention.MAX_DK}" in text and f"kMaxDv = {attention.MAX_DV}" in text
-    assert "sagan_attention_bwd_pallas" in text
+    assert "sagan_attention_bwd_pallas" in text and "wgmma.mma_async" in text and "mma.sync" not in text
     assert f"kDkvKeys = {attention.SCRATCH_KEYS};" in text and f"kDkvRows = {attention.SCRATCH_ROWS};" in text
-    assert len(dq[2]) == 15 and len(dkv[2]) == 12  # 8 (5) pointers, 6 ints and the stream
+    # pointers (5, 6, 3), 6 ints and the stream; the workspace's size from 5 ints
+    assert (len(pack[2]), len(dq[2]), len(dkv[2]), len(workspace[2])) == (12, 13, 10, 5)
+    assert "sagan_attention_bwd_workspace" not in cuda.launches
 
 
 # ---- the kernels' 3xTF32 arithmetic, emulated ---------------------------------

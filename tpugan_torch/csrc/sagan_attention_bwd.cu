@@ -6,7 +6,8 @@
 // Replaces the Pallas TPU kernel tpugan/ops/pallas/attention.py::
 // sagan_attention_bwd_pallas: its _dq_kernel (pallas_call :149) is
 // attention_dq_kernel, its _dkv_kernel (pallas_call :168) is
-// attention_dkv_kernel. The caller computes delta, as tpugan does.
+// attention_dkv_kernel; attention_pack_kernel lays their operands out for
+// the tensor cores first. The caller computes delta, as tpugan does.
 //
 // Shapes: q [N, Lq, dk], k [N, Lk, dk], v [N, Lk, dv], do [N, Lq, dv],
 // lse and delta [N, Lq] (the caller views lse as [N, Lq, 1]); dq, dk, dv
@@ -20,11 +21,13 @@
 // and outputs. The products run on the tensor cores in 3xTF32, three TF32
 // products for each fp32-accurate one, so the least time is 3 x 11.81 GFLOP
 // at the card's dense TF32 rate: 71.6 us on an H100 SXM (495 TFLOP/s).
-// This design computes each product once: the dq kernel computes s, dp, p,
-// ds and dq, and hands p and ds to the dkv kernel through a scratch buffer
-// in device memory (8 bytes per query-key pair, 67 MB at the BigGAN-256
-// shape), which adds 134 MB of traffic (40 us at 3.35 TB/s) instead of the
-// 5.4 GFLOP that computing s and dp a second time would cost.
+// Each product is computed once: the dq kernel computes s, dp, p, ds and
+// dq, and hands p and ds to the dkv kernel through a scratch buffer in
+// device memory (8 bytes per query-key pair, 67 MB at the BigGAN-256 shape,
+// past the 50 MB L2), which adds 134 MB of traffic (40 us at 3.35 TB/s)
+// instead of the 16 GFLOP of 3xTF32 products that computing s and dp a
+// second time would cost (33 us at the dense rate, more at the rate these
+// kernels reach).
 //
 // Precision: 3xTF32. Every operand x is split into hi, x rounded to TF32 to
 // nearest with ties away from zero (cvt.rna.tf32.f32's rounding), and
@@ -33,73 +36,87 @@
 // mantissa bits (rounding toward zero) and the dropped lo_a lo_b is about
 // 2^-22 of the product. One TF32 product keeps about three digits, which
 // does not hold the 2e-4 contract at the path's magnitudes (dk reaches 77).
-// exp, the delta subtraction and the masks stay in fp32. The tensor cores
-// align and truncate when they add into an accumulator, so no accumulator
-// takes a long chain of mma: each 3xTF32 product starts from zero and is
-// added to a running sum with an fp32 add that rounds to nearest (add()).
+// exp (__expf: ex2.approx, within a few ulp), the delta subtraction and the
+// masks stay in fp32. The tensor cores align and truncate when they add
+// into an accumulator, so no accumulator of full-size values takes a long
+// chain: the hi hi products run in chains
+// that start from a zeroed accumulator (the wgmma's scale-d 0) and cover
+// kChainK = 32 of the contraction (4 wgmma), each added to a running sum
+// with fp32 adds that round to nearest (add()). The two corrections, about
+// 2^-11 of the product, go to an accumulator of their own that lasts the
+// whole contraction: what truncation loses there is 2^-11 smaller. (All
+// three products in one chain of 32 came out further from the float64
+// result at the path shape than chains of 16 in a trial on the card.)
 //
-// Instructions: all five products are mma.sync.m16n8k8 TF32 (warp-level,
-// fragments in registers), not the warpgroup wgmma. Why:
-//  * TF32 wgmma reads both shared-memory operands K-major only, with no
-//    transpose for 32-bit types. Three B operands lie the other way as the
-//    data sit: k for dq = ds k, do for dv = p^T do and q for dk = ds^T q
-//    (their contraction runs over rows). mma.sync loads those fragments with
-//    32-bit shared-memory reads, so one fp32 copy of a tile serves both
-//    orders and no transposed copy is made.
-//  * The 3xTF32 split is done in registers as a fragment is loaded, so
-//    shared memory holds one fp32 plane of each tile; a wgmma B operand
-//    would need its hi and lo planes in shared memory, twice the staged
-//    bytes at dv = 256.
-//  * s and dp (q k^T, do v^T) could meet wgmma's rules; they stay on
-//    mma.sync here so that p and ds come out in the registers of the warp
-//    that writes them. Moving them to wgmma is left for later work.
-//  The accumulator layout of one product (row g, columns 2t and 2t + 1 of
-//  each 8-column tile, g = lane / 4, t = lane % 4) is not the A-fragment
-//  layout of the next (columns t and t + 4). Where p or ds feed a product
-//  from registers (dq) or through the scratch (dkv), the contraction index
-//  is permuted the same way on both operands: the A fragment's k = t is
-//  column 2t of the accumulator, k = t + 4 is 2t + 1, and the B fragment
-//  reads rows 2t and 2t + 1 of the other operand.
+// Instructions: all five products are wgmma.mma_async m64nNk8 TF32 with
+// fp32 accumulators, one warpgroup (4 warps, 128 threads) per block.
+//  * TF32 wgmma reads shared-memory operands K-major only (no transpose for
+//    32-bit types). q, do (A of s and dp) and k, v (B of s and dp) lie
+//    K-major as they are; the B operands of dq = ds k (k), dv = p^T do (do)
+//    and dk = ds^T q (q) lie N-major, so the pack kernel writes K-major
+//    copies k^T, do^T and q^T once per call (0.5, 8.4 and 2.1 MB at the
+//    path shape, hi and lo planes each).
+//  * 3xTF32 with operands in shared memory: each is split into a hi and a
+//    lo plane as it is laid out (k, v and the transposed copies by the pack
+//    kernel, q and do by the dq kernel as it stages them), so each product
+//    reads (A lo, B hi), (A hi, B lo), (A hi, B hi): twice the staged bytes
+//    of one fp32 plane. A operands that come from registers (q at dk <= 64
+//    and ds in the dq kernel, p^T and ds^T in the dkv kernel) are split
+//    there.
+//  * Layout: every shared-memory operand is a panel of MN rows x K columns
+//    stored as core matrices of 8 rows x 4 fp32 (128 contiguous bytes),
+//    column group (4 columns) major, then row group: the element (r, c) of
+//    a panel of R rows at ((c / 4) (R / 8) + r / 8) 32 + (r % 8) 4 + c % 4.
+//    No swizzle (layout type 0): the descriptor's leading byte offset is
+//    16 R bytes (between the two column groups of a k8 step), its stride
+//    byte offset 128 bytes (between row groups), and step i starts 32 R i
+//    bytes in. The pack kernel writes each panel contiguously in device
+//    memory as it lies in shared memory, so staging is a flat 16-byte copy.
+//  * Fragments: the accumulator of a m64nN product holds, in warp w of the
+//    warpgroup, rows 16 w + g and 16 w + g + 8 and, for each 8-column tile
+//    j, columns 8 j + 2t and 8 j + 2t + 1 (g = lane / 4, t = lane % 4); an
+//    A operand from registers holds rows 16 w + g, + 8 and columns t, t + 4
+//    of each k8 step. Where ds feeds dq = ds k from registers, the
+//    contraction index is permuted: A's k = t is accumulator column 2t,
+//    k = t + 4 is column 2t + 1, and the pack kernel stores the columns of
+//    each 8-key group of k^T in the order 0, 2, 4, 6, 1, 3, 5, 7 to match.
+//    The dkv kernel loads p^T and ds^T from the scratch's [query][key]
+//    rows in shared memory (rows padded to 72 floats: conflict-free).
 //
 // Design (no atomics, so the result does not depend on the order in which
 // blocks run):
-//  * dq: one block of 8 warps per (batch item, 64 query rows). Q, dO, lse
-//    and delta stay in shared memory; tiles of 32 keys of K and V are copied
-//    with cp.async into two stages, so the next tile's copy runs under this
-//    tile's products. Warp w owns query rows 16 (w % 4) and keys 16 (w / 4)
-//    of each tile: s and dp for its 16 x 16 piece (fragments read with
-//    ldmatrix), p and ds in registers, ds k into its 16 x dk accumulator,
-//    and p and ds to the scratch. The two warps of a row block sum their
-//    partials through shared memory in a fixed order at the end.
-//  * the scratch holds, for each (batch item, 64 keys, 32 query rows), p^T
-//    and then ds^T as [key][slot] with row 8 J + 2u of the tile at slot
-//    8 J + u and row 8 J + 2u + 1 at slot 8 J + u + 4: the dkv kernel's A
-//    fragments in the permuted order above, 16 KB to copy as it lies. Rows
-//    past Lq hold zeros; keys past Lk are not written and feed only rows of
-//    dk and dv that are not written either.
-//  * dkv: one cluster of 4 blocks of 8 warps per (batch item, 64 keys);
-//    block r streams the query tiles r, r + 4, r + 8, ... of 32 rows (Q,
-//    dO, p^T and ds^T) through two cp.async stages. A grid of 64-key tiles
-//    alone would be 32 blocks at the BigGAN shape, a quarter of the card's
-//    SMs; the split makes it 128. Warp w adds p^T do and ds^T q into dv and
-//    dk for keys 32 (w % 2) and a quarter (w / 2) of the columns, each B
-//    fragment serving two 16-key A fragments. The four partial sums of dk
-//    and dv meet in distributed shared memory, and each block adds up 16 of
+//  * pack: one launch lays out k, v (B of s, dp), k^T (B of dq), do^T and
+//    q^T (B of dv and dk), hi and lo, zero-padded to whole panels, into a
+//    workspace the wrapper allocates; its size comes from
+//    tpugan_sagan_attention_bwd_workspace_floats. A transposed panel is
+//    staged in shared memory so that reads and writes are both coalesced.
+//  * dq: one block per (batch item, 64 query rows). It reads its rows of q
+//    and do and splits them: do stays in shared memory (hi, lo), and q too
+//    past dk 64; at dk <= 64 q is held in registers as A fragments (64 of
+//    them), which leaves room for tiles of 32 keys at dv 256. Tiles of BK
+//    keys of k, v and k^T are copied with cp.async, the next tile's k and v
+//    as soon as this tile's s and dp have read theirs, its k^T after this
+//    tile's dq product; a tile waits for its k^T only before its dq
+//    product. s and dp run as chains of 32 columns, each summed while the
+//    next chain and the corrections run; p and ds in registers; ds k into
+//    dq; p and ds to the scratch as [query][key] tiles of kDkvRows x
+//    kDkvKeys (a thread's two keys in one 8-byte store), rows past Lq as
+//    zeros, stored while the tensor cores run the tile's dq product. BK is
+//    the largest of 32, 16, 8 whose tiles fit beside do (and q): 32 at the
+//    path's widths, in 224 KB of shared memory.
+//  * dkv: one cluster of kCluster blocks per (batch item, 64 keys, 64
+//    output columns of dv or of dk); block r streams the query tiles r,
+//    r + kCluster, ... of 32 rows (p or ds from the scratch, and do^T or
+//    q^T) through three cp.async stages, and adds p^T do or ds^T q into its
+//    64 x 64 partial sum, one chain of hi hi products a tile. The partial
+//    sums meet in distributed shared memory and each block adds up 16 of
 //    the rows over the cluster in rank order.
-//  * shared-memory rows are padded to 4 floats past a multiple of 32, so
-//    every fragment read (rows g and columns t, or rows 2t and columns g)
-//    hits 32 distinct banks.
-//  * the split is three integer and fp32 operations (add half a TF32 ulp
-//    to the bits, clear the 13 low bits, subtract); cvt.rna.tf32.f32
-//    compiles to a longer sequence on sm_90a. A NaN or inf x gives a NaN lo,
-//    so the product is NaN as it should be.
-//  Keys past Lk and rows past Lq are copied as zeros, masked out of p, and
-//  not written. Shared memory per block: dq 168 KB, dkv 121 KB at the path's
-//  widths (201 and 137 KB at dk 128, dv 256), one block of 8 warps per SM.
-//  What holds it back: mma.sync and not wgmma, with every B fragment read
-//  from shared memory and split beside its three mma; two warps per
-//  scheduler to hide the reads' and the mma's latency; and the scratch's
-//  round trip through device memory.
+//  Keys past Lk and rows past Lq are zero in the packed operands, masked
+//  out of p (branch-free), and not written.
+//  What holds it back: one warpgroup per block, so the exp, the scratch
+//  stores and the waits between chains leave the tensor cores idle; in the
+//  dq kernel do is the A operand of dp from shared memory, read again for
+//  every tile of 32 keys (N = 32 wgmma); the scratch's round trip.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -111,79 +128,104 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kDqRows = 64;    // dq: query rows per block
-constexpr int kDqKeys = 32;    // dq: keys per streamed tile
-constexpr int kDkvKeys = 64;   // dkv: keys per cluster
-constexpr int kDkvRows = 32;   // dkv: query rows per streamed tile
-constexpr int kCluster = 4;    // dkv blocks that share one key tile
-constexpr int kLdp = kDkvRows + 4;  // dkv's p^T and ds^T planes, [key][slot]
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kDqRows = 64;    // dq: query rows per block (the wgmma's M)
+constexpr int kDkvKeys = 64;   // dkv: keys per block; keys of a scratch tile
+constexpr int kDkvRows = 32;   // dkv: query rows per streamed tile; rows of a scratch tile
+constexpr int kSlice = 64;     // dkv: output columns per block
+constexpr int kCluster = 4;    // dkv blocks that share one key tile and slice
+constexpr int kStages = 3;     // dkv: cp.async stages
+constexpr int kChainK = 32;    // contraction length of one chain of hi hi products
+constexpr int kLdp = kDkvKeys + 8;  // dkv's rows (query rows) of p or ds in shared memory
 constexpr int kPlane = kDkvKeys * kDkvRows;  // floats of one p^T or ds^T tile of the scratch
 constexpr int kMaxDk = 128;
 constexpr int kMaxDv = 256;
 constexpr int kMaxSharedBytes = 227 * 1024;
+constexpr int kPackJobs = 5;
 
-// shared floats of each kernel for padded row widths ldk, ldv
-__host__ __device__ constexpr int dq_floats(int ldk, int ldv) {
-  return kDqRows * (ldk + ldv + 2) + 2 * kDqKeys * (ldk + ldv);
+// the dq kernel keeps q in registers (as A fragments of s = q k^T) at
+// widths up to 64, in shared memory past that; do always in shared memory
+__host__ __device__ constexpr bool q_in_registers(int ck) { return ck <= 64; }
+// shared floats of the dq kernel for padded widths ck, cv and key tiles of bk
+__host__ __device__ constexpr int dq_floats(int ck, int cv, int bk) {
+  return 2 * (kDqRows * ((q_in_registers(ck) ? 0 : ck) + cv) + bk * (2 * ck + cv));
 }
-__host__ __device__ constexpr int dkv_floats(int ldk, int ldv) {
-  return 2 * (kDkvRows * (ldk + ldv) + 2 * kDkvKeys * kLdp);
+// the dq kernel's key tile: the largest of 32, 16, 8 that fits
+__host__ __device__ constexpr int dq_keys(int ck, int cv) {
+  return 4 * dq_floats(ck, cv, 32) <= kMaxSharedBytes   ? 32
+         : 4 * dq_floats(ck, cv, 16) <= kMaxSharedBytes ? 16
+                                                         : 8;
 }
-static_assert(sizeof(float) * dq_floats(kMaxDk + 4, kMaxDv + 4) <= kMaxSharedBytes, "dq smem");
-static_assert(sizeof(float) * dkv_floats(kMaxDk + 4, kMaxDv + 4) <= kMaxSharedBytes, "dkv smem");
+static_assert(4 * dq_floats(kMaxDk, kMaxDv, dq_keys(kMaxDk, kMaxDv)) <= kMaxSharedBytes, "dq smem");
+// one dkv stage: p or ds [kDkvRows][kLdp], then B hi and lo [kSlice x kDkvRows]
+constexpr int kDkvStage = kDkvRows * kLdp + 2 * kSlice * kDkvRows;
+constexpr int kDkvBytes = 4 * kStages * kDkvStage;
+static_assert(kDkvBytes <= kMaxSharedBytes && kDkvKeys * kSlice <= kStages * kDkvStage, "dkv smem");
 
-// asynchronous global -> shared copies; an invalid source fills zeros
-__device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 4 : 0));
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int pad_width(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+
+// The workspace: packed operands (hi, lo) and the p/ds scratch, each segment
+// a whole number of panels; offsets in floats from the base.
+struct Workspace {
+  int n, lq, lk, dk, dv;
+  int ck, cv, bk;   // padded widths of q/k and v/do, the dq kernel's key tile
+  int lqp, lkp;     // Lq and Lk padded to 64
+  int sk, sv;       // dkv slices of dk and of dv
+  float* bk_[2];    // k: [bk keys x ck], one per bk keys
+  float* bv[2];     // v: [bk x cv]
+  float* bkt[2];    // k^T: [ck x bk keys], keys of each 8 in order 0, 2, 4, 6, 1, 3, 5, 7
+  float* bdot[2];   // do^T: [64 columns x 32 query rows], slice-major
+  float* bqt[2];    // q^T: the same
+  float* pds;       // p, ds: [kDkvRows][kDkvKeys] tiles, key-tile-major
+  int64_t floats;   // size of the whole
+};
+
+Workspace make_workspace(float* base, int n, int lq, int lk, int dk, int dv) {
+  Workspace w{};
+  w.n = n, w.lq = lq, w.lk = lk, w.dk = dk, w.dv = dv;
+  w.ck = pad_width(dk), w.cv = pad_width(dv), w.bk = dq_keys(w.ck, w.cv);
+  w.lqp = cdiv(lq, 64) * 64, w.lkp = cdiv(lk, 64) * 64;
+  w.sk = cdiv(dk, kSlice), w.sv = cdiv(dv, kSlice);
+  int64_t at = 0;
+  const auto take = [&](float* (&seg)[2], int64_t per_item) {
+    for (int h = 0; h < 2; ++h) {
+      seg[h] = base ? base + at : nullptr;
+      at += per_item * n;
+    }
+  };
+  take(w.bk_, static_cast<int64_t>(w.lkp) * w.ck);
+  take(w.bv, static_cast<int64_t>(w.lkp) * w.cv);
+  take(w.bkt, static_cast<int64_t>(w.lkp) * w.ck);
+  take(w.bdot, static_cast<int64_t>(w.sv) * kSlice * w.lqp);
+  take(w.bqt, static_cast<int64_t>(w.sk) * kSlice * w.lqp);
+  w.pds = base ? base + at : nullptr;
+  at += 2 * static_cast<int64_t>(w.lkp) * w.lqp * n;
+  w.floats = at;
+  return w;
 }
-__device__ __forceinline__ void copy16(float* dst, const float* src, bool valid) {
+
+// asynchronous global -> shared copies
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 16 : 0));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
 __device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// `floats` contiguous floats (a multiple of 4, both ends 16-byte aligned)
+__device__ __forceinline__ void copy_flat(float* dst, const float* src, int floats, int t) {
+  for (int i = 4 * t; i < floats; i += 4 * kThreads) copy16(dst + i, src + i);
+}
+// shared-memory writes (cp.async's included) made visible to the tensor
+// cores' reads, which go through the async proxy
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// rows [r0, r0 + R) of a row-major [len, d] matrix into dst [R][ld], columns
-// [0, CW): zeros past row len and past column d. 16-byte copies when vec4
-// (d % 4 == 0 and a 16-byte aligned matrix).
-template <int NTH, int R, int CW>
-__device__ __forceinline__ void copy_tile(float* dst, int ld, const float* src, int r0, int len,
-                                          int d, bool vec4, int t) {
-  const int rn = min(R, len - r0);
-  const float* base = src + static_cast<int64_t>(r0) * d;
-  if (vec4) {
-    constexpr int kv = CW / 4;
-    for (int i = t; i < R * kv; i += NTH) {
-      const int r = i / kv, c = (i - r * kv) * 4;
-      const bool ok = r < rn && c < d;
-      copy16(dst + r * ld + c, ok ? base + static_cast<int64_t>(r) * d + c : src, ok);
-    }
-  } else {
-    for (int i = t; i < R * CW; i += NTH) {
-      const int r = i / CW, c = i - r * CW;
-      const bool ok = r < rn && c < d;
-      copy4(dst + r * ld + c, ok ? base + static_cast<int64_t>(r) * d + c : src, ok);
-    }
-  }
-}
-
-// entries [r0, r0 + R) of a length-len row vector (lse, delta)
-template <int NTH, int R>
-__device__ __forceinline__ void copy_rows(float* dst, const float* src, int r0, int len, int t) {
-  for (int i = t; i < R; i += NTH) {
-    const bool ok = r0 + i < len;
-    copy4(dst + i, ok ? src + r0 + i : src, ok);
-  }
-}
-
-// ---- 3xTF32 fragments -------------------------------------------------------
+// ---- 3xTF32 operands -------------------------------------------------------
 
 // x = hi + lo for the tensor cores: hi is x rounded to TF32 (10 mantissa
 // bits) to nearest with ties away from zero, as cvt.rna.tf32.f32 rounds, by
@@ -197,570 +239,734 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// d += a b, one m16n8k8 TF32 tensor-core product with fp32 accumulation.
-// volatile: the compiler must not move it into code that only some lanes of
-// the warp run (mma.sync.aligned needs every lane).
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+// The descriptor of k8 step `step` of a panel of `rows` rows at `panel` in
+// shared memory (the layout in the note above): start address, leading
+// byte offset 16 rows, stride byte offset 128, no swizzle; fields in units
+// of 16 bytes.
+__device__ __forceinline__ uint64_t desc(const float* panel, int rows, int step) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(panel)) + 32u * rows * step;
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         (static_cast<uint64_t>(rows) << 16) |  // (16 rows bytes) >> 4
+         (static_cast<uint64_t>(128 >> 4) << 32);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// d (=, or += with scale_d 1) a b: one m64nNk8 TF32 product into fp32, a and
+// b from shared memory (ss) or a from registers (rs). volatile: the compiler
+// must not move them into code that only some threads run.
+__device__ __forceinline__ void wgmma_ss(float (&d)[4], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
 }
 
-struct FragA {  // 16 x 8: rows g, g + 8 and columns t, t + 4 as a0 (g, t), a1 (g + 8, t), a2, a3
-  uint32_t hi[4], lo[4];
-};
-struct FragB {  // 8 x 8: b0 (k t, n g), b1 (k t + 4, n g)
-  uint32_t hi[2], lo[2];
-};
-
-// Fragments are read from shared memory as fp32 into registers first, all of
-// a step's reads together, and split afterwards, so that the reads' latency
-// is paid once per step and not once per product.
-
-// A from a row-major tile a[m][k] at p[m * ld + k]
-__device__ __forceinline__ void ld_a(float (&r)[4], const float* p, int ld, int g, int t) {
-  r[0] = p[g * ld + t];
-  r[1] = p[(g + 8) * ld + t];
-  r[2] = p[g * ld + t + 4];
-  r[3] = p[(g + 8) * ld + t + 4];
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
 }
 
-// B from a tile stored k-major in the permuted order of make_a: k = t at
-// row 2t and k = t + 4 at row 2t + 1, b[.][n] at column n
-__device__ __forceinline__ void ld_b_kn(float (&r)[2], const float* p, int ld, int g, int t) {
-  r[0] = p[2 * t * ld + g];
-  r[1] = p[(2 * t + 1) * ld + g];
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d)
+      : "memory");
 }
 
-__device__ __forceinline__ void make_a(FragA& f, const float (&r)[4]) {
+__device__ __forceinline__ void wgmma_rs(float (&d)[4], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3"
+      "}, {%4, %5, %6, %7}, %8, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d)
+      : "memory");
+}
+
+
+// pins accumulator registers after a wgmma wait, so that no read of them is
+// scheduled before the wait
+template <int R>
+__device__ __forceinline__ void fence_operand(float (&d)[R]) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e) split(r[e], f.hi[e], f.lo[e]);
-}
-__device__ __forceinline__ void make_b(FragB& f, const float (&r)[2]) {
-  split(r[0], f.hi[0], f.lo[0]);
-  split(r[1], f.hi[1], f.lo[1]);
-}
-
-// A from an accumulator fragment c (rows g, g + 8; columns 2t, 2t + 1), with
-// k = t taken from column 2t and k = t + 4 from column 2t + 1
-__device__ __forceinline__ void make_a_acc(FragA& f, const float (&c)[4]) {
-  split(c[0], f.hi[0], f.lo[0]);
-  split(c[2], f.hi[1], f.lo[1]);
-  split(c[1], f.hi[2], f.lo[2]);
-  split(c[3], f.hi[3], f.lo[3]);
+  for (int e = 0; e < R; ++e) asm volatile("" : "+f"(d[e])::"memory");
 }
 
 // acc += d with fp32 adds that round to nearest. The tensor cores align and
-// truncate when they add into an accumulator, so a long chain of mma into
-// one accumulator drifts past the 2e-4 contract at the path's widths: each
-// chain starts from zero and is short, and the running sums are kept outside
-// the tensor cores.
-__device__ __forceinline__ void add(float (&acc)[4], const float (&d)[4]) {
+// truncate when they add into an accumulator, so a long chain into one
+// accumulator drifts past the 2e-4 contract at the path's widths: each
+// chain starts from zero and is short, and the running sums are kept
+// outside the tensor cores.
+template <int R>
+__device__ __forceinline__ void add(float (&acc)[R], const float (&d)[R]) {
 #pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += d[e];
+  for (int e = 0; e < R; ++e) acc[e] += d[e];
 }
 
-// Four 8 x 8 matrices of 16-bit values from shared memory, one per register:
-// with fp32 data, four 8-row x 4-column fp32 matrices, lane l getting
-// element (l / 4, l % 4) of each. Lane l gives the address of row l % 8 of
-// matrix l / 8; rows are 16 bytes, 16-byte aligned.
-__device__ __forceinline__ void ldsm4(float (&r)[4], const float* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  uint32_t x[4];
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3])
-               : "r"(a));
-#pragma unroll
-  for (int e = 0; e < 4; ++e) r[e] = __uint_as_float(x[e]);
-}
+// A 3xTF32 product a b = lo_a hi_b + hi_a lo_b + hi_a hi_b is issued as two
+// accumulations: the hi hi products of one chain of k8 steps into d, the
+// first of them zeroing it (scale-d 0), and the two corrections, about 2^-11
+// of it, into c, which the caller keeps across chains (zeroed when
+// `fresh`): an accumulator of small values loses little when the tensor
+// cores truncate into it. a is a panel of 64 rows (ss) or register
+// fragments (rs), b a panel of N rows; both hi and lo.
 
-// s[j] = a b^T for rows [0, 16) of a and rows [8 j, 8 j + 8) of b, j < 2,
-// over KD columns (both row-major, zero past their width; KD a multiple of
-// 16): s[j] is an accumulator fragment, rows g and g + 8 of a, rows 8 j + 2t
-// and 8 j + 2t + 1 of b. Each step of 8 columns reads A's fragment with one
-// ldmatrix (matrices: rows 0-7 and 8-15 at columns 0-3, then at 4-7) and
-// both B fragments with another (rows 0-7 at columns 0-3 and 4-7, then rows
-// 8-15); the next 16 columns' reads are in flight under this step's
-// products. The hi hi products of 16 columns are added to the sum by add();
-// the two corrections, 2^-11 of it, sum in tensor-core accumulators of their
-// own.
-template <int KD>
-__device__ __forceinline__ void scores(float (&s)[2][4], const float* a, int lda, const float* b,
-                                       int ldb, int lane) {
-  const int mi = lane >> 3, ri = lane & 7;
-  const float* pa = a + (ri + (mi & 1) * 8) * lda + (mi >> 1) * 4;
-  const float* pb = b + (ri + (mi >> 1) * 8) * ldb + (mi & 1) * 4;
-  float big[2][4] = {}, c1[2][4] = {}, c2[2][4] = {};
-  float ra[2][4], rb[2][4];
-  auto fetch = [&](int kk) {
+// the hi hi products over kChainK columns from k8 step `first`, from
+// shared memory
+template <int N>
+__device__ __forceinline__ void hh_ss(float (&d)[N / 2], const float* a_hi, const float* b_hi,
+                                      int first) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      ldsm4(ra[h], pa + kk + 8 * h);
-      ldsm4(rb[h], pb + kk + 8 * h);
-    }
-  };
-  fetch(0);
-#pragma unroll 4
-  for (int kk = 0; kk < KD; kk += 16) {
-    FragA fa[2];
-    FragB fb[2][2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      make_a(fa[h], ra[h]);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float r2[2] = {rb[h][2 * j], rb[h][2 * j + 1]};
-        make_b(fb[h][j], r2);
-      }
-    }
-    if (kk + 16 < KD) fetch(kk + 16);
-    // independent chains side by side: each mma waits on one four steps back
-    float d[2][4] = {};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) mma(c1[j], fa[h].lo, fb[h][j].hi[0], fb[h][j].hi[1]);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) mma(c2[j], fa[h].hi, fb[h][j].lo[0], fb[h][j].lo[1]);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) mma(d[j], fa[h].hi, fb[h][j].hi[0], fb[h][j].hi[1]);
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) add(big[j], d[j]);
+  for (int s = 0; s < kChainK / 8; ++s) {
+    wgmma_ss(d, desc(a_hi, kDqRows, first + s), desc(b_hi, N, first + s), s > 0);
   }
+}
+template <int N>
+__device__ __forceinline__ void corr_ss(float (&c)[N / 2], const float* a_hi, const float* a_lo,
+                                        const float* b_hi, const float* b_lo, int first,
+                                        bool fresh) {
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = big[j][e] + (c1[j][e] + c2[j][e]);
+  for (int s = 0; s < kChainK / 8; ++s) {
+    wgmma_ss(c, desc(a_lo, kDqRows, first + s), desc(b_hi, N, first + s), !(fresh && s == 0));
+    wgmma_ss(c, desc(a_hi, kDqRows, first + s), desc(b_lo, N, first + s), 1);
+  }
 }
 
-// d[m][i] += a[m] b[i] in 3xTF32 for 2 x G independent products, issued
-// side by side (all lo hi, then all hi lo, then all hi hi) so that no mma
-// waits on the one before it
-template <int G>
-__device__ __forceinline__ void mma3_grid(float (&d)[2][G][4], const FragA (&a)[2],
-                                          const FragB (&b)[G]) {
+// the same with a from registers: COUNT k8 steps from `first` of its STEPS
+template <int N, int STEPS, int COUNT>
+__device__ __forceinline__ void hh_rs(float (&d)[N / 2], const uint32_t (&a_hi)[STEPS][4],
+                                      int first, const float* b_hi) {
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int s = 0; s < COUNT; ++s) wgmma_rs(d, a_hi[first + s], desc(b_hi, N, first + s), s > 0);
+}
+template <int N, int STEPS, int COUNT>
+__device__ __forceinline__ void corr_rs(float (&c)[N / 2], const uint32_t (&a_hi)[STEPS][4],
+                                        const uint32_t (&a_lo)[STEPS][4], int first,
+                                        const float* b_hi, const float* b_lo, bool fresh) {
 #pragma unroll
-    for (int i = 0; i < G; ++i) mma(d[m][i], a[m].lo, b[i].hi[0], b[i].hi[1]);
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int i = 0; i < G; ++i) mma(d[m][i], a[m].hi, b[i].lo[0], b[i].lo[1]);
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int i = 0; i < G; ++i) mma(d[m][i], a[m].hi, b[i].hi[0], b[i].hi[1]);
+  for (int s = 0; s < COUNT; ++s) {
+    wgmma_rs(c, a_lo[first + s], desc(b_hi, N, first + s), !(fresh && s == 0));
+    wgmma_rs(c, a_hi[first + s], desc(b_lo, N, first + s), 1);
+  }
 }
 
-// ---- kernels ----------------------------------------------------------------
+// ---- pack -------------------------------------------------------------------
+
+// one operand to lay out: element (r, c) of a batch item's matrix at
+// src[r s_r + c s_c] (zero past rows x cols), as panels of pr x pc, panel
+// (i, j) at ((item tiles_r + i) tiles_c + j) pr pc; permute: columns of
+// each 8 in order 0, 2, 4, 6, 1, 3, 5, 7
+struct PackJob {
+  const float* src;
+  float* hi;
+  float* lo;
+  int64_t item;  // elements between batch items of src
+  int s_r, s_c, rows, cols;
+  int pr, pc, tiles_r, tiles_c, permute;
+};
+struct PackJobs {
+  PackJob job[kPackJobs];
+  int n;
+};
+
+constexpr int kPackThreads = 256;
+constexpr int kPackTile = 128 * 33;  // a transposed panel's staging: at most 128 x 32, padded
+
+// Lays out every job of `jobs` (blockIdx.y), splitting each value into hi
+// and lo and writing both planes 16 bytes at a time. An operand whose rows
+// run along the panel's columns (k, v, q and do as they lie) is written
+// four values a thread, grid-stride over the job; a transposed one (k^T,
+// do^T, q^T) a panel at a time, staged in shared memory so that both the
+// reads and the writes are coalesced.
+__global__ void __launch_bounds__(kPackThreads) attention_pack_kernel(PackJobs jobs) {
+  __shared__ float stage[kPackTile];
+  const PackJob& j = jobs.job[blockIdx.y];
+  const int panel = j.pr * j.pc, per_item = j.tiles_r * j.tiles_c;
+  const int64_t units = static_cast<int64_t>(per_item) * jobs.n;
+  const int t = threadIdx.x;
+  // the panel's element (i, c), panel `unit`: column c of the panel is
+  // source column c0 + c, or c0 + (c's position in 0, 2, 4, 6, 1, 3, 5, 7)
+  // when permuted
+  const auto at = [&](int64_t unit, int i, int c) {
+    const int b = static_cast<int>(unit / per_item), tile = static_cast<int>(unit % per_item);
+    if (j.permute) c = (c & ~7) | ((c & 3) << 1) | ((c >> 2) & 1);
+    const int r = (tile / j.tiles_c) * j.pr + i, col = (tile % j.tiles_c) * j.pc + c;
+    return r < j.rows && col < j.cols
+               ? j.src[b * j.item + static_cast<int64_t>(r) * j.s_r + static_cast<int64_t>(col) * j.s_c]
+               : 0.f;
+  };
+  // four values of the panel at offset o (a multiple of 4) to both planes
+  const auto put = [&](int64_t unit, int o, const float* from_stage) {
+    const int core = o >> 5;  // (column group) (pr / 8) + row group
+    const int cgroup = core / (j.pr >> 3), rgroup = core - cgroup * (j.pr >> 3);
+    const int i = rgroup * 8 + ((o >> 2) & 7);
+    float4 h4, l4;
+    float* h = &h4.x;
+    float* l = &l4.x;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = cgroup * 4 + e;
+      const float x = from_stage ? from_stage[i * (j.pc + 1) + c] : at(unit, i, c);
+      uint32_t xh, xl;
+      split(x, xh, xl);
+      h[e] = __uint_as_float(xh);
+      l[e] = __uint_as_float(xl);
+    }
+    *reinterpret_cast<float4*>(j.hi + unit * panel + o) = h4;
+    *reinterpret_cast<float4*>(j.lo + unit * panel + o) = l4;
+  };
+  if (j.s_c == 1) {
+    const int64_t quads = units * panel / 4;
+    for (int64_t x = blockIdx.x * static_cast<int64_t>(kPackThreads) + t; x < quads;
+         x += static_cast<int64_t>(gridDim.x) * kPackThreads) {
+      put(4 * x / panel, static_cast<int>(4 * x % panel), nullptr);
+    }
+    return;
+  }
+  for (int64_t unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    __syncthreads();  // the previous panel's reads of the stage are done
+    for (int x = t; x < panel; x += kPackThreads) {  // rows along the source's contiguous axis
+      const int i = x % j.pr, c = x / j.pr;
+      stage[i * (j.pc + 1) + c] = at(unit, i, c);
+    }
+    __syncthreads();
+    for (int o = 4 * t; o < panel; o += 4 * kPackThreads) put(unit, o, stage);
+  }
+}
+
+// ---- dq ----------------------------------------------------------------------
+
+// rows [r0, r0 + 64) of a row-major [len, d] matrix as a panel of 64 rows
+// and CW columns in shared memory, split into hi and lo (zeros past row len
+// and column d)
+template <int CW>
+__device__ __forceinline__ void stage_split(float* hi, float* lo, const float* src, int r0,
+                                            int len, int d, int t) {
+  for (int o = 4 * t; o < kDqRows * CW; o += 4 * kThreads) {
+    const int core = o >> 5;  // (column group) 8 + row group
+    const int r = r0 + (core & 7) * 8 + ((o >> 2) & 7), c0 = (core >> 3) * 4;
+    float4 h4, l4;
+    float* h = &h4.x;
+    float* l = &l4.x;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = r < len && c0 + e < d ? src[static_cast<int64_t>(r) * d + c0 + e] : 0.f;
+      uint32_t xh, xl;
+      split(x, xh, xl);
+      h[e] = __uint_as_float(xh);
+      l[e] = __uint_as_float(xl);
+    }
+    *reinterpret_cast<float4*>(hi + o) = h4;
+    *reinterpret_cast<float4*>(lo + o) = l4;
+  }
+}
 
 template <int CK, int CV>
 __global__ void __launch_bounds__(kThreads, 1)
-attention_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ lse,
-                    const float* __restrict__ delta, const float* __restrict__ dout,
-                    float* __restrict__ dq, float* __restrict__ pds, int lq, int lk, int dk,
-                    int dv, int k_vec4, int v_vec4) {
-  constexpr int LDK = CK + 4, LDV = CV + 4, NT = CK / 8;
-  constexpr int SF = kDqKeys * (LDK + LDV);  // one stage: K, V
+attention_dq_kernel(Workspace ws, const float* __restrict__ q, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq) {
+  constexpr bool QR = q_in_registers(CK);
+  constexpr int BK = dq_keys(CK, CV);
+  constexpr int NS = CK / kChainK, NC = (CK + CV) / kChainK;  // chains of s, of s and dp
+  constexpr int R = BK / 2;  // accumulator floats of a 64 x BK product per thread
+  constexpr int STEPS = BK / 8, QSTEPS = CK / 8;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* qs = smem;                     // [kDqRows][LDK]
-  float* dos = qs + kDqRows * LDK;      // [kDqRows][LDV]
-  float* ls = dos + kDqRows * LDV;      // [kDqRows]
-  float* des = ls + kDqRows;            // [kDqRows]
-  float* stage0 = des + kDqRows;        // 2 x (K [kDqKeys][LDK], V [kDqKeys][LDV])
+  float* aq = smem;                                // q hi, lo [64 x CK], unless in registers
+  float* ado = aq + (QR ? 0 : 2 * kDqRows * CK);  // do hi, lo [64 x CV]
+  float* bk = ado + 2 * kDqRows * CV;             // k hi, lo [BK x CK]
+  float* bv = bk + 2 * BK * CK;                   // v hi, lo [BK x CV]
+  float* bkt = bv + 2 * BK * CV;                  // k^T hi, lo [CK x BK]
 
   const int t = threadIdx.x, w = t >> 5, g = (t & 31) >> 2, tg = t & 3;
-  const int r0 = (w & 3) * 16;   // this warp's query rows
-  const int c0 = (w >> 2) * 16;  // and keys of each tile
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kDqRows;
-  const int nqt = (lq + kDkvRows - 1) / kDkvRows, nkb = (lk + kDkvKeys - 1) / kDkvKeys;
-  float* pdb = pds + static_cast<int64_t>(b) * nkb * nqt * 2 * kPlane;
-  const float* kb = k + static_cast<int64_t>(b) * lk * dk;
-  const float* vb = v + static_cast<int64_t>(b) * lk * dv;
+  const int b = blockIdx.y, q0 = blockIdx.x * kDqRows;
+  const int row0 = q0 + 16 * w + g;  // this thread's rows: row0, row0 + 8
+  const int nkt = ws.lkp / BK, ntiles = cdiv(ws.lk, BK);
+  const int nqt = ws.lqp / kDkvRows, nkb = ws.lkp / kDkvKeys;
+  float* pdb = ws.pds + static_cast<int64_t>(b) * nkb * nqt * 2 * kPlane;
+  const float* qb = q + static_cast<int64_t>(b) * ws.lq * ws.dk;
 
-  const float* qb = q + static_cast<int64_t>(b) * lq * dk;
-  const float* dob = dout + static_cast<int64_t>(b) * lq * dv;
-  copy_tile<kThreads, kDqRows, CK>(qs, LDK, qb, q0, lq, dk, k_vec4, t);
-  copy_tile<kThreads, kDqRows, CV>(dos, LDV, dob, q0, lq, dv, v_vec4, t);
-  copy_rows<kThreads, kDqRows>(ls, lse + static_cast<int64_t>(b) * lq, q0, lq, t);
-  copy_rows<kThreads, kDqRows>(des, delta + static_cast<int64_t>(b) * lq, q0, lq, t);
-  copy_commit();
-
-  auto issue = [&](int tile, int st) {
-    float* ks = stage0 + st * SF;
-    copy_tile<kThreads, kDqKeys, CK>(ks, LDK, kb, tile * kDqKeys, lk, dk, k_vec4, t);
-    copy_tile<kThreads, kDqKeys, CV>(ks + kDqKeys * LDK, LDV, vb, tile * kDqKeys, lk, dv, v_vec4,
-                                     t);
+  const auto issue_kv = [&](int it) {
+    const int64_t at = (static_cast<int64_t>(b) * nkt + it) * BK;
+    copy_flat(bk, ws.bk_[0] + at * CK, BK * CK, t);
+    copy_flat(bk + BK * CK, ws.bk_[1] + at * CK, BK * CK, t);
+    copy_flat(bv, ws.bv[0] + at * CV, BK * CV, t);
+    copy_flat(bv + BK * CV, ws.bv[1] + at * CV, BK * CV, t);
     copy_commit();
   };
+  const auto issue_kt = [&](int it) {
+    const int64_t at = (static_cast<int64_t>(b) * nkt + it) * BK * CK;
+    copy_flat(bkt, ws.bkt[0] + at, CK * BK, t);
+    copy_flat(bkt + CK * BK, ws.bkt[1] + at, CK * BK, t);
+    copy_commit();
+  };
+  issue_kv(0);
+  issue_kt(0);
 
-  float acc[NT][4];
+  // q as A fragments (rows 16 w + g, + 8; columns t, t + 4 of each step),
+  // or as a panel in shared memory; do as a panel: both read and split here
+  uint32_t q_hi[QR ? QSTEPS : 1][4], q_lo[QR ? QSTEPS : 1][4];
+  if constexpr (QR) {
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+    for (int st = 0; st < QSTEPS; ++st)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e & 1), col = 8 * st + tg + 4 * (e >> 1);
+        const float x = row < ws.lq && col < ws.dk ? qb[static_cast<int64_t>(row) * ws.dk + col] : 0.f;
+        split(x, q_hi[st][e], q_lo[st][e]);
+      }
+  } else {
+    stage_split<CK>(aq, aq + kDqRows * CK, qb, q0, ws.lq, ws.dk, t);
+  }
+  stage_split<CV>(ado, ado + kDqRows * CV, dout + static_cast<int64_t>(b) * ws.lq * ws.dv, q0, ws.lq,
+                  ws.dv, t);
 
-  const int ntiles = (lk + kDqKeys - 1) / kDqKeys;
-  issue(0, 0);
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    const bool ok = row < ws.lq;
+    lse_r[h] = ok ? lse[static_cast<int64_t>(b) * ws.lq + row] : 0.f;
+    delta_r[h] = ok ? delta[static_cast<int64_t>(b) * ws.lq + row] : 0.f;
+  }
+  float acc[CK / 2], cq[CK / 2];  // dq's hi hi sum, and its corrections on the tensor cores
+#pragma unroll
+  for (int e = 0; e < CK / 2; ++e) acc[e] = 0.f;
+
   for (int it = 0; it < ntiles; ++it) {
-    const int st = it & 1;
-    const int kn = min(kDqKeys, lk - it * kDqKeys);
-    __syncthreads();  // the stage about to be refilled is free
-    if (it + 1 < ntiles) {
-      issue(it + 1, st ^ 1);
-      copy_wait<1>();  // this tile's copies (and the resident ones) are done
-    } else {
-      copy_wait<0>();
-    }
+    copy_wait<1>();  // this tile's k and v are in; its k^T may still be on the way
+    fence_async_shared();  // and q and do, written above, on the first tile
     __syncthreads();
-    const float* ks = stage0 + st * SF;
-    const float* vs = ks + kDqKeys * LDK;
 
-    float s[2][4], dp[2][4];
-    scores<CK>(s, qs + r0 * LDK, LDK, ks + c0 * LDK, LDK, t & 31);
-    scores<CV>(dp, dos + r0 * LDV, LDV, vs + c0 * LDV, LDV, t & 31);
-    FragA a[2];
+    // s = q k^T and dp = do v^T: NC chains of kChainK columns of hi hi
+    // products, each summed as it completes while the next one and the
+    // corrections run
+    float s[R], dp[R], ch[R], cs[R], cdp[R];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int e = 0; e < R; ++e) s[e] = dp[e] = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + g + (e >> 1) * 8;
-        const int key = c0 + 8 * j + 2 * tg + (e & 1);
-        const float ex = expf(s[j][e] - ls[row]);  // no branch: every lane reaches the mma
-        const int qq = q0 + row, kk = it * kDqKeys + key;
-        const float p = key < kn && qq < lq ? ex : 0.f;
-        dp[j][e] = p * (dp[j][e] - des[row]);  // ds
-        // p and ds to the scratch tile (kk / 64, qq / 32) as the dkv kernel
-        // reads them: [key][slot], row 8 J + 2u of the tile at slot 8 J + u,
-        // 8 J + 2u + 1 at 8 J + u + 4 (make_a_acc's order)
-        if (qq < nqt * kDkvRows) {
-          const int64_t at_tile = static_cast<int64_t>(kk / kDkvKeys) * nqt + qq / kDkvRows;
-          float* tile = pdb + at_tile * 2 * kPlane;
-          const int at = (kk % kDkvKeys) * kDkvRows + (qq & 24) + (g >> 1) + 4 * (g & 1);
-          tile[at] = p;
-          tile[kPlane + at] = dp[j][e];
+    for (int c = 0; c < NC; ++c) {
+      wgmma_fence();
+      if (c < NS) {
+        if constexpr (QR) {
+          hh_rs<BK, QSTEPS, kChainK / 8>(ch, q_hi, c * kChainK / 8, bk);
+        } else {
+          hh_ss<BK>(ch, aq, bk, c * kChainK / 8);
         }
+      } else {
+        hh_ss<BK>(ch, ado, bv, (c - NS) * kChainK / 8);
       }
-      make_a_acc(a[j], dp[j]);
+      wgmma_commit();
+      if (c < NS) {
+        if constexpr (QR) {
+          corr_rs<BK, QSTEPS, kChainK / 8>(cs, q_hi, q_lo, c * kChainK / 8, bk, bk + BK * CK, c == 0);
+        } else {
+          corr_ss<BK>(cs, aq, aq + kDqRows * CK, bk, bk + BK * CK, c * kChainK / 8, c == 0);
+        }
+      } else {
+        corr_ss<BK>(cdp, ado, ado + kDqRows * CV, bv, bv + BK * CV, (c - NS) * kChainK / 8, c == NS);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // this chain's hi hi products are done
+      fence_operand(ch);
+      add(c < NS ? s : dp, ch);
     }
-    // dq += ds k over this tile's 16 keys of the warp, 4 column tiles a step
+    wgmma_wait<0>();
+    fence_operand(cs);
+    fence_operand(cdp);
+    add(s, cs);
+    add(dp, cdp);
+    __syncthreads();  // every warp's s and dp have read this tile's k and v
+    if (it + 1 < ntiles) issue_kv(it + 1);
+
+    // p = exp(s - lse) and ds = p (dp - delta), masked without a branch
+    float p[R];
 #pragma unroll
-    for (int c = 0; c < NT; c += 4) {
-      float rb[4][2][2];
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          ld_b_kn(rb[n][j], ks + (c0 + 8 * j) * LDK + 8 * (c + n), LDK, g, tg);
-      float d[4][4] = {};
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        FragB f[4];
-#pragma unroll
-        for (int n = 0; n < 4; ++n) make_b(f[n], rb[n][j]);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) mma(d[n], a[j].lo, f[n].hi[0], f[n].hi[1]);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) mma(d[n], a[j].hi, f[n].lo[0], f[n].lo[1]);
-#pragma unroll
-        for (int n = 0; n < 4; ++n) mma(d[n], a[j].hi, f[n].hi[0], f[n].hi[1]);
-      }
-#pragma unroll
-      for (int n = 0; n < 4; ++n) add(acc[c + n], d[n]);
+    for (int e = 0; e < R; ++e) {
+      const int h = (e >> 1) & 1, row = row0 + 8 * h, key = it * BK + 8 * (e >> 2) + 2 * tg + (e & 1);
+      const float ex = __expf(s[e] - lse_r[h]);
+      p[e] = key < ws.lk && row < ws.lq ? ex : 0.f;
+      dp[e] = p[e] * (dp[e] - delta_r[h]);  // ds
     }
-  }
 
-  // the two key halves: warps 4-7 hand their sums to warps 0-3
-  copy_wait<0>();
-  __syncthreads();
-  float* red = stage0;  // [kDqRows][CK]
-  if (w >= 4) {
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        red[(r0 + g + (e >> 1) * 8) * CK + 8 * n + 2 * tg + (e & 1)] = acc[n][e];
-  }
-  __syncthreads();
-  if (w < 4) {
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = r0 + g + (e >> 1) * 8, col = 8 * n + 2 * tg + (e & 1);
-        if (q0 + row < lq && col < dk)
-          dq[(static_cast<int64_t>(b) * lq + q0 + row) * dk + col] =
-              acc[n][e] + red[row * CK + col];
-      }
-  }
-}
-
-template <int CK, int CV>
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
-attention_dkv_kernel(const float* __restrict__ q, const float* __restrict__ dout,
-                     const float* __restrict__ pds, float* __restrict__ dk_out,
-                     float* __restrict__ dv_out, int lq, int lk, int dk, int dv, int k_vec4,
-                     int v_vec4) {
-  constexpr int LDK = CK + 4, LDV = CV + 4;
-  constexpr int QK = CK / 4, QV = CV / 4;  // each warp's quarter of the dk and dv columns
-  constexpr int NK = QK / 8, NV = QV / 8;
-  // one stage: Q [kDkvRows][LDK], dO [kDkvRows][LDV], p^T and ds^T [kDkvKeys][kLdp]
-  constexpr int SF = kDkvRows * (LDK + LDV) + 2 * kDkvKeys * kLdp;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int t = threadIdx.x, w = t >> 5, g = (t & 31) >> 2, tg = t & 3;
-  const int m0 = (w & 1) * 32;  // this warp's 32 keys
-  const int cq = w >> 1;        // and quarter of the columns
-  const int j0 = blockIdx.y * kDkvKeys;
-  const int b = blockIdx.z;
-  const int kn = min(kDkvKeys, lk - j0);
-  const int nqt = (lq + kDkvRows - 1) / kDkvRows;
-  const float* qb = q + static_cast<int64_t>(b) * lq * dk;
-  const float* dob = dout + static_cast<int64_t>(b) * lq * dv;
-  const float* pdb = pds + (static_cast<int64_t>(b) * gridDim.y + blockIdx.y) * nqt * 2 * kPlane;
-
-  auto issue = [&](int tile, int st) {
-    float* qs = smem + st * SF;
-    float* dos = qs + kDkvRows * LDK;
-    float* pt = dos + kDkvRows * LDV;
-    copy_tile<kThreads, kDkvRows, CK>(qs, LDK, qb, tile * kDkvRows, lq, dk, k_vec4, t);
-    copy_tile<kThreads, kDkvRows, CV>(dos, LDV, dob, tile * kDkvRows, lq, dv, v_vec4, t);
-    // p^T and ds^T: 2 x kDkvKeys rows of kDkvRows floats, contiguous in the scratch
-    const float* from = pdb + static_cast<int64_t>(tile) * 2 * kPlane;
-    copy_tile<kThreads, 2 * kDkvKeys, kDkvRows>(pt, kLdp, from, 0, 2 * kDkvKeys, kDkvRows, true, t);
-    copy_commit();
-  };
-
-  float acc_k[2][NK][4], acc_v[2][NV][4];
-#pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_k[m][n][e] = 0.f;
-#pragma unroll
-    for (int n = 0; n < NV; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc_v[m][n][e] = 0.f;
-  }
-
-  // this block's query tiles: rank, rank + kCluster, ...
-  const int mine = rank < nqt ? (nqt - rank + kCluster - 1) / kCluster : 0;
-  if (mine > 0) issue(rank, 0);
-  for (int it = 0; it < mine; ++it) {
-    const int st = it & 1;
-    __syncthreads();  // the stage about to be refilled is free
-    if (it + 1 < mine) {
-      issue(rank + (it + 1) * kCluster, st ^ 1);
+    // this tile's k^T is in (the next tile's k and v, the latest group, may not be)
+    if (it + 1 < ntiles) {
       copy_wait<1>();
     } else {
       copy_wait<0>();
     }
+    fence_async_shared();
     __syncthreads();
-    const float* qs = smem + st * SF;
-    const float* dos = qs + kDkvRows * LDK;
-    const float* pt = dos + kDkvRows * LDV;  // p^T, then ds^T
 
-    // dv += p^T do and dk += ds^T q for keys [m0, m0 + 32), column quarter
-    // cq; each B fragment serves both 16-key halves, and each chain on the
-    // tensor cores covers two steps of 8 rows before add()
-#pragma unroll 1
-    for (int jp = 0; jp < kDkvRows / 8; jp += 2) {
-      FragA ap[2][2], ad[2][2];
+    // dq += ds k: A from ds's accumulator fragment, k = t from column 2t and
+    // k = t + 4 from column 2t + 1 (k^T's keys are stored in that order)
+    uint32_t a_hi[STEPS][4], a_lo[STEPS][4];
 #pragma unroll
-      for (int js = 0; js < 2; ++js)
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          float r[2][4];
-#pragma unroll
-          for (int x = 0; x < 2; ++x)
-            ld_a(r[x], pt + (x * kDkvKeys + m0 + 16 * m) * kLdp + 8 * (jp + js), kLdp, g, tg);
-          make_a(ap[js][m], r[0]);
-          make_a(ad[js][m], r[1]);
-        }
-      constexpr int GV = NV < 2 ? NV : 2;
-#pragma unroll
-      for (int h = 0; h < NV; h += GV) {
-        float rv[2][GV][2];
-#pragma unroll
-        for (int js = 0; js < 2; ++js)
-#pragma unroll
-          for (int i = 0; i < GV; ++i)
-            ld_b_kn(rv[js][i], dos + 8 * (jp + js) * LDV + cq * QV + 8 * (h + i), LDV, g, tg);
-        float d[2][GV][4] = {};
-#pragma unroll
-        for (int js = 0; js < 2; ++js) {
-          FragB f[GV];
-#pragma unroll
-          for (int i = 0; i < GV; ++i) make_b(f[i], rv[js][i]);
-          mma3_grid(d, ap[js], f);
-        }
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-#pragma unroll
-          for (int i = 0; i < GV; ++i) add(acc_v[m][h + i], d[m][i]);
-      }
-      constexpr int GK = NK < 2 ? NK : 2;
-#pragma unroll
-      for (int h = 0; h < NK; h += GK) {
-        float rk[2][GK][2];
-#pragma unroll
-        for (int js = 0; js < 2; ++js)
-#pragma unroll
-          for (int i = 0; i < GK; ++i)
-            ld_b_kn(rk[js][i], qs + 8 * (jp + js) * LDK + cq * QK + 8 * (h + i), LDK, g, tg);
-        float d[2][GK][4] = {};
-#pragma unroll
-        for (int js = 0; js < 2; ++js) {
-          FragB f[GK];
-#pragma unroll
-          for (int i = 0; i < GK; ++i) make_b(f[i], rk[js][i]);
-          mma3_grid(d, ad[js], f);
-        }
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-#pragma unroll
-          for (int i = 0; i < GK; ++i) add(acc_k[m][h + i], d[m][i]);
-      }
+    for (int j = 0; j < STEPS; ++j) {
+      split(dp[4 * j + 0], a_hi[j][0], a_lo[j][0]);
+      split(dp[4 * j + 2], a_hi[j][1], a_lo[j][1]);
+      split(dp[4 * j + 1], a_hi[j][2], a_lo[j][2]);
+      split(dp[4 * j + 3], a_hi[j][3], a_lo[j][3]);
     }
-  }
+    float d[CK / 2];
+    wgmma_fence();
+    hh_rs<CK, STEPS, STEPS>(d, a_hi, 0, bkt);
+    corr_rs<CK, STEPS, STEPS>(cq, a_hi, a_lo, 0, bkt, bkt + CK * BK, it == 0);
+    wgmma_commit();
 
-  // the partial sums to shared memory: dk [kDkvKeys][CK], then dv [kDkvKeys][CV]
-  copy_wait<0>();
-  __syncthreads();
-  float* red_k = smem;
-  float* red_v = smem + kDkvKeys * CK;
+    // while the tensor cores run it: p and ds to the scratch tile (key / 64,
+    // row / 32) at [row % 32][key % 64], a thread's two keys in one 8-byte
+    // store
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+    for (int j = 0; j < STEPS; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h, key = it * BK + 8 * j + 2 * tg, e = 4 * j + 2 * h;
+        const int64_t tile = static_cast<int64_t>(key / kDkvKeys) * nqt + row / kDkvRows;
+        float* at = pdb + tile * 2 * kPlane + (row % kDkvRows) * kDkvKeys + key % kDkvKeys;
+        *reinterpret_cast<float2*>(at) = make_float2(p[e], p[e + 1]);
+        *reinterpret_cast<float2*>(at + kPlane) = make_float2(dp[e], dp[e + 1]);
+      }
+    wgmma_wait<0>();
+    fence_operand(d);
+    fence_operand(cq);
+    add(acc, d);
+    __syncthreads();  // every warp's dq product has read this tile's k^T
+    if (it + 1 < ntiles) issue_kt(it + 1);
+  }
+  copy_wait<0>();
+  add(acc, cq);
+
+#pragma unroll
+  for (int n = 0; n < CK / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int key = m0 + 16 * m + g + (e >> 1) * 8, col = 2 * tg + (e & 1);
-#pragma unroll
-      for (int n = 0; n < NK; ++n) red_k[key * CK + cq * QK + 8 * n + col] = acc_k[m][n][e];
-#pragma unroll
-      for (int n = 0; n < NV; ++n) red_v[key * CV + cq * QV + 8 * n + col] = acc_v[m][n][e];
+      const int row = row0 + 8 * (e >> 1), col = 8 * n + 2 * tg + (e & 1);
+      if (row < ws.lq && col < ws.dk) {
+        dq[(static_cast<int64_t>(b) * ws.lq + row) * ws.dk + col] = acc[4 * n + e];
+      }
     }
-  cluster.sync();
+}
 
-  // this block adds up rows [rank * kRows, (rank + 1) * kRows) over the
-  // cluster's blocks, in rank order
+// ---- dk, dv ------------------------------------------------------------------
+
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+attention_dkv_kernel(Workspace ws, float* __restrict__ dk_out, float* __restrict__ dv_out) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int t = threadIdx.x, w = t >> 5, g = (t & 31) >> 2, tg = t & 3;
+  const int slices = ws.sv + ws.sk;
+  const int kb = blockIdx.y / slices, slice = blockIdx.y - kb * slices, b = blockIdx.z;
+  // dv's slices take p (as p^T) and do^T, dk's take ds (as ds^T) and q^T
+  const bool is_v = slice < ws.sv;
+  const int sl = is_v ? slice : slice - ws.sv;
+  const int nqt = ws.lqp / kDkvRows, nkb = ws.lkp / kDkvKeys;
+  const float* a_src = ws.pds + ((static_cast<int64_t>(b) * nkb + kb) * nqt) * 2 * kPlane +
+                       (is_v ? 0 : kPlane);
+  const int64_t b_at =
+      (static_cast<int64_t>(b) * (is_v ? ws.sv : ws.sk) + sl) * nqt * kSlice * kDkvRows;
+  const float* b_hi = (is_v ? ws.bdot[0] : ws.bqt[0]) + b_at;
+  const float* b_lo = (is_v ? ws.bdot[1] : ws.bqt[1]) + b_at;
+
+  // this block's query tiles: rank, rank + kCluster, ... of the ones with a row below Lq
+  const int used = cdiv(ws.lq, kDkvRows);
+  const int mine = rank < used ? cdiv(used - rank, kCluster) : 0;
+  const auto issue = [&](int i) {
+    if (i < mine) {
+      const int q = rank + i * kCluster;
+      float* st = smem + (i % kStages) * kDkvStage;
+      const float* a = a_src + static_cast<int64_t>(q) * 2 * kPlane;
+      for (int x = t; x < kDkvRows * kDkvKeys / 4; x += kThreads) {
+        const int r = x / (kDkvKeys / 4), c = 4 * (x % (kDkvKeys / 4));
+        copy16(st + r * kLdp + c, a + r * kDkvKeys + c);
+      }
+      float* sb = st + kDkvRows * kLdp;
+      copy_flat(sb, b_hi + static_cast<int64_t>(q) * kSlice * kDkvRows, kSlice * kDkvRows, t);
+      copy_flat(sb + kSlice * kDkvRows, b_lo + static_cast<int64_t>(q) * kSlice * kDkvRows,
+                kSlice * kDkvRows, t);
+    }
+    copy_commit();  // one group per tile, empty past the last, so the waits count tiles
+  };
+
+  constexpr int STEPS = kDkvRows / 8;
+  float acc[kSlice / 2], corr[kSlice / 2];  // the hi hi sum, and the corrections on the tensor cores
+#pragma unroll
+  for (int e = 0; e < kSlice / 2; ++e) acc[e] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+  for (int i = 0; i < mine; ++i) {
+    copy_wait<kStages - 2>();  // tile i is in
+    fence_async_shared();
+    __syncthreads();            // and every warp is done with tile i - 1's stage
+    issue(i + kStages - 1);
+    const float* st = smem + (i % kStages) * kDkvStage;
+    const float* sb = st + kDkvRows * kLdp;
+    // A: p^T or ds^T, keys (rows) 16 w + g, + 8 and query columns t, t + 4
+    // of each step, from the tile's [query][key] rows
+    uint32_t a_hi[STEPS][4], a_lo[STEPS][4];
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = st[(8 * s + tg + 4 * (e >> 1)) * kLdp + 16 * w + g + 8 * (e & 1)];
+        split(x, a_hi[s][e], a_lo[s][e]);
+      }
+    // one chain of hi hi products over the tile's rows, the corrections
+    // into the block's own accumulator
+    static_assert(kDkvRows == kChainK, "one chain per dkv tile");
+    float d[kSlice / 2];
+    wgmma_fence();
+    hh_rs<kSlice, STEPS, STEPS>(d, a_hi, 0, sb);
+    corr_rs<kSlice, STEPS, STEPS>(corr, a_hi, a_lo, 0, sb, sb + kSlice * kDkvRows, i == 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(d);
+    fence_operand(corr);
+    add(acc, d);
+  }
+  if (mine > 0) add(acc, corr);
+
+  // the partial sums to shared memory [kDkvKeys][kSlice], then each block
+  // adds up rows [rank kRows, (rank + 1) kRows) over the cluster in rank order
+  copy_wait<0>();
+  __syncthreads();
+  float* red = smem;
+#pragma unroll
+  for (int n = 0; n < kSlice / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[(16 * w + g + 8 * (e >> 1)) * kSlice + 8 * n + 2 * tg + (e & 1)] = acc[4 * n + e];
+  cluster.sync();
   constexpr int kRows = kDkvKeys / kCluster;
-  const float* parts_k[kCluster];
-  const float* parts_v[kCluster];
+  const float* parts[kCluster];
 #pragma unroll
-  for (int c = 0; c < kCluster; ++c) {
-    parts_k[c] = cluster.map_shared_rank(red_k, c);
-    parts_v[c] = cluster.map_shared_rank(red_v, c);
-  }
-  for (int i = t; i < kRows * CK; i += kThreads) {
-    const int r = rank * kRows + i / CK, col = i % CK;
+  for (int c = 0; c < kCluster; ++c) parts[c] = cluster.map_shared_rank(red, c);
+  const int width = is_v ? ws.dv : ws.dk;
+  float* out = is_v ? dv_out : dk_out;
+  const int j0 = kb * kDkvKeys;
+  for (int x = t; x < kRows * kSlice; x += kThreads) {
+    const int r = rank * kRows + x / kSlice, col = x % kSlice, oc = sl * kSlice + col;
     float sum = 0.f;
 #pragma unroll
-    for (int c = 0; c < kCluster; ++c) sum += parts_k[c][r * CK + col];
-    if (r < kn && col < dk) dk_out[(static_cast<int64_t>(b) * lk + j0 + r) * dk + col] = sum;
-  }
-  for (int i = t; i < kRows * CV; i += kThreads) {
-    const int r = rank * kRows + i / CV, col = i % CV;
-    float sum = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCluster; ++c) sum += parts_v[c][r * CV + col];
-    if (r < kn && col < dv) dv_out[(static_cast<int64_t>(b) * lk + j0 + r) * dv + col] = sum;
+    for (int c = 0; c < kCluster; ++c) sum += parts[c][r * kSlice + col];
+    if (j0 + r < ws.lk && oc < width) {
+      out[(static_cast<int64_t>(b) * ws.lk + j0 + r) * width + oc] = sum;
+    }
   }
   cluster.sync();  // no block leaves while the others still read its shared memory
 }
 
-struct Args {
-  const float *q, *k, *v, *lse, *delta, *dout;
-  float *dq, *dk, *dv, *pds;
-  int n, lq, lk, dkd, dvd, k_vec4, v_vec4;
-  cudaStream_t stream;
+// ---- launches ----------------------------------------------------------------
+
+bool valid(int n, int lq, int lk, int dk, int dv) {
+  return n >= 1 && n <= 65535 && lq >= 1 && lk >= 1 && dk >= 1 && dk <= kMaxDk && dv >= 1 &&
+         dv <= kMaxDv && cdiv(lq, kDqRows) <= 65535 &&
+         static_cast<int64_t>(cdiv(lk, kDkvKeys)) * (cdiv(dk, kSlice) + cdiv(dv, kSlice)) <= 65535;
+}
+
+struct DqArgs {
+  const float *q, *dout, *lse, *delta;
+  float* dq;
 };
 
 template <int CK, int CV>
-cudaError_t launch_dq(const Args& a) {
-  constexpr int bytes = static_cast<int>(sizeof(float)) * dq_floats(CK + 4, CV + 4);
+cudaError_t launch_dq(const Workspace& ws, const DqArgs& a, cudaStream_t stream) {
+  constexpr int bytes = 4 * dq_floats(CK, CV, dq_keys(CK, CV));
   const cudaError_t set = cudaFuncSetAttribute(attention_dq_kernel<CK, CV>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (set != cudaSuccess) return set;
-  const dim3 grid((a.lq + kDqRows - 1) / kDqRows, a.n);
-  attention_dq_kernel<CK, CV><<<grid, kThreads, bytes, a.stream>>>(
-      a.q, a.k, a.v, a.lse, a.delta, a.dout, a.dq, a.pds, a.lq, a.lk, a.dkd, a.dvd, a.k_vec4,
-      a.v_vec4);
+  const dim3 grid(ws.lqp / kDqRows, ws.n);
+  attention_dq_kernel<CK, CV><<<grid, kThreads, bytes, stream>>>(ws, a.q, a.dout, a.lse, a.delta, a.dq);
   return cudaGetLastError();
-}
-
-template <int CK, int CV>
-cudaError_t launch_dkv(const Args& a) {
-  constexpr int bytes = static_cast<int>(sizeof(float)) * dkv_floats(CK + 4, CV + 4);
-  const cudaError_t set = cudaFuncSetAttribute(attention_dkv_kernel<CK, CV>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (set != cudaSuccess) return set;
-  const dim3 grid(kCluster, (a.lk + kDkvKeys - 1) / kDkvKeys, a.n);
-  attention_dkv_kernel<CK, CV><<<grid, kThreads, bytes, a.stream>>>(
-      a.q, a.dout, a.pds, a.dk, a.dv, a.lq, a.lk, a.dkd, a.dvd, a.k_vec4, a.v_vec4);
-  return cudaGetLastError();
-}
-
-template <int CK, int CV>
-cudaError_t launch_widths(const Args& a, bool dkv) {
-  return dkv ? launch_dkv<CK, CV>(a) : launch_dq<CK, CV>(a);
 }
 
 template <int CK>
-cudaError_t launch_dv(const Args& a, bool dkv) {
-  if (a.dvd <= 64) return launch_widths<CK, 64>(a, dkv);
-  if (a.dvd <= 128) return launch_widths<CK, 128>(a, dkv);
-  return launch_widths<CK, 256>(a, dkv);
-}
-
-int launch(Args a, int device, bool dkv) {
-  if (a.n < 1 || a.n > 65535 || a.lq < 1 || a.lk < 1 || (a.lk + kDkvKeys - 1) / kDkvKeys > 65535 ||
-      a.dkd < 1 || a.dkd > kMaxDk || a.dvd < 1 || a.dvd > kMaxDv) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  // 16-byte copies need rows that start on 16-byte boundaries
-  const auto aligned = [](const float* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  a.k_vec4 = a.dkd % 4 == 0 && aligned(a.q) && aligned(a.k);
-  a.v_vec4 = a.dvd % 4 == 0 && aligned(a.v) && aligned(a.dout);
-  const cudaError_t rc = a.dkd <= 64 ? launch_dv<64>(a, dkv) : launch_dv<128>(a, dkv);
-  return static_cast<int>(rc);
+cudaError_t launch_dq_dv(const Workspace& ws, const DqArgs& a, cudaStream_t stream) {
+  if (ws.cv == 64) return launch_dq<CK, 64>(ws, a, stream);
+  if (ws.cv == 128) return launch_dq<CK, 128>(ws, a, stream);
+  return launch_dq<CK, 256>(ws, a, stream);
 }
 
 }  // namespace
 
-// Plain C entry points, bound with ctypes: one per kernel. Pointers are
-// device pointers on ordinal `device`, contiguous fp32 as above. Each
-// launches on `stream` and does not synchronise. Returns 0, or the
-// cudaError_t of a refused launch (cudaErrorInvalidValue for arguments
-// outside the kernels' contract).
-extern "C" int tpugan_sagan_attention_bwd_dq_f32(const float* q, const float* k, const float* v,
-                                                 const float* lse, const float* delta,
-                                                 const float* dout, float* dq, float* pds, int n,
-                                                 int lq, int lk, int dk, int dv, int device,
-                                                 void* stream) {
-  const Args a{q,  k,  v,  lse, delta, dout, dq, nullptr, nullptr, pds,
-               n,  lq, lk, dk,  dv,    0,    0,  static_cast<cudaStream_t>(stream)};
-  return launch(a, device, false);
+// Plain C entry points, bound with ctypes. Pointers are device pointers on
+// ordinal `device`, contiguous fp32 as above; `workspace` holds
+// tpugan_sagan_attention_bwd_workspace_floats(n, lq, lk, dk, dv) floats,
+// 16-byte aligned. The three kernels run in order on one stream: pack
+// (k, v, do and q into the workspace), dq (from q, do and the workspace;
+// also p and ds into its scratch), dkv. Each launches on `stream` and does
+// not synchronise.
+// Returns 0, or the cudaError_t of a refused launch (cudaErrorInvalidValue
+// for arguments outside the kernels' contract).
+extern "C" int64_t tpugan_sagan_attention_bwd_workspace_floats(int n, int lq, int lk, int dk,
+                                                                int dv) {
+  if (!valid(n, lq, lk, dk, dv)) return -1;
+  return make_workspace(nullptr, n, lq, lk, dk, dv).floats;
 }
 
-extern "C" int tpugan_sagan_attention_bwd_dkv_f32(const float* q, const float* dout,
-                                                  const float* pds, float* dk_out, float* dv_out,
-                                                  int n, int lq, int lk, int dk, int dv,
-                                                  int device, void* stream) {
-  const Args a{q, nullptr, nullptr, nullptr, nullptr, dout, nullptr, dk_out, dv_out,
-               const_cast<float*>(pds), n, lq, lk, dk, dv, 0, 0,
-               static_cast<cudaStream_t>(stream)};
-  return launch(a, device, true);
+extern "C" int tpugan_sagan_attention_bwd_pack_f32(const float* q, const float* k, const float* v,
+                                                   const float* dout, float* workspace, int n,
+                                                   int lq, int lk, int dk, int dv, int device,
+                                                   void* stream) {
+  if (!valid(n, lq, lk, dk, dv) || reinterpret_cast<uintptr_t>(workspace) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const Workspace w = make_workspace(workspace, n, lq, lk, dk, dv);
+  const int64_t sq = static_cast<int64_t>(lq) * dk, sk = static_cast<int64_t>(lk) * dk;
+  const int64_t sv = static_cast<int64_t>(lk) * dv, sd = static_cast<int64_t>(lq) * dv;
+  const int kp = w.lkp / w.bk, rows = w.lqp / kDkvRows;
+  // src, hi, lo, item, s_r, s_c, rows, cols, pr, pc, tiles_r, tiles_c, permute
+  const PackJobs jobs{{
+      {k, w.bk_[0], w.bk_[1], sk, dk, 1, lk, dk, w.bk, w.ck, kp, 1, 0},
+      {v, w.bv[0], w.bv[1], sv, dv, 1, lk, dv, w.bk, w.cv, kp, 1, 0},
+      {k, w.bkt[0], w.bkt[1], sk, 1, dk, dk, lk, w.ck, w.bk, 1, kp, 1},
+      {dout, w.bdot[0], w.bdot[1], sd, 1, dv, dv, lq, kSlice, kDkvRows, w.sv, rows, 0},
+      {q, w.bqt[0], w.bqt[1], sq, 1, dk, dk, lq, kSlice, kDkvRows, w.sk, rows, 0},
+  }, n};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  attention_pack_kernel<<<dim3(4 * 132, kPackJobs), kPackThreads, 0, s>>>(jobs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tpugan_sagan_attention_bwd_dq_f32(const float* q, const float* dout,
+                                                 const float* lse, const float* delta, float* dq,
+                                                 float* workspace, int n, int lq, int lk, int dk,
+                                                 int dv, int device, void* stream) {
+  if (!valid(n, lq, lk, dk, dv) || reinterpret_cast<uintptr_t>(workspace) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const Workspace w = make_workspace(workspace, n, lq, lk, dk, dv);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const DqArgs a{q, dout, lse, delta, dq};
+  const cudaError_t rc = w.ck == 64 ? launch_dq_dv<64>(w, a, s) : launch_dq_dv<128>(w, a, s);
+  return static_cast<int>(rc);
+}
+
+extern "C" int tpugan_sagan_attention_bwd_dkv_f32(float* workspace, float* dk_out, float* dv_out,
+                                                  int n, int lq, int lk, int dk, int dv, int device,
+                                                  void* stream) {
+  if (!valid(n, lq, lk, dk, dv) || reinterpret_cast<uintptr_t>(workspace) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const Workspace w = make_workspace(workspace, n, lq, lk, dk, dv);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      attention_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(kCluster, (w.lkp / kDkvKeys) * (w.sv + w.sk), n);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  attention_dkv_kernel<<<grid, kThreads, kDkvBytes, s>>>(w, dk_out, dv_out);
+  return static_cast<int>(cudaGetLastError());
 }

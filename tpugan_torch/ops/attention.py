@@ -29,7 +29,8 @@ from tpugan_torch.ops import cuda
 MAX_DK = 128  # csrc/sagan_attention.cu and sagan_attention_bwd.cu kMaxDk
 MAX_DV = 256  # csrc/sagan_attention.cu and sagan_attention_bwd.cu kMaxDv
 # the backward's p/ds scratch comes in tiles of SCRATCH_KEYS keys x SCRATCH_ROWS
-# query rows (csrc/sagan_attention_bwd.cu kDkvKeys, kDkvRows)
+# query rows (csrc/sagan_attention_bwd.cu kDkvKeys, kDkvRows), inside the
+# workspace that the kernels' operands are packed into
 SCRATCH_KEYS = 64
 SCRATCH_ROWS = 32
 
@@ -162,10 +163,12 @@ def sagan_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def sagan_attention_bwd_cuda(q, k, v, o, lse, do):
-    """Launch ``csrc/sagan_attention_bwd.cu``'s two kernels on PyTorch's
-    current stream: dq, which also writes p and ds to a scratch tensor, then
-    dk and dv from that scratch. ``delta = rowsum(do * o)`` is computed here
-    in plain PyTorch, as ``tpugan`` computes it outside its kernels.
+    """Launch ``csrc/sagan_attention_bwd.cu``'s three kernels on PyTorch's
+    current stream: pack (k, v, do and q laid out for the tensor cores, hi
+    and lo, in a workspace allocated here), dq (which also writes p and ds
+    to the workspace's scratch), then dk and dv from that scratch.
+    ``delta = rowsum(do * o)`` is computed here in plain PyTorch, as
+    ``tpugan`` computes it outside its kernels.
 
     Takes the contract of :func:`check_attention_bwd_args` on CUDA tensors
     of one device; raises on anything else. Returns ``(dq, dk, dv)``.
@@ -176,13 +179,16 @@ def sagan_attention_bwd_cuda(q, k, v, o, lse, do):
     dq = torch.empty_like(q)
     dk_out = torch.empty_like(k)
     dv_out = torch.empty_like(v)
-    tiles = -(-lk // SCRATCH_KEYS) * -(-lq // SCRATCH_ROWS)
-    pds = torch.empty(n * tiles * 2 * SCRATCH_KEYS * SCRATCH_ROWS, dtype=torch.float32, device=q.device)
+    floats = cuda.helper("sagan_attention_bwd_workspace")(n, lq, lk, dk, dv)
+    if floats < 0:
+        raise ValueError(f"the attention backward kernels refuse q {tuple(q.shape)}, v {tuple(v.shape)}")
+    workspace = torch.empty(floats, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     dims = (n, lq, lk, dk, dv, q.device.index, stream)
     calls = (
-        ("sagan_attention_bwd_dq", (q, k, v, lse, delta, do, dq, pds)),
-        ("sagan_attention_bwd_dkv", (q, do, pds, dk_out, dv_out)),
+        ("sagan_attention_bwd_pack", (q, k, v, do, workspace)),
+        ("sagan_attention_bwd_dq", (q, do, lse, delta, dq, workspace)),
+        ("sagan_attention_bwd_dkv", (workspace, dk_out, dv_out)),
     )
     for name, args in calls:
         rc = cuda.kernel(name)(*(x.data_ptr() for x in args), *dims)

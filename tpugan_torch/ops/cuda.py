@@ -43,15 +43,29 @@ KERNELS = {
         "tpugan_sagan_attention_f32",
         [_c_ptr] * 5 + [_c_int] * 6 + [_c_ptr],
     ),
+    "sagan_attention_bwd_pack": (
+        "sagan_attention_bwd.cu",
+        "tpugan_sagan_attention_bwd_pack_f32",
+        [_c_ptr] * 5 + [_c_int] * 6 + [_c_ptr],
+    ),
     "sagan_attention_bwd_dq": (
         "sagan_attention_bwd.cu",
         "tpugan_sagan_attention_bwd_dq_f32",
-        [_c_ptr] * 8 + [_c_int] * 6 + [_c_ptr],
+        [_c_ptr] * 6 + [_c_int] * 6 + [_c_ptr],
     ),
     "sagan_attention_bwd_dkv": (
         "sagan_attention_bwd.cu",
         "tpugan_sagan_attention_bwd_dkv_f32",
-        [_c_ptr] * 5 + [_c_int] * 6 + [_c_ptr],
+        [_c_ptr] * 3 + [_c_int] * 6 + [_c_ptr],
+    ),
+}
+# C functions that launch nothing: name -> (source, C symbol, argtypes, restype)
+HELPERS = {
+    "sagan_attention_bwd_workspace": (
+        "sagan_attention_bwd.cu",
+        "tpugan_sagan_attention_bwd_workspace_floats",
+        [_c_int] * 5,
+        ctypes.c_int64,
     ),
 }
 
@@ -79,8 +93,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """The library that holds kernel ``name``: one per source."""
-    source = CSRC / KERNELS[name][0]
+    """The library that holds kernel (or helper) ``name``: one per source."""
+    source = CSRC / {**KERNELS, **HELPERS}[name][0]
     digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 
@@ -95,7 +109,7 @@ def build(names=None) -> dict[str, str]:
     nvcc = None
     running = {}
     for name in names:
-        source = KERNELS[name][0]
+        source = {**KERNELS, **HELPERS}[name][0]
         out = library_path(name)
         if source in running or out.exists():
             continue
@@ -121,6 +135,15 @@ def build(names=None) -> dict[str, str]:
 
 def kernel(name: str):
     """The C entry point of kernel ``name``, built and loaded on first use."""
+    return _function(name, *KERNELS[name][1:], ctypes.c_int)
+
+
+def helper(name: str):
+    """The C function ``name`` of HELPERS, built and loaded on first use."""
+    return _function(name, *HELPERS[name][1:])
+
+
+def _function(name, symbol, argtypes, restype):
     with _lock:
         fn = _funcs.get(name)
         if fn is None:
@@ -129,9 +152,8 @@ def kernel(name: str):
             lib = _libs.get(path)
             if lib is None:
                 lib = _libs[path] = ctypes.CDLL(str(path))
-            _, symbol, argtypes = KERNELS[name]
             fn = getattr(lib, symbol)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = restype
             _funcs[name] = fn
     return fn

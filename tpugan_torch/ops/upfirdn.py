@@ -7,13 +7,20 @@ output size is ``(H*up + pad0 + pad1 - kh) // down + 1``; ``gain``
 multiplies the taps.
 
 Dispatch: a CPU tensor takes :func:`upfirdn2d_plain`; a CUDA tensor launches
-the hand-written kernel (``csrc/upfirdn2d.cu``) through
-:func:`upfirdn2d_cuda`, which raises on any input outside the kernel's
-contract. Nothing falls back. The kernel has no gradient yet (the FIR
-adjoint comes with ROADMAP slice 3), so a CUDA input that requires one is
-refused rather than given an output that silently drops it. Each launch is
-counted in ``cuda.launches`` and, by the TPU kernel that tpugan runs for
-the same FIR (:func:`tpu_layout`), in :data:`layout_launches`.
+the hand-written kernel (``csrc/upfirdn2d.cu``), which raises on any input
+outside the kernel's contract (:func:`upfirdn2d_cuda` is one call of it).
+Nothing falls back. Each launch is counted in ``cuda.launches``
+and, by the TPU kernel that tpugan runs for the same FIR
+(:func:`tpu_layout`), in :data:`layout_launches`.
+
+Gradient: when one is wanted, :func:`upfirdn2d` runs as a
+:class:`torch.autograd.Function` on both devices. Its backward is the
+adjoint FIR, as tpugan's custom VJP: the gradient stuffed by ``down``,
+correlated with the flipped taps at the same gain and decimated by ``up``,
+with pads taken per axis (``kh`` for H, ``kw`` for W) so that the input's
+size comes back. On the card that is one more launch of the same kernel;
+pads it does not take (negative, or unequal front pads of H and W) are
+applied to the gradient in torch first (:func:`_fir_cuda`).
 """
 
 from __future__ import annotations
@@ -167,14 +174,14 @@ def _plan_array(*args, **kwargs) -> np.ndarray:
     return plan
 
 
-def tpu_layout(c: int, up: int, down: int, kh: int, kw: int) -> str:
+def tpu_layout(c: int, up: int, down: int, kh: int, kw: int, pad: tuple[int, int] = (0, 0)) -> str:
     """The TPU kernel that tpugan's dispatch (``tpugan/ops/upfirdn.py``,
     ``_dispatch``) gives this FIR on C channels: "B1" (``upfirdn2d_pallas``,
     C % 128 == 0), "B2" (``upfirdn2d_pallas_small_c``, same-size with
-    128 % C == 0), or "XLA" (none; tpugan runs its XLA form). The port runs
-    one kernel for all three; :data:`layout_launches` counts its launches
-    by this key."""
-    if kh == kw <= MAX_TAPS:
+    128 % C == 0), or "XLA" (none; tpugan runs its XLA form, as for a
+    negative pad). The port runs one kernel for all three;
+    :data:`layout_launches` counts its launches by this key."""
+    if kh == kw <= MAX_TAPS and min(pad) >= 0:
         if (up, down) in ((1, 1), (1, 2), (2, 1)) and c % 128 == 0:
             return "B1"
         if (up, down) == (1, 1) and 128 % c == 0:
@@ -197,27 +204,96 @@ def _on_card(x: torch.Tensor) -> bool:
 def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
               pad: tuple[int, int] = (0, 0), gain: float = 1.0) -> torch.Tensor:
     """Upsample by ``up`` (zero-stuffing), pad, FIR-filter, downsample by
-    ``down``. x: [N, C, H, W]; kernel: [kh, kw], applied depthwise."""
-    if _on_card(x):
-        return upfirdn2d_cuda(x, kernel, up, down, pad, gain)
-    return upfirdn2d_plain(x, kernel, up, down, pad, gain)
+    ``down``. x: [N, C, H, W]; kernel: [kh, kw], applied depthwise.
+    Differentiable with respect to x on both devices."""
+    p0, p1 = (int(p) for p in pad)
+    return _fir(x, _taps(kernel, gain), up, down, (p0, p1, p0, p1))
+
+
+def _fir(x, taps, up, down, pads):
+    """upfirdn2d with the gain folded into ``taps`` and pads per axis,
+    ``(top, bottom, left, right)``, any of them negative (a crop)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _UpFirDn2d.apply(x, taps, up, down, pads)
+    if not _on_card(x):
+        return _fir_plain(x, taps, up, down, pads)
+    return _fir_cuda(x, taps, up, down, pads)
+
+
+class _UpFirDn2d(torch.autograd.Function):
+    """upfirdn2d whose backward is the adjoint FIR (tpugan's custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, taps, up, down, pads):
+        ctx.geometry = (x.shape[2], x.shape[3], taps, up, down, pads)
+        return _fir(x, taps, up, down, pads)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, taps, up, down, pads = ctx.geometry
+        return _fir(g.contiguous(), *adjoint(h, w, g.shape[2], g.shape[3], taps, up, down, pads)), \
+            None, None, None, None
+
+
+def adjoint(h, w, gh, gw, taps, up, down, pads):
+    """``(taps, up, down, pads)`` of the FIR whose output is the gradient of
+    an h x w input from a gh x gw output's gradient: the taps flipped, up and
+    down swapped, front pads ``kh - 1 - top`` and ``kw - 1 - left``, back pads
+    that give h x w. tpugan's VJP (``tpugan/ops/upfirdn.py:115-139``) takes
+    the front pad from kh on both axes, which is wrong where kh != kw."""
+    kh, kw = taps.shape
+    py0, _, px0, _ = pads
+    return (taps[::-1, ::-1].copy(), down, up,
+            (kh - 1 - py0, (h - 1) * up + 1 + py0 - gh * down,
+             kw - 1 - px0, (w - 1) * up + 1 + px0 - gw * down))
+
+
+def _stuff(x: torch.Tensor, up: int) -> torch.Tensor:
+    """Zero-stuffing: x at every ``up``-th row and column of an H*up x W*up
+    signal (the trailing up-1 zeros are kept)."""
+    if up == 1:
+        return x
+    n, c, h, w = x.shape
+    stuffed = x.new_zeros(n, c, h * up, w * up)
+    stuffed[:, :, ::up, ::up] = x
+    return stuffed
+
+
+def _fir_plain(x, taps, up, down, pads):
+    n, c, h, w = x.shape
+    k = torch.from_numpy(taps).to(device=x.device, dtype=x.dtype)
+    kh, kw = k.shape
+    py0, py1, px0, px1 = pads
+    x = F.pad(_stuff(x, up), (px0, px1, py0, py1))
+    return F.conv2d(x, k.expand(c, 1, kh, kw), stride=down, groups=c)
 
 
 def upfirdn2d_plain(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
                     pad: tuple[int, int] = (0, 0), gain: float = 1.0) -> torch.Tensor:
     """Plain PyTorch version (counterpart of ``_upfirdn2d_xla``): a depthwise
     conv on the zero-stuffed, padded input, then decimation."""
-    n, c, h, w = x.shape
-    k = torch.from_numpy(_taps(kernel, gain)).to(device=x.device, dtype=x.dtype)
-    kh, kw = k.shape
-    if up > 1:
-        # the stuffed signal is H*up long: the trailing up-1 zeros are kept
-        stuffed = x.new_zeros(n, c, h * up, w * up)
-        stuffed[:, :, ::up, ::up] = x
-        x = stuffed
     p0, p1 = pad
-    x = F.pad(x, (p0, p1, p0, p1))
-    return F.conv2d(x, k.expand(c, 1, kh, kw), stride=down, groups=c)
+    return _fir_plain(x, _taps(kernel, gain), up, down, (p0, p1, p0, p1))
+
+
+def _fir_cuda(x, taps, up, down, pads):
+    """A FIR with pads per axis (a forward, or an adjoint) through the
+    kernel, which takes one non-negative front pad for both axes and any
+    output size (the back pads follow from it). Equal non-negative front
+    pads launch as they are; otherwise the input is stuffed and padded (or
+    cropped) here and the kernel runs with up 1 and no pad. Counted by the
+    TPU kernel tpugan runs: its own FIR where the pads of H and W agree (the
+    VJP's back pads; its front pad is kh's on both axes), else its XLA form."""
+    n, c, hi, wi = x.shape
+    kh, kw = taps.shape
+    py0, py1, px0, px1 = pads
+    h = (hi * up + py0 + py1 - kh) // down + 1
+    w = (wi * up + px0 + px1 - kw) // down + 1
+    key = tpu_layout(c, up, down, kh, kw, (py0, py1)) if (py0, py1) == (px0, px1) else "XLA"
+    if py0 == px0 >= 0:
+        return _launch(x, taps, up, down, py0, h, w, key)
+    x = F.pad(_stuff(x, up), (px0, px1, py0, py1)).contiguous()
+    return _launch(x, taps, 1, down, 0, h, w, key)
 
 
 def upfirdn2d_cuda(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
@@ -225,45 +301,56 @@ def upfirdn2d_cuda(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
     """Launch ``csrc/upfirdn2d.cu`` on PyTorch's current stream.
 
     Takes contiguous fp32 NCHW CUDA tensors, up and down in {1, 2}, kernels
-    up to 8x8 and non-negative pads, that need no gradient; raises on
-    anything else.
+    up to 8x8 and non-negative pads; raises on anything else. The output
+    carries no gradient: :func:`upfirdn2d` is the differentiable form.
     """
+    p0, p1 = (int(p) for p in pad)
+    if p0 < 0 or p1 < 0:
+        raise ValueError(f"pads must be non-negative, got {pad}")
+    if x.dim() != 4:
+        raise ValueError("upfirdn2d_cuda takes a contiguous [N, C, H, W] tensor")
+    return _fir_cuda(x, _taps(kernel, gain), up, down, (p0, p1, p0, p1))
+
+
+def check_launch(x, taps, up, down, pad0, ho, wo) -> None:
+    """The kernel's contract, short of the device: a contiguous fp32 [N, C,
+    H, W] tensor, up and down in {1, 2}, up to 8x8 taps, a non-negative
+    front pad and a non-empty output; raises on anything else."""
     if x.dtype != torch.float32:
         raise TypeError(f"upfirdn2d_cuda takes float32, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("upfirdn2d_cuda takes a contiguous [N, C, H, W] tensor")
-    taps = _taps(kernel, gain)
     kh, kw = taps.shape
-    p0, p1 = (int(p) for p in pad)
     if up not in (1, 2) or down not in (1, 2):
         raise ValueError(f"up and down must be 1 or 2, got up={up}, down={down}")
     if not (1 <= kh <= MAX_TAPS and 1 <= kw <= MAX_TAPS):
         raise ValueError(f"kernel {kh}x{kw} exceeds {MAX_TAPS}x{MAX_TAPS}")
-    if p0 < 0 or p1 < 0:
-        raise ValueError(f"pads must be non-negative, got {pad}")
-    n, c, h, w = x.shape
-    ho = (h * up + p0 + p1 - kh) // down + 1
-    wo = (w * up + p0 + p1 - kw) // down + 1
+    if pad0 < 0:
+        raise ValueError(f"pads must be non-negative, got a front pad of {pad0}")
     if ho < 1 or wo < 1:
-        raise ValueError(f"empty output {ho}x{wo} for input {h}x{w}")
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            "upfirdn2d_cuda has no gradient yet: the FIR adjoint comes with ROADMAP slice 3 "
-            "(SG2-1024 case 2); call it under torch.no_grad() or on a tensor that needs none"
-        )
+        raise ValueError(f"empty output {ho}x{wo} for input {x.shape[2]}x{x.shape[3]}")
+
+
+def _launch(x, taps, up, down, pad0, ho, wo, key):
+    """One launch of the kernel, ``ho`` x ``wo`` outputs from front pad
+    ``pad0``, counted in ``cuda.launches`` and under ``key`` in
+    :data:`layout_launches`."""
+    check_launch(x, taps, up, down, pad0, ho, wo)
     if not x.is_cuda:
         raise ValueError(f"upfirdn2d_cuda needs a CUDA tensor, got one on {x.device}")
+    n, c, h, w = x.shape
+    kh, kw = taps.shape
     y = torch.empty((n, c, ho, wo), dtype=x.dtype, device=x.device)
-    plan = _plan_array(n * c, h, w, up, down, p0, kh, kw, ho, wo, min_blocks=min_blocks(x.device),
+    plan = _plan_array(n * c, h, w, up, down, pad0, kh, kw, ho, wo, min_blocks=min_blocks(x.device),
                        aligned=x.data_ptr() % 16 == 0)
     fn = cuda.kernel("upfirdn2d")
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), y.data_ptr(), n * c, h, w, ho, wo, up, down, p0, kh, kw,
+    rc = fn(x.data_ptr(), y.data_ptr(), n * c, h, w, ho, wo, up, down, pad0, kh, kw,
             taps.ctypes.data, plan.ctypes.data, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"upfirdn2d kernel launch failed: cudaError {rc}")
     cuda.launches["upfirdn2d"] += 1
-    layout_launches[tpu_layout(c, up, down, kh, kw)] += 1
+    layout_launches[key] += 1
     return y
 
 

@@ -1,6 +1,7 @@
-// Throughput of the warp-level TF32 tensor-core product that
-// csrc/sagan_attention_bwd.cu is built from (mma.sync.m16n8k8 .tf32, fp32
-// accumulation), in three settings:
+// Throughput of the warp-level TF32 tensor-core product that the attention
+// backward's earlier design was built from (mma.sync.m16n8k8 .tf32, fp32
+// accumulation; csrc/sagan_attention_bwd.cu now runs on wgmma), the cap
+// that design could reach, in three settings:
 //   regs: operands stay in registers, 8 independent accumulators a warp;
 //   smem: each product reads its B fragment from shared memory (conflict-free,
 //         2 x 32-bit reads a lane), A stays in registers;
