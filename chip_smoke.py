@@ -12,7 +12,9 @@ Phases:
      paths' shapes and at the TPU kernels' contract cases (TF32 off), the
      FIR kernel also at its tiles' edge cases and slice 3's FIRs, its
      adjoint (upfirdn2d's gradient) against autograd of the plain version,
-     the attention backward at every template instance, and
+     the attention forward and backward at every template instance (both
+     against the plain version run in float64; the forward's three runs
+     bitwise equal), and
      out-of-contract calls (and FIR launch plans) refused; then B3's and
      B4's times at the BigGAN-256 paths' shape, before any path is
      profiled;
@@ -139,9 +141,13 @@ FLUSH_BYTES = 256 * 2**20
 KERNEL_TOL = 1e-5  # abs and rel, the Pallas kernels' own contract
 CPU_GPU_ATOL = 1e-3  # whole request, fp32 on both sides: cuDNN vs CPU conv summation order
 # tests/test_attention.py's cases: (q, k, v shapes, input scale, rtol, atol, check lse);
-# then lengths that are not multiples of the kernel's 64-row tiles, widths that are not
-# multiples of 4 (4-byte V copies), and BigGAN-128's head widths (dk 32, dv 128) at its
-# attention layer (64x64x256)
+# then lengths that are not multiples of the kernel's 128-row blocks and 32-key tiles,
+# widths that are not multiples of 4 (4-byte copies), BigGAN-128's head widths (dk 32,
+# dv 128) at its attention layer (64x64x256), the instances that the rest leave out
+# (padded dk 64 and 128 by slices of dv padded to 32 and 64), and BigGAN-256's widths
+# (the BigGAN-256 paths' shape, randn inputs): with the others, every
+# instance of csrc/sagan_attention.cu, padded dk 32, 64 or 128 by slice width 32, 64 or
+# 128 (dk 128 with one stage of split key tiles, the others with two)
 ATTENTION_CASES = (
     ((2, 256, 32), (2, 128, 32), (2, 128, 64), 1.0, 2e-5, 2e-5, False),
     ((1, 512, 16), (1, 512, 16), (1, 512, 32), 3.0, 2e-4, 2e-5, False),
@@ -153,6 +159,11 @@ ATTENTION_CASES = (
     ((1, 50, 13), (1, 33, 13), (1, 33, 30), 1.0, 2e-5, 2e-5, True),
     ((2, 70, 20), (2, 45, 20), (2, 45, 130), 1.0, 2e-5, 2e-5, True),
     ((2, 4096, 32), (2, 1024, 32), (2, 1024, 128), 1.0, 2e-5, 2e-5, True),
+    ((1, 100, 64), (1, 80, 64), (1, 80, 32), 0.5, 2e-5, 2e-5, True),
+    ((1, 100, 64), (1, 80, 64), (1, 80, 64), 0.5, 2e-5, 2e-5, True),
+    ((1, 100, 128), (1, 80, 128), (1, 80, 32), 0.5, 2e-5, 2e-5, True),
+    ((1, 100, 128), (1, 80, 128), (1, 80, 64), 0.5, 2e-5, 2e-5, True),
+    ((2, 4096, 64), (2, 1024, 64), (2, 1024, 256), 1.0, 2e-5, 2e-5, True),
 )
 LSE_TOL = 1e-5  # tests/test_attention.py:54
 # the attention backward: tests/test_attention.py:59-80's case, then odd
@@ -341,35 +352,61 @@ def request_device_time(torch, run, seed, median, symbol, name):
     say(f"peak device memory of a request: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
 
+def attention_instance(dk, dv):
+    """The instance of csrc/sagan_attention.cu that a call with widths dk and
+    dv launches: dk padded to 32, 64 or 128, dv's slices (at most 128
+    columns each) padded to 32, 64 or 128, and the stages of split key
+    tiles (two where they fit in shared memory: padded dk up to 64)."""
+    pad = lambda d: 32 if d <= 32 else 64 if d <= 64 else 128  # noqa: E731
+    ck = pad(dk)
+    return ck, pad(-(-dv // -(-dv // 128))), 2 if ck <= 64 else 1
+
+
 def compare_attention(torch, label, q, k, v, rtol, atol, with_lse):
     """The attention kernel against its plain version on one input; returns
-    the max |err| of the output (and of the logsumexp, when checked)."""
+    the max |err| of the output (and of the logsumexp, when checked).
+
+    The plain version's arithmetic (the score matrix, softmax, the second
+    product; logsumexp) runs in float64 on the same fp32 inputs and its
+    result is rounded to fp32: at the path's widths the fp32 plain version
+    (cuBLAS) is itself further from that result than the kernel (1.6e-5
+    against 7.3e-6 with randn inputs), so a comparison with it would measure
+    two summation orders and not the kernel's error. The fp32 plain
+    version's own error, and the kernel's against it, are printed."""
     from tpugan_torch.ops.attention import sagan_attention_cuda, sagan_attention_plain
 
     got = sagan_attention_cuda(q, k, v, return_lse=with_lse)
-    want = sagan_attention_plain(q, k, v, return_lse=with_lse)
+    fp32 = sagan_attention_plain(q, k, v, return_lse=with_lse)
+    s64 = torch.bmm(q.double(), k.double().transpose(1, 2))
+    want = torch.bmm(torch.softmax(s64, dim=-1), v.double()).float()
     torch.cuda.synchronize()
     if with_lse:
-        (got, got_lse), (want, want_lse) = got, want
+        (got, got_lse), (fp32, fp32_lse) = got, fp32
     check(got.shape == want.shape, f"{label}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
     err = (got - want).abs().max().item()
     check(torch.allclose(got, want, rtol=rtol, atol=atol),
-          f"{label}: kernel disagrees with plain version, max |err| {err:.3e} "
+          f"{label}: kernel disagrees with the plain version in float64, max |err| {err:.3e} "
           f"(rtol {rtol:g}, atol {atol:g})")
-    msg = f"parity {label}: max |err| {err:.3e} (rtol {rtol:g}, atol {atol:g})"
+    msg = (f"parity {label}: max |err| against the plain version in float64 {err:.3e} (rtol {rtol:g}, "
+           f"atol {atol:g}); the fp32 plain version's own {(fp32 - want).abs().max().item():.3e}, the "
+           f"kernel's against it {(got - fp32).abs().max().item():.3e}")
     if with_lse:
+        want_lse = torch.logsumexp(s64, dim=-1, keepdim=True).float()
         lse_err = (got_lse - want_lse).abs().max().item()
         check(got_lse.shape == want_lse.shape == (q.shape[0], q.shape[1], 1), f"{label}: lse shape")
         check(torch.allclose(got_lse, want_lse, rtol=LSE_TOL, atol=LSE_TOL),
               f"{label}: kernel logsumexp disagrees, max |err| {lse_err:.3e}")
-        msg += f"; lse max |err| {lse_err:.3e} ({LSE_TOL:g})"
+        msg += (f"; lse {lse_err:.3e} ({LSE_TOL:g}), the fp32 plain version's own "
+                f"{(fp32_lse - want_lse).abs().max().item():.3e}, the kernel's against it "
+                f"{(got_lse - fp32_lse).abs().max().item():.3e}")
         err = max(err, lse_err)
     say(msg)
+    del s64, want
     return err
 
 
 def attention_parity(torch, dev, gen):
-    """The attention kernel against its plain version (TF32 off) on
+    """The attention kernel against its plain version (in float64) on
     ATTENTION_CASES, and out-of-contract calls refused; returns the max |err|."""
     from tpugan_torch.ops import cuda
     from tpugan_torch.ops.attention import sagan_attention_cuda
@@ -380,9 +417,22 @@ def attention_parity(torch, dev, gen):
         q = torch.randn(q_shape, device=dev, generator=gen) * scale
         k = torch.randn(k_shape, device=dev, generator=gen) * scale
         v = torch.randn(v_shape, device=dev, generator=gen)
-        label = f"attention q{q_shape} k{k_shape} v{v_shape} x{scale:g}"
+        label = (f"attention q{q_shape} k{k_shape} v{v_shape} x{scale:g} (instance "
+                 f"{attention_instance(q_shape[2], v_shape[2])})")
         max_err = max(max_err, compare_attention(torch, label, q, k, v, rtol, atol, with_lse))
-    check(cuda.launches["sagan_attention"] - before == len(ATTENTION_CASES),
+    instances = {attention_instance(q_[2], v_[2]) for q_, _, v_, *_ in ATTENTION_CASES}
+    check(len(instances) == 9, f"the attention cases reach the instances {sorted(instances)}, not all 9")
+    # no atomics: two runs at the path's shape, and the two forms, bitwise equal
+    q, k, v = (torch.randn(shape, device=dev, generator=gen) for shape in ATTN_PATH_SHAPE)
+    first = sagan_attention_cuda(q, k, v)
+    again, _ = sagan_attention_cuda(q, k, v, return_lse=True)
+    third = sagan_attention_cuda(q, k, v)
+    torch.cuda.synchronize()
+    check(torch.equal(first, third) and torch.equal(first, again),
+          "two runs of the attention kernel on the same inputs differ")
+    say(f"attention at the path's shape {ATTN_PATH_SHAPE}: three runs (one with lse) bitwise equal")
+    del q, k, v, first, again, third
+    check(cuda.launches["sagan_attention"] - before == len(ATTENTION_CASES) + 3,
           f"attention launch count {cuda.launches}")
     x = torch.randn(2, 8, 16, device=dev, generator=gen)
     refused = {
@@ -398,8 +448,9 @@ def attention_parity(torch, dev, gen):
         except (TypeError, ValueError):
             continue
         raise RuntimeError(f"chip_smoke: out-of-contract attention call ({name}) was not refused")
-    check(cuda.launches["sagan_attention"] - before == len(ATTENTION_CASES), "a refused call launched")
-    say(f"attention parity: {len(ATTENTION_CASES)} cases (max |err| {max_err:.3e}); "
+    check(cuda.launches["sagan_attention"] - before == len(ATTENTION_CASES) + 3, "a refused call launched")
+    say(f"attention parity: {len(ATTENTION_CASES)} cases over the instances {sorted(instances)} (padded "
+        f"dk, slice width, stages; max |err| {max_err:.3e}); "
         f"{len(refused)} out-of-contract calls refused: {', '.join(refused)}")
     return max_err
 
@@ -669,20 +720,43 @@ def attention_times(torch, dev, gen, bandwidth, fp32_peak, tf32_peak):
         "library_ms": library,
     }, ("sagan_attention_kernel",))
     nbytes = 4 * (q.numel() + k.numel() + v.numel() + n * lq * dv)
+    # the function's two products, each fp32-accurate product three TF32
+    # ones on the tensor cores (3xTF32); beside it the fp32-FMA bound of
+    # earlier PRs, and this design's floor: s computed once for each slice
+    # of dv, at the larger of its 3xTF32 operations and its bytes
     flops = 2 * n * lq * lk * (dk + dv)
-    b3["bound_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
-    b3["bound_by"] = "bytes" if nbytes / bandwidth >= flops / fp32_peak else "operations"
+    b3["bound_ms"] = max(nbytes / bandwidth, 3 * flops / tf32_peak) * 1e3
+    b3["bound_by"] = "bytes" if nbytes / bandwidth >= 3 * flops / tf32_peak else "operations"
+    b3["bound_fp32_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
+    slices = -(-dv // 128)
+    design_flops = 2 * n * lq * lk * (slices * dk + dv)
+    b3["design_floor_ms"] = max(nbytes / bandwidth, 3 * design_flops / tf32_peak) * 1e3
     say(f"attention at the path's shape ({shape}), {b3['ms_from']}: device time kernel "
         f"{b3['ms'] * 1e3:.2f} us, plain {b3['plain_ms'] * 1e3:.2f} us, library "
-        f"{b3['library_ms'] * 1e3:.2f} us; bound {b3['bound_ms'] * 1e3:.2f} us ({b3['bound_by']}: "
-        f"{flops / 1e9:.3f} GFLOP at {fp32_peak / 1e12:.0f} TFLOP/s fp32 outside the tensor cores, "
-        f"{nbytes / 1e6:.3f} MB at {bandwidth / 1e12:.2f} TB/s); back to back per call: "
+        f"{b3['library_ms'] * 1e3:.2f} us; back to back per call: "
         + ", ".join(f"{k_} {v_ * 1e3:.2f} us" for k_, v_ in issue.items()))
+    say(f"  bound {b3['bound_ms'] * 1e3:.2f} us ({b3['bound_by']}: 3 x {flops / 1e9:.3f} GFLOP, the "
+        f"function's products in 3xTF32, at {tf32_peak / 1e12:g} TFLOP/s dense TF32; {nbytes / 1e6:.3f} MB "
+        f"at {bandwidth / 1e12:.2f} TB/s), {b3['bound_ms'] / b3['ms'] * 100:.1f}% of it; the fp32-FMA "
+        f"bound of earlier PRs {b3['bound_fp32_ms'] * 1e3:.2f} us ({flops / 1e9:.3f} GFLOP at "
+        f"{fp32_peak / 1e12:.0f} TFLOP/s fp32 outside the tensor cores), {b3['bound_fp32_ms'] / b3['ms'] * 100:.1f}% "
+        f"of it; this design's floor {b3['design_floor_ms'] * 1e3:.2f} us (s once for each of {slices} "
+        f"slices of dv: 3 x {design_flops / 1e9:.3f} GFLOP), {b3['design_floor_ms'] / b3['ms'] * 100:.1f}% of it; "
+        f"{flops / b3['ms'] / 1e9:.1f} TFLOP/s of the function, {3 * design_flops / b3['ms'] / 1e9:.1f} "
+        "TFLOP/s of TF32 products")
     say(f"  library call: scaled_dot_product_attention(q, k, v, scale=1.0) ran "
         f"{', '.join(name[:80] for name in names['library_ms'])} (max |err| {lib_err:.3e} against "
         "the plain version)")
     b3["library_kernels"] = [name[:100] for name in names["library_ms"]]
-    b3["times_are"] = f"one call at the BigGAN-{BIGGAN_SIZE} paths' shape ({shape}), randn inputs"
+    b3["tf32_peak_tflops"] = tf32_peak / 1e12
+    b3["fp32_peak_tflops"] = fp32_peak / 1e12
+    b3["design"] = ("wgmma TF32 in 3xTF32 (hi hi chains of 32 from zero, corrections apart); a block of two "
+                    "warpgroups takes 128 query rows and a slice of at most 128 of dv's columns; key tiles "
+                    "of 32 staged with cp.async and split in shared memory (v transposed), two stages of "
+                    "split tiles at padded dk <= 64")
+    b3["times_are"] = (f"one call at the BigGAN-{BIGGAN_SIZE} paths' shape ({shape}), randn inputs; bound_ms "
+                       "counts the function's products in 3xTF32 at the dense TF32 rate, bound_fp32_ms in fp32 "
+                       "FMAs, design_floor_ms s once for each slice of dv in 3xTF32")
 
     # B4: dq, dk, dv
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))

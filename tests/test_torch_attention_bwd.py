@@ -258,7 +258,9 @@ def test_backward_kernels_are_registered_for_sm90a():
         assert f'extern "C" int {symbol}' in text
     assert f'extern "C" int64_t {workspace[1]}' in text
     assert f"kMaxDk = {attention.MAX_DK}" in text and f"kMaxDv = {attention.MAX_DV}" in text
-    assert "sagan_attention_bwd_pallas" in text and "wgmma.mma_async" in text and "mma.sync" not in text
+    shared = (cuda.CSRC / "tf32_wgmma.cuh").read_text()  # the wgmma and 3xTF32 pieces B3 shares
+    assert '#include "tf32_wgmma.cuh"' in text and "wgmma.mma_async" in shared
+    assert "sagan_attention_bwd_pallas" in text and "mma.sync" not in text + shared
     assert f"kDkvKeys = {attention.SCRATCH_KEYS};" in text and f"kDkvRows = {attention.SCRATCH_ROWS};" in text
     # pointers (5, 6, 3), 6 ints and the stream; the workspace's size from 5 ints
     assert (len(pack[2]), len(dq[2]), len(dkv[2]), len(workspace[2])) == (12, 13, 10, 5)

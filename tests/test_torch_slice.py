@@ -150,6 +150,7 @@ def test_cli_writes_grids_on_cpu(tmp_path):
         (("--checkpoint_dir_E", "e.pth"), "checkpoints"),
         (("--space_shards", "2"), "parallelism"),
         (("--multihost",), "parallelism"),
+        (("--ablation", "3"), r"ablation encoders come with ROADMAP slice 2 \("),
     ],
 )
 def test_later_slices_raise(extra, match):

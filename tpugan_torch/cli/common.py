@@ -100,7 +100,7 @@ def build_bundle(args) -> GanBundle:
             "pass --random_init and no --checkpoint_dir_E"
         )
     if getattr(args, "ablation", 0):
-        raise NotImplementedError("ablation encoders come with ROADMAP slice 3 (E_Blur variants)")
+        raise NotImplementedError("ablation encoders come with ROADMAP slice 2 (the SGv1 train step and its ablations)")
     device = resolve_device(getattr(args, "device", "cuda"))
     layer_count = _layer_count(args.img_size)
     g = torch.Generator(device="cpu").manual_seed(args.seed)

@@ -3,86 +3,134 @@
 // SelfAttn applies none.
 //
 // Replaces the Pallas TPU kernel tpugan/ops/pallas/attention.py::
-// sagan_attention_pallas in both forms: without the logsumexp (the eval
-// path) and with it (the form the training backward reads).
+// sagan_attention_pallas in both forms: without the logsumexp (pallas_call
+// :68, the eval path) and with it (:77, the form the training backward
+// reads).
 //
 // Shapes: q [N, Lq, dk], k [N, Lk, dk], v [N, Lk, dv], o [N, Lq, dv],
 // lse [N, Lq] (the caller views it as [N, Lq, 1]); all contiguous, any
 // Lq, Lk >= 1, dk <= 128, dv <= 256. At BigGAN-256's attention layer
 // N = 2, Lq = 4096, Lk = 1024, dk = 64, dv = 256.
 //
-// Bound: operations. The two products take 2 * N * Lq * Lk * (dk + dv)
-// FLOPs (5.37 GFLOP at the BigGAN-256 shape) against 13 MB of inputs and
-// output, far above the card's fp32 operations-per-byte balance. The score
-// matrix never reaches device memory.
+// Bound: operations. The two products take 2 N Lq Lk (dk + dv) FLOPs (5.37
+// GFLOP at the BigGAN-256 shape) against 13 MB of inputs and output; the
+// score matrix never reaches device memory. They run on the tensor cores in
+// 3xTF32, three TF32 products for each fp32-accurate one, so the least
+// time is 3 x 5.37 GFLOP at the card's dense TF32 rate: 32.5 us on an H100
+// SXM (495 TFLOP/s); in fp32 FMAs outside the tensor cores it would be
+// 80.1 us (67 TFLOP/s). This design computes s = q k^T once for each slice
+// of dv (two at dv 256), 6.44 GFLOP in all at the path shape, so its own
+// floor is 39.0 us.
 //
-// Design (plain fp32 FMAs, no TF32 and no tensor cores, as the Pallas
-// kernel computes in fp32):
-//  * one block of 256 threads per (batch item, tile of 64 query rows); the
-//    Q tile stays in shared memory, transposed;
-//  * a loop over tiles of 64 keys. Each K tile (transposed) and V tile is
-//    copied with cp.async into one of two shared-memory stages, so the
-//    next tile's copy runs under the current tile's arithmetic (one stage
-//    when two do not fit, as at dk 128 with dv 256);
-//  * scores with a 4 x 4 register tile per thread; the 16 threads of a row
-//    group are a half-warp and keep the online softmax's running max m and
-//    sum l in registers, reduced with shuffles; the rescale factor
-//    exp(m_old - m_new) and the probabilities go to shared memory;
-//  * o += p v with an 8-row by NC-column register tile per thread, so the
-//    accumulator of a 256-wide row is spread over a warp; V is read in
-//    float4s;
-//  * o = acc / l and lse = m + log(l) at the end. Rows past Lq are not
-//    written; keys past Lk score -inf and their V rows are zero.
-// Shared memory is up to 201 KB, above the 48 KB default, so the launch
-// raises the block's dynamic shared-memory limit. Left for later work:
-// more than one block per SM (the BigGAN-256 grid is 128 blocks), warp
-// specialisation, and TF32 or bf16 tensor-core products (wgmma).
+// Precision: 3xTF32, as in sagan_attention_bwd.cu. Every operand x is split
+// into hi, x rounded to TF32 to nearest with ties away from zero
+// (cvt.rna.tf32.f32's rounding), and lo = x - hi, exact in fp32; a b is
+// formed as lo_a hi_b + hi_a lo_b + hi_a hi_b with fp32 accumulation. The
+// tensor cores read lo's top 10 mantissa bits (rounding toward zero); the
+// dropped lo_a lo_b is about 2^-22 of the product. One TF32 product keeps
+// about three digits, which does not hold the forward's 2e-5 contract. The
+// max, exp, the sums, the rescale and the division stay in fp32. The
+// tensor cores align and truncate when they add into an accumulator, so no
+// accumulator of full-size values takes a long chain: the hi hi products run
+// in chains of kChainK = 32 of the contraction from a zeroed accumulator
+// (the wgmma's scale-d 0), and the two corrections, about 2^-11 of the
+// product, in an accumulator of their own. s is the fp32 sum of its chains
+// and its corrections; each key tile's p v is one chain (32 keys) and its
+// corrections, and the running output is updated in fp32 as
+// o = alpha o + (chain + corrections).
+//
+// Instructions: both products are wgmma.mma_async m64nNk8 TF32 with fp32
+// accumulators; a block is two warpgroups (8 warps, 256 threads), each
+// with 64 query rows of its own.
+//  * TF32 wgmma reads shared-memory operands K-major only. q (A of s) and k
+//    (B of s) lie K-major as they are stored; v (B of p v) lies N-major, so
+//    each key tile of v is transposed as it is laid out (v^T).
+//  * Layout and fragments as in tf32_wgmma.cuh (K-major core-matrix panels,
+//    no swizzle), which this kernel shares with the backward. A part of a
+//    panel's rows (a 64-column half of v^T) starts 16 bytes per row in,
+//    with the same offsets. p feeds p v from registers as A, whose k = t
+//    is p's accumulator column 2t and k = t + 4 its column 2t + 1, so
+//    v^T's keys of each 8 are laid out in the order 0, 2, 4, 6, 1, 3, 5, 7
+//    to match.
+//
+// Design (no atomics, so two runs on the same inputs are bitwise equal):
+//  * one block per (batch item, 128 query rows, slice of at most 128 of
+//    dv's columns): at the path shape 32 x 2 x 2 = 128 blocks, one to an SM
+//    (185 KB of shared memory), one wave on 132 SMs. Each warpgroup reads
+//    its 64 rows of q once and lays them out split, hi and lo, in shared
+//    memory; the two share every key tile;
+//  * a loop over tiles of kBK = 32 keys: the tile's rows of k and its
+//    slice of v are copied with cp.async into a staging buffer (16-byte
+//    copies where rows allow, 4-byte otherwise; zeros past Lk, dk and dv),
+//    then split by all 256 threads into hi and lo panels (k as it lies, v
+//    transposed and its keys permuted). With two stages of panels (padded
+//    dk up to 64), tile it + 1 is split while the tensor cores run the
+//    first part of tile it's p v, and its copy was issued a tile before;
+//    with one (dk 128, whose q panels take 128 KB), each tile is split
+//    before its products and the next copy runs under them;
+//  * s = q k^T on the tensor cores (A and B from shared memory), masked
+//    (keys past Lk score -inf, without a branch); the online softmax's max
+//    m and sum l per row in registers, reduced over the four threads of a
+//    row with shuffles, exp as 2^((s - m) log2 e) (ex2.approx); p split in
+//    registers;
+//  * p v in parts of 64 columns (one chain and its corrections each), so
+//    that the running output, one part's chain and its corrections fit in
+//    registers with p (the path's instance uses all 255 registers a
+//    thread may have, without spills);
+//  * o = o / l and lse = m + log(l) at the end. Rows past Lq and columns
+//    past dv are not written; the first slice writes lse.
+// Instances: padded dk (CK) 32, 64 or 128 by slice width (CV) 32, 64 or
+// 128. What holds it back: the instructions around the products (the
+// copies, the split, the softmax, the running output's update, the waits
+// and the barriers) take about as long as the products and mostly do not
+// overlap them, since the two warpgroups run in step (meeting them half a
+// tile apart at the split measured slower on an H100); s reads q from
+// shared memory (A of 2 KB for each k8 step against 1 KB of k), so s is
+// bound by shared-memory reads rather than by the tensor cores; s is
+// computed once for each slice of dv; and every block splits each key tile
+// again. A producer warp feeding consumer warpgroups, q in registers, and
+// key tiles split once by a pack launch are the next steps.
 
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "tf32_wgmma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kPad = 4;
-constexpr int kLdq = kBQ + kPad;
-constexpr int kLdk = kBK + kPad;
+constexpr int kGroups = 2;                 // warpgroups per block
+constexpr int kThreads = 128 * kGroups;
+constexpr int kRows = 64;                  // query rows per warpgroup (the wgmma's M)
+constexpr int kBK = 32;        // keys per tile
+constexpr int kChainK = 32;    // contraction length of one chain of hi hi products
+constexpr int kPart = 64;      // output columns of one p v chain
+constexpr int kMaxSlice = 128; // dv columns per block
 constexpr int kMaxDk = 128;
 constexpr int kMaxDv = 256;
 constexpr int kMaxSharedBytes = 227 * 1024;
+static_assert(kBK == kChainK, "one p v chain per key tile");
+static_assert(kBK * 32 / 4 % kThreads == 0, "whole 16-byte copies of a tile per thread");
 
-__host__ __device__ constexpr int shared_floats(int dk, int nc, int stages) {
-  return dk * kLdq + stages * (dk * kLdk + kBK * nc * 32) + kBK * kLdq + 2 * kBQ;
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+// padded widths: dk to 32, 64 or 128; a slice of dv to 32, 64 or 128
+__host__ __device__ constexpr int pad_width(int d) { return d <= 32 ? 32 : d <= 64 ? 64 : 128; }
+// k's staging rows are padded by 4 floats, so that the split's float4
+// reads of 8 consecutive rows fall in distinct banks
+__host__ __device__ constexpr int k_stride(int ck) { return ck + 4; }
+// one stage of split panels: k hi, lo [kBK x CK] and v^T hi, lo [CV x kBK]
+__host__ __device__ constexpr int panel_floats(int ck, int cv) { return 2 * kBK * ck + 2 * cv * kBK; }
+// shared floats of an instance: q hi, lo [64 x CK] for each warpgroup;
+// `stages` stages of panels; k's staging [kBK][CK + 4], v's [kBK][CV]
+__host__ __device__ constexpr int shared_floats(int ck, int cv, int stages) {
+  return 2 * kGroups * kRows * ck + stages * panel_floats(ck, cv) + kBK * k_stride(ck) + kBK * cv;
 }
-
-template <int W>
-struct Vec;
-template <>
-struct Vec<1> {
-  __device__ static void load(const float* p, float* out) { out[0] = *p; }
-};
-template <>
-struct Vec<2> {
-  __device__ static void load(const float* p, float* out) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-  }
-};
-template <>
-struct Vec<4> {
-  __device__ static void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
-  }
-};
+// two stages of panels where they fit (CK <= 64), one otherwise
+__host__ __device__ constexpr int stages_of(int ck, int cv) {
+  return 4 * shared_floats(ck, cv, 2) <= kMaxSharedBytes ? 2 : 1;
+}
+static_assert(4 * shared_floats(kMaxDk, kMaxSlice, 1) <= kMaxSharedBytes, "shared memory");
 
 // asynchronous global -> shared copies; an invalid source fills zeros
 __device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) {
@@ -96,228 +144,343 @@ __device__ __forceinline__ void copy16(float* dst, const float* src, bool valid)
                "r"(valid ? 16 : 0));
 }
 __device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void copy_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// 2^x (ex2.approx: within 2 ulp; 2^-inf = 0)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// i / d for 0 <= i < 8192 and 1 <= d <= 128 (the tiles' index ranges):
-// (i + 0.5) / d lies at least 0.5 / d from an integer, farther than the
-// float product can err
-__device__ __forceinline__ int div_small(int i, float inv_d) {
-  return __float2int_rd((static_cast<float>(i) + 0.5f) * inv_d);
+__device__ __forceinline__ void split4(const float (&x)[4], float* hi, float* lo) {
+  float4 h4, l4;
+  float* h = &h4.x;
+  float* l = &l4.x;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    uint32_t xh, xl;
+    split(x[e], xh, xl);
+    h[e] = __uint_as_float(xh);
+    l[e] = __uint_as_float(xl);
+  }
+  *reinterpret_cast<float4*>(hi) = h4;
+  *reinterpret_cast<float4*>(lo) = l4;
 }
 
-template <int NC, int STAGES>
+// s's chains: the hi hi products over kChainK columns from k8 step `first`
+// into d (the first zeroing it), and the two corrections into c (zeroed
+// when `fresh`); a is the 64-row q panel, b the kBK-row k panel (their
+// descriptors)
+__device__ __forceinline__ void s_chain(float (&d)[16], uint64_t a_hi, uint64_t b_hi, int first) {
+#pragma unroll
+  for (int s = 0; s < kChainK / 8; ++s) {
+    wgmma_ss(d, step(a_hi, kRows, first + s), step(b_hi, kBK, first + s), s > 0);
+  }
+}
+__device__ __forceinline__ void s_corr(float (&c)[16], uint64_t a_hi, uint64_t a_lo, uint64_t b_hi,
+                                       uint64_t b_lo, int first, bool fresh) {
+#pragma unroll
+  for (int s = 0; s < kChainK / 8; ++s) {
+    wgmma_ss(c, step(a_lo, kRows, first + s), step(b_hi, kBK, first + s), !(fresh && s == 0));
+    wgmma_ss(c, step(a_hi, kRows, first + s), step(b_lo, kBK, first + s), 1);
+  }
+}
+
+// one part of p v: the hi hi chain over the tile's keys into d and the
+// corrections into c, both from zero; p's fragments from registers, the
+// part of v^T (a panel of `rows` rows) from shared memory
+template <int R>
+__device__ __forceinline__ void pv_part(float (&d)[R], float (&c)[R],
+                                        const uint32_t (&a_hi)[kBK / 8][4],
+                                        const uint32_t (&a_lo)[kBK / 8][4], uint64_t b_hi,
+                                        uint64_t b_lo, int rows) {
+#pragma unroll
+  for (int s = 0; s < kBK / 8; ++s) wgmma_rs(d, a_hi[s], step(b_hi, rows, s), s > 0);
+  wgmma_commit();
+#pragma unroll
+  for (int s = 0; s < kBK / 8; ++s) {
+    wgmma_rs(c, a_lo[s], step(b_hi, rows, s), s > 0);
+    wgmma_rs(c, a_hi[s], step(b_lo, rows, s), 1);
+  }
+  wgmma_commit();
+}
+
+template <int CK, int CV>
 __global__ void __launch_bounds__(kThreads)
 sagan_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       float* __restrict__ lse, int lq, int lk, int dk, int dv, int v_vec4) {
-  constexpr int W = NC >= 4 ? 4 : NC;
-  constexpr int G = NC / W;
-  constexpr int kLdv = NC * 32;
+                       float* __restrict__ lse, int lq, int lk, int dk, int dv, int k_vec4,
+                       int v_vec4) {
+  constexpr int NS = CK / kChainK;        // chains of s
+  constexpr int NP = CV < kPart ? CV : kPart;  // columns of one p v part
+  constexpr int KS = k_stride(CK);
+  constexpr int STAGES = stages_of(CK, CV);
+  constexpr int PF = panel_floats(CK, CV);
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* qt = smem;
-  float* kt0 = qt + dk * kLdq;                 // STAGES x [dk][kLdk]
-  float* vs0 = kt0 + STAGES * dk * kLdk;       // STAGES x [kBK][kLdv]
-  float* pt = vs0 + STAGES * kBK * kLdv;
-  float* row_a = pt + kBK * kLdq;
-  float* row_l = row_a + kBQ;
+  const int t = threadIdx.x, wg = t >> 7, tw = t & 127;
+  const int w = tw >> 5, g = (tw & 31) >> 2, tg = t & 3;
+  float* qh = smem + 2 * wg * kRows * CK;  // this warpgroup's q hi, lo [64 x CK]
+  float* ql = qh + kRows * CK;
+  // stage st's panels: k hi, lo [kBK x CK] at panels + st PF, then v^T hi,
+  // lo [CV x kBK] (keys permuted)
+  float* panels = smem + 2 * kGroups * kRows * CK;
+  float* sk = panels + STAGES * PF;  // staging: k [kBK][KS], v [kBK][CV]
+  float* sv = sk + kBK * KS;
 
-  const int t = threadIdx.x;
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
+  const int q0 = (blockIdx.x * kGroups + wg) * kRows, c0 = blockIdx.y * CV, b = blockIdx.z;
+  const int row0 = q0 + 16 * w + g;  // this thread's rows: row0, row0 + 8
   const float* qb = q + static_cast<int64_t>(b) * lq * dk;
   const float* kb = k + static_cast<int64_t>(b) * lk * dk;
   const float* vb = v + static_cast<int64_t>(b) * lk * dv;
-  const float inv_dk = 1.f / static_cast<float>(dk);
 
-  for (int i = t; i < kBQ * dk; i += kThreads) {
-    const int r = div_small(i, inv_dk), d = i - r * dk;
-    qt[d * kLdq + r] = (q0 + r < lq) ? qb[static_cast<int64_t>(q0 + r) * dk + d] : 0.f;
-  }
-
-  // copy tile `tile` into stage `st`: K transposed, V row by row (zero past lk and dv)
-  auto issue = [&](int tile, int st) {
-    const int j0 = tile * kBK;
-    const int kn = min(kBK, lk - j0);
-    float* kt = kt0 + st * dk * kLdk;
-    float* vs = vs0 + st * kBK * kLdv;
+  // tile `it`'s rows of k and columns [c0, c0 + CV) of v into the staging
+  // buffer, zeros past Lk, dk and dv
+  const auto issue = [&](int it) {
+    const int j0 = it * kBK, kn = min(kBK, lk - j0);
     const float* ksrc = kb + static_cast<int64_t>(j0) * dk;
-    for (int i = t; i < kBK * dk; i += kThreads) {
-      const int j = div_small(i, inv_dk), d = i - j * dk;
-      const bool ok = j < kn;
-      copy4(kt + d * kLdk + j, ok ? ksrc + i : kb, ok);
-    }
-    const float* vsrc = vb + static_cast<int64_t>(j0) * dv;
-    if (v_vec4) {
-      for (int i = t; i < kBK * kLdv / 4; i += kThreads) {
-        const int j = i / (kLdv / 4), c = (i - j * (kLdv / 4)) * 4;
-        const bool ok = j < kn && c < dv;
-        copy16(vs + j * kLdv + c, ok ? vsrc + j * dv + c : vb, ok);
+    const float* vsrc = vb + static_cast<int64_t>(j0) * dv + c0;
+    if (k_vec4) {
+#pragma unroll
+      for (int n = 0; n < kBK * CK / 4 / kThreads; ++n) {
+        const int i = t + n * kThreads, j = i / (CK / 4), c = 4 * (i % (CK / 4));
+        const bool ok = j < kn && c < dk;
+        copy16(sk + j * KS + c, ok ? ksrc + j * dk + c : kb, ok);
       }
     } else {
-      for (int i = t; i < kBK * kLdv; i += kThreads) {
-        const int j = i / kLdv, c = i - j * kLdv;
-        const bool ok = j < kn && c < dv;
-        copy4(vs + i, ok ? vsrc + j * dv + c : vb, ok);
+#pragma unroll
+      for (int n = 0; n < kBK * CK / kThreads; ++n) {
+        const int i = t + n * kThreads, j = i / CK, c = i % CK;
+        const bool ok = j < kn && c < dk;
+        copy4(sk + j * KS + c, ok ? ksrc + j * dk + c : kb, ok);
+      }
+    }
+    if (v_vec4) {
+#pragma unroll
+      for (int n = 0; n < kBK * CV / 4 / kThreads; ++n) {
+        const int i = t + n * kThreads, j = i / (CV / 4), c = 4 * (i % (CV / 4));
+        const bool ok = j < kn && c0 + c < dv;
+        copy16(sv + j * CV + c, ok ? vsrc + j * dv + c : vb, ok);
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < kBK * CV / kThreads; ++n) {
+        const int i = t + n * kThreads, j = i / CV, c = i % CV;
+        const bool ok = j < kn && c0 + c < dv;
+        copy4(sv + j * CV + c, ok ? vsrc + j * dv + c : vb, ok);
       }
     }
     copy_commit();
   };
+  issue(0);
 
-  const int sr = (t >> 4) * 4, sc = (t & 15) * 4;
-  float m[4], l[4];
+  // the warpgroup's rows of q as a panel of 64 rows, split (zeros past Lq
+  // and dk)
+  for (int x = 4 * tw; x < kRows * CK; x += 4 * 128) {
+    const int core = x >> 5;  // (column group) 8 + row group
+    const int r = q0 + (core & 7) * 8 + ((x >> 2) & 7), c = (core >> 3) * 4;
+    float vals[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      vals[e] = r < lq && c + e < dk ? qb[static_cast<int64_t>(r) * dk + c + e] : 0.f;
+    }
+    split4(vals, qh + x, ql + x);
   }
-  const int tx = t & 31, cr = (t >> 5) * 8;
-  float acc[8][NC];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
 
-  const int ntiles = (lk + kBK - 1) / kBK;
-  if (STAGES == 2) issue(0, 0);
+  const uint64_t qd_hi = desc(qh, kRows), qd_lo = desc(ql, kRows);
+  float acc[CV / 2];  // the running output, rows row0 and row0 + 8
+#pragma unroll
+  for (int e = 0; e < CV / 2; ++e) acc[e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  // the split of the staged tile into stage st's panels, four values of
+  // one row of a panel a thread at a time: k as it lies (row r = key,
+  // column group cg at 128 cg + 4 r), v transposed (row r = v's column, at
+  // 4 CV cg + 4 r) with its keys of each 8 in the order 0, 2, 4, 6, 1, 3,
+  // 5, 7. Waits for the staging copies and leaves the panels visible to the
+  // tensor cores and the staging buffer free.
+  const auto split_tile = [&](int st) {
+    copy_wait_all();
+    __syncthreads();  // every thread's copies are in; no warp reads stage st any more
+    float* kh = panels + st * PF;
+    float* kl = kh + kBK * CK;
+    float* vh = kl + kBK * CK;
+    float* vl = vh + CV * kBK;
+#pragma unroll
+    for (int i = 0; i < CK / 32; ++i) {
+      const int r = t & 31, cg = (t >> 5) + 8 * i;
+      const float4 f = *reinterpret_cast<const float4*>(sk + r * KS + 4 * cg);
+      const float vals[4] = {f.x, f.y, f.z, f.w};
+      split4(vals, kh + 128 * cg + 4 * r, kl + 128 * cg + 4 * r);
+    }
+#pragma unroll
+    for (int i = 0; i < 8 * CV / kThreads; ++i) {
+      const int r = t % CV, cg = t / CV + (kThreads / CV) * i;
+      const int key0 = 8 * (cg >> 1) + (cg & 1);
+      float vals[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) vals[e] = sv[(key0 + 2 * e) * CV + r];
+      split4(vals, vh + cg * 4 * CV + 4 * r, vl + cg * 4 * CV + 4 * r);
+    }
+    fence_async_shared();
+    __syncthreads();
+  };
+
+  // With two stages, tile it + 1 is split while the tensor cores run the
+  // first part of tile it's p v, and its copy was issued a tile earlier;
+  // with one, each tile is split before its products.
+  const int ntiles = cdiv(lk, kBK);
+  if (STAGES == 2) {
+    split_tile(0);
+    if (ntiles > 1) issue(1);
+  }
   for (int it = 0; it < ntiles; ++it) {
-    const int st = STAGES == 2 ? (it & 1) : 0;
-    const int kn = min(kBK, lk - it * kBK);
-    __syncthreads();  // the stage about to be refilled and pt are free
-    if (STAGES == 2) {
-      if (it + 1 < ntiles) {
-        issue(it + 1, st ^ 1);
-        copy_wait<1>();  // this tile's copies are done, the next one's may run on
-      } else {
-        copy_wait<0>();
-      }
-    } else {
-      issue(it, 0);
-      copy_wait<0>();
+    const int st = STAGES == 2 ? it & 1 : 0;
+    if (STAGES == 1) {
+      split_tile(0);
+      if (it + 1 < ntiles) issue(it + 1);
     }
-    __syncthreads();
-    const float* kt = kt0 + st * dk * kLdk;
-    const float* vs = vs0 + st * kBK * kLdv;
+    const float* kh = panels + st * PF;
+    const float* kl = kh + kBK * CK;
+    const float* vh = kl + kBK * CK;
+    const float* vl = vh + CV * kBK;
+    const uint64_t kd_hi = desc(kh, kBK), kd_lo = desc(kl, kBK);
+    const uint64_t vd_hi = desc(vh, CV), vd_lo = desc(vl, CV);
 
-    float s[4][4];
+    // s = q k^T: NS chains of hi hi products and one accumulator of their
+    // corrections, all issued at once; s = the chains' sum, then the
+    // corrections, in fp32
+    float ch[NS][16], cs[16];
+    wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < dk; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(qt + d * kLdq + sr);
-      const float4 c = *reinterpret_cast<const float4*>(kt + d * kLdk + sc);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
+    for (int c = 0; c < NS; ++c) {
+      s_chain(ch[c], qd_hi, kd_hi, c * kChainK / 8);
+      s_corr(cs, qd_hi, qd_lo, kd_hi, kd_lo, c * kChainK / 8, c == 0);
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    float s[16];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mt = -INFINITY;
+    for (int e = 0; e < 16; ++e) s[e] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (sc + j >= kn) s[i][j] = -INFINITY;
-        mt = fmaxf(mt, s[i][j]);
-      }
+    for (int c = 0; c < NS; ++c) {
+      fence_operand(ch[c]);
 #pragma unroll
-      for (int off = 1; off < 16; off <<= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[i], mt);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = expf(m[i] - m_new);
-      m[i] = m_new;
-      l[i] = l[i] * alpha + sum;
-      if ((t & 15) == 0) row_a[sr + i] = alpha;
+      for (int e = 0; e < 16; ++e) s[e] += ch[c][e];
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float4*>(pt + (sc + j) * kLdq + sr) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    }
-    __syncthreads();
+    fence_operand(cs);
 
+    // the online softmax: keys past Lk score -inf (no branch); each row's
+    // max and sum over its four threads
+    float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float alpha = row_a[cr + i];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
+    for (int e = 0; e < 16; ++e) {
+      const int key = it * kBK + 8 * (e >> 2) + 2 * tg + (e & 1);
+      s[e] = key < lk ? s[e] + cs[e] : -INFINITY;
+      mt[(e >> 1) & 1] = fmaxf(mt[(e >> 1) & 1], s[e]);
     }
-#pragma unroll 4
-    for (int j = 0; j < kn; ++j) {
-      const float4 p0 = *reinterpret_cast<const float4*>(pt + j * kLdq + cr);
-      const float4 p1 = *reinterpret_cast<const float4*>(pt + j * kLdq + cr + 4);
-      const float pv[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-      float vv[NC];
+    // exp(x) as 2^(x log2(e)), x = s - m formed first in fp32
+    constexpr float kLog2e = 1.4426950408889634f;
+    float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
-      for (int g = 0; g < G; ++g) Vec<W>::load(vs + j * kLdv + g * 32 * W + W * tx, vv + g * W);
+    for (int h = 0; h < 2; ++h) {
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 1));
+      mt[h] = fmaxf(mt[h], __shfl_xor_sync(0xffffffffu, mt[h], 2));
+      const float m_new = fmaxf(m[h], mt[h]);
+      alpha[h] = exp2_approx((m[h] - m_new) * kLog2e);
+      m[h] = m_new;
+    }
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+    for (int e = 0; e < 16; ++e) {
+      s[e] = exp2_approx((s[e] - m[(e >> 1) & 1]) * kLog2e);  // p
+      sum[(e >> 1) & 1] += s[e];
+    }
 #pragma unroll
-        for (int c = 0; c < NC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l[h] = l[h] * alpha[h] + sum[h];
+    }
+
+    // p as A fragments: k = t from column 2t, k = t + 4 from column 2t + 1
+    uint32_t a_hi[kBK / 8][4], a_lo[kBK / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+      split(s[4 * j + 0], a_hi[j][0], a_lo[j][0]);
+      split(s[4 * j + 2], a_hi[j][1], a_lo[j][1]);
+      split(s[4 * j + 1], a_hi[j][2], a_lo[j][2]);
+      split(s[4 * j + 3], a_hi[j][3], a_lo[j][3]);
+    }
+
+    // o = alpha o + (chain + corrections), a part of NP columns at a time
+#pragma unroll
+    for (int part = 0; part < CV / NP; ++part) {
+      float d[NP / 2], c[NP / 2];
+      wgmma_fence();
+      pv_part(d, c, a_hi, a_lo, vd_hi + part * NP, vd_lo + part * NP, CV);
+      if (STAGES == 2 && part == 0 && it + 1 < ntiles) {  // under the first part's products
+        split_tile(st ^ 1);
+        if (it + 2 < ntiles) issue(it + 2);
+      }
+      wgmma_wait<0>();
+      fence_operand(d);
+      fence_operand(c);
+#pragma unroll
+      for (int e = 0; e < NP / 2; ++e) {
+        float& x = acc[part * NP / 2 + e];
+        x = fmaf(x, alpha[(e >> 1) & 1], d[e] + c[e]);
+      }
     }
   }
-  if ((t & 15) == 0) {
+
+  if (lse != nullptr && blockIdx.y == 0 && tg == 0) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      row_l[sr + i] = l[i];
-      const int r = q0 + sr + i;
-      if (lse != nullptr && r < lq) lse[static_cast<int64_t>(b) * lq + r] = m[i] + logf(l[i]);
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 8 * h;
+      if (r < lq) lse[static_cast<int64_t>(b) * lq + r] = m[h] + logf(l[h]);
     }
   }
-  __syncthreads();
-
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = q0 + cr + i;
-    if (r >= lq) continue;
-    const float inv = 1.f / row_l[cr + i];
-    float* orow = o + (static_cast<int64_t>(b) * lq + r) * dv;
+  for (int n = 0; n < CV / 8; ++n)
 #pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int e = 0; e < W; ++e) {
-        const int col = g * 32 * W + W * tx + e;
-        if (col < dv) orow[col] = acc[i][g * W + e] * inv;
-      }
-  }
+    for (int e = 0; e < 4; ++e) {
+      const int r = row0 + 8 * (e >> 1), col = c0 + 8 * n + 2 * tg + (e & 1);
+      if (r < lq && col < dv) o[(static_cast<int64_t>(b) * lq + r) * dv + col] = acc[4 * n + e] * inv[e >> 1];
+    }
 }
 
-template <int NC, int STAGES>
-cudaError_t launch_stages(const float* q, const float* k, const float* v, float* o, float* lse,
-                          int n, int lq, int lk, int dk, int dv, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * static_cast<size_t>(shared_floats(dk, NC, STAGES));
-  const cudaError_t set = cudaFuncSetAttribute(sagan_attention_kernel<NC, STAGES>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(bytes));
+bool valid(int n, int lq, int lk, int dk, int dv) {
+  return n >= 1 && n <= 65535 && lq >= 1 && lk >= 1 && dk >= 1 && dk <= kMaxDk && dv >= 1 &&
+         dv <= kMaxDv;
+}
+
+template <int CK, int CV>
+cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse, int n,
+                   int lq, int lk, int dk, int dv, cudaStream_t stream) {
+  constexpr int bytes = 4 * shared_floats(CK, CV, stages_of(CK, CV));
+  const cudaError_t set = cudaFuncSetAttribute(sagan_attention_kernel<CK, CV>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (set != cudaSuccess) return set;
-  // 16-byte V copies need 16-byte aligned rows
+  // 16-byte copies need rows that start on 16-byte boundaries
+  const int k_vec4 = dk % 4 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0;
   const int v_vec4 = dv % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  const dim3 grid((lq + kBQ - 1) / kBQ, n);
-  sagan_attention_kernel<NC, STAGES>
-      <<<grid, kThreads, bytes, stream>>>(q, k, v, o, lse, lq, lk, dk, dv, v_vec4);
+  const dim3 grid(cdiv(lq, kGroups * kRows), cdiv(dv, CV), n);
+  sagan_attention_kernel<CK, CV>
+      <<<grid, kThreads, bytes, stream>>>(q, k, v, o, lse, lq, lk, dk, dv, k_vec4, v_vec4);
   return cudaGetLastError();
 }
 
-template <int NC>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse, int n,
-                   int lq, int lk, int dk, int dv, cudaStream_t stream) {
-  if (sizeof(float) * shared_floats(dk, NC, 2) <= kMaxSharedBytes) {
-    return launch_stages<NC, 2>(q, k, v, o, lse, n, lq, lk, dk, dv, stream);
-  }
-  return launch_stages<NC, 1>(q, k, v, o, lse, n, lq, lk, dk, dv, stream);
+template <int CK>
+cudaError_t launch_dv(const float* q, const float* k, const float* v, float* o, float* lse, int n,
+                      int lq, int lk, int dk, int dv, cudaStream_t stream) {
+  // dv in slices of at most kMaxSlice columns, each padded to 32, 64 or 128
+  const int cv = pad_width(cdiv(dv, cdiv(dv, kMaxSlice)));
+  if (cv == 32) return launch<CK, 32>(q, k, v, o, lse, n, lq, lk, dk, dv, stream);
+  if (cv == 64) return launch<CK, 64>(q, k, v, o, lse, n, lq, lk, dk, dv, stream);
+  return launch<CK, 128>(q, k, v, o, lse, n, lq, lk, dk, dv, stream);
 }
 
 }  // namespace
@@ -330,22 +493,18 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, flo
 extern "C" int tpugan_sagan_attention_f32(const float* q, const float* k, const float* v,
                                           float* o, float* lse, int n, int lq, int lk, int dk,
                                           int dv, int device, void* stream) {
-  if (n < 1 || n > 65535 || lq < 1 || lk < 1 || dk < 1 || dk > kMaxDk || dv < 1 ||
-      dv > kMaxDv) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (!valid(n, lq, lk, dk, dv)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int ck = pad_width(dk);
   cudaError_t rc;
-  if (dv <= 32) {
-    rc = launch<1>(q, k, v, o, lse, n, lq, lk, dk, dv, s);
-  } else if (dv <= 64) {
-    rc = launch<2>(q, k, v, o, lse, n, lq, lk, dk, dv, s);
-  } else if (dv <= 128) {
-    rc = launch<4>(q, k, v, o, lse, n, lq, lk, dk, dv, s);
+  if (ck == 32) {
+    rc = launch_dv<32>(q, k, v, o, lse, n, lq, lk, dk, dv, s);
+  } else if (ck == 64) {
+    rc = launch_dv<64>(q, k, v, o, lse, n, lq, lk, dk, dv, s);
   } else {
-    rc = launch<8>(q, k, v, o, lse, n, lq, lk, dk, dv, s);
+    rc = launch_dv<128>(q, k, v, o, lse, n, lq, lk, dk, dv, s);
   }
   return static_cast<int>(rc);
 }

@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 plain C entry points and loaded with :mod:`ctypes` (no PyTorch headers, so a
 build takes seconds). A kernel is one entry point; several kernels may share
-a source and so a library. Libraries go to ``tpugan_torch/_build/`` under a
-name that hashes the source and the flags, so an edited source is rebuilt.
+a source and so a library; sources share the headers (``*.cuh``) beside
+them. Libraries go to ``tpugan_torch/_build/`` under a name that hashes the
+source, the headers and the flags, so an edited source or header is rebuilt.
 Nothing is built at import: :func:`build` runs on first use, or ahead of it.
 
 ``launches`` counts, per kernel, the launches its wrapper made, so a run can
@@ -93,9 +94,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    """The library that holds kernel (or helper) ``name``: one per source."""
+    """The library that holds kernel (or helper) ``name``: one per source,
+    named by a hash of the source, the headers beside it and the flags."""
     source = CSRC / {**KERNELS, **HELPERS}[name][0]
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,5 +1,6 @@
-"""Device time of the attention backward (B4) of the checkout this is run
-from, at the BigGAN-256 case-2 step's shape, from torch.profiler.
+"""Device time of the attention forward (B3, without and with the
+logsumexp) and backward (B4) of the checkout this is run from, at the
+BigGAN-256 paths' shape, from torch.profiler.
 
 Run from the root of a checkout, on a machine with the card:
 ``python3 <path to this file> LABEL``. It imports the ``tpugan_torch`` of the
@@ -38,21 +39,27 @@ def main() -> int:
     q, k, v = (torch.randn(shape, device=dev, generator=gen) for shape in SHAPE)
     do = torch.randn(SHAPE[0][0], SHAPE[0][1], SHAPE[2][2], device=dev, generator=gen)
     o, lse = attention.sagan_attention_plain(q, k, v, return_lse=True)
-    for _ in range(5):
-        attention.sagan_attention_bwd_cuda(q, k, v, o, lse, do)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(ITERS):
-            attention.sagan_attention_bwd_cuda(q, k, v, o, lse, do)
-        torch.cuda.synchronize()
-    total = 0.0
     print(f"b4_times {label}: {smi}; q {list(SHAPE[0])}, k {list(SHAPE[1])}, v {list(SHAPE[2])}")
-    for e in prof.key_averages():
-        if e.device_time_total > 0:
-            us = e.device_time_total / ITERS
-            total += us
-            print(f"  {us:9.2f} us x{e.count / ITERS:.0f}  {e.key[:90]}")
-    print(f"b4_times {label}: {total:.2f} us per call (torch.profiler, {ITERS} calls)")
+    calls = {
+        "B3": lambda: attention.sagan_attention_cuda(q, k, v),
+        "B3 with lse": lambda: attention.sagan_attention_cuda(q, k, v, return_lse=True),
+        "B4": lambda: attention.sagan_attention_bwd_cuda(q, k, v, o, lse, do),
+    }
+    for name, fn in calls.items():
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(ITERS):
+                fn()
+            torch.cuda.synchronize()
+        total = 0.0
+        for e in prof.key_averages():
+            if e.device_time_total > 0:
+                us = e.device_time_total / ITERS
+                total += us
+                print(f"  {us:9.2f} us x{e.count / ITERS:.0f}  {e.key[:90]}")
+        print(f"b4_times {label} {name}: {total:.2f} us per call (torch.profiler, {ITERS} calls)")
     return 0
 
 
