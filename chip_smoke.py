@@ -352,14 +352,28 @@ def request_device_time(torch, run, seed, median, symbol, name):
     say(f"peak device memory of a request: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
 
 
-def attention_instance(dk, dv):
-    """The instance of csrc/sagan_attention.cu that a call with widths dk and
-    dv launches: dk padded to 32, 64 or 128, dv's slices (at most 128
-    columns each) padded to 32, 64 or 128, and the stages of split key
-    tiles (two where they fit in shared memory: padded dk up to 64)."""
-    pad = lambda d: 32 if d <= 32 else 64 if d <= 64 else 128  # noqa: E731
-    ck = pad(dk)
-    return ck, pad(-(-dv // -(-dv // 128))), 2 if ck <= 64 else 1
+def attention_tiers():
+    """The padded dk and the slice widths of dv that csrc/sagan_attention.cu
+    dispatches to, read from its source (``launch_dv<CK>``, ``launch<CK,
+    CV>``): every pair of them is an instance of its kernel."""
+    import re
+    from pathlib import Path
+
+    source = (Path(__file__).resolve().parent / "tpugan_torch/csrc/sagan_attention.cu").read_text()
+    return ({int(x) for x in re.findall(r"launch_dv<(\d+)>", source)},
+            {int(x) for x in re.findall(r"launch<CK, (\d+)>", source)})
+
+
+def launched_instance():
+    """The instance (padded dk, slice width, stages) of the last attention
+    launch, as csrc/sagan_attention.cu's entry point recorded it."""
+    import ctypes
+
+    from tpugan_torch.ops import cuda
+
+    out = (ctypes.c_int * 3)()
+    cuda.helper("sagan_attention_last_instance")(out)
+    return tuple(out)
 
 
 def compare_attention(torch, label, q, k, v, rtol, atol, with_lse):
@@ -412,16 +426,25 @@ def attention_parity(torch, dev, gen):
     from tpugan_torch.ops.attention import sagan_attention_cuda
 
     before = cuda.launches["sagan_attention"]
-    max_err = 0.0
+    max_err, instances = 0.0, set()
     for q_shape, k_shape, v_shape, scale, rtol, atol, with_lse in ATTENTION_CASES:
         q = torch.randn(q_shape, device=dev, generator=gen) * scale
         k = torch.randn(k_shape, device=dev, generator=gen) * scale
         v = torch.randn(v_shape, device=dev, generator=gen)
-        label = (f"attention q{q_shape} k{k_shape} v{v_shape} x{scale:g} (instance "
-                 f"{attention_instance(q_shape[2], v_shape[2])})")
-        max_err = max(max_err, compare_attention(torch, label, q, k, v, rtol, atol, with_lse))
-    instances = {attention_instance(q_[2], v_[2]) for q_, _, v_, *_ in ATTENTION_CASES}
-    check(len(instances) == 9, f"the attention cases reach the instances {sorted(instances)}, not all 9")
+        err = compare_attention(torch, f"attention q{q_shape} k{k_shape} v{v_shape} x{scale:g}", q, k, v,
+                                rtol, atol, with_lse)
+        instance = launched_instance()
+        say(f"  ran the instance {instance} (padded dk, slice width, stages)")
+        instances.add(instance)
+        max_err = max(max_err, err)
+    # every instance ran, as the entry point recorded its launches
+    cks, cvs = attention_tiers()
+    ran = {(ck, cv) for ck, cv, _ in instances}
+    check(len(cks) == len(cvs) == 3 and ran == {(ck, cv) for ck in cks for cv in cvs},
+          f"the attention cases ran the instances {sorted(instances)}, not every pair of padded dk "
+          f"{sorted(cks)} and slice width {sorted(cvs)} that csrc/sagan_attention.cu dispatches to")
+    check({stages for *_, stages in instances} == {1, 2},
+          f"the attention cases ran the instances {sorted(instances)}: not both one and two stages")
     # no atomics: two runs at the path's shape, and the two forms, bitwise equal
     q, k, v = (torch.randn(shape, device=dev, generator=gen) for shape in ATTN_PATH_SHAPE)
     first = sagan_attention_cuda(q, k, v)
@@ -450,7 +473,7 @@ def attention_parity(torch, dev, gen):
         raise RuntimeError(f"chip_smoke: out-of-contract attention call ({name}) was not refused")
     check(cuda.launches["sagan_attention"] - before == len(ATTENTION_CASES) + 3, "a refused call launched")
     say(f"attention parity: {len(ATTENTION_CASES)} cases over the instances {sorted(instances)} (padded "
-        f"dk, slice width, stages; max |err| {max_err:.3e}); "
+        f"dk, slice width, stages, as the entry point recorded them; max |err| {max_err:.3e}); "
         f"{len(refused)} out-of-contract calls refused: {', '.join(refused)}")
     return max_err
 
@@ -727,10 +750,10 @@ def attention_times(torch, dev, gen, bandwidth, fp32_peak, tf32_peak):
     flops = 2 * n * lq * lk * (dk + dv)
     b3["bound_ms"] = max(nbytes / bandwidth, 3 * flops / tf32_peak) * 1e3
     b3["bound_by"] = "bytes" if nbytes / bandwidth >= 3 * flops / tf32_peak else "operations"
-    b3["bound_fp32_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
+    bound_fp32 = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
     slices = -(-dv // 128)
     design_flops = 2 * n * lq * lk * (slices * dk + dv)
-    b3["design_floor_ms"] = max(nbytes / bandwidth, 3 * design_flops / tf32_peak) * 1e3
+    floor = max(nbytes / bandwidth, 3 * design_flops / tf32_peak) * 1e3
     say(f"attention at the path's shape ({shape}), {b3['ms_from']}: device time kernel "
         f"{b3['ms'] * 1e3:.2f} us, plain {b3['plain_ms'] * 1e3:.2f} us, library "
         f"{b3['library_ms'] * 1e3:.2f} us; back to back per call: "
@@ -738,25 +761,22 @@ def attention_times(torch, dev, gen, bandwidth, fp32_peak, tf32_peak):
     say(f"  bound {b3['bound_ms'] * 1e3:.2f} us ({b3['bound_by']}: 3 x {flops / 1e9:.3f} GFLOP, the "
         f"function's products in 3xTF32, at {tf32_peak / 1e12:g} TFLOP/s dense TF32; {nbytes / 1e6:.3f} MB "
         f"at {bandwidth / 1e12:.2f} TB/s), {b3['bound_ms'] / b3['ms'] * 100:.1f}% of it; the fp32-FMA "
-        f"bound of earlier PRs {b3['bound_fp32_ms'] * 1e3:.2f} us ({flops / 1e9:.3f} GFLOP at "
-        f"{fp32_peak / 1e12:.0f} TFLOP/s fp32 outside the tensor cores), {b3['bound_fp32_ms'] / b3['ms'] * 100:.1f}% "
-        f"of it; this design's floor {b3['design_floor_ms'] * 1e3:.2f} us (s once for each of {slices} "
-        f"slices of dv: 3 x {design_flops / 1e9:.3f} GFLOP), {b3['design_floor_ms'] / b3['ms'] * 100:.1f}% of it; "
+        f"bound of earlier PRs {bound_fp32 * 1e3:.2f} us ({flops / 1e9:.3f} GFLOP at "
+        f"{fp32_peak / 1e12:.0f} TFLOP/s fp32 outside the tensor cores), {bound_fp32 / b3['ms'] * 100:.1f}% "
+        f"of it; this design's floor {floor * 1e3:.2f} us (s once for each of {slices} "
+        f"slices of dv: 3 x {design_flops / 1e9:.3f} GFLOP), {floor / b3['ms'] * 100:.1f}% of it; "
         f"{flops / b3['ms'] / 1e9:.1f} TFLOP/s of the function, {3 * design_flops / b3['ms'] / 1e9:.1f} "
         "TFLOP/s of TF32 products")
     say(f"  library call: scaled_dot_product_attention(q, k, v, scale=1.0) ran "
         f"{', '.join(name[:80] for name in names['library_ms'])} (max |err| {lib_err:.3e} against "
         "the plain version)")
     b3["library_kernels"] = [name[:100] for name in names["library_ms"]]
-    b3["tf32_peak_tflops"] = tf32_peak / 1e12
-    b3["fp32_peak_tflops"] = fp32_peak / 1e12
     b3["design"] = ("wgmma TF32 in 3xTF32 (hi hi chains of 32 from zero, corrections apart); a block of two "
                     "warpgroups takes 128 query rows and a slice of at most 128 of dv's columns; key tiles "
                     "of 32 staged with cp.async and split in shared memory (v transposed), two stages of "
                     "split tiles at padded dk <= 64")
     b3["times_are"] = (f"one call at the BigGAN-{BIGGAN_SIZE} paths' shape ({shape}), randn inputs; bound_ms "
-                       "counts the function's products in 3xTF32 at the dense TF32 rate, bound_fp32_ms in fp32 "
-                       "FMAs, design_floor_ms s once for each slice of dv in 3xTF32")
+                       "counts the function's products in 3xTF32 at the dense TF32 rate")
 
     # B4: dq, dk, dv
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
@@ -777,7 +797,7 @@ def attention_times(torch, dev, gen, bandwidth, fp32_peak, tf32_peak):
     flops = 2 * n * lq * lk * (3 * dk + 2 * dv)
     b4["bound_ms"] = max(nbytes / bandwidth, 3 * flops / tf32_peak) * 1e3
     b4["bound_by"] = "bytes" if nbytes / bandwidth >= 3 * flops / tf32_peak else "operations"
-    b4["bound_fp32_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
+    bound_fp32 = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
     # this design's floor: pack (reads q, k, v, do; writes k, v, k^T, q^T
     # and do^T, hi and lo), dq (s, dp, dq; reads q, do, lse, delta and the
     # packed k, v and k^T, writes dq, and p and ds to the scratch) and dkv
@@ -793,7 +813,7 @@ def attention_times(torch, dev, gen, bandwidth, fp32_peak, tf32_peak):
         (3 * 2 * n * lq * lk * (dk + dv),
          scratch + 2 * 4 * (q.numel() + do.numel()) + 4 * (k.numel() + v.numel())),
     )
-    b4["design_floor_ms"] = sum(max(ops / tf32_peak, b / bandwidth) for ops, b in kernels_work) * 1e3
+    floor = sum(max(ops / tf32_peak, b / bandwidth) for ops, b in kernels_work) * 1e3
     b4["split_ms"] = None
     say(f"attention backward at the path's shape ({shape}), {b4['ms_from']}: device time kernel "
         f"{b4['ms'] * 1e3:.2f} us, plain {b4['plain_ms'] * 1e3:.2f} us, library "
@@ -802,8 +822,8 @@ def attention_times(torch, dev, gen, bandwidth, fp32_peak, tf32_peak):
     say(f"  bound {b4['bound_ms'] * 1e3:.2f} us ({b4['bound_by']}: 3 x {flops / 1e9:.3f} GFLOP, the "
         f"function's products in 3xTF32, at {tf32_peak / 1e12:g} TFLOP/s dense TF32; "
         f"{nbytes / 1e6:.3f} MB at {bandwidth / 1e12:.2f} TB/s); the fp32-FMA bound of earlier PRs "
-        f"{b4['bound_fp32_ms'] * 1e3:.2f} us ({flops / 1e9:.3f} GFLOP at {fp32_peak / 1e12:.0f} "
-        f"TFLOP/s fp32 outside the tensor cores); this design's floor {b4['design_floor_ms'] * 1e3:.2f} "
+        f"{bound_fp32 * 1e3:.2f} us ({flops / 1e9:.3f} GFLOP at {fp32_peak / 1e12:.0f} "
+        f"TFLOP/s fp32 outside the tensor cores); this design's floor {floor * 1e3:.2f} "
         f"us (pack, dq, dkv, each at the larger of its 3xTF32 operations and its bytes: the packed "
         f"operands {packed / 1e6:.3f} MB, the p/ds scratch {scratch / 1e6:.3f} MB)")
     if b4["ms_from"] == "torch.profiler":  # the call's time by kernel
@@ -817,17 +837,15 @@ def attention_times(torch, dev, gen, bandwidth, fp32_peak, tf32_peak):
             + f"; the function's {flops / 1e9:.3f} GFLOP at {useful:.1f} TFLOP/s ({3 * useful:.1f} "
             "TFLOP/s of TF32 products) over dq and dkv")
     say(f"  {b4['bound_ms'] / b4['ms'] * 100:.1f}% of the bound, "
-        f"{b4['design_floor_ms'] / b4['ms'] * 100:.1f}% of the design's floor")
+        f"{floor / b4['ms'] * 100:.1f}% of the design's floor")
     say(f"  library call: the backward of scaled_dot_product_attention(q, k, v, scale=1.0) ran "
         f"{', '.join(name[:70] for name in names['library_ms'][:6])} (max |err| {lib_err:.3e} "
         "of max |value| against the plain version)")
     say(f"  plain version ran {', '.join(name[:60] for name in names['plain_ms'][:6])}")
-    b4["tf32_peak_tflops"] = tf32_peak / 1e12
-    b4["fp32_peak_tflops"] = fp32_peak / 1e12
     b4["library_kernels"] = [name[:100] for name in names["library_ms"]]
     b4["times_are"] = (f"one call (delta, pack, dq and dkv) at the BigGAN-{BIGGAN_SIZE} case-2 step's "
                        f"shape ({shape}), randn inputs; bound_ms counts the function's products in "
-                       "3xTF32 at the dense TF32 rate, bound_fp32_ms in fp32 FMAs")
+                       "3xTF32 at the dense TF32 rate")
     del sdpa_out, qg, kg, vg
     torch.cuda.empty_cache()
     return b3, b4

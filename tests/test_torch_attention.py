@@ -118,4 +118,8 @@ def test_attention_kernel_is_registered_for_sm90a():
     assert source.exists()
     text = source.read_text()
     assert "extern \"C\" int tpugan_sagan_attention_f32" in text
+    # the record of the launched instance that chip_smoke.py reads, from the same library
+    helper = cuda.HELPERS["sagan_attention_last_instance"]
+    assert helper[0] == "sagan_attention.cu" and f'extern "C" void {helper[1]}(int* out)' in text
+    assert cuda.library_path("sagan_attention_last_instance") == path
     assert f"kMaxDk = {attention.MAX_DK}" in text and f"kMaxDv = {attention.MAX_DV}" in text

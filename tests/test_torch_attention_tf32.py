@@ -11,17 +11,21 @@ fragment, so v^T's keys of each 8 are laid out in the order 0, 2, 4, 6, 1,
 3, 5, 7; the fragment test runs the kernel's own index formulas. The
 emulation forms every TF32 product exactly (float64), with hi rounded to
 nearest and lo as the tensor cores read it (truncated), so what it shows is
-the split's precision, held to the plain version at chip_smoke.py's
-ATTENTION_CASES tolerances and LSE_TOL; one TF32 pass misses them.
+the split's precision, held to the plain version and to tpugan's XLA
+attention at chip_smoke.py's ATTENTION_CASES tolerances and LSE_TOL; one
+TF32 pass misses them.
 """
 
 import re
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from test_torch_attention_bwd import _mm, _tf32
+from tpugan.ops.attention import _attention_xla
 from tpugan_torch.ops import attention, cuda
 
 torch.set_num_threads(1)
@@ -94,12 +98,17 @@ EMULATED_CASES = [
 @pytest.mark.parametrize("case", EMULATED_CASES, ids=lambda c: "x".join(map(str, c[0][1:] + c[2][1:])))
 def test_3xtf32_forward_holds_the_contract(rng, case):
     """The kernel's arithmetic meets ATTENTION_CASES' tolerance and LSE_TOL
-    against the plain version."""
+    against the plain version and against tpugan's XLA attention."""
     q, k, v = _inputs(rng, *case[:4])
     want, want_lse = attention.sagan_attention_plain(q, k, v, return_lse=True)
     got, got_lse = _forward_emulated(q, k, v)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=case[4], atol=case[5])
     np.testing.assert_allclose(got_lse.numpy(), want_lse.numpy(), **LSE_TOL)
+    qj, kj, vj = (jnp.asarray(x.numpy()) for x in (q, k, v))
+    ref = _attention_xla(qj, kj, vj)
+    ref_lse = jax.scipy.special.logsumexp(jnp.einsum("nqc,nkc->nqk", qj, kj), axis=-1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=case[4], atol=case[5])
+    np.testing.assert_allclose(got_lse.numpy()[..., 0], np.asarray(ref_lse), **LSE_TOL)
 
 
 def test_one_tf32_pass_misses_the_forward_contract(rng):

@@ -457,6 +457,10 @@ bool valid(int n, int lq, int lk, int dk, int dv) {
          dv <= kMaxDv;
 }
 
+// the instance of the last launch that was accepted: padded dk, slice
+// width, stages (read by tpugan_sagan_attention_last_instance)
+int last_instance[3] = {0, 0, 0};
+
 template <int CK, int CV>
 cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse, int n,
                    int lq, int lk, int dk, int dv, cudaStream_t stream) {
@@ -470,7 +474,13 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, flo
   const dim3 grid(cdiv(lq, kGroups * kRows), cdiv(dv, CV), n);
   sagan_attention_kernel<CK, CV>
       <<<grid, kThreads, bytes, stream>>>(q, k, v, o, lse, lq, lk, dk, dv, k_vec4, v_vec4);
-  return cudaGetLastError();
+  const cudaError_t rc = cudaGetLastError();
+  if (rc == cudaSuccess) {
+    last_instance[0] = CK;
+    last_instance[1] = CV;
+    last_instance[2] = stages_of(CK, CV);
+  }
+  return rc;
 }
 
 template <int CK>
@@ -507,4 +517,10 @@ extern "C" int tpugan_sagan_attention_f32(const float* q, const float* k, const 
     rc = launch_dv<128>(q, k, v, o, lse, n, lq, lk, dk, dv, s);
   }
   return static_cast<int>(rc);
+}
+
+// Writes the instance (padded dk, slice width, stages) of the last launch
+// that tpugan_sagan_attention_f32 made, {0, 0, 0} before any, into out[3].
+extern "C" void tpugan_sagan_attention_last_instance(int* out) {
+  for (int i = 0; i < 3; ++i) out[i] = last_instance[i];
 }

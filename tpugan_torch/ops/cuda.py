@@ -68,6 +68,12 @@ HELPERS = {
         [_c_int] * 5,
         ctypes.c_int64,
     ),
+    "sagan_attention_last_instance": (
+        "sagan_attention.cu",
+        "tpugan_sagan_attention_last_instance",
+        [ctypes.POINTER(_c_int)],
+        None,
+    ),
 }
 
 launches = {name: 0 for name in KERNELS}

@@ -27,7 +27,7 @@ def main() -> int:
     from tpugan_torch.ops import attention, cuda
 
     if not torch.cuda.is_available():
-        print("b4_times: no CUDA device", file=sys.stderr)
+        print("attention_times: no CUDA device", file=sys.stderr)
         return 1
     label = sys.argv[1] if len(sys.argv) > 1 else os.getcwd()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -39,7 +39,7 @@ def main() -> int:
     q, k, v = (torch.randn(shape, device=dev, generator=gen) for shape in SHAPE)
     do = torch.randn(SHAPE[0][0], SHAPE[0][1], SHAPE[2][2], device=dev, generator=gen)
     o, lse = attention.sagan_attention_plain(q, k, v, return_lse=True)
-    print(f"b4_times {label}: {smi}; q {list(SHAPE[0])}, k {list(SHAPE[1])}, v {list(SHAPE[2])}")
+    print(f"attention_times {label}: {smi}; q {list(SHAPE[0])}, k {list(SHAPE[1])}, v {list(SHAPE[2])}")
     calls = {
         "B3": lambda: attention.sagan_attention_cuda(q, k, v),
         "B3 with lse": lambda: attention.sagan_attention_cuda(q, k, v, return_lse=True),
@@ -59,7 +59,7 @@ def main() -> int:
                 us = e.device_time_total / ITERS
                 total += us
                 print(f"  {us:9.2f} us x{e.count / ITERS:.0f}  {e.key[:90]}")
-        print(f"b4_times {label} {name}: {total:.2f} us per call (torch.profiler, {ITERS} calls)")
+        print(f"attention_times {label} {name}: {total:.2f} us per call (torch.profiler, {ITERS} calls)")
     return 0
 
 
