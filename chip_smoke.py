@@ -40,7 +40,14 @@ Phases:
      plain version in float64, and twice, bitwise equal), case 1 and its
      lean step as ``tpugan``'s scripts/bench_biggan256.py measures them, a
      case-2 step replayed on the CPU at a reduced width, step times, device
-     time by kernel and peak memory.
+     time by kernel and peak memory;
+  7. the StyleGAN2-1024 path (mtype 2, ``tpugan``'s default request, full
+     width, batch 2): requests with the FIR launches counted in total and
+     by the TPU kernel each replaces, against counts derived from the
+     generator; the FIR kernel on the path's own inputs against its plain
+     version and a library call, each distinct FIR shape timed warm and
+     with L2 flushed beside its bound; a request replayed on the CPU;
+     latency, device time by kernel and peak memory.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -212,6 +219,12 @@ REPLAY_START_FEATURES = 16
 REPLAY_LOSS_RTOL = 1e-4  # loss_tsa, fp32 on both sides
 REPLAY_GRAD_TOL = 1e-3  # max |err| of a gradient leaf over its max |value|
 REPLAY_LEAVES = ("block_0.conv_1.weight", "new_final_2.weight")
+# the StyleGAN2 path: tpugan's infer_e defaults (tpugan/cli/common.py:39-43)
+SG2_SIZE = 1024
+SG2_START_FEATURES = 16
+# the device-side sleep of queued_ms: cycles per ms, above the H100's boost
+# clock (1.98 GHz), so that a sleep lasts at least as long as asked
+SLEEP_CYCLES_PER_MS = 2.0e6
 
 
 def check(cond, msg):
@@ -1460,6 +1473,228 @@ def fir_times(torch, dev, gen, bandwidth, fp32_peak):
     }
 
 
+def sg2_decode_firs(generator):
+    """One StyleGAN2 decode's FIR launches by the TPU kernel that tpugan's
+    dispatch gives each (``upfirdn.tpu_layout``), derived from the
+    generator's layers: the 4-tap FIR after each up-sampling conv, on its
+    output channels, and in the skip architecture the image's up-2 before
+    each ToRGB layer but the first, on the image's channels."""
+    from tpugan_torch.models.stylegan2 import ModulatedConv, SG2ConvBlock
+    from tpugan_torch.ops import upfirdn
+
+    synthesis = generator.synthesis
+    keys = [upfirdn.tpu_layout(m.weight.shape[0], 1, 1, 4, 4) for m in synthesis.modules()
+            if isinstance(m, (ModulatedConv, SG2ConvBlock)) and m.scale_factor == 2]
+    if synthesis.architecture == "skip":
+        outputs = [m for name, m in synthesis.named_children() if name.startswith("output")]
+        keys += [upfirdn.tpu_layout(m.weight.shape[0], 2, 1, 4, 4) for m in outputs[1:]]
+    return {key: keys.count(key) for key in upfirdn.layout_launches}
+
+
+def queued_ms(torch, fn, flush=None, iters=20):
+    """Device time per call of ``fn``: CUDA events around ``iters`` calls
+    that the host queues behind a device-side sleep (``torch.cuda._sleep``)
+    three times as long as the host took to launch them, so that the events
+    time the device and not the host, however small the call. (After the
+    paths' profiled requests and steps, torch.profiler's traces of single
+    calls saw no device time.) With ``flush``, a write of it (L2 flushed)
+    comes before each call, and the writes' own time, taken the same way,
+    is subtracted."""
+    def run(step):
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(3 * host_ms * SLEEP_CYCLES_PER_MS))
+        start.record()
+        for _ in range(iters):
+            step()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    if flush is None:
+        return run(fn)
+    return run(lambda: (flush.zero_(), fn())) - run(flush.zero_)
+
+
+def sg2_fir_times(torch, dev, captured, bandwidth, fp32_peak):
+    """The FIR kernel on the SG2 path's own inputs (``captured``: one input
+    of each distinct FIR of a decode): held to its plain version within
+    KERNEL_TOL, and timed (``queued_ms``) warm and with L2 flushed beside
+    its plain version, one library call (``F.conv2d(..., groups=C)`` for
+    the same-size FIR, a depthwise ``F.conv_transpose2d`` for the image's
+    up-2, each checked against the kernel first) and its bound. Returns the
+    rows and the max |err|."""
+    import torch.nn.functional as F
+
+    from tpugan_torch.models.stylegan2 import _FIR
+    from tpugan_torch.ops import upfirdn
+    from tpugan_torch.ops.upfirdn import upfirdn2d_cuda, upfirdn2d_plain
+
+    flush = torch.empty(FLUSH_BYTES // 4, device=dev)
+    rows, max_err = [], 0.0
+    for (shape, up, down, pad, gain), x in sorted(captured.items(), key=lambda kv: (kv[0][1], kv[0][0])):
+        n, c, h, w = shape
+        taps = torch.from_numpy(_FIR * gain).to(dev)
+        if (up, down, pad) == (1, 1, (1, 1)):
+            weight = taps.expand(c, 1, *taps.shape).contiguous()
+            library = lambda: F.conv2d(x, weight, padding=1, groups=c)  # noqa: E731
+        else:
+            check((up, down, pad) == (2, 1, (2, 1)), f"an SG2 FIR with up {up}, down {down}, pad {pad}")
+            weight = taps.flip(0, 1).expand(c, 1, *taps.shape).contiguous()
+            library = lambda: F.conv_transpose2d(x, weight, stride=2, padding=1, groups=c)  # noqa: E731
+        calls = {
+            "ms": lambda: upfirdn2d_cuda(x, _FIR, up, down, pad, gain),
+            "plain_ms": lambda: upfirdn2d_plain(x, _FIR, up, down, pad, gain),
+            "library_ms": library,
+        }
+        got, want, lib = (fn() for fn in calls.values())
+        torch.cuda.synchronize()
+        label = f"SG2 FIR {list(shape)} up{up} pad{pad} gain{gain:g}"
+        err, lib_err = (got - want).abs().max().item(), (lib - got).abs().max().item()
+        check(got.shape == want.shape == lib.shape, f"{label}: shapes {got.shape}, {want.shape}, {lib.shape}")
+        check(torch.allclose(got, want, rtol=KERNEL_TOL, atol=KERNEL_TOL),
+              f"{label}: kernel disagrees with the plain version, max |err| {err:.3e}")
+        check(torch.allclose(lib, got, rtol=KERNEL_TOL, atol=KERNEL_TOL),
+              f"{label}: the library call differs from the kernel by {lib_err:.3e}")
+        max_err = max(max_err, err)
+        nbytes = 4 * (x.numel() + got.numel())
+        flops = 2 * got.numel() * _FIR.size // (up * up)  # the taps on real samples
+        row = {"shape": list(shape), "up": up, "pad": list(pad), "gain": gain,
+               "kernel": upfirdn.tpu_layout(c, up, down, 4, 4, pad)}
+        row.update({key: queued_ms(torch, fn) for key, fn in calls.items()})
+        row["flushed_ms"] = queued_ms(torch, calls["ms"], flush)
+        row["library_flushed_ms"] = queued_ms(torch, library, flush)
+        row["bound_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
+        row["bound_by"] = "bytes" if nbytes / bandwidth >= flops / fp32_peak else "operations"
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        say(f"{label} ({row['kernel']}): max |err| {err:.3e}, library {lib_err:.3e}; device time kernel "
+            f"{row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, library "
+            f"{row['library_ms'] * 1e3:.2f} us; bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}, "
+            f"{nbytes / 1e6:.3f} MB), {row['share_of_bound'] * 100:.1f}% of it; L2 flushed: kernel "
+            f"{row['flushed_ms'] * 1e3:.2f} us, library {row['library_flushed_ms'] * 1e3:.2f} us")
+        del got, want, lib, weight
+    del flush
+    torch.cuda.empty_cache()
+    return rows, max_err
+
+
+def sg2_serving_path(torch, dev, parser, smi, bandwidth, fp32_peak):
+    """Phase 7: ``infer_e --mtype 2 --img_size 1024 --start_features 16``,
+    tpugan's default request, at full width and batch 2 on random weights
+    from the seed. Returns the FIR launches of its counted requests, by the
+    TPU kernel each replaces, the FIR kernel's max |err| on the path's own
+    inputs and the timed rows."""
+    from tpugan_torch.cli import common, infer_e
+    from tpugan_torch.models import stylegan2 as sg2_model
+    from tpugan_torch.ops import cuda, upfirdn
+
+    argv = ["--mtype", "2", "--img_size", str(SG2_SIZE), "--start_features", str(SG2_START_FEATURES),
+            "--random_init", "--batch_size", str(BATCH), "--seed", str(SEED)]
+    t0 = time.perf_counter()
+    bundle = common.build_bundle(parser.parse_args(argv + ["--device", CARD]))
+    torch.cuda.synchronize()
+    synthesis = bundle.generator.synthesis
+    channels = [synthesis.get_nf(2**r) for r in range(2, int(math.log2(SG2_SIZE)) + 1)]
+    say(f"bundle: mtype 2, StyleGAN2-{SG2_SIZE} config F ({synthesis.architecture}, "
+        f"{bundle.generator.num_layers} style layers, channels {channels} at 4-{SG2_SIZE} px) + the "
+        f"case-1 encoder (startf {SG2_START_FEATURES}, maxf 512, layer_count {bundle.layer_count}) built "
+        f"in {time.perf_counter() - t0:.2f} s")
+    per_request = {key: 2 * n for key, n in sg2_decode_firs(bundle.generator).items()}
+    firs = sum(per_request.values())
+
+    # the main path: launches counted from 0
+    cuda.reset_launches()
+    upfirdn.reset_layout_launches()
+    for s in REQUEST_SEEDS:
+        imgs1, imgs2 = infer_e.run(bundle, BATCH, s)
+        torch.cuda.synchronize()
+        for label, img in (("imgs1", imgs1), ("imgs2", imgs2)):
+            check(tuple(img.shape) == (BATCH, SG2_SIZE, SG2_SIZE, 3), f"SG2 {label} shape {tuple(img.shape)}")
+            check(bool(torch.isfinite(img).all()), f"SG2 {label} of seed {s} is not finite")
+        say(f"SG2 request of seed {s}: imgs1 in [{imgs1.min().item():.4f}, {imgs1.max().item():.4f}], "
+            f"imgs2 in [{imgs2.min().item():.4f}, {imgs2.max().item():.4f}]")
+    launches = dict(cuda.launches)
+    layouts = dict(upfirdn.layout_launches)
+    want = expected_launches(upfirdn2d=firs * len(REQUEST_SEEDS))
+    check(launches == want, f"SG2 path launches {launches}, expected {want}")
+    want_layouts = {key: n * len(REQUEST_SEEDS) for key, n in per_request.items()}
+    check(layouts == want_layouts, f"SG2 path FIR launches by TPU kernel {layouts}, expected {want_layouts}")
+    say(f"SG2 path: {len(REQUEST_SEEDS)} requests, launches {launches} ({firs} per request, two decodes); "
+        f"upfirdn2d by the TPU kernel it replaces {layouts}, as derived from the generator: "
+        f"{per_request} per request")
+
+    # one input of each distinct FIR of a decode, captured from a request
+    captured = {}
+    real = sg2_model.upfirdn2d
+
+    def capture(x, kernel, up=1, down=1, pad=(0, 0), gain=1.0):
+        captured.setdefault((tuple(x.shape), up, down, tuple(pad), gain), x.clone())
+        return real(x, kernel, up, down, pad, gain)
+
+    sg2_model.upfirdn2d = capture
+    try:
+        infer_e.run(bundle, BATCH, REQUEST_SEEDS[0])
+    finally:
+        sg2_model.upfirdn2d = real
+    check(len(captured) == firs // 2, f"a decode ran {len(captured)} distinct FIRs, not {firs // 2}")
+    say(f"SG2 FIR times below, on the path's own inputs: {smi}; device times from CUDA events around "
+        "20 calls queued behind a device-side sleep")
+    rows, max_err = sg2_fir_times(torch, dev, captured, bandwidth, fp32_peak)
+    del captured
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "flushed_ms", "library_flushed_ms")
+    request_sums = {key: 2 * sum(r[key] for r in rows) for key in keys}
+    split = {name: {key: 2 * sum(r[key] for r in rows if r["kernel"] == name) for key in keys}
+             for name in per_request}
+    for name, part in split.items():
+        part["launches"] = layouts[name]
+    say(f"SG2 FIRs per request ({firs}, each shape twice): " + ", ".join(
+        f"{key} {v * 1e3:.2f} us" for key, v in request_sums.items()) + "; by TPU kernel: " + "; ".join(
+        f"{name} kernel {p_['ms'] * 1e3:.2f} us, flushed {p_['flushed_ms'] * 1e3:.2f} us, library "
+        f"{p_['library_ms'] * 1e3:.2f} us, bound {p_['bound_ms'] * 1e3:.2f} us" for name, p_ in split.items()))
+
+    # the same explicit request, drawn on the CPU, through the plain versions there
+    cpu = common.build_bundle(parser.parse_args(argv + ["--device", "cpu"]))
+    seed = REQUEST_SEEDS[0]
+    request = infer_e.draw_request(cpu, BATCH, seed)
+    cuda.reset_launches()
+    on_gpu = infer_e.serve(bundle, request.to(dev))
+    torch.cuda.synchronize()
+    check(cuda.launches["upfirdn2d"] == firs, f"cuda SG2 request launches {cuda.launches}")
+    t0 = time.perf_counter()
+    on_cpu = infer_e.serve(cpu, request)
+    cpu_seconds = time.perf_counter() - t0
+    check(cuda.launches["upfirdn2d"] == firs, "the CPU request launched the kernel")
+    say(f"cuda vs cpu (SG2): the request of seed {seed} took {cpu_seconds:.2f} s on the CPU")
+    for label, g, c in zip(("imgs1", "imgs2"), on_gpu, on_cpu):
+        err, ref = (g.cpu() - c).abs().max().item(), c.abs().max().item()
+        limit = CPU_GPU_ATOL * max(1.0, ref)
+        say(f"cuda vs cpu (SG2) {label}: max |err| {err:.3e}, limit {limit:.3e} (CPU_GPU_ATOL "
+            f"{CPU_GPU_ATOL:g} x max(1, max |ref| {ref:.3f}))")
+        check(err <= limit, f"SG2 {label}: cuda and cpu differ by {err:.3e} > {limit:.3e}")
+    del cpu, on_gpu, on_cpu
+
+    say(f"SG2 request times below: {smi}; device times from torch.profiler, request times from the host "
+        "clock")
+    run = lambda s: infer_e.run(bundle, BATCH, s)  # noqa: E731
+    median = request_latency(torch, run, seed, f"StyleGAN2-{SG2_SIZE} + E, fp32, TF32 off")
+    try:
+        request_device_time(torch, run, seed, median, "upfirdn2d_kernel", "upfirdn2d")
+    except RuntimeError as missed:  # device_kernels: three traces in a row saw no device time
+        say(f"device time per SG2 request: not measured ({missed})")
+    del bundle
+    torch.cuda.empty_cache()
+    return {"launches": launches["upfirdn2d"], "max_abs_err": max_err, "per_request": request_sums,
+            "split": split, "per_shape": rows}
+
+
 def main() -> int:
     import torch
 
@@ -1568,6 +1803,7 @@ def main() -> int:
     del bundle, cpu
     torch.cuda.empty_cache()
     attn_bwd = training_path(torch, dev, smi)
+    sg2 = sg2_serving_path(torch, dev, parser, smi, bandwidth, fp32_peak)
 
     say(f"card: {smi}")
     say(json.dumps({"kernels": [{
@@ -1576,11 +1812,18 @@ def main() -> int:
         "source": "tpugan_torch/csrc/upfirdn2d.cu",
         "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas); "
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c)",
-        "launches": launches["upfirdn2d"],
-        "max_abs_err": max(fir_err, adjoint_err),
+        "launches": launches["upfirdn2d"] + sg2["launches"],
+        "launches_by_path": {"SGv1 Cat256 serving": launches["upfirdn2d"],
+                             f"StyleGAN2-{SG2_SIZE} serving": sg2["launches"]},
+        "max_abs_err": max(fir_err, adjoint_err, sg2["max_abs_err"]),
         **fir,
         "gradient_path_launches": grad_launches,
         "adjoint": adjoint_rows,
+        "sg2": {"times_are": f"the FIRs of one StyleGAN2-{SG2_SIZE} request at batch {BATCH} on the "
+                             "path's own inputs: each distinct shape once per decode, two decodes; "
+                             "device times from CUDA events around 20 calls queued behind a "
+                             "device-side sleep (queued_ms)",
+                "per_request": sg2["per_request"], "split": sg2["split"], "per_shape": sg2["per_shape"]},
     }, {
         "name": "sagan_attention",
         "route": "cuda",

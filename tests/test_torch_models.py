@@ -205,3 +205,17 @@ def test_bridge_rejects_a_mismatched_tree(rng):
         load_variables(StyleGANv1Generator(**{**kw, "latent_size": 16}), variables, unused)
     with pytest.raises(KeyError, match="decode_block_3"):
         load_variables(StyleGANv1Generator(**{**kw, "layer_count": 4}), variables, unused)
+
+
+def test_bridge_keeps_a_0d_leaf_0d():
+    """A 0-d leaf (StyleGAN2's ``noise_strength``) loads with shape ()."""
+    from tpugan.models.stylegan2 import ModulatedConv as JModulatedConv
+    from tpugan_torch.models.stylegan2 import ModulatedConv
+
+    x, w = jnp.zeros((1, 4, 4, 2)), jnp.zeros((1, 8))
+    variables = jax.tree.map(np.asarray, JModulatedConv(2, 3, 4, w_space_dim=8).init(
+        jax.random.PRNGKey(0), x, w))
+    variables["params"]["noise_strength"] = np.float32(0.25).reshape(())
+    port = load_variables(ModulatedConv(2, 3, 4, w_space_dim=8), variables)
+    assert port.noise_strength.shape == ()
+    assert port.noise_strength.item() == 0.25

@@ -145,7 +145,6 @@ def test_cli_writes_grids_on_cpu(tmp_path):
 @pytest.mark.parametrize(
     "extra,match",
     [
-        (("--mtype", "2"), "slice 3"),
         (("--mtype", "3"), "slice 7"),
         (("--checkpoint_dir_E", "e.pth"), "checkpoints"),
         (("--space_shards", "2"), "parallelism"),

@@ -304,6 +304,7 @@ def test_cli_lean_steps_leave_the_trajectory_alone(tmp_path):
 
 @pytest.mark.parametrize("extra,error,match", [
     (("--mtype", "1"), NotImplementedError, "slice 2"),
+    (("--mtype", "2"), NotImplementedError, "slice 3's training half"),
     (("--bf16",), NotImplementedError, "slice 3"),
     (("--remat",), NotImplementedError, "slice 3"),
     (("--remat_policy", "conv_outs"), NotImplementedError, "slice 3"),

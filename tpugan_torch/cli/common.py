@@ -1,7 +1,7 @@
 """Shared CLI plumbing (counterpart of ``tpugan/cli/common.py``): the same
 flags, plus ``--device {cuda,cpu}``, and the model factory for ``--mtype 1``
-(StyleGANv1 with the case-1 encoder) and ``--mtype 4`` (BigGAN-deep with
-E_BIG).
+(StyleGANv1 with the case-1 encoder), ``--mtype 2`` (StyleGAN2, config F,
+with the case-1 encoder) and ``--mtype 4`` (BigGAN-deep with E_BIG).
 
 What later slices bring raises :class:`NotImplementedError` naming the
 ROADMAP slice: other mtypes, converted checkpoints (so ``--random_init`` is
@@ -21,7 +21,6 @@ import torch
 from tpugan_torch.runtime import resolve_device
 
 _LATER = {
-    2: "StyleGAN2 (mtype 2) comes with ROADMAP slice 3 (SG2-1024 case 2)",
     3: "PGGAN (mtype 3) comes with ROADMAP slice 7 (PGGAN, eval, I/O, CLIs)",
 }
 
@@ -61,7 +60,8 @@ def add_common_args(parser: argparse.ArgumentParser, training: bool = True):
 class GanBundle(NamedTuple):
     """Frozen generator closures + encoder for one mtype, on ``device``.
 
-    ``synth(z, noise)`` (mtype 1) or ``synth(zt, label)`` (mtype 4) and
+    ``synth(z, noise)`` (mtype 1 and 2; StyleGAN2 reads its noise buffers,
+    so its ``noise`` is ``None``) or ``synth(zt, label)`` (mtype 4) and
     ``resynth(w, batch, noise)`` close over the frozen generator,
     ``encode(batch, noise)`` over the encoder; ``generator`` and
     ``encoder`` give the noise shapes (and BigGAN's config)."""
@@ -92,7 +92,7 @@ def build_bundle(args) -> GanBundle:
         raise NotImplementedError("--space_shards > 1 comes with ROADMAP slice 7 (parallelism)")
     if args.mtype in _LATER:
         raise NotImplementedError(_LATER[args.mtype])
-    if args.mtype not in (1, 4):
+    if args.mtype not in (1, 2, 4):
         raise ValueError(f"unknown mtype {args.mtype}")
     if not args.random_init or args.checkpoint_dir_E:
         raise NotImplementedError(
@@ -106,6 +106,8 @@ def build_bundle(args) -> GanBundle:
     g = torch.Generator(device="cpu").manual_seed(args.seed)
     if args.mtype == 4:
         return _build_biggan_bundle(args, layer_count, g, device)
+    if args.mtype == 2:
+        return _build_stylegan2_bundle(args, layer_count, g, device)
 
     from tpugan_torch.models import Encoder, StyleGANv1Generator, StyleGANv1Mapping
     from tpugan_torch.train.e_align import build_stylegan1_pipeline, make_encode_fn
@@ -123,6 +125,43 @@ def build_bundle(args) -> GanBundle:
     return GanBundle(
         synth, resynth, make_encode_fn(enc), enc, 512, layer_count, 2 * layer_count, gen, device,
         args.img_size,
+    )
+
+
+def _build_stylegan2_bundle(args, layer_count: int, g: torch.Generator,
+                            device: torch.device) -> GanBundle:
+    """StyleGAN2 config F at ``--img_size`` (``tpugan/cli/common.py:160-209``)
+    and the case-1 encoder. ``synth(z)`` truncates at psi 0.7 in the first
+    8 layers and ``resynth(w2)`` runs the synthesis alone, both on the noise
+    buffers, as ``tpugan``'s closures do."""
+    from tpugan_torch.models import Encoder, StyleGAN2Generator
+    from tpugan_torch.train.e_align import SynthBatch, make_encode_fn, nchw_to_nhwc
+
+    gen = StyleGAN2Generator(resolution=args.img_size, generator=g).to(device)
+    enc = Encoder(
+        startf=args.start_features, maxf=512, layer_count=layer_count, latent_size=512,
+        use_blur=getattr(args, "case", 1) == 2, generator=g,
+    ).to(device)
+
+    def buffers_only(noise):
+        if noise is not None:
+            raise ValueError("StyleGAN2 reads its noise buffers: pass noise=None")
+
+    @torch.no_grad()
+    def synth(z: torch.Tensor, noise=None) -> SynthBatch:
+        buffers_only(noise)
+        out = gen(z, trunc_psi=0.7, trunc_layers=8)
+        const1 = gen.synthesis.const.expand(z.shape[0], -1, -1, -1)
+        return SynthBatch(w1=out["wp"], imgs1=nchw_to_nhwc(out["image"]), const1=const1)
+
+    @torch.no_grad()
+    def resynth(w2: torch.Tensor, batch=None, noise=None) -> torch.Tensor:
+        buffers_only(noise)
+        return nchw_to_nhwc(gen.synthesize(w2)["image"])
+
+    return GanBundle(
+        synth, resynth, make_encode_fn(enc), enc, 512, layer_count, 2 * layer_count, gen, device,
+        args.img_size, mtype=2,
     )
 
 

@@ -76,6 +76,11 @@ def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
     ``args.device``, from random weights seeded by ``args.seed``. ``draw(
     iteration) -> Request`` replaces the iteration's seeded draws (a replay
     of given inputs)."""
+    if args.mtype == 2:
+        raise NotImplementedError(
+            "e_align --mtype 2: StyleGAN2 training comes with ROADMAP slice 3's training half "
+            "(e_align --mtype 2, remat, bf16); infer_e --mtype 2 serves it"
+        )
     if args.mtype != 4:
         raise NotImplementedError(
             f"e_align --mtype {args.mtype}: only mtype 4 (E_BIG) trains in the port yet; "

@@ -2,11 +2,15 @@
 
 ``python -m tpugan_torch.cli.infer_e --mtype 1 --img_size 256
 --start_features 64 --random_init`` — fixed-seed synthetic images through
-z -> Mapping -> G -> E -> G, written as side-by-side grids. ``--mtype 4
---img_size 256 --start_features 64 --z_dim 128`` serves BigGAN-deep-256
-with E_BIG instead: truncated z and a class label -> G -> E_BIG -> G. One
-request is :func:`run`: :func:`draw_request` draws its inputs from the seed,
-:func:`serve` computes ``(imgs1, imgs2)``; ``main`` only adds the files.
+z -> Mapping -> G -> E -> G, written as side-by-side grids. ``--mtype 2
+--img_size 1024 --start_features 16`` (``tpugan``'s default request) serves
+StyleGAN2-1024 instead: z -> SG2Mapping -> truncation (psi 0.7, 8 layers)
+-> SG2Synthesis -> E -> SG2Synthesis, on the generator's noise buffers.
+``--mtype 4 --img_size 256 --start_features 64 --z_dim 128`` serves
+BigGAN-deep-256 with E_BIG: truncated z and a class label -> G -> E_BIG ->
+G. One request is :func:`run`: :func:`draw_request` draws its inputs from
+the seed, :func:`serve` computes ``(imgs1, imgs2)``; ``main`` only adds the
+files.
 """
 
 from __future__ import annotations
@@ -25,12 +29,17 @@ from tpugan_torch.utils import iteration_generator
 def draw_request(bundle: GanBundle, batch_size: int, seed: int) -> Request:
     """Draw a request's inputs from the seed (``seed % 30000``) on the
     bundle's device. BigGAN's request is a truncated z, one class shared by
-    the batch (cli/common.py:277-281 of ``tpugan``) and E_BIG's noise."""
+    the batch (cli/common.py:277-281 of ``tpugan``) and E_BIG's noise;
+    StyleGAN2's is z and the encoder's noise (its generator reads its noise
+    buffers in both decodes)."""
     if bundle.mtype == 4:
         return draw_biggan_request(bundle.encoder, bundle.generator.config.num_classes,
                                    bundle.z_dim, bundle.img_size, batch_size, seed, bundle.device)
     g = iteration_generator(seed, bundle.device)
     z = torch.randn(batch_size, bundle.z_dim, generator=g, device=bundle.device)
+    if bundle.mtype == 2:
+        noise_e = draw_noise(bundle.encoder.noise_shapes(batch_size, bundle.img_size), g)
+        return Request(z, None, noise_e, None)
     g_shapes = bundle.generator.noise_shapes(batch_size)
     noise_g = draw_noise(g_shapes, g)
     noise_e = draw_noise(bundle.encoder.noise_shapes(batch_size, bundle.img_size), g)

@@ -14,7 +14,12 @@ buffers. Generators, encoders, VGG16's features and LPIPS (plain 3x3 and
 * dense kernels (Eq, plain or spectral-normalised) ``[in, out]`` ->
   ``[out, in]``;
 * the generator's ``const`` ``[1, 4, 4, C]`` -> NCHW ``[1, C, 4, 4]``;
-* everything else (noise weights, biases, ``gamma``, buffers) unchanged.
+* StyleGAN2's ``weight`` leaves, stored unscaled as ``tpugan`` stores them:
+  ``ModulatedConv``/``SG2ConvBlock`` HWIO -> OIHW, ``SG2Dense`` ``[in, out]``
+  -> ``[out, in]``; a ``ModulatedConv``'s ``noise`` buffer ``[1, r, r, 1]``
+  -> ``[1, 1, r, r]``;
+* everything else (noise weights and strengths, biases, ``gamma``,
+  ``w_avg``, other buffers) unchanged; a 0-d leaf stays 0-d.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpugan_torch.models.stylegan2 import ModulatedConv, SG2ConvBlock, SG2Dense
 from tpugan_torch.nn.layers import EqConv, EqLinear
 from tpugan_torch.nn.spectral import SNDense
 
@@ -42,8 +48,12 @@ def _convert(owner: nn.Module, name: str, value: np.ndarray) -> np.ndarray:
         if isinstance(owner, nn.Conv2d):
             return value.transpose(3, 2, 0, 1)
         raise TypeError(f"'kernel' under {type(owner).__name__}, which is not a conv or dense layer")
-    if name == "const":
+    if name == "const" or (name == "noise" and isinstance(owner, ModulatedConv)):
         return value.transpose(0, 3, 1, 2)
+    if name == "weight" and isinstance(owner, SG2Dense):
+        return value.T
+    if name == "weight" and isinstance(owner, (ModulatedConv, SG2ConvBlock)):
+        return value.transpose(3, 2, 0, 1)
     return value
 
 
@@ -82,5 +92,5 @@ def load_variables(module: nn.Module, variables: Mapping, unused=()) -> nn.Modul
                 t = own[name]
                 if tuple(value.shape) != tuple(t.shape):
                     raise ValueError(f"{name}: shape {value.shape} does not fit {tuple(t.shape)}")
-                t.copy_(torch.from_numpy(np.ascontiguousarray(value, dtype=np.float32)))
+                t.copy_(torch.from_numpy(np.array(value, dtype=np.float32, order="C")))
     return module

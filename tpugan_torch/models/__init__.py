@@ -13,6 +13,16 @@ from tpugan_torch.models.stylegan1 import (
     StyleGANv1Mapping,
     truncation_coefs,
 )
+from tpugan_torch.models.stylegan2 import (
+    ModulatedConv,
+    SG2ConvBlock,
+    SG2Dense,
+    SG2Mapping,
+    SG2Synthesis,
+    SG2Truncation,
+    StyleGAN2Generator,
+    update_w_avg,
+)
 
 __all__ = [
     "BigGAN",
@@ -25,8 +35,16 @@ __all__ = [
     "Encoder",
     "EncoderBlock",
     "GenBlock",
+    "ModulatedConv",
+    "SG2ConvBlock",
+    "SG2Dense",
+    "SG2Mapping",
+    "SG2Synthesis",
+    "SG2Truncation",
     "SelfAttn",
     "StyleGANv1Generator",
     "StyleGANv1Mapping",
+    "StyleGAN2Generator",
     "truncation_coefs",
+    "update_w_avg",
 ]
