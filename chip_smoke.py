@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive tpugan_torch's serving paths on one NVIDIA GPU and check its kernels.
+"""Drive tpugan_torch's serving and training paths on one NVIDIA GPU and check its kernels.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card and ``nvcc``: it builds ``tpugan_torch/csrc`` from the checkout. Any
@@ -47,7 +47,15 @@ Phases:
      generator; the FIR kernel on the path's own inputs against its plain
      version and a library call, each distinct FIR shape timed warm and
      with L2 flushed beside its bound; a request replayed on the CPU;
-     latency, device time by kernel and peak memory.
+     latency, device time by kernel and peak memory;
+  8. the StyleGANv1 Cat256 train step of ``tpugan_torch.cli.e_align``
+     (mtype 1, full width, batch 2): case 1 and its lean step, case 2 with
+     E_Blur, ablations 8 (one update per loss group) and 1 (E_Blur_Z, z
+     re-mapped), with the FIR launches of each step counted forward and
+     adjoint, in total and by the TPU kernel each replaces, against counts
+     derived from the modules; a case-2 step of a reduced width replayed on
+     the CPU and held to a float64 run there; step times, device time by
+     kernel and peak memory.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -879,9 +887,11 @@ def step_times(torch, step, state, label, first):
     return statistics.median(lat)
 
 
-def step_device_time(torch, step, state, median, first):
+def step_device_time(torch, step, state, median, first,
+                     symbols=("sagan_attention_kernel",) + B4_SYMBOLS):
     """A step's device time by kernel (torch.profiler over 3 steps), the
-    B3/B4 kernels' share, and the step's peak device memory."""
+    share of the kernels whose symbols contain ``symbols`` (B3/B4 unless
+    given), and the step's peak device memory."""
     it = iter(range(first, first + 100))
     kernels = device_kernels(torch, lambda: step(state, next(it)), iters=3)
     busy = sum(ms for ms, _ in kernels.values())
@@ -889,13 +899,17 @@ def step_device_time(torch, step, state, median, first):
         f"and copies = {busy / median * 100:.1f}% of the median step time; by name:")
     for kname, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
         say(f"  {ms:8.3f} ms  x{n:5.0f}  {kname[:100]}")
-    for symbol in ("sagan_attention_kernel",) + B4_SYMBOLS:
+    shares = {}
+    for symbol in symbols:
         own = sum(ms for kname, (ms, _) in kernels.items() if symbol in kname)
+        shares[symbol] = own
         say(f"  {symbol}: {own:.3f} ms per step, {own / busy * 100:.2f}% of device time")
     torch.cuda.reset_peak_memory_stats()
     step(state, next(it))
     torch.cuda.synchronize()
-    say(f"peak device memory of a step: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    say(f"peak device memory of a step: {peak:.1f} MiB")
+    return {"device_ms": busy, "kernel_ms": shares, "peak_mib": peak}
 
 
 def encoder_snapshot(encoder):
@@ -1695,6 +1709,252 @@ def sg2_serving_path(torch, dev, parser, smi, bandwidth, fp32_peak):
             "split": split, "per_shape": rows}
 
 
+# phase 8, SGv1 Cat256 training: the forms driven (label, e_align flags)
+SGV1_TRAIN_FORMS = (
+    ("case 1", ("--case", "1")),
+    ("case 1 lean", ("--case", "1")),
+    ("case 2", ("--case", "2")),
+    ("ablation 8", ("--ablation", "8")),
+    ("ablation 1", ("--ablation", "1")),
+)
+SGV1_TIMED_FORMS = ("case 1", "case 1 lean", "case 2", "ablation 8")
+# the CPU replay of an SGv1 case-2 step: Cat256 at start_features 16 (the
+# path has 64; maxf stays 512), on the card, on the CPU and on the CPU in
+# float64, which is the reference (the gradient is ill-conditioned at 256 px,
+# as sgv1_gradient says): loss_tsa within REPLAY_LOSS_RTOL of float64, every
+# gradient of the step (of loss_tsa and of 0.01 loss_w) within CPU_GPU_ATOL
+# x max(1, max |g|), or within twice the CPU fp32 run's own error, of
+# float64, whichever is larger (the step's gradients reach 2e2, where an
+# absolute 1e-3 is below fp32's own rounding)
+SGV1_REPLAY_START_FEATURES = 16
+
+
+def step_image_gradients(e_align, args):
+    """The image-loss gradients an e_align step takes: none in case 1 (its
+    image losses are detached), one in case 2 and in every ablation (of
+    loss_tsa), one per image group of non-zero weight in the sequential
+    ablations (7 and 8)."""
+    if args.ablation in e_align.SEQUENTIAL_ABLATIONS:
+        return sum(w != 0.0 for w in e_align.ABLATION_IMAGE_WEIGHTS[args.ablation])
+    return int(bool(args.ablation) or args.case == 2)
+
+
+def sgv1_step_firs(trainer, image_gradients, resynthesis):
+    """One SGv1 train step's FIR launches by the TPU kernel that tpugan's
+    dispatch gives each (``upfirdn.tpu_layout``), forward and adjoint,
+    derived from the modules and the step's ``image_gradients``
+    (:func:`step_image_gradients`): the same-size blur after each up-sampling
+    conv of the generator (every block but the first) on its output
+    channels, once in the synthesis and once in the resynthesis, and
+    E_Blur's blur before each block's downsampling conv on the block's
+    input channels; in the backward one adjoint of each blur that a
+    gradient passes through: each image-loss gradient passes through the
+    resynthesis and the encoder, the latent loss's gradient through the
+    encoder alone (every block's style heads, or E_Blur_Z's z head, read
+    the output of every earlier block's blur)."""
+    from tpugan_torch.ops import upfirdn
+
+    gen, enc = trainer.bundle.generator, trainer.bundle.encoder
+    decode = [upfirdn.tpu_layout(getattr(gen, f"decode_block_{i}").bias_1.shape[0], 1, 1, 3, 3, (1, 1))
+              for i in range(gen.layer_count) if getattr(gen, f"decode_block_{i}").has_first_conv]
+    blocks = [getattr(enc, f"block_{i}") for i in range(enc.layer_count)]
+    encoder = [upfirdn.tpu_layout(b.conv_1.weight.shape[0], 1, 1, 3, 3, (1, 1)) for b in blocks
+               if b.use_blur and b.has_last_conv and b.block_version == 2]
+    forward = decode + encoder + (decode if resynthesis else [])
+    adjoint = image_gradients * (decode + encoder) + encoder
+
+    def by_kernel(keys):
+        return {key: keys.count(key) for key in upfirdn.layout_launches}
+
+    return by_kernel(forward), by_kernel(adjoint)
+
+
+class AdjointCount:
+    """Counts the FIR launches made inside upfirdn2d's backward (the
+    adjoint), by TPU kernel, while it is entered; the rest are forward."""
+
+    def __init__(self):
+        from tpugan_torch.ops import upfirdn
+
+        self.upfirdn = upfirdn
+        self.counts = {key: 0 for key in upfirdn.layout_launches}
+
+    def __enter__(self):
+        fn = self.upfirdn._UpFirDn2d
+        self.real = fn.backward
+        real, counts, layouts = self.real, self.counts, self.upfirdn.layout_launches
+
+        def counted(ctx, g):
+            before = dict(layouts)
+            out = real(ctx, g)
+            for key in counts:
+                counts[key] += layouts[key] - before[key]
+            return out
+
+        fn.backward = staticmethod(counted)
+        return self
+
+    def __exit__(self, *exc):
+        self.upfirdn._UpFirDn2d.backward = staticmethod(self.real)
+
+
+def replay_sgv1_case2_on_cpu(torch, dev, e_align):
+    """One SGv1 case-2 step of Cat256 at SGV1_REPLAY_START_FEATURES on the
+    card, on the CPU and on the CPU in float64, from the same explicit
+    inputs (drawn on the CPU): loss_tsa and both gradients of the step, held
+    to the float64 run."""
+    from tpugan_torch.cli import infer_e
+    from tpugan_torch.losses.lpips import make_lpips_fn, random_params
+    from tpugan_torch.ops import cuda
+    from tpugan_torch.train.e_align import info_scalars
+
+    argv = ["--mtype", "1", "--img_size", str(IMG_SIZE), "--start_features", str(SGV1_REPLAY_START_FEATURES),
+            "--random_init", "--case", "2", "--iterations", "1", "--batch_size", str(BATCH),
+            "--seed", str(SEED)]
+    parser = e_align.make_parser()
+    probe = e_align.build_trainer(parser.parse_args(argv + ["--device", "cpu"]))
+    request = infer_e.draw_request(probe.bundle, BATCH, 0)
+    del probe
+    runs = []
+    cpu = torch.device("cpu")
+    for device, place, dtype in ((CARD, dev, torch.float32), ("cpu", cpu, torch.float32),
+                                 ("cpu", cpu, torch.float64)):
+        lpips = make_lpips_fn(random_params(torch.Generator().manual_seed(7)).to(place, dtype))
+        req = request.to(place)
+        req = req._replace(z=req.z.to(dtype), noise_g=[tuple(n.to(dtype) for n in b) for b in req.noise_g],
+                           noise_e=[tuple(n.to(dtype) for n in b) for b in req.noise_e],
+                           noise_g2=[tuple(n.to(dtype) for n in b) for b in req.noise_g2])
+        trainer = e_align.build_trainer(parser.parse_args(argv + ["--device", device]), lpips,
+                                        draw=lambda it, r=req: r)
+        for module in (trainer.bundle.generator, trainer.bundle.mapping, trainer.bundle.encoder):
+            module.to(dtype)
+        names = [n for n, _ in trainer.state.encoder.named_parameters()]
+        grads = []
+        opt_step = trainer.state.optimizer.step
+        trainer.state.optimizer.step = lambda g=None: (grads.append(g), opt_step(g))
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        _, info = trainer.step(trainer.state, 0)
+        if device == CARD:
+            torch.cuda.synchronize()
+            check(cuda.launches["upfirdn2d"] > 0, f"replay launches {cuda.launches}")
+        else:
+            check(not any(cuda.launches.values()), "the CPU replay launched a kernel")
+        seconds = time.perf_counter() - t0
+        check(len(grads) == 2, f"a case-2 step took {len(grads)} updates")
+        runs.append((info_scalars(info)["loss_tsa"],
+                     [[g_.detach().double().cpu() for g_ in g] for g in grads], seconds))
+        del trainer
+    (loss_g, grads_g, sec_g), (loss_c, grads_c, sec_c), (loss_r, grads_r, sec_r) = runs
+    say(f"replay of an SGv1 case-2 step: Cat256 at start_features {SGV1_REPLAY_START_FEATURES}, batch {BATCH}, "
+        f"random LPIPS; {sec_g:.2f} s on the card (first call), {sec_c:.2f} s on the CPU, {sec_r:.2f} s "
+        "on the CPU in float64")
+    scale = max(r.abs().max().item() for g in grads_r for r in g)
+    errs = {}
+    for label, loss, grads in (("cuda", loss_g, grads_g), ("cpu fp32", loss_c, grads_c)):
+        worst = max((((a - r).abs().max().item()), f"gradient {k} of {names[i]}")
+                    for k, (ga, gr) in enumerate(zip(grads, grads_r))
+                    for i, (a, r) in enumerate(zip(ga, gr)))
+        errs[label] = (abs(loss - loss_r) / abs(loss_r), worst[0])
+        say(f"  {label} vs cpu float64: loss_tsa {loss:.6f} against {loss_r:.6f} (rel err "
+            f"{errs[label][0]:.3e}, limit {REPLAY_LOSS_RTOL:g}); gradients max |err| {worst[0]:.3e} (at "
+            f"{worst[1]}) against max |g| {scale:.3e}")
+    limit = max(CPU_GPU_ATOL * max(1.0, scale), 2 * errs["cpu fp32"][1])
+    check(math.isfinite(loss_r) and errs["cuda"][0] <= REPLAY_LOSS_RTOL, "the replayed loss_tsa disagrees")
+    check(scale > 0 and errs["cuda"][1] <= limit,
+          f"the card's SGv1 step gradients are {errs['cuda'][1]:.3e} from float64, over {limit:.3e}")
+    say(f"  the card's gradients within {limit:.3e} of float64 (CPU_GPU_ATOL {CPU_GPU_ATOL:g} x max(1, max |g|), "
+        "or twice the CPU fp32 run's own error)")
+    return {"loss_rel_err": errs["cuda"][0], "grad_max_abs_err": errs["cuda"][1], "limit": limit}
+
+
+def sgv1_training_path(torch, dev, smi):
+    """Phase 8: ``e_align --mtype 1 --img_size 256 --start_features 64``'s
+    train step at full width, batch 2, random weights from the seed: case 1
+    and its lean step, case 2 (E_Blur), ablations 8 and 1, with their FIR
+    launches per step, forward and adjoint, by TPU kernel, against the
+    counts derived from the modules; a case-2 step replayed on the CPU; step
+    times, device time by kernel and peak memory. Returns the FIR launches
+    of the counted steps and the timed rows."""
+    from tpugan_torch.cli import e_align
+    from tpugan_torch.losses.lpips import random_lpips_fn
+    from tpugan_torch.ops import cuda, upfirdn
+    from tpugan_torch.train.e_align import info_scalars
+
+    parser = e_align.make_parser()
+    argv = ["--mtype", "1", "--img_size", str(IMG_SIZE), "--start_features", "64", "--random_init",
+            "--iterations", "1000", "--batch_size", str(BATCH), "--seed", str(SEED), "--device", CARD]
+    lpips = random_lpips_fn(dev)
+    launches, per_step, times = 0, {}, {}
+    trainer = None
+    for label, flags in SGV1_TRAIN_FORMS:
+        lean = label == "case 1 lean"  # case 1's trainer's off-tick step
+        args = parser.parse_args(argv + list(flags))
+        if not lean:
+            del trainer
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            trainer = e_align.build_trainer(args, lpips)
+            torch.cuda.synchronize()
+            enc = trainer.state.encoder
+            say(f"trainer: mtype 1, {label} ({' '.join(flags)}), SGv1 Cat256 frozen + "
+                f"{type(enc).__name__} (blur {enc.block_0.use_blur}, noise {enc.block_0.use_noise}, styles "
+                f"{enc.style_mode}) training, built in {time.perf_counter() - t0:.2f} s")
+        step = trainer.lean if lean else trainer.step
+        check(step is not None, f"{label}: no step")
+        state = trainer.state
+        frozen = [*trainer.bundle.generator.parameters(), *trainer.bundle.mapping.parameters()]
+        frozen0 = [p.detach().clone() for p in frozen]
+        params0 = {n: p.detach().clone() for n, p in state.encoder.named_parameters()}
+        fwd_want, adj_want = sgv1_step_firs(trainer, step_image_gradients(e_align, args), not lean)
+
+        # the main path: launches counted from 0
+        cuda.reset_launches()
+        upfirdn.reset_layout_launches()
+        with AdjointCount() as adjoint:
+            for it in range(TRAIN_STEPS):
+                _, info = step(state, it)
+                scalars = info_scalars(info)
+                check(all(math.isfinite(x) for x in scalars.values()), f"{label} step {it}: a loss is not finite")
+            torch.cuda.synchronize()
+        counted = dict(cuda.launches)
+        total = dict(upfirdn.layout_launches)
+        adj = dict(adjoint.counts)
+        fwd = {key: total[key] - adj[key] for key in total}
+        firs = sum(fwd_want.values()) + sum(adj_want.values())
+        check(counted == expected_launches(upfirdn2d=firs * TRAIN_STEPS),
+              f"{label}: launches {counted}, expected {firs * TRAIN_STEPS} upfirdn2d and no attention")
+        want_fwd = {key: n * TRAIN_STEPS for key, n in fwd_want.items()}
+        want_adj = {key: n * TRAIN_STEPS for key, n in adj_want.items()}
+        check(fwd == want_fwd and adj == want_adj, f"{label}: FIR launches forward {fwd}, adjoint {adj}; "
+              f"derived from the modules: forward {want_fwd}, adjoint {want_adj}")
+        launches += counted["upfirdn2d"]
+        per_step[label] = {"forward": fwd_want, "adjoint": adj_want}
+        moved = sum(not torch.equal(p, params0[n]) for n, p in state.encoder.named_parameters())
+        check(moved > 0 and all(bool(torch.isfinite(p).all()) for p in state.encoder.parameters()),
+              f"{label}: the encoder did not train, or is not finite")
+        check(all(torch.equal(a, b) and a.grad is None for a, b in zip(frozen, frozen0)),
+              f"{label}: the frozen generator or mapping moved")
+        say(f"SGv1 {label} path: {TRAIN_STEPS} steps, launches {counted}; per step FIR forward "
+            f"{fwd_want}, adjoint {adj_want}, as derived from the modules; loss_tsa "
+            f"{scalars['loss_tsa']:.4f}, loss_mtv {scalars['loss_mtv']:.4f}; {moved} of {len(params0)} "
+            f"encoder parameters moved, the generator and mapping did not")
+        if label in SGV1_TIMED_FORMS:
+            say(f"SGv1 training times below: {smi}; step times from the host clock, device times from "
+                "torch.profiler")
+            median = step_times(torch, step, state, f"SGv1 {label}, fp32, TF32 off", 100)
+            try:
+                dev_time = step_device_time(torch, step, state, median, 200, symbols=("upfirdn2d_kernel",))
+            except RuntimeError as missed:  # device_kernels: three traces saw no device time
+                say(f"device time per SGv1 {label} step: not measured ({missed})")
+                dev_time = None
+            times[label] = {"median_ms": median, **(dev_time or {})}
+    del trainer
+    torch.cuda.empty_cache()
+    replay = replay_sgv1_case2_on_cpu(torch, dev, e_align)
+    return {"launches": launches, "per_step": per_step, "times": times, "replay": replay}
+
+
 def main() -> int:
     import torch
 
@@ -1804,6 +2064,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     attn_bwd = training_path(torch, dev, smi)
     sg2 = sg2_serving_path(torch, dev, parser, smi, bandwidth, fp32_peak)
+    sgv1_train = sgv1_training_path(torch, dev, smi)
 
     say(f"card: {smi}")
     say(json.dumps({"kernels": [{
@@ -1812,9 +2073,10 @@ def main() -> int:
         "source": "tpugan_torch/csrc/upfirdn2d.cu",
         "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas); "
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c)",
-        "launches": launches["upfirdn2d"] + sg2["launches"],
+        "launches": launches["upfirdn2d"] + sg2["launches"] + sgv1_train["launches"],
         "launches_by_path": {"SGv1 Cat256 serving": launches["upfirdn2d"],
-                             f"StyleGAN2-{SG2_SIZE} serving": sg2["launches"]},
+                             f"StyleGAN2-{SG2_SIZE} serving": sg2["launches"],
+                             "SGv1 Cat256 training": sgv1_train["launches"]},
         "max_abs_err": max(fir_err, adjoint_err, sg2["max_abs_err"]),
         **fir,
         "gradient_path_launches": grad_launches,
@@ -1824,6 +2086,11 @@ def main() -> int:
                              "device times from CUDA events around 20 calls queued behind a "
                              "device-side sleep (queued_ms)",
                 "per_request": sg2["per_request"], "split": sg2["split"], "per_shape": sg2["per_shape"]},
+        "sgv1_training": {"launches_per_step_are": f"FIR launches of one step at batch {BATCH}, by the TPU "
+                                                   "kernel each replaces, forward and adjoint, as counted "
+                                                   f"over {TRAIN_STEPS} steps and derived from the modules",
+                          "per_step": sgv1_train["per_step"], "times": sgv1_train["times"],
+                          "replay": sgv1_train["replay"]},
     }, {
         "name": "sagan_attention",
         "route": "cuda",

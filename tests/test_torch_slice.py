@@ -149,12 +149,21 @@ def test_cli_writes_grids_on_cpu(tmp_path):
         (("--checkpoint_dir_E", "e.pth"), "checkpoints"),
         (("--space_shards", "2"), "parallelism"),
         (("--multihost",), "parallelism"),
-        (("--ablation", "3"), r"ablation encoders come with ROADMAP slice 2 \("),
     ],
 )
 def test_later_slices_raise(extra, match):
     with pytest.raises(NotImplementedError, match=match):
         common.build_bundle(_args("--device", "cpu", *extra))
+
+
+@pytest.mark.parametrize("ablation", [2, 3, 8])
+def test_ablation_encoders_serve(ablation):
+    """--ablation, refused until slice 2, now builds the ladder's encoder
+    (E_Blur_W_2, E_Blur_W, E_Blur), which answers a request on the CPU."""
+    bundle = common.build_bundle(_args("--device", "cpu", "--ablation", str(ablation)))
+    assert bundle.encoder.block_0.use_blur and bundle.encoder.block_0.use_noise == (ablation > 3)
+    imgs1, imgs2 = infer_e.run(bundle, 2, 0)
+    assert imgs2.shape == (2, 32, 32, 3) and torch.isfinite(imgs2).all()
 
 
 def test_gradcam_raises_until_its_slice(tmp_path):

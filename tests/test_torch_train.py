@@ -303,7 +303,6 @@ def test_cli_lean_steps_leave_the_trajectory_alone(tmp_path):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (("--mtype", "1"), NotImplementedError, "slice 2"),
     (("--mtype", "2"), NotImplementedError, "slice 3's training half"),
     (("--bf16",), NotImplementedError, "slice 3"),
     (("--remat",), NotImplementedError, "slice 3"),
@@ -315,6 +314,16 @@ def test_cli_lean_steps_leave_the_trajectory_alone(tmp_path):
 def test_cli_options_of_later_slices_raise(tmp_path, extra, error, match):
     with pytest.raises(error, match=match):
         e_align.main(_tiny_argv(tmp_path, "--iterations", "1", *extra))
+
+
+def test_cli_trains_mtype_1_which_slice_2_brought(tmp_path):
+    """--mtype 1, refused until slice 2, now trains (tests/test_torch_sgv1_train.py
+    holds it to tpugan)."""
+    cuda.reset_launches()
+    e_align.main(_tiny_argv(tmp_path, "--iterations", "1", "--mtype", "1", "--start_features", "64"))
+    records = [json.loads(line) for line in (tmp_path / "out" / "Loss.txt").read_text().splitlines()]
+    assert [r["iteration"] for r in records] == [0] and np.isfinite(records[0]["loss_mtv"])
+    assert not any(cuda.launches.values())
 
 
 def test_cli_needs_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):

@@ -1,12 +1,13 @@
 """Shared CLI plumbing (counterpart of ``tpugan/cli/common.py``): the same
 flags, plus ``--device {cuda,cpu}``, and the model factory for ``--mtype 1``
-(StyleGANv1 with the case-1 encoder), ``--mtype 2`` (StyleGAN2, config F,
-with the case-1 encoder) and ``--mtype 4`` (BigGAN-deep with E_BIG).
+(StyleGANv1 with E, E_Blur in case 2, or the encoder of ``--ablation``),
+``--mtype 2`` (StyleGAN2, config F, with E or E_Blur) and ``--mtype 4``
+(BigGAN-deep with E_BIG).
 
 What later slices bring raises :class:`NotImplementedError` naming the
 ROADMAP slice: other mtypes, converted checkpoints (so ``--random_init`` is
-required), ablation encoders, ``--space_shards`` above 1, ``--multihost``
-and ``--lpips_weights``.
+required), ``--space_shards`` above 1, ``--multihost`` and
+``--lpips_weights``.
 """
 
 from __future__ import annotations
@@ -64,7 +65,10 @@ class GanBundle(NamedTuple):
     so its ``noise`` is ``None``) or ``synth(zt, label)`` (mtype 4) and
     ``resynth(w, batch, noise)`` close over the frozen generator,
     ``encode(batch, noise)`` over the encoder; ``generator`` and
-    ``encoder`` give the noise shapes (and BigGAN's config)."""
+    ``encoder`` give the noise shapes (and BigGAN's config). For mtype 1,
+    ``mapping`` is the frozen mapping and ``remap(z) -> w+`` runs it with
+    the truncation coefficients of 2 * layer_count style layers (psi 0.7 on
+    the first half): ablation 1's re-mapping of the encoder's z."""
 
     synth: Any  # (z, noise) or (zt, label) -> SynthBatch
     resynth: Any  # (w, batch, noise) -> images [N, H, W, C]
@@ -77,6 +81,24 @@ class GanBundle(NamedTuple):
     device: torch.device
     img_size: int
     mtype: int = 1
+    mapping: Any = None  # nn.Module (frozen; mtype 1)
+    remap: Any = None  # (z) -> w+ (mtype 1)
+
+
+def _encoder_variant_kwargs(ablation: int, case: int) -> dict:
+    """The ablation ladder's encoders (model/E/Ablation_Study/*, as
+    ``tpugan/cli/common.py:82-94``): 1 -> E_Blur_Z (a z head only), 2 ->
+    E_Blur_W_2 (one w per block, no noise), 3 -> E_Blur_W (no noise), 4 and
+    up -> E_Blur; without an ablation, E_Blur in case 2."""
+    if ablation == 1:
+        return dict(use_blur=True, style_mode="none", z_head=True)
+    if ablation == 2:
+        return dict(use_blur=True, style_mode="single", use_noise=False)
+    if ablation == 3:
+        return dict(use_blur=True, use_noise=False)
+    if ablation >= 4:
+        return dict(use_blur=True)
+    return dict(use_blur=case == 2)
 
 
 def _layer_count(img_size: int) -> int:
@@ -99,8 +121,6 @@ def build_bundle(args) -> GanBundle:
             "loading converted checkpoints comes with ROADMAP slice 7 (io/convert); "
             "pass --random_init and no --checkpoint_dir_E"
         )
-    if getattr(args, "ablation", 0):
-        raise NotImplementedError("ablation encoders come with ROADMAP slice 2 (the SGv1 train step and its ablations)")
     device = resolve_device(getattr(args, "device", "cuda"))
     layer_count = _layer_count(args.img_size)
     g = torch.Generator(device="cpu").manual_seed(args.seed)
@@ -110,6 +130,7 @@ def build_bundle(args) -> GanBundle:
         return _build_stylegan2_bundle(args, layer_count, g, device)
 
     from tpugan_torch.models import Encoder, StyleGANv1Generator, StyleGANv1Mapping
+    from tpugan_torch.models.stylegan1 import truncation_coefs
     from tpugan_torch.train.e_align import build_stylegan1_pipeline, make_encode_fn
 
     gen = StyleGANv1Generator(
@@ -119,12 +140,18 @@ def build_bundle(args) -> GanBundle:
     gm = StyleGANv1Mapping(num_layers=2 * layer_count, mapping_layers=8, generator=g).to(device)
     enc = Encoder(
         startf=args.start_features, maxf=512, layer_count=layer_count, latent_size=512,
-        use_blur=getattr(args, "case", 1) == 2, generator=g,
+        **_encoder_variant_kwargs(getattr(args, "ablation", 0), getattr(args, "case", 1)),
+        generator=g,
     ).to(device)
     synth, resynth = build_stylegan1_pipeline(gen, gm, lod=layer_count - 1)
+    coefs = truncation_coefs(2 * layer_count)
+
+    def remap(z: torch.Tensor) -> torch.Tensor:
+        return gm(z, coefs)
+
     return GanBundle(
         synth, resynth, make_encode_fn(enc), enc, 512, layer_count, 2 * layer_count, gen, device,
-        args.img_size,
+        args.img_size, mapping=gm, remap=remap,
     )
 
 

@@ -1,17 +1,23 @@
 """Aligned encoder training (counterpart of ``tpugan/cli/e_align.py``;
 E_align_cropping_s1.py / E_align_s2.py).
 
-``python -m tpugan_torch.cli.e_align --mtype 4 --img_size 256
---start_features 64 --z_dim 128 --random_init --case {1,2}
---iterations 5`` trains E_BIG against a frozen BigGAN-deep-256. Case 1
-logs its image losses without gradient and, unless ``--eager_metrics``,
-skips them on off-tick iterations (the lean step); case 2 trains through
-them. Every ``--log_every`` iterations a JSON record goes to stdout and
-``Loss.txt``, and a grid of imgs1 over imgs2 to ``imgs/``.
+``python -m tpugan_torch.cli.e_align --mtype 1 --img_size 256
+--start_features 64 --random_init --case {1,2} [--ablation n]`` trains
+StyleGANv1 Cat256's encoder (E in case 1, E_Blur in case 2, the ladder's
+encoder with ``--ablation``) against the frozen generator; ``--mtype 4
+--img_size 256 --start_features 64 --z_dim 128`` trains E_BIG against a
+frozen BigGAN-deep-256. Case 1 logs its image losses without gradient and,
+unless ``--eager_metrics``, skips them on off-tick iterations (the lean
+step); case 2 trains through them. ``--ablation n`` (ablation_utils/1..8)
+forces case 2 and sets the loss weights; ablation 1 (StyleGANv1 only)
+encodes z and re-maps it to w+ through the frozen mapping, and ablations 7
+and 8 take one update per loss group. Every ``--log_every`` iterations a
+JSON record goes to stdout and ``Loss.txt``, and a grid of imgs1 over imgs2
+to ``imgs/``.
 
 :func:`build_trainer` makes the state and the step functions; ``main``
 loops and writes. What later slices bring raises :class:`NotImplementedError`
-naming the ROADMAP slice: ``--mtype 1`` (slice 2), ``--bf16``, ``--remat``
+naming the ROADMAP slice: ``--mtype 2`` training, ``--bf16``, ``--remat``
 and ``--remat_policy`` (slice 3), and ``--resume`` and checkpoints (slice 7).
 """
 
@@ -36,6 +42,7 @@ from tpugan_torch.optim import lreq_adam
 from tpugan_torch.train.e_align import (
     EncoderTrainState,
     build_biggan_pipeline,
+    build_stylegan1_pipeline,
     info_scalars,
     init_train_state,
     make_align_visuals,
@@ -71,6 +78,21 @@ class Trainer(NamedTuple):
     visuals: Callable
 
 
+# the ablation ladder's loss weights, as the scripts execute them
+# (tpugan/cli/e_align.py:68-101): ablations 7 and 8 weight AT1 by 5 and
+# AT2 by 9 and take one update per loss group (7.E_align_x_AT1.py:83-86,
+# 8.E_align_x_AT1_AT2.py:83-101)
+ABLATION_IMAGE_WEIGHTS = {
+    1: (1.0, 0.0, 0.0), 2: (1.0, 0.0, 0.0), 3: (1.0, 0.0, 0.0), 4: (1.0, 0.0, 0.0),
+    5: (1.0, 0.0, 0.0), 6: (1.0, 0.0, 0.0), 7: (1.0, 5.0, 0.0), 8: (1.0, 5.0, 9.0),
+}
+ABLATION_LATENT_WEIGHTS = {
+    1: (0.0, 1.0), 2: (1.0, 0.0), 3: (1.0, 0.0), 4: (1.0, 0.0),
+    5: (1.0, 1.0), 6: (1.0, 1.0), 7: (1.0, 1.0), 8: (1.0, 1.0),
+}
+SEQUENTIAL_ABLATIONS = (7, 8)
+
+
 def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
     """The encoder's train state and step functions for ``args``, on
     ``args.device``, from random weights seeded by ``args.seed``. ``draw(
@@ -80,11 +102,6 @@ def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
         raise NotImplementedError(
             "e_align --mtype 2: StyleGAN2 training comes with ROADMAP slice 3's training half "
             "(e_align --mtype 2, remat, bf16); infer_e --mtype 2 serves it"
-        )
-    if args.mtype != 4:
-        raise NotImplementedError(
-            f"e_align --mtype {args.mtype}: only mtype 4 (E_BIG) trains in the port yet; "
-            "mtype 1 comes with ROADMAP slice 2 (the case-1 train step)"
         )
     if args.bf16:
         raise NotImplementedError("--bf16 comes with ROADMAP slice 3 (precision)")
@@ -97,22 +114,51 @@ def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
             f"--iterations {args.iterations} reaches --checkpoint_every {args.checkpoint_every}, "
             "and saving checkpoints comes with ROADMAP slice 7 (io/checkpoint)"
         )
+    ab = args.ablation
+    if ab == 1 and args.mtype != 1:
+        raise ValueError("ablation 1 (z re-mapping) is StyleGANv1-only")
     bundle = build_bundle(args)
     bundle.generator.requires_grad_(False)
-    synth_fn, resynth = build_biggan_pipeline(bundle.generator, train=True)
-    encode = make_encode_fn(bundle.encoder, conditional=True, train=True)
+    if args.mtype == 4:
+        synth_fn, resynth = build_biggan_pipeline(bundle.generator, train=True)
+        encode = make_encode_fn(bundle.encoder, conditional=True, train=True)
+
+        def synth(request):
+            return synth_fn(request.z, request.label)
+    else:
+        synth_fn, resynth = build_stylegan1_pipeline(
+            bundle.generator, bundle.mapping, bundle.layer_count - 1, train=True)
+        encode = make_encode_fn(bundle.encoder, train=True)
+
+        def synth(request):
+            return synth_fn(request.z, request.noise_g)
+
+        if ab == 1:
+            # E_Blur_Z: const1 is z and the encoder's z2 is re-mapped to w+
+            # (1.E_align_z.py:62-67)
+            encode_z = encode
+
+            def synth(request):
+                return synth_fn(request.z, request.noise_g)._replace(const1=request.z)
+
+            def encode(batch, noise=None):
+                _, z2 = encode_z(batch, noise)
+                return z2, bundle.remap(z2)
 
     if draw is None:
         def draw(iteration):
             return infer_e.draw_request(bundle, args.batch_size, iteration)
 
-    def synth(request):
-        return synth_fn(request.z, request.label)
-
+    case = 2 if ab else args.case  # every ablation script trains through its image losses
+    weights = {}
+    if ab:
+        weights = dict(image_weights=ABLATION_IMAGE_WEIGHTS[ab],
+                       latent_weights=ABLATION_LATENT_WEIGHTS[ab],
+                       sequential_image_steps=ab in SEQUENTIAL_ABLATIONS)
     state = init_train_state(bundle.encoder, lreq_adam(bundle.encoder, args.lr))
-    step = make_train_step(encode, synth, resynth, draw, case=args.case, lpips_fn=lpips_fn)
+    step = make_train_step(encode, synth, resynth, draw, case=case, lpips_fn=lpips_fn, **weights)
     lean = None
-    if args.case == 1 and not args.eager_metrics:
+    if case == 1 and not args.eager_metrics:
         lean = make_train_step(encode, synth, resynth, draw, case=1, compute_image_losses=False)
     return Trainer(bundle, state, step, lean, make_align_visuals(encode, synth, resynth, draw))
 
@@ -122,7 +168,8 @@ def main(argv=None):
     from tpugan_torch.io.image import save_image_grid, to_unit
 
     trainer = build_trainer(args, build_lpips_fn(args))
-    name = f"mtype{args.mtype}-{args.img_size}-case{args.case}"
+    name = f"mtype{args.mtype}-{args.img_size}-case{args.case}" + (
+        f"-ab{args.ablation}" if args.ablation else "")
     base, imgs_dir, _ = make_result_dirs(args.experiment_dir, name)
     state = trainer.state
     with open(os.path.join(base, "Loss.txt"), "a") as loss_log:

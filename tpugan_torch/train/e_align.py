@@ -1,6 +1,7 @@
 """Encoder alignment (counterpart of ``tpugan/train/e_align.py``): the
 frozen generators' synth/resynth closures (StyleGANv1, mtype 1; BigGAN,
-mtype 4), the encode closure, and the train step of cases 1 and 2.
+mtype 4), the encode closure, and the train step of cases 1 and 2 and of
+the ablation ladder.
 
 Images cross this boundary NHWC, as in ``tpugan``; the models run NCHW.
 Noise and labels are explicit everywhere: the caller draws them
@@ -100,14 +101,20 @@ def build_stylegan1_pipeline(
     lod: int,
     psi: float = 0.7,
     center: Optional[torch.Tensor] = None,
+    train: bool = False,
 ):
     """Frozen StyleGANv1 synth/resynth closures (mtype 1):
     ``w1 = Gm(z, coefs)``, ``imgs1 = Gs(w1, lod)`` and ``imgs2 = Gs(w2, lod)``.
 
     ``synth(z, noise) -> SynthBatch`` and ``resynth(w2, batch, noise) ->
-    images``, with ``noise`` as from ``gen.noise_shapes`` (or ``None``).
+    images``, with ``noise`` as from ``gen.noise_shapes`` (or ``None``). With
+    ``train`` the resynthesis records the graph back to w2, and G and the
+    mapping take no gradient (``requires_grad_(False)``); synth never does.
     """
     coefs = truncation_coefs(gm.num_layers, psi)
+    if train:
+        gen.requires_grad_(False)
+        gm.requires_grad_(False)
 
     @torch.no_grad()
     def synth(z: torch.Tensor, noise=None) -> SynthBatch:
@@ -116,11 +123,10 @@ def build_stylegan1_pipeline(
         const1 = gen.const.expand(z.shape[0], -1, -1, -1)
         return SynthBatch(w1=w1, imgs1=imgs1, const1=const1)
 
-    @torch.no_grad()
     def resynth(w2: torch.Tensor, batch: SynthBatch, noise=None) -> torch.Tensor:
         return nchw_to_nhwc(gen(w2, lod, noise))
 
-    return synth, resynth
+    return synth, (resynth if train else torch.no_grad()(resynth))
 
 
 def build_biggan_pipeline(model: BigGAN, train: bool = False):
@@ -230,6 +236,10 @@ def make_train_step(
     case: int = 1,
     lpips_fn=None,
     compute_image_losses: bool = True,
+    image_weights: Optional[tuple] = None,
+    latent_weights: Optional[tuple] = None,
+    detach_image_losses: Optional[bool] = None,
+    sequential_image_steps: bool = False,
 ):
     """Build the per-iteration train step ``step(state, iteration) ->
     (state, StepInfo)``, which updates ``state`` in place.
@@ -247,19 +257,34 @@ def make_train_step(
       iteration's initial parameters from one forward, then applied by two
       sequential optimizer updates (:364-385).
 
+    The ablation ladder (ablation_utils/1..8) sets ``image_weights=(full,
+    at1, at2)``, ``latent_weights=(w, c)`` (each scaled by 0.01) and
+    ``detach_image_losses``; ``None`` keeps the case's. With
+    ``sequential_image_steps`` (ablations 7 and 8, :339-363) a case-2 step
+    takes one gradient per loss group from the one forward, imgs, wm·AT1,
+    ws·AT2, then the latent loss, all at the iteration's initial
+    parameters, and applies them in that order, one LREQAdam update each; a
+    group of weight 0 takes none. With an adaptive optimizer that is not
+    one combined step.
+
     ``compute_image_losses=False`` is the lean case-1 step of off-tick
     iterations: no resynthesis and no image losses, their info zero; the
-    parameter trajectory is the full step's, bit for bit.
+    parameter trajectory is the full step's, bit for bit. It needs detached
+    image losses.
     """
     if case not in (1, 2):
         raise ValueError(f"case must be 1 or 2, got {case}")
-    image_weights = (1.0, 1.0, 1.0) if case == 1 else (1.0, 5.0, 9.0)
-    latent_weights = (1.0, 0.0)  # loss_c is left out in both scripts (:216)
-    detach_image_losses = case == 1
+    if image_weights is None:
+        image_weights = (1.0, 1.0, 1.0) if case == 1 else (1.0, 5.0, 9.0)
+    if latent_weights is None:
+        latent_weights = (1.0, 0.0)  # loss_c is left out in both scripts (:216)
+    if detach_image_losses is None:
+        detach_image_losses = case == 1
     if not compute_image_losses and not detach_image_losses:
         raise ValueError(
             "compute_image_losses=False needs detached (log-only) image losses; with "
-            "gradients through them (case 2) the lean step would change the trajectory"
+            "gradients through them (case 2, the ablations) the lean step would change the "
+            "trajectory"
         )
 
     def image_losses(batch: SynthBatch, w2, noise_g2):
@@ -269,45 +294,63 @@ def make_train_step(
         at1_2, at2_2 = attention_crops(imgs2)
         l_med, i_med = space_loss(at1_1, at1_2, lpips_fn=lpips_fn)
         l_small, i_small = space_loss(at2_1, at2_2, lpips_fn=lpips_fn)
-        wi, wm, ws = image_weights
-        return wi * l_imgs + wm * l_med + ws * l_small, (i_imgs, i_med, i_small)
+        return (l_imgs, l_med, l_small), (i_imgs, i_med, i_small)
 
     def losses(batch: SynthBatch, request: Request):
         const2, w2 = encode(batch, request.noise_e)
         if not compute_image_losses:
-            loss_tsa = torch.zeros((), device=w2.device)
-            infos = (zero_space_info(w2.device),) * 3
+            zero = torch.zeros((), device=w2.device)
+            parts, infos = (zero,) * 3, (zero_space_info(w2.device),) * 3
         elif detach_image_losses:
             # the reference detaches both sides of every image-space loss
             # (E_align_cropping_s1.py:185-201): log-only, no gradient
             with torch.no_grad():
-                loss_tsa, infos = image_losses(batch, w2, request.noise_g2)
+                parts, infos = image_losses(batch, w2, request.noise_g2)
         else:
-            loss_tsa, infos = image_losses(batch, w2, request.noise_g2)
+            parts, infos = image_losses(batch, w2, request.noise_g2)
+        weighted = [w * part for w, part in zip(image_weights, parts)]
+        loss_tsa = weighted[0] + weighted[1] + weighted[2]
         l_w, i_w = space_loss(batch.w1, w2, image_space=False)
-        l_c, i_c = space_loss(batch.const1, const2, image_space=False)
+        const1 = batch.const1
+        if const2.dim() == 4:
+            # feature maps enter the losses NHWC, as tpugan's do: the KL's
+            # softmax runs over the last axis of a 4-D input, the channels
+            const1, const2 = nchw_to_nhwc(const1), nchw_to_nhwc(const2)
+        l_c, i_c = space_loss(const1, const2, image_space=False)
         ww, wc = latent_weights
         loss_mtv = 0.01 * (ww * l_w + wc * l_c)
         info = StepInfo(*infos, loss_w=i_w, loss_c=i_c, loss_tsa=loss_tsa, loss_mtv=loss_mtv)
-        return loss_tsa, loss_mtv, _detached(info)
+        return loss_tsa, loss_mtv, weighted, _detached(info)
 
     def step(state: EncoderTrainState, iteration: int):
         request = draw(iteration)
         batch = synth(request)
         power_iterate(state.encoder)
         params = list(state.encoder.parameters())
-        loss_tsa, loss_mtv, info = losses(batch, request)
+        loss_tsa, loss_mtv, weighted, info = losses(batch, request)
         if case == 1:
-            state.optimizer.step(torch.autograd.grad(loss_mtv, params, allow_unused=True))
+            groups = [loss_mtv]
+        elif sequential_image_steps:
+            groups = [g for g, w in zip(weighted, image_weights) if w != 0.0] + [loss_mtv]
         else:
-            g_tsa = torch.autograd.grad(loss_tsa, params, retain_graph=True, allow_unused=True)
-            g_mtv = torch.autograd.grad(loss_mtv, params, allow_unused=True)
-            state.optimizer.step(g_tsa)
-            state.optimizer.step(g_mtv)
+            groups = [loss_tsa, loss_mtv]
+        # every gradient from the one forward, before any update moves the
+        # parameters that it saved
+        grads = [_grad(loss, params, retain=i + 1 < len(groups)) for i, loss in enumerate(groups)]
+        for g in grads:
+            state.optimizer.step(g)
         state.step += 1
         return state, info
 
     return step
+
+
+def _grad(loss: torch.Tensor, params: list, retain: bool):
+    """The gradient of ``loss`` with respect to ``params`` (None where it
+    does not reach one, and for all where the loss is detached)."""
+    if not loss.requires_grad:
+        return [None] * len(params)
+    return torch.autograd.grad(loss, params, retain_graph=retain, allow_unused=True)
 
 
 def _detached(info: StepInfo) -> StepInfo:
