@@ -55,7 +55,16 @@ Phases:
      adjoint, in total and by the TPU kernel each replaces, against counts
      derived from the modules; a case-2 step of a reduced width replayed on
      the CPU and held to a float64 run there; step times, device time by
-     kernel and peak memory.
+     kernel and peak memory;
+  9. the StyleGAN2-1024 train step of ``tpugan_torch.cli.e_align``
+     (mtype 2, full width, batch 2): case 1 and its lean step, case 2 with
+     E_Blur and ablation 8 (the plain E), with the FIR launches of each step
+     counted forward and adjoint by TPU kernel against counts derived from
+     the modules, the encoder moving and the generator frozen; every FIR of
+     a case-2 step on the step's own inputs against the plain version and
+     timed, forward and adjoint; a case-2 step at 256 px replayed on the CPU
+     and held to a float64 run there; step times, device time by kernel and
+     peak memory.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1955,6 +1964,340 @@ def sgv1_training_path(torch, dev, smi):
     return {"launches": launches, "per_step": per_step, "times": times, "replay": replay}
 
 
+# phase 9, StyleGAN2-1024 training: the forms driven (label, e_align flags);
+# ablation 8 runs on the plain E, as tpugan builds it on mtype 2
+SG2_TRAIN_FORMS = (
+    ("case 1", ("--case", "1")),
+    ("case 1 lean", ("--case", "1")),
+    ("case 2", ("--case", "2")),
+    ("ablation 8", ("--ablation", "8")),
+)
+SG2_TIMED_FORMS = ("case 1", "case 1 lean", "case 2")
+# the CPU replay of an SG2 case-2 step: bench.py's 256 preset
+# (_sg2_modules_and_vars: config F at 256 px, E_Blur at start_features 64),
+# on the card, on the CPU and on the CPU in float64, the reference; held by
+# phase 8's rule: loss_tsa within REPLAY_LOSS_RTOL of float64, every
+# gradient of the step within CPU_GPU_ATOL x max(1, max |g|), or within
+# twice the CPU fp32 run's own error, of float64, whichever is larger
+SG2_REPLAY_SIZE = 256
+SG2_REPLAY_START_FEATURES = 64
+
+
+def sg2_decode_adjoint_firs(generator):
+    """The adjoints of one StyleGAN2 decode's FIRs (:func:`sg2_decode_firs`)
+    by the TPU kernel that ``upfirdn._fir_cuda`` counts each under: up and
+    down swapped and the pads of ``upfirdn.adjoint`` at the layer's sizes.
+    The 4-tap FIR after an up-sampling conv maps the transposed conv's
+    r + k - 2 rows to the layer's r; the skip architecture's up-2 maps the
+    image's r / 2 rows to r."""
+    from tpugan_torch.models.stylegan2 import _FIR, ModulatedConv
+    from tpugan_torch.ops import upfirdn
+
+    synthesis = generator.synthesis
+    firs = []  # (channels, input side, output side, up, pads)
+    for m in synthesis.modules():
+        if isinstance(m, ModulatedConv) and m.scale_factor == 2:
+            k = m.weight.shape[-1]
+            p = _FIR.shape[0] - 1 + (2 - k)
+            firs.append((m.weight.shape[0], m.resolution + k - 2, m.resolution, 1, ((p + 1) // 2, p // 2)))
+    if synthesis.architecture == "skip":
+        outputs = [m for name, m in synthesis.named_children() if name.startswith("output")]
+        firs += [(m.weight.shape[0], m.resolution // 2, m.resolution, 2, (2, 1)) for m in outputs[1:]]
+    keys = []
+    for c, side, out, up, (p0, p1) in firs:
+        taps, a_up, a_down, (py0, py1, px0, px1) = upfirdn.adjoint(side, side, out, out, _FIR, up, 1,
+                                                                   (p0, p1, p0, p1))
+        keys.append(upfirdn.tpu_layout(c, a_up, a_down, *taps.shape, (py0, py1))
+                    if (py0, py1) == (px0, px1) else "XLA")
+    return {key: keys.count(key) for key in upfirdn.layout_launches}
+
+
+def sg2_step_firs(trainer, image_gradients, resynthesis):
+    """One StyleGAN2 train step's FIR launches by TPU kernel, forward and
+    adjoint, derived from the modules and the step's ``image_gradients``
+    (:func:`step_image_gradients`): a decode's FIRs (:func:`sg2_decode_firs`)
+    in the synthesis and, unless the step is lean, in the resynthesis, and
+    E_Blur's blur before each block's downsampling conv on the block's input
+    channels (the rule of :func:`sgv1_step_firs`); in the backward one
+    adjoint of each FIR that a gradient passes through
+    (:func:`sg2_decode_adjoint_firs` for the resynthesis): each image-loss
+    gradient passes through the resynthesis and the encoder, the latent
+    loss's gradient through the encoder alone."""
+    from tpugan_torch.ops import upfirdn
+
+    gen, enc = trainer.bundle.generator, trainer.bundle.encoder
+    decode, decode_adjoint = sg2_decode_firs(gen), sg2_decode_adjoint_firs(gen)
+    check(sum(decode.values()) == sum(decode_adjoint.values()), "a decode's FIRs and their adjoints differ in number")
+    blocks = [getattr(enc, f"block_{i}") for i in range(enc.layer_count)]
+    blurs = [upfirdn.tpu_layout(b.conv_1.weight.shape[0], 1, 1, 3, 3, (1, 1)) for b in blocks
+             if b.use_blur and b.has_last_conv and b.block_version == 2]
+    encoder = {key: blurs.count(key) for key in upfirdn.layout_launches}
+    forward = {key: decode[key] * (1 + resynthesis) + encoder[key] for key in decode}
+    adjoint = {key: image_gradients * (decode_adjoint[key] + encoder[key]) + encoder[key] for key in decode}
+    return forward, adjoint
+
+
+class FirCapture:
+    """Keeps one input of each distinct FIR launch (shape, taps, up, down,
+    pads) made while it is entered, forward and adjoint apart, with the
+    number of launches of each."""
+
+    def __init__(self):
+        from tpugan_torch.ops import upfirdn
+
+        self.upfirdn = upfirdn
+        self.firs = {}  # (direction, shape, taps bytes, up, down, pads) -> [x, taps, launches]
+        self.direction = "forward"
+
+    def __enter__(self):
+        upfirdn, fn = self.upfirdn, self.upfirdn._UpFirDn2d
+        self.real_fir, self.real_backward = upfirdn._fir_cuda, fn.backward
+
+        def fir_cuda(x, taps, up, down, pads):
+            key = (self.direction, tuple(x.shape), taps.tobytes(), up, down, tuple(pads))
+            entry = self.firs.setdefault(key, [x.detach().clone(), taps, 0])
+            entry[2] += 1
+            return self.real_fir(x, taps, up, down, pads)
+
+        def backward(ctx, g):
+            self.direction = "adjoint"
+            try:
+                return self.real_backward(ctx, g)
+            finally:
+                self.direction = "forward"
+
+        upfirdn._fir_cuda = fir_cuda
+        fn.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        self.upfirdn._fir_cuda = self.real_fir
+        self.upfirdn._UpFirDn2d.backward = staticmethod(self.real_backward)
+
+
+def sg2_step_fir_times(torch, step, state, first, bandwidth, fp32_peak):
+    """Every FIR of one step, forward and adjoint, on the step's own inputs
+    (:class:`FirCapture`): the kernel held to its plain version within
+    KERNEL_TOL and timed (``queued_ms``) beside the plain version and its
+    bound (each input read once and each output written once at the card's
+    memory rate, or the taps on real samples at its fp32 rate). Returns the
+    rows, the sums per step by direction and TPU kernel, and the max |err|."""
+    from tpugan_torch.ops import upfirdn
+
+    with FirCapture() as capture:
+        step(state, first)
+        torch.cuda.synchronize()
+    rows, sums, max_err = [], {}, 0.0
+    for (direction, shape, _, up, down, pads), (x, taps, n) in capture.firs.items():
+        py0, py1, px0, px1 = pads
+        kh, kw = taps.shape
+        key = upfirdn.tpu_layout(shape[1], up, down, kh, kw, (py0, py1)) if (py0, py1) == (px0, px1) else "XLA"
+        calls = {"ms": lambda: upfirdn._fir_cuda(x, taps, up, down, pads),
+                 "plain_ms": lambda: upfirdn._fir_plain(x, taps, up, down, pads)}
+        got, want = (fn() for fn in calls.values())
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        label = f"SG2 step FIR {direction} {list(shape)} -> {list(got.shape)} up{up} down{down} pads {list(pads)}"
+        check(got.shape == want.shape and torch.allclose(got, want, rtol=KERNEL_TOL, atol=KERNEL_TOL),
+              f"{label}: kernel disagrees with the plain version, max |err| {err:.3e}")
+        max_err = max(max_err, err)
+        nbytes = 4 * (x.numel() + got.numel())
+        flops = 2 * got.numel() * taps.size // (up * up)
+        row = {"direction": direction, "shape": list(shape), "out": list(got.shape), "up": up, "down": down,
+               "pads": list(pads), "kernel": key, "per_step": n}
+        row.update({name: queued_ms(torch, fn) for name, fn in calls.items()})
+        row["bound_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
+        row["bound_by"] = "bytes" if nbytes / bandwidth >= flops / fp32_peak else "operations"
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        part = sums.setdefault(direction, {}).setdefault(key, {"launches": 0, "ms": 0.0, "plain_ms": 0.0,
+                                                               "bound_ms": 0.0})
+        part["launches"] += n
+        for name in ("ms", "plain_ms", "bound_ms"):
+            part[name] += n * row[name]
+        say(f"{label} ({key}, x{n} a step): max |err| {err:.3e}; kernel {row['ms'] * 1e3:.2f} us, plain "
+            f"{row['plain_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us "
+            f"({row['share_of_bound'] * 100:.1f}% of it)")
+        del got, want
+    del capture
+    torch.cuda.empty_cache()
+    for direction, parts in sums.items():
+        say(f"SG2 step FIRs, {direction}, per step by TPU kernel: " + "; ".join(
+            f"{key} {p_['launches']} launches, kernel {p_['ms'] * 1e3:.2f} us, plain {p_['plain_ms'] * 1e3:.2f} "
+            f"us, bound {p_['bound_ms'] * 1e3:.2f} us" for key, p_ in sorted(parts.items())))
+    return rows, sums, max_err
+
+
+def replay_sg2_case2_on_cpu(torch, dev, e_align):
+    """One StyleGAN2 case-2 step at SG2_REPLAY_SIZE (E_Blur at
+    SG2_REPLAY_START_FEATURES) on the card, on the CPU and on the CPU in
+    float64, from the same explicit inputs (drawn on the CPU): loss_tsa and
+    both gradients of the step, held to the float64 run; the card's FIR
+    launches by TPU kernel."""
+    from tpugan_torch.cli import infer_e
+    from tpugan_torch.losses.lpips import make_lpips_fn, random_params
+    from tpugan_torch.ops import cuda, upfirdn
+    from tpugan_torch.train.e_align import info_scalars
+
+    argv = ["--mtype", "2", "--img_size", str(SG2_REPLAY_SIZE), "--start_features",
+            str(SG2_REPLAY_START_FEATURES), "--random_init", "--case", "2", "--iterations", "1",
+            "--batch_size", str(BATCH), "--seed", str(SEED)]
+    parser = e_align.make_parser()
+    probe = e_align.build_trainer(parser.parse_args(argv + ["--device", "cpu"]))
+    request = infer_e.draw_request(probe.bundle, BATCH, 0)
+    del probe
+    runs = []
+    cpu = torch.device("cpu")
+    for device, place, dtype in ((CARD, dev, torch.float32), ("cpu", cpu, torch.float32),
+                                 ("cpu", cpu, torch.float64)):
+        lpips = make_lpips_fn(random_params(torch.Generator().manual_seed(7)).to(place, dtype))
+        req = request.to(place)
+        req = req._replace(z=req.z.to(dtype), noise_e=[tuple(n.to(dtype) for n in b) for b in req.noise_e])
+        trainer = e_align.build_trainer(parser.parse_args(argv + ["--device", device]), lpips,
+                                        draw=lambda it, r=req: r)
+        for module in (trainer.bundle.generator, trainer.bundle.encoder):
+            module.to(dtype)
+        names = [n for n, _ in trainer.state.encoder.named_parameters()]
+        grads = []
+        opt_step = trainer.state.optimizer.step
+        trainer.state.optimizer.step = lambda g=None: (grads.append(g), opt_step(g))
+        cuda.reset_launches()
+        upfirdn.reset_layout_launches()
+        t0 = time.perf_counter()
+        _, info = trainer.step(trainer.state, 0)
+        if device == CARD:
+            torch.cuda.synchronize()
+            layouts = dict(upfirdn.layout_launches)
+            check(layouts["B1"] > 0 and layouts["B2"] > 0, f"the replay's FIR launches {layouts} miss B1 or B2")
+        else:
+            check(not any(cuda.launches.values()), "the CPU replay launched a kernel")
+        seconds = time.perf_counter() - t0
+        check(len(grads) == 2, f"a case-2 step took {len(grads)} updates")
+        runs.append((info_scalars(info)["loss_tsa"],
+                     [[g_.detach().double().cpu() for g_ in g] for g in grads], seconds))
+        del trainer
+    (loss_g, grads_g, sec_g), (loss_c, grads_c, sec_c), (loss_r, grads_r, sec_r) = runs
+    say(f"replay of an SG2 case-2 step: StyleGAN2-{SG2_REPLAY_SIZE} config F, E_Blur at start_features "
+        f"{SG2_REPLAY_START_FEATURES}, batch {BATCH}, random LPIPS; FIR launches on the card {layouts}; "
+        f"{sec_g:.2f} s on the card (first call), {sec_c:.2f} s on the CPU, {sec_r:.2f} s on the CPU in float64")
+    scale = max(r.abs().max().item() for g in grads_r for r in g)
+    errs = {}
+    for label, loss, grads in (("cuda", loss_g, grads_g), ("cpu fp32", loss_c, grads_c)):
+        worst = max((((a - r).abs().max().item()), f"gradient {k} of {names[i]}")
+                    for k, (ga, gr) in enumerate(zip(grads, grads_r))
+                    for i, (a, r) in enumerate(zip(ga, gr)))
+        errs[label] = (abs(loss - loss_r) / abs(loss_r), worst[0])
+        say(f"  {label} vs cpu float64: loss_tsa {loss:.6f} against {loss_r:.6f} (rel err "
+            f"{errs[label][0]:.3e}, limit {REPLAY_LOSS_RTOL:g}); gradients max |err| {worst[0]:.3e} (at "
+            f"{worst[1]}) against max |g| {scale:.3e}")
+    limit = max(CPU_GPU_ATOL * max(1.0, scale), 2 * errs["cpu fp32"][1])
+    check(math.isfinite(loss_r) and errs["cuda"][0] <= REPLAY_LOSS_RTOL, "the replayed SG2 loss_tsa disagrees")
+    check(scale > 0 and errs["cuda"][1] <= limit,
+          f"the card's SG2 step gradients are {errs['cuda'][1]:.3e} from float64, over {limit:.3e}")
+    say(f"  the card's gradients within {limit:.3e} of float64 (CPU_GPU_ATOL {CPU_GPU_ATOL:g} x max(1, max |g|), "
+        "or twice the CPU fp32 run's own error)")
+    return {"loss_rel_err": errs["cuda"][0], "grad_max_abs_err": errs["cuda"][1], "limit": limit,
+            "cpu_fp32_grad_max_abs_err": errs["cpu fp32"][1], "grad_scale": scale, "launches": layouts}
+
+
+def sg2_training_path(torch, dev, smi, bandwidth, fp32_peak):
+    """Phase 9: ``e_align --mtype 2 --img_size 1024 --start_features 16``'s
+    train step at full width, batch 2, random weights from the seed: case 1
+    and its lean step, case 2 (E_Blur) and ablation 8 (the plain E), with
+    their FIR launches per step, forward and adjoint, by TPU kernel, against
+    the counts derived from the modules; every FIR of a case-2 step on its
+    own inputs against the plain version, timed; a case-2 step replayed on
+    the CPU; step times, device time by kernel and peak memory. Returns the
+    FIR launches of the counted steps, the rows and the replay."""
+    from tpugan_torch.cli import e_align
+    from tpugan_torch.losses.lpips import random_lpips_fn
+    from tpugan_torch.ops import cuda, upfirdn
+    from tpugan_torch.train.e_align import info_scalars
+
+    parser = e_align.make_parser()
+    argv = ["--mtype", "2", "--img_size", str(SG2_SIZE), "--start_features", str(SG2_START_FEATURES),
+            "--random_init", "--iterations", "1000", "--batch_size", str(BATCH), "--seed", str(SEED),
+            "--device", CARD]
+    lpips = random_lpips_fn(dev)
+    launches, per_step, times, firs = 0, {}, {}, None
+    trainer = None
+    for label, flags in SG2_TRAIN_FORMS:
+        lean = label == "case 1 lean"  # case 1's trainer's off-tick step
+        args = parser.parse_args(argv + list(flags))
+        if not lean:
+            del trainer
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            trainer = e_align.build_trainer(args, lpips)
+            torch.cuda.synchronize()
+            enc = trainer.state.encoder
+            say(f"trainer: mtype 2, {label} ({' '.join(flags)}), StyleGAN2-{SG2_SIZE} config F frozen + "
+                f"{'E_Blur' if enc.block_0.use_blur else 'E'} (startf {SG2_START_FEATURES}, layer_count "
+                f"{enc.layer_count}) training, built in {time.perf_counter() - t0:.2f} s")
+        step = trainer.lean if lean else trainer.step
+        check(step is not None, f"SG2 {label}: no step")
+        state = trainer.state
+        frozen = list(trainer.bundle.generator.parameters())
+        frozen0 = [p.detach().clone() for p in frozen]
+        params0 = {n: p.detach().clone() for n, p in state.encoder.named_parameters()}
+        fwd_want, adj_want = sg2_step_firs(trainer, step_image_gradients(e_align, args), not lean)
+
+        # the main path: launches counted from 0
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launches()
+        upfirdn.reset_layout_launches()
+        with AdjointCount() as adjoint:
+            for it in range(TRAIN_STEPS):
+                _, info = step(state, it)
+                scalars = info_scalars(info)
+                check(all(math.isfinite(x) for x in scalars.values()), f"SG2 {label} step {it}: a loss is not finite")
+            torch.cuda.synchronize()
+        counted = dict(cuda.launches)
+        total = dict(upfirdn.layout_launches)
+        adj = dict(adjoint.counts)
+        fwd = {key: total[key] - adj[key] for key in total}
+        n_firs = sum(fwd_want.values()) + sum(adj_want.values())
+        check(counted == expected_launches(upfirdn2d=n_firs * TRAIN_STEPS),
+              f"SG2 {label}: launches {counted}, expected {n_firs * TRAIN_STEPS} upfirdn2d and no attention")
+        want_fwd = {key: n * TRAIN_STEPS for key, n in fwd_want.items()}
+        want_adj = {key: n * TRAIN_STEPS for key, n in adj_want.items()}
+        check(fwd == want_fwd and adj == want_adj, f"SG2 {label}: FIR launches forward {fwd}, adjoint {adj}; "
+              f"derived from the modules: forward {want_fwd}, adjoint {want_adj}")
+        launches += counted["upfirdn2d"]
+        per_step[label] = {"forward": fwd_want, "adjoint": adj_want}
+        moved = sum(not torch.equal(p, params0[n]) for n, p in state.encoder.named_parameters())
+        check(moved > 0 and all(bool(torch.isfinite(p).all()) for p in state.encoder.parameters()),
+              f"SG2 {label}: the encoder did not train, or is not finite")
+        check(all(torch.equal(a, b) and a.grad is None for a, b in zip(frozen, frozen0)),
+              f"SG2 {label}: the frozen generator moved")
+        say(f"SG2 {label} path: {TRAIN_STEPS} steps, launches {counted}; per step FIR forward {fwd_want}, "
+            f"adjoint {adj_want}, as derived from the modules; loss_tsa {scalars['loss_tsa']:.4f}, loss_mtv "
+            f"{scalars['loss_mtv']:.4f}; {moved} of {len(params0)} encoder parameters moved, the generator "
+            f"did not; peak device memory over the counted steps "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        if label == "case 2":
+            say(f"SG2 case-2 step FIRs below, on the step's own inputs: {smi}; device times from CUDA events "
+                "around 20 calls queued behind a device-side sleep")
+            firs = sg2_step_fir_times(torch, step, state, 50, bandwidth, fp32_peak)
+        if label in SG2_TIMED_FORMS:
+            say(f"SG2 training times below: {smi}; step times from the host clock, device times from "
+                "torch.profiler")
+            median = step_times(torch, step, state, f"SG2 {label}, fp32, TF32 off", 100)
+            try:
+                dev_time = step_device_time(torch, step, state, median, 200, symbols=("upfirdn2d_kernel",))
+            except RuntimeError as missed:  # device_kernels: three traces saw no device time
+                say(f"device time per SG2 {label} step: not measured ({missed})")
+                dev_time = None
+            times[label] = {"median_ms": median, **(dev_time or {})}
+    del trainer
+    torch.cuda.empty_cache()
+    check(firs is not None, "no SG2 case-2 step was timed")
+    rows, sums, max_err = firs
+    replay = replay_sg2_case2_on_cpu(torch, dev, e_align)
+    return {"launches": launches, "per_step": per_step, "times": times, "fir_rows": rows, "fir_sums": sums,
+            "max_abs_err": max_err, "replay": replay}
+
+
 def main() -> int:
     import torch
 
@@ -1966,6 +2309,7 @@ def main() -> int:
     from tpugan_torch.ops import cuda, upfirdn
     from tpugan_torch.runtime import parity_mode
 
+    start = time.perf_counter()
     dev = torch.device(CARD)
     # ---- 1. the card and the build ----------------------------------------
     smi = subprocess.run(
@@ -2065,6 +2409,10 @@ def main() -> int:
     attn_bwd = training_path(torch, dev, smi)
     sg2 = sg2_serving_path(torch, dev, parser, smi, bandwidth, fp32_peak)
     sgv1_train = sgv1_training_path(torch, dev, smi)
+    t0 = time.perf_counter()
+    sg2_train = sg2_training_path(torch, dev, smi, bandwidth, fp32_peak)
+    say(f"phase 9 (StyleGAN2-{SG2_SIZE} training) took {time.perf_counter() - t0:.1f} s; the script "
+        f"{time.perf_counter() - start:.1f} s")
 
     say(f"card: {smi}")
     say(json.dumps({"kernels": [{
@@ -2073,11 +2421,12 @@ def main() -> int:
         "source": "tpugan_torch/csrc/upfirdn2d.cu",
         "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas); "
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c)",
-        "launches": launches["upfirdn2d"] + sg2["launches"] + sgv1_train["launches"],
+        "launches": launches["upfirdn2d"] + sg2["launches"] + sgv1_train["launches"] + sg2_train["launches"],
         "launches_by_path": {"SGv1 Cat256 serving": launches["upfirdn2d"],
                              f"StyleGAN2-{SG2_SIZE} serving": sg2["launches"],
-                             "SGv1 Cat256 training": sgv1_train["launches"]},
-        "max_abs_err": max(fir_err, adjoint_err, sg2["max_abs_err"]),
+                             "SGv1 Cat256 training": sgv1_train["launches"],
+                             f"StyleGAN2-{SG2_SIZE} training": sg2_train["launches"]},
+        "max_abs_err": max(fir_err, adjoint_err, sg2["max_abs_err"], sg2_train["max_abs_err"]),
         **fir,
         "gradient_path_launches": grad_launches,
         "adjoint": adjoint_rows,
@@ -2091,6 +2440,15 @@ def main() -> int:
                                                    f"over {TRAIN_STEPS} steps and derived from the modules",
                           "per_step": sgv1_train["per_step"], "times": sgv1_train["times"],
                           "replay": sgv1_train["replay"]},
+        "sg2_training": {"launches_per_step_are": f"FIR launches of one step at batch {BATCH}, by the TPU "
+                                                  "kernel each replaces, forward and adjoint, as counted "
+                                                  f"over {TRAIN_STEPS} steps and derived from the modules",
+                         "per_step": sg2_train["per_step"], "times": sg2_train["times"],
+                         "fir_times_are": "every FIR of one case-2 step on the step's own inputs, device "
+                                          "times from CUDA events around 20 calls queued behind a "
+                                          "device-side sleep (queued_ms), summed per step",
+                         "fir_per_step": sg2_train["fir_sums"], "fir_rows": sg2_train["fir_rows"],
+                         "replay": sg2_train["replay"]},
     }, {
         "name": "sagan_attention",
         "route": "cuda",

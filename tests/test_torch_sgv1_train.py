@@ -580,9 +580,9 @@ def test_cli_has_no_lean_step_where_images_train(extra):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (("--bf16",), "slice 3"),
-    (("--remat",), "slice 3"),
-    (("--remat_policy", "conv_outs"), "slice 3"),
+    (("--bf16",), "A2"),
+    (("--remat",), "A3"),
+    (("--remat_policy", "conv_outs"), "A3"),
     (("--resume",), "slice 7"),
     (("--iterations", "6", "--checkpoint_every", "5"), "slice 7"),
 ])

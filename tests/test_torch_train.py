@@ -303,10 +303,9 @@ def test_cli_lean_steps_leave_the_trajectory_alone(tmp_path):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (("--mtype", "2"), NotImplementedError, "slice 3's training half"),
-    (("--bf16",), NotImplementedError, "slice 3"),
-    (("--remat",), NotImplementedError, "slice 3"),
-    (("--remat_policy", "conv_outs"), NotImplementedError, "slice 3"),
+    (("--bf16",), NotImplementedError, "A2"),
+    (("--remat",), NotImplementedError, "A3"),
+    (("--remat_policy", "conv_outs"), NotImplementedError, "A3"),
     (("--resume",), NotImplementedError, "slice 7"),
     (("--iterations", "6", "--checkpoint_every", "5"), NotImplementedError, "slice 7"),
     (("--lpips_weights", "lpips.pth"), NotImplementedError, "slice 7"),
@@ -321,6 +320,16 @@ def test_cli_trains_mtype_1_which_slice_2_brought(tmp_path):
     holds it to tpugan)."""
     cuda.reset_launches()
     e_align.main(_tiny_argv(tmp_path, "--iterations", "1", "--mtype", "1", "--start_features", "64"))
+    records = [json.loads(line) for line in (tmp_path / "out" / "Loss.txt").read_text().splitlines()]
+    assert [r["iteration"] for r in records] == [0] and np.isfinite(records[0]["loss_mtv"])
+    assert not any(cuda.launches.values())
+
+
+def test_cli_trains_mtype_2_which_slice_3_brought(tmp_path):
+    """--mtype 2, refused until slice 3's training half, now trains
+    (tests/test_torch_sg2_train.py holds it to tpugan)."""
+    cuda.reset_launches()
+    e_align.main(_tiny_argv(tmp_path, "--iterations", "1", "--mtype", "2", "--start_features", "64"))
     records = [json.loads(line) for line in (tmp_path / "out" / "Loss.txt").read_text().splitlines()]
     assert [r["iteration"] for r in records] == [0] and np.isfinite(records[0]["loss_mtv"])
     assert not any(cuda.launches.values())

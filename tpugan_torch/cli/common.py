@@ -158,34 +158,19 @@ def build_bundle(args) -> GanBundle:
 def _build_stylegan2_bundle(args, layer_count: int, g: torch.Generator,
                             device: torch.device) -> GanBundle:
     """StyleGAN2 config F at ``--img_size`` (``tpugan/cli/common.py:160-209``)
-    and the case-1 encoder. ``synth(z)`` truncates at psi 0.7 in the first
-    8 layers and ``resynth(w2)`` runs the synthesis alone, both on the noise
-    buffers, as ``tpugan``'s closures do."""
+    and E, or E_Blur in case 2. ``synth(z)`` truncates at psi 0.7 in the
+    first 8 layers and ``resynth(w2)`` runs the synthesis alone, both on the
+    noise buffers, as ``tpugan``'s closures do
+    (:func:`~tpugan_torch.train.e_align.build_stylegan2_pipeline`)."""
     from tpugan_torch.models import Encoder, StyleGAN2Generator
-    from tpugan_torch.train.e_align import SynthBatch, make_encode_fn, nchw_to_nhwc
+    from tpugan_torch.train.e_align import build_stylegan2_pipeline, make_encode_fn
 
     gen = StyleGAN2Generator(resolution=args.img_size, generator=g).to(device)
     enc = Encoder(
         startf=args.start_features, maxf=512, layer_count=layer_count, latent_size=512,
         use_blur=getattr(args, "case", 1) == 2, generator=g,
     ).to(device)
-
-    def buffers_only(noise):
-        if noise is not None:
-            raise ValueError("StyleGAN2 reads its noise buffers: pass noise=None")
-
-    @torch.no_grad()
-    def synth(z: torch.Tensor, noise=None) -> SynthBatch:
-        buffers_only(noise)
-        out = gen(z, trunc_psi=0.7, trunc_layers=8)
-        const1 = gen.synthesis.const.expand(z.shape[0], -1, -1, -1)
-        return SynthBatch(w1=out["wp"], imgs1=nchw_to_nhwc(out["image"]), const1=const1)
-
-    @torch.no_grad()
-    def resynth(w2: torch.Tensor, batch=None, noise=None) -> torch.Tensor:
-        buffers_only(noise)
-        return nchw_to_nhwc(gen.synthesize(w2)["image"])
-
+    synth, resynth = build_stylegan2_pipeline(gen)
     return GanBundle(
         synth, resynth, make_encode_fn(enc), enc, 512, layer_count, 2 * layer_count, gen, device,
         args.img_size, mtype=2,

@@ -1,24 +1,27 @@
 """Aligned encoder training (counterpart of ``tpugan/cli/e_align.py``;
 E_align_cropping_s1.py / E_align_s2.py).
 
-``python -m tpugan_torch.cli.e_align --mtype 1 --img_size 256
---start_features 64 --random_init --case {1,2} [--ablation n]`` trains
-StyleGANv1 Cat256's encoder (E in case 1, E_Blur in case 2, the ladder's
-encoder with ``--ablation``) against the frozen generator; ``--mtype 4
---img_size 256 --start_features 64 --z_dim 128`` trains E_BIG against a
-frozen BigGAN-deep-256. Case 1 logs its image losses without gradient and,
-unless ``--eager_metrics``, skips them on off-tick iterations (the lean
-step); case 2 trains through them. ``--ablation n`` (ablation_utils/1..8)
-forces case 2 and sets the loss weights; ablation 1 (StyleGANv1 only)
-encodes z and re-maps it to w+ through the frozen mapping, and ablations 7
-and 8 take one update per loss group. Every ``--log_every`` iterations a
-JSON record goes to stdout and ``Loss.txt``, and a grid of imgs1 over imgs2
-to ``imgs/``.
+``python -m tpugan_torch.cli.e_align --mtype 2 --img_size 1024
+--start_features 16 --random_init --case {1,2} [--ablation n]`` (tpugan's
+default command) trains the encoder (E in case 1, E_Blur in case 2) against
+a frozen StyleGAN2-1024, config F, on its noise buffers; ``--mtype 1
+--img_size 256 --start_features 64`` trains StyleGANv1 Cat256's encoder (E
+in case 1, E_Blur in case 2, the ladder's encoder with ``--ablation``), and
+``--mtype 4 --img_size 256 --start_features 64 --z_dim 128`` trains E_BIG
+against a frozen BigGAN-deep-256. Case 1 logs its image losses without
+gradient and, unless ``--eager_metrics``, skips them on off-tick iterations
+(the lean step); case 2 trains through them. ``--ablation n``
+(ablation_utils/1..8) forces case 2 and sets the loss weights; ablation 1
+(StyleGANv1 only) encodes z and re-maps it to w+ through the frozen
+mapping, and ablations 7 and 8 take one update per loss group. On mtypes 2
+and 4 the ladder's weights apply to the usual encoder, as in ``tpugan``.
+Every ``--log_every`` iterations a JSON record goes to stdout and
+``Loss.txt``, and a grid of imgs1 over imgs2 to ``imgs/``.
 
 :func:`build_trainer` makes the state and the step functions; ``main``
-loops and writes. What later slices bring raises :class:`NotImplementedError`
-naming the ROADMAP slice: ``--mtype 2`` training, ``--bf16``, ``--remat``
-and ``--remat_policy`` (slice 3), and ``--resume`` and checkpoints (slice 7).
+loops and writes. What later work brings raises :class:`NotImplementedError`
+naming its ROADMAP item: ``--bf16`` (A2), ``--remat`` and ``--remat_policy``
+(A3), and ``--resume`` and checkpoints (slice 7).
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from tpugan_torch.train.e_align import (
     EncoderTrainState,
     build_biggan_pipeline,
     build_stylegan1_pipeline,
+    build_stylegan2_pipeline,
     info_scalars,
     init_train_state,
     make_align_visuals,
@@ -98,15 +102,10 @@ def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
     ``args.device``, from random weights seeded by ``args.seed``. ``draw(
     iteration) -> Request`` replaces the iteration's seeded draws (a replay
     of given inputs)."""
-    if args.mtype == 2:
-        raise NotImplementedError(
-            "e_align --mtype 2: StyleGAN2 training comes with ROADMAP slice 3's training half "
-            "(e_align --mtype 2, remat, bf16); infer_e --mtype 2 serves it"
-        )
     if args.bf16:
-        raise NotImplementedError("--bf16 comes with ROADMAP slice 3 (precision)")
+        raise NotImplementedError("--bf16 comes with ROADMAP A2 (bf16, with B1/B2's bf16 form)")
     if args.remat or args.remat_policy is not None:
-        raise NotImplementedError("--remat and --remat_policy come with ROADMAP slice 3")
+        raise NotImplementedError("--remat and --remat_policy come with ROADMAP A3 (remat)")
     if args.resume:
         raise NotImplementedError("--resume comes with ROADMAP slice 7 (io/checkpoint)")
     if args.iterations > args.checkpoint_every:
@@ -125,6 +124,12 @@ def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
 
         def synth(request):
             return synth_fn(request.z, request.label)
+    elif args.mtype == 2:
+        synth_fn, resynth = build_stylegan2_pipeline(bundle.generator, train=True)
+        encode = make_encode_fn(bundle.encoder, train=True)
+
+        def synth(request):
+            return synth_fn(request.z)
     else:
         synth_fn, resynth = build_stylegan1_pipeline(
             bundle.generator, bundle.mapping, bundle.layer_count - 1, train=True)

@@ -1,7 +1,7 @@
 """Encoder alignment (counterpart of ``tpugan/train/e_align.py``): the
-frozen generators' synth/resynth closures (StyleGANv1, mtype 1; BigGAN,
-mtype 4), the encode closure, and the train step of cases 1 and 2 and of
-the ablation ladder.
+frozen generators' synth/resynth closures (StyleGANv1, mtype 1; StyleGAN2,
+mtype 2; BigGAN, mtype 4), the encode closure, and the train step of cases
+1 and 2 and of the ablation ladder.
 
 Images cross this boundary NHWC, as in ``tpugan``; the models run NCHW.
 Noise and labels are explicit everywhere: the caller draws them
@@ -25,6 +25,7 @@ import torch
 from tpugan_torch.losses.space_loss import SpaceLossInfo, space_loss, zero_space_info
 from tpugan_torch.models.biggan import BigGAN
 from tpugan_torch.models.stylegan1 import StyleGANv1Generator, StyleGANv1Mapping, truncation_coefs
+from tpugan_torch.models.stylegan2 import StyleGAN2Generator
 from tpugan_torch.nn.spectral import SNDense, power_iterate
 from tpugan_torch.optim.lreq_adam import LREQAdam
 from tpugan_torch.utils import iteration_generator, one_hot, truncated_noise_sample
@@ -125,6 +126,39 @@ def build_stylegan1_pipeline(
 
     def resynth(w2: torch.Tensor, batch: SynthBatch, noise=None) -> torch.Tensor:
         return nchw_to_nhwc(gen(w2, lod, noise))
+
+    return synth, (resynth if train else torch.no_grad()(resynth))
+
+
+def build_stylegan2_pipeline(gen: StyleGAN2Generator, train: bool = False):
+    """Frozen StyleGAN2 synth/resynth closures (mtype 2, as
+    ``tpugan/cli/common.py:184-192``): ``imgs1 = G(z)`` truncated at psi 0.7
+    in the first 8 layers, ``const1`` the synthesis const expanded to the
+    batch, and ``imgs2 = G.synthesize(w2)``.
+
+    ``synth(z, noise=None) -> SynthBatch`` and ``resynth(w2, batch=None,
+    noise=None) -> images``; both read the generator's noise buffers, so any
+    other ``noise`` raises. With ``train`` the resynthesis records the graph
+    back to w2 and G takes no gradient (``requires_grad_(False)``); synth
+    never does.
+    """
+    if train:
+        gen.requires_grad_(False)
+
+    def buffers_only(noise):
+        if noise is not None:
+            raise ValueError("StyleGAN2 reads its noise buffers: pass noise=None")
+
+    @torch.no_grad()
+    def synth(z: torch.Tensor, noise=None) -> SynthBatch:
+        buffers_only(noise)
+        out = gen(z, trunc_psi=0.7, trunc_layers=8)
+        const1 = gen.synthesis.const.expand(z.shape[0], -1, -1, -1)
+        return SynthBatch(w1=out["wp"], imgs1=nchw_to_nhwc(out["image"]), const1=const1)
+
+    def resynth(w2: torch.Tensor, batch=None, noise=None) -> torch.Tensor:
+        buffers_only(noise)
+        return nchw_to_nhwc(gen.synthesize(w2)["image"])
 
     return synth, (resynth if train else torch.no_grad()(resynth))
 
