@@ -64,7 +64,22 @@ Phases:
      a case-2 step on the step's own inputs against the plain version and
      timed, forward and adjoint; a case-2 step at 256 px replayed on the CPU
      and held to a float64 run there; step times, device time by kernel and
-     peak memory.
+     peak memory;
+ 10. bf16, ``e_align --bf16`` (tpugan's bf16 scheme): the FIR kernel's bf16
+     form at phase 2's cases, forward and adjoint, within one bf16 ulp of
+     its plain version and bitwise the fp32 kernel rounded to bf16; the
+     StyleGAN2-1024 train step (case 2, case 1, lean, ablation 8) and SGv1
+     Cat256's (case 2, ablation 8) in bf16 with the FIR launches of each
+     step, forward and adjoint by TPU kernel, all on the bf16 form, against
+     the counts derived from the modules; the encoder moving on fp32 master
+     parameters, the bf16 generator frozen; every FIR of each case-2 step on
+     its own inputs held to the plain version and the fp32 kernel and timed
+     beside them, a bf16 library call and the bound; step times, device time
+     by kernel (bf16 convolutions, the FIR) and peak memory beside the fp32
+     steps of phases 8 and 9; ten case-2 steps at tpugan's bf16 gate
+     configuration and full-width request images held to a CPU replay, the
+     first full-width step to tpugan's 3%, tpugan's other bf16 gates
+     printed.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -881,11 +896,12 @@ def attention_times(torch, dev, gen, bandwidth, fp32_peak, tf32_peak):
     return b3, b4
 
 
-def step_times(torch, step, state, label, first):
-    """Host-clock time of TIMED_STEPS train steps, each ending in a
-    synchronize, after two warm-up steps; returns the median (ms)."""
+def step_times(torch, step, state, label, first, steps=None):
+    """Host-clock time of ``steps`` (TIMED_STEPS unless given) train steps,
+    each ending in a synchronize, after two warm-up steps; returns the
+    median (ms)."""
     lat = []
-    for i in range(TIMED_STEPS + 2):
+    for i in range((steps or TIMED_STEPS) + 2):
         t0 = time.perf_counter()
         step(state, first + i)
         torch.cuda.synchronize()
@@ -897,12 +913,13 @@ def step_times(torch, step, state, label, first):
 
 
 def step_device_time(torch, step, state, median, first,
-                     symbols=("sagan_attention_kernel",) + B4_SYMBOLS):
-    """A step's device time by kernel (torch.profiler over 3 steps), the
-    share of the kernels whose symbols contain ``symbols`` (B3/B4 unless
-    given), and the step's peak device memory."""
+                     symbols=("sagan_attention_kernel",) + B4_SYMBOLS, keep_kernels=False, iters=3):
+    """A step's device time by kernel (torch.profiler over ``iters``
+    steps), the share of the kernels whose symbols contain ``symbols``
+    (B3/B4 unless given), and the step's peak device memory; with
+    ``keep_kernels`` also every kernel's time and count per step by name."""
     it = iter(range(first, first + 100))
-    kernels = device_kernels(torch, lambda: step(state, next(it)), iters=3)
+    kernels = device_kernels(torch, lambda: step(state, next(it)), iters=iters)
     busy = sum(ms for ms, _ in kernels.values())
     say(f"device time per step {busy:.3f} ms over {sum(n for _, n in kernels.values()):.0f} kernels "
         f"and copies = {busy / median * 100:.1f}% of the median step time; by name:")
@@ -918,7 +935,10 @@ def step_device_time(torch, step, state, median, first,
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2**20
     say(f"peak device memory of a step: {peak:.1f} MiB")
-    return {"device_ms": busy, "kernel_ms": shares, "peak_mib": peak}
+    out = {"device_ms": busy, "kernel_ms": shares, "peak_mib": peak}
+    if keep_kernels:
+        out["kernels"] = kernels
+    return out
 
 
 def encoder_snapshot(encoder):
@@ -1142,6 +1162,21 @@ def training_path(torch, dev, smi):
     return {"launches": b4_launches, "max_abs_err": bwd_err}
 
 
+def contract_cases():
+    """The FIR cases held to the plain version: the path's blurs, the Pallas
+    kernels' contract cases, the rest of the kernel's contract, the tiled
+    design's edges and slice 3's FIRs, as (label, up, down, taps, pad, NHWC
+    shape, gain)."""
+    cases = [(f"blur {c}x{r}x{r}", 1, 1, (1, 2, 1), (1, 1), (BATCH, r, r, c), 1.0)
+             for c, r in PATH_BLURS]
+    cases += [(f"B1 up{u} down{d}", u, d, t, p, s, 1.0) for u, d, t, p, s in B1_CASES]
+    cases += [("B2", 1, 1, t, p, s, 1.0) for t, p, s in B2_CASES]
+    cases += [(f"up{u} down{d} gain{g:g}", u, d, t, p, s, g) for u, d, t, p, s, g in EXTRA_CASES]
+    cases += list(TILE_CASES)
+    cases += [(label, u, d, t, p, (n, h, w, c), g) for label, u, d, t, p, (n, c, h, w), g in SLICE3_FIRS]
+    return cases
+
+
 def fir_parity(torch, dev, gen):
     """The FIR kernel against its plain version on the path's blurs, the
     Pallas kernels' contract cases, the tiled design's edges and slice 3's
@@ -1150,13 +1185,7 @@ def fir_parity(torch, dev, gen):
     from tpugan_torch.ops import cuda, upfirdn
     from tpugan_torch.ops.upfirdn import setup_fir_kernel, upfirdn2d_cuda, upfirdn2d_plain
 
-    cases = [(f"blur {c}x{r}x{r}", 1, 1, (1, 2, 1), (1, 1), (BATCH, r, r, c), 1.0)
-             for c, r in PATH_BLURS]
-    cases += [(f"B1 up{u} down{d}", u, d, t, p, s, 1.0) for u, d, t, p, s in B1_CASES]
-    cases += [("B2", 1, 1, t, p, s, 1.0) for t, p, s in B2_CASES]
-    cases += [(f"up{u} down{d} gain{g:g}", u, d, t, p, s, g) for u, d, t, p, s, g in EXTRA_CASES]
-    cases += list(TILE_CASES)
-    cases += [(label, u, d, t, p, (n, h, w, c), g) for label, u, d, t, p, (n, c, h, w), g in SLICE3_FIRS]
+    cases = contract_cases()
     max_err = 0.0
     cuda.reset_launches()
     for label, up, down, taps, pad, (n, h, w, c), gain in cases:
@@ -1346,13 +1375,14 @@ def sgv1_gradient(torch, dev, parser, argv):
 
 
 def launch_plan(torch, x, y, taps, up, down, pad0, plan):
-    """The FIR kernel's C entry point on ``plan`` (an int array), uncounted:
-    for plans that upfirdn2d_cuda would not make. Returns its cudaError."""
-    from tpugan_torch.ops import cuda
+    """The FIR kernel's C entry point of x's dtype on ``plan`` (an int
+    array), uncounted: for plans that upfirdn2d_cuda would not make.
+    Returns its cudaError."""
+    from tpugan_torch.ops import cuda, upfirdn
 
     n, c, h, w = x.shape
     kh, kw = taps.shape
-    return cuda.kernel("upfirdn2d")(
+    return cuda.kernel(upfirdn.KERNEL_OF_DTYPE[x.dtype])(
         x.data_ptr(), y.data_ptr(), n * c, h, w, y.shape[2], y.shape[3], up, down, pad0, kh, kw,
         taps.ctypes.data, plan.ctypes.data, x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
 
@@ -2298,6 +2328,562 @@ def sg2_training_path(torch, dev, smi, bandwidth, fp32_peak):
             "max_abs_err": max_err, "replay": replay}
 
 
+# phase 10, bf16 (e_align --bf16, tpugan/precision.py): the forms driven
+# (label, mtype, e_align flags); SG2-1024 as phase 9, SGv1 Cat256 as phase 8
+BF16_TRAIN_FORMS = (
+    ("SG2 case 2", "2", ("--case", "2")),
+    ("SG2 case 1", "2", ("--case", "1")),
+    ("SG2 case 1 lean", "2", ("--case", "1")),
+    ("SG2 ablation 8", "2", ("--ablation", "8")),
+    ("SGv1 case 2", "1", ("--case", "2")),
+    ("SGv1 ablation 8", "1", ("--ablation", "8")),
+)
+# bf16's checks beside its kernel's. The step is held as the other paths
+# are, to a replay on the CPU, where the plain versions run: at tpugan's
+# gate configuration (tests/test_bf16.py's _sg2_setup: StyleGAN2 at 64 px,
+# fmaps_base 1024, fmaps_max 64; E_Blur startf 16, maxf 64, 5 blocks;
+# random weights from the seed; the iterations' draws made on the CPU; no
+# LPIPS) ten case-2 steps in fp32 and bf16 on the card and on the CPU: the
+# card's fp32 loss_tsa within REPLAY_LOSS_RTOL of the CPU's at the first
+# step, and the card's bf16 trajectory no farther from the CPU's fp32 one,
+# at its farthest step, than twice the CPU's bf16 trajectory is (the rule
+# of tests/test_torch_bf16.py against tpugan). A request's imgs1 at full
+# width (SG2-1024 and SGv1 Cat256, drawn on the CPU) likewise: the card's
+# fp32 within CPU_GPU_ATOL x max(1, max |ref|) of the CPU's, the card's
+# bf16 within twice the CPU's bf16 distance from the CPU's fp32. tpugan's
+# gate at full width (the CLI's trainers from one seed, the same draws):
+# the first case-2 step's loss_tsa within 3% of fp32
+# (test_bf16_case2_train_step_close). tpugan's other gates are printed,
+# held or not: its trajectory gate (test_bf16_training_trajectory_close:
+# ten steps within 5%, the first within 3%) at both sizes, beside a second
+# fp32 run, a TF32 one and each bf16 step taken from the fp32 run's
+# parameters, and its image gates (imgs1 within 0.05 of the fp32 images'
+# max |value| for SG2, test_bf16_sg2_image_close, and 0.08 for SGv1,
+# test_bf16_sg1_pipeline_runs). Written as checks, they failed: the
+# trajectory at full width (6.6% at step 3; 5.1% at step 2 from the same
+# parameters) and at the gate configuration with draws made on the card
+# (3.5% at the first step), SGv1 Cat256's imgs1 (0.099); the same inputs in
+# bf16 leave fp32 alike on the card and on the CPU, and tpugan's own bf16
+# leaves fp32 by 11.6% (ten steps) and 0.088 (SGv1 images) at its tests'
+# sizes with the constant leaves drawn (PERF.md;
+# tests/test_torch_bf16.py).
+BF16_GATE_STEPS = 10
+BF16_LOSS_RTOL = 0.05
+BF16_STEP_LOSS_RTOL = 0.03
+BF16_GATE_SG2 = dict(resolution=64, fmaps_base=1024, fmaps_max=64)
+BF16_GATE_ENCODER = dict(startf=16, maxf=64, layer_count=5, latent_size=512, use_blur=True)
+BF16_TIMED_STEPS = 6  # host-clock steps of each bf16 form, after 2 warm-up steps
+BF16_PROFILED_STEPS = 1  # steps of each bf16 form in its device-time trace
+BF16_IMAGE_TOL = {"2": 0.05, "1": 0.08}  # tpugan's image gates, by mtype (printed)
+
+
+def bf16_ulps(torch, got, want):
+    """max |got - want| over one bf16 ulp of the larger magnitude (at least
+    KERNEL_TOL, for sums that cancel to near zero), and max |got - want|:
+    the bf16 kernel and its plain version sum the same fp32 products in
+    another order and round once, so they agree exactly or one ulp apart,
+    where the two sums fall on either side of a rounding boundary."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(torch.finfo(torch.bfloat16).tiny)
+    ulp = torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(torch.log2(mag)))
+    err = (g - w).abs()
+    return (err / ulp.clamp_min(KERNEL_TOL)).max().item(), err.max().item()
+
+
+def check_bf16_fir(torch, label, got, want, f32):
+    """The bf16 kernel's output ``got`` within one bf16 ulp of the plain
+    version's ``want``, and bitwise ``f32``, the fp32 kernel's on the same
+    values rounded to bf16 (the same sums in the same order). Returns max
+    |got - want|."""
+    check(got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape == f32.shape,
+          f"{label}: dtypes {got.dtype}, {want.dtype} and shapes {tuple(got.shape)}, {tuple(want.shape)}")
+    ulps, err = bf16_ulps(torch, got, want)
+    check(ulps <= 1.0, f"{label}: the bf16 kernel is {ulps:.2f} bf16 ulps from the plain version "
+          f"(max |err| {err:.3e})")
+    check(torch.equal(got, f32), f"{label}: the bf16 kernel differs from the fp32 kernel rounded to bf16 "
+          f"by {(got.float() - f32.float()).abs().max().item():.3e}")
+    return err
+
+
+def fir_bf16_parity(torch, dev, gen):
+    """The kernel's bf16 form (``tpugan_upfirdn2d_bf16``) at the contract
+    and tile-edge cases of phase 2 (``contract_cases``) and the FIR
+    adjoint's cases, forward and adjoint, on bf16 inputs: within one bf16
+    ulp of the plain version, and bitwise the fp32 kernel's output on the
+    same values rounded to bf16; a half-precision call, and plans made for
+    the other element size, refused. Returns the max |err|."""
+    import numpy as np
+
+    from tpugan_torch.ops import cuda, upfirdn
+    from tpugan_torch.ops.upfirdn import setup_fir_kernel, upfirdn2d, upfirdn2d_cuda, upfirdn2d_plain
+
+    cases = contract_cases()
+    max_err = 0.0
+    cuda.reset_launches()
+    for label, up, down, taps, pad, (n, h, w, c), gain in cases:
+        x = torch.randn(n, c, h, w, device=dev, generator=gen).bfloat16()
+        k = setup_fir_kernel(taps)
+        got = upfirdn2d_cuda(x, k, up, down, pad, gain)
+        f32 = upfirdn2d_cuda(x.float(), k, up, down, pad, gain).bfloat16()
+        want = upfirdn2d_plain(x, k, up, down, pad, gain)
+        torch.cuda.synchronize()
+        max_err = max(max_err, check_bf16_fir(torch, f"bf16 {label}", got, want, f32))
+        del x, got, want, f32
+    check(cuda.launches == expected_launches(upfirdn2d=len(cases), upfirdn2d_bf16=len(cases)),
+          f"bf16 parity launches {cuda.launches}")
+    say(f"bf16 parity: {len(cases)} cases (phase 2's) within one bf16 ulp of the plain version and "
+        f"bitwise the fp32 kernel rounded to bf16 (max |err| {max_err:.3e})")
+
+    adjoint_cases = [(f"blur {c}x{r}x{r}", 1, 1, (1, 2, 1), (1, 1), (BATCH, c, r, r), 1.0)
+                     for c, r in PATH_BLURS]
+    adjoint_cases += list(SLICE3_FIRS) + list(ADJOINT_CASES)
+    for label, up, down, taps, pad, shape, gain in adjoint_cases:
+        k = np.asarray(taps, np.float32)
+        k = setup_fir_kernel(taps) if k.ndim == 1 else k / k.sum()
+        x = torch.randn(shape, device=dev, generator=gen).bfloat16().requires_grad_()
+        cuda.reset_launches()
+        y = upfirdn2d(x, k, up, down, pad, gain)
+        g = torch.randn(y.shape, device=dev, generator=gen).bfloat16()
+        (got,) = torch.autograd.grad(y, x, g)
+        torch.cuda.synchronize()
+        check(cuda.launches == expected_launches(upfirdn2d_bf16=2), f"bf16 adjoint {label}: {cuda.launches}")
+        x32 = x.detach().float().requires_grad_()
+        (f32,) = torch.autograd.grad(upfirdn2d(x32, k, up, down, pad, gain), x32, g.float())
+        xr = x.detach().requires_grad_()
+        (want,) = torch.autograd.grad(upfirdn2d_plain(xr, k, up, down, pad, gain), xr, g)
+        max_err = max(max_err, check_bf16_fir(torch, f"bf16 adjoint {label}", got, want, f32.bfloat16()))
+        del x, y, g, got, want, f32, x32, xr
+    say(f"bf16 adjoint parity: {len(adjoint_cases)} cases (phase 2's) within one bf16 ulp of autograd of "
+        f"the plain version, bitwise the fp32 kernel's adjoint rounded to bf16 (max |err| {max_err:.3e})")
+
+    blur = setup_fir_kernel((1, 2, 1))
+    x = torch.randn(1, 8, 8, 8, device=dev, generator=gen)
+    try:
+        upfirdn2d_cuda(x.half(), blur, pad=(1, 1))
+        raise RuntimeError("chip_smoke: a half-precision FIR was not refused")
+    except TypeError:
+        pass
+    taps = upfirdn._taps(blur, 1.0)
+    cuda.reset_launches()
+    for xin, elem in ((x.bfloat16(), 4), (x, 2)):
+        y = torch.full_like(xin, 7.0)
+        plan = upfirdn.fir_plan(8, 8, 8, 1, 1, 1, 3, 3, 8, 8, min_blocks=upfirdn.min_blocks(dev),
+                                elem_bytes=elem).as_array()
+        rc = launch_plan(torch, xin, y, taps, 1, 1, 1, plan)
+        torch.cuda.synchronize()
+        check(rc == 1 and bool((y == 7.0).all()), f"the {xin.dtype} entry point took a plan for {elem}-byte "
+              f"elements (rc {rc})")
+    check(not any(cuda.launches.values()), "a refused bf16 call launched")
+    say("bf16: a half-precision call and plans made for the other element size refused")
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def fir_library(torch, x, taps, up, down, pads):
+    """One PyTorch call for the FIR, in x's dtype, or None: a depthwise
+    ``F.conv2d`` (stride down) for up 1 with equal pads, a depthwise
+    ``F.conv_transpose2d`` with the flipped taps for up 2, down 1, where
+    its padding and output padding can express the pads."""
+    import torch.nn.functional as F
+
+    c = x.shape[1]
+    py0, py1, px0, px1 = pads
+    kh, kw = taps.shape
+    weight = torch.from_numpy(taps).to(x.device, x.dtype)
+    if up == 1 and len({py0, py1, px0, px1}) == 1:
+        w = weight.expand(c, 1, kh, kw).contiguous()
+        return lambda: F.conv2d(x, w, stride=down, padding=py0, groups=c)
+    p, op = kh - 1 - py0, py1 - py0 + 1
+    if (up, down) == (2, 1) and kh == kw and (py0, py1) == (px0, px1) and p >= 0 and op in (0, 1):
+        w = weight.flip(0, 1).expand(c, 1, kh, kw).contiguous()
+        return lambda: F.conv_transpose2d(x, w, stride=2, padding=p, output_padding=op, groups=c)
+    return None
+
+
+def bf16_step_fir_rows(torch, step, state, first, bandwidth, fp32_peak, path):
+    """Every FIR of one bf16 step, forward and adjoint, on the step's own
+    bf16 inputs (:class:`FirCapture`): the bf16 kernel within one bf16 ulp
+    of the plain version and bitwise the fp32 kernel's output rounded to
+    bf16; timed (``queued_ms``) beside the fp32 kernel on the same values,
+    the plain version, one library call in bf16 (``fir_library``) and the
+    bound at 2 bytes an element (each input read once, each output written
+    once, at the card's memory rate; or the taps on real samples at its
+    fp32 rate, the kernel's arithmetic). Returns the rows, the sums per
+    step by direction and TPU kernel, and the max |err|."""
+    from tpugan_torch.ops import upfirdn
+
+    with FirCapture() as capture:
+        step(state, first)
+        torch.cuda.synchronize()
+    rows, sums, max_err = [], {}, 0.0
+    for (direction, shape, _, up, down, pads), (x, taps, n) in capture.firs.items():
+        check(x.dtype == torch.bfloat16, f"{path}: a {x.dtype} FIR in a bf16 step")
+        py0, py1, px0, px1 = pads
+        kh, kw = taps.shape
+        key = upfirdn.tpu_layout(shape[1], up, down, kh, kw, (py0, py1)) if (py0, py1) == (px0, px1) else "XLA"
+        x32 = x.float()
+        library = fir_library(torch, x, taps, up, down, pads)
+        calls = {"ms": lambda: upfirdn._fir_cuda(x, taps, up, down, pads),
+                 "fp32_ms": lambda: upfirdn._fir_cuda(x32, taps, up, down, pads),
+                 "plain_ms": lambda: upfirdn._fir_plain(x, taps, up, down, pads)}
+        if library is not None:
+            calls["library_ms"] = library
+        got, f32, want = (calls[k]() for k in ("ms", "fp32_ms", "plain_ms"))
+        torch.cuda.synchronize()
+        label = f"{path} bf16 step FIR {direction} {list(shape)} -> {list(got.shape)} up{up} down{down} pads {list(pads)}"
+        err = check_bf16_fir(torch, label, got, want, f32.bfloat16())
+        max_err = max(max_err, err)
+        nbytes = 2 * (x.numel() + got.numel())
+        flops = 2 * got.numel() * taps.size // (up * up)
+        row = {"direction": direction, "shape": list(shape), "out": list(got.shape), "up": up, "down": down,
+               "pads": list(pads), "kernel": key, "per_step": n}
+        row.update({name: queued_ms(torch, fn) for name, fn in calls.items()})
+        row.setdefault("library_ms", None)
+        row["bound_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
+        row["bound_by"] = "bytes" if nbytes / bandwidth >= flops / fp32_peak else "operations"
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        part = sums.setdefault(direction, {}).setdefault(key, {"launches": 0, "ms": 0.0, "fp32_ms": 0.0,
+                                                               "plain_ms": 0.0, "library_ms": 0.0,
+                                                               "bound_ms": 0.0})
+        part["launches"] += n
+        for name in ("ms", "fp32_ms", "plain_ms", "library_ms", "bound_ms"):
+            part[name] += n * (row[name] or 0.0)
+        lib = "none" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f} us"
+        say(f"{label} ({key}, x{n} a step): max |err| {err:.3e}; bf16 kernel {row['ms'] * 1e3:.2f} us, fp32 "
+            f"kernel {row['fp32_ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, library {lib}, "
+            f"bound {row['bound_ms'] * 1e3:.2f} us ({row['share_of_bound'] * 100:.1f}% of it)")
+        del got, want, f32, x32
+    check(all(r["library_ms"] is not None for r in rows), f"{path}: a step FIR without a library call")
+    del capture
+    torch.cuda.empty_cache()
+    for direction, parts in sums.items():
+        say(f"{path} bf16 step FIRs, {direction}, per step by TPU kernel: " + "; ".join(
+            f"{key} {p_['launches']} launches, bf16 kernel {p_['ms'] * 1e3:.2f} us, fp32 kernel "
+            f"{p_['fp32_ms'] * 1e3:.2f} us, plain {p_['plain_ms'] * 1e3:.2f} us, library "
+            f"{p_['library_ms'] * 1e3:.2f} us, bound {p_['bound_ms'] * 1e3:.2f} us"
+            for key, p_ in sorted(parts.items())))
+    return rows, sums, max_err
+
+
+def conv_split(kernels):
+    """A step's device time (ms) in convolution and GEMM kernels (cuDNN's,
+    cuBLAS's, CUTLASS's; not the FIR), split into those whose names say
+    bf16 (the tensor cores' bf16 forms) and the rest, with the bf16 ones
+    by name."""
+    words = ("xmma", "cutlass", "cudnn", "implicit_gemm", "dgrad", "wgrad", "fprop", "gemm", "fft",
+             "conv2d", "depthwise")
+    convs = {k: ms for k, (ms, _) in kernels.items()
+             if any(w_ in k.lower() for w_ in words)
+             and not any(w_ in k for w_ in ("upfirdn2d", "elementwise", "reduce_kernel"))}
+    bf16 = {k: ms for k, ms in convs.items() if "bf16" in k.lower()}
+    return sum(bf16.values()), sum(convs.values()) - sum(bf16.values()), bf16
+
+
+def gate_config_losses(torch, dev, bf16):
+    """BF16_GATE_STEPS case-2 steps at tpugan's gate configuration
+    (``BF16_GATE_SG2``, ``BF16_GATE_ENCODER``; random weights from SEED, as
+    ``--random_init`` makes them; the iterations' seeded draws, made on the
+    CPU; no LPIPS), in bf16 or fp32 on ``dev``: loss_tsa of each step."""
+    from tpugan_torch.models import Encoder, StyleGAN2Generator
+    from tpugan_torch.optim import lreq_adam
+    from tpugan_torch.precision import bf16_encode, bf16_frozen, bf16_pipeline
+    from tpugan_torch.train.e_align import (Request, build_stylegan2_pipeline, draw_noise, info_scalars,
+                                            init_train_state, make_encode_fn, make_train_step)
+    from tpugan_torch.utils import iteration_generator
+
+    g = torch.Generator().manual_seed(SEED)
+    gen = StyleGAN2Generator(**BF16_GATE_SG2, generator=g).to(dev).requires_grad_(False)
+    enc = Encoder(**BF16_GATE_ENCODER, generator=g).to(dev)
+    synth, resynth = build_stylegan2_pipeline(bf16_frozen(gen) if bf16 else gen, train=True)
+    encode = make_encode_fn(enc, train=True)
+    if bf16:
+        synth, resynth = bf16_pipeline(synth, resynth)
+        encode = bf16_encode(encode, enc)
+    size = BF16_GATE_SG2["resolution"]
+
+    def draw(it):  # on the CPU, so that a CPU run of this configuration sees the same inputs
+        gi = iteration_generator(it, "cpu")
+        z = torch.randn(BATCH, 512, generator=gi)
+        return Request(z, None, draw_noise(enc.noise_shapes(BATCH, size), gi), None).to(dev)
+
+    step = make_train_step(encode, lambda r: synth(r.z), resynth, draw, case=2)
+    state, out = init_train_state(enc, lreq_adam(enc, 0.0015)), []
+    for it in range(BF16_GATE_STEPS):
+        state, info = step(state, it)
+        out.append(info_scalars(info)["loss_tsa"])
+    return out
+
+
+def bf16_gates(torch, dev, e_align):
+    """bf16's checks of the step and the images (the comment above
+    ``BF16_GATE_STEPS``): the gate configuration on the card against its
+    CPU replay; at full width the first case-2 step, then, printed, the
+    ten-step trajectory of bf16, of a second fp32 run and of a TF32 one
+    against the first fp32 run's, and bf16's step from each of the fp32
+    run's parameters; the first request of REQUEST_SEEDS on SG2-1024 and
+    SGv1 Cat256 (the CLI's bf16 generator) on the card against its CPU
+    replay, tpugan's image gate and imgs2 through ``bf16_encode`` printed.
+    Returns the losses and distances."""
+    from tpugan_torch.cli import common, infer_e
+    from tpugan_torch.precision import bf16_encode, bf16_frozen, bf16_pipeline
+    from tpugan_torch.runtime import parity_mode
+    from tpugan_torch.train.e_align import (build_stylegan1_pipeline, build_stylegan2_pipeline,
+                                            info_scalars)
+
+    def rel(a, b):
+        return [abs(y - x) / abs(x) for x, y in zip(a, b)]
+
+    cpu = torch.device("cpu")
+    small = {f"{where} {kind}": gate_config_losses(torch, place, kind == "bf16")
+             for where, place in (("card", dev), ("cpu", cpu)) for kind in ("fp32", "bf16")}
+    small_rel = {name: rel(small["cpu fp32"], v) for name, v in small.items() if name != "cpu fp32"}
+    say(f"bf16 at tpugan's gate configuration (StyleGAN2 {BF16_GATE_SG2}, E_Blur {BF16_GATE_ENCODER}), "
+        f"{BF16_GATE_STEPS} case-2 steps on the card and on the CPU: loss_tsa on the CPU in fp32 "
+        f"{[round(v, 4) for v in small['cpu fp32']]}; relative to it, per step:")
+    for name, r in small_rel.items():
+        say(f"  {name}: max {max(r):.3e}, {[f'{x:.2e}' for x in r]}")
+    mine, theirs = max(small_rel["card bf16"]), max(small_rel["cpu bf16"])
+    check(small_rel["card fp32"][0] <= REPLAY_LOSS_RTOL and all(math.isfinite(v) for v in small["card bf16"])
+          and mine <= 2 * theirs, f"the card's bf16 steps are {mine:.3e} from the CPU's fp32 ones, the CPU's "
+          f"bf16 steps {theirs:.3e}; the card's fp32 first step {small_rel['card fp32'][0]:.3e}")
+    small_held = max(small_rel["card bf16"]) <= BF16_LOSS_RTOL and small_rel["card bf16"][0] <= BF16_STEP_LOSS_RTOL
+    say(f"  the card's fp32 first step within {REPLAY_LOSS_RTOL:g} of the CPU's, its bf16 trajectory within twice "
+        f"the CPU's bf16 distance from fp32 ({mine:.3e} against {theirs:.3e}): held; tpugan's trajectory gate "
+        f"({BF16_LOSS_RTOL:g} at every step, {BF16_STEP_LOSS_RTOL:g} at the first) on the card: "
+        f"{'held' if small_held else 'not held'} (printed, not a check of this script)")
+
+    parser = e_align.make_parser()
+    argv = ["--mtype", "2", "--img_size", str(SG2_SIZE), "--start_features", str(SG2_START_FEATURES),
+            "--random_init", "--iterations", "1000", "--batch_size", str(BATCH), "--seed", str(SEED),
+            "--device", CARD, "--case", "2"]
+
+    def make(*extra):
+        return e_align.build_trainer(parser.parse_args(argv + list(extra)))
+
+    def trajectory(tr):
+        state, out = tr.state, []
+        for it in range(BF16_GATE_STEPS):
+            state, info = tr.step(state, it)
+            out.append(info_scalars(info)["loss_tsa"])
+        return out
+
+    fp32, bf16 = make(), make("--bf16")
+    losses = {"fp32": [], "bf16 from fp32's parameters": []}
+    for it in range(BF16_GATE_STEPS):
+        with torch.no_grad():
+            for p16, p32 in zip(bf16.state.encoder.parameters(), fp32.state.encoder.parameters()):
+                p16.copy_(p32)
+        _, info16 = bf16.step(bf16.state, it)
+        _, info32 = fp32.step(fp32.state, it)
+        losses["bf16 from fp32's parameters"].append(info_scalars(info16)["loss_tsa"])
+        losses["fp32"].append(info_scalars(info32)["loss_tsa"])
+    del fp32, bf16
+    losses["bf16"] = trajectory(make("--bf16"))
+    losses["fp32 again"] = trajectory(make())
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    losses["fp32 with TF32"] = trajectory(make())
+    parity_mode()
+    torch.cuda.empty_cache()
+    rels = {name: rel(losses["fp32"], v) for name, v in losses.items() if name != "fp32"}
+    say(f"bf16 at full width, {BF16_GATE_STEPS} SG2-{SG2_SIZE} case-2 steps from one init and the same draws: "
+        f"loss_tsa fp32 {[round(v, 4) for v in losses['fp32']]}; relative to it, per step:")
+    for name, r in rels.items():
+        say(f"  {name}: max {max(r):.3e}, {[f'{x:.2e}' for x in r]}")
+    check(all(math.isfinite(v) for v in losses["bf16"]) and rels["bf16"][0] <= BF16_STEP_LOSS_RTOL,
+          f"the first bf16 step's loss_tsa is {rels['bf16'][0]:.3e} from fp32's")
+    held = max(rels["bf16"]) <= BF16_LOSS_RTOL and max(rels["bf16 from fp32's parameters"]) <= BF16_STEP_LOSS_RTOL
+    say(f"  the first step within {BF16_STEP_LOSS_RTOL:g} (held); tpugan's trajectory gate at full width, bf16 "
+        f"within {BF16_LOSS_RTOL:g} at every step and within {BF16_STEP_LOSS_RTOL:g} from fp32's parameters: "
+        f"{'held' if held else 'not held'} (printed, not a check of this script)")
+
+    images = {}
+    for mtype, size, startf in (("2", SG2_SIZE, SG2_START_FEATURES), ("1", IMG_SIZE, 64)):
+        argv = ["--mtype", mtype, "--img_size", str(size), "--start_features", str(startf), "--random_init",
+                "--iterations", "1", "--batch_size", str(BATCH), "--seed", str(SEED)]
+        trainer = e_align.build_trainer(parser.parse_args(argv + ["--device", CARD, "--bf16"]))
+        bundle = common.build_bundle(parser.parse_args(argv + ["--device", CARD]))  # fp32, the same seed
+        cpu_bundle = common.build_bundle(parser.parse_args(argv + ["--device", "cpu"]))
+        request = infer_e.draw_request(cpu_bundle, BATCH, REQUEST_SEEDS[0])  # drawn on the CPU, for the replay
+        runs = (("card", bundle, request.to(dev), trainer.bundle.generator, trainer.bundle.mapping),
+                ("cpu", cpu_bundle, request, bf16_frozen(cpu_bundle.generator),
+                 None if cpu_bundle.mapping is None else bf16_frozen(cpu_bundle.mapping)))
+        out = {}
+        for where, b, req, gen16, gm16 in runs:
+            if mtype == "2":
+                synth, resynth = build_stylegan2_pipeline(gen16)
+            else:
+                synth, resynth = build_stylegan1_pipeline(gen16, gm16, b.layer_count - 1)
+            synth, resynth = bf16_pipeline(synth, resynth)
+            with torch.no_grad():
+                if where == "card":
+                    imgs1, imgs2 = infer_e.serve(b, req)
+                else:  # imgs1 alone
+                    imgs1 = b.synth(req.z, req.noise_g).imgs1
+                batch = synth(req.z, req.noise_g)
+                out[f"{where} fp32"], out[f"{where} bf16"] = imgs1.cpu(), batch.imgs1.cpu()
+                check(batch.imgs1.dtype == torch.float32, f"{where}: bf16 imgs1 of dtype {batch.imgs1.dtype}")
+                if where == "card":
+                    _, w2 = bf16_encode(b.encode, b.encoder)(batch, req.noise_e)
+                    imgs2_16 = resynth(w2, batch, req.noise_g2)
+                    d2 = (imgs2_16 - imgs2).abs().max().item() / imgs2.abs().max().item()
+            torch.cuda.synchronize()
+        ref = out["cpu fp32"]
+        scale = ref.abs().max().item()
+        dist = {k: (v - ref).abs().max().item() / scale for k, v in out.items() if k != "cpu fp32"}
+        gate = (out["card bf16"] - out["card fp32"]).abs().max().item() / out["card fp32"].abs().max().item()
+        name = f"SG2-{size}" if mtype == "2" else f"SGv1 Cat{size}"
+        images[name] = {"imgs1_from_fp32": gate, "imgs2_from_fp32": d2, "limit": BF16_IMAGE_TOL[mtype],
+                        "replay": dist}
+        say(f"bf16, {name} request of seed {REQUEST_SEEDS[0]} (drawn on the CPU): imgs1 against the CPU's fp32 "
+            f"images (max |value| {scale:.3f}), over that max: card fp32 {dist['card fp32']:.3e}, card bf16 "
+            f"{dist['card bf16']:.3e}, CPU bf16 {dist['cpu bf16']:.3e}")
+        check(dist["card fp32"] <= CPU_GPU_ATOL * max(1.0, scale) / scale and dist["card bf16"] <= 2 * dist["cpu bf16"],
+              f"{name}: the card's bf16 imgs1 are {dist['card bf16']:.3e} from the CPU's fp32 ones, the CPU's bf16 "
+              f"{dist['cpu bf16']:.3e}; the card's fp32 {dist['card fp32']:.3e}")
+        say(f"  the card's fp32 imgs1 within CPU_GPU_ATOL x max(1, max |ref|) of the CPU's, its bf16 within twice "
+            f"the CPU's bf16 distance: held; tpugan's image gate on the card, bf16 imgs1 within "
+            f"{BF16_IMAGE_TOL[mtype]:g} of fp32's max |value|: {gate:.3e}, "
+            f"{'held' if gate <= BF16_IMAGE_TOL[mtype] else 'not held'} (printed, not a check of this script); "
+            f"imgs2 through the bf16 encoder {d2:.3e} from fp32's")
+        del trainer, bundle, cpu_bundle, out, ref
+        torch.cuda.empty_cache()
+    return {"gate_configuration": {"loss_tsa": small, "loss_rel": small_rel,
+                                   "trajectory_gate_held": small_held},
+            "full_width": {"loss_tsa": losses, "loss_rel": rels, "trajectory_gate_held": held},
+            "images": images}
+
+
+def bf16_training_path(torch, dev, smi, bandwidth, fp32_peak, fp32_times):
+    """Phase 10: ``e_align --bf16`` at full width, batch 2, random weights
+    from the seed (tpugan's bf16 scheme): StyleGAN2-1024 case 2, case 1,
+    lean and ablation 8, SGv1 Cat256 case 2 and ablation 8, with their FIR
+    launches per step, forward and adjoint, by TPU kernel, against the
+    counts derived from the modules, all through the kernel's bf16 form;
+    the encoder moving on fp32 master parameters, the generator frozen;
+    every FIR of each path's case-2 step on its own inputs against the
+    plain version and the fp32 kernel, timed; step times, device time by
+    kernel (bf16 tensor-core convolutions, the FIR), peak memory, beside
+    the fp32 steps of phases 8 and 9 (``fp32_times``); tpugan's gates.
+    Returns the FIR launches of the counted steps and the rows."""
+    from tpugan_torch.cli import e_align
+    from tpugan_torch.losses.lpips import random_lpips_fn
+    from tpugan_torch.ops import cuda, upfirdn
+    from tpugan_torch.train.e_align import info_scalars
+
+    parser = e_align.make_parser()
+    sizes = {"2": (SG2_SIZE, SG2_START_FEATURES), "1": (IMG_SIZE, 64)}
+    lpips = random_lpips_fn(dev, dtype=torch.bfloat16)  # bench.py's bf16 LPIPS
+    launches, per_step, times, firs = 0, {}, {}, {}
+    trainer = None
+    for label, mtype, flags in BF16_TRAIN_FORMS:
+        t_form = time.perf_counter()
+        lean = label.endswith("lean")  # case 1's trainer's off-tick step
+        size, startf = sizes[mtype]
+        args = parser.parse_args(["--mtype", mtype, "--img_size", str(size), "--start_features", str(startf),
+                                  "--random_init", "--iterations", "1000", "--batch_size", str(BATCH),
+                                  "--seed", str(SEED), "--device", CARD, "--bf16", *flags])
+        if not lean:
+            del trainer
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            trainer = e_align.build_trainer(args, lpips)
+            torch.cuda.synchronize()
+            enc = trainer.state.encoder
+            say(f"trainer: mtype {mtype} --bf16, {label} ({' '.join(flags)}), {size} px, "
+                f"{'E_Blur' if enc.block_0.use_blur else 'E'} (startf {startf}) training, built in "
+                f"{time.perf_counter() - t0:.2f} s")
+        step = trainer.lean if lean else trainer.step
+        check(step is not None, f"bf16 {label}: no step")
+        state = trainer.state
+        gen = trainer.bundle.generator
+        frozen = [*gen.parameters(), *gen.buffers()]
+        if mtype == "1":
+            frozen += [*trainer.bundle.mapping.parameters()]
+        check(all(t.dtype == torch.bfloat16 for t in frozen), f"bf16 {label}: the generator is not bf16")
+        frozen0 = [t.detach().clone() for t in frozen]
+        params0 = {n: p.detach().clone() for n, p in state.encoder.named_parameters()}
+        derive = sg2_step_firs if mtype == "2" else sgv1_step_firs
+        fwd_want, adj_want = derive(trainer, step_image_gradients(e_align, args), not lean)
+
+        # the main path: launches counted from 0
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launches()
+        upfirdn.reset_layout_launches()
+        with AdjointCount() as adjoint:
+            for it in range(TRAIN_STEPS):
+                _, info = step(state, it)
+                scalars = info_scalars(info)
+                check(all(math.isfinite(x) for x in scalars.values()), f"bf16 {label} step {it}: a loss is not finite")
+            torch.cuda.synchronize()
+        counted = dict(cuda.launches)
+        total = dict(upfirdn.layout_launches)
+        adj = dict(adjoint.counts)
+        fwd = {key: total[key] - adj[key] for key in total}
+        n_firs = sum(fwd_want.values()) + sum(adj_want.values())
+        check(counted == expected_launches(upfirdn2d_bf16=n_firs * TRAIN_STEPS),
+              f"bf16 {label}: launches {counted}, expected {n_firs * TRAIN_STEPS} upfirdn2d_bf16 and no other")
+        want_fwd = {key: n * TRAIN_STEPS for key, n in fwd_want.items()}
+        want_adj = {key: n * TRAIN_STEPS for key, n in adj_want.items()}
+        check(fwd == want_fwd and adj == want_adj, f"bf16 {label}: FIR launches forward {fwd}, adjoint {adj}; "
+              f"derived from the modules: forward {want_fwd}, adjoint {want_adj}")
+        launches += counted["upfirdn2d_bf16"]
+        per_step[label] = {"forward": fwd_want, "adjoint": adj_want}
+        moved = sum(not torch.equal(p, params0[n]) for n, p in state.encoder.named_parameters())
+        check(moved > 0 and all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
+                                for p in state.encoder.parameters()),
+              f"bf16 {label}: the encoder did not train, is not fp32 or is not finite")
+        check(all(v.dtype == torch.float32 for st in state.optimizer.state.values() for v in st.values()
+                  if torch.is_tensor(v) and v.is_floating_point()), f"bf16 {label}: optimizer state not fp32")
+        check(all(torch.equal(a, b) and a.grad is None for a, b in zip(frozen, frozen0)),
+              f"bf16 {label}: the frozen generator moved")
+        say(f"bf16 {label} path: {TRAIN_STEPS} steps, launches {counted}; per step FIR forward {fwd_want}, "
+            f"adjoint {adj_want}, as derived from the modules; loss_tsa {scalars['loss_tsa']:.4f}, loss_mtv "
+            f"{scalars['loss_mtv']:.4f}; {moved} of {len(params0)} encoder parameters moved (fp32), the bf16 "
+            f"generator did not; peak device memory over the counted steps "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        if label.endswith("case 2"):
+            path = label.split()[0]
+            say(f"{path} bf16 case-2 step FIRs below, on the step's own inputs: {smi}; device times from CUDA "
+                "events around 20 calls queued behind a device-side sleep")
+            firs[path] = bf16_step_fir_rows(torch, step, state, 50, bandwidth, fp32_peak, path)
+        say(f"bf16 training times below: {smi}; step times from the host clock, device times from "
+            "torch.profiler")
+        median = step_times(torch, step, state, f"{label}, bf16", 100, steps=BF16_TIMED_STEPS)
+        try:
+            dev_time = step_device_time(torch, step, state, median, 200, symbols=("upfirdn2d_kernel",),
+                                        keep_kernels=True, iters=BF16_PROFILED_STEPS)
+        except RuntimeError as missed:  # device_kernels: three traces saw no device time
+            say(f"device time per bf16 {label} step: not measured ({missed})")
+            dev_time = None
+        row = {"median_ms": median}
+        if dev_time is not None:
+            bf16_ms, other_ms, by_name = conv_split(dev_time.pop("kernels"))
+            row.update(dev_time, bf16_conv_ms=bf16_ms, other_conv_ms=other_ms)
+            say(f"  convolutions and GEMMs: bf16 kernels {bf16_ms:.3f} ms ({bf16_ms / dev_time['device_ms'] * 100:.1f}% "
+                f"of device time), others {other_ms:.3f} ms; the bf16 ones by name:")
+            for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+                say(f"    {ms:8.3f} ms  {kname[:100]}")
+            fp32 = fp32_times.get(label)
+            if fp32 and "device_ms" in fp32:
+                say(f"  {label} beside fp32 in this run (phases 8 and 9): step {median:.3f} ms against "
+                    f"{fp32['median_ms']:.3f}, device time {dev_time['device_ms']:.3f} ms against "
+                    f"{fp32['device_ms']:.3f}, peak memory {dev_time['peak_mib']:.1f} MiB against "
+                    f"{fp32['peak_mib']:.1f}, upfirdn2d {dev_time['kernel_ms']['upfirdn2d_kernel']:.3f} ms against "
+                    f"{fp32['kernel_ms']['upfirdn2d_kernel']:.3f}")
+        times[label] = row
+        say(f"bf16 {label} took {time.perf_counter() - t_form:.1f} s")
+    del trainer
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gates = bf16_gates(torch, dev, e_align)
+    say(f"bf16 gates took {time.perf_counter() - t0:.1f} s")
+    check(set(firs) == {"SG2", "SGv1"}, "a bf16 case-2 step's FIRs were not timed")
+    return {"launches": launches, "per_step": per_step, "times": times, "firs": firs,
+            "max_abs_err": max(f[2] for f in firs.values()), "gates": gates}
+
+
+
 def main() -> int:
     import torch
 
@@ -2414,6 +3000,19 @@ def main() -> int:
     say(f"phase 9 (StyleGAN2-{SG2_SIZE} training) took {time.perf_counter() - t0:.1f} s; the script "
         f"{time.perf_counter() - start:.1f} s")
 
+    # ---- 10. bf16 (e_align --bf16) ----------------------------------------
+    t0 = time.perf_counter()
+    bf16_err = fir_bf16_parity(torch, dev, gen)
+    say(f"bf16 parity took {time.perf_counter() - t0:.1f} s")
+    fp32_times = {f"SG2 {k}": v for k, v in sg2_train["times"].items()}
+    fp32_times.update({f"SGv1 {k}": v for k, v in sgv1_train["times"].items()})
+    bf16 = bf16_training_path(torch, dev, smi, bandwidth, fp32_peak, fp32_times)
+    say(f"phase 10 (bf16 training) took {time.perf_counter() - t0:.1f} s; the script "
+        f"{time.perf_counter() - start:.1f} s")
+    sg2_bf16 = bf16["firs"]["SG2"][1]
+    bf16_step = {k: sum(p_[k] for parts in sg2_bf16.values() for p_ in parts.values())
+                 for k in ("ms", "fp32_ms", "plain_ms", "library_ms", "bound_ms")}
+
     say(f"card: {smi}")
     say(json.dumps({"kernels": [{
         "name": "upfirdn2d",
@@ -2449,6 +3048,31 @@ def main() -> int:
                                           "device-side sleep (queued_ms), summed per step",
                          "fir_per_step": sg2_train["fir_sums"], "fir_rows": sg2_train["fir_rows"],
                          "replay": sg2_train["replay"]},
+    }, {
+        "name": "upfirdn2d_bf16",
+        "route": "cuda",
+        "source": "tpugan_torch/csrc/upfirdn2d.cu",
+        "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas, bf16); "
+                    "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c, bf16)",
+        "launches": bf16["launches"],
+        "max_abs_err": max(bf16_err, bf16["max_abs_err"]),
+        "ms": bf16_step["ms"],
+        "plain_ms": bf16_step["plain_ms"],
+        "bound_ms": bf16_step["bound_ms"],
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in bf16["firs"]["SG2"][0]) else "operations",
+        "library_ms": bf16_step["library_ms"],
+        "fp32_kernel_ms": bf16_step["fp32_ms"],
+        "times_are": f"every FIR of one bf16 StyleGAN2-{SG2_SIZE} case-2 step at batch {BATCH}, forward and "
+                     "adjoint, on the step's own inputs, summed per step; device times from CUDA events "
+                     "around 20 calls queued behind a device-side sleep (queued_ms); the fp32 kernel on the "
+                     "same values; library: one depthwise F.conv2d or F.conv_transpose2d in bf16; bound at 2 "
+                     "bytes an element",
+        "max_abs_err_is": "the bf16 kernel against the plain version (fp32 sums, one rounding): within one "
+                          "bf16 ulp, and bitwise the fp32 kernel rounded to bf16",
+        "per_step_by_tpu_kernel": {path: f[1] for path, f in bf16["firs"].items()},
+        "fir_rows": {path: f[0] for path, f in bf16["firs"].items()},
+        "training": {"launches_per_step": bf16["per_step"], "times": bf16["times"],
+                     "fp32_times_of_this_run": fp32_times, "gates": bf16["gates"]},
     }, {
         "name": "sagan_attention",
         "route": "cuda",

@@ -8,6 +8,9 @@ slice with its halo, zero fill and 16-byte lead, each thread's strip and
 each output phase's taps), and raises if a strip reads outside its staged
 slice or a tile writes an output twice or misses one. Its result is held to
 ``upfirdn2d_plain``, and the plain version to tpugan's ``_upfirdn2d_xla``.
+The plans for 2-byte (bf16) elements, whose 16-byte copies hold 8 elements,
+run the same way on bf16 input, held to the plain bf16 FIR within one bf16
+ulp (:func:`assert_within_one_bf16_ulp`).
 """
 
 import re
@@ -27,16 +30,22 @@ H100_MIN_BLOCKS = 2 * 132  # upfirdn.min_blocks on an H100 SXM (132 SMs)
 
 
 def run_plan(x, taps, up, down, pad0, ho, wo, plan):
-    """x [planes, h, w] through ``plan`` block by block, as the kernel runs it."""
+    """x [planes, h, w] through ``plan`` block by block, as the kernel runs
+    it: x float32, or bfloat16 for a plan of 2-byte elements, whose staged
+    elements are widened to fp32 where they are read and whose outputs are
+    rounded once to bf16."""
     planes, h, w = x.shape
     kh, kw = taps.shape
     rh, rw = plan.rh, plan.rw
+    v = upfirdn.VEC_BYTES // plan.elem_bytes  # elements of a 16-byte copy
+    assert x.element_size() == plan.elem_bytes
     assert rh * down % up == 0 and rw * down % up == 0  # strips start on even stuffed samples
     assert plan.tile_rows % rh == 0 and plan.tile_cols % rw == 0
     groups = -(-planes // plan.planes_per_block)
     assert plan.blocks == groups * plan.tiles_y * plan.tiles_x
-    assert plan.shared_bytes == plan.planes_per_block * plan.in_rows * plan.in_stride * 4
+    assert plan.shared_bytes == plan.planes_per_block * plan.in_rows * plan.in_stride * plan.elem_bytes
     assert plan.shared_bytes <= upfirdn.MAX_SHARED_BYTES and plan.threads <= upfirdn.THREADS
+    dtype, x = x.dtype, x.float()
     y = torch.zeros(planes, ho, wo)
     written = torch.zeros(planes, ho, wo, dtype=torch.int32)
     strip_cols = plan.tile_cols // rw
@@ -52,10 +61,10 @@ def run_plan(x, taps, up, down, pad0, ho, wo, plan):
         assert (oy0 * down - pad0 - plan.phase) % up == 0 and (ox0 * down - pad0 - plan.phase) % up == 0
         iy0 = (oy0 * down - pad0 - plan.phase) // up
         ix0 = (ox0 * down - pad0 - plan.phase) // up
-        gx0 = ix0 - ix0 % 4 if plan.vec else ix0
+        gx0 = ix0 - ix0 % v if plan.vec else ix0
         lead = ix0 - gx0
         if plan.vec:
-            assert w % 4 == 0 and gx0 % 4 == 0 and plan.in_stride % 4 == 0  # whole 16-byte chunks
+            assert w % v == 0 and gx0 % v == 0 and plan.in_stride % v == 0  # whole 16-byte chunks
         # the staged slice: rows and columns outside the plane are the copies' zero fill
         tile = torch.zeros(n, plan.in_rows, plan.in_stride)
         rows = torch.arange(plan.in_rows) + iy0
@@ -89,7 +98,23 @@ def run_plan(x, taps, up, down, pad0, ho, wo, plan):
                 y[plane0 + p[keep], oy[keep], ox[keep]] = acc[keep]
                 written[plane0 + p[keep], oy[keep], ox[keep]] += 1
     assert bool((written == 1).all()), "an output was written twice or not at all"
-    return y
+    return y.to(dtype)
+
+
+def assert_within_one_bf16_ulp(got, want, atol=FIR_TOL["atol"]):
+    """bf16 results of fp32 sums taken in two orders: equal, or one bf16
+    ulp apart where the two sums fall on either side of a rounding
+    boundary (the ulp of the larger magnitude); near zero, where
+    cancellation leaves a sum below the scale of its terms, within the fp32
+    contract's ``atol``."""
+    g, w = got.float(), want.float()
+    assert g.shape == w.shape
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(torch.finfo(torch.bfloat16).tiny)
+    ulp = torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(torch.log2(mag)))
+    err = (g - w).abs()
+    bad = err > torch.maximum(ulp, torch.full_like(ulp, atol))
+    assert not bool(bad.any()), (f"{int(bad.sum())} of {bad.numel()} outside one bf16 ulp; "
+                                 f"max |err| {float(err.max()):.3e}")
 
 
 def _case(planes, h, w, up, down, kshape, pad, aligned=True, min_blocks=None, gain=1.0,
@@ -180,13 +205,13 @@ def _inputs(case, rng):
     return x, k
 
 
-def _plan(case):
+def _plan(case, elem_bytes=4):
     kh, kw = case["kshape"]
     up, down, (p0, p1), h, w = case["up"], case["down"], case["pad"], case["h"], case["w"]
     ho, wo = (h * up + p0 + p1 - kh) // down + 1, (w * up + p0 + p1 - kw) // down + 1
     plan = upfirdn.fir_plan(case["planes"], h, w, up, down, p0, kh, kw, ho, wo,
                             min_blocks=case["min_blocks"] or H100_MIN_BLOCKS, aligned=case["aligned"],
-                            rw=case["rw"])
+                            rw=case["rw"], elem_bytes=elem_bytes)
     return plan, ho, wo
 
 
@@ -204,6 +229,52 @@ def test_plan_tile_by_tile_matches_plain(rng, name):
     ref = jfir._upfirdn2d_xla(jnp.asarray(x.transpose(1, 2, 0)[None]), k, up, down, (p0, p1),
                               case["gain"])
     np.testing.assert_allclose(want.numpy(), np.asarray(ref)[0].transpose(2, 0, 1), **FIR_TOL)
+
+
+# bf16 rows whose width is a multiple of 4 but not of 8: 16-byte copies
+# in fp32, one element a copy in bf16
+BF16_CASES = CASES | {
+    "bf16_w12_one_element_copies": _case(3, 10, 12, 1, 1, (3, 3), (1, 1), taps=(1, 2, 1)),
+    "bf16_w36_rw4": _case(2, 9, 36, 1, 1, (4, 4), (1, 2), min_blocks=1),
+    "bf16_w40_up2": _case(2, 6, 20, 2, 1, (4, 4), (2, 1), gain=4.0, taps=(1, 3, 3, 1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_bf16_plan_tile_by_tile_matches_plain(rng, name):
+    """The plan for 2-byte elements on bf16 input, block by block: within
+    one bf16 ulp of the plain bf16 FIR (fp32 sums of the same taps in
+    another order, each rounded once)."""
+    case = BF16_CASES[name]
+    x, k = _inputs(case, rng)
+    xb = torch.from_numpy(x).bfloat16()
+    up, down, (p0, p1) = case["up"], case["down"], case["pad"]
+    plan, ho, wo = _plan(case, elem_bytes=2)
+    got = run_plan(xb, torch.from_numpy(upfirdn._taps(k, case["gain"])), up, down, p0, ho, wo, plan)
+    want = upfirdn.upfirdn2d_plain(xb[None], k, up, down, (p0, p1), case["gain"])[0]
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert_within_one_bf16_ulp(got, want)
+
+
+def test_bf16_plans_copy_8_elements_and_halve_the_tile():
+    """A bf16 plan copies 16 bytes (8 elements) where w % 8 == 0 and the
+    base is aligned, rounds its staged row stride to 8 elements, and at the
+    same tiles stages half the bytes of the fp32 plan; rows of w % 8 != 0
+    (or an unaligned base) copy one element at a time."""
+    for name in ("blur_64x64_bands", "sg2_fir_4tap_33", "bf16_w12_one_element_copies",
+                 "bf16_w36_rw4", "bf16_w40_up2", "eblur_64x64", "blur_aligned_base_off"):
+        case = BF16_CASES[name]
+        p32, p16 = _plan(case)[0], _plan(case, elem_bytes=2)[0]
+        assert p16.elem_bytes == 2 and p32.elem_bytes == 4
+        assert p16.vec == int(case["aligned"] and case["w"] % 8 == 0), name
+        assert p32.vec == int(case["aligned"] and case["w"] % 4 == 0), name
+        if p16.vec:
+            assert p16.in_stride % 8 == 0
+        if (p16.tile_rows, p16.tile_cols, p16.planes_per_block) == \
+                (p32.tile_rows, p32.tile_cols, p32.planes_per_block) and p16.vec == p32.vec:
+            assert p16.in_stride <= p32.in_stride + 8 and p16.shared_bytes < p32.shared_bytes
+    with pytest.raises(ValueError, match="2 \\(bf16\\)"):
+        upfirdn.fir_plan(1, 8, 8, 1, 1, 1, 3, 3, 8, 8, min_blocks=1, elem_bytes=8)
 
 
 def test_plan_covers_what_the_name_says():
@@ -250,6 +321,10 @@ def test_plan_constants_match_the_kernel_source():
     assert f"kStripRows = {upfirdn.STRIP_ROWS};" in text
     assert f"kMaxSharedBytes = {upfirdn.MAX_SHARED_BYTES // 1024} * 1024;" in text
     assert f"kMaxTaps = {upfirdn.MAX_TAPS};" in text
+    assert f"VEC_BYTES" not in text and "16 / static_cast<int>(sizeof(T))" in text
+    assert f"cp.async.cg.shared.global [%0], [%1], {upfirdn.VEC_BYTES}, %2;" in text
+    for symbol in (cuda.KERNELS["upfirdn2d"][1], cuda.KERNELS["upfirdn2d_bf16"][1]):
+        assert f'extern "C" int {symbol}(' in text
     fields = re.search(r"enum PlanField \{([^}]*)\}", text).group(1)
     names = [f.strip() for f in fields.split(",") if f.strip()]
     want = ["k" + "".join(p.capitalize() for p in f.split("_")) for f in upfirdn.FirPlan.__dataclass_fields__]

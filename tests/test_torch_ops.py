@@ -150,7 +150,9 @@ def test_tpu_layout_is_tpugan_dispatch(monkeypatch, c, up, down, kshape):
 
 
 REFUSED = {
-    "bf16": (lambda x: dict(x=x.bfloat16()), TypeError, "float32"),
+    # bf16 is in the contract: a CPU bf16 tensor is refused only for its device
+    "bf16": (lambda x: dict(x=x.bfloat16()), ValueError, "CUDA tensor"),
+    "fp16": (lambda x: dict(x=x.half()), TypeError, "float32 or bfloat16"),
     "non_contiguous": (lambda x: dict(x=x.transpose(2, 3)), ValueError, "contiguous"),
     "up3": (lambda x: dict(up=3), ValueError, "up and down"),
     "9_taps": (lambda x: dict(kernel=upfirdn.setup_fir_kernel([1.0] * 9)), ValueError, "exceeds"),

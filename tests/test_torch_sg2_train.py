@@ -367,7 +367,7 @@ def test_cli_ablation_1_is_stylegan1_only():
 
 
 @pytest.mark.parametrize("extra,match", [
-    (("--bf16",), "A2"),
+    (("--bf16", "--remat"), "A2"),  # --bf16 itself runs (tests/test_torch_bf16.py)
     (("--remat",), "A3"),
     (("--remat_policy", "conv_outs"), "A3"),
     (("--resume",), "slice 7"),

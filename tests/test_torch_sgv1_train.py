@@ -580,7 +580,7 @@ def test_cli_has_no_lean_step_where_images_train(extra):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (("--bf16",), "A2"),
+    (("--bf16", "--remat"), "A2"),  # --bf16 itself runs (tests/test_torch_bf16.py)
     (("--remat",), "A3"),
     (("--remat_policy", "conv_outs"), "A3"),
     (("--resume",), "slice 7"),

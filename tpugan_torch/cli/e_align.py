@@ -18,10 +18,17 @@ and 4 the ladder's weights apply to the usual encoder, as in ``tpugan``.
 Every ``--log_every`` iterations a JSON record goes to stdout and
 ``Loss.txt``, and a grid of imgs1 over imgs2 to ``imgs/``.
 
+``--bf16`` (mtypes 1 and 2) runs tpugan's bf16 scheme
+(``tpugan_torch/precision.py``): a bf16 copy of the frozen generator (and
+mapping), the encoder computing in bf16 from its fp32 parameters, fp32
+losses, gradients and optimizer state; on the card every FIR is the
+kernel's bf16 form, forward and adjoint.
+
 :func:`build_trainer` makes the state and the step functions; ``main``
 loops and writes. What later work brings raises :class:`NotImplementedError`
-naming its ROADMAP item: ``--bf16`` (A2), ``--remat`` and ``--remat_policy``
-(A3), and ``--resume`` and checkpoints (slice 7).
+naming its ROADMAP item: ``--mtype 4 --bf16`` (queue B: bf16 forms of B3
+and B4), ``--remat`` and ``--remat_policy`` (A3), and ``--resume`` and
+checkpoints (slice 7).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from tpugan_torch.cli.common import (
     make_result_dirs,
 )
 from tpugan_torch.optim import lreq_adam
+from tpugan_torch.precision import bf16_encode, bf16_frozen, bf16_pipeline
 from tpugan_torch.train.e_align import (
     EncoderTrainState,
     build_biggan_pipeline,
@@ -63,7 +71,10 @@ def make_parser() -> argparse.ArgumentParser:
                         help="rematerialise activations (not in the port yet)")
     parser.add_argument("--remat_policy", default=None, choices=("conv_outs",),
                         help="selective remat (not in the port yet)")
-    parser.add_argument("--bf16", action="store_true", help="bfloat16 compute (not in the port yet)")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 compute for the generator and the encoder's forward and "
+                             "backward (fp32 master weights, fp32 norm moments, fp32 losses); "
+                             "mtypes 1 and 2")
     parser.add_argument("--log_every", type=int, default=100)
     parser.add_argument("--checkpoint_every", type=int, default=5000)
     parser.add_argument("--resume", action="store_true",
@@ -101,11 +112,15 @@ def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
     """The encoder's train state and step functions for ``args``, on
     ``args.device``, from random weights seeded by ``args.seed``. ``draw(
     iteration) -> Request`` replaces the iteration's seeded draws (a replay
-    of given inputs)."""
-    if args.bf16:
-        raise NotImplementedError("--bf16 comes with ROADMAP A2 (bf16, with B1/B2's bf16 form)")
+    of given inputs). With ``--bf16`` the trainer's bundle holds the bf16
+    copies of the generator and mapping that the step runs."""
+    if args.bf16 and args.mtype == 4:
+        raise NotImplementedError(
+            "--bf16 on mtype 4 (ROADMAP A2, done for mtypes 1 and 2) needs bf16 forms of B3 and "
+            "B4, the SAGAN attention kernels (ROADMAP queue B)")
     if args.remat or args.remat_policy is not None:
-        raise NotImplementedError("--remat and --remat_policy come with ROADMAP A3 (remat)")
+        raise NotImplementedError("--remat and --remat_policy come with ROADMAP A3 (remat)"
+                                  + (", with --bf16 (A2) as without" if args.bf16 else ""))
     if args.resume:
         raise NotImplementedError("--resume comes with ROADMAP slice 7 (io/checkpoint)")
     if args.iterations > args.checkpoint_every:
@@ -118,37 +133,40 @@ def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
         raise ValueError("ablation 1 (z re-mapping) is StyleGANv1-only")
     bundle = build_bundle(args)
     bundle.generator.requires_grad_(False)
+    if args.bf16:
+        # the fp32 mapping stays with bundle.remap (ablation 1), as tpugan's
+        # remap reads the fp32 tree
+        mapping = None if bundle.mapping is None else bf16_frozen(bundle.mapping)
+        bundle = bundle._replace(generator=bf16_frozen(bundle.generator), mapping=mapping)
     if args.mtype == 4:
         synth_fn, resynth = build_biggan_pipeline(bundle.generator, train=True)
-        encode = make_encode_fn(bundle.encoder, conditional=True, train=True)
-
-        def synth(request):
-            return synth_fn(request.z, request.label)
     elif args.mtype == 2:
         synth_fn, resynth = build_stylegan2_pipeline(bundle.generator, train=True)
-        encode = make_encode_fn(bundle.encoder, train=True)
-
-        def synth(request):
-            return synth_fn(request.z)
     else:
         synth_fn, resynth = build_stylegan1_pipeline(
             bundle.generator, bundle.mapping, bundle.layer_count - 1, train=True)
-        encode = make_encode_fn(bundle.encoder, train=True)
+    encode = make_encode_fn(bundle.encoder, conditional=args.mtype == 4, train=True)
+    if ab == 1:
+        # E_Blur_Z: const1 is z and the encoder's z2 is re-mapped to w+
+        # (1.E_align_z.py:62-67)
+        synth_g, encode_z = synth_fn, encode
 
-        def synth(request):
-            return synth_fn(request.z, request.noise_g)
+        def synth_fn(z, noise=None):
+            return synth_g(z, noise)._replace(const1=z)
 
-        if ab == 1:
-            # E_Blur_Z: const1 is z and the encoder's z2 is re-mapped to w+
-            # (1.E_align_z.py:62-67)
-            encode_z = encode
+        def encode(batch, noise=None):
+            _, z2 = encode_z(batch, noise)
+            return z2, bundle.remap(z2)
+    if args.bf16:
+        synth_fn, resynth = bf16_pipeline(synth_fn, resynth)
+        encode = bf16_encode(encode, bundle.encoder)
 
-            def synth(request):
-                return synth_fn(request.z, request.noise_g)._replace(const1=request.z)
-
-            def encode(batch, noise=None):
-                _, z2 = encode_z(batch, noise)
-                return z2, bundle.remap(z2)
+    def synth(request):
+        if args.mtype == 4:
+            return synth_fn(request.z, request.label)
+        if args.mtype == 2:
+            return synth_fn(request.z)
+        return synth_fn(request.z, request.noise_g)
 
     if draw is None:
         def draw(iteration):

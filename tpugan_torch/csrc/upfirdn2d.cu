@@ -1,4 +1,4 @@
-// upfirdn2d: upsample by zero-stuffing, pad, FIR-filter, downsample — NCHW fp32.
+// upfirdn2d: upsample by zero-stuffing, pad, FIR-filter, downsample — NCHW, fp32 or bf16.
 //
 // Replaces the two Pallas TPU kernels of tpugan/ops/pallas/upfirdn2d.py:
 //   * upfirdn2d_pallas         (B1: C % 128 == 0; up, down in {1, 2})
@@ -66,9 +66,25 @@
 // Measured at the SGv1 decode's six blur shapes (chip_smoke.py, H100 SXM
 // at 700 W): 73-84% of the byte bound at 128x128 and 64x256x256, 47-60% at
 // 32x32 and 64x64, and launch latency at 8x8 and 16x16 (PERF.md). Left
-// for later work: overlapping a block's next tile with its current one,
-// bf16.
+// for later work: overlapping a block's next tile with its current one.
+//
+// bf16 (tpugan_upfirdn2d_bf16), as the Pallas kernels take it: they stage x
+// in its own dtype, compute in fp32 and write x's dtype
+// (tpugan/ops/pallas/upfirdn2d.py:96-105, :291, :304; :153, :180, :191).
+// The kernel is templated on the element type T: the tile is staged in T
+// (bf16 halves its shared memory and its copies, as in Pallas), each
+// staged element is widened to fp32 where it is read, the taps stay fp32
+// and the sums are the fp32 kernel's, in the same order, and each output
+// is rounded once to bf16, to nearest even (__float2bfloat16_rn, what
+// JAX's astype does). A 16-byte copy holds 8 bf16 (w % 8 == 0 and an
+// aligned base; the tile's first column is then rounded down to a
+// multiple of 8); otherwise cp.async, whose smallest copy is 4 bytes, does
+// not apply and each bf16 is loaded and stored by its thread. A strip row
+// of 4 bf16 is one 8-byte store, of 2 one 4-byte store. The launch plan
+// carries the element size it was made for, and each entry point refuses
+// a plan of the other.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -83,8 +99,12 @@ constexpr int kMaxSharedBytes = 48 * 1024;
 // the launch plan, as tpugan_torch/ops/upfirdn.py::PLAN_FIELDS orders it
 enum PlanField {
   kRh, kRw, kTileRows, kTileCols, kTilesY, kTilesX, kPlanesPerBlock, kInRows, kInStride,
-  kPhase, kVec, kThreads, kBlocks, kSharedBytes, kPlanFields
+  kPhase, kVec, kThreads, kBlocks, kSharedBytes, kElemBytes, kPlanFields
 };
+
+// elements of T in one 16-byte copy
+template <typename T>
+constexpr int kVecElems = 16 / static_cast<int>(sizeof(T));
 
 struct Taps {
   float v[kMaxTaps * kMaxTaps];
@@ -95,28 +115,44 @@ struct Geometry {
   int h, w, ho, wo, pad0, kh, kw;
   int tile_rows, tile_cols, tiles_y, tiles_x, planes_per_block, in_rows, in_stride;
   int vec;         // 16-byte copies
-  int wide_store;  // a strip row is stored as one RW-float vector
+  int wide_store;  // a strip row is stored as one RW-element vector
 };
 
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
 // asynchronous global -> shared copies; an invalid source fills zeros
-__device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void copy4(void* dst, const void* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
                "r"(valid ? 4 : 0));
 }
-__device__ __forceinline__ void copy16(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void copy16(void* dst, const void* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
                "r"(valid ? 16 : 0));
 }
 
-// Stages `rows` = planes x in_rows input rows, in_stride floats each, from
-// input row iy0 and column gx0 on. A row of `chunks` copies is taken by a
-// group of lanes, the smallest power of two that covers it (at most a
-// warp), so narrow planes keep every lane busy without a division per copy.
-template <int WIDTH>
-__device__ __forceinline__ void stage(float* tile, const float* __restrict__ x, const Geometry& g,
+// Stages `rows` = planes x in_rows input rows, in_stride elements each,
+// from input row iy0 and column gx0 on, WIDTH elements a copy: 16 bytes
+// (kVecElems), or one element (4-byte cp.async for fp32; for bf16 a load
+// and a store by the thread, cp.async having no 2-byte copy). A row of
+// `chunks` copies is taken by a group of lanes, the smallest power of two
+// that covers it (at most a warp), so narrow planes keep every lane busy
+// without a division per copy.
+template <typename T, int WIDTH>
+__device__ __forceinline__ void stage(T* tile, const T* __restrict__ x, const Geometry& g,
                                       int64_t plane0, int rows, int iy0, int gx0) {
+  static_assert(WIDTH == 1 || WIDTH == kVecElems<T>, "one element or 16 bytes a copy");
   const int chunks = g.in_stride / WIDTH;
   int lg = 0;
   while (lg < 5 && (1 << lg) < chunks) ++lg;
@@ -128,15 +164,17 @@ __device__ __forceinline__ void stage(float* tile, const float* __restrict__ x, 
     const int p = row / g.in_rows;
     const int iy = iy0 + row - p * g.in_rows;
     const bool row_ok = iy >= 0 && iy < g.h;
-    const float* src = x + ((plane0 + p) * g.h + (row_ok ? iy : 0)) * static_cast<int64_t>(g.w);
-    float* dst = tile + row * g.in_stride;
+    const T* src = x + ((plane0 + p) * g.h + (row_ok ? iy : 0)) * static_cast<int64_t>(g.w);
+    T* dst = tile + row * g.in_stride;
     for (int c = c0; c < chunks; c += 1 << lg) {
       const int ix = gx0 + c * WIDTH;
-      const bool ok = row_ok && ix >= 0 && ix < g.w;  // WIDTH 4: w % 4 == 0, all or nothing
-      if (WIDTH == 4) {
-        copy16(dst + c * 4, ok ? src + ix : x, ok);
-      } else {
+      const bool ok = row_ok && ix >= 0 && ix < g.w;  // 16-byte copies: w % WIDTH == 0, all or nothing
+      if constexpr (WIDTH > 1) {
+        copy16(dst + c * WIDTH, ok ? src + ix : x, ok);
+      } else if constexpr (sizeof(T) == 4) {
         copy4(dst + c, ok ? src + ix : x, ok);
+      } else {
+        dst[c] = ok ? src[ix] : from_float<T>(0.f);
       }
     }
   }
@@ -148,9 +186,9 @@ __device__ __forceinline__ void stage(float* tile, const float* __restrict__ x, 
 // strip's first output row and column at tap (0, 0)'s phase origin: output
 // (da, db) reads staged row (PH + da*DOWN + ty) / UP and column
 // (PH + db*DOWN + tx) / UP, for the taps that land on real samples. Each
-// staged row is read once into registers.
-template <int KH, int KW, int UP, int DOWN, int PH, int RW>
-__device__ __forceinline__ void strip_fixed(const float* s, int stride, const Taps& t,
+// staged row is read once into registers, widened to fp32.
+template <int KH, int KW, int UP, int DOWN, int PH, int RW, typename T>
+__device__ __forceinline__ void strip_fixed(const T* s, int stride, const Taps& t,
                                             float (&acc)[kStripRows][RW]) {
   constexpr int kRows = (PH + (kStripRows - 1) * DOWN + KH - 1) / UP + 1;
   constexpr int kCols = (PH + (RW - 1) * DOWN + KW - 1) / UP + 1;
@@ -158,7 +196,7 @@ __device__ __forceinline__ void strip_fixed(const float* s, int stride, const Ta
   for (int r = 0; r < kRows; ++r) {
     float v[kCols];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) v[c] = s[r * stride + c];
+    for (int c = 0; c < kCols; ++c) v[c] = to_float(s[r * stride + c]);
 #pragma unroll
     for (int da = 0; da < kStripRows; ++da) {
 #pragma unroll
@@ -181,32 +219,52 @@ __device__ __forceinline__ void strip_fixed(const float* s, int stride, const Ta
 
 // One strip with runtime taps: each output phase starts at its first tap
 // on a real sample and steps by UP, with no test in the loop.
-template <int UP, int DOWN, int PH, int RW>
-__device__ __forceinline__ void strip_any(const float* s, int stride, int kh, int kw,
+template <int UP, int DOWN, int PH, int RW, typename T>
+__device__ __forceinline__ void strip_any(const T* s, int stride, int kh, int kw,
                                           const Taps& t, float (&acc)[kStripRows][RW]) {
 #pragma unroll
   for (int da = 0; da < kStripRows; ++da) {
     const int sy0 = PH + da * DOWN;
     for (int ty = (UP - sy0 % UP) % UP; ty < kh; ty += UP) {
-      const float* row = s + ((sy0 + ty) / UP) * stride;
+      const T* row = s + ((sy0 + ty) / UP) * stride;
 #pragma unroll
       for (int db = 0; db < RW; ++db) {
         const int sx0 = PH + db * DOWN;
         for (int tx = (UP - sx0 % UP) % UP; tx < kw; tx += UP) {
-          acc[da][db] = fmaf(t.v[ty * kw + tx], row[(sx0 + tx) / UP], acc[da][db]);
+          acc[da][db] = fmaf(t.v[ty * kw + tx], to_float(row[(sx0 + tx) / UP]), acc[da][db]);
         }
       }
     }
   }
 }
 
+// a strip row of RW outputs (RW = 2 or 4) as one vector store: 16 or 8
+// bytes of fp32, 8 or 4 bytes of bf16
+__device__ __forceinline__ void store_wide(float* row, const float (&a)[4]) {
+  *reinterpret_cast<float4*>(row) = make_float4(a[0], a[1], a[2], a[3]);
+}
+__device__ __forceinline__ void store_wide(float* row, const float (&a)[2]) {
+  *reinterpret_cast<float2*>(row) = make_float2(a[0], a[1]);
+}
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x, the lower address, is lo
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+__device__ __forceinline__ void store_wide(__nv_bfloat16* row, const float (&a)[4]) {
+  *reinterpret_cast<uint2*>(row) = make_uint2(bf16_pair(a[0], a[1]), bf16_pair(a[2], a[3]));
+}
+__device__ __forceinline__ void store_wide(__nv_bfloat16* row, const float (&a)[2]) {
+  *reinterpret_cast<unsigned*>(row) = bf16_pair(a[0], a[1]);
+}
+
 // KH = KW = 0: runtime taps (g.kh, g.kw)
-template <int KH, int KW, int UP, int DOWN, int PH, int RW>
+template <typename T, int KH, int KW, int UP, int DOWN, int PH, int RW>
 __global__ void __launch_bounds__(kMaxThreads)
-upfirdn2d_kernel(const float* __restrict__ x, float* __restrict__ y, Geometry g, Taps taps) {
+upfirdn2d_kernel(const T* __restrict__ x, T* __restrict__ y, Geometry g, Taps taps) {
   static_assert(kStripRows * DOWN % UP == 0 && RW * DOWN % UP == 0,
                 "a strip must start on an even stuffed row and column");
-  extern __shared__ __align__(16) float tile[];
+  extern __shared__ __align__(16) unsigned char shared[];
+  T* tile = reinterpret_cast<T*>(shared);
 
   // the block's tile, once, in 32 bits
   int b = blockIdx.x;
@@ -222,12 +280,13 @@ upfirdn2d_kernel(const float* __restrict__ x, float* __restrict__ y, Geometry g,
   // a multiple of UP (PH = -pad0 mod UP, oy0*DOWN even when UP = 2)
   const int iy0 = (oy0 * DOWN - g.pad0 - PH) / UP;
   const int ix0 = (ox0 * DOWN - g.pad0 - PH) / UP;
-  const int gx0 = g.vec ? (ix0 & ~3) : ix0;  // rounded down to a 16-byte boundary
+  // rounded down to a 16-byte boundary
+  const int gx0 = g.vec ? (ix0 & ~(kVecElems<T> - 1)) : ix0;
 
   if (g.vec) {
-    stage<4>(tile, x, g, plane0, planes * g.in_rows, iy0, gx0);
+    stage<T, kVecElems<T>>(tile, x, g, plane0, planes * g.in_rows, iy0, gx0);
   } else {
-    stage<1>(tile, x, g, plane0, planes * g.in_rows, iy0, gx0);
+    stage<T, 1>(tile, x, g, plane0, planes * g.in_rows, iy0, gx0);
   }
   __syncthreads();
 
@@ -239,8 +298,8 @@ upfirdn2d_kernel(const float* __restrict__ x, float* __restrict__ y, Geometry g,
   const int rest = tid - p * per_plane;
   const int sr = rest / strip_cols;
   const int sc = rest - sr * strip_cols;
-  const float* s = tile + (p * g.in_rows + sr * (kStripRows * DOWN / UP)) * g.in_stride +
-                   (ix0 - gx0) + sc * (RW * DOWN / UP);
+  const T* s = tile + (p * g.in_rows + sr * (kStripRows * DOWN / UP)) * g.in_stride +
+               (ix0 - gx0) + sc * (RW * DOWN / UP);
 
   float acc[kStripRows][RW];
 #pragma unroll
@@ -256,48 +315,43 @@ upfirdn2d_kernel(const float* __restrict__ x, float* __restrict__ y, Geometry g,
 
   const int oy = oy0 + sr * kStripRows;
   const int ox = ox0 + sc * RW;
-  float* out = y + (plane0 + p) * static_cast<int64_t>(g.ho) * g.wo + ox;
+  T* out = y + (plane0 + p) * static_cast<int64_t>(g.ho) * g.wo + ox;
 #pragma unroll
   for (int da = 0; da < kStripRows; ++da) {
     if (oy + da >= g.ho) break;
-    float* row = out + static_cast<int64_t>(oy + da) * g.wo;
-    if constexpr (RW == 4) {
-      if (g.wide_store && ox + 4 <= g.wo) {
-        *reinterpret_cast<float4*>(row) = make_float4(acc[da][0], acc[da][1], acc[da][2], acc[da][3]);
-        continue;
-      }
-    } else if constexpr (RW == 2) {
-      if (g.wide_store && ox + 2 <= g.wo) {
-        *reinterpret_cast<float2*>(row) = make_float2(acc[da][0], acc[da][1]);
+    T* row = out + static_cast<int64_t>(oy + da) * g.wo;
+    if constexpr (RW > 1) {
+      if (g.wide_store && ox + RW <= g.wo) {
+        store_wide(row, acc[da]);
         continue;
       }
     }
 #pragma unroll
     for (int db = 0; db < RW; ++db) {
-      if (ox + db < g.wo) row[db] = acc[da][db];
+      if (ox + db < g.wo) row[db] = from_float<T>(acc[da][db]);
     }
   }
 }
 
-template <int KH, int KW, int UP, int DOWN, int PH, int RW>
-cudaError_t launch(const float* x, float* y, const Geometry& g, const Taps& t, const int* plan,
+template <typename T, int KH, int KW, int UP, int DOWN, int PH, int RW>
+cudaError_t launch(const T* x, T* y, const Geometry& g, const Taps& t, const int* plan,
                    cudaStream_t stream) {
-  upfirdn2d_kernel<KH, KW, UP, DOWN, PH, RW>
+  upfirdn2d_kernel<T, KH, KW, UP, DOWN, PH, RW>
       <<<static_cast<unsigned>(plan[kBlocks]), plan[kThreads], plan[kSharedBytes], stream>>>(x, y, g, t);
   return cudaGetLastError();
 }
 
 // the compile-time tap cases of this (up, down), else runtime taps
-template <int UP, int DOWN, int PH, int RW>
-cudaError_t launch_taps(const float* x, float* y, const Geometry& g, const Taps& t,
-                        const int* plan, cudaStream_t stream) {
+template <typename T, int UP, int DOWN, int PH, int RW>
+cudaError_t launch_taps(const T* x, T* y, const Geometry& g, const Taps& t, const int* plan,
+                        cudaStream_t stream) {
   if constexpr (UP == 1 && DOWN == 1) {
-    if (g.kh == 3 && g.kw == 3) return launch<3, 3, UP, DOWN, PH, RW>(x, y, g, t, plan, stream);
+    if (g.kh == 3 && g.kw == 3) return launch<T, 3, 3, UP, DOWN, PH, RW>(x, y, g, t, plan, stream);
   }
   if constexpr (UP * DOWN <= 2) {
-    if (g.kh == 4 && g.kw == 4) return launch<4, 4, UP, DOWN, PH, RW>(x, y, g, t, plan, stream);
+    if (g.kh == 4 && g.kw == 4) return launch<T, 4, 4, UP, DOWN, PH, RW>(x, y, g, t, plan, stream);
   }
-  return launch<0, 0, UP, DOWN, PH, RW>(x, y, g, t, plan, stream);
+  return launch<T, 0, 0, UP, DOWN, PH, RW>(x, y, g, t, plan, stream);
 }
 
 // strip columns of each (up, down): a whole number of stuffed-sample pairs
@@ -307,8 +361,11 @@ constexpr int strip_width(int up, int down) { return up == 2 && down == 1 ? 2 : 
 int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 // Every property of the plan that the kernel relies on; false refuses it.
+template <typename T>
 bool plan_is_valid(const int* p, int64_t planes, int h, int w, int ho, int wo, int up, int down,
-                   int pad0, int kh, int kw, const float* x) {
+                   int pad0, int kh, int kw, const T* x) {
+  constexpr int vec_elems = kVecElems<T>;
+  if (p[kElemBytes] != static_cast<int>(sizeof(T))) return false;
   if (p[kRh] != kStripRows ||
       (p[kRw] != strip_width(up, down) && !(up == 1 && down == 1 && p[kRw] == 4))) {
     return false;
@@ -326,8 +383,8 @@ bool plan_is_valid(const int* p, int64_t planes, int h, int w, int ho, int wo, i
   const int64_t cols = (p[kPhase] + static_cast<int64_t>(p[kTileCols] - 1) * down + kw - 1) / up + 1;
   if (p[kInRows] < rows) return false;
   if (p[kVec]) {
-    if (w % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 || p[kInStride] % 4 != 0 ||
-        p[kInStride] < cols + 3) {
+    if (w % vec_elems != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+        p[kInStride] % vec_elems != 0 || p[kInStride] < cols + vec_elems - 1) {
       return false;
     }
   } else if (p[kVec] != 0 || p[kInStride] < cols) {
@@ -336,26 +393,16 @@ bool plan_is_valid(const int* p, int64_t planes, int h, int w, int ho, int wo, i
   const int64_t strips = static_cast<int64_t>(p[kPlanesPerBlock]) * (p[kTileRows] / kStripRows) *
                          (p[kTileCols] / p[kRw]);
   if (p[kThreads] % 32 != 0 || p[kThreads] < strips || p[kThreads] > kMaxThreads) return false;
-  const int64_t shared = static_cast<int64_t>(p[kPlanesPerBlock]) * p[kInRows] * p[kInStride] * 4;
+  const int64_t shared =
+      static_cast<int64_t>(p[kPlanesPerBlock]) * p[kInRows] * p[kInStride] * sizeof(T);
   if (p[kSharedBytes] != shared || shared > kMaxSharedBytes) return false;
   const int64_t blocks = cdiv(planes, p[kPlanesPerBlock]) * p[kTilesY] * p[kTilesX];
   return p[kBlocks] == blocks && blocks <= 0x7fffffffLL;
 }
 
-}  // namespace
-
-// Plain C entry point, bound with ctypes. `taps` is a host array of kh*kw
-// floats (row-major, gain folded in); `plan` is a host array of kPlanFields
-// ints from tpugan_torch/ops/upfirdn.py::fir_plan. Both are copied into the
-// launch, so the caller may free them on return. `device` is the ordinal
-// that holds x, y and `stream` (this library has its own runtime state, so
-// it sets the device itself). Launches on `stream` and does not
-// synchronise. Returns 0, or the cudaError_t of a refused launch
-// (cudaErrorInvalidValue for arguments or a plan outside the kernel's
-// contract).
-extern "C" int tpugan_upfirdn2d_f32(const float* x, float* y, int64_t planes, int h, int w,
-                                    int ho, int wo, int up, int down, int pad0, int kh, int kw,
-                                    const float* taps, const int* plan, int device, void* stream) {
+template <typename T>
+int run(const T* x, T* y, int64_t planes, int h, int w, int ho, int wo, int up, int down, int pad0,
+        int kh, int kw, const float* taps, const int* plan, int device, void* stream) {
   if (planes < 0 || h < 1 || w < 1 || ho < 1 || wo < 1 || pad0 < 0 || kh < 1 ||
       kh > kMaxTaps || kw < 1 || kw > kMaxTaps || (up != 1 && up != 2) ||
       (down != 1 && down != 2) || static_cast<int64_t>(h) * w > 0x7fffffffLL ||
@@ -373,20 +420,45 @@ extern "C" int tpugan_upfirdn2d_f32(const float* x, float* y, int64_t planes, in
   const int rw = plan[kRw];
   Geometry g{planes, h, w, ho, wo, pad0, kh, kw, plan[kTileRows], plan[kTileCols], plan[kTilesY],
              plan[kTilesX], plan[kPlanesPerBlock], plan[kInRows], plan[kInStride], plan[kVec],
-             rw > 1 && wo % rw == 0 && reinterpret_cast<uintptr_t>(y) % (4 * rw) == 0};
+             rw > 1 && wo % rw == 0 && reinterpret_cast<uintptr_t>(y) % (sizeof(T) * rw) == 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (up == 1 && down == 1) {
-    err = rw == 4 ? launch_taps<1, 1, 0, 4>(x, y, g, t, plan, s)
-                  : launch_taps<1, 1, 0, strip_width(1, 1)>(x, y, g, t, plan, s);
+    err = rw == 4 ? launch_taps<T, 1, 1, 0, 4>(x, y, g, t, plan, s)
+                  : launch_taps<T, 1, 1, 0, strip_width(1, 1)>(x, y, g, t, plan, s);
   } else if (up == 2 && down == 1) {
-    err = plan[kPhase] ? launch_taps<2, 1, 1, strip_width(2, 1)>(x, y, g, t, plan, s)
-                       : launch_taps<2, 1, 0, strip_width(2, 1)>(x, y, g, t, plan, s);
+    err = plan[kPhase] ? launch_taps<T, 2, 1, 1, strip_width(2, 1)>(x, y, g, t, plan, s)
+                       : launch_taps<T, 2, 1, 0, strip_width(2, 1)>(x, y, g, t, plan, s);
   } else if (up == 1 && down == 2) {
-    err = launch_taps<1, 2, 0, strip_width(1, 2)>(x, y, g, t, plan, s);
+    err = launch_taps<T, 1, 2, 0, strip_width(1, 2)>(x, y, g, t, plan, s);
   } else {
-    err = plan[kPhase] ? launch_taps<2, 2, 1, strip_width(2, 2)>(x, y, g, t, plan, s)
-                       : launch_taps<2, 2, 0, strip_width(2, 2)>(x, y, g, t, plan, s);
+    err = plan[kPhase] ? launch_taps<T, 2, 2, 1, strip_width(2, 2)>(x, y, g, t, plan, s)
+                       : launch_taps<T, 2, 2, 0, strip_width(2, 2)>(x, y, g, t, plan, s);
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Plain C entry points, bound with ctypes, one per element type: x and y
+// fp32, or bf16 (the taps and the sums fp32 in both). `taps` is a host
+// array of kh*kw floats (row-major, gain folded in); `plan` is a host
+// array of kPlanFields ints from tpugan_torch/ops/upfirdn.py::fir_plan,
+// made for this element size. Both are copied into the launch, so the
+// caller may free them on return. `device` is the ordinal that holds x, y
+// and `stream` (this library has its own runtime state, so it sets the
+// device itself). Launches on `stream` and does not synchronise. Returns
+// 0, or the cudaError_t of a refused launch (cudaErrorInvalidValue for
+// arguments or a plan outside the kernel's contract).
+extern "C" int tpugan_upfirdn2d_f32(const float* x, float* y, int64_t planes, int h, int w,
+                                    int ho, int wo, int up, int down, int pad0, int kh, int kw,
+                                    const float* taps, const int* plan, int device, void* stream) {
+  return run(x, y, planes, h, w, ho, wo, up, down, pad0, kh, kw, taps, plan, device, stream);
+}
+
+extern "C" int tpugan_upfirdn2d_bf16(const __nv_bfloat16* x, __nv_bfloat16* y, int64_t planes,
+                                     int h, int w, int ho, int wo, int up, int down, int pad0,
+                                     int kh, int kw, const float* taps, const int* plan,
+                                     int device, void* stream) {
+  return run(x, y, planes, h, w, ho, wo, up, down, pad0, kh, kw, taps, plan, device, stream);
 }

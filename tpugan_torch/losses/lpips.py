@@ -78,10 +78,16 @@ def make_lpips_fn(model: LPIPS):
     return fn
 
 
-def random_lpips_fn(device, seed: int = 7):
+def random_lpips_fn(device, seed: int = 7, dtype: torch.dtype | None = None):
     """Random-weight LPIPS closure on ``device`` for benchmarks: random heads
     cost what trained ones cost, so a step does the reference's real work
     (six VGG16 passes: the full image and both crops, each on target and
-    reconstruction). Not for quality evaluation."""
+    reconstruction). Not for quality evaluation. ``dtype=torch.bfloat16``
+    gives the bf16 LPIPS of ``precision.bf16_lpips`` (bf16 VGG weights and
+    activations, fp32 distances), as tpugan's ``dtype`` does."""
     model = random_params(torch.Generator().manual_seed(seed)).to(device)
+    if dtype is not None:
+        from tpugan_torch.precision import bf16_lpips
+
+        return bf16_lpips(make_lpips_fn(model.to(dtype)))
     return make_lpips_fn(model)

@@ -48,7 +48,10 @@ class MappingBlock(nn.Module):
 
 class StyleGANv1Mapping(nn.Module):
     """z [N, latent] -> w+ [N, num_layers, dlatent] with optional truncation
-    towards ``center`` ([num_layers, dlatent]) by ``coefs``."""
+    towards ``center`` ([num_layers, dlatent]) by ``coefs``. A z of another
+    dtype than the weights is pixel-normed in its own and then cast to
+    theirs: tpugan's matmul promotes a bf16 z on fp32 weights to fp32
+    (ablation 1 re-maps the bf16 encoder's z through the fp32 mapping)."""
 
     def __init__(self, num_layers: int = 18, mapping_layers: int = 8, latent_size: int = 512,
                  dlatent_size: int = 512, mapping_fmaps: int = 512, generator=None):
@@ -62,7 +65,7 @@ class StyleGANv1Mapping(nn.Module):
             inputs = features
 
     def forward(self, z, coefs=None, center=None):
-        x = pixel_norm(z, dim=-1)
+        x = pixel_norm(z, dim=-1).to(self.block_1.fc.weight.dtype)
         for i in range(self.mapping_layers):
             x = getattr(self, f"block_{i + 1}")(x)
         x = x[:, None, :].repeat(1, self.num_layers, 1)

@@ -64,9 +64,11 @@ def noise_inject(
 ) -> torch.Tensor:
     """x + noise_weight * noise with single-channel spatial noise.
 
-    noise_weight is [C]; noise is [N, 1, H, W]. ``noise=None`` disables
-    injection (deterministic eval); callers draw the noise themselves.
+    noise_weight is [C]; noise is [N, 1, H, W], taken in x's dtype, as
+    tpugan draws it (bf16 activations get bf16 noise). ``noise=None``
+    disables injection (deterministic eval); callers draw the noise
+    themselves.
     """
     if noise is None:
         return x
-    return x + noise_weight[None, :, None, None] * noise
+    return x + noise_weight[None, :, None, None] * noise.to(x.dtype)

@@ -9,16 +9,22 @@ multiplies the taps.
 Dispatch: a CPU tensor takes :func:`upfirdn2d_plain`; a CUDA tensor launches
 the hand-written kernel (``csrc/upfirdn2d.cu``), which raises on any input
 outside the kernel's contract (:func:`upfirdn2d_cuda` is one call of it).
-Nothing falls back. Each launch is counted in ``cuda.launches``
-and, by the TPU kernel that tpugan runs for the same FIR
-(:func:`tpu_layout`), in :data:`layout_launches`.
+Nothing falls back. Each launch is counted in ``cuda.launches``, under
+``upfirdn2d`` (fp32) or ``upfirdn2d_bf16`` (bf16), and, by the TPU kernel
+that tpugan runs for the same FIR (:func:`tpu_layout`), in
+:data:`layout_launches`.
+
+dtypes: fp32 and bf16, as the Pallas kernels take them. A bf16 FIR reads
+bf16, sums in fp32 with fp32 taps and rounds each output once to bf16, on
+both devices.
 
 Gradient: when one is wanted, :func:`upfirdn2d` runs as a
 :class:`torch.autograd.Function` on both devices. Its backward is the
 adjoint FIR, as tpugan's custom VJP: the gradient stuffed by ``down``,
 correlated with the flipped taps at the same gain and decimated by ``up``,
 with pads taken per axis (``kh`` for H, ``kw`` for W) so that the input's
-size comes back. On the card that is one more launch of the same kernel;
+size comes back, in the gradient's dtype, as tpugan's custom VJP runs it.
+On the card that is one more launch of the same kernel;
 pads it does not take (negative, or unequal front pads of H and W) are
 applied to the gradient in torch first (:func:`_fir_cuda`).
 """
@@ -41,6 +47,9 @@ MAX_SHARED_BYTES = 48 * 1024  # kMaxSharedBytes: a block's staged tile, at most
 MAX_STRIP_COLS = 64  # strips across a tile of a wide plane
 WIDE_STRIP_MIN_COLS = 32  # same-size FIRs on rows this wide take 4-column strips
 BLOCKS_PER_SM = 2  # blocks a launch should have per SM before small planes share one
+VEC_BYTES = 16  # a cp.async copy of a staged row, where rows allow it
+# the C entry point of each dtype, by its name in cuda.KERNELS
+KERNEL_OF_DTYPE = {torch.float32: "upfirdn2d", torch.bfloat16: "upfirdn2d_bf16"}
 
 
 def setup_fir_kernel(taps) -> np.ndarray:
@@ -66,11 +75,12 @@ class FirPlan:
     A block owns ``planes_per_block`` planes and, in each, an output tile of
     ``tile_rows`` x ``tile_cols`` at (tile_y * tile_rows, tile_x *
     tile_cols); blocks run planes-group-major, then tile_y, then tile_x. It
-    stages ``in_rows`` input rows of ``in_stride`` floats per plane from row
-    ``(oy0*down - pad0 - phase) // up`` and column ``(ox0*down - pad0 -
-    phase) // up`` on; with ``vec`` (16-byte copies) the first column is
-    rounded down to a multiple of 4 and reads start ``lead`` columns in.
-    Each thread computes ``rh`` x ``rw`` outputs."""
+    stages ``in_rows`` input rows of ``in_stride`` elements of
+    ``elem_bytes`` bytes per plane from row ``(oy0*down - pad0 - phase) //
+    up`` and column ``(ox0*down - pad0 - phase) // up`` on; with ``vec``
+    (16-byte copies, of 4 floats or 8 bf16) the first column is rounded down
+    to a multiple of the copy and reads start ``lead`` columns in. Each
+    thread computes ``rh`` x ``rw`` outputs."""
 
     rh: int
     rw: int
@@ -86,6 +96,7 @@ class FirPlan:
     threads: int
     blocks: int
     shared_bytes: int
+    elem_bytes: int
 
     def as_array(self) -> np.ndarray:
         return np.array(astuple(self), dtype=np.int32)
@@ -107,7 +118,7 @@ def strip_width(up: int, down: int, wo: int) -> int:
 
 def fir_plan(planes: int, h: int, w: int, up: int, down: int, pad0: int, kh: int, kw: int,
              ho: int, wo: int, *, min_blocks: int, aligned: bool = True,
-             rw: int | None = None) -> FirPlan:
+             rw: int | None = None, elem_bytes: int = 4) -> FirPlan:
     """The launch plan for ``planes`` planes of h x w -> ho x wo.
 
     Small planes (a whole plane in at most THREADS strips) go several to a
@@ -115,19 +126,23 @@ def fir_plan(planes: int, h: int, w: int, up: int, down: int, pad0: int, kh: int
     larger ones are cut into bands of rows across the full width, or 2-D
     tiles of MAX_STRIP_COLS strips for wide planes. A tile whose staged
     input exceeds MAX_SHARED_BYTES holds fewer planes, then fewer rows, then
-    fewer columns. ``aligned``: the input's base is 16-byte aligned; with
-    w % 4 == 0 every row is, and the tile is copied 16 bytes at a time.
-    ``rw``: the strip width, :func:`strip_width` unless given (a same-size
-    FIR runs with 1 or 4)."""
+    fewer columns. ``elem_bytes``: 4 (fp32) or 2 (bf16). ``aligned``: the
+    input's base is 16-byte aligned; when w is a multiple of a 16-byte copy
+    (4 floats, 8 bf16) every row is, and the tile is copied 16 bytes at a
+    time. ``rw``: the strip width, :func:`strip_width` unless given (a
+    same-size FIR runs with 1 or 4)."""
+    if elem_bytes not in (2, 4):
+        raise ValueError(f"elements of 4 (fp32) or 2 (bf16) bytes, got {elem_bytes}")
     rh = STRIP_ROWS
     rw = strip_width(up, down, wo) if rw is None else rw
     phase = -pad0 % up
-    vec = int(aligned and w % 4 == 0)
+    v = VEC_BYTES // elem_bytes
+    vec = int(aligned and w % v == 0)
 
     def staged(tile_rows, tile_cols):
         rows = (phase + (tile_rows - 1) * down + kh - 1) // up + 1
         cols = (phase + (tile_cols - 1) * down + kw - 1) // up + 1
-        return rows, (-(-(cols + 3) // 4) * 4 if vec else cols)
+        return rows, (-(-(cols + v - 1) // v) * v if vec else cols)
 
     strip_cols, strip_rows = _cdiv(wo, rw), _cdiv(ho, rh)
     if strip_cols * strip_rows <= THREADS:
@@ -139,7 +154,7 @@ def fir_plan(planes: int, h: int, w: int, up: int, down: int, pad0: int, kh: int
         strip_rows = min(strip_rows, THREADS // strip_cols)
     while True:
         in_rows, in_stride = staged(strip_rows * rh, strip_cols * rw)
-        if per_block * in_rows * in_stride * 4 <= MAX_SHARED_BYTES:
+        if per_block * in_rows * in_stride * elem_bytes <= MAX_SHARED_BYTES:
             break
         if per_block > 1:
             per_block -= 1
@@ -154,7 +169,7 @@ def fir_plan(planes: int, h: int, w: int, up: int, down: int, pad0: int, kh: int
         planes_per_block=per_block, in_rows=in_rows, in_stride=in_stride, phase=phase, vec=vec,
         threads=_cdiv(per_block * strip_rows * strip_cols, 32) * 32,
         blocks=_cdiv(planes, per_block) * tiles_y * tiles_x,
-        shared_bytes=per_block * in_rows * in_stride * 4,
+        shared_bytes=per_block * in_rows * in_stride * elem_bytes, elem_bytes=elem_bytes,
     )
 
 
@@ -260,12 +275,15 @@ def _stuff(x: torch.Tensor, up: int) -> torch.Tensor:
 
 
 def _fir_plain(x, taps, up, down, pads):
+    """The FIR as a depthwise conv; bf16 is summed in fp32 with fp32 taps
+    and rounded once at the end, as the Pallas kernels compute it."""
     n, c, h, w = x.shape
-    k = torch.from_numpy(taps).to(device=x.device, dtype=x.dtype)
+    work = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    k = torch.from_numpy(taps).to(device=x.device, dtype=work)
     kh, kw = k.shape
     py0, py1, px0, px1 = pads
-    x = F.pad(_stuff(x, up), (px0, px1, py0, py1))
-    return F.conv2d(x, k.expand(c, 1, kh, kw), stride=down, groups=c)
+    xp = F.pad(_stuff(x.to(work), up), (px0, px1, py0, py1))
+    return F.conv2d(xp, k.expand(c, 1, kh, kw), stride=down, groups=c).to(x.dtype)
 
 
 def upfirdn2d_plain(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
@@ -300,8 +318,8 @@ def upfirdn2d_cuda(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
                    pad: tuple[int, int] = (0, 0), gain: float = 1.0) -> torch.Tensor:
     """Launch ``csrc/upfirdn2d.cu`` on PyTorch's current stream.
 
-    Takes contiguous fp32 NCHW CUDA tensors, up and down in {1, 2}, kernels
-    up to 8x8 and non-negative pads; raises on anything else. The output
+    Takes contiguous fp32 or bf16 NCHW CUDA tensors, up and down in {1, 2},
+    kernels up to 8x8 and non-negative pads; raises on anything else. The output
     carries no gradient: :func:`upfirdn2d` is the differentiable form.
     """
     p0, p1 = (int(p) for p in pad)
@@ -313,11 +331,11 @@ def upfirdn2d_cuda(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
 
 
 def check_launch(x, taps, up, down, pad0, ho, wo) -> None:
-    """The kernel's contract, short of the device: a contiguous fp32 [N, C,
-    H, W] tensor, up and down in {1, 2}, up to 8x8 taps, a non-negative
-    front pad and a non-empty output; raises on anything else."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"upfirdn2d_cuda takes float32, got {x.dtype}")
+    """The kernel's contract, short of the device: a contiguous fp32 or bf16
+    [N, C, H, W] tensor, up and down in {1, 2}, up to 8x8 taps, a
+    non-negative front pad and a non-empty output; raises on anything else."""
+    if x.dtype not in KERNEL_OF_DTYPE:
+        raise TypeError(f"upfirdn2d_cuda takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError("upfirdn2d_cuda takes a contiguous [N, C, H, W] tensor")
     kh, kw = taps.shape
@@ -332,9 +350,9 @@ def check_launch(x, taps, up, down, pad0, ho, wo) -> None:
 
 
 def _launch(x, taps, up, down, pad0, ho, wo, key):
-    """One launch of the kernel, ``ho`` x ``wo`` outputs from front pad
-    ``pad0``, counted in ``cuda.launches`` and under ``key`` in
-    :data:`layout_launches`."""
+    """One launch of the kernel of x's dtype, ``ho`` x ``wo`` outputs from
+    front pad ``pad0``, counted under its name in ``cuda.launches`` and
+    under ``key`` in :data:`layout_launches`."""
     check_launch(x, taps, up, down, pad0, ho, wo)
     if not x.is_cuda:
         raise ValueError(f"upfirdn2d_cuda needs a CUDA tensor, got one on {x.device}")
@@ -342,14 +360,15 @@ def _launch(x, taps, up, down, pad0, ho, wo, key):
     kh, kw = taps.shape
     y = torch.empty((n, c, ho, wo), dtype=x.dtype, device=x.device)
     plan = _plan_array(n * c, h, w, up, down, pad0, kh, kw, ho, wo, min_blocks=min_blocks(x.device),
-                       aligned=x.data_ptr() % 16 == 0)
-    fn = cuda.kernel("upfirdn2d")
+                       aligned=x.data_ptr() % VEC_BYTES == 0, elem_bytes=x.element_size())
+    name = KERNEL_OF_DTYPE[x.dtype]
+    fn = cuda.kernel(name)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), y.data_ptr(), n * c, h, w, ho, wo, up, down, pad0, kh, kw,
             taps.ctypes.data, plan.ctypes.data, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"upfirdn2d kernel launch failed: cudaError {rc}")
-    cuda.launches["upfirdn2d"] += 1
+    cuda.launches[name] += 1
     layout_launches[key] += 1
     return y
 
