@@ -325,6 +325,12 @@ def test_plan_constants_match_the_kernel_source():
     assert f"cp.async.cg.shared.global [%0], [%1], {upfirdn.VEC_BYTES}, %2;" in text
     for symbol in (cuda.KERNELS["upfirdn2d"][1], cuda.KERNELS["upfirdn2d_bf16"][1]):
         assert f'extern "C" int {symbol}(' in text
+    # a strip row of rw outputs is one store of rw elements where the output
+    # rows allow it (16 or 8 bytes of fp32, 8 or 4 of bf16), else rw scalar ones
+    assert "rw > 1 && wo % rw == 0 && reinterpret_cast<uintptr_t>(y) % (sizeof(T) * rw) == 0" in text
+    for elem in ("float", "__nv_bfloat16"):
+        for width in (4, 2):
+            assert f"void store_wide({elem}* row, const float (&a)[{width}])" in text
     fields = re.search(r"enum PlanField \{([^}]*)\}", text).group(1)
     names = [f.strip() for f in fields.split(",") if f.strip()]
     want = ["k" + "".join(p.capitalize() for p in f.split("_")) for f in upfirdn.FirPlan.__dataclass_fields__]
