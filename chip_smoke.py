@@ -79,7 +79,23 @@ Phases:
      steps of phases 8 and 9; ten case-2 steps at tpugan's bf16 gate
      configuration and full-width request images held to a CPU replay, the
      first full-width step to tpugan's 3%, tpugan's other bf16 gates
-     printed.
+     printed;
+ 11. bf16 on the BigGAN-deep-256 path, ``e_align --mtype 4 --bf16``: the
+     attention kernels' bf16 forms (B3 at phase 2's cases and at widths and
+     bases that take each of its loads, B4 at phase 2's backward cases)
+     bitwise the fp32 kernels on the widened inputs rounded to bf16, within
+     one bf16 ulp plus the fp32 tolerance of the plain version in float64,
+     two runs bitwise equal, mixed dtypes refused; both timed at the path's
+     shape beside the fp32 kernel, the plain version, SDPA on fp32 and on
+     bf16, and their bounds (timed with phase 2's, before any path is
+     profiled); E_BIG case 2 (every gamma of the bf16
+     generator at 1, the z head scaled), case 1 and its lean step at full
+     width with the launches of each step against the modules' (no fp32
+     attention, no plain version on a CUDA tensor), the kernels on a step's
+     own inputs, the encoder moving on fp32 masters, the bf16 generator
+     frozen; step times, device time by kernel and peak memory beside phase
+     6's fp32 steps; a bf16 case-2 step at phase 6's reduced width held to
+     its CPU replay by twice the CPU's bf16 distance from fp32.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -95,14 +111,14 @@ import sys
 import time
 
 # (name substring, memory bytes/s, fp32 FLOP/s outside the tensor cores,
-# dense TF32 tensor-core FLOP/s), first match wins; NVIDIA data sheets,
-# dense rates (the sheets' TF32 figures are with sparsity, twice these: 756
-# TFLOP/s for H100 PCIe, 835 for H100 NVL, 989 for H100 SXM and H200)
+# dense TF32 and dense bf16 tensor-core FLOP/s), first match wins; NVIDIA
+# data sheets, dense rates (the sheets' tensor-core figures are with
+# sparsity, twice these)
 CARD_SPECS = (
-    ("H100 PCIe", 2.0e12, 51e12, 378e12),
-    ("H100 NVL", 3.9e12, 60e12, 417.5e12),
-    ("H100", 3.35e12, 67e12, 495e12),
-    ("H200", 4.8e12, 67e12, 495e12),
+    ("H100 PCIe", 2.0e12, 51e12, 378e12, 756e12),
+    ("H100 NVL", 3.9e12, 60e12, 417.5e12, 835e12),
+    ("H100", 3.35e12, 67e12, 495e12, 989.4e12),
+    ("H200", 4.8e12, 67e12, 495e12, 989.4e12),
 )
 CARD = "cuda"  # the device every phase runs on; the replays' second side is the CPU
 SEED = 0
@@ -276,9 +292,9 @@ def expected_launches(**counts):
 
 
 def card_specs(name):
-    for key, bandwidth, fp32, tf32 in CARD_SPECS:
+    for key, *peaks in CARD_SPECS:
         if key in name:
-            return bandwidth, fp32, tf32
+            return peaks
     raise RuntimeError(f"chip_smoke: no memory/compute peaks known for {name!r}")
 
 
@@ -399,14 +415,15 @@ def request_device_time(torch, run, seed, median, symbol, name):
 
 def attention_tiers():
     """The padded dk and the slice widths of dv that csrc/sagan_attention.cu
-    dispatches to, read from its source (``launch_dv<CK>``, ``launch<CK,
-    CV>``): every pair of them is an instance of its kernel."""
+    dispatches to, read from its source (``launch_dv<T, CK>``, ``launch<T,
+    CK, CV>``): every pair of them is an instance of its kernel, for each
+    element type T."""
     import re
     from pathlib import Path
 
     source = (Path(__file__).resolve().parent / "tpugan_torch/csrc/sagan_attention.cu").read_text()
-    return ({int(x) for x in re.findall(r"launch_dv<(\d+)>", source)},
-            {int(x) for x in re.findall(r"launch<CK, (\d+)>", source)})
+    return ({int(x) for x in re.findall(r"launch_dv<T, (\d+)>", source)},
+            {int(x) for x in re.findall(r"launch<T, CK, (\d+)>", source)})
 
 
 def launched_instance():
@@ -742,6 +759,26 @@ def attention_bwd_parity(torch, dev, gen):
     return max_err
 
 
+def time_calls(torch, calls, expect):
+    """Device time per call of each of ``calls`` ({key: fn}): the kernel's
+    (key "ms", and "fp32_ms" for the fp32 kernel beside a bf16 one) from
+    ``kernel_ms`` (``expect``: its symbols), the others' summed over a
+    trace of 20 calls. Returns the times (and "ms_from", "fp32_ms_from"),
+    the kernels each call ran by name (longest first) and by key, and each
+    call's back-to-back time from CUDA events."""
+    row, names, kernels_of = {}, {}, {}
+    for key, fn in calls.items():
+        if key in ("ms", "fp32_ms"):
+            row[key], kernels, row[f"{key}_from"] = kernel_ms(torch, fn, expect, device_bound=True)
+        else:
+            kernels = device_kernels(torch, fn, iters=20)
+            row[key] = sum(ms for ms, _ in kernels.values())
+        names[key] = sorted(kernels, key=lambda name: -kernels[name][0])
+        kernels_of[key] = kernels
+    issue = {key: time_ms(torch, fn, iters=20) for key, fn in calls.items()}
+    return row, names, kernels_of, issue
+
+
 def attention_times(torch, dev, gen, bandwidth, fp32_peak, tf32_peak):
     """B3 and B4 at the BigGAN-256 paths' shape (ATTN_PATH_SHAPE, randn
     inputs from the seed), timed before any path runs: traces taken after the
@@ -765,24 +802,11 @@ def attention_times(torch, dev, gen, bandwidth, fp32_peak, tf32_peak):
     o, lse = sagan_attention_plain(q, k, v, return_lse=True)
     shape = f"q [{n}, {lq}, {dk}], k [{n}, {lk}, {dk}], v [{n}, {lk}, {dv}]"
 
-    def timed(calls, expect):
-        row, names, kernels_of = {}, {}, {}
-        for key, fn in calls.items():
-            if key == "ms":
-                row[key], kernels, row["ms_from"] = kernel_ms(torch, fn, expect, device_bound=True)
-            else:
-                kernels = device_kernels(torch, fn, iters=20)
-                row[key] = sum(ms for ms, _ in kernels.values())
-            names[key] = sorted(kernels, key=lambda name: -kernels[name][0])
-            kernels_of[key] = kernels
-        issue = {key: time_ms(torch, fn, iters=20) for key, fn in calls.items()}
-        return row, names, kernels_of, issue
-
     # B3: softmax(q k^T) v
     library = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)  # noqa: E731
     lib_err = (library() - sagan_attention_plain(q, k, v)).abs().max().item()
     check(lib_err < 1e-3, f"scaled_dot_product_attention differs by {lib_err:.3e}")
-    b3, names, _, issue = timed({
+    b3, names, _, issue = time_calls(torch, {
         "ms": lambda: sagan_attention_cuda(q, k, v),
         "plain_ms": lambda: sagan_attention_plain(q, k, v),
         "library_ms": library,
@@ -830,7 +854,7 @@ def attention_times(torch, dev, gen, bandwidth, fp32_peak, tf32_peak):
     lib_err = max((a - b).abs().max().item() / b.abs().max().item()
                   for a, b in zip(library(), sagan_attention_bwd_plain(q, k, v, o, lse, do)))
     check(lib_err < 1e-4, f"scaled_dot_product_attention's backward differs by {lib_err:.3e} (rel)")
-    b4, names, kernels_of, issue = timed({
+    b4, names, kernels_of, issue = time_calls(torch, {
         "ms": lambda: sagan_attention_bwd_cuda(q, k, v, o, lse, do),
         "plain_ms": lambda: sagan_attention_bwd_plain(q, k, v, o, lse, do),
         "library_ms": library,
@@ -947,10 +971,13 @@ def encoder_snapshot(encoder):
     return params, uv
 
 
-def replay_case2_on_cpu(torch, dev, e_align):
-    """One case-2 step of a reduced configuration on the card and on the CPU
-    on the same explicit inputs: loss_tsa and the first gradient (of
-    loss_tsa) of REPLAY_LEAVES."""
+def replay_steps(torch, dev, e_align, forms):
+    """One case-2 step of a reduced configuration (BigGAN-deep-BIGGAN_SIZE's
+    layout at channel width REPLAY_CHANNEL_WIDTH, E_BIG at
+    REPLAY_START_FEATURES, batch BATCH; gamma ATTN_GAMMA, the z head scaled)
+    in each of ``forms``, (name, device, bf16), on the same explicit inputs.
+    Returns the z head's factor and, by name, loss_tsa, the first gradient
+    (of loss_tsa) of REPLAY_LEAVES and the step's seconds."""
     import tempfile
 
     from tpugan_torch.cli import infer_e
@@ -961,6 +988,7 @@ def replay_case2_on_cpu(torch, dev, e_align):
     from tpugan_torch.train.e_align import info_scalars
 
     cfg = BigGANConfig.for_resolution(BIGGAN_SIZE, z_dim=BIGGAN_Z_DIM, channel_width=REPLAY_CHANNEL_WIDTH)
+    runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         config = f"{tmp}/config.json"
         with open(config, "w") as f:
@@ -970,17 +998,16 @@ def replay_case2_on_cpu(torch, dev, e_align):
                 "--config_dir", config, "--case", "2", "--iterations", "1", "--batch_size",
                 str(BATCH), "--seed", str(SEED)]
         parser = e_align.make_parser()
-        cpu_args = parser.parse_args(argv + ["--device", "cpu"])
-        probe = e_align.build_trainer(cpu_args)
+        probe = e_align.build_trainer(parser.parse_args(argv + ["--device", "cpu"]))
         zt_std, z2_std = latent_stds(torch, infer_e, probe.bundle, REQUEST_SEEDS[0])
         factor = zt_std / z2_std
         request = infer_e.draw_request(probe.bundle, BATCH, 0)
         del probe
-        runs = []
-        for device, req in ((CARD, request.to(dev)), ("cpu", request)):
-            args = parser.parse_args(argv + ["--device", device])
-            trainer = e_align.build_trainer(args, random_lpips_fn(resolve_device(device)),
-                                            draw=lambda it, r=req: r)
+        for name, device, bf16 in forms:
+            req = request.to(dev) if device == CARD else request
+            args = parser.parse_args(argv + ["--device", device] + (["--bf16"] if bf16 else []))
+            lpips = random_lpips_fn(resolve_device(device), dtype=torch.bfloat16 if bf16 else None)
+            trainer = e_align.build_trainer(args, lpips, draw=lambda it, r=req: r)
             scale_z_head(torch, trainer.state.encoder, factor)
             set_attention_gamma(torch, trainer.bundle.generator, ATTN_GAMMA)
             names = [n for n, _ in trainer.state.encoder.named_parameters()]
@@ -990,16 +1017,25 @@ def replay_case2_on_cpu(torch, dev, e_align):
             cuda.reset_launches()
             t0 = time.perf_counter()
             _, info = trainer.step(trainer.state, 0)
-            if not runs:  # the card's run
+            if device == CARD:
                 torch.cuda.synchronize()
-                check(cuda.launches["sagan_attention_bwd_dkv"] == 1, f"replay launches {cuda.launches}")
+                form, other = ("_bf16", "") if bf16 else ("", "_bf16")
+                check(cuda.launches[f"sagan_attention_bwd_dkv{form}"] == 1
+                      and cuda.launches[f"sagan_attention{other}"] == 0, f"{name} replay launches {cuda.launches}")
             else:
                 check(not any(cuda.launches.values()), "the CPU replay launched a kernel")
-            seconds = time.perf_counter() - t0
-            first = {n: grads[0][names.index(n)].detach().cpu() for n in REPLAY_LEAVES}
-            runs.append((info_scalars(info)["loss_tsa"], first, seconds))
+            runs[name] = (info_scalars(info)["loss_tsa"],
+                          {n: grads[0][names.index(n)].detach().cpu() for n in REPLAY_LEAVES},
+                          time.perf_counter() - t0)
             del trainer
-    (loss_g, grads_g, sec_g), (loss_c, grads_c, sec_c) = runs
+    return factor, runs
+
+
+def replay_case2_on_cpu(torch, dev, e_align):
+    """replay_steps on the card and on the CPU, in fp32: loss_tsa and the
+    first gradients within REPLAY_LOSS_RTOL and REPLAY_GRAD_TOL."""
+    factor, runs = replay_steps(torch, dev, e_align, (("card", CARD, False), ("cpu", "cpu", False)))
+    (loss_g, grads_g, sec_g), (loss_c, grads_c, sec_c) = runs["card"], runs["cpu"]
     say(f"replay of a case-2 step on the CPU: BigGAN-deep-{BIGGAN_SIZE}'s layout at channel width "
         f"{REPLAY_CHANNEL_WIDTH}, E_BIG at start_features {REPLAY_START_FEATURES}, batch {BATCH}, "
         f"random LPIPS, gamma {ATTN_GAMMA:g}, z head scaled by {factor:.4e}; the step took "
@@ -1123,8 +1159,9 @@ def training_path(torch, dev, smi):
     del gen0
 
     say(f"training times below: {smi}; step times from the host clock, device times from torch.profiler")
+    times = {}
     median = step_times(torch, trainer.step, state, "case 2, fp32, TF32 off", 100)
-    step_device_time(torch, trainer.step, state, median, 200)
+    times["case 2"] = {"median_ms": median, **step_device_time(torch, trainer.step, state, median, 200)}
 
     del trainer, state
     torch.cuda.empty_cache()
@@ -1152,14 +1189,14 @@ def training_path(torch, dev, smi):
     check(moved > 0 and all(bool(torch.isfinite(p).all()) for p in state.encoder.parameters()),
           "case 1 did not train E_BIG, or left it not finite")
     median = step_times(torch, trainer.step, state, "case 1 full, fp32, TF32 off", 400)
-    step_device_time(torch, trainer.step, state, median, 500)
+    times["case 1"] = {"median_ms": median, **step_device_time(torch, trainer.step, state, median, 500)}
     median = step_times(torch, trainer.lean, state, "case 1 lean, fp32, TF32 off", 600)
-    step_device_time(torch, trainer.lean, state, median, 700)
+    times["case 1 lean"] = {"median_ms": median, **step_device_time(torch, trainer.lean, state, median, 700)}
     del trainer, state
     torch.cuda.empty_cache()
 
     replay_case2_on_cpu(torch, dev, e_align)
-    return {"launches": b4_launches, "max_abs_err": bwd_err}
+    return {"launches": b4_launches, "max_abs_err": bwd_err, "times": times}
 
 
 def contract_cases():
@@ -2377,6 +2414,12 @@ BF16_PROFILED_STEPS = 1  # steps of each bf16 form in its device-time trace
 BF16_IMAGE_TOL = {"2": 0.05, "1": 0.08}  # tpugan's image gates, by mtype (printed)
 
 
+def bf16_ulp(torch, g, w):
+    """One bf16 ulp of the larger of |g| and |w|, elementwise."""
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(torch.log2(mag)))
+
+
 def bf16_ulps(torch, got, want):
     """max |got - want| over one bf16 ulp of the larger magnitude (at least
     KERNEL_TOL, for sums that cancel to near zero), and max |got - want|:
@@ -2384,10 +2427,8 @@ def bf16_ulps(torch, got, want):
     another order and round once, so they agree exactly or one ulp apart,
     where the two sums fall on either side of a rounding boundary."""
     g, w = got.float(), want.float()
-    mag = torch.maximum(g.abs(), w.abs()).clamp_min(torch.finfo(torch.bfloat16).tiny)
-    ulp = torch.finfo(torch.bfloat16).eps * torch.exp2(torch.floor(torch.log2(mag)))
     err = (g - w).abs()
-    return (err / ulp.clamp_min(KERNEL_TOL)).max().item(), err.max().item()
+    return (err / bf16_ulp(torch, g, w).clamp_min(KERNEL_TOL)).max().item(), err.max().item()
 
 
 def check_bf16_fir(torch, label, got, want, f32):
@@ -2754,6 +2795,36 @@ def bf16_gates(torch, dev, e_align):
             "images": images}
 
 
+def bf16_form_times(torch, step, state, label, symbols, kernels, fp32, fp32_from):
+    """One bf16 form's host-clock step time and, from torch.profiler, its
+    device time, the device time of ``symbols`` (named ``kernels`` in the
+    print), peak memory and the convolutions' and GEMMs' split between bf16
+    kernels and others; beside ``fp32``, the fp32 form's row of this run
+    (from ``fp32_from``), where its device time was measured. Returns the
+    row."""
+    median = step_times(torch, step, state, f"{label}, bf16", 100, steps=BF16_TIMED_STEPS)
+    row = {"median_ms": median}
+    try:
+        dev_time = step_device_time(torch, step, state, median, 200, symbols=symbols,
+                                    keep_kernels=True, iters=BF16_PROFILED_STEPS)
+    except RuntimeError as missed:  # device_kernels: three traces saw no device time
+        say(f"device time per bf16 {label} step: not measured ({missed})")
+        return row
+    bf16_ms, other_ms, by_name = conv_split(dev_time.pop("kernels"))
+    row.update(dev_time, bf16_conv_ms=bf16_ms, other_conv_ms=other_ms)
+    say(f"  convolutions and GEMMs: bf16 kernels {bf16_ms:.3f} ms ({bf16_ms / dev_time['device_ms'] * 100:.1f}% "
+        f"of device time), others {other_ms:.3f} ms; the bf16 ones by name:")
+    for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        say(f"    {ms:8.3f} ms  {kname[:100]}")
+    if fp32 and "device_ms" in fp32:
+        say(f"  {label} beside fp32 in this run ({fp32_from}): step {median:.3f} ms against "
+            f"{fp32['median_ms']:.3f}, device time {dev_time['device_ms']:.3f} ms against "
+            f"{fp32['device_ms']:.3f}, peak memory {dev_time['peak_mib']:.1f} MiB against "
+            f"{fp32['peak_mib']:.1f}, {kernels} {sum(dev_time['kernel_ms'].values()):.3f} ms against "
+            f"{sum(fp32['kernel_ms'].values()):.3f}")
+    return row
+
+
 def bf16_training_path(torch, dev, smi, bandwidth, fp32_peak, fp32_times):
     """Phase 10: ``e_align --bf16`` at full width, batch 2, random weights
     from the seed (tpugan's bf16 scheme): StyleGAN2-1024 case 2, case 1,
@@ -2849,29 +2920,8 @@ def bf16_training_path(torch, dev, smi, bandwidth, fp32_peak, fp32_times):
             firs[path] = bf16_step_fir_rows(torch, step, state, 50, bandwidth, fp32_peak, path)
         say(f"bf16 training times below: {smi}; step times from the host clock, device times from "
             "torch.profiler")
-        median = step_times(torch, step, state, f"{label}, bf16", 100, steps=BF16_TIMED_STEPS)
-        try:
-            dev_time = step_device_time(torch, step, state, median, 200, symbols=("upfirdn2d_kernel",),
-                                        keep_kernels=True, iters=BF16_PROFILED_STEPS)
-        except RuntimeError as missed:  # device_kernels: three traces saw no device time
-            say(f"device time per bf16 {label} step: not measured ({missed})")
-            dev_time = None
-        row = {"median_ms": median}
-        if dev_time is not None:
-            bf16_ms, other_ms, by_name = conv_split(dev_time.pop("kernels"))
-            row.update(dev_time, bf16_conv_ms=bf16_ms, other_conv_ms=other_ms)
-            say(f"  convolutions and GEMMs: bf16 kernels {bf16_ms:.3f} ms ({bf16_ms / dev_time['device_ms'] * 100:.1f}% "
-                f"of device time), others {other_ms:.3f} ms; the bf16 ones by name:")
-            for kname, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-                say(f"    {ms:8.3f} ms  {kname[:100]}")
-            fp32 = fp32_times.get(label)
-            if fp32 and "device_ms" in fp32:
-                say(f"  {label} beside fp32 in this run (phases 8 and 9): step {median:.3f} ms against "
-                    f"{fp32['median_ms']:.3f}, device time {dev_time['device_ms']:.3f} ms against "
-                    f"{fp32['device_ms']:.3f}, peak memory {dev_time['peak_mib']:.1f} MiB against "
-                    f"{fp32['peak_mib']:.1f}, upfirdn2d {dev_time['kernel_ms']['upfirdn2d_kernel']:.3f} ms against "
-                    f"{fp32['kernel_ms']['upfirdn2d_kernel']:.3f}")
-        times[label] = row
+        times[label] = bf16_form_times(torch, step, state, label, ("upfirdn2d_kernel",), "upfirdn2d",
+                                       fp32_times.get(label), "phases 8 and 9")
         say(f"bf16 {label} took {time.perf_counter() - t_form:.1f} s")
     del trainer
     torch.cuda.empty_cache()
@@ -2881,6 +2931,468 @@ def bf16_training_path(torch, dev, smi, bandwidth, fp32_peak, fp32_times):
     check(set(firs) == {"SG2", "SGv1"}, "a bf16 case-2 step's FIRs were not timed")
     return {"launches": launches, "per_step": per_step, "times": times, "firs": firs,
             "max_abs_err": max(f[2] for f in firs.values()), "gates": gates}
+
+
+# ---- phase 11: bf16 on the BigGAN-deep-256 path (e_align --mtype 4 --bf16) ----
+
+# B3's bf16 form at widths that take each of its staging copies, beside
+# ATTENTION_CASES: rows of a multiple of 8 elements (16-byte cp.async, the
+# path's widths), even widths (4-byte cp.async), odd ones (one 2-byte load
+# a thread), and views whose base lies 2 bytes (2-byte loads) and 8 bytes
+# (4-byte copies) past a 16-byte boundary: (label, q, k, v shapes, offset of
+# the base in elements)
+ATTENTION_BF16_WIDTH_CASES = (
+    ("16-byte rows", (1, 100, 64), (1, 80, 64), (1, 80, 128), 0),
+    ("4-byte rows", (1, 100, 18), (1, 80, 18), (1, 80, 10), 0),
+    ("2-byte rows", (1, 100, 13), (1, 80, 13), (1, 80, 7), 0),
+    ("base 2 bytes off", (1, 100, 64), (1, 80, 64), (1, 80, 64), 1),
+    ("base 8 bytes off", (1, 100, 64), (1, 80, 64), (1, 80, 64), 4),
+)
+# B3 and B4 bf16 at the path's shape: the replay's and the counted steps'
+# forms, and the steps timed (host clock after 2 warm-ups; profiled)
+BIGGAN_BF16_FORMS = ("case 2", "case 1", "case 1 lean")
+
+
+def bf16_randn(torch, dev, gen, shape, scale=1.0, offset=0):
+    """randn values rounded to bf16, as a view ``offset`` elements into a
+    fresh buffer (0: its own, 16-byte aligned, allocation)."""
+    flat = (torch.randn(math.prod(shape) + offset, device=dev, generator=gen) * scale).bfloat16()
+    return flat[offset:].view(shape)
+
+
+def bf16_tol_ratio(torch, got, want, rtol, atol):
+    """max over the elements of |got - want| over one bf16 ulp of the larger
+    magnitude plus the fp32 contract (atol + rtol |want|), and max |got -
+    want|: a bf16 result of fp32 sums rounds once, so it lies within one
+    ulp of the fp32 result, which meets the fp32 contract."""
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    return (err / (bf16_ulp(torch, g, w) + atol + rtol * w.abs())).max().item(), err.max().item()
+
+
+def check_bf16_attention(torch, label, q, k, v, rtol, atol, instances=None):
+    """B3's bf16 form on bf16 q, k, v: bitwise the fp32 kernel on the
+    widened values, rounded to bf16 (its lse bitwise the fp32 kernel's);
+    two runs bitwise equal; within one bf16 ulp plus (rtol, atol) of the
+    plain version run in float64 on the same values (its lse within
+    LSE_TOL). Adds the launched instance to ``instances``. Returns the max
+    |err| against float64."""
+    from tpugan_torch.ops.attention import sagan_attention_cuda
+
+    got, lse = sagan_attention_cuda(q, k, v, return_lse=True)
+    again = sagan_attention_cuda(q, k, v)
+    if instances is not None:
+        instances.add(launched_instance())
+    f32, lse32 = sagan_attention_cuda(q.float(), k.float(), v.float(), return_lse=True)
+    s64 = torch.bmm(q.double(), k.double().transpose(1, 2))
+    want = torch.bmm(torch.softmax(s64, dim=-1), v.double())
+    want_lse = torch.logsumexp(s64, dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    check(got.dtype == again.dtype == torch.bfloat16 and lse.dtype == torch.float32,
+          f"{label}: dtypes {got.dtype}, {lse.dtype}")
+    check(torch.equal(got, f32.bfloat16()) and torch.equal(lse, lse32),
+          f"{label}: the bf16 kernel differs from the fp32 kernel on the widened inputs, rounded, by "
+          f"{(got.float() - f32).abs().max().item():.3e} (lse {(lse - lse32).abs().max().item():.3e})")
+    check(torch.equal(got, again), f"{label}: two runs of the bf16 kernel differ")
+    ratio, err = bf16_tol_ratio(torch, got, want, rtol, atol)
+    lse_err = (lse.double() - want_lse).abs().max().item()
+    check(ratio <= 1.0 and torch.allclose(lse.double(), want_lse, rtol=LSE_TOL, atol=LSE_TOL),
+          f"{label}: the bf16 kernel is {ratio:.2f} of one bf16 ulp plus (rtol {rtol:g}, atol {atol:g}) from "
+          f"the plain version in float64 (max |err| {err:.3e}), lse {lse_err:.3e}")
+    say(f"bf16 parity {label}: bitwise the fp32 kernel rounded (lse bitwise), two runs bitwise equal; "
+        f"against float64 max |err| {err:.3e}, {ratio:.3f} of one ulp plus (rtol {rtol:g}, atol {atol:g}); "
+        f"lse {lse_err:.3e}")
+    return err
+
+
+def check_bf16_attention_bwd(torch, label, q, k, v, o, lse, do):
+    """B4's bf16 form on bf16 q, k, v, o, do (fp32 lse): dq, dk, dv bitwise
+    the fp32 kernels' on the widened values, rounded; two runs bitwise
+    equal; within one bf16 ulp plus BWD_TOL of the plain version run in
+    float64 on the same values. Returns the max |err| against float64."""
+    from tpugan_torch.ops.attention import sagan_attention_bwd_cuda, sagan_attention_bwd_plain
+
+    got = sagan_attention_bwd_cuda(q, k, v, o, lse, do)
+    again = sagan_attention_bwd_cuda(q, k, v, o, lse, do)
+    f32 = sagan_attention_bwd_cuda(*(x.float() for x in (q, k, v, o, lse, do)))
+    want = sagan_attention_bwd_plain(*(x.double() for x in (q, k, v, o, lse, do)))
+    torch.cuda.synchronize()
+    errs, parts = [], []
+    for name, g, a, f, w in zip(("dq", "dk", "dv"), got, again, f32, want):
+        check(g.dtype == torch.bfloat16 and g.shape == w.shape, f"{label}: {name} {g.dtype} {tuple(g.shape)}")
+        check(torch.equal(g, f.bfloat16()), f"{label}: bf16 {name} differs from the fp32 kernel's on the "
+              f"widened inputs, rounded, by {(g.float() - f).abs().max().item():.3e}")
+        check(torch.equal(g, a), f"{label}: two runs of the bf16 backward differ in {name}")
+        ratio, err = bf16_tol_ratio(torch, g, w, BWD_TOL, BWD_TOL)
+        check(ratio <= 1.0, f"{label}: bf16 {name} is {ratio:.2f} of one bf16 ulp plus BWD_TOL from the plain "
+              f"version in float64 (max |err| {err:.3e}, max |value| {w.abs().max().item():.3e})")
+        errs.append(err)
+        parts.append(f"{name} {err:.3e} ({ratio:.3f}; max |value| {w.abs().max().item():.3e})")
+    say(f"bf16 parity {label}: dq, dk, dv bitwise the fp32 kernels' rounded, two runs bitwise equal; against "
+        "float64 max |err| (share of one ulp plus BWD_TOL; max |value|) " + ", ".join(parts))
+    return max(errs)
+
+
+def attention_bf16_parity(torch, dev, gen):
+    """Phase 11's kernel checks: B3's bf16 form at ATTENTION_CASES (every
+    instance) and ATTENTION_BF16_WIDTH_CASES, B4's at ATTENTION_BWD_CASES
+    and a view 2 bytes off, each held by check_bf16_attention(_bwd); mixed
+    dtypes refused. Returns the max |err| against float64."""
+    from tpugan_torch.ops import cuda
+    from tpugan_torch.ops.attention import sagan_attention_bwd_cuda, sagan_attention_cuda
+
+    cuda.reset_launches()
+    cases = [(f"attention q{q_} k{k_} v{v_} x{scale:g}", q_, k_, v_, scale, rtol, atol, 0)
+             for q_, k_, v_, scale, rtol, atol, _ in ATTENTION_CASES]
+    cases += [(f"attention, {label}, q{q_} k{k_} v{v_}", q_, k_, v_, 1.0, 2e-5, 2e-5, offset)
+              for label, q_, k_, v_, offset in ATTENTION_BF16_WIDTH_CASES]
+    max_err, instances = 0.0, set()
+    for label, q_shape, k_shape, v_shape, scale, rtol, atol, offset in cases:
+        q = bf16_randn(torch, dev, gen, q_shape, scale, offset)
+        k = bf16_randn(torch, dev, gen, k_shape, scale, offset)
+        v = bf16_randn(torch, dev, gen, v_shape, 1.0, offset)
+        max_err = max(max_err, check_bf16_attention(torch, label, q, k, v, rtol, atol, instances))
+    cks, cvs = attention_tiers()
+    check({(ck, cv) for ck, cv, _ in instances} == {(ck, cv) for ck in cks for cv in cvs}
+          and {st for *_, st in instances} == {1, 2},
+          f"the bf16 attention cases ran the instances {sorted(instances)}, not every one")
+    n = len(cases)
+    check(cuda.launches == expected_launches(sagan_attention_bf16=2 * n, sagan_attention=n),
+          f"bf16 attention parity launches {cuda.launches}")
+
+    cuda.reset_launches()
+    bwd_cases = [(f"attention backward q{q_} k{k_} v{v_} x{scale:g}", q_, k_, v_, scale, 0)
+                 for q_, k_, v_, scale in ATTENTION_BWD_CASES]
+    bwd_cases.append(("attention backward, base 2 bytes off", (1, 100, 64), (1, 80, 64), (1, 80, 256), 1.0, 1))
+    for label, q_shape, k_shape, v_shape, scale, offset in bwd_cases:
+        q = bf16_randn(torch, dev, gen, q_shape, scale, offset)
+        k = bf16_randn(torch, dev, gen, k_shape, scale, offset)
+        v = bf16_randn(torch, dev, gen, v_shape, 1.0, offset)
+        do = bf16_randn(torch, dev, gen, (q_shape[0], q_shape[1], v_shape[2]), 1.0, offset)
+        o, lse = sagan_attention_cuda(q, k, v, return_lse=True)
+        max_err = max(max_err, check_bf16_attention_bwd(torch, label, q, k, v, o, lse, do))
+    n = len(bwd_cases)
+    check(cuda.launches == expected_launches(
+        sagan_attention_bf16=n, **{name: n for name in B4_KERNELS},
+        **{f"{name}_bf16": 2 * n for name in B4_KERNELS}), f"bf16 backward parity launches {cuda.launches}")
+
+    cuda.reset_launches()
+    x = bf16_randn(torch, dev, gen, (2, 8, 16))
+    o, lse = sagan_attention_cuda(x, x, x, return_lse=True)
+    cuda.reset_launches()
+    refused = {
+        "q bf16, k and v fp32": lambda: sagan_attention_cuda(x, x.float(), x.float()),
+        "v fp32": lambda: sagan_attention_cuda(x, x, x.float()),
+        "fp16": lambda: sagan_attention_cuda(x.half(), x.half(), x.half()),
+        "backward, do fp32": lambda: sagan_attention_bwd_cuda(x, x, x, o, lse, o.float()),
+        "backward, o fp32": lambda: sagan_attention_bwd_cuda(x, x, x, o.float(), lse, o),
+        "backward, lse bf16": lambda: sagan_attention_bwd_cuda(x, x, x, o, lse.bfloat16(), o),
+        "backward, q fp32": lambda: sagan_attention_bwd_cuda(x.float(), x, x, o, lse, o),
+    }
+    for name, call in refused.items():
+        try:
+            call()
+        except TypeError:
+            continue
+        raise RuntimeError(f"chip_smoke: a mixed-dtype attention call ({name}) was not refused")
+    check(not any(cuda.launches.values()), "a refused mixed-dtype call launched")
+    say(f"bf16 attention parity: {len(cases)} forward cases over the instances {sorted(instances)}, "
+        f"{len(bwd_cases)} backward cases, all bitwise the fp32 kernels on the widened inputs rounded to "
+        f"bf16 (max |err| against float64 {max_err:.3e}); {len(refused)} mixed-dtype calls refused: "
+        + ", ".join(refused))
+    torch.cuda.empty_cache()
+    return max_err
+
+
+def attention_bf16_times(torch, dev, gen, bandwidth, tf32_peak, bf16_peak):
+    """B3's and B4's bf16 forms at the path's shape (ATTN_PATH_SHAPE, randn
+    values rounded to bf16), warm, beside the fp32 kernel on the same
+    values, the plain version, scaled_dot_product_attention (and its
+    backward) on the widened fp32 inputs and on the bf16 ones (in whatever
+    arithmetic it picks for bf16; the kernels it ran are printed), and the
+    bound: the function's products on the tensor cores, each at the least
+    time that gives it exactly (one dense bf16 pass where both operands are
+    bf16; where one is fp32, p or ds, the fewer of two dense TF32 passes
+    and three bf16 ones, the fp32 operand split into two TF32 or three
+    bf16 pieces), or its bytes at the memory rate. Timed with phase
+    2's, before any path is profiled: traced after the paths, the profiler
+    has read the fp32 B3 at 48.17 us against 98.76 us from CUDA events (an
+    H100 80GB HBM3 at 700 W). Returns the two kernel table rows' timing
+    keys."""
+    import torch.nn.functional as F
+
+    from tpugan_torch.ops.attention import (
+        sagan_attention_bwd_cuda,
+        sagan_attention_bwd_plain,
+        sagan_attention_cuda,
+        sagan_attention_plain,
+    )
+
+    (n, lq, dk), (_, lk, _), (_, _, dv) = ATTN_PATH_SHAPE
+    q, k, v = (bf16_randn(torch, dev, gen, shape) for shape in ATTN_PATH_SHAPE)
+    do = bf16_randn(torch, dev, gen, (n, lq, dv))
+    o, lse = sagan_attention_cuda(q, k, v, return_lse=True)
+    q32, k32, v32, o32, do32 = (x.float() for x in (q, k, v, o, do))
+    shape = f"q [{n}, {lq}, {dk}], k [{n}, {lk}, {dk}], v [{n}, {lk}, {dv}], bf16"
+    pairs = 2 * n * lq * lk  # 2 x the score matrix's entries: a product's FLOPs per unit of width
+
+    # seconds per FLOP of a product with one fp32 operand, and its name
+    mixed_s, mixed_as = min((2 / tf32_peak, f"two TF32 passes at {tf32_peak / 1e12:g} TFLOP/s"),
+                            (3 / bf16_peak, f"three bf16 passes at {bf16_peak / 1e12:g} TFLOP/s"))
+
+    def report(name, row, names, issue, bf16_flops, mixed_flops, nbytes, lib_err, lib16_err):
+        ops_s = bf16_flops / bf16_peak + mixed_flops * mixed_s
+        row["bound_ms"] = max(nbytes / bandwidth, ops_s) * 1e3
+        row["bound_by"] = "bytes" if nbytes / bandwidth >= ops_s else "operations"
+        say(f"{name} bf16 at the path's shape ({shape}): device time bf16 kernel {row['ms'] * 1e3:.2f} us "
+            f"({row['ms_from']}), fp32 kernel on the same values {row['fp32_ms'] * 1e3:.2f} us "
+            f"({row['fp32_ms_from']}), plain {row['plain_ms'] * 1e3:.2f} us, library on the widened fp32 inputs "
+            f"{row['library_ms'] * 1e3:.2f} us, library on the bf16 inputs {row['library_bf16_ms'] * 1e3:.2f} us "
+            "(torch.profiler); back to back per call: "
+            + ", ".join(f"{k_} {v_ * 1e3:.2f} us" for k_, v_ in issue.items()))
+        say(f"  bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}: {bf16_flops / 1e9:.3f} GFLOP of bf16 by "
+            f"bf16 products at {bf16_peak / 1e12:g} TFLOP/s dense bf16 and {mixed_flops / 1e9:.3f} GFLOP with an "
+            f"fp32 operand, each in {mixed_as}; {nbytes / 1e6:.3f} MB at {bandwidth / 1e12:.2f} TB/s), "
+            f"{row['bound_ms'] / row['ms'] * 100:.1f}% of it")
+        say(f"  library on fp32 ran {', '.join(x[:70] for x in names['library_ms'][:5])} (max |err| "
+            f"{lib_err:.3e} against the plain version); on bf16 {', '.join(x[:70] for x in names['library_bf16_ms'][:5])} "
+            f"(max |err| {lib16_err:.3e})")
+        row["library_kernels"] = [x[:100] for x in names["library_ms"]]
+        row["library_bf16_kernels"] = [x[:100] for x in names["library_bf16_ms"]]
+
+    # B3
+    plain = sagan_attention_plain(q, k, v)
+    lib = lambda: F.scaled_dot_product_attention(q32, k32, v32, scale=1.0)  # noqa: E731
+    lib16 = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)  # noqa: E731
+    lib_err = (lib() - plain.float()).abs().max().item()
+    lib16_err = (lib16().float() - plain.float()).abs().max().item()
+    check(lib_err < 2e-2, f"scaled_dot_product_attention differs by {lib_err:.3e}")
+    b3, names, _, issue = time_calls(torch, {
+        "ms": lambda: sagan_attention_cuda(q, k, v),
+        "fp32_ms": lambda: sagan_attention_cuda(q32, k32, v32),
+        "plain_ms": lambda: sagan_attention_plain(q, k, v),
+        "library_ms": lib,
+        "library_bf16_ms": lib16,
+    }, ("sagan_attention_kernel",))
+    report("attention", b3, names, issue, pairs * dk, pairs * dv,  # s; p v
+           2 * (q.numel() + k.numel() + v.numel() + o.numel()), lib_err, lib16_err)
+    b3["times_are"] = (f"one call at the BigGAN-{BIGGAN_SIZE} paths' shape ({shape}), randn values rounded to "
+                       f"bf16, before any path is profiled; bound_ms: s in one pass at the dense bf16 rate, p v "
+                       f"(p fp32) in {mixed_as}; library_ms: scaled_dot_product_attention on the widened fp32 inputs, "
+                       "library_bf16_ms on the bf16 inputs (library_bf16_kernels: what it ran)")
+
+    # B4
+    want = sagan_attention_bwd_plain(q, k, v, o, lse, do)
+    grads = {}
+    for key, args in (("library_ms", (q32, k32, v32)), ("library_bf16_ms", (q, k, v))):
+        leaves = [x.clone().requires_grad_() for x in args]
+        out = F.scaled_dot_product_attention(*leaves, scale=1.0)
+        grads[key] = (lambda out=out, leaves=leaves, g=do32 if key == "library_ms" else do:
+                      torch.autograd.grad(out, leaves, g, retain_graph=True))
+    lib_err, lib16_err = (max((a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                              for a, b in zip(grads[key](), want)) for key in ("library_ms", "library_bf16_ms"))
+    check(lib_err < 2e-2, f"scaled_dot_product_attention's backward differs by {lib_err:.3e} (rel)")
+    b4, names, _, issue = time_calls(torch, {
+        "ms": lambda: sagan_attention_bwd_cuda(q, k, v, o, lse, do),
+        "fp32_ms": lambda: sagan_attention_bwd_cuda(q32, k32, v32, o32, lse, do32),
+        "plain_ms": lambda: sagan_attention_bwd_plain(q, k, v, o, lse, do),
+        **grads,
+    }, B4_SYMBOLS)
+    report("attention backward", b4, names, issue, pairs * dk + pairs * dv,  # s, dp
+           pairs * dv + 2 * pairs * dk,  # dv; dq, dk
+           2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + o.numel() + do.numel()) + 4 * lse.numel(),
+           lib_err, lib16_err)
+    b4["times_are"] = (f"one call (delta in fp32, pack, dq and dkv) at the BigGAN-{BIGGAN_SIZE} case-2 step's "
+                       f"shape ({shape}), randn values rounded to bf16, before any path is profiled; bound_ms: s "
+                       f"and dp in one pass at the dense bf16 rate, dv, dq and dk (p or ds fp32) in {mixed_as}; "
+                       "library_ms: the backward of scaled_dot_product_attention on the widened fp32 inputs, "
+                       "library_bf16_ms on the bf16 inputs (library_bf16_kernels: what it ran)")
+    del grads
+    torch.cuda.empty_cache()
+    return b3, b4
+
+
+def replay_bf16_case2_on_cpu(torch, dev, e_align):
+    """replay_steps in bf16 on the card and on the CPU, and in fp32 on the
+    CPU: the card's bf16 loss_tsa and first gradients no farther from the
+    CPU's fp32 ones than twice the CPU's bf16 ones are (the rule of
+    tests/test_torch_bf16.py against tpugan). Returns the distances."""
+    factor, runs = replay_steps(torch, dev, e_align, (("card bf16", CARD, True), ("cpu fp32", "cpu", False),
+                                                      ("cpu bf16", "cpu", True)))
+    (loss_g, grads_g, sec_g), (loss_r, grads_r, sec_r), (loss_c, grads_c, sec_c) = (
+        runs["card bf16"], runs["cpu fp32"], runs["cpu bf16"])
+    say(f"bf16 replay of a case-2 step: BigGAN-deep-{BIGGAN_SIZE}'s layout at channel width "
+        f"{REPLAY_CHANNEL_WIDTH}, E_BIG at start_features {REPLAY_START_FEATURES}, batch {BATCH}, random bf16 "
+        f"LPIPS, gamma {ATTN_GAMMA:g}, z head scaled by {factor:.4e}; the step took {sec_g:.2f} s on the card "
+        f"(first call), {sec_r:.2f} s on the CPU in fp32 and {sec_c:.2f} s in bf16")
+    out = {}
+    mine, theirs = abs(loss_g - loss_r) / abs(loss_r), abs(loss_c - loss_r) / abs(loss_r)
+    out["loss_tsa"] = {"card_bf16": loss_g, "cpu_fp32": loss_r, "cpu_bf16": loss_c, "card_rel": mine,
+                       "cpu_rel": theirs}
+    say(f"  loss_tsa: CPU fp32 {loss_r:.6f}; card bf16 {loss_g:.6f} ({mine:.3e} from it), CPU bf16 {loss_c:.6f} "
+        f"({theirs:.3e})")
+    check(all(math.isfinite(x) for x in (loss_g, loss_r, loss_c)) and mine <= 2 * theirs,
+          f"the card's bf16 loss_tsa is {mine:.3e} from the CPU's fp32, the CPU's bf16 {theirs:.3e}")
+    for name in REPLAY_LEAVES:
+        ref = grads_r[name]
+        scale = ref.abs().max().item()
+        mine = (grads_g[name] - ref).abs().max().item()
+        theirs = (grads_c[name] - ref).abs().max().item()
+        out[name] = {"card": mine, "cpu": theirs, "max_abs": scale}
+        say(f"  first gradient of {name}: card bf16 {mine:.3e} from the CPU's fp32 (max |g| {scale:.3e}), "
+            f"CPU bf16 {theirs:.3e}: {mine / theirs:.3f} of it")
+        check(scale > 0 and theirs > 0 and mine <= 2 * theirs,
+              f"the card's bf16 gradient of {name} is {mine:.3e} from fp32's, the CPU's bf16 {theirs:.3e}")
+    return out
+
+
+def biggan_bf16_training_path(torch, dev, smi, fp32_times):
+    """Phase 11: ``e_align --mtype 4 --bf16`` at full width (BigGAN-deep-256,
+    E_BIG startf 64, batch 2, random weights from the seed): case 2 on the
+    CLI's weights, then with every SelfAttn gamma of the bf16 generator the
+    step runs at ATTN_GAMMA and E_BIG's z head scaled; B3 and B4 bf16 on a
+    step's own inputs; counted case-2, case-1 and lean steps against the
+    launches derived from the modules (2 forward a case-2 or case-1 step, 1
+    a lean one, pack, dq and dkv once a case-2 step; no fp32 attention, no
+    plain version on a CUDA tensor); the encoder moving on fp32 masters,
+    the bf16 generator frozen; step times, device time by kernel and peak
+    memory beside phase 6's fp32 steps (``fp32_times``); the bf16 replay.
+    Returns the launches by kernel, the max |err| and the times."""
+    from tpugan_torch.cli import e_align, infer_e
+    from tpugan_torch.losses.lpips import random_lpips_fn
+    from tpugan_torch.ops import attention, cuda
+    from tpugan_torch.train.e_align import info_scalars
+
+    parser = e_align.make_parser()
+    argv = ["--mtype", "4", "--img_size", str(BIGGAN_SIZE), "--start_features", "64",
+            "--z_dim", str(BIGGAN_Z_DIM), "--random_init", "--iterations", "1000",
+            "--batch_size", str(BATCH), "--seed", str(SEED), "--device", CARD, "--bf16"]
+    lpips = random_lpips_fn(dev, dtype=torch.bfloat16)  # bench.py's bf16 LPIPS
+
+    # the CLI's own weights: one case-2 step
+    trainer = e_align.build_trainer(parser.parse_args(argv + ["--case", "2"]), lpips)
+    zt_std, z2_std = latent_stds(torch, infer_e, trainer.bundle, REQUEST_SEEDS[0])
+    factor = zt_std / z2_std
+    _, info = trainer.step(trainer.state, 0)
+    scalars = info_scalars(info)
+    say(f"bf16 case 2 on the CLI's weights (every gamma 0, z2 std {z2_std:.4f}): loss_tsa {scalars['loss_tsa']}, "
+        f"loss_mtv {scalars['loss_mtv']}")
+    del trainer, info
+
+    trainer = e_align.build_trainer(parser.parse_args(argv + ["--case", "2"]), lpips)
+    state, gen = trainer.state, trainer.bundle.generator
+    check(all(t.dtype == torch.bfloat16 for t in [*gen.parameters(), *gen.buffers()]),
+          "the trainer's generator is not the bf16 copy")
+    scale_z_head(torch, state.encoder, factor)
+    before = trainer.visuals(state, 1)
+    check(set_attention_gamma(torch, gen, ATTN_GAMMA) == 1, "expected one SelfAttn")
+    after = trainer.visuals(state, 1)
+    moved = max((after[key] - before[key]).abs().max().item() for key in ("imgs1", "imgs2"))
+    check(moved > 1e-2, f"gamma {ATTN_GAMMA:g} on the bf16 generator moved the images by {moved:.3e}")
+    say(f"bf16 case 2 from here on: every SelfAttn gamma of the bf16 generator the step runs {ATTN_GAMMA:g} "
+        f"(moved the step's images by up to {moved:.3f}), E_BIG's z head scaled by {factor:.4e}")
+
+    captured = {"fwd": [], "bwd": []}
+    real_fwd, real_bwd = attention.sagan_attention_cuda, attention.sagan_attention_bwd_cuda
+
+    def capture_fwd(q_, k_, v_, return_lse=False):
+        captured["fwd"].append((q_.detach().clone(), k_.detach().clone(), v_.detach().clone(), return_lse))
+        return real_fwd(q_, k_, v_, return_lse)
+
+    def capture_bwd(*args):
+        captured["bwd"].append(tuple(x.detach().clone() for x in args))
+        return real_bwd(*args)
+
+    attention.sagan_attention_cuda, attention.sagan_attention_bwd_cuda = capture_fwd, capture_bwd
+    try:
+        trainer.step(state, 1)
+    finally:
+        attention.sagan_attention_cuda, attention.sagan_attention_bwd_cuda = real_fwd, real_bwd
+    check([flag for *_, flag in captured["fwd"]] == [False, True] and len(captured["bwd"]) == 1,
+          f"a bf16 case-2 step ran the forward {len(captured['fwd'])} times, the backward {len(captured['bwd'])}")
+    max_err = 0.0
+    for i, (q, k, v, _) in enumerate(captured["fwd"]):
+        check(q.dtype == k.dtype == v.dtype == torch.bfloat16, f"the step's attention {i} is {q.dtype}")
+        max_err = max(max_err, check_bf16_attention(
+            torch, f"attention, the bf16 case-2 step's own inputs ({'resynthesis' if i else 'synthesis'})",
+            q, k, v, 2e-5, 2e-5))
+    q, k, v, o, lse, do = captured["bwd"][0]
+    check(do.dtype == torch.bfloat16 and lse.dtype == torch.float32 and do.abs().max().item() > 0,
+          f"the step's attention backward: do {do.dtype}, max |do| {do.abs().max().item():.3e}, lse {lse.dtype}")
+    say(f"the bf16 step's own backward inputs: q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}, max |q k^T| "
+        f"{torch.bmm(q.float(), k.float().transpose(1, 2)).abs().max().item():.2f}, max |do| "
+        f"{do.abs().max().item():.3e}")
+    max_err = max(max_err, check_bf16_attention_bwd(torch, "attention backward, the bf16 case-2 step's own inputs",
+                                                    q, k, v, o, lse, do))
+    del captured, q, k, v, o, lse, do
+
+    # the main path: counted steps, the plain versions watched for CUDA tensors
+    plain_on_card = []
+    real_plain, real_plain_bwd = attention.sagan_attention_plain, attention.sagan_attention_bwd_plain
+
+    def watch(fn):
+        def watched(*args, **kwargs):
+            if args[0].is_cuda:
+                plain_on_card.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return watched
+
+    launches = {name: 0 for name in cuda.KERNELS}
+    times = {}
+    for label in BIGGAN_BF16_FORMS:
+        if label == "case 1":
+            del trainer, state
+            torch.cuda.empty_cache()
+            trainer = e_align.build_trainer(parser.parse_args(argv + ["--case", "1"]), lpips)
+            state, gen = trainer.state, trainer.bundle.generator
+        step = trainer.lean if label.endswith("lean") else trainer.step
+        params0, uv0 = encoder_snapshot(state.encoder)
+        gen0 = [t.detach().clone() for t in [*gen.parameters(), *gen.buffers()]]
+        attention.sagan_attention_plain = watch(real_plain)
+        attention.sagan_attention_bwd_plain = watch(real_plain_bwd)
+        cuda.reset_launches()
+        try:
+            for it in range(2, 2 + TRAIN_STEPS):
+                _, info = step(state, it)
+                scalars = info_scalars(info)
+                check(math.isfinite(scalars["loss_mtv"]) and (label != "case 2" or math.isfinite(scalars["loss_tsa"])),
+                      f"bf16 {label} step {it}: a loss is not finite")
+            torch.cuda.synchronize()
+        finally:
+            attention.sagan_attention_plain, attention.sagan_attention_bwd_plain = real_plain, real_plain_bwd
+        counted = dict(cuda.launches)
+        per_step = {"sagan_attention_bf16": 1 if label.endswith("lean") else 2}
+        if label == "case 2":
+            per_step.update({f"{name}_bf16": 1 for name in B4_KERNELS})
+        want = expected_launches(**{name: n * TRAIN_STEPS for name, n in per_step.items()})
+        check(counted == want, f"bf16 {label} launches {counted}, expected {want}")
+        check(not plain_on_card, f"bf16 {label}: the plain version ran on CUDA tensors: {plain_on_card}")
+        for name, n in counted.items():
+            launches[name] += n
+        moved = sum(not torch.equal(p, params0[n]) for n, p in state.encoder.named_parameters())
+        uv_moved = sum(not torch.equal(b, uv0[n]) for n, b in state.encoder.named_buffers() if n in uv0)
+        # case 2 trains every parameter; case 1 those its latent losses reach, as phase 6 holds them
+        check((moved == len(params0) if label == "case 2" else moved > 0) and uv_moved == len(uv0)
+              and all(p.dtype == torch.float32 for p in state.encoder.parameters())
+              and all(state.encoder.get_buffer(n).dtype == torch.float32 for n in uv0),
+              f"bf16 {label}: E_BIG moved {moved}/{len(params0)} parameters, {uv_moved}/{len(uv0)} u/v buffers, "
+              "or they are not fp32")
+        check(all(torch.equal(a, b) and a.grad is None for a, b in zip([*gen.parameters(), *gen.buffers()], gen0)),
+              f"bf16 {label}: the bf16 BigGAN moved")
+        say(f"bf16 {label} path: {TRAIN_STEPS} steps, launches {counted}; loss_mtv {scalars['loss_mtv']:.4f}, "
+            f"loss_tsa {scalars['loss_tsa']:.4f}; {moved} of {len(params0)} E_BIG parameters and {uv_moved} u/v buffers "
+            "moved (fp32), "
+            f"the bf16 BigGAN's {len(gen0)} tensors did not; no plain version on a CUDA tensor")
+        del gen0
+
+        say(f"bf16 training times below: {smi}; step times from the host clock, device times from torch.profiler")
+        times[label] = bf16_form_times(torch, step, state, f"mtype 4 {label}",
+                                       ("sagan_attention_kernel",) + B4_SYMBOLS, "B3 and B4",
+                                       fp32_times.get(label), "phase 6")
+    del trainer, state
+    torch.cuda.empty_cache()
+    replay = replay_bf16_case2_on_cpu(torch, dev, e_align)
+    return {"launches": launches, "max_abs_err": max_err, "times": times, "replay": replay}
 
 
 
@@ -2903,7 +3415,7 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
-    bandwidth, fp32_peak, tf32_peak = card_specs(kind)
+    bandwidth, fp32_peak, tf32_peak, bf16_peak = card_specs(kind)
     say(f"card: {smi}")
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
     t0 = time.perf_counter()
@@ -2923,6 +3435,8 @@ def main() -> int:
     bwd_err = attention_bwd_parity(torch, dev, gen)
     say(f"attention times below, before any path is profiled: {smi}")
     b3_times, b4_times = attention_times(torch, dev, gen, bandwidth, fp32_peak, tf32_peak)
+    say(f"bf16 attention times below (phase 11's), before any path is profiled: {smi}")
+    b3_bf16, b4_bf16 = attention_bf16_times(torch, dev, gen, bandwidth, tf32_peak, bf16_peak)
     say(f"FIR times below, before any path is profiled: {smi}")
     fir = fir_times(torch, dev, gen, bandwidth, fp32_peak)
 
@@ -3009,6 +3523,18 @@ def main() -> int:
     bf16 = bf16_training_path(torch, dev, smi, bandwidth, fp32_peak, fp32_times)
     say(f"phase 10 (bf16 training) took {time.perf_counter() - t0:.1f} s; the script "
         f"{time.perf_counter() - start:.1f} s")
+
+    # ---- 11. bf16 on the BigGAN-deep-256 path (e_align --mtype 4 --bf16) ----
+    t0 = time.perf_counter()
+    attn_bf16_err = attention_bf16_parity(torch, dev, gen)
+    big16 = biggan_bf16_training_path(torch, dev, smi, attn_bwd["times"])
+    b3_bf16_launches = big16["launches"]["sagan_attention_bf16"]
+    b4_bf16_launches = sum(big16["launches"][f"{name}_bf16"] for name in B4_KERNELS)
+    check(b3_bf16_launches > 0 and all(big16["launches"][f"{name}_bf16"] > 0 for name in B4_KERNELS),
+          f"the bf16 BigGAN path launched {big16['launches']}")
+    say(f"phase 11 (bf16 on the BigGAN-deep-{BIGGAN_SIZE} path) took {time.perf_counter() - t0:.1f} s; the "
+        f"script {time.perf_counter() - start:.1f} s")
+
     sg2_bf16 = bf16["firs"]["SG2"][1]
     bf16_step = {k: sum(p_[k] for parts in sg2_bf16.values() for p_ in parts.values())
                  for k in ("ms", "fp32_ms", "plain_ms", "library_ms", "bound_ms")}
@@ -3091,6 +3617,32 @@ def main() -> int:
         "launches": attn_bwd["launches"],
         "max_abs_err": max(attn_bwd["max_abs_err"], bwd_err),
         **b4_times,
+    }, {
+        "name": "sagan_attention_bf16",
+        "route": "cuda",
+        "source": "tpugan_torch/csrc/sagan_attention.cu",
+        "entry_points": ["tpugan_sagan_attention_bf16"],
+        "replaces": "tpugan/ops/pallas/attention.py:68 (sagan_attention_pallas, bf16); "
+                    "tpugan/ops/pallas/attention.py:77 (sagan_attention_pallas, bf16, return_lse=True)",
+        "launches": b3_bf16_launches,
+        "max_abs_err": max(attn_bf16_err, big16["max_abs_err"]),
+        "max_abs_err_is": "bf16 outputs against the plain version run in float64 on the same bf16 values (one "
+                          "bf16 ulp plus the fp32 contract); bitwise the fp32 kernel's on the widened inputs, "
+                          "rounded",
+        **b3_bf16,
+        "training": {"launches_per_step_are": "counted over the bf16 case-2, case-1 and lean steps of phase 11",
+                     "launches": big16["launches"], "times": big16["times"],
+                     "fp32_times_of_this_run": attn_bwd["times"], "replay": big16["replay"]},
+    }, {
+        "name": "sagan_attention_bwd_bf16",
+        "route": "cuda",
+        "source": "tpugan_torch/csrc/sagan_attention_bwd.cu",
+        "entry_points": [f"tpugan_{name}_bf16" for name in B4_KERNELS],
+        "replaces": "tpugan/ops/pallas/attention.py:149,168 (sagan_attention_bwd_pallas on bf16: _dq_kernel, "
+                    "_dkv_kernel)",
+        "launches": b4_bf16_launches,
+        "max_abs_err": max(attn_bf16_err, big16["max_abs_err"]),
+        **b4_bf16,
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

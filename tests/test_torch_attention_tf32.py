@@ -172,7 +172,7 @@ def test_kernel_source_matches_the_emulation():
     from the kernel are the kernel's."""
     assert KEYS == CHAIN == 32
     assert "const int key0 = 8 * (cg >> 1) + (cg & 1);" in SOURCE
-    assert "vals[e] = sv[(key0 + 2 * e) * CV + r];" in SOURCE
+    assert "vals[e] = to_float(sv[(key0 + 2 * e) * CV + r]);" in SOURCE
     assert "split4(vals, vh + cg * 4 * CV + 4 * r, vl + cg * 4 * CV + 4 * r);" in SOURCE
     for r, e in enumerate((0, 2, 1, 3)):
         assert f"split(s[4 * j + {e}], a_hi[j][{r}], a_lo[j][{r}]);" in SOURCE

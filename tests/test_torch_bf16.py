@@ -19,7 +19,8 @@
   run is at most twice tpugan's own bf16 error from it. tpugan's gates hold
   on the port too: images within 0.05 (SG2) and 0.08 (SGv1) of their scale,
   the step's loss_tsa within 3% of fp32.
-* The CLI at a tiny size.
+* The CLI at a tiny size (mtype 4's bf16 against tpugan in
+  tests/test_torch_attention_bf16.py).
 
 Injected noise is drawn with numpy and rounded to bf16 once, so that every
 run reads the same values: tpugan draws noise in the activations' dtype,
@@ -39,6 +40,7 @@ import torch
 from test_torch_fir_plan import assert_within_one_bf16_ulp
 from test_torch_sgv1_train import _recording, nonzero_leaves
 from test_torch_stylegan2 import lively
+from test_torch_train import CFG as BIGGAN_CFG
 from tpugan import precision as jprecision
 from tpugan.losses.lpips import make_lpips_fn as jmake_lpips_fn
 from tpugan.losses.lpips import random_params as jlpips_params
@@ -58,7 +60,13 @@ from tpugan_torch import precision
 from tpugan_torch.cli import e_align
 from tpugan_torch.io.bridge import load_variables
 from tpugan_torch.losses.lpips import LPIPS, make_lpips_fn, random_lpips_fn
-from tpugan_torch.models import Encoder, StyleGAN2Generator, StyleGANv1Generator, StyleGANv1Mapping
+from tpugan_torch.models import (
+    BigGANConfig,
+    Encoder,
+    StyleGAN2Generator,
+    StyleGANv1Generator,
+    StyleGANv1Mapping,
+)
 from tpugan_torch.ops import cuda, upfirdn
 from tpugan_torch.optim import lreq_adam
 from tpugan_torch.train.e_align import (
@@ -674,15 +682,21 @@ TINY = ["--img_size", "32", "--start_features", "64", "--random_init", "--device
 
 
 @pytest.mark.parametrize("mtype,extra", [("2", ("--case", "2")), ("2", ("--ablation", "8")),
-                                         ("1", ("--case", "2")), ("1", ("--ablation", "1"))],
-                         ids=["mtype2-case2", "mtype2-ablation8", "mtype1-case2", "mtype1-ablation1"])
+                                         ("1", ("--case", "2")), ("1", ("--ablation", "1")),
+                                         ("4", ("--case", "2")), ("4", ("--case", "1"))],
+                         ids=["mtype2-case2", "mtype2-ablation8", "mtype1-case2", "mtype1-ablation1",
+                              "mtype4-case2", "mtype4-case1"])
 def test_cli_bf16_trains_on_cpu(tmp_path, mtype, extra):
     """``e_align --bf16`` takes steps with finite losses; the step runs a
     bf16 copy of the generator, which stays frozen, and the encoder's
     parameters and optimizer state stay fp32 and move; no kernel launches
-    on the CPU."""
+    on the CPU. mtype 4 runs tests/test_torch_train.py's 32 px BigGAN-deep."""
     cuda.reset_launches()
     out = tmp_path / "out"
+    if mtype == "4":
+        config = tmp_path / "config.json"
+        config.write_text(BigGANConfig(**BIGGAN_CFG).to_json_string())
+        extra = (*extra, "--z_dim", "8", "--config_dir", str(config))
     argv = ["--mtype", mtype, *TINY, "--bf16", *extra, "--iterations", "2", "--log_every", "1",
             "--experiment_dir", str(out)]
     e_align.main(argv)
@@ -765,7 +779,6 @@ def test_cli_bf16_runs_every_fir_through_the_bf16_kernel(card_route):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (("--mtype", "4", "--z_dim", "8"), "B3 and B4"),
     (("--mtype", "2", "--remat"), "A3"),
     (("--mtype", "1", "--remat_policy", "conv_outs"), "A3"),
 ])

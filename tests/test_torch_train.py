@@ -302,8 +302,20 @@ def test_cli_lean_steps_leave_the_trajectory_alone(tmp_path):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("case", [1, 2])
+def test_cli_bf16_trains_two_iterations_on_cpu(tmp_path, case):
+    """--bf16 on mtype 4, refused until the attention kernels had bf16
+    forms, now trains (tests/test_torch_attention_bf16.py holds it to
+    tpugan): finite losses, no launches on the CPU."""
+    cuda.reset_launches()
+    e_align.main(_tiny_argv(tmp_path, "--bf16", "--case", str(case), "--iterations", "2", "--log_every", "1"))
+    assert not any(cuda.launches.values())
+    records = [json.loads(line) for line in (tmp_path / "out" / "Loss.txt").read_text().splitlines()]
+    assert [r["iteration"] for r in records] == [0, 1]
+    assert all(np.isfinite(v) for r in records for v in r.values())
+
+
 @pytest.mark.parametrize("extra,error,match", [
-    (("--bf16",), NotImplementedError, "A2"),
     (("--remat",), NotImplementedError, "A3"),
     (("--remat_policy", "conv_outs"), NotImplementedError, "A3"),
     (("--resume",), NotImplementedError, "slice 7"),

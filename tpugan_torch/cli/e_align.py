@@ -18,17 +18,18 @@ and 4 the ladder's weights apply to the usual encoder, as in ``tpugan``.
 Every ``--log_every`` iterations a JSON record goes to stdout and
 ``Loss.txt``, and a grid of imgs1 over imgs2 to ``imgs/``.
 
-``--bf16`` (mtypes 1 and 2) runs tpugan's bf16 scheme
+``--bf16`` (mtypes 1, 2 and 4) runs tpugan's bf16 scheme
 (``tpugan_torch/precision.py``): a bf16 copy of the frozen generator (and
-mapping), the encoder computing in bf16 from its fp32 parameters, fp32
-losses, gradients and optimizer state; on the card every FIR is the
-kernel's bf16 form, forward and adjoint.
+mapping), the encoder computing in bf16 from its fp32 parameters (E_BIG's
+spectral-norm pair advanced on the fp32 weights), fp32 losses, gradients
+and optimizer state; on the card every FIR is the FIR kernel's bf16 form,
+forward and adjoint, and BigGAN's attention the attention kernels' bf16
+forms, forward and backward.
 
 :func:`build_trainer` makes the state and the step functions; ``main``
 loops and writes. What later work brings raises :class:`NotImplementedError`
-naming its ROADMAP item: ``--mtype 4 --bf16`` (queue B: bf16 forms of B3
-and B4), ``--remat`` and ``--remat_policy`` (A3), and ``--resume`` and
-checkpoints (slice 7).
+naming its ROADMAP item: ``--remat`` and ``--remat_policy`` (A3), and
+``--resume`` and checkpoints (slice 7).
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute for the generator and the encoder's forward and "
                              "backward (fp32 master weights, fp32 norm moments, fp32 losses); "
-                             "mtypes 1 and 2")
+                             "mtypes 1, 2 and 4")
     parser.add_argument("--log_every", type=int, default=100)
     parser.add_argument("--checkpoint_every", type=int, default=5000)
     parser.add_argument("--resume", action="store_true",
@@ -114,10 +115,6 @@ def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
     iteration) -> Request`` replaces the iteration's seeded draws (a replay
     of given inputs). With ``--bf16`` the trainer's bundle holds the bf16
     copies of the generator and mapping that the step runs."""
-    if args.bf16 and args.mtype == 4:
-        raise NotImplementedError(
-            "--bf16 on mtype 4 (ROADMAP A2, done for mtypes 1 and 2) needs bf16 forms of B3 and "
-            "B4, the SAGAN attention kernels (ROADMAP queue B)")
     if args.remat or args.remat_policy is not None:
         raise NotImplementedError("--remat and --remat_policy come with ROADMAP A3 (remat)"
                                   + (", with --bf16 (A2) as without" if args.bf16 else ""))

@@ -1,11 +1,13 @@
-// SAGAN attention forward: o = softmax(q k^T) v over the keys, fp32,
-// optionally with the per-row logsumexp. No 1/sqrt(d) scaling: BigGAN's
-// SelfAttn applies none.
+// SAGAN attention forward: o = softmax(q k^T) v over the keys, fp32 or bf16,
+// optionally with the per-row logsumexp (fp32). No 1/sqrt(d) scaling:
+// BigGAN's SelfAttn applies none.
 //
 // Replaces the Pallas TPU kernel tpugan/ops/pallas/attention.py::
 // sagan_attention_pallas in both forms: without the logsumexp (pallas_call
 // :68, the eval path) and with it (:77, the form the training backward
-// reads).
+// reads), on fp32 (tpugan_sagan_attention_f32) and on bf16
+// (tpugan_sagan_attention_bf16), as the Pallas kernel takes any float type:
+// it computes in fp32 (:100-107) and writes o in q's type (:73, :88, :122).
 //
 // Shapes: q [N, Lq, dk], k [N, Lk, dk], v [N, Lk, dv], o [N, Lq, dv],
 // lse [N, Lq] (the caller views it as [N, Lq, 1]); all contiguous, any
@@ -21,6 +23,19 @@
 // 80.1 us (67 TFLOP/s). This design computes s = q k^T once for each slice
 // of dv (two at dv 256), 6.44 GFLOP in all at the path shape, so its own
 // floor is 39.0 us.
+//
+// bf16: the kernel is templated on the element type T of q, k, v and o.
+// Key tiles are staged in T and widened to fp32 in the split, q where it is
+// read; o is rounded once to bf16 (to nearest even) where it is stored, the
+// lse stays fp32. A bf16 value is exact in TF32, so its split is hi = x,
+// lo = 0, and the bf16 form computes what the fp32 kernel computes on the
+// widened inputs: its output is the fp32 kernel's rounded to bf16, bit for
+// bit. Its bound at the path shape: s in one dense bf16 pass (both operands
+// bf16, 989.4 TFLOP/s on an H100 SXM) and p v with the fp32 p split into
+// three bf16 pieces (less time than two TF32 passes), 1.07 + 3 x 4.29
+// GFLOP of bf16 products, 14.1 us. This form keeps all three TF32 passes,
+// and with them the fp32 kernel's time; bf16 products are a redesign of
+// their own.
 //
 // Precision: 3xTF32, as in sagan_attention_bwd.cu. Every operand x is split
 // into hi, x rounded to TF32 to nearest with ties away from zero
@@ -61,7 +76,10 @@
 //    memory; the two share every key tile;
 //  * a loop over tiles of kBK = 32 keys: the tile's rows of k and its
 //    slice of v are copied with cp.async into a staging buffer (16-byte
-//    copies where rows allow, 4-byte otherwise; zeros past Lk, dk and dv),
+//    copies where a row is whole 16-byte copies and its base 16-byte
+//    aligned, 4-byte otherwise; bf16 rows that are not whole 4-byte copies
+//    a load and a store by the thread, as cp.async has no 2-byte copy;
+//    zeros past Lk, dk and dv),
 //    then split by all 256 threads into hi and lo panels (k as it lies, v
 //    transposed and its keys permuted). With two stages of panels (padded
 //    dk up to 64), tile it + 1 is split while the tensor cores run the
@@ -91,6 +109,7 @@
 // again. A producer warp feeding consumer warpgroups, q in registers, and
 // key tiles split once by a pack launch are the next steps.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -119,6 +138,11 @@ __host__ __device__ constexpr int pad_width(int d) { return d <= 32 ? 32 : d <= 
 // k's staging rows are padded by 4 floats, so that the split's float4
 // reads of 8 consecutive rows fall in distinct banks
 __host__ __device__ constexpr int k_stride(int ck) { return ck + 4; }
+// the same row of staged elements of T: 16 bytes of padding, which keeps
+// every row on a 16-byte boundary (fp32: k_stride; bf16 staging fits in the
+// fp32 staging's room)
+template <typename T>
+__host__ __device__ constexpr int k_stage_stride(int ck) { return ck + 16 / static_cast<int>(sizeof(T)); }
 // one stage of split panels: k hi, lo [kBK x CK] and v^T hi, lo [CV x kBK]
 __host__ __device__ constexpr int panel_floats(int ck, int cv) { return 2 * kBK * ck + 2 * cv * kBK; }
 // shared floats of an instance: q hi, lo [64 x CK] for each warpgroup;
@@ -133,12 +157,12 @@ __host__ __device__ constexpr int stages_of(int ck, int cv) {
 static_assert(4 * shared_floats(kMaxDk, kMaxSlice, 1) <= kMaxSharedBytes, "shared memory");
 
 // asynchronous global -> shared copies; an invalid source fills zeros
-__device__ __forceinline__ void copy4(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void copy4(void* dst, const void* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
                "r"(valid ? 4 : 0));
 }
-__device__ __forceinline__ void copy16(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void copy16(void* dst, const void* src, bool valid) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
                "r"(valid ? 16 : 0));
@@ -152,6 +176,57 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// rows [0, kBK) x columns [0, W) of a key tile into the staging buffer
+// `dst` (rows `stride` elements apart) from `src` (rows `ld` apart), BYTES a
+// copy: 16 or 4 with cp.async, or 2 (one bf16, loaded and stored by the
+// thread: cp.async has no 2-byte copy); zeros past `rows` and `cols` (a
+// multiple of a copy's elements), where the copy reads from `base`
+template <typename T, int BYTES, int W>
+__device__ __forceinline__ void stage_copies(T* dst, int stride, const T* src, int ld, int rows,
+                                             int cols, const T* base, int t) {
+  constexpr int E = BYTES / static_cast<int>(sizeof(T));  // elements a copy
+  static_assert(E >= 1 && W % E == 0, "whole copies");
+  constexpr int kCopies = kBK * W / E;
+#pragma unroll
+  for (int n = 0; n < cdiv(kCopies, kThreads); ++n) {
+    const int i = t + n * kThreads;
+    if (kCopies % kThreads != 0 && i >= kCopies) break;
+    const int j = i / (W / E), c = E * (i % (W / E));
+    const bool ok = j < rows && c < cols;
+    const T* from = ok ? src + static_cast<int64_t>(j) * ld + c : base;
+    if constexpr (BYTES == 16) {
+      copy16(dst + j * stride + c, from, ok);
+    } else if constexpr (BYTES == 4) {
+      copy4(dst + j * stride + c, from, ok);
+    } else {
+      dst[j * stride + c] = ok ? *from : from_float<T>(0.f);
+    }
+  }
+}
+template <typename T, int W>
+__device__ __forceinline__ void stage(T* dst, int stride, const T* src, int ld, int rows, int cols,
+                                      const T* base, int bytes, int t) {
+  if (bytes == 16) {
+    stage_copies<T, 16, W>(dst, stride, src, ld, rows, cols, base, t);
+  } else if (sizeof(T) == 4 || bytes == 4) {
+    stage_copies<T, 4, W>(dst, stride, src, ld, rows, cols, base, t);
+  } else if constexpr (sizeof(T) == 2) {
+    stage_copies<T, 2, W>(dst, stride, src, ld, rows, cols, base, t);
+  }
+}
+
+// four staged values, widened to fp32 (8 bytes of bf16: the element at the
+// lower address is the word's low half)
+__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
+  const float4 f = *reinterpret_cast<const float4*>(p);
+  x[0] = f.x, x[1] = f.y, x[2] = f.z, x[3] = f.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  x[0] = __uint_as_float(u.x << 16), x[1] = __uint_as_float(u.x & 0xffff0000u);
+  x[2] = __uint_as_float(u.y << 16), x[3] = __uint_as_float(u.y & 0xffff0000u);
 }
 
 __device__ __forceinline__ void split4(const float (&x)[4], float* hi, float* lo) {
@@ -207,15 +282,14 @@ __device__ __forceinline__ void pv_part(float (&d)[R], float (&c)[R],
   wgmma_commit();
 }
 
-template <int CK, int CV>
+template <typename T, int CK, int CV>
 __global__ void __launch_bounds__(kThreads)
-sagan_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o,
-                       float* __restrict__ lse, int lq, int lk, int dk, int dv, int k_vec4,
-                       int v_vec4) {
+sagan_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                       T* __restrict__ o, float* __restrict__ lse, int lq, int lk, int dk, int dv,
+                       int k_copy, int v_copy) {
   constexpr int NS = CK / kChainK;        // chains of s
   constexpr int NP = CV < kPart ? CV : kPart;  // columns of one p v part
-  constexpr int KS = k_stride(CK);
+  constexpr int KS = k_stage_stride<T>(CK);
   constexpr int STAGES = stages_of(CK, CV);
   constexpr int PF = panel_floats(CK, CV);
   extern __shared__ float4 smem4[];
@@ -227,51 +301,21 @@ sagan_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // stage st's panels: k hi, lo [kBK x CK] at panels + st PF, then v^T hi,
   // lo [CV x kBK] (keys permuted)
   float* panels = smem + 2 * kGroups * kRows * CK;
-  float* sk = panels + STAGES * PF;  // staging: k [kBK][KS], v [kBK][CV]
-  float* sv = sk + kBK * KS;
+  T* sk = reinterpret_cast<T*>(panels + STAGES * PF);  // staging in T: k [kBK][KS], v [kBK][CV]
+  T* sv = sk + kBK * KS;
 
   const int q0 = (blockIdx.x * kGroups + wg) * kRows, c0 = blockIdx.y * CV, b = blockIdx.z;
   const int row0 = q0 + 16 * w + g;  // this thread's rows: row0, row0 + 8
-  const float* qb = q + static_cast<int64_t>(b) * lq * dk;
-  const float* kb = k + static_cast<int64_t>(b) * lk * dk;
-  const float* vb = v + static_cast<int64_t>(b) * lk * dv;
+  const T* qb = q + static_cast<int64_t>(b) * lq * dk;
+  const T* kb = k + static_cast<int64_t>(b) * lk * dk;
+  const T* vb = v + static_cast<int64_t>(b) * lk * dv;
 
   // tile `it`'s rows of k and columns [c0, c0 + CV) of v into the staging
   // buffer, zeros past Lk, dk and dv
   const auto issue = [&](int it) {
     const int j0 = it * kBK, kn = min(kBK, lk - j0);
-    const float* ksrc = kb + static_cast<int64_t>(j0) * dk;
-    const float* vsrc = vb + static_cast<int64_t>(j0) * dv + c0;
-    if (k_vec4) {
-#pragma unroll
-      for (int n = 0; n < kBK * CK / 4 / kThreads; ++n) {
-        const int i = t + n * kThreads, j = i / (CK / 4), c = 4 * (i % (CK / 4));
-        const bool ok = j < kn && c < dk;
-        copy16(sk + j * KS + c, ok ? ksrc + j * dk + c : kb, ok);
-      }
-    } else {
-#pragma unroll
-      for (int n = 0; n < kBK * CK / kThreads; ++n) {
-        const int i = t + n * kThreads, j = i / CK, c = i % CK;
-        const bool ok = j < kn && c < dk;
-        copy4(sk + j * KS + c, ok ? ksrc + j * dk + c : kb, ok);
-      }
-    }
-    if (v_vec4) {
-#pragma unroll
-      for (int n = 0; n < kBK * CV / 4 / kThreads; ++n) {
-        const int i = t + n * kThreads, j = i / (CV / 4), c = 4 * (i % (CV / 4));
-        const bool ok = j < kn && c0 + c < dv;
-        copy16(sv + j * CV + c, ok ? vsrc + j * dv + c : vb, ok);
-      }
-    } else {
-#pragma unroll
-      for (int n = 0; n < kBK * CV / kThreads; ++n) {
-        const int i = t + n * kThreads, j = i / CV, c = i % CV;
-        const bool ok = j < kn && c0 + c < dv;
-        copy4(sv + j * CV + c, ok ? vsrc + j * dv + c : vb, ok);
-      }
-    }
+    stage<T, CK>(sk, KS, kb + static_cast<int64_t>(j0) * dk, dk, kn, dk, kb, k_copy, t);
+    stage<T, CV>(sv, CV, vb + static_cast<int64_t>(j0) * dv + c0, dv, kn, dv - c0, vb, v_copy, t);
     copy_commit();
   };
   issue(0);
@@ -284,7 +328,7 @@ sagan_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float vals[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      vals[e] = r < lq && c + e < dk ? qb[static_cast<int64_t>(r) * dk + c + e] : 0.f;
+      vals[e] = r < lq && c + e < dk ? to_float(qb[static_cast<int64_t>(r) * dk + c + e]) : 0.f;
     }
     split4(vals, qh + x, ql + x);
   }
@@ -311,8 +355,8 @@ sagan_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < CK / 32; ++i) {
       const int r = t & 31, cg = (t >> 5) + 8 * i;
-      const float4 f = *reinterpret_cast<const float4*>(sk + r * KS + 4 * cg);
-      const float vals[4] = {f.x, f.y, f.z, f.w};
+      float vals[4];
+      load4(sk + r * KS + 4 * cg, vals);
       split4(vals, kh + 128 * cg + 4 * r, kl + 128 * cg + 4 * r);
     }
 #pragma unroll
@@ -321,7 +365,7 @@ sagan_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int key0 = 8 * (cg >> 1) + (cg & 1);
       float vals[4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) vals[e] = sv[(key0 + 2 * e) * CV + r];
+      for (int e = 0; e < 4; ++e) vals[e] = to_float(sv[(key0 + 2 * e) * CV + r]);
       split4(vals, vh + cg * 4 * CV + 4 * r, vl + cg * 4 * CV + 4 * r);
     }
     fence_async_shared();
@@ -448,7 +492,9 @@ sagan_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = row0 + 8 * (e >> 1), col = c0 + 8 * n + 2 * tg + (e & 1);
-      if (r < lq && col < dv) o[(static_cast<int64_t>(b) * lq + r) * dv + col] = acc[4 * n + e] * inv[e >> 1];
+      if (r < lq && col < dv) {
+        o[(static_cast<int64_t>(b) * lq + r) * dv + col] = from_float<T>(acc[4 * n + e] * inv[e >> 1]);
+      }
     }
 }
 
@@ -461,19 +507,30 @@ bool valid(int n, int lq, int lk, int dk, int dv) {
 // width, stages (read by tpugan_sagan_attention_last_instance)
 int last_instance[3] = {0, 0, 0};
 
-template <int CK, int CV>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o, float* lse, int n,
-                   int lq, int lk, int dk, int dv, cudaStream_t stream) {
+// the bytes of one staging copy for rows of `width` elements of T from
+// `base`: 16 where a row is whole 16-byte copies and starts on a 16-byte
+// boundary, 4 where it is whole 4-byte copies on 4-byte boundaries, else
+// one element (a bf16 view that starts 2 bytes off, or an odd width)
+template <typename T>
+int copy_bytes(const T* base, int width) {
+  const uintptr_t at = reinterpret_cast<uintptr_t>(base);
+  const int row = width * static_cast<int>(sizeof(T));
+  if (row % 16 == 0 && at % 16 == 0) return 16;
+  if (row % 4 == 0 && at % 4 == 0) return 4;
+  return static_cast<int>(sizeof(T));
+}
+
+template <typename T, int CK, int CV>
+cudaError_t launch(const T* q, const T* k, const T* v, T* o, float* lse, int n, int lq, int lk,
+                   int dk, int dv, cudaStream_t stream) {
   constexpr int bytes = 4 * shared_floats(CK, CV, stages_of(CK, CV));
-  const cudaError_t set = cudaFuncSetAttribute(sagan_attention_kernel<CK, CV>,
+  const cudaError_t set = cudaFuncSetAttribute(sagan_attention_kernel<T, CK, CV>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (set != cudaSuccess) return set;
-  // 16-byte copies need rows that start on 16-byte boundaries
-  const int k_vec4 = dk % 4 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0;
-  const int v_vec4 = dv % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  const int k_copy = copy_bytes(k, dk), v_copy = copy_bytes(v, dv);
   const dim3 grid(cdiv(lq, kGroups * kRows), cdiv(dv, CV), n);
-  sagan_attention_kernel<CK, CV>
-      <<<grid, kThreads, bytes, stream>>>(q, k, v, o, lse, lq, lk, dk, dv, k_vec4, v_vec4);
+  sagan_attention_kernel<T, CK, CV>
+      <<<grid, kThreads, bytes, stream>>>(q, k, v, o, lse, lq, lk, dk, dv, k_copy, v_copy);
   const cudaError_t rc = cudaGetLastError();
   if (rc == cudaSuccess) {
     last_instance[0] = CK;
@@ -483,26 +540,19 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o, flo
   return rc;
 }
 
-template <int CK>
-cudaError_t launch_dv(const float* q, const float* k, const float* v, float* o, float* lse, int n,
-                      int lq, int lk, int dk, int dv, cudaStream_t stream) {
+template <typename T, int CK>
+cudaError_t launch_dv(const T* q, const T* k, const T* v, T* o, float* lse, int n, int lq, int lk,
+                      int dk, int dv, cudaStream_t stream) {
   // dv in slices of at most kMaxSlice columns, each padded to 32, 64 or 128
   const int cv = pad_width(cdiv(dv, cdiv(dv, kMaxSlice)));
-  if (cv == 32) return launch<CK, 32>(q, k, v, o, lse, n, lq, lk, dk, dv, stream);
-  if (cv == 64) return launch<CK, 64>(q, k, v, o, lse, n, lq, lk, dk, dv, stream);
-  return launch<CK, 128>(q, k, v, o, lse, n, lq, lk, dk, dv, stream);
+  if (cv == 32) return launch<T, CK, 32>(q, k, v, o, lse, n, lq, lk, dk, dv, stream);
+  if (cv == 64) return launch<T, CK, 64>(q, k, v, o, lse, n, lq, lk, dk, dv, stream);
+  return launch<T, CK, 128>(q, k, v, o, lse, n, lq, lk, dk, dv, stream);
 }
 
-}  // namespace
-
-// Plain C entry point, bound with ctypes. q, k, v, o (and lse, or null) are
-// device pointers on ordinal `device`, contiguous fp32 as above. Launches on
-// `stream` and does not synchronise. Returns 0, or the cudaError_t of a
-// refused launch (cudaErrorInvalidValue for arguments outside the kernel's
-// contract).
-extern "C" int tpugan_sagan_attention_f32(const float* q, const float* k, const float* v,
-                                          float* o, float* lse, int n, int lq, int lk, int dk,
-                                          int dv, int device, void* stream) {
+template <typename T>
+int attention(const T* q, const T* k, const T* v, T* o, float* lse, int n, int lq, int lk, int dk,
+              int dv, int device, void* stream) {
   if (!valid(n, lq, lk, dk, dv)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
@@ -510,17 +560,37 @@ extern "C" int tpugan_sagan_attention_f32(const float* q, const float* k, const 
   const int ck = pad_width(dk);
   cudaError_t rc;
   if (ck == 32) {
-    rc = launch_dv<32>(q, k, v, o, lse, n, lq, lk, dk, dv, s);
+    rc = launch_dv<T, 32>(q, k, v, o, lse, n, lq, lk, dk, dv, s);
   } else if (ck == 64) {
-    rc = launch_dv<64>(q, k, v, o, lse, n, lq, lk, dk, dv, s);
+    rc = launch_dv<T, 64>(q, k, v, o, lse, n, lq, lk, dk, dv, s);
   } else {
-    rc = launch_dv<128>(q, k, v, o, lse, n, lq, lk, dk, dv, s);
+    rc = launch_dv<T, 128>(q, k, v, o, lse, n, lq, lk, dk, dv, s);
   }
   return static_cast<int>(rc);
 }
 
+}  // namespace
+
+// Plain C entry points, bound with ctypes, one per element type: q, k, v
+// and o fp32, or bf16; lse (or null) fp32 in both. Device pointers on
+// ordinal `device`, contiguous as above. Each launches on `stream` and does
+// not synchronise. Returns 0, or the cudaError_t of a refused launch
+// (cudaErrorInvalidValue for arguments outside the kernel's contract).
+extern "C" int tpugan_sagan_attention_f32(const float* q, const float* k, const float* v,
+                                          float* o, float* lse, int n, int lq, int lk, int dk,
+                                          int dv, int device, void* stream) {
+  return attention(q, k, v, o, lse, n, lq, lk, dk, dv, device, stream);
+}
+
+extern "C" int tpugan_sagan_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                           const __nv_bfloat16* v, __nv_bfloat16* o, float* lse,
+                                           int n, int lq, int lk, int dk, int dv, int device,
+                                           void* stream) {
+  return attention(q, k, v, o, lse, n, lq, lk, dk, dv, device, stream);
+}
+
 // Writes the instance (padded dk, slice width, stages) of the last launch
-// that tpugan_sagan_attention_f32 made, {0, 0, 0} before any, into out[3].
+// that either entry point made, {0, 0, 0} before any, into out[3].
 extern "C" void tpugan_sagan_attention_last_instance(int* out) {
   for (int i = 0; i < 3; ++i) out[i] = last_instance[i];
 }

@@ -11,9 +11,24 @@
 //
 // Shapes: q [N, Lq, dk], k [N, Lk, dk], v [N, Lk, dv], do [N, Lq, dv],
 // lse and delta [N, Lq] (the caller views lse as [N, Lq, 1]); dq, dk, dv
-// shaped like q, k, v. All contiguous fp32, any Lq, Lk >= 1, dk <= 128,
+// shaped like q, k, v. All contiguous, any Lq, Lk >= 1, dk <= 128,
 // dv <= 256. At BigGAN-256's attention layer N = 2, Lq = 4096, Lk = 1024,
-// dk = 64, dv = 256.
+// dk = 64, dv = 256. q, k, v, do, dq, dk and dv are fp32 (the _f32 entry
+// points) or bf16 (_bf16), as the Pallas kernels take any float type and
+// return the gradients in the inputs' types (:163, :184-185); lse, delta,
+// the packed operands and the p/ds scratch are fp32 in both.
+//
+// bf16: each kernel is templated on the element type T. The pack kernel
+// and the dq kernel widen what they read from q, k, v and do to fp32; dq,
+// dk and dv are rounded once to bf16 (to nearest even) where they are
+// stored. A bf16 value is exact in TF32, so its split is hi = x, lo = 0:
+// the packed planes, and so every product, are the fp32 kernels' on the
+// widened inputs, and the bf16 form's outputs are theirs rounded, bit for
+// bit. The workspace is the fp32 form's. Its bound at the path shape: s
+// and dp in one dense bf16 pass (bf16 operands, 989.4 TFLOP/s on an H100
+// SXM), dv, dq and dk with the fp32 p and ds split into three bf16 pieces,
+// 5.37 + 3 x 6.44 GFLOP of bf16 products, 25.0 us. This form keeps all
+// three TF32 passes.
 //
 // Bound: operations. The backward needs s = q k^T, dp = do v^T,
 // dv = p^T do, dq = ds k and dk = ds^T q: 2 Lq Lk (3 dk + 2 dv) FLOPs per
@@ -119,6 +134,7 @@
 //  every tile of 32 keys (N = 32 wgmma); the scratch's round trip.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -286,7 +302,7 @@ __device__ __forceinline__ void corr_rs(float (&c)[N / 2], const uint32_t (&a_hi
 // (i, j) at ((item tiles_r + i) tiles_c + j) pr pc; permute: columns of
 // each 8 in order 0, 2, 4, 6, 1, 3, 5, 7
 struct PackJob {
-  const float* src;
+  const void* src;  // of the kernel's element type
   float* hi;
   float* lo;
   int64_t item;  // elements between batch items of src
@@ -307,9 +323,11 @@ constexpr int kPackTile = 128 * 33;  // a transposed panel's staging: at most 12
 // four values a thread, grid-stride over the job; a transposed one (k^T,
 // do^T, q^T) a panel at a time, staged in shared memory so that both the
 // reads and the writes are coalesced.
+template <typename T>
 __global__ void __launch_bounds__(kPackThreads) attention_pack_kernel(PackJobs jobs) {
   __shared__ float stage[kPackTile];
   const PackJob& j = jobs.job[blockIdx.y];
+  const T* src = static_cast<const T*>(j.src);
   const int panel = j.pr * j.pc, per_item = j.tiles_r * j.tiles_c;
   const int64_t units = static_cast<int64_t>(per_item) * jobs.n;
   const int t = threadIdx.x;
@@ -321,7 +339,7 @@ __global__ void __launch_bounds__(kPackThreads) attention_pack_kernel(PackJobs j
     if (j.permute) c = (c & ~7) | ((c & 3) << 1) | ((c >> 2) & 1);
     const int r = (tile / j.tiles_c) * j.pr + i, col = (tile % j.tiles_c) * j.pc + c;
     return r < j.rows && col < j.cols
-               ? j.src[b * j.item + static_cast<int64_t>(r) * j.s_r + static_cast<int64_t>(col) * j.s_c]
+               ? to_float(src[b * j.item + static_cast<int64_t>(r) * j.s_r + static_cast<int64_t>(col) * j.s_c])
                : 0.f;
   };
   // four values of the panel at offset o (a multiple of 4) to both planes
@@ -366,11 +384,11 @@ __global__ void __launch_bounds__(kPackThreads) attention_pack_kernel(PackJobs j
 // ---- dq ----------------------------------------------------------------------
 
 // rows [r0, r0 + 64) of a row-major [len, d] matrix as a panel of 64 rows
-// and CW columns in shared memory, split into hi and lo (zeros past row len
-// and column d)
-template <int CW>
-__device__ __forceinline__ void stage_split(float* hi, float* lo, const float* src, int r0,
-                                            int len, int d, int t) {
+// and CW columns in shared memory, widened to fp32 and split into hi and lo
+// (zeros past row len and column d)
+template <int CW, typename T>
+__device__ __forceinline__ void stage_split(float* hi, float* lo, const T* src, int r0, int len,
+                                            int d, int t) {
   for (int o = 4 * t; o < kDqRows * CW; o += 4 * kThreads) {
     const int core = o >> 5;  // (column group) 8 + row group
     const int r = r0 + (core & 7) * 8 + ((o >> 2) & 7), c0 = (core >> 3) * 4;
@@ -379,7 +397,7 @@ __device__ __forceinline__ void stage_split(float* hi, float* lo, const float* s
     float* l = &l4.x;
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float x = r < len && c0 + e < d ? src[static_cast<int64_t>(r) * d + c0 + e] : 0.f;
+      const float x = r < len && c0 + e < d ? to_float(src[static_cast<int64_t>(r) * d + c0 + e]) : 0.f;
       uint32_t xh, xl;
       split(x, xh, xl);
       h[e] = __uint_as_float(xh);
@@ -390,11 +408,11 @@ __device__ __forceinline__ void stage_split(float* hi, float* lo, const float* s
   }
 }
 
-template <int CK, int CV>
+template <typename T, int CK, int CV>
 __global__ void __launch_bounds__(kThreads, 1)
-attention_dq_kernel(Workspace ws, const float* __restrict__ q, const float* __restrict__ dout,
+attention_dq_kernel(Workspace ws, const T* __restrict__ q, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq) {
+                    T* __restrict__ dq) {
   constexpr bool QR = q_in_registers(CK);
   constexpr int BK = dq_keys(CK, CV);
   constexpr int NS = CK / kChainK, NC = (CK + CV) / kChainK;  // chains of s, of s and dp
@@ -414,7 +432,7 @@ attention_dq_kernel(Workspace ws, const float* __restrict__ q, const float* __re
   const int nkt = ws.lkp / BK, ntiles = cdiv(ws.lk, BK);
   const int nqt = ws.lqp / kDkvRows, nkb = ws.lkp / kDkvKeys;
   float* pdb = ws.pds + static_cast<int64_t>(b) * nkb * nqt * 2 * kPlane;
-  const float* qb = q + static_cast<int64_t>(b) * ws.lq * ws.dk;
+  const T* qb = q + static_cast<int64_t>(b) * ws.lq * ws.dk;
 
   const auto issue_kv = [&](int it) {
     const int64_t at = (static_cast<int64_t>(b) * nkt + it) * BK;
@@ -442,7 +460,7 @@ attention_dq_kernel(Workspace ws, const float* __restrict__ q, const float* __re
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int row = row0 + 8 * (e & 1), col = 8 * st + tg + 4 * (e >> 1);
-        const float x = row < ws.lq && col < ws.dk ? qb[static_cast<int64_t>(row) * ws.dk + col] : 0.f;
+        const float x = row < ws.lq && col < ws.dk ? to_float(qb[static_cast<int64_t>(row) * ws.dk + col]) : 0.f;
         split(x, q_hi[st][e], q_lo[st][e]);
       }
   } else {
@@ -573,15 +591,16 @@ attention_dq_kernel(Workspace ws, const float* __restrict__ q, const float* __re
     for (int e = 0; e < 4; ++e) {
       const int row = row0 + 8 * (e >> 1), col = 8 * n + 2 * tg + (e & 1);
       if (row < ws.lq && col < ws.dk) {
-        dq[(static_cast<int64_t>(b) * ws.lq + row) * ws.dk + col] = acc[4 * n + e];
+        dq[(static_cast<int64_t>(b) * ws.lq + row) * ws.dk + col] = from_float<T>(acc[4 * n + e]);
       }
     }
 }
 
 // ---- dk, dv ------------------------------------------------------------------
 
+template <typename T>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
-attention_dkv_kernel(Workspace ws, float* __restrict__ dk_out, float* __restrict__ dv_out) {
+attention_dkv_kernel(Workspace ws, T* __restrict__ dk_out, T* __restrict__ dv_out) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -674,7 +693,7 @@ attention_dkv_kernel(Workspace ws, float* __restrict__ dk_out, float* __restrict
 #pragma unroll
   for (int c = 0; c < kCluster; ++c) parts[c] = cluster.map_shared_rank(red, c);
   const int width = is_v ? ws.dv : ws.dk;
-  float* out = is_v ? dv_out : dk_out;
+  T* out = is_v ? dv_out : dk_out;
   const int j0 = kb * kDkvKeys;
   for (int x = t; x < kRows * kSlice; x += kThreads) {
     const int r = rank * kRows + x / kSlice, col = x % kSlice, oc = sl * kSlice + col;
@@ -682,7 +701,7 @@ attention_dkv_kernel(Workspace ws, float* __restrict__ dk_out, float* __restrict
 #pragma unroll
     for (int c = 0; c < kCluster; ++c) sum += parts[c][r * kSlice + col];
     if (j0 + r < ws.lk && oc < width) {
-      out[(static_cast<int64_t>(b) * ws.lk + j0 + r) * width + oc] = sum;
+      out[(static_cast<int64_t>(b) * ws.lk + j0 + r) * width + oc] = from_float<T>(sum);
     }
   }
   cluster.sync();  // no block leaves while the others still read its shared memory
@@ -696,53 +715,40 @@ bool valid(int n, int lq, int lk, int dk, int dv) {
          static_cast<int64_t>(cdiv(lk, kDkvKeys)) * (cdiv(dk, kSlice) + cdiv(dv, kSlice)) <= 65535;
 }
 
+template <typename T>
 struct DqArgs {
-  const float *q, *dout, *lse, *delta;
-  float* dq;
+  const T *q, *dout;
+  const float *lse, *delta;
+  T* dq;
 };
 
-template <int CK, int CV>
-cudaError_t launch_dq(const Workspace& ws, const DqArgs& a, cudaStream_t stream) {
+template <typename T, int CK, int CV>
+cudaError_t launch_dq(const Workspace& ws, const DqArgs<T>& a, cudaStream_t stream) {
   constexpr int bytes = 4 * dq_floats(CK, CV, dq_keys(CK, CV));
-  const cudaError_t set = cudaFuncSetAttribute(attention_dq_kernel<CK, CV>,
+  const cudaError_t set = cudaFuncSetAttribute(attention_dq_kernel<T, CK, CV>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (set != cudaSuccess) return set;
   const dim3 grid(ws.lqp / kDqRows, ws.n);
-  attention_dq_kernel<CK, CV><<<grid, kThreads, bytes, stream>>>(ws, a.q, a.dout, a.lse, a.delta, a.dq);
+  attention_dq_kernel<T, CK, CV>
+      <<<grid, kThreads, bytes, stream>>>(ws, a.q, a.dout, a.lse, a.delta, a.dq);
   return cudaGetLastError();
 }
 
-template <int CK>
-cudaError_t launch_dq_dv(const Workspace& ws, const DqArgs& a, cudaStream_t stream) {
-  if (ws.cv == 64) return launch_dq<CK, 64>(ws, a, stream);
-  if (ws.cv == 128) return launch_dq<CK, 128>(ws, a, stream);
-  return launch_dq<CK, 256>(ws, a, stream);
+template <typename T, int CK>
+cudaError_t launch_dq_dv(const Workspace& ws, const DqArgs<T>& a, cudaStream_t stream) {
+  if (ws.cv == 64) return launch_dq<T, CK, 64>(ws, a, stream);
+  if (ws.cv == 128) return launch_dq<T, CK, 128>(ws, a, stream);
+  return launch_dq<T, CK, 256>(ws, a, stream);
 }
 
-}  // namespace
-
-// Plain C entry points, bound with ctypes. Pointers are device pointers on
-// ordinal `device`, contiguous fp32 as above; `workspace` holds
-// tpugan_sagan_attention_bwd_workspace_floats(n, lq, lk, dk, dv) floats,
-// 16-byte aligned. The three kernels run in order on one stream: pack
-// (k, v, do and q into the workspace), dq (from q, do and the workspace;
-// also p and ds into its scratch), dkv. Each launches on `stream` and does
-// not synchronise.
-// Returns 0, or the cudaError_t of a refused launch (cudaErrorInvalidValue
-// for arguments outside the kernels' contract).
-extern "C" int64_t tpugan_sagan_attention_bwd_workspace_floats(int n, int lq, int lk, int dk,
-                                                                int dv) {
-  if (!valid(n, lq, lk, dk, dv)) return -1;
-  return make_workspace(nullptr, n, lq, lk, dk, dv).floats;
+bool refused(int n, int lq, int lk, int dk, int dv, const float* workspace) {
+  return !valid(n, lq, lk, dk, dv) || reinterpret_cast<uintptr_t>(workspace) % 16 != 0;
 }
 
-extern "C" int tpugan_sagan_attention_bwd_pack_f32(const float* q, const float* k, const float* v,
-                                                   const float* dout, float* workspace, int n,
-                                                   int lq, int lk, int dk, int dv, int device,
-                                                   void* stream) {
-  if (!valid(n, lq, lk, dk, dv) || reinterpret_cast<uintptr_t>(workspace) % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <typename T>
+int pack(const T* q, const T* k, const T* v, const T* dout, float* workspace, int n, int lq, int lk,
+         int dk, int dv, int device, void* stream) {
+  if (refused(n, lq, lk, dk, dv, workspace)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Workspace w = make_workspace(workspace, n, lq, lk, dk, dv);
@@ -758,40 +764,95 @@ extern "C" int tpugan_sagan_attention_bwd_pack_f32(const float* q, const float* 
       {q, w.bqt[0], w.bqt[1], sq, 1, dk, dk, lq, kSlice, kDkvRows, w.sk, rows, 0},
   }, n};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  attention_pack_kernel<<<dim3(4 * 132, kPackJobs), kPackThreads, 0, s>>>(jobs);
+  attention_pack_kernel<T><<<dim3(4 * 132, kPackJobs), kPackThreads, 0, s>>>(jobs);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int tpugan_sagan_attention_bwd_dq_f32(const float* q, const float* dout,
-                                                 const float* lse, const float* delta, float* dq,
-                                                 float* workspace, int n, int lq, int lk, int dk,
-                                                 int dv, int device, void* stream) {
-  if (!valid(n, lq, lk, dk, dv) || reinterpret_cast<uintptr_t>(workspace) % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <typename T>
+int dq(const T* q, const T* dout, const float* lse, const float* delta, T* dq_out, float* workspace,
+       int n, int lq, int lk, int dk, int dv, int device, void* stream) {
+  if (refused(n, lq, lk, dk, dv, workspace)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const Workspace w = make_workspace(workspace, n, lq, lk, dk, dv);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const DqArgs a{q, dout, lse, delta, dq};
-  const cudaError_t rc = w.ck == 64 ? launch_dq_dv<64>(w, a, s) : launch_dq_dv<128>(w, a, s);
+  const DqArgs<T> a{q, dout, lse, delta, dq_out};
+  const cudaError_t rc = w.ck == 64 ? launch_dq_dv<T, 64>(w, a, s) : launch_dq_dv<T, 128>(w, a, s);
   return static_cast<int>(rc);
+}
+
+template <typename T>
+int dkv(float* workspace, T* dk_out, T* dv_out, int n, int lq, int lk, int dk, int dv, int device,
+        void* stream) {
+  if (refused(n, lq, lk, dk, dv, workspace)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const Workspace w = make_workspace(workspace, n, lq, lk, dk, dv);
+  const cudaError_t attr = cudaFuncSetAttribute(
+      attention_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(kCluster, (w.lkp / kDkvKeys) * (w.sv + w.sk), n);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  attention_dkv_kernel<T><<<grid, kThreads, kDkvBytes, s>>>(w, dk_out, dv_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entry points, bound with ctypes. Pointers are device pointers on
+// ordinal `device`, contiguous as above: q, k, v, do, dq, dk and dv fp32
+// (_f32) or bf16 (_bf16), lse and delta fp32; `workspace` holds
+// tpugan_sagan_attention_bwd_workspace_floats(n, lq, lk, dk, dv) floats,
+// 16-byte aligned, for either type. The three kernels run in order on one
+// stream: pack (k, v, do and q into the workspace), dq (from q, do and the
+// workspace; also p and ds into its scratch), dkv. Each launches on
+// `stream` and does not synchronise.
+// Returns 0, or the cudaError_t of a refused launch (cudaErrorInvalidValue
+// for arguments outside the kernels' contract).
+extern "C" int64_t tpugan_sagan_attention_bwd_workspace_floats(int n, int lq, int lk, int dk,
+                                                                int dv) {
+  if (!valid(n, lq, lk, dk, dv)) return -1;
+  return make_workspace(nullptr, n, lq, lk, dk, dv).floats;
+}
+
+extern "C" int tpugan_sagan_attention_bwd_pack_f32(const float* q, const float* k, const float* v,
+                                                   const float* dout, float* workspace, int n,
+                                                   int lq, int lk, int dk, int dv, int device,
+                                                   void* stream) {
+  return pack(q, k, v, dout, workspace, n, lq, lk, dk, dv, device, stream);
+}
+
+extern "C" int tpugan_sagan_attention_bwd_dq_f32(const float* q, const float* dout,
+                                                 const float* lse, const float* delta, float* dq_out,
+                                                 float* workspace, int n, int lq, int lk, int dk,
+                                                 int dv, int device, void* stream) {
+  return dq(q, dout, lse, delta, dq_out, workspace, n, lq, lk, dk, dv, device, stream);
 }
 
 extern "C" int tpugan_sagan_attention_bwd_dkv_f32(float* workspace, float* dk_out, float* dv_out,
                                                   int n, int lq, int lk, int dk, int dv, int device,
                                                   void* stream) {
-  if (!valid(n, lq, lk, dk, dv) || reinterpret_cast<uintptr_t>(workspace) % 16 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const Workspace w = make_workspace(workspace, n, lq, lk, dk, dv);
-  const cudaError_t attr = cudaFuncSetAttribute(
-      attention_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const dim3 grid(kCluster, (w.lkp / kDkvKeys) * (w.sv + w.sk), n);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  attention_dkv_kernel<<<grid, kThreads, kDkvBytes, s>>>(w, dk_out, dv_out);
-  return static_cast<int>(cudaGetLastError());
+  return dkv(workspace, dk_out, dv_out, n, lq, lk, dk, dv, device, stream);
+}
+
+extern "C" int tpugan_sagan_attention_bwd_pack_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                                                    const __nv_bfloat16* v,
+                                                    const __nv_bfloat16* dout, float* workspace,
+                                                    int n, int lq, int lk, int dk, int dv,
+                                                    int device, void* stream) {
+  return pack(q, k, v, dout, workspace, n, lq, lk, dk, dv, device, stream);
+}
+
+extern "C" int tpugan_sagan_attention_bwd_dq_bf16(const __nv_bfloat16* q, const __nv_bfloat16* dout,
+                                                  const float* lse, const float* delta,
+                                                  __nv_bfloat16* dq_out, float* workspace, int n,
+                                                  int lq, int lk, int dk, int dv, int device,
+                                                  void* stream) {
+  return dq(q, dout, lse, delta, dq_out, workspace, n, lq, lk, dk, dv, device, stream);
+}
+
+extern "C" int tpugan_sagan_attention_bwd_dkv_bf16(float* workspace, __nv_bfloat16* dk_out,
+                                                   __nv_bfloat16* dv_out, int n, int lq, int lk,
+                                                   int dk, int dv, int device, void* stream) {
+  return dkv(workspace, dk_out, dv_out, n, lq, lk, dk, dv, device, stream);
 }

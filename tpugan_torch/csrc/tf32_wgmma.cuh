@@ -17,14 +17,32 @@
 // columns 8 j + 2t and 8 j + 2t + 1 (g = lane / 4, t = lane % 4), at
 // elements 4 j + 2 (row half) + (column parity); an A operand from
 // registers holds rows 16 w + g, + 8 and columns t, t + 4 of each k8 step.
+//
+// Element types: the kernels read and write fp32 or bf16 in device memory
+// and compute in fp32. A bf16 value is widened where it is read (exactly:
+// every bf16 value is a TF32 value, so its split below is hi = x, lo = 0)
+// and a result is rounded once, to nearest even, where it is stored.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 // shared-memory writes (cp.async's included) made visible to the tensor
 // cores' reads, which go through the async proxy

@@ -3,14 +3,18 @@ scaling, and its gradient (counterpart of ``tpugan/ops/attention.py``).
 
 q ``[N, Lq, dk]``, k ``[N, Lk, dk]``, v ``[N, Lk, dv]`` -> ``[N, Lq, dv]``;
 with ``return_lse`` also the per-row logsumexp ``[N, Lq, 1]`` in fp32, which
-the backward reads.
+the backward reads. q, k and v are fp32 or bf16, all three alike, as
+``tpugan``'s Pallas kernels take them: the sums are fp32 and the output and
+the gradients come back in the inputs' dtype.
 
 Dispatch: a CPU tensor takes the plain versions (:func:`sagan_attention_plain`,
 :func:`sagan_attention_bwd_plain`); a CUDA tensor launches the hand-written
 kernels through :func:`sagan_attention_cuda` (``csrc/sagan_attention.cu``)
 and :func:`sagan_attention_bwd_cuda` (``csrc/sagan_attention_bwd.cu``), which
 raise on any input outside the kernels' contract. Nothing falls back: the
-kernels mask their tails and take any length.
+kernels mask their tails and take any length. A bf16 input launches the
+kernels' bf16 entry points (``KERNEL_OF_DTYPE``, ``BWD_KERNELS_OF_DTYPE``),
+which read and write bf16 themselves.
 
 When a gradient is wanted (grad mode on and an input that requires grad),
 :func:`sagan_attention` runs as an :class:`torch.autograd.Function`: the
@@ -33,6 +37,13 @@ MAX_DV = 256  # csrc/sagan_attention.cu and sagan_attention_bwd.cu kMaxDv
 # workspace that the kernels' operands are packed into
 SCRATCH_KEYS = 64
 SCRATCH_ROWS = 32
+# the C entry point of each element type (csrc/sagan_attention.cu), and the
+# backward's pack, dq and dkv (csrc/sagan_attention_bwd.cu)
+KERNEL_OF_DTYPE = {torch.float32: "sagan_attention", torch.bfloat16: "sagan_attention_bf16"}
+BWD_KERNELS_OF_DTYPE = {
+    dtype: tuple(f"sagan_attention_bwd_{part}{suffix}" for part in ("pack", "dq", "dkv"))
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16"))
+}
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -90,25 +101,35 @@ def sagan_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def sagan_attention_bwd_plain(q, k, v, o, lse, do):
     """Plain PyTorch version of the flash backward: p recomputed from the
     logsumexp, ``delta = rowsum(do * o)``, ``ds = p (do v^T - delta)``;
-    returns ``(dq, dk, dv)``."""
-    p = torch.exp(torch.bmm(q, k.transpose(1, 2)) - lse)
-    delta = (do * o).sum(-1, keepdim=True)
-    ds = p * (torch.bmm(do, v.transpose(1, 2)) - delta)
-    return torch.bmm(ds, k), torch.bmm(ds.transpose(1, 2), q), torch.bmm(p.transpose(1, 2), do)
+    returns ``(dq, dk, dv)`` in the dtypes of q, k and v. Computes in fp32
+    from bf16 inputs, as ``tpugan``'s kernels do (float64 stays float64)."""
+    q_, k_, v_, o_, lse_, do_ = (x.to(torch.promote_types(x.dtype, torch.float32))
+                                 for x in (q, k, v, o, lse, do))
+    p = torch.exp(torch.bmm(q_, k_.transpose(1, 2)) - lse_)
+    delta = (do_ * o_).sum(-1, keepdim=True)
+    ds = p * (torch.bmm(do_, v_.transpose(1, 2)) - delta)
+    return (torch.bmm(ds, k_).to(q.dtype), torch.bmm(ds.transpose(1, 2), q_).to(k.dtype),
+            torch.bmm(p.transpose(1, 2), do_).to(v.dtype))
 
 
-def _check(tensors: dict, name: str) -> None:
+def _check(tensors: dict, name: str, dtype=None) -> None:
+    """Every tensor of ``tensors`` of one dtype, ``dtype`` where given, else
+    fp32 or bf16; contiguous ``[N, L, d]``."""
+    dtypes = {x.dtype for x in tensors.values()}
+    if len(dtypes) != 1 or dtypes - ({dtype} if dtype else set(KERNEL_OF_DTYPE)):
+        want = str(dtype).removeprefix("torch.") if dtype else "float32 or bfloat16"
+        raise TypeError(f"{name} take {', '.join(tensors)} all {want}, got "
+                        + ", ".join(f"{label} as {x.dtype}" for label, x in tensors.items()))
     for label, x in tensors.items():
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} take float32, got {label} as {x.dtype}")
         if x.dim() != 3 or not x.is_contiguous():
             raise ValueError(f"{name} take contiguous [N, L, d] tensors ({label})")
 
 
 def check_attention_args(q, k, v) -> tuple[int, int, int, int, int]:
     """The kernels' contract on q, k, v, short of the device: contiguous
-    fp32 ``[N, L, d]``, shapes that fit, no empty dimension, dk <= 128 and
-    dv <= 256. Returns ``(n, lq, lk, dk, dv)``; raises on anything else."""
+    ``[N, L, d]``, all fp32 or all bf16, shapes that fit, no empty
+    dimension, dk <= 128 and dv <= 256. Returns ``(n, lq, lk, dk, dv)``;
+    raises on anything else."""
     _check({"q": q, "k": k, "v": v}, "the attention kernels")
     n, lq, dk = q.shape
     _, lk, dv = v.shape
@@ -123,10 +144,11 @@ def check_attention_args(q, k, v) -> tuple[int, int, int, int, int]:
 
 
 def check_attention_bwd_args(q, k, v, o, lse, do) -> tuple[int, int, int, int, int]:
-    """:func:`check_attention_args`, and o and do ``[N, Lq, dv]``, lse
-    ``[N, Lq, 1]``, all contiguous fp32."""
+    """:func:`check_attention_args`, and o and do ``[N, Lq, dv]`` of q's
+    dtype, lse ``[N, Lq, 1]`` fp32, all contiguous."""
     n, lq, lk, dk, dv = check_attention_args(q, k, v)
-    _check({"o": o, "lse": lse, "do": do}, "the attention backward kernels")
+    _check({"o": o, "do": do}, "the attention backward kernels", q.dtype)
+    _check({"lse": lse}, "the attention backward kernels", torch.float32)
     if o.shape != (n, lq, dv) or do.shape != (n, lq, dv) or lse.shape != (n, lq, 1):
         raise ValueError(f"shapes do not fit: q {tuple(q.shape)}, v {tuple(v.shape)}, "
                          f"o {tuple(o.shape)}, lse {tuple(lse.shape)}, do {tuple(do.shape)}")
@@ -144,21 +166,23 @@ def sagan_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          return_lse: bool = False):
     """Launch ``csrc/sagan_attention.cu`` on PyTorch's current stream.
 
-    Takes contiguous fp32 ``[N, L, d]`` CUDA tensors on one device, any
-    lengths, dk <= 128 and dv <= 256; raises on anything else. The output
-    carries no gradient: :func:`sagan_attention` is the differentiable form.
+    Takes contiguous ``[N, L, d]`` CUDA tensors on one device, all fp32 or
+    all bf16 (the output in their dtype, lse fp32), any lengths, dk <= 128
+    and dv <= 256; raises on anything else. The output carries no gradient:
+    :func:`sagan_attention` is the differentiable form.
     """
     n, lq, lk, dk, dv = check_attention_args(q, k, v)
     _check_device((q, k, v), "sagan_attention_cuda")
     out = torch.empty((n, lq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((n, lq, 1), dtype=torch.float32, device=q.device) if return_lse else None
-    fn = cuda.kernel("sagan_attention")
+    name = KERNEL_OF_DTYPE[q.dtype]
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), n, lq, lk, dk, dv, q.device.index, stream)
+    rc = cuda.kernel(name)(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                           None if lse is None else lse.data_ptr(), n, lq, lk, dk, dv, q.device.index,
+                           stream)
     if rc != 0:
-        raise RuntimeError(f"sagan_attention kernel launch failed: cudaError {rc}")
-    cuda.launches["sagan_attention"] += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    cuda.launches[name] += 1
     return (out, lse) if return_lse else out
 
 
@@ -167,15 +191,16 @@ def sagan_attention_bwd_cuda(q, k, v, o, lse, do):
     current stream: pack (k, v, do and q laid out for the tensor cores, hi
     and lo, in a workspace allocated here), dq (which also writes p and ds
     to the workspace's scratch), then dk and dv from that scratch.
-    ``delta = rowsum(do * o)`` is computed here in plain PyTorch, as
-    ``tpugan`` computes it outside its kernels.
+    ``delta = rowsum(do * o)`` is computed here in plain PyTorch, in fp32,
+    as ``tpugan`` computes it outside its kernels. bf16 inputs launch the
+    bf16 entry points, which return bf16 gradients.
 
     Takes the contract of :func:`check_attention_bwd_args` on CUDA tensors
     of one device; raises on anything else. Returns ``(dq, dk, dv)``.
     """
     n, lq, lk, dk, dv = check_attention_bwd_args(q, k, v, o, lse, do)
     _check_device((q, k, v, o, lse, do), "sagan_attention_bwd_cuda")
-    delta = (do * o).sum(-1)
+    delta = (do.float() * o.float()).sum(-1)
     dq = torch.empty_like(q)
     dk_out = torch.empty_like(k)
     dv_out = torch.empty_like(v)
@@ -185,10 +210,11 @@ def sagan_attention_bwd_cuda(q, k, v, o, lse, do):
     workspace = torch.empty(floats, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     dims = (n, lq, lk, dk, dv, q.device.index, stream)
+    pack, dq_kernel, dkv = BWD_KERNELS_OF_DTYPE[q.dtype]
     calls = (
-        ("sagan_attention_bwd_pack", (q, k, v, do, workspace)),
-        ("sagan_attention_bwd_dq", (q, do, lse, delta, dq, workspace)),
-        ("sagan_attention_bwd_dkv", (workspace, dk_out, dv_out)),
+        (pack, (q, k, v, do, workspace)),
+        (dq_kernel, (q, do, lse, delta, dq, workspace)),
+        (dkv, (workspace, dk_out, dv_out)),
     )
     for name, args in calls:
         rc = cuda.kernel(name)(*(x.data_ptr() for x in args), *dims)

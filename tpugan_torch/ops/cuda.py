@@ -65,6 +65,28 @@ KERNELS = {
         "tpugan_sagan_attention_bwd_dkv_f32",
         [_c_ptr] * 3 + [_c_int] * 6 + [_c_ptr],
     ),
+    # the attention kernels on bf16 q, k, v, o, do and gradients (fp32 lse,
+    # delta, workspace and sums)
+    "sagan_attention_bf16": (
+        "sagan_attention.cu",
+        "tpugan_sagan_attention_bf16",
+        [_c_ptr] * 5 + [_c_int] * 6 + [_c_ptr],
+    ),
+    "sagan_attention_bwd_pack_bf16": (
+        "sagan_attention_bwd.cu",
+        "tpugan_sagan_attention_bwd_pack_bf16",
+        [_c_ptr] * 5 + [_c_int] * 6 + [_c_ptr],
+    ),
+    "sagan_attention_bwd_dq_bf16": (
+        "sagan_attention_bwd.cu",
+        "tpugan_sagan_attention_bwd_dq_bf16",
+        [_c_ptr] * 6 + [_c_int] * 6 + [_c_ptr],
+    ),
+    "sagan_attention_bwd_dkv_bf16": (
+        "sagan_attention_bwd.cu",
+        "tpugan_sagan_attention_bwd_dkv_bf16",
+        [_c_ptr] * 3 + [_c_int] * 6 + [_c_ptr],
+    ),
 }
 # C functions that launch nothing: name -> (source, C symbol, argtypes, restype)
 HELPERS = {
