@@ -95,7 +95,30 @@ Phases:
      own inputs, the encoder moving on fp32 masters, the bf16 generator
      frozen; step times, device time by kernel and peak memory beside phase
      6's fp32 steps; a bf16 case-2 step at phase 6's reduced width held to
-     its CPU replay by twice the CPU's bf16 distance from fp32.
+     its CPU replay by twice the CPU's bf16 distance from fp32;
+ 12. real-image inversion, ``tpugan_torch.cli.embedding`` at batch 1 (its
+     default), each form on a target PNG that the script writes (the
+     bundle's own image at a held-out seed) and reads back through
+     ``io/image.load_image_dir``, 4 iterations in chunks of 2, random LPIPS:
+     StyleGAN2-1024 fine-tuning E, optimising w, and fine-tuning E in bf16
+     (every FIR on the bf16 form, none on the fp32 one; fp32 encoder
+     masters, the bf16 generator frozen), BigGAN-deep-256 fine-tuning E_BIG
+     (at E_BIG's training lr 0.0015: at 0.01 a random E_BIG's first update
+     sends BigGAN to NaN, on the CPU in float64 too; gamma 1, the z head
+     scaled, as phase 6) and SGv1 Cat256 fine-tuning E; each run's
+     launches, forward and adjoint by TPU kernel, and each timed
+     iteration's, against the counts derived from the modules, its files,
+     w moving, the encoder restored and the generator frozen; every FIR of
+     one iteration (fp32 and bf16), and B3 and B4, held to the plain
+     version on the iteration's own inputs at batch 1; the iteration's
+     host-clock time, its device time by kernel, the busy share and the
+     peak memory; the inversion replayed at tpugan's bf16 gate
+     configuration on the card and the CPU, held to float64 by twice the
+     CPU's distance (a card run in TF32 the control that fails it; bf16 by
+     twice the CPU's distance from fp32), with baseline_i2s's Adam;
+     ``rec_real_img``, ``edit`` and ``baseline_i2s`` at StyleGAN2-1024, one
+     call each with its files and launches, the first two replayed at 32 px
+     on the CPU. Its budget is about 90 s.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -314,9 +337,12 @@ def time_ms(torch, fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def device_kernels(torch, fn, iters, expect=()):
+def device_kernels(torch, fn, iters, expect=(), warmup=True, host=True):
     """Device time (ms) and count per call of each kernel and copy that
-    ``iters`` calls of ``fn`` ran, from torch.profiler (CUPTI). User
+    ``iters`` calls of ``fn`` ran, from torch.profiler (CUPTI), after one
+    call of ``fn`` unless ``warmup`` is false; with ``host`` false the trace
+    records the device alone (a host-bound loop's CPU ops cost seconds to
+    record). User
     annotations (``Optimizer.step#...``) span kernels already counted and are
     left out. A trace with no device time at all, or one that holds fewer
     than one launch per call of a kernel whose symbol is in ``expect``, is
@@ -324,10 +350,12 @@ def device_kernels(torch, fn, iters, expect=()):
     trace missed launches, raises MissedLaunches with the last one."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     for attempt in range(1, 4):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
+        with profile(activities=activities) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -1815,6 +1843,18 @@ def step_image_gradients(e_align, args):
     return int(bool(args.ablation) or args.case == 2)
 
 
+def sgv1_decode_firs(generator):
+    """One StyleGANv1 decode's FIR launches by TPU kernel: the same-size 3x3
+    blur after each up-sampling conv (every block but the first) on its
+    output channels. Its adjoint is the same blur, so a decode's adjoints
+    count the same."""
+    from tpugan_torch.ops import upfirdn
+
+    blocks = [getattr(generator, f"decode_block_{i}") for i in range(generator.layer_count)]
+    keys = [upfirdn.tpu_layout(b.bias_1.shape[0], 1, 1, 3, 3, (1, 1)) for b in blocks if b.has_first_conv]
+    return {key: keys.count(key) for key in upfirdn.layout_launches}
+
+
 def sgv1_step_firs(trainer, image_gradients, resynthesis):
     """One SGv1 train step's FIR launches by the TPU kernel that tpugan's
     dispatch gives each (``upfirdn.tpu_layout``), forward and adjoint,
@@ -1830,19 +1870,15 @@ def sgv1_step_firs(trainer, image_gradients, resynthesis):
     the output of every earlier block's blur)."""
     from tpugan_torch.ops import upfirdn
 
-    gen, enc = trainer.bundle.generator, trainer.bundle.encoder
-    decode = [upfirdn.tpu_layout(getattr(gen, f"decode_block_{i}").bias_1.shape[0], 1, 1, 3, 3, (1, 1))
-              for i in range(gen.layer_count) if getattr(gen, f"decode_block_{i}").has_first_conv]
+    enc = trainer.bundle.encoder
+    decode = sgv1_decode_firs(trainer.bundle.generator)
     blocks = [getattr(enc, f"block_{i}") for i in range(enc.layer_count)]
-    encoder = [upfirdn.tpu_layout(b.conv_1.weight.shape[0], 1, 1, 3, 3, (1, 1)) for b in blocks
-               if b.use_blur and b.has_last_conv and b.block_version == 2]
-    forward = decode + encoder + (decode if resynthesis else [])
-    adjoint = image_gradients * (decode + encoder) + encoder
-
-    def by_kernel(keys):
-        return {key: keys.count(key) for key in upfirdn.layout_launches}
-
-    return by_kernel(forward), by_kernel(adjoint)
+    blurs = [upfirdn.tpu_layout(b.conv_1.weight.shape[0], 1, 1, 3, 3, (1, 1)) for b in blocks
+             if b.use_blur and b.has_last_conv and b.block_version == 2]
+    encoder = {key: blurs.count(key) for key in decode}
+    forward = {key: decode[key] * (1 + resynthesis) + encoder[key] for key in decode}
+    adjoint = {key: image_gradients * (decode[key] + encoder[key]) + encoder[key] for key in decode}
+    return forward, adjoint
 
 
 class AdjointCount:
@@ -3396,6 +3432,587 @@ def biggan_bf16_training_path(torch, dev, smi, fp32_times):
 
 
 
+# phase 12, real-image inversion (tpugan/cli/embedding.py's defaults: batch
+# 1, lr 0.01, fine-tuning E). Each form runs the embedding CLI's own loop
+# (cli/embedding.py: build_inverter, then run) on one target PNG that the
+# script writes (the bundle's own imgs1 at INV_TARGET_SEED) and run reads
+# back through io/image.load_image_dir: INV_ITERATIONS iterations in chunks
+# of INV_CHUNK, random LPIPS injected (a bf16 LPIPS with --bf16, as tpugan
+# builds it without --fp32_lpips). (label, embedding flags)
+INV_SG2 = ("--mtype", "2", "--img_size", str(SG2_SIZE), "--start_features", str(SG2_START_FEATURES))
+INV_BIGGAN = ("--mtype", "4", "--img_size", str(BIGGAN_SIZE), "--start_features", "64", "--z_dim",
+              str(BIGGAN_Z_DIM), "--class_id", "30")
+INV_SGV1 = ("--mtype", "1", "--img_size", str(IMG_SIZE), "--start_features", "64")
+# E_BIG's own training lr (e_align's default): at the CLI's 0.01 a random
+# E_BIG's first LREQAdam update (each weight moved by about lr; its z head
+# is a plain linear of fan-in 8192, coefficient 1) sends z and BigGAN's
+# resynthesis to NaN at the next iteration. The port's plain path does the
+# same on the CPU in float64, with the attention's backward by autograd and
+# with E_BIG's u/v converged (tpugan_torch/tools/inversion_lr.py)
+INV_BIGGAN_LR = 0.0015
+INV_FORMS = (
+    ("SG2 fine-tune E", INV_SG2 + ("--optimizeE", "true")),
+    ("SG2 optimise w", INV_SG2 + ("--optimizeE", "false")),
+    ("SG2 fine-tune E bf16", INV_SG2 + ("--optimizeE", "true", "--bf16")),
+    ("BigGAN fine-tune E", INV_BIGGAN + ("--optimizeE", "true", "--lr", str(INV_BIGGAN_LR))),
+    ("SGv1 fine-tune E", INV_SGV1 + ("--optimizeE", "true")),
+)
+INV_ITERATIONS = 4
+INV_CHUNK = 2
+INV_TARGET_SEED = 30003  # held out: past infer_e's three request seeds
+INV_TIMED = 6  # host-clock iterations of each form, after 2 warm-up ones
+INV_PROFILED = (1, 2)  # iterations of two profiled inversions (warm); their difference is one iteration
+# The replay: tpugan's bf16 gate configuration (StyleGAN2 at 64 px,
+# BF16_GATE_SG2, with E: BF16_GATE_ENCODER without its blur, as the
+# embedding CLI builds E), random weights from SEED, its target and draws
+# made on the CPU; INV_REPLAY_ITERATIONS iterations in each mode on the
+# card, on the CPU and on the CPU in float64. loss_msiv and loss_mslv of
+# each iteration within REPLAY_LOSS_RTOL of float64, the arm and the
+# improvements equal; w, the snapshot's w and the images no farther from
+# float64 than twice the CPU fp32 run is (PR 12's rule; LREQAdam's first
+# update is about lr * c * sign(g), so an element whose gradient is near
+# zero moves with fp32's rounding), or REPLAY_FLOOR x max |ref| where the
+# CPU's distance rounds to less. The card in TF32 is the control that must
+# exceed that limit. bf16, fine-tuning E: the card's bf16 no farther from
+# the CPU's fp32 than twice the CPU's bf16 is, on w, loss_msiv and the
+# images. baseline_i2s's Adam: INV_REPLAY_STEPS steps from w = 0 at the same
+# configuration, held as the fp32 inversion. rec_real_img and edit: the
+# CLIs at INV_REPLAY_CLI (StyleGAN2 config F at 32 px) on the card and on
+# the CPU, from the same seed and PNG: w within CPU_GPU_ATOL x max(1, max
+# |ref|), the PNGs within one level of 255.
+# of max |ref|, about 17 fp32 epsilons: where the CPU's own distance is a
+# few ulps (optimising w, 1.3e-6 of values about 3.2), twice it is rounding
+# noise, which the card's reaches (1.78x on an H100)
+REPLAY_FLOOR = 2e-6
+INV_REPLAY_ENCODER = dict(BF16_GATE_ENCODER, use_blur=False)
+INV_REPLAY_ITERATIONS = 2
+INV_REPLAY_STEPS = 3
+INV_REPLAY_CLI = ("--mtype", "2", "--img_size", "32", "--start_features", "64")
+INV_I2S_ITERATIONS = 100  # baseline_i2s at full width: one chunk of 100 iterations (its least)
+
+
+class IterationClock:
+    """At the end of each inversion iteration, which is its second LREQAdam
+    update, a synchronize, the host clock and the kernels' launch counts."""
+
+    def __init__(self, torch):
+        from tpugan_torch.ops import cuda
+        from tpugan_torch.optim.lreq_adam import LREQAdam
+
+        self.torch, self.cuda, self.cls, self.marks = torch, cuda, LREQAdam, []
+
+    def __enter__(self):
+        real, marks, torch, cuda, calls = self.cls.step, self.marks, self.torch, self.cuda, [0]
+        self.real = real
+
+        def step(opt, grads=None):
+            out = real(opt, grads)
+            calls[0] += 1
+            if calls[0] % 2 == 0:
+                torch.cuda.synchronize()
+                marks.append((time.perf_counter(), dict(cuda.launches)))
+            return out
+
+        self.cls.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.step = self.real
+
+
+def inversion_launches(inverter, iterations, chunk, snapshot):
+    """One ``embedding`` run's launches, derived from the modules: each
+    iteration decodes once with the graph (the resynthesis of w1) and takes
+    two gradients back through that decode (loss_msiv's through the images,
+    loss_mslv's through E(imgs2)); the callback at 0 and after each chunk,
+    the final reconstruction and the snapshot's grid (``snapshot``) decode
+    once each without it. The CLI's E has no blur, so it runs no FIR.
+    Returns the FIR launches by TPU kernel, forward and adjoint, of the run
+    and of one iteration, and the attention's of the run and of one
+    iteration (B3 once a decode; B4's pack, dq and dkv once a gradient)."""
+    gen, enc, mtype = inverter.generator, inverter.bundle.encoder, inverter.bundle.mtype
+    check(not any(getattr(m, "use_blur", False) for m in enc.modules()), "the inversion's E has a blur")
+    decodes = iterations + 2 + math.ceil(iterations / chunk) + snapshot
+    empty = {}
+    if mtype == 2:
+        fwd, adj = sg2_decode_firs(gen), sg2_decode_adjoint_firs(gen)
+    elif mtype == 1:
+        fwd = adj = sgv1_decode_firs(gen)
+    else:
+        return empty, empty, empty, {"B3": decodes, "B4": 2 * iterations}, {"B3": 1, "B4": 2}
+    run = ({k: n * decodes for k, n in fwd.items()}, {k: n * 2 * iterations for k, n in adj.items()})
+    return run[0], run[1], {"forward": fwd, "adjoint": {k: 2 * n for k, n in adj.items()}}, empty, empty
+
+
+def hold_captured_firs(torch, capture, label, dtype):
+    """Every distinct FIR that ``capture`` (:class:`FirCapture`) kept,
+    forward and adjoint, on its own input: fp32 within KERNEL_TOL of the
+    plain version, bf16 within one bf16 ulp of it and bitwise the fp32
+    kernel rounded (:func:`check_bf16_fir`), as phases 9 and 10 hold a
+    step's. Returns the max |err|."""
+    from tpugan_torch.ops import upfirdn
+
+    max_err, launches = 0.0, {}
+    for (direction, shape, _, up, down, pads), (x, taps, n) in capture.firs.items():
+        check(x.dtype == dtype, f"{label}: a {x.dtype} FIR on the {dtype} path")
+        name = f"{label} FIR {direction} {list(shape)} up{up} down{down} pads {list(pads)}"
+        got, want = upfirdn._fir_cuda(x, taps, up, down, pads), upfirdn._fir_plain(x, taps, up, down, pads)
+        if dtype == torch.bfloat16:
+            f32 = upfirdn._fir_cuda(x.float(), taps, up, down, pads).bfloat16()
+            torch.cuda.synchronize()
+            err = check_bf16_fir(torch, name, got, want, f32)
+            del f32
+        else:
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            check(got.shape == want.shape and torch.allclose(got, want, rtol=KERNEL_TOL, atol=KERNEL_TOL),
+                  f"{name}: kernel disagrees with the plain version, max |err| {err:.3e}")
+        max_err = max(max_err, err)
+        launches[direction] = launches.get(direction, 0) + n
+        del got, want
+    check(set(launches) == {"forward", "adjoint"}, f"{label}: FIRs captured {launches}")
+    tol = "one bf16 ulp, bitwise the fp32 kernel rounded" if dtype == torch.bfloat16 else f"{KERNEL_TOL:g}"
+    say(f"parity {label}: every FIR of one iteration on its own inputs at batch 1, {len(capture.firs)} "
+        f"distinct calls ({launches['forward']} forward and {launches['adjoint']} adjoint launches), within "
+        f"{tol} of the plain version (max |err| {max_err:.3e})")
+    return max_err
+
+
+def rechunked(inverter, args, chunk, lpips_fn=None):
+    """``inverter`` with its embedder rebuilt through ``make_embedder`` as
+    ``build_inverter`` builds it, with a callback every ``chunk`` iterations
+    (the CLI's is tpugan's 100)."""
+    from tpugan_torch.invert import EmbeddingConfig, make_embedder
+
+    cfg = EmbeddingConfig(iterations=args.iterations, lr=args.lr, optimize_e=args.optimizeE, chunk=chunk,
+                          beta=args.beta, norm_p=args.norm_p)
+    return inverter._replace(invert=make_embedder(inverter.encode, inverter.resynth, inverter.bundle.encoder,
+                                                  cfg, lpips_fn=lpips_fn))
+
+
+def write_target(torch, bundle, directory):
+    """The bundle's own imgs1 at INV_TARGET_SEED, as a PNG in ``directory``."""
+    import os
+
+    import numpy as np
+
+    from tpugan_torch.cli import infer_e
+    from tpugan_torch.io.image import save_image, to_unit
+
+    request = infer_e.draw_request(bundle, 1, INV_TARGET_SEED)
+    imgs1 = bundle.synth(request.z, request.label if bundle.mtype == 4 else request.noise_g).imgs1
+    check(bool(torch.isfinite(imgs1).all()), "the target image is not finite")
+    os.makedirs(directory, exist_ok=True)
+    save_image(os.path.join(directory, "00000.png"), np.clip(to_unit(imgs1[0]), 0, 1))
+
+
+def inversion_form(torch, dev, smi, label, flags, workdir):
+    """One form of phase 12 (:data:`INV_FORMS`): the CLI's run with its
+    launches counted against :func:`inversion_launches`, its files, the
+    encoder moving and restored, the generator frozen; then the iteration's
+    host-clock time (median), device time by kernel and the run's peak
+    memory. Returns its launches and times."""
+    import os
+
+    import numpy as np
+
+    from tpugan_torch.cli import embedding, infer_e
+    from tpugan_torch.invert import EmbeddingConfig, make_embedder
+    from tpugan_torch.io.image import from_unit, load_image_dir
+    from tpugan_torch.losses.lpips import random_lpips_fn
+    from tpugan_torch.ops import attention, cuda, upfirdn
+
+    bf16 = "--bf16" in flags
+    root = os.path.join(workdir, label.replace(" ", "_"))
+    img_dir, out = os.path.join(root, "img"), os.path.join(root, "out")
+    args = embedding.make_parser().parse_args(list(flags) + [
+        "--random_init", "--iterations", str(INV_ITERATIONS), "--seed", str(SEED), "--device", CARD,
+        "--img_dir", img_dir, "--experiment_dir", out])
+    lpips = random_lpips_fn(dev, dtype=torch.bfloat16 if bf16 else None)
+    t0 = time.perf_counter()
+    inverter = rechunked(embedding.build_inverter(args, lpips), args, INV_CHUNK, lpips)
+    bundle, enc, mtype = inverter.bundle, inverter.bundle.encoder, inverter.bundle.mtype
+    write_target(torch, bundle, img_dir)
+    extra = ""
+    if mtype == 4:  # as phase 6: the attention in the images, a z2 of zt's spread
+        zt_std, z2_std = latent_stds(torch, infer_e, bundle, INV_TARGET_SEED)
+        scale_z_head(torch, enc, zt_std / z2_std)
+        check(set_attention_gamma(torch, inverter.generator, ATTN_GAMMA) == 1, "expected one SelfAttn")
+        extra = f"; every SelfAttn gamma {ATTN_GAMMA:g}, E_BIG's z head scaled by {zt_std / z2_std:.4e}"
+    torch.cuda.synchronize()
+    say(f"inversion {label}: {' '.join(flags)}, batch 1, {INV_ITERATIONS} iterations in chunks of "
+        f"{INV_CHUNK}, lr {args.lr:g}, built with its target in {time.perf_counter() - t0:.2f} s{extra}")
+
+    base = {k: t.clone() for k, t in enc.state_dict().items()}
+    frozen = list(inverter.generator.parameters())
+    frozen0 = [p.detach().clone() for p in frozen]
+    # the first attention forward and backward of the run, their inputs kept
+    captured = {"B3": [], "B4": []}
+    real_fwd, real_bwd = attention.sagan_attention_cuda, attention.sagan_attention_bwd_cuda
+
+    def capture_fwd(q, k, v, return_lse=False):
+        if not captured["B3"]:
+            captured["B3"].append(tuple(x.detach().clone() for x in (q, k, v)))
+        return real_fwd(q, k, v, return_lse)
+
+    def capture_bwd(*tensors):
+        if not captured["B4"]:
+            captured["B4"].append(tuple(x.detach().clone() for x in tensors))
+        return real_bwd(*tensors)
+
+    attention.sagan_attention_cuda, attention.sagan_attention_bwd_cuda = capture_fwd, capture_bwd
+    # the main path: launches counted from 0
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launches()
+    upfirdn.reset_layout_launches()
+    t0 = time.perf_counter()
+    try:
+        with AdjointCount() as adjoint:
+            result = embedding.run(inverter, args)[0]
+            torch.cuda.synchronize()
+    finally:
+        attention.sagan_attention_cuda, attention.sagan_attention_bwd_cuda = real_fwd, real_bwd
+    seconds = time.perf_counter() - t0
+    counted, total, adj = dict(cuda.launches), dict(upfirdn.layout_launches), dict(adjoint.counts)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+
+    snapshot = int(int(result.iter_best) >= 0 and math.isfinite(float(result.loss_best)))
+    fwd_want, adj_want, per_iteration, attn_want, attn_per_iteration = inversion_launches(
+        inverter, INV_ITERATIONS, INV_CHUNK, snapshot)
+    fir = "upfirdn2d_bf16" if bf16 else "upfirdn2d"
+    if mtype == 4:
+        want = expected_launches(sagan_attention=attn_want["B3"], **{k: attn_want["B4"] for k in B4_KERNELS})
+    else:
+        want = expected_launches(**{fir: sum(fwd_want.values()) + sum(adj_want.values())})
+        fwd = {key: total[key] - adj[key] for key in total}
+        check(fwd == fwd_want and adj == adj_want, f"inversion {label}: FIR launches forward {fwd}, adjoint "
+              f"{adj}; derived from the modules: forward {fwd_want}, adjoint {adj_want}")
+    check(counted == want, f"inversion {label}: launches {counted}, expected {want}")
+
+    # what the run wrote, and what it left as it was
+    models = os.path.join(out, "models")
+    names = [f"id0-i0-w{it}.npy" for it in range(0, INV_ITERATIONS + 1, INV_CHUNK)] + [
+        "id0-i0-w.npy", "w_all.npy", "img_all.npy", "id0-i0-img0.npy"]
+    check(all(os.path.exists(os.path.join(models, n)) for n in names)
+          and os.path.exists(os.path.join(out, "imgs", "00000_rec.png")), f"inversion {label}: files missing")
+    w0, w_end = (np.load(os.path.join(models, f"id0-i0-w{it}.npy")) for it in (0, INV_ITERATIONS))
+    history = [round(float(x), 5) for x in result.msiv_history.tolist()]
+    check(np.isfinite(w_end).all() and not np.array_equal(w0, w_end), f"inversion {label}: w did not move "
+          f"(or is not finite); loss_msiv by iteration {history}")
+    check(all(math.isfinite(x) for x in result.msiv_history.tolist()),
+          f"inversion {label}: a loss is not finite")
+    check(all(torch.equal(t, base[k]) for k, t in enc.state_dict().items()),
+          f"inversion {label}: the encoder is not back at its base weights")
+    check(all(torch.equal(a, b) and a.grad is None and not a.requires_grad for a, b in zip(frozen, frozen0)),
+          f"inversion {label}: the frozen generator moved")
+    if bf16:
+        check(all(p.dtype == torch.bfloat16 for p in frozen)
+              and all(p.dtype == torch.float32 for p in enc.parameters()),
+              f"inversion {label}: not a bf16 generator over fp32 encoder masters")
+    say(f"inversion {label} path: launches {counted} in {seconds:.2f} s (iteration {INV_ITERATIONS}'s losses "
+        f"{[round(float(x), 5) for x in result.losses[-1]]}, snapshot at {int(result.iter_best)}); "
+        + (f"per iteration B3 {attn_per_iteration['B3']}, B4 pack, dq and dkv {attn_per_iteration['B4']} each"
+           if mtype == 4 else f"per iteration FIR forward {per_iteration['forward']}, adjoint "
+           f"{per_iteration['adjoint']}; the run's by TPU kernel forward {fwd_want}, adjoint {adj_want}")
+        + f", as derived from the modules; w moved, the encoder restored, the generator frozen; peak device "
+        f"memory {peak:.1f} MiB")
+    batch = torch.from_numpy(np.ascontiguousarray(from_unit(load_image_dir(img_dir, args.img_size)))).to(dev)
+
+    def embedder(iterations):
+        cfg = EmbeddingConfig(iterations=iterations, lr=args.lr, optimize_e=args.optimizeE)
+        return make_embedder(inverter.encode, inverter.resynth, enc, cfg, lpips_fn=lpips)
+
+    # each kernel against its plain version on the path's own inputs at batch 1
+    errs = {}
+    if mtype == 4:
+        check(len(captured["B3"]) == 1 and len(captured["B4"]) == 1, "no attention in the inversion")
+        q, k, v, o, lse, do = captured["B4"][0]
+        check(do.abs().max().item() > 0, "the attention's upstream gradient is zero")
+        errs["sagan_attention"] = compare_attention(torch, "attention, an inversion iteration's own inputs",
+                                                    *captured["B3"][0], 2e-5, 2e-5, True)
+        errs["sagan_attention_bwd"] = compare_attention_bwd(
+            torch, "attention backward, an inversion iteration's own inputs", q, k, v, o, lse, do)
+    else:
+        with FirCapture() as firs:
+            embedder(1)(batch)
+            torch.cuda.synchronize()
+        errs[fir] = hold_captured_firs(torch, firs, f"inversion {label}", torch.bfloat16 if bf16 else torch.float32)
+        del firs
+    del captured
+    torch.cuda.empty_cache()
+
+    # times: the host clock at each iteration's end, and two profiled runs
+    say(f"inversion {label} times below: {smi}; iteration times from the host clock, device times from "
+        f"torch.profiler (the difference of runs of {INV_PROFILED[1]} and {INV_PROFILED[0]} iterations)")
+
+    with IterationClock(torch) as clock:
+        embedder(2 + INV_TIMED)(batch)
+    laps = [((b - a) * 1e3, {k: n_b[k] - n_a[k] for k in n_b}) for (a, n_a), (b, n_b) in
+            zip(clock.marks[1:], clock.marks[2:])]
+    per_lap = (expected_launches(sagan_attention=1, **{k: 2 for k in B4_KERNELS}) if mtype == 4 else
+               expected_launches(**{fir: sum(per_iteration["forward"].values())
+                                    + sum(per_iteration["adjoint"].values())}))
+    check(all(n == per_lap for _, n in laps), f"inversion {label}: an iteration's launches "
+          f"{[n for _, n in laps]}, expected {per_lap}")
+    lap_ms = sorted(ms for ms, _ in laps)
+    median = statistics.median(lap_ms)
+    say(f"iteration time, {label} ({len(lap_ms)} iterations, each ending in a synchronize): median "
+        f"{median:.3f} ms, min {lap_ms[0]:.3f}, max {lap_ms[-1]:.3f}; each launched {per_lap}")
+    times = {"median_ms": median, "min_ms": lap_ms[0], "max_ms": lap_ms[-1], "peak_mib": peak}
+    t0 = time.perf_counter()
+    try:
+        runs = {n: embedder(n) for n in INV_PROFILED}
+        found = {n: device_kernels(torch, lambda n=n: runs[n](batch), iters=1, warmup=False, host=False)
+                 for n in INV_PROFILED}
+    except RuntimeError as missed:  # device_kernels: three traces saw no device time
+        say(f"device time per {label} iteration: not measured ({missed})")
+        found = None
+    if found is not None:
+        lo, hi = INV_PROFILED
+        kernels = {name: (found[hi].get(name, (0.0, 0.0))[0] - found[lo].get(name, (0.0, 0.0))[0]) / (hi - lo)
+                   for name in set(found[hi]) | set(found[lo])}
+        busy = sum(kernels.values())
+        say(f"device time per {label} iteration {busy:.3f} ms = {busy / median * 100:.1f}% of the median "
+            f"iteration time (profiled in {time.perf_counter() - t0:.1f} s); by name:")
+        for kname, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:10]:
+            say(f"  {ms:8.3f} ms  {kname[:100]}")
+        shares = {}
+        for name, symbols in (("FIR", ("upfirdn2d_kernel",)),
+                              ("attention", ("sagan_attention_kernel",) + B4_SYMBOLS)):
+            own = sum(ms for kname, ms in kernels.items() if any(s in kname for s in symbols))
+            shares[name] = own
+            say(f"  {name} kernels: {own:.3f} ms per iteration, {own / busy * 100:.2f}% of device time")
+        times.update({"device_ms": busy, "kernel_ms": shares, "busy_share": busy / median})
+    return {"launches": counted, "per_iteration": per_iteration or attn_per_iteration, "times": times,
+            "max_abs_err": errs, "img_dir": img_dir}
+
+
+def gate_inverter(torch, place, dtype, optimize_e, bf16=False):
+    """The embedding CLI's inverter over the replay's models (tpugan's bf16
+    gate configuration, :data:`INV_REPLAY_ENCODER`), built on the CPU from
+    SEED and moved to ``place`` in ``dtype``."""
+    from tpugan_torch.cli import embedding
+    from tpugan_torch.cli.common import GanBundle
+    from tpugan_torch.models import Encoder, StyleGAN2Generator
+
+    g = torch.Generator().manual_seed(SEED)
+    gen = StyleGAN2Generator(**BF16_GATE_SG2, generator=g).to(place, dtype)
+    enc = Encoder(**INV_REPLAY_ENCODER, generator=g).to(place, dtype)
+    size = BF16_GATE_SG2["resolution"]
+    bundle = GanBundle(None, None, None, enc, 512, enc.layer_count, gen.num_layers, gen, torch.device(place),
+                       size, mtype=2)
+    args = embedding.make_parser().parse_args(
+        ["--mtype", "2", "--img_size", str(size), "--random_init", "--iterations", str(INV_REPLAY_ITERATIONS),
+         "--optimizeE", str(optimize_e).lower()] + (["--bf16"] if bf16 else []))
+    return rechunked(embedding.build_inverter(args, bundle=bundle), args, 1)  # the losses of every iteration
+
+
+def gate_target(torch):
+    """The replay's target: its generator's image of a seeded z, on the CPU."""
+    from tpugan_torch.models import StyleGAN2Generator
+
+    gen = StyleGAN2Generator(**BF16_GATE_SG2, generator=torch.Generator().manual_seed(SEED))
+    z = torch.randn(1, 512, generator=torch.Generator().manual_seed(INV_TARGET_SEED))
+    with torch.no_grad():
+        return gen(z, trunc_psi=0.7, trunc_layers=8)["image"].permute(0, 2, 3, 1).contiguous()
+
+
+def replay_distance(torch, label, runs, keys, loss_keys):
+    """Each run's distance from the float64 run (``runs["f64"]``), printed;
+    the card's held to twice the CPU fp32 run's (PR 12's rule), or
+    REPLAY_FLOOR x max |ref| where that is larger; its losses within
+    REPLAY_LOSS_RTOL. ``runs["card tf32"]``, where there is one, is the
+    control: the card in TF32 must exceed that limit, or the rule could not
+    tell TF32 from fp32."""
+    ref = runs["f64"]
+    out, control = {}, {}
+    for key in keys:
+        scale = float(ref[key].abs().max())
+        dist = {name: float((runs[name][key] - ref[key]).abs().max()) for name in runs if name in
+                ("card", "cpu", "card tf32")}
+        limit = max(2 * dist["cpu"], REPLAY_FLOOR * scale)
+        tf32 = f", the card in TF32 {dist['card tf32']:.3e}" if "card tf32" in dist else ""
+        by = "2x the CPU" if limit > REPLAY_FLOOR * scale else "the floor"
+        say(f"  {label} {key}: the card {dist['card']:.3e} from float64, the CPU fp32 {dist['cpu']:.3e}{tf32} "
+            f"(max |ref| {scale:.3e}; limit {limit:.3e}, {by})")
+        check(dist["card"] <= limit, f"{label}: the card's {key} is {dist['card']:.3e} from float64, over {limit:.3e}")
+        out[key] = dist["card"]
+        if tf32:
+            control[key] = dist["card tf32"] / limit
+    if control:
+        say(f"  {label} control: the card in TF32 at {', '.join(f'{k} {r:.1f}x' for k, r in control.items())} "
+            "the limit")
+        check(max(control.values()) > 1, f"{label}: the card in TF32 passes the replay's limits {control}")
+        out["tf32_over_limit"] = control
+    for key in loss_keys:
+        rel = float(((runs["card"][key] - ref[key]).abs() / ref[key].abs()).max())
+        say(f"  {label} {key}: the card's rel err {rel:.3e} against float64 (limit {REPLAY_LOSS_RTOL:g})")
+        check(rel <= REPLAY_LOSS_RTOL, f"{label}: the card's {key} is {rel:.3e} from float64")
+        out[key] = rel
+    return out
+
+
+def replay_inversion_on_cpu(torch, dev):
+    """The replay of phase 12 (the comment at INV_REPLAY_ENCODER): the
+    inversion in each mode, bf16 fine-tuning E, and baseline_i2s's Adam, on
+    the card and on the CPU, held to float64 and by the 2x rule."""
+    from tpugan_torch.cli import baseline_i2s
+    from tpugan_torch.ops import cuda
+    from tpugan_torch.runtime import parity_mode
+
+    target = gate_target(torch)
+    f32, f64 = torch.float32, torch.float64
+    summary = {}
+    for optimize_e in (True, False):
+        mode = "fine-tune E" if optimize_e else "optimise w"
+        forms = [("card", dev, f32, False), ("card tf32", dev, f32, False), ("cpu", "cpu", f32, False),
+                 ("f64", "cpu", f64, False)]
+        if optimize_e:
+            forms += [("card bf16", dev, f32, True), ("cpu bf16", "cpu", f32, True)]
+        runs = {}
+        for name, place, dtype, bf16 in forms:
+            inverter = gate_inverter(torch, place, dtype, optimize_e, bf16)
+            cuda.reset_launches()
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = name == "card tf32"
+            try:
+                r = inverter.invert(target.to(place, dtype))
+            finally:
+                parity_mode()
+            on_card = name.startswith("card")
+            if on_card:
+                torch.cuda.synchronize()
+            launched = cuda.launches["upfirdn2d_bf16" if bf16 else "upfirdn2d"]
+            check((launched > 0) == on_card and sum(cuda.launches.values()) == launched,
+                  f"replay {mode} {name}: launches {dict(cuda.launches)}")
+            runs[name] = {"w": r.w, "w_best": r.w_best, "images": r.images, "msiv": r.msiv_history,
+                          "losses": torch.stack([torch.stack(x) for x in r.losses]), "iter_best": int(r.iter_best),
+                          "improved": r.improved_history.tolist()}
+            runs[name] = {k: v.detach().double().cpu() if isinstance(v, torch.Tensor) else v
+                          for k, v in runs[name].items()}
+        check(all(runs[n]["iter_best"] == runs["f64"]["iter_best"] and runs[n]["improved"] == runs["f64"]["improved"]
+                  for n in ("card", "cpu")), f"replay {mode}: the snapshot's arm or improvements differ")
+        say(f"replay of the inversion, {mode}: StyleGAN2-{BF16_GATE_SG2['resolution']} (fmaps_base "
+            f"{BF16_GATE_SG2['fmaps_base']}, fmaps_max {BF16_GATE_SG2['fmaps_max']}) with E (startf "
+            f"{INV_REPLAY_ENCODER['startf']}), {INV_REPLAY_ITERATIONS} iterations; snapshot at "
+            f"{runs['f64']['iter_best']} on every side")
+        summary[mode] = replay_distance(torch, f"replay {mode}", runs, ("w", "w_best", "images"), ("losses",))
+        if optimize_e:
+            ratios = {}
+            for key in ("w", "msiv", "images"):
+                mine = float((runs["card bf16"][key] - runs["cpu"][key]).abs().max())
+                theirs = float((runs["cpu bf16"][key] - runs["cpu"][key]).abs().max())
+                say(f"  replay bf16 {key}: the card's bf16 {mine:.3e} from the CPU's fp32, the CPU's bf16 "
+                    f"{theirs:.3e} (ratio {mine / theirs:.3f}, limit 2)")
+                check(theirs > 0 and mine <= 2 * theirs, f"replay bf16 {key}: {mine:.3e} > 2 x {theirs:.3e}")
+                ratios[key] = mine / theirs
+            summary["bf16 ratio"] = ratios
+    runs = {}
+    for name, place, dtype in (("card", dev, f32), ("cpu", "cpu", f32), ("f64", "cpu", f64)):
+        bundle = gate_inverter(torch, place, dtype, False).bundle
+        resynth = baseline_i2s.train_resynth(bundle)
+        w = torch.zeros((1, bundle.num_style_layers, 512), device=place, dtype=dtype, requires_grad=True)
+        losses = baseline_i2s.optimise(resynth, target.to(place, dtype), w, baseline_i2s.adam(w, 0.01),
+                                       INV_REPLAY_STEPS)
+        runs[name] = {"w": w.detach().double().cpu(), "losses": losses.double().cpu()}
+    say(f"replay of baseline_i2s's Adam: {INV_REPLAY_STEPS} steps from w = 0 at the same configuration")
+    summary["baseline_i2s"] = replay_distance(torch, "replay baseline_i2s", runs, ("w",), ("losses",))
+    return summary
+
+
+def inversion_clis(torch, dev, workdir, img_dir, decode_firs):
+    """rec_real_img, edit and baseline_i2s at StyleGAN2-1024 on the card,
+    one call each, with their files and launches (a decode's FIRs each, and
+    two gradients' worth for each of baseline_i2s's iterations); then
+    rec_real_img and edit at INV_REPLAY_CLI on the card and on the CPU."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from tpugan_torch.cli import baseline_i2s, edit, rec_real_img
+    from tpugan_torch.ops import cuda
+
+    common = ["--random_init", "--seed", str(SEED)]
+    direction = os.path.join(workdir, "direction.npy")
+    np.save(direction, np.random.RandomState(SEED).randn(1, 512).astype(np.float32))
+    launches = {}
+
+    def call(name, main, argv, want):
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        main(argv)
+        torch.cuda.synchronize()
+        counted = dict(cuda.launches)
+        check(counted == expected_launches(upfirdn2d=want), f"{name}: launches {counted}, expected {want} upfirdn2d")
+        say(f"{name} at StyleGAN2-{SG2_SIZE}: {time.perf_counter() - t0:.2f} s, launches {counted}")
+        launches[name] = want
+
+    rec_dir, i2s_dir = os.path.join(workdir, "rec"), os.path.join(workdir, "i2s")
+    card = list(INV_SG2) + common + ["--device", CARD]
+    call("rec_real_img", rec_real_img.main, card + ["--img_dir", img_dir, "--experiment_dir", rec_dir], decode_firs)
+    w = np.load(os.path.join(rec_dir, "models", "00000_w.npy"))
+    check(w.shape == (2 * (int(math.log2(SG2_SIZE)) - 1), 512) and np.isfinite(w).all()
+          and all(os.path.exists(os.path.join(rec_dir, "imgs", f"00000_{k}.png")) for k in ("real", "rec")),
+          "rec_real_img: its files are missing, or w is not finite")
+    edited = os.path.join(workdir, "edited.png")
+    call("edit", edit.main, card + ["--w_path", os.path.join(rec_dir, "models", "00000_w.npy"), "--direction",
+                                    direction, "--out", edited], decode_firs)
+    check(os.path.exists(edited), "edit wrote no image")
+    call("baseline_i2s", baseline_i2s.main, card + ["--img_dir", img_dir, "--iterations", str(INV_I2S_ITERATIONS),
+                                                     "--experiment_dir", i2s_dir],
+         decode_firs * (2 * INV_I2S_ITERATIONS + 1))
+    w_i2s = np.load(os.path.join(i2s_dir, "models", "00000_w.npy"))
+    check(os.path.exists(os.path.join(i2s_dir, "imgs", "00000_rec.png")), "baseline_i2s wrote no image")
+    say(f"the CLIs' files written; baseline_i2s's w finite: {bool(np.isfinite(w_i2s).all())}")
+
+    # the replay at a reduced width: the same seed and PNG on the CPU, then on
+    # the card; edit regenerates the CPU's w on both
+    dirs = {device: os.path.join(workdir, f"replay_{device}") for device in ("cpu", CARD)}
+    w_cpu = os.path.join(dirs["cpu"], "models", "00000_w.npy")
+    for device, d in dirs.items():
+        small = list(INV_REPLAY_CLI) + common + ["--device", device]
+        rec_real_img.main(small + ["--img_dir", img_dir, "--experiment_dir", d])
+        edit.main(small + ["--w_path", w_cpu, "--direction", direction, "--out", os.path.join(d, "edited.png")])
+
+    def png(d, name):
+        return np.asarray(Image.open(os.path.join(d, name)), dtype=np.int32)
+
+    w_ref, w_card = np.load(w_cpu), np.load(os.path.join(dirs[CARD], "models", "00000_w.npy"))
+    w_err, w_limit = float(np.abs(w_card - w_ref).max()), CPU_GPU_ATOL * max(1.0, float(np.abs(w_ref).max()))
+    levels = {name: int(np.abs(png(dirs[CARD], name) - png(dirs["cpu"], name)).max())
+              for name in ("imgs/00000_rec.png", "edited.png")}
+    say(f"replay of rec_real_img and edit ({' '.join(INV_REPLAY_CLI)}): w {w_err:.3e} from the CPU's (limit "
+        f"{w_limit:.3e}); the PNGs' largest difference in levels of 255 {levels} (limit 1)")
+    check(w_err <= w_limit and max(levels.values()) <= 1, "rec_real_img or edit: the card and the CPU disagree")
+    return {"launches": launches, "replay": {"w_max_abs_err": w_err, "w_limit": w_limit, "png_levels": levels}}
+
+
+def inversion_path(torch, dev, smi):
+    """Phase 12: real-image inversion (the docstring's item 12). Returns each
+    form's launches and times, the CLIs' launches and the replays."""
+    import shutil
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_inversion_")
+    try:
+        forms = {}
+        for label, flags in INV_FORMS:
+            t0 = time.perf_counter()
+            forms[label] = inversion_form(torch, dev, smi, label, flags, workdir)
+            torch.cuda.empty_cache()
+            say(f"inversion {label} took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        replay = replay_inversion_on_cpu(torch, dev)
+        say(f"the inversion replays took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        decode = forms["SG2 fine-tune E"]["per_iteration"]["forward"]
+        clis = inversion_clis(torch, dev, workdir, forms["SG2 fine-tune E"]["img_dir"], sum(decode.values()))
+        say(f"the inversion CLIs took {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"forms": forms, "replay": replay, "clis": clis}
+
+
 def main() -> int:
     import torch
 
@@ -3535,6 +4152,30 @@ def main() -> int:
     say(f"phase 11 (bf16 on the BigGAN-deep-{BIGGAN_SIZE} path) took {time.perf_counter() - t0:.1f} s; the "
         f"script {time.perf_counter() - start:.1f} s")
 
+    # ---- 12. real-image inversion (embedding, rec_real_img, edit, baseline_i2s) ----
+    t0 = time.perf_counter()
+    inv = inversion_path(torch, dev, smi)
+    inv_forms = inv["forms"]
+    fir_inv = {label: f["launches"]["upfirdn2d"] for label, f in inv_forms.items() if f["launches"]["upfirdn2d"]}
+    fir_inv.update(inv["clis"]["launches"])
+    fir16_inv = {label: f["launches"]["upfirdn2d_bf16"] for label, f in inv_forms.items()
+                 if f["launches"]["upfirdn2d_bf16"]}
+    big_inv = inv_forms["BigGAN fine-tune E"]["launches"]
+    check(all(fir_inv.values()) and fir16_inv and big_inv["sagan_attention"] > 0
+          and all(big_inv[name] > 0 for name in B4_KERNELS), "the inversion path missed a kernel")
+    inv_err = {}  # each kernel's max |err| on the inversion's own inputs, over the forms
+    for f in inv_forms.values():
+        for name, err in f["max_abs_err"].items():
+            inv_err[name] = max(inv_err.get(name, 0.0), err)
+    check(set(inv_err) == {"upfirdn2d", "upfirdn2d_bf16", "sagan_attention", "sagan_attention_bwd"},
+          f"the inversion held only {sorted(inv_err)} on its own inputs")
+    say(f"phase 12 (inversion) took {time.perf_counter() - t0:.1f} s; the script {time.perf_counter() - start:.1f} s")
+    inversion = {"launches_per_iteration_are": "derived from the modules and counted: the run's, forward and "
+                                               "adjoint by TPU kernel, and each timed iteration's",
+                 "per_iteration": {label: f["per_iteration"] for label, f in inv_forms.items()},
+                 "times": {label: f["times"] for label, f in inv_forms.items()},
+                 "replay": inv["replay"], "clis": inv["clis"]}
+
     sg2_bf16 = bf16["firs"]["SG2"][1]
     bf16_step = {k: sum(p_[k] for parts in sg2_bf16.values() for p_ in parts.values())
                  for k in ("ms", "fp32_ms", "plain_ms", "library_ms", "bound_ms")}
@@ -3546,12 +4187,15 @@ def main() -> int:
         "source": "tpugan_torch/csrc/upfirdn2d.cu",
         "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas); "
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c)",
-        "launches": launches["upfirdn2d"] + sg2["launches"] + sgv1_train["launches"] + sg2_train["launches"],
+        "launches": (launches["upfirdn2d"] + sg2["launches"] + sgv1_train["launches"] + sg2_train["launches"]
+                     + sum(fir_inv.values())),
         "launches_by_path": {"SGv1 Cat256 serving": launches["upfirdn2d"],
                              f"StyleGAN2-{SG2_SIZE} serving": sg2["launches"],
                              "SGv1 Cat256 training": sgv1_train["launches"],
-                             f"StyleGAN2-{SG2_SIZE} training": sg2_train["launches"]},
-        "max_abs_err": max(fir_err, adjoint_err, sg2["max_abs_err"], sg2_train["max_abs_err"]),
+                             f"StyleGAN2-{SG2_SIZE} training": sg2_train["launches"],
+                             **{f"inversion: {label}": n for label, n in fir_inv.items()}},
+        "max_abs_err": max(fir_err, adjoint_err, sg2["max_abs_err"], sg2_train["max_abs_err"], inv_err["upfirdn2d"]),
+        "inversion": inversion,
         **fir,
         "gradient_path_launches": grad_launches,
         "adjoint": adjoint_rows,
@@ -3580,8 +4224,10 @@ def main() -> int:
         "source": "tpugan_torch/csrc/upfirdn2d.cu",
         "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas, bf16); "
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c, bf16)",
-        "launches": bf16["launches"],
-        "max_abs_err": max(bf16_err, bf16["max_abs_err"]),
+        "launches": bf16["launches"] + sum(fir16_inv.values()),
+        "launches_by_path": {"bf16 training": bf16["launches"],
+                             **{f"inversion: {label}": n for label, n in fir16_inv.items()}},
+        "max_abs_err": max(bf16_err, bf16["max_abs_err"], inv_err["upfirdn2d_bf16"]),
         "ms": bf16_step["ms"],
         "plain_ms": bf16_step["plain_ms"],
         "bound_ms": bf16_step["bound_ms"],
@@ -3605,8 +4251,10 @@ def main() -> int:
         "source": "tpugan_torch/csrc/sagan_attention.cu",
         "replaces": "tpugan/ops/pallas/attention.py:68 (sagan_attention_pallas); "
                     "tpugan/ops/pallas/attention.py:77 (sagan_attention_pallas, return_lse=True)",
-        "launches": attn["launches"],
-        "max_abs_err": max(attn["max_abs_err"], attn_err),
+        "launches": attn["launches"] + big_inv["sagan_attention"],
+        "launches_by_path": {"BigGAN-deep-256 serving": attn["launches"],
+                             "inversion: BigGAN fine-tune E": big_inv["sagan_attention"]},
+        "max_abs_err": max(attn["max_abs_err"], attn_err, inv_err["sagan_attention"]),
         **b3_times,
     }, {
         "name": "sagan_attention_bwd",
@@ -3614,8 +4262,10 @@ def main() -> int:
         "source": "tpugan_torch/csrc/sagan_attention_bwd.cu",
         "replaces": "tpugan/ops/pallas/attention.py:149,168 (sagan_attention_bwd_pallas: _dq_kernel, "
                     "_dkv_kernel)",
-        "launches": attn_bwd["launches"],
-        "max_abs_err": max(attn_bwd["max_abs_err"], bwd_err),
+        "launches": attn_bwd["launches"] + sum(big_inv[name] for name in B4_KERNELS),
+        "launches_by_path": {"E_BIG training": attn_bwd["launches"],
+                             "inversion: BigGAN fine-tune E": sum(big_inv[name] for name in B4_KERNELS)},
+        "max_abs_err": max(attn_bwd["max_abs_err"], bwd_err, inv_err["sagan_attention_bwd"]),
         **b4_times,
     }, {
         "name": "sagan_attention_bf16",

@@ -241,3 +241,39 @@ def make_result_dirs(experiment_dir, default_name: str):
     for d in (base, imgs, models):
         os.makedirs(d, exist_ok=True)
     return base, imgs, models
+
+
+class InversionDraws(NamedTuple):
+    """The inversion CLIs' fixed inputs: the encoder's noise, StyleGANv1's
+    generator noise (``None`` for the others) and, for BigGAN, the
+    truncated z of the condition."""
+
+    noise_e: list
+    noise_g: Any = None
+    zt: Any = None
+
+
+def draw_inputs(bundle: GanBundle, batch_size: int, iterations: int = 0) -> InversionDraws:
+    """StyleGANv1's generator noise from seed 0, the encoder's noise from
+    seed 1 and BigGAN's truncated z (at 0.4) from the seed ``iterations %
+    30000``, drawn on the CPU (once a run: the same draws on every device)
+    and moved to the bundle's device. ``embedding``, ``rec_real_img``,
+    ``edit`` and ``baseline_i2s`` read these draws on every call, as
+    tpugan's fixed ``PRNGKey(0)`` gives the same draws on every call."""
+    from tpugan_torch.train.e_align import BIGGAN_TRUNCATION, draw_noise
+    from tpugan_torch.utils import iteration_generator, truncated_noise_sample
+
+    dev = bundle.device
+
+    def on_device(blocks):
+        return [tuple(n.to(dev) for n in block) for block in blocks]
+
+    noise_g = zt = None
+    if bundle.mtype == 1:
+        noise_g = on_device(draw_noise(bundle.generator.noise_shapes(batch_size), iteration_generator(0)))
+    noise_e = on_device(draw_noise(bundle.encoder.noise_shapes(batch_size, bundle.img_size),
+                                   iteration_generator(1)))
+    if bundle.mtype == 4:
+        zt = truncated_noise_sample(batch_size, bundle.z_dim, BIGGAN_TRUNCATION,
+                                    generator=iteration_generator(iterations)).to(dev)
+    return InversionDraws(noise_e, noise_g, zt)

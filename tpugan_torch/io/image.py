@@ -1,7 +1,7 @@
-"""Image files (counterpart of ``tpugan/io/image.py``'s writers).
+"""Image files (counterpart of ``tpugan/io/image.py``).
 
 Images are NHWC, in [-1, 1] inside the models and [0, 1] at the file
-boundary. Pillow is imported only when a file is written.
+boundary. Pillow is imported only when a file is read or written.
 """
 
 from __future__ import annotations
@@ -16,6 +16,27 @@ def _numpy(images) -> np.ndarray:
     if isinstance(images, torch.Tensor):
         return images.detach().cpu().numpy()
     return np.asarray(images)
+
+
+def load_image(path, size: int | None = None) -> np.ndarray:
+    """PNG/JPG -> [H, W, 3] float32 in [0, 1] (resized with PIL's ``resize``
+    when ``size`` is given)."""
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB")
+    if size is not None:
+        img = img.resize((size, size))
+    return np.asarray(img, dtype=np.float32) / 255.0
+
+
+def load_image_dir(path, size: int | None = None) -> np.ndarray:
+    """Directory of images -> [N, H, W, 3] in [0, 1], sorted by filename."""
+    files = sorted(
+        f for f in os.listdir(path) if f.lower().endswith((".png", ".jpg", ".jpeg"))
+    )
+    if not files:
+        raise FileNotFoundError(f"no images under {path}")
+    return np.stack([load_image(os.path.join(path, f), size) for f in files])
 
 
 def save_image(path, img) -> None:
