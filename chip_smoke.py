@@ -119,6 +119,23 @@ Phases:
      ``rec_real_img``, ``edit`` and ``baseline_i2s`` at StyleGAN2-1024, one
      call each with its files and launches, the first two replayed at 32 px
      on the CPU. Its budget is about 90 s.
+ 13. Grad-CAM: ``tpugan_torch.cli.e_mis_align`` at tpugan's mis-align
+     configuration (SGv1 Cat256, the plain E, batch 5, a random 1000-class
+     VGG16): the CLI's loop (a full step on the log tick with its Loss.txt
+     and dumps, then a lean step), three full steps bitwise full, lean, lean,
+     a cam_bf16-only step bitwise the fp32 step, and the --bf16 trainer's
+     full and lean steps (every FIR on the bf16 form), each step's FIR
+     launches by TPU kernel against the counts derived from the modules (no
+     adjoint: the attention stack runs on detached images), the encoder
+     moving, the generator, mapping and VGG16 frozen; every FIR of a full
+     step on its own batch-5 inputs against the plain version; step times,
+     device time by kernel, the four VGG16 passes' share, busy share and
+     peak memory, full and lean; a full step at a reduced width replayed on
+     the CPU and held to float64 (its CAM++ masks at the float64 run's
+     majority class); ``infer_e --gradcam``, one request with its CAM dump
+     and launches, its mask replayed on the CPU; ``embedding --gradcam`` on
+     BigGAN-deep-256 as phase 12's BigGAN form, its B3 and B4 launches per
+     iteration and on the iteration's own inputs. Its budget is about 90 s.
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2181,10 +2198,11 @@ class FirCapture:
 def sg2_step_fir_times(torch, step, state, first, bandwidth, fp32_peak):
     """Every FIR of one step, forward and adjoint, on the step's own inputs
     (:class:`FirCapture`): the kernel held to its plain version within
-    KERNEL_TOL and timed (``queued_ms``) beside the plain version and its
-    bound (each input read once and each output written once at the card's
-    memory rate, or the taps on real samples at its fp32 rate). Returns the
-    rows, the sums per step by direction and TPU kernel, and the max |err|."""
+    KERNEL_TOL and timed (``queued_ms``) beside the plain version, one
+    library call (``fir_library``) and its bound (each input read once and
+    each output written once at the card's memory rate, or the taps on real
+    samples at its fp32 rate). Returns the rows, the sums per step by
+    direction and TPU kernel, and the max |err|."""
     from tpugan_torch.ops import upfirdn
 
     with FirCapture() as capture:
@@ -2197,7 +2215,10 @@ def sg2_step_fir_times(torch, step, state, first, bandwidth, fp32_peak):
         key = upfirdn.tpu_layout(shape[1], up, down, kh, kw, (py0, py1)) if (py0, py1) == (px0, px1) else "XLA"
         calls = {"ms": lambda: upfirdn._fir_cuda(x, taps, up, down, pads),
                  "plain_ms": lambda: upfirdn._fir_plain(x, taps, up, down, pads)}
-        got, want = (fn() for fn in calls.values())
+        library = fir_library(torch, x, taps, up, down, pads)
+        if library is not None:
+            calls["library_ms"] = library
+        got, want = (calls[k]() for k in ("ms", "plain_ms"))
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
         label = f"SG2 step FIR {direction} {list(shape)} -> {list(got.shape)} up{up} down{down} pads {list(pads)}"
@@ -2209,25 +2230,29 @@ def sg2_step_fir_times(torch, step, state, first, bandwidth, fp32_peak):
         row = {"direction": direction, "shape": list(shape), "out": list(got.shape), "up": up, "down": down,
                "pads": list(pads), "kernel": key, "per_step": n}
         row.update({name: queued_ms(torch, fn) for name, fn in calls.items()})
+        row.setdefault("library_ms", None)
         row["bound_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
         row["bound_by"] = "bytes" if nbytes / bandwidth >= flops / fp32_peak else "operations"
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
         rows.append(row)
         part = sums.setdefault(direction, {}).setdefault(key, {"launches": 0, "ms": 0.0, "plain_ms": 0.0,
-                                                               "bound_ms": 0.0})
+                                                               "library_ms": 0.0, "bound_ms": 0.0})
         part["launches"] += n
-        for name in ("ms", "plain_ms", "bound_ms"):
-            part[name] += n * row[name]
+        for name in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            part[name] += n * (row[name] or 0.0)
+        lib = "none" if row["library_ms"] is None else f"{row['library_ms'] * 1e3:.2f} us"
         say(f"{label} ({key}, x{n} a step): max |err| {err:.3e}; kernel {row['ms'] * 1e3:.2f} us, plain "
-            f"{row['plain_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us "
+            f"{row['plain_ms'] * 1e3:.2f} us, library {lib}, bound {row['bound_ms'] * 1e3:.2f} us "
             f"({row['share_of_bound'] * 100:.1f}% of it)")
         del got, want
+    check(all(r["library_ms"] is not None for r in rows), "SG2: a step FIR without a library call")
     del capture
     torch.cuda.empty_cache()
     for direction, parts in sums.items():
         say(f"SG2 step FIRs, {direction}, per step by TPU kernel: " + "; ".join(
             f"{key} {p_['launches']} launches, kernel {p_['ms'] * 1e3:.2f} us, plain {p_['plain_ms'] * 1e3:.2f} "
-            f"us, bound {p_['bound_ms'] * 1e3:.2f} us" for key, p_ in sorted(parts.items())))
+            f"us, library {p_['library_ms'] * 1e3:.2f} us, bound {p_['bound_ms'] * 1e3:.2f} us"
+            for key, p_ in sorted(parts.items())))
     return rows, sums, max_err
 
 
@@ -3544,9 +3569,9 @@ def inversion_launches(inverter, iterations, chunk, snapshot):
     return run[0], run[1], {"forward": fwd, "adjoint": {k: 2 * n for k, n in adj.items()}}, empty, empty
 
 
-def hold_captured_firs(torch, capture, label, dtype):
-    """Every distinct FIR that ``capture`` (:class:`FirCapture`) kept,
-    forward and adjoint, on its own input: fp32 within KERNEL_TOL of the
+def hold_captured_firs(torch, capture, label, dtype, directions=("forward", "adjoint"), what="iteration"):
+    """Every distinct FIR that ``capture`` (:class:`FirCapture`) kept, in
+    each of ``directions``, on its own input: fp32 within KERNEL_TOL of the
     plain version, bf16 within one bf16 ulp of it and bitwise the fp32
     kernel rounded (:func:`check_bf16_fir`), as phases 9 and 10 hold a
     step's. Returns the max |err|."""
@@ -3570,11 +3595,11 @@ def hold_captured_firs(torch, capture, label, dtype):
         max_err = max(max_err, err)
         launches[direction] = launches.get(direction, 0) + n
         del got, want
-    check(set(launches) == {"forward", "adjoint"}, f"{label}: FIRs captured {launches}")
+    check(set(launches) == set(directions), f"{label}: FIRs captured {launches}")
     tol = "one bf16 ulp, bitwise the fp32 kernel rounded" if dtype == torch.bfloat16 else f"{KERNEL_TOL:g}"
-    say(f"parity {label}: every FIR of one iteration on its own inputs at batch 1, {len(capture.firs)} "
-        f"distinct calls ({launches['forward']} forward and {launches['adjoint']} adjoint launches), within "
-        f"{tol} of the plain version (max |err| {max_err:.3e})")
+    say(f"parity {label}: every FIR of one {what} on its own inputs, {len(capture.firs)} distinct calls ("
+        + ", ".join(f"{launches[d]} {d}" for d in directions) + f" launches), within {tol} of the plain "
+        f"version (max |err| {max_err:.3e})")
     return max_err
 
 
@@ -3582,12 +3607,12 @@ def rechunked(inverter, args, chunk, lpips_fn=None):
     """``inverter`` with its embedder rebuilt through ``make_embedder`` as
     ``build_inverter`` builds it, with a callback every ``chunk`` iterations
     (the CLI's is tpugan's 100)."""
-    from tpugan_torch.invert import EmbeddingConfig, make_embedder
+    from tpugan_torch.cli import embedding
+    from tpugan_torch.invert import make_embedder
 
-    cfg = EmbeddingConfig(iterations=args.iterations, lr=args.lr, optimize_e=args.optimizeE, chunk=chunk,
-                          beta=args.beta, norm_p=args.norm_p)
     return inverter._replace(invert=make_embedder(inverter.encode, inverter.resynth, inverter.bundle.encoder,
-                                                  cfg, lpips_fn=lpips_fn))
+                                                  embedding.embedding_config(args, chunk=chunk),
+                                                  lpips_fn=lpips_fn, vgg=inverter.vgg))
 
 
 def write_target(torch, bundle, directory):
@@ -3617,7 +3642,7 @@ def inversion_form(torch, dev, smi, label, flags, workdir):
     import numpy as np
 
     from tpugan_torch.cli import embedding, infer_e
-    from tpugan_torch.invert import EmbeddingConfig, make_embedder
+    from tpugan_torch.invert import make_embedder
     from tpugan_torch.io.image import from_unit, load_image_dir
     from tpugan_torch.losses.lpips import random_lpips_fn
     from tpugan_torch.ops import attention, cuda, upfirdn
@@ -3719,8 +3744,8 @@ def inversion_form(torch, dev, smi, label, flags, workdir):
     batch = torch.from_numpy(np.ascontiguousarray(from_unit(load_image_dir(img_dir, args.img_size)))).to(dev)
 
     def embedder(iterations):
-        cfg = EmbeddingConfig(iterations=iterations, lr=args.lr, optimize_e=args.optimizeE)
-        return make_embedder(inverter.encode, inverter.resynth, enc, cfg, lpips_fn=lpips)
+        cfg = embedding.embedding_config(args, iterations=iterations)
+        return make_embedder(inverter.encode, inverter.resynth, enc, cfg, lpips_fn=lpips, vgg=inverter.vgg)
 
     # each kernel against its plain version on the path's own inputs at batch 1
     errs = {}
@@ -4013,6 +4038,453 @@ def inversion_path(torch, dev, smi):
     return {"forms": forms, "replay": replay, "clis": clis}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: Grad-CAM mis-aligned training (e_mis_align at tpugan's
+# scripts/bench_mis_align.py:14-15 configuration: SGv1 Cat256, the plain E,
+# batch 5, the CLI's default; random weights and a random 1000-class VGG16,
+# as the CLI runs without --vgg_weights), infer_e --gradcam and embedding
+# --gradcam on BigGAN-deep-256. No new kernel: the path's FIRs at batch 5
+# and the attention kernels' backward in the Grad-CAM inversion.
+MIS_BATCH = 5
+MIS_ARGV = ("--mtype", "1", "--img_size", str(IMG_SIZE), "--start_features", "64", "--random_init")
+MIS_STEPS = 3  # steps of each counted trajectory
+MIS_TIMED = 6  # host-clock steps of each form, after two warm-up steps
+# The replay: a full step of Cat256 at MIS_REPLAY_START_FEATURES with the
+# full-width VGG16, at MIS_REPLAY_BATCH (the CPU runs VGG16 at 256 px in
+# float64), on the card, on the CPU and on the CPU in float64, from the same
+# inputs drawn on the CPU. Held to float64 by phase 8's rule (twice the CPU
+# fp32 run's distance, or CPU_GPU_ATOL x max |ref|, whichever is larger;
+# phase 8 floors at CPU_GPU_ATOL x max(1, max |ref|), which for a gradient of
+# max 1e-2 allows a tenth of it): the step's gradient (of 0.01 loss_w, through E), its images, and
+# the CAM++ masks of its imgs1 and imgs2 at the float64 run's majority class
+# (a random VGG16's logits can nearly tie, and another class gives another
+# mask, not an error: the card's own pick and the top-2 margins are
+# printed); loss_mtv and loss_imgs_mse within REPLAY_LOSS_RTOL; the masks'
+# colormap indices at most one step apart at HEATMAP_SHARE of the pixels.
+MIS_REPLAY_START_FEATURES = 16
+MIS_REPLAY_BATCH = 2
+HEATMAP_SHARE = 0.01
+# embedding --gradcam: phase 12's BigGAN form (E_BIG's lr, every gamma 1,
+# the z head scaled) with Grad-CAM attention in place of the crops
+GRADCAM_INVERSION = ("BigGAN fine-tune E Grad-CAM",
+                     INV_BIGGAN + ("--optimizeE", "true", "--lr", str(INV_BIGGAN_LR), "--gradcam"))
+
+
+def mis_align_args(*flags, device=None):
+    """e_mis_align's arguments at MIS_ARGV, on ``device`` (CARD unless given)."""
+    from tpugan_torch.cli import e_mis_align
+
+    return e_mis_align.parse_args(list(MIS_ARGV) + ["--seed", str(SEED), "--device", device or CARD, *flags])
+
+
+def counted_step(torch, step, state, iteration):
+    """One train step with every count set to 0 just before it: the kernels'
+    launches, the FIR launches by TPU kernel forward and adjoint, and the
+    step's scalars."""
+    from tpugan_torch.ops import cuda, upfirdn
+    from tpugan_torch.train.e_align import info_scalars
+
+    cuda.reset_launches()
+    upfirdn.reset_layout_launches()
+    with AdjointCount() as adjoint:
+        _, info = step(state, iteration)
+        torch.cuda.synchronize()
+    total, adj = dict(upfirdn.layout_launches), dict(adjoint.counts)
+    return dict(cuda.launches), {k: total[k] - adj[k] for k in total}, adj, info_scalars(info)
+
+
+def hold_step_launches(label, counted, fwd_want, kernel):
+    """A counted step's launches against the FIR counts derived from the
+    modules (no adjoint: the images are detached and E has no blur)."""
+    launches, fwd, adj, scalars = counted
+    zero = {k: 0 for k in fwd_want}
+    check(launches == expected_launches(**{kernel: sum(fwd_want.values())}),
+          f"{label}: launches {launches}, expected {sum(fwd_want.values())} {kernel} and nothing else")
+    check(fwd == fwd_want and adj == zero, f"{label}: FIR launches forward {fwd}, adjoint {adj}; derived from "
+          f"the modules: forward {fwd_want}, no adjoint")
+    check(all(math.isfinite(x) for x in scalars.values()), f"{label}: a logged scalar is not finite")
+    return scalars
+
+
+def fresh_state(trainer, base, lr):
+    """The trainer's encoder back at ``base`` and a new optimizer: a
+    trajectory from the same start."""
+    from tpugan_torch.optim import lreq_adam
+    from tpugan_torch.train.e_align import init_train_state
+
+    enc = trainer.state.encoder
+    enc.load_state_dict(base)
+    return init_train_state(enc, lreq_adam(enc, lr))
+
+
+def mis_align_times(torch, trainer, label, vgg_passes=None):
+    """Host-clock step times of the full and the lean step, each with its
+    device time by kernel, busy share and peak memory; with ``vgg_passes``
+    (a call of the four VGG16 passes of a full step) their device time and
+    share of the full step's."""
+    times = {}
+    for kind, step in (("full", trainer.step), ("lean", trainer.lean)):
+        median = step_times(torch, step, trainer.state, f"e_mis_align {label} {kind}", 100, steps=MIS_TIMED)
+        try:
+            dev_time = step_device_time(torch, step, trainer.state, median, 200, symbols=("upfirdn2d_kernel",))
+            dev_time["busy_share"] = dev_time["device_ms"] / median
+        except RuntimeError as missed:  # device_kernels: three traces saw no device time
+            say(f"device time per e_mis_align {label} {kind} step: not measured ({missed})")
+            dev_time = {}
+        times[kind] = {"median_ms": median, **dev_time}
+    if vgg_passes is not None and "device_ms" in times["full"]:
+        kernels = device_kernels(torch, vgg_passes, iters=3)
+        vgg_ms = sum(ms for ms, _ in kernels.values())
+        share = vgg_ms / times["full"]["device_ms"]
+        times["full"].update(vgg16_ms=vgg_ms, vgg16_share=share)
+        say(f"e_mis_align {label}: the four VGG16 passes (CAM++ and guided backpropagation of imgs1 and imgs2) "
+            f"take {vgg_ms:.3f} ms of device time, {share * 100:.1f}% of the full step's")
+    return times
+
+
+def mis_align_training(torch, dev, smi, workdir):
+    """Phase 13's training part: the CLI's loop (a full step on the log tick
+    with its dumps, then a lean step), three full steps against full, lean,
+    lean (bitwise), a cam_bf16-only step against fp32 (bitwise), the --bf16
+    trainer's full and lean steps, each step's launches against the counts
+    derived from the modules; every FIR of a full step on its own inputs;
+    times; the CPU replay."""
+    import copy
+    import json
+    import os
+
+    from tpugan_torch.cli import e_mis_align
+    from tpugan_torch.cli.common import build_vgg16
+    from tpugan_torch.losses.gradcam import grad_cam, guided_backprop
+    from tpugan_torch.ops import cuda, upfirdn
+    from tpugan_torch.train import MisAlignInfo, make_mis_align_step
+
+    out = os.path.join(workdir, "e_mis_align")
+    args = mis_align_args("--iterations", "2", "--log_every", "2", "--experiment_dir", out)
+    check(args.batch_size == MIS_BATCH, f"e_mis_align's default batch is {args.batch_size}")
+    t0 = time.perf_counter()
+    vgg = build_vgg16(args)
+    trainer = e_mis_align.build_trainer(args, vgg=vgg)
+    torch.cuda.synchronize()
+    enc, gen = trainer.state.encoder, trainer.bundle.generator
+    check(not any(getattr(m, "use_blur", False) for m in enc.modules()), "e_mis_align's E has a blur")
+    say(f"trainer: e_mis_align {' '.join(MIS_ARGV)}, batch {args.batch_size}, lr {args.lr:g}: SGv1 Cat256 "
+        f"frozen + E training, random VGG16 (1000 classes), built in {time.perf_counter() - t0:.2f} s")
+    decode = sgv1_decode_firs(gen)
+    fwd_full, adj_full = sgv1_step_firs(trainer, 0, True)
+    fwd_lean, adj_lean = sgv1_step_firs(trainer, 0, False)
+    check(not any(adj_full.values()) and not any(adj_lean.values()), "a mis-align step runs an adjoint")
+    base = {k: t.clone() for k, t in enc.state_dict().items()}
+    frozen = [*gen.parameters(), *trainer.bundle.mapping.parameters(), *vgg.parameters()]
+    frozen0 = [p.detach().clone() for p in frozen]
+
+    # the main path: the CLI's loop, counts from 0
+    cuda.reset_launches()
+    upfirdn.reset_layout_launches()
+    t0 = time.perf_counter()
+    with AdjointCount() as adjoint:
+        e_mis_align.run(trainer, args)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counted, total, adj = dict(cuda.launches), dict(upfirdn.layout_launches), dict(adjoint.counts)
+    fwd = {k: total[k] - adj[k] for k in total}
+    # the tick's dumps decode twice (imgs1, imgs2 at the initial parameters)
+    want = {k: 2 * decode[k] + fwd_full[k] + fwd_lean[k] for k in decode}
+    check(counted == expected_launches(upfirdn2d=sum(want.values())) and fwd == want and not any(adj.values()),
+          f"e_mis_align's loop: launches {counted}, FIRs forward {fwd}, adjoint {adj}; expected forward {want}")
+    with open(os.path.join(out, "Loss.txt")) as f:
+        records = [json.loads(line) for line in f]
+    fields = {f"{g}_{k}" for g in MisAlignInfo._fields[:6]
+              for k in ("mse", "mse_mean", "mse_std", "kl", "cosine", "ssim", "lpips")} | {"loss_tsa", "loss_mtv"}
+    check(len(records) == 1 and set(records[0]) == {"iteration", "epoch"} | fields
+          and all(math.isfinite(v) for v in records[0].values()), f"e_mis_align's Loss.txt: {records}")
+    files = [os.path.join(out, "imgs", "ep0_iter0.png")] + [
+        os.path.join(out, "grad_cam", f"{kind}_0.png") for kind in ("heatmap", "cam", "gb")]
+    check(all(os.path.exists(f) for f in files), "e_mis_align's dumps are missing")
+    say(f"e_mis_align path (the CLI's loop: a full step on the log tick with its dumps, then a lean step) in "
+        f"{seconds:.2f} s: launches {counted}; FIR per decode {decode}, a full step {fwd_full}, a lean step "
+        f"{fwd_lean}, as derived from the modules; Loss.txt with {len(fields)} scalars (loss_tsa "
+        f"{records[0]['loss_tsa']:.4f}, loss_mask_mse {records[0]['loss_mask_mse']:.4e}, loss_mtv "
+        f"{records[0]['loss_mtv']:.4f}), the grid, heatmap, cam and gb dumps")
+
+    # three full steps against full, lean, lean; a cam_bf16-only step; with
+    # cuDNN's deterministic algorithms (its default weight-gradient ones may
+    # sum in another order from run to run)
+    torch.backends.cudnn.deterministic = True
+    finals, per_step, launches = {}, {}, counted["upfirdn2d"]
+    lean_kinds = ("full",) + ("lean",) * (MIS_STEPS - 1)
+    for label, kinds in (("full x3", ("full",) * MIS_STEPS), ("full, lean, lean", lean_kinds)):
+        state = fresh_state(trainer, base, args.lr)
+        for it, kind in enumerate(kinds):
+            step = trainer.step if kind == "full" else trainer.lean
+            c = counted_step(torch, step, state, it)
+            hold_step_launches(f"e_mis_align {label} step {it}", c, fwd_full if kind == "full" else fwd_lean,
+                               "upfirdn2d")
+            launches += c[0]["upfirdn2d"]
+        finals[label] = {n: p.detach().clone() for n, p in enc.named_parameters()}
+    moved = sum(not torch.equal(p, base[n]) for n, p in finals["full x3"].items())
+    check(moved > 0, "the encoder did not train")
+    check(all(torch.equal(finals["full x3"][n], p) for n, p in finals["full, lean, lean"].items()),
+          "full, lean, lean steps part from three full steps")
+    p = trainer.pipeline
+    vgg16 = copy.deepcopy(vgg).to(torch.bfloat16)
+    cam16 = make_mis_align_step(p.encode, p.synth, p.resynth, p.draw, vgg16, cam_bf16=True)
+    one = {}
+    for label, step in (("fp32", trainer.step), ("cam_bf16", cam16)):
+        state = fresh_state(trainer, base, args.lr)
+        c = counted_step(torch, step, state, 0)
+        one[label] = (hold_step_launches(f"e_mis_align {label} step", c, fwd_full, "upfirdn2d"),
+                      {n: q.detach().clone() for n, q in enc.named_parameters()})
+        launches += c[0]["upfirdn2d"]
+    torch.backends.cudnn.deterministic = False
+    check(all(torch.equal(one["fp32"][1][n], q) for n, q in one["cam_bf16"][1].items()),
+          "the cam_bf16 step's parameters are not the fp32 step's")
+    check(all(torch.equal(a, b) and a.grad is None for a, b in zip(frozen, frozen0)),
+          "the generator, mapping or VGG16 moved")
+    say(f"e_mis_align trajectories: {MIS_STEPS} full steps and full, lean, lean bitwise equal ({moved} of "
+        f"{len(base)} encoder tensors moved); a cam_bf16 step bitwise the fp32 step (loss_mask_mse "
+        f"{one['cam_bf16'][0]['loss_mask_mse']:.4e} against {one['fp32'][0]['loss_mask_mse']:.4e}); each step "
+        f"launched {sum(fwd_full.values())} (full) or {sum(fwd_lean.values())} (lean) upfirdn2d, no adjoint; "
+        "the generator, mapping and VGG16 did not move")
+    per_step["fp32"] = {"full": fwd_full, "lean": fwd_lean}
+
+    # every FIR of a full step on its own batch-5 inputs
+    with FirCapture() as firs:
+        trainer.step(fresh_state(trainer, base, args.lr), 0)
+        torch.cuda.synchronize()
+    err32 = hold_captured_firs(torch, firs, "e_mis_align full step", torch.float32, ("forward",), "step")
+    del firs
+    batch = p.synth(p.draw(0))
+    imgs = batch.imgs1.detach()
+    say(f"e_mis_align times below: {smi}; step times from the host clock, device times from torch.profiler")
+
+    def vgg_passes():
+        for x in (imgs, imgs):  # the step's imgs1 and imgs2 have imgs1's shape
+            grad_cam(vgg, x, plus_plus=True)
+            guided_backprop(vgg, x)
+
+    state = fresh_state(trainer, base, args.lr)
+    trainer = trainer._replace(state=state)
+    times = {"fp32": mis_align_times(torch, trainer, "fp32, TF32 off", vgg_passes)}
+    del trainer, vgg16, cam16, batch, imgs, state
+    torch.cuda.empty_cache()
+
+    # --bf16: the FIRs on the kernel's bf16 form, none on the fp32 one
+    args16 = mis_align_args("--bf16", "--iterations", "1000")
+    t0 = time.perf_counter()
+    trainer = e_mis_align.build_trainer(args16, vgg=copy.deepcopy(vgg))
+    torch.cuda.synchronize()
+    enc = trainer.state.encoder
+    say(f"trainer: e_mis_align --bf16, built in {time.perf_counter() - t0:.2f} s")
+    gen16, vgg16 = trainer.bundle.generator, trainer.vgg
+    check(all(q.dtype == torch.bfloat16 for q in (*gen16.parameters(), *vgg16.parameters()))
+          and all(q.dtype == torch.float32 for q in enc.parameters()),
+          "--bf16: not a bf16 generator and VGG16 over fp32 encoder masters")
+    frozen = [*gen16.parameters(), *vgg16.parameters()]
+    frozen0 = [q.detach().clone() for q in frozen]
+    params0 = {n: q.detach().clone() for n, q in enc.named_parameters()}
+    for it, kind in enumerate(("full", "lean")):
+        step = trainer.step if kind == "full" else trainer.lean
+        c = counted_step(torch, step, trainer.state, it)
+        scalars = hold_step_launches(f"e_mis_align --bf16 {kind} step", c, fwd_full if kind == "full" else fwd_lean,
+                                     "upfirdn2d_bf16")
+        say(f"e_mis_align --bf16 {kind} step: launches {c[0]}; loss_mtv {scalars['loss_mtv']:.4f}, loss_tsa "
+            f"{scalars['loss_tsa']:.4f}")
+        per_step.setdefault("bf16", {})[kind] = c[1]
+    launches16 = sum(sum(v.values()) for v in per_step["bf16"].values())
+    check(any(not torch.equal(q, params0[n]) for n, q in enc.named_parameters())
+          and all(torch.equal(a, b) and a.grad is None for a, b in zip(frozen, frozen0)),
+          "--bf16: the encoder did not train, or the generator or VGG16 moved")
+    with FirCapture() as firs:
+        trainer.step(trainer.state, 2)
+        torch.cuda.synchronize()
+    err16 = hold_captured_firs(torch, firs, "e_mis_align --bf16 full step", torch.bfloat16, ("forward",), "step")
+    del firs
+    say(f"e_mis_align --bf16 times below: {smi}")
+    times["bf16"] = mis_align_times(torch, trainer, "--bf16")
+    del trainer, gen16, vgg16, frozen, frozen0
+    torch.cuda.empty_cache()
+    replay = replay_mis_align_on_cpu(torch, dev, vgg)
+    return {"launches": launches, "launches_bf16": launches16, "per_step": per_step, "times": times,
+            "max_abs_err": err32, "max_abs_err_bf16": err16, "replay": replay, "vgg": vgg}
+
+
+def top2_margins(logits):
+    top = logits.topk(2, dim=-1).values
+    return [round(float(x), 6) for x in (top[:, 0] - top[:, 1])]
+
+
+def replay_distance_rule(torch, label, got, cpu32, ref):
+    """``got`` (the card's) within twice the CPU fp32 run's distance from
+    float64 (``ref``), or CPU_GPU_ATOL x max |ref|, whichever is larger;
+    returns the card's error and the limit. Tensors or lists of them (a
+    gradient's leaves)."""
+    got, cpu32, ref = ([x] if torch.is_tensor(x) else x for x in (got, cpu32, ref))
+    ref = [r.double().cpu() for r in ref]
+    scale = max(float(r.abs().max()) for r in ref)
+    err = max(float((g.double().cpu() - r).abs().max()) for g, r in zip(got, ref))
+    own = max(float((c.double() - r).abs().max()) for c, r in zip(cpu32, ref))
+    limit = max(CPU_GPU_ATOL * scale, 2 * own)
+    say(f"  {label}: the card {err:.3e} from float64, the CPU fp32 {own:.3e} (max |ref| {scale:.3e}, limit "
+        f"{limit:.3e})")
+    check(err <= limit, f"{label}: the card is {err:.3e} from float64, over {limit:.3e}")
+    return err, limit
+
+
+def heatmap_steps(torch, got, want):
+    """The share of pixels whose colormap index differs between two masks,
+    and the largest difference in steps."""
+    a = (255.0 * got.float().cpu()).to(torch.uint8).int()
+    b = (255.0 * want.float().cpu()).to(torch.uint8).int()
+    return float((a != b).float().mean()), int((a - b).abs().max())
+
+
+def replay_mis_align_on_cpu(torch, dev, vgg):
+    """A full e_mis_align step at MIS_REPLAY_START_FEATURES, batch
+    MIS_REPLAY_BATCH, on the card, on the CPU and on the CPU in float64 (the
+    rule at MIS_REPLAY_START_FEATURES' definition)."""
+    import copy
+
+    from tpugan_torch.cli import e_mis_align, infer_e
+    from tpugan_torch.losses.gradcam import grad_cam, majority_class
+    from tpugan_torch.train.e_align import info_scalars
+
+    argv = ("--start_features", str(MIS_REPLAY_START_FEATURES), "--batch_size", str(MIS_REPLAY_BATCH),
+            "--iterations", "1")
+    vgg_cpu = copy.deepcopy(vgg).cpu()
+    probe = e_mis_align.build_trainer(mis_align_args(*argv, device="cpu"), vgg=vgg_cpu)
+    request = infer_e.draw_request(probe.bundle, MIS_REPLAY_BATCH, 0)
+    del probe
+    runs = {}
+    cpu = torch.device("cpu")
+    for label, device, place, dtype in (("card", CARD, dev, torch.float32), ("cpu fp32", "cpu", cpu, torch.float32),
+                                        ("f64", "cpu", cpu, torch.float64)):
+        cast = lambda blocks: [tuple(n.to(place, dtype) for n in b) for b in blocks]  # noqa: E731
+        req = request._replace(z=request.z.to(place, dtype), noise_g=cast(request.noise_g),
+                               noise_e=cast(request.noise_e), noise_g2=cast(request.noise_g2))
+        net = vgg if label == "card" else vgg_cpu if dtype == torch.float32 else copy.deepcopy(vgg_cpu).double()
+        trainer = e_mis_align.build_trainer(mis_align_args(*argv, device=device), draw=lambda it, r=req: r, vgg=net)
+        for module in (trainer.bundle.generator, trainer.bundle.mapping, trainer.bundle.encoder):
+            module.to(dtype)
+        p = trainer.pipeline
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            batch = p.synth(req)
+            imgs2 = p.resynth(p.encode(batch, req.noise_e)[1], batch, req.noise_g2)
+            logits = net(batch.imgs1.permute(0, 3, 1, 2))[0]
+        grads = []
+        opt_step = trainer.state.optimizer.step
+        trainer.state.optimizer.step = lambda g=None: (grads.append([x.detach().clone() for x in g]), opt_step(g))
+        _, info = trainer.step(trainer.state, 0)
+        runs[label] = dict(imgs1=batch.imgs1, imgs2=imgs2, logits=logits, grads=grads[0],
+                           scalars=info_scalars(info), net=net)
+        if device == CARD:
+            torch.cuda.synchronize()
+        runs[label]["seconds"] = time.perf_counter() - t0
+        del trainer
+    say(f"replay of an e_mis_align full step: Cat256 at start_features {MIS_REPLAY_START_FEATURES}, batch "
+        f"{MIS_REPLAY_BATCH}, the full-width VGG16; " + ", ".join(f"{k} {r['seconds']:.2f} s" for k, r in runs.items()))
+    cls = int(majority_class(runs["f64"]["logits"]))
+    picks = {k: int(majority_class(r["logits"])) for k, r in runs.items()}
+    say(f"  majority class of imgs1: {picks} (the card's own pick {'agrees' if picks['card'] == cls else 'differs'}); "
+        f"top-2 logit margins of the float64 run {top2_margins(runs['f64']['logits'])}, largest |logit| "
+        f"{float(runs['f64']['logits'].abs().max()):.4e}")
+    for label, r in runs.items():  # the masks at the float64 run's class, on each run's own images
+        for side in ("imgs1", "imgs2"):
+            r[f"mask_{side}"] = grad_cam(r["net"], r[side], index=cls, plus_plus=True)
+    out = {"majority_class": picks, "f64_class": cls}
+    for key in ("imgs1", "imgs2", "mask_imgs1", "mask_imgs2"):
+        out[key] = replay_distance_rule(torch, key, runs["card"][key], runs["cpu fp32"][key], runs["f64"][key])
+    for side in ("imgs1", "imgs2"):
+        share, steps = heatmap_steps(torch, runs["card"][f"mask_{side}"], runs["f64"][f"mask_{side}"])
+        say(f"  heatmap of {side}: {share:.3%} of the pixels one step apart at most ({steps})")
+        check(share <= HEATMAP_SHARE and steps <= 1, f"the {side} heatmap: {share:.3%} differ by up to {steps}")
+    out["gradient"] = replay_distance_rule(torch, "the step's gradient", runs["card"]["grads"],
+                                           runs["cpu fp32"]["grads"], runs["f64"]["grads"])
+    for key in ("loss_mtv", "loss_imgs_mse"):
+        ref, got = runs["f64"]["scalars"][key], runs["card"]["scalars"][key]
+        rel = abs(got - ref) / abs(ref)
+        say(f"  {key}: the card {got:.6f} against {ref:.6f} (rel err {rel:.3e}, limit {REPLAY_LOSS_RTOL:g})")
+        check(rel <= REPLAY_LOSS_RTOL, f"the replayed {key} disagrees")
+        out[key] = rel
+    say("  logged attention scalars (each run at its own majority class): " + ", ".join(
+        f"{k} loss_mask_mse {r['scalars']['loss_mask_mse']:.4e} loss_gcam_mse {r['scalars']['loss_gcam_mse']:.4e}"
+        for k, r in runs.items()))
+    return out
+
+
+def gradcam_request(torch, dev, vgg, workdir):
+    """``infer_e --gradcam``: one request of the phase-3 bundle (batch 2)
+    with its cam_seed file, its launches counted; its CAM++ mask of imgs1
+    replayed on the CPU on the card's imgs1, in fp32 and float64, at the
+    float64 run's class, held by phase 8's rule."""
+    import copy
+    import os
+
+    from tpugan_torch.cli import common, infer_e
+    from tpugan_torch.losses.gradcam import grad_cam, majority_class
+    from tpugan_torch.ops import cuda, upfirdn
+
+    parser = argparse.ArgumentParser()
+    common.add_common_args(parser, training=True)
+    bundle = common.build_bundle(parser.parse_args(list(MIS_ARGV) + ["--batch_size", str(BATCH), "--seed",
+                                                                     str(SEED), "--device", CARD]))
+    imgs_dir = os.path.join(workdir, "infer_e")
+    os.makedirs(imgs_dir, exist_ok=True)
+    seed = REQUEST_SEEDS[0]
+    decode = sgv1_decode_firs(bundle.generator)
+    cuda.reset_launches()
+    upfirdn.reset_layout_launches()
+    imgs1, _ = infer_e.write_request(bundle, BATCH, seed, imgs_dir, vgg)
+    torch.cuda.synchronize()
+    counted, layouts = dict(cuda.launches), dict(upfirdn.layout_launches)
+    want = {k: 2 * n for k, n in decode.items()}
+    check(counted == expected_launches(upfirdn2d=sum(want.values())) and layouts == want,
+          f"infer_e --gradcam: launches {counted}, by TPU kernel {layouts}; expected {want}")
+    check(os.path.exists(os.path.join(imgs_dir, f"cam_seed{seed}.png")), "infer_e --gradcam: no cam_seed file")
+    say(f"infer_e --gradcam: a request at batch {BATCH}, launches {counted} (by TPU kernel {layouts}; the CAM "
+        f"adds none), cam_seed{seed}.png written")
+    nets = {"card": vgg, "cpu fp32": copy.deepcopy(vgg).cpu()}
+    nets["f64"] = copy.deepcopy(nets["cpu fp32"]).double()
+    inputs = {"card": imgs1, "cpu fp32": imgs1.cpu(), "f64": imgs1.cpu().double()}
+    with torch.no_grad():
+        logits = {k: nets[k](inputs[k].permute(0, 3, 1, 2))[0] for k in nets}
+    cls = int(majority_class(logits["f64"]))
+    say(f"  majority class of the request's imgs1: card {int(majority_class(logits['card']))}, float64 {cls}; "
+        f"top-2 logit margins {top2_margins(logits['f64'])}")
+    masks = {k: grad_cam(nets[k], inputs[k], index=cls, plus_plus=True) for k in nets}
+    err = replay_distance_rule(torch, "infer_e --gradcam mask", masks["card"], masks["cpu fp32"], masks["f64"])
+    share, steps = heatmap_steps(torch, masks["card"], masks["f64"])
+    say(f"  heatmap: {share:.3%} of the pixels one step apart at most ({steps})")
+    check(share <= HEATMAP_SHARE and steps <= 1, f"infer_e --gradcam heatmap: {share:.3%} differ by up to {steps}")
+    return {"launches": counted["upfirdn2d"], "per_request": want, "mask": err}
+
+
+def gradcam_path(torch, dev, smi):
+    """Phase 13 (the docstring's item 13). Returns the training part's
+    launches, times and replay, the request's and the inversion's."""
+    import shutil
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_gradcam_")
+    try:
+        t0 = time.perf_counter()
+        train = mis_align_training(torch, dev, smi, workdir)
+        say(f"e_mis_align took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        request = gradcam_request(torch, dev, train.pop("vgg"), workdir)
+        torch.cuda.empty_cache()
+        say(f"infer_e --gradcam took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        label, flags = GRADCAM_INVERSION
+        inversion = inversion_form(torch, dev, smi, label, flags, workdir)
+        torch.cuda.empty_cache()
+        say(f"inversion {label} took {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"training": train, "request": request, "inversion": inversion}
+
+
 def main() -> int:
     import torch
 
@@ -4176,6 +4648,24 @@ def main() -> int:
                  "times": {label: f["times"] for label, f in inv_forms.items()},
                  "replay": inv["replay"], "clis": inv["clis"]}
 
+    # ---- 13. Grad-CAM: e_mis_align, infer_e --gradcam, embedding --gradcam ----
+    t0 = time.perf_counter()
+    cam = gradcam_path(torch, dev, smi)
+    mis, cam_inv = cam["training"], cam["inversion"]
+    cam_label = GRADCAM_INVERSION[0]
+    check(mis["launches"] > 0 and mis["launches_bf16"] > 0 and cam["request"]["launches"] > 0
+          and cam_inv["launches"]["sagan_attention"] > 0
+          and all(cam_inv["launches"][name] > 0 for name in B4_KERNELS), "the Grad-CAM paths missed a kernel")
+    check(set(cam_inv["max_abs_err"]) == {"sagan_attention", "sagan_attention_bwd"},
+          f"the Grad-CAM inversion held only {sorted(cam_inv['max_abs_err'])} on its own inputs")
+    say(f"phase 13 (Grad-CAM) took {time.perf_counter() - t0:.1f} s; the script {time.perf_counter() - start:.1f} s")
+    gradcam = {"e_mis_align": {"launches_per_step_are": f"FIR launches of one step at batch {MIS_BATCH}, by the TPU "
+                                                        "kernel each replaces, as counted and derived from the "
+                                                        "modules (no adjoint)",
+                               "per_step": mis["per_step"], "times": mis["times"], "replay": mis["replay"]},
+               "infer_e --gradcam": cam["request"],
+               "embedding --gradcam": {"per_iteration": cam_inv["per_iteration"], "times": cam_inv["times"]}}
+
     sg2_bf16 = bf16["firs"]["SG2"][1]
     bf16_step = {k: sum(p_[k] for parts in sg2_bf16.values() for p_ in parts.values())
                  for k in ("ms", "fp32_ms", "plain_ms", "library_ms", "bound_ms")}
@@ -4188,14 +4678,18 @@ def main() -> int:
         "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas); "
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c)",
         "launches": (launches["upfirdn2d"] + sg2["launches"] + sgv1_train["launches"] + sg2_train["launches"]
-                     + sum(fir_inv.values())),
+                     + sum(fir_inv.values()) + mis["launches"] + cam["request"]["launches"]),
         "launches_by_path": {"SGv1 Cat256 serving": launches["upfirdn2d"],
                              f"StyleGAN2-{SG2_SIZE} serving": sg2["launches"],
                              "SGv1 Cat256 training": sgv1_train["launches"],
                              f"StyleGAN2-{SG2_SIZE} training": sg2_train["launches"],
-                             **{f"inversion: {label}": n for label, n in fir_inv.items()}},
-        "max_abs_err": max(fir_err, adjoint_err, sg2["max_abs_err"], sg2_train["max_abs_err"], inv_err["upfirdn2d"]),
+                             **{f"inversion: {label}": n for label, n in fir_inv.items()},
+                             "e_mis_align (batch 5)": mis["launches"],
+                             "infer_e --gradcam": cam["request"]["launches"]},
+        "max_abs_err": max(fir_err, adjoint_err, sg2["max_abs_err"], sg2_train["max_abs_err"], inv_err["upfirdn2d"],
+                           mis["max_abs_err"]),
         "inversion": inversion,
+        "gradcam": gradcam,
         **fir,
         "gradient_path_launches": grad_launches,
         "adjoint": adjoint_rows,
@@ -4224,10 +4718,11 @@ def main() -> int:
         "source": "tpugan_torch/csrc/upfirdn2d.cu",
         "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas, bf16); "
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c, bf16)",
-        "launches": bf16["launches"] + sum(fir16_inv.values()),
+        "launches": bf16["launches"] + sum(fir16_inv.values()) + mis["launches_bf16"],
         "launches_by_path": {"bf16 training": bf16["launches"],
-                             **{f"inversion: {label}": n for label, n in fir16_inv.items()}},
-        "max_abs_err": max(bf16_err, bf16["max_abs_err"], inv_err["upfirdn2d_bf16"]),
+                             **{f"inversion: {label}": n for label, n in fir16_inv.items()},
+                             "e_mis_align --bf16 (batch 5)": mis["launches_bf16"]},
+        "max_abs_err": max(bf16_err, bf16["max_abs_err"], inv_err["upfirdn2d_bf16"], mis["max_abs_err_bf16"]),
         "ms": bf16_step["ms"],
         "plain_ms": bf16_step["plain_ms"],
         "bound_ms": bf16_step["bound_ms"],
@@ -4251,10 +4746,12 @@ def main() -> int:
         "source": "tpugan_torch/csrc/sagan_attention.cu",
         "replaces": "tpugan/ops/pallas/attention.py:68 (sagan_attention_pallas); "
                     "tpugan/ops/pallas/attention.py:77 (sagan_attention_pallas, return_lse=True)",
-        "launches": attn["launches"] + big_inv["sagan_attention"],
+        "launches": attn["launches"] + big_inv["sagan_attention"] + cam_inv["launches"]["sagan_attention"],
         "launches_by_path": {"BigGAN-deep-256 serving": attn["launches"],
-                             "inversion: BigGAN fine-tune E": big_inv["sagan_attention"]},
-        "max_abs_err": max(attn["max_abs_err"], attn_err, inv_err["sagan_attention"]),
+                             "inversion: BigGAN fine-tune E": big_inv["sagan_attention"],
+                             f"inversion: {cam_label}": cam_inv["launches"]["sagan_attention"]},
+        "max_abs_err": max(attn["max_abs_err"], attn_err, inv_err["sagan_attention"],
+                           cam_inv["max_abs_err"]["sagan_attention"]),
         **b3_times,
     }, {
         "name": "sagan_attention_bwd",
@@ -4262,10 +4759,13 @@ def main() -> int:
         "source": "tpugan_torch/csrc/sagan_attention_bwd.cu",
         "replaces": "tpugan/ops/pallas/attention.py:149,168 (sagan_attention_bwd_pallas: _dq_kernel, "
                     "_dkv_kernel)",
-        "launches": attn_bwd["launches"] + sum(big_inv[name] for name in B4_KERNELS),
+        "launches": (attn_bwd["launches"] + sum(big_inv[name] for name in B4_KERNELS)
+                     + sum(cam_inv["launches"][name] for name in B4_KERNELS)),
         "launches_by_path": {"E_BIG training": attn_bwd["launches"],
-                             "inversion: BigGAN fine-tune E": sum(big_inv[name] for name in B4_KERNELS)},
-        "max_abs_err": max(attn_bwd["max_abs_err"], bwd_err, inv_err["sagan_attention_bwd"]),
+                             "inversion: BigGAN fine-tune E": sum(big_inv[name] for name in B4_KERNELS),
+                             f"inversion: {cam_label}": sum(cam_inv["launches"][name] for name in B4_KERNELS)},
+        "max_abs_err": max(attn_bwd["max_abs_err"], bwd_err, inv_err["sagan_attention_bwd"],
+                           cam_inv["max_abs_err"]["sagan_attention_bwd"]),
         **b4_times,
     }, {
         "name": "sagan_attention_bf16",

@@ -708,10 +708,13 @@ def test_mtype4_raises_where_tpugan_raises(tool, tmp_path):
 
 
 def test_later_parts_raise(sgv1):
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        embedding.main(["--gradcam", "--random_init", "--device", "cpu"])
+    """Grad-CAM attention (slice 6) runs now (tests/test_torch_gradcam.py);
+    it needs its VGG16, and converted VGG16 weights wait for slice 7."""
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        embedding.main(["--gradcam", "--vgg_weights", "vgg16.pth", "--mtype", "1", "--img_size", "32",
+                        "--start_features", "64", "--random_init", "--device", "cpu"])
     encode, resynth, encoder = sgv1.port(torch.float32)
-    with pytest.raises(NotImplementedError, match="slice 6"):
+    with pytest.raises(ValueError, match="vgg"):
         make_embedder(encode, resynth, encoder, EmbeddingConfig(attention="gradcam"))
     with pytest.raises(NotImplementedError, match="parallelism"):
         make_embedder(encode, resynth, encoder, EmbeddingConfig(), mesh=object())

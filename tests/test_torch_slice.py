@@ -167,8 +167,13 @@ def test_ablation_encoders_serve(ablation):
 
 
 def test_gradcam_raises_until_its_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="Grad-CAM"):
-        infer_e.main(["--gradcam", "--device", "cpu", "--experiment_dir", str(tmp_path)])
+    """--gradcam, refused until slice 6, now runs (tests/test_torch_mis_align.py
+    writes its CAM dumps); converted VGG16 weights wait for slice 7's
+    converter."""
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        infer_e.main(["--gradcam", "--vgg_weights", "vgg16.pth", "--mtype", "1", "--img_size", "32",
+                      "--start_features", "64", "--random_init", "--device", "cpu", "--count", "1",
+                      "--experiment_dir", str(tmp_path)])
 
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tpugan"}

@@ -6,8 +6,8 @@ flags, plus ``--device {cuda,cpu}``, and the model factory for ``--mtype 1``
 
 What later slices bring raises :class:`NotImplementedError` naming the
 ROADMAP slice: other mtypes, converted checkpoints (so ``--random_init`` is
-required), ``--space_shards`` above 1, ``--multihost`` and
-``--lpips_weights``.
+required), ``--space_shards`` above 1, ``--multihost``, ``--lpips_weights``
+and ``--vgg_weights``.
 """
 
 from __future__ import annotations
@@ -231,6 +231,24 @@ def build_lpips_fn(args):
         )
     warn_random_weights("lpips_weights", "the LPIPS loss term is DISABLED")
     return None
+
+
+def build_vgg16(args):
+    """The Grad-CAM VGG16 (1000 classes) on ``args.device``, frozen, with
+    random weights seeded by ``args.seed`` and a loud warning, as ``tpugan``
+    runs without ``--vgg_weights``: the attention over random features is
+    exercised, not meaningful. Converting torchvision's weights comes with
+    ROADMAP slice 7 (io/convert)."""
+    from tpugan_torch.losses.vgg import VGG16
+
+    if getattr(args, "vgg_weights", None):
+        raise NotImplementedError(
+            "--vgg_weights needs the torchvision VGG16 converter, which comes with ROADMAP slice 7 "
+            "(io/convert)"
+        )
+    warn_random_weights("vgg_weights", "VGG16 (Grad-CAM/GBP) weights are RANDOM")
+    vgg = VGG16(generator=torch.Generator().manual_seed(args.seed))
+    return vgg.requires_grad_(False).to(resolve_device(getattr(args, "device", "cuda")))
 
 
 def make_result_dirs(experiment_dir, default_name: str):

@@ -109,13 +109,21 @@ ABLATION_LATENT_WEIGHTS = {
 SEQUENTIAL_ABLATIONS = (7, 8)
 
 
-def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
-    """The encoder's train state and step functions for ``args``, on
-    ``args.device``, from random weights seeded by ``args.seed``. ``draw(
-    iteration) -> Request`` replaces the iteration's seeded draws (a replay
-    of given inputs). With ``--bf16`` the trainer's bundle holds the bf16
-    copies of the generator and mapping that the step runs."""
-    if args.remat or args.remat_policy is not None:
+class Pipeline(NamedTuple):
+    """A trainer's models and train-mode closures: ``encode(batch, noise)``,
+    ``synth(request)``, ``resynth(w2, batch, noise)`` and ``draw(iteration)
+    -> Request``."""
+
+    bundle: GanBundle
+    encode: Callable
+    synth: Callable
+    resynth: Callable
+    draw: Callable
+
+
+def check_training_flags(args) -> None:
+    """Raise on the flags whose work comes with a later ROADMAP item."""
+    if getattr(args, "remat", False) or getattr(args, "remat_policy", None) is not None:
         raise NotImplementedError("--remat and --remat_policy come with ROADMAP A3 (remat)"
                                   + (", with --bf16 (A2) as without" if args.bf16 else ""))
     if args.resume:
@@ -125,6 +133,13 @@ def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
             f"--iterations {args.iterations} reaches --checkpoint_every {args.checkpoint_every}, "
             "and saving checkpoints comes with ROADMAP slice 7 (io/checkpoint)"
         )
+
+
+def build_pipeline(args, draw=None) -> Pipeline:
+    """The frozen generator (a bf16 copy with ``--bf16``), the encoder and
+    the train-mode closures for ``args``, on ``args.device``, from random
+    weights seeded by ``args.seed``. ``draw(iteration) -> Request`` replaces
+    the iteration's seeded draws (a replay of given inputs)."""
     ab = args.ablation
     if ab == 1 and args.mtype != 1:
         raise ValueError("ablation 1 (z re-mapping) is StyleGANv1-only")
@@ -169,6 +184,18 @@ def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
         def draw(iteration):
             return infer_e.draw_request(bundle, args.batch_size, iteration)
 
+    return Pipeline(bundle, encode, synth, resynth, draw)
+
+
+def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
+    """The encoder's train state and step functions for ``args``, on
+    ``args.device``, from random weights seeded by ``args.seed``. ``draw(
+    iteration) -> Request`` replaces the iteration's seeded draws (a replay
+    of given inputs). With ``--bf16`` the trainer's bundle holds the bf16
+    copies of the generator and mapping that the step runs."""
+    check_training_flags(args)
+    bundle, encode, synth, resynth, draw = build_pipeline(args, draw)
+    ab = args.ablation
     case = 2 if ab else args.case  # every ablation script trains through its image losses
     weights = {}
     if ab:

@@ -28,14 +28,21 @@ As in ``tpugan``, only the final minimum's snapshot files are written, a
 snapshot is taken when the tracker arms at ``iterations // 2``, and in
 optimise-w mode it holds the iteration's initial w1.
 
+``--gradcam`` (embedding_v2_BigGAN.py) replaces the crops with the
+Grad-CAM++ masks and CAM overlays of a VGG16 (``cli/common.py::
+build_vgg16``, random without ``--vgg_weights``, as in ``tpugan``; fp32
+under ``--bf16`` too, as tpugan leaves it): ``imgs + mask + Gcam``, the
+attention terms from the detached reconstruction.
+
 What later slices bring raises :class:`NotImplementedError` naming its
-ROADMAP slice: ``--gradcam`` (slice 6), ``--lpips_weights`` (slice 7,
-which gives ``--fp32_lpips`` its effect).
+ROADMAP slice: ``--lpips_weights`` (slice 7, which gives ``--fp32_lpips``
+its effect) and ``--vgg_weights`` (slice 7).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 from typing import Any, Callable, NamedTuple, Optional
 
@@ -47,6 +54,7 @@ from tpugan_torch.cli.common import (
     add_common_args,
     build_bundle,
     build_lpips_fn,
+    build_vgg16,
     draw_inputs,
     make_result_dirs,
 )
@@ -74,7 +82,7 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--beta", type=float, default=0.0)
     parser.add_argument("--norm_p", type=float, default=2.0)
     parser.add_argument("--gradcam", action="store_true",
-                        help="grad-cam mask/overlay attention terms (not in the port yet)")
+                        help="grad-cam mask/overlay attention terms instead of center crops")
     parser.add_argument("--class_id", type=int, default=30,
                         help="BigGAN's fixed class id for the inversion condition "
                              "(embedding_v2_BigGAN.py:36, 30 = frog)")
@@ -93,16 +101,18 @@ class Inverter(NamedTuple):
     encode: Callable  # imgs -> (const, w), as the loop runs it
     resynth: Callable  # w -> imgs, as the loop runs it (differentiable in w)
     generator: Any  # the generator that resynth runs (the bf16 copy with --bf16)
+    vgg: Any = None  # the Grad-CAM VGG16 with --gradcam
 
 
-def build_inverter(args, lpips_fn=None, bundle: Optional[GanBundle] = None) -> Inverter:
+def build_inverter(args, lpips_fn=None, bundle: Optional[GanBundle] = None, vgg=None) -> Inverter:
     """The embedder of ``args`` on ``args.device`` (random weights from
     ``args.seed``), on :func:`draw_inputs`'s draws, with a callback every
-    100 iterations (``EmbeddingConfig``'s chunk, tpugan's). ``bundle`` is a
-    seam for tests: the embedder over those models, on their device."""
-    if args.gradcam:
-        raise NotImplementedError("--gradcam comes with ROADMAP slice 6 (Grad-CAM)")
+    100 iterations (``EmbeddingConfig``'s chunk, tpugan's). ``bundle`` and
+    ``vgg`` are seams for tests: the embedder over those models, on their
+    device."""
     bundle = bundle or build_bundle(args)
+    if args.gradcam and vgg is None:
+        vgg = build_vgg16(args)
     draws = draw_inputs(bundle, args.batch_size, args.iterations)
     gen, enc = bundle.generator, bundle.encoder
     gen.requires_grad_(False)
@@ -138,10 +148,17 @@ def build_inverter(args, lpips_fn=None, bundle: Optional[GanBundle] = None) -> I
 
     if args.bf16 and args.optimizeE:
         encode = bf16_encode_images(encode, enc)
-    cfg = EmbeddingConfig(iterations=args.iterations, lr=args.lr, optimize_e=args.optimizeE,
-                          beta=args.beta, norm_p=args.norm_p)
-    invert = make_embedder(encode, resynth, enc, cfg, lpips_fn=lpips_fn)
-    return Inverter(bundle, invert, encode, resynth, gen)
+    cfg = embedding_config(args)
+    invert = make_embedder(encode, resynth, enc, cfg, lpips_fn=lpips_fn, vgg=vgg)
+    return Inverter(bundle, invert, encode, resynth, gen, vgg)
+
+
+def embedding_config(args, **overrides) -> EmbeddingConfig:
+    """The CLI's ``EmbeddingConfig``; ``overrides`` replace fields (a
+    test's callback cadence)."""
+    cfg = EmbeddingConfig(iterations=args.iterations, lr=args.lr, optimize_e=args.optimizeE, beta=args.beta,
+                          norm_p=args.norm_p, attention="gradcam" if args.gradcam else "crops")
+    return dataclasses.replace(cfg, **overrides)
 
 
 def run(inverter: Inverter, args) -> list:

@@ -10,7 +10,9 @@ StyleGAN2-1024 instead: z -> SG2Mapping -> truncation (psi 0.7, 8 layers)
 BigGAN-deep-256 with E_BIG: truncated z and a class label -> G -> E_BIG ->
 G. One request is :func:`run`: :func:`draw_request` draws its inputs from
 the seed, :func:`serve` computes ``(imgs1, imgs2)``; ``main`` only adds the
-files.
+files. ``--gradcam`` also writes each request's Grad-CAM++ overlay of imgs1
+(``cam_seed<k>.png``, :func:`cam_overlay`), from a random VGG16 without
+``--vgg_weights`` (which comes with ROADMAP slice 7), as in ``tpugan``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import os
 import numpy as np
 import torch
 
-from tpugan_torch.cli.common import GanBundle, add_common_args, build_bundle, make_result_dirs
+from tpugan_torch.cli.common import GanBundle, add_common_args, build_bundle, build_vgg16, make_result_dirs
+from tpugan_torch.losses.gradcam import grad_cam, mask2cam
 from tpugan_torch.train.e_align import Request, draw_biggan_request, draw_noise
 from tpugan_torch.utils import iteration_generator
 
@@ -62,6 +65,27 @@ def run(bundle: GanBundle, batch_size: int, seed: int):
     return serve(bundle, draw_request(bundle, batch_size, seed))
 
 
+def write_request(bundle: GanBundle, batch_size: int, seed: int, imgs_dir: str, vgg=None):
+    """Serve the request of ``seed`` and write its grid of imgs1 over imgs2
+    (``infer_seed<k>.png``) and, with a ``vgg``, its CAM overlay
+    (``cam_seed<k>.png``); returns ``(imgs1, imgs2)``."""
+    from tpugan_torch.io.image import save_image_grid, to_unit
+
+    imgs1, imgs2 = run(bundle, batch_size, seed)
+    grid = np.concatenate([to_unit(imgs1), to_unit(imgs2)], axis=0)
+    save_image_grid(os.path.join(imgs_dir, f"infer_seed{seed}.png"), np.clip(grid, 0, 1), nrow=batch_size)
+    if vgg is not None:
+        save_image_grid(os.path.join(imgs_dir, f"cam_seed{seed}.png"),
+                        np.clip(cam_overlay(vgg, imgs1).cpu().numpy(), 0, 1), nrow=batch_size)
+    return imgs1, imgs2
+
+
+def cam_overlay(vgg, imgs1: torch.Tensor) -> torch.Tensor:
+    """The Grad-CAM++ overlay of a request's imgs1 (inferE.py's CAM dump;
+    ``tpugan/cli/infer_e.py:63-72``)."""
+    return mask2cam(grad_cam(vgg, imgs1, plus_plus=True), imgs1)[1]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="encoder qualitative eval")
     add_common_args(parser, training=True)
@@ -69,20 +93,11 @@ def main(argv=None):
     parser.add_argument("--count", type=int, default=3)
     parser.add_argument("--gradcam", action="store_true", help="dump CAM heatmaps")
     args = parser.parse_args(argv)
-    if args.gradcam:
-        raise NotImplementedError("--gradcam comes with ROADMAP slice 6 (Grad-CAM)")
-
-    from tpugan_torch.io.image import save_image_grid, to_unit
-
     bundle = build_bundle(args)
+    vgg = build_vgg16(args) if args.gradcam else None
     _, imgs_dir, _ = make_result_dirs(args.experiment_dir, f"mtype{args.mtype}-inferE")
     for seed in range(args.seed_eval, args.seed_eval + args.count):
-        imgs1, imgs2 = run(bundle, args.batch_size, seed)
-        grid = np.concatenate([to_unit(imgs1), to_unit(imgs2)], axis=0)
-        save_image_grid(
-            os.path.join(imgs_dir, f"infer_seed{seed}.png"), np.clip(grid, 0, 1),
-            nrow=args.batch_size,
-        )
+        write_request(bundle, args.batch_size, seed, imgs_dir, vgg)
     print(imgs_dir)
 
 

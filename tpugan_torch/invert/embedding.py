@@ -12,7 +12,10 @@ the embedding_v2_* variants).
   ``0.01 * (w + c1)`` (:117-128);
 * the v2 options: a w-norm regulariser ``beta * ||w||_p`` and the crop
   weights (embedding_v2_styleGAN1.py:109,123), and the best-loss snapshot
-  (:127-135).
+  (:127-135);
+* ``attention="gradcam"`` (embedding_v2_BigGAN.py:134-151): Grad-CAM++
+  masks and CAM overlays of a VGG16 in place of the crops, ``imgs + mask +
+  Gcam`` with the attention terms detached.
 
 tpugan runs ``chunk`` iterations inside one jitted scan; here the loop is
 on the host and ``chunk`` is the callback's cadence. Nothing reads a value
@@ -28,6 +31,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from tpugan_torch.losses.gradcam import grad_cam, mask2cam
 from tpugan_torch.losses.space_loss import pool_for_lpips, space_loss
 from tpugan_torch.nn.spectral import SNDense, power_iterate
 from tpugan_torch.optim.lreq_adam import LREQAdam, lreq_adam
@@ -47,7 +51,9 @@ class EmbeddingConfig:
     crop_weight_medium: float = 0.125
     crop_weight_small: float = 0.125
     detach_crops: bool = True
-    attention: str = "crops"  # crops | gradcam (ROADMAP slice 6)
+    # embedding_v2_BigGAN.py: Grad-CAM mask/overlay terms in place of the
+    # crops (loss_msiv = imgs + mask + Gcam, both detached, :134-151)
+    attention: str = "crops"  # crops | gradcam
 
 
 class InversionResult(NamedTuple):
@@ -77,6 +83,7 @@ def make_embedder(
     encoder: torch.nn.Module,
     cfg: EmbeddingConfig,
     lpips_fn=None,
+    vgg=None,
     mesh=None,
     spatial: bool = False,
 ):
@@ -93,13 +100,14 @@ def make_embedder(
     encoder's state on entry, parameters and ``u``/``v``, and puts it back
     on return, so every batch starts from the base E.
 
-    Grad-CAM attention comes with ROADMAP slice 6, ``mesh`` and ``spatial``
-    with slice 7 (parallelism).
+    ``attention="gradcam"`` takes ``vgg``, the VGG16 of the masks. ``mesh``
+    and ``spatial`` come with ROADMAP slice 7 (parallelism).
     """
-    if cfg.attention == "gradcam":
-        raise NotImplementedError("attention='gradcam' comes with ROADMAP slice 6 (Grad-CAM)")
-    if cfg.attention != "crops":
+    if cfg.attention not in ("crops", "gradcam"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
+    gradcam = cfg.attention == "gradcam"
+    if gradcam and vgg is None:
+        raise ValueError("attention='gradcam' needs a vgg")
     if mesh is not None or spatial:
         raise NotImplementedError("mesh and spatial inversion come with ROADMAP slice 7 (parallelism)")
     has_sn = any(isinstance(m, SNDense) for m in encoder.modules())
@@ -116,13 +124,24 @@ def make_embedder(
         # embedding_img.py:86-88); the base E when w is optimised
         const3, w2 = encode(imgs2)
         l_imgs, _ = space_loss(imgs1, imgs2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("full"))
-        at1_1, at2_1 = attention_crops(imgs1)
-        at1_2, at2_2 = attention_crops(imgs2)
-        if cfg.detach_crops:
-            at1_1, at2_1, at1_2, at2_2 = (x.detach() for x in (at1_1, at2_1, at1_2, at2_2))
-        l_med, _ = space_loss(at1_1, at1_2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("at1"))
-        l_small, _ = space_loss(at2_1, at2_2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("at2"))
-        loss_msiv = l_imgs + cfg.crop_weight_medium * l_med + cfg.crop_weight_small * l_small
+        if gradcam:
+            # m2 and cam2 from the detached imgs2; m1 and cam1 are the cache's
+            i2 = imgs2.detach()
+            m2 = grad_cam(vgg, i2, plus_plus=True)
+            _, cam2 = mask2cam(m2, i2)
+            l_med, _ = space_loss(cache["m1"].expand(-1, -1, -1, 3), m2.expand(-1, -1, -1, 3),
+                                  lpips_fn=lpips_fn, lpips_a_feats=cache.get("m1_feats"))
+            l_small, _ = space_loss(cache["cam1"], cam2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("cam1_feats"))
+            # the reference's weights: imgs + mask + Gcam (embedding_v2_BigGAN.py:148)
+            loss_msiv = l_imgs + l_med + l_small
+        else:
+            at1_1, at2_1 = attention_crops(imgs1)
+            at1_2, at2_2 = attention_crops(imgs2)
+            if cfg.detach_crops:
+                at1_1, at2_1, at1_2, at2_2 = (x.detach() for x in (at1_1, at2_1, at1_2, at2_2))
+            l_med, _ = space_loss(at1_1, at1_2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("at1"))
+            l_small, _ = space_loss(at2_1, at2_2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("at2"))
+            loss_msiv = l_imgs + cfg.crop_weight_medium * l_med + cfg.crop_weight_small * l_small
         l_w, _ = space_loss(w1, w2, image_space=False)
         l_c1, _ = space_loss(const2, const3, image_space=False)
         loss_mslv = 0.01 * (l_w + l_c1)
@@ -133,13 +152,21 @@ def make_embedder(
 
     @torch.no_grad()
     def precompute_cache(imgs1):
-        """The target side's LPIPS features (of imgs1 and its crops), which
-        every iteration would otherwise recompute: bitwise the same values."""
-        if not can_cache_feats:
-            return {}
-        at1, at2 = attention_crops(imgs1)
-        return {key: lpips_fn.features(pool_for_lpips(x))
-                for key, x in (("full", imgs1), ("at1", at1), ("at2", at2))}
+        """The target side's work, which every iteration would otherwise
+        redo (bitwise the same values): with Grad-CAM its mask m1 and overlay
+        cam1 (a VGG16 forward and backward), and the LPIPS features of imgs1
+        and of its crops, or of m1 and cam1."""
+        cache = {}
+        if gradcam:
+            m1 = grad_cam(vgg, imgs1, plus_plus=True)
+            cache["m1"], cache["cam1"] = m1, mask2cam(m1, imgs1)[1]
+            sides = (("full", imgs1), ("m1_feats", m1.expand(-1, -1, -1, 3)), ("cam1_feats", cache["cam1"]))
+        else:
+            at1, at2 = attention_crops(imgs1)
+            sides = (("full", imgs1), ("at1", at1), ("at2", at2))
+        if can_cache_feats:
+            cache.update({key: lpips_fn.features(pool_for_lpips(x)) for key, x in sides})
+        return cache
 
     def one_iteration(target, opt, imgs1, const2_fixed, cache, best, it):
         if has_sn:

@@ -12,7 +12,9 @@ buffers. Generators, encoders, VGG16's features and LPIPS (plain 3x3 and
   ``[out, in, kh, kw]``;
 * transposed-conv kernels, HWIO -> ``[in, out, kh, kw]``;
 * dense kernels (Eq, plain or spectral-normalised) ``[in, out]`` ->
-  ``[out, in]``;
+  ``[out, in]``; VGG16's ``head.fc_0`` (``FlattenedLinear``) also has its
+  input rows reordered from ``tpugan``'s NHWC flatten, (h, w, c), to the
+  port's NCHW one, (c, h, w), torchvision's;
 * the generator's ``const`` ``[1, 4, 4, C]`` -> NCHW ``[1, C, 4, 4]``;
 * StyleGAN2's ``weight`` leaves, stored unscaled as ``tpugan`` stores them:
   ``ModulatedConv``/``SG2ConvBlock`` HWIO -> OIHW, ``SG2Dense`` ``[in, out]``
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tpugan_torch.losses.vgg import FlattenedLinear
 from tpugan_torch.models.stylegan2 import ModulatedConv, SG2ConvBlock, SG2Dense
 from tpugan_torch.nn.layers import EqConv, EqLinear
 from tpugan_torch.nn.spectral import SNDense
@@ -41,6 +44,9 @@ _COLLECTIONS = (("params", "parameters"), ("buffers", "buffers"), ("sn", "buffer
 
 def _convert(owner: nn.Module, name: str, value: np.ndarray) -> np.ndarray:
     if name == "kernel":
+        if isinstance(owner, FlattenedLinear):
+            c, h, w = owner.in_shape
+            return value.reshape(h, w, c, -1).transpose(3, 2, 0, 1).reshape(-1, c * h * w)
         if isinstance(owner, _DENSE):
             return value.T
         if isinstance(owner, EqConv):
