@@ -136,13 +136,28 @@ Phases:
      and launches, its mask replayed on the CPU; ``embedding --gradcam`` on
      BigGAN-deep-256 as phase 12's BigGAN form, its B3 and B4 launches per
      iteration and on the iteration's own inputs. Its budget is about 90 s.
-The line before the last is the kernel table as JSON; the last line is
+ 14. slice 7a, tpugan's commands at their defaults: ``--resume`` through
+     the training CLIs' own ``main`` (4 unbroken iterations against 3, a
+     save and ``--resume`` to 4, bitwise with cuDNN deterministic) for
+     ``e_align --mtype 2 --case 2`` at StyleGAN2-1024, ``e_align --mtype 4
+     --case 2`` at BigGAN-deep-256 (B3/B4) and ``e_mis_align`` at batch 5,
+     the resumed step's launches against the counts derived from the
+     modules; the SG2-1024 case-2 step plain, with ``--remat`` and with
+     ``--remat_policy conv_outs``, fp32 and bf16: the FIR launches forward
+     and adjoint with the recompute, the update bitwise the plain step's,
+     step time, device time and peak memory; converted weights
+     (reference-named state dicts at full width from the seed, written with
+     ``torch.save``): ``infer_e --mtype 2`` and ``--mtype 4`` requests held
+     to CPU loads of the same files, one ``e_align --lpips_weights`` step
+     and one ``e_mis_align --vgg_weights --lpips_weights`` step with their
+     launches and the converted LPIPS and VGG16 held to their CPU loads. is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import statistics
@@ -235,6 +250,16 @@ FLUSHED_BLURS = ((128, 128), (64, 256))
 FLUSH_BYTES = 256 * 2**20
 KERNEL_TOL = 1e-5  # abs and rel, the Pallas kernels' own contract
 CPU_GPU_ATOL = 1e-3  # whole request, fp32 on both sides: cuDNN vs CPU conv summation order
+# Every replay that takes a gradient on the card runs under
+# cudnn_deterministic: cuDNN's default weight-gradient algorithms (its
+# wgrad_alg0_engine adds with atomics) sum in another order each run, and an
+# ill-conditioned gradient or an optimiser's sign-like first update turns
+# that into a distance that is now and then several times its usual size.
+# tpugan_torch/tools/replay_spread.py on an H100: phase 8's SGv1 step
+# gradient, median 8.696e-2 from float64 and 1 run in 20 at 3.995e-1, over
+# its limit of 2.030e-1; phase 12's baseline_i2s, median 4.598e-7 and 1 run
+# in 100 at 2.243e-5, over 2.593e-6. Deterministic, every run gave one
+# result (5.703e-2 and 4.714e-7).
 # tests/test_attention.py's cases: (q, k, v shapes, input scale, rtol, atol, check lse);
 # then lengths that are not multiples of the kernel's 128-row blocks and 32-key tiles,
 # widths that are not multiples of 4 (4-byte copies), BigGAN-128's head widths (dk 32,
@@ -322,6 +347,19 @@ def check(cond, msg):
 
 def say(*parts):
     print(*parts, flush=True)
+
+
+@contextlib.contextmanager
+def cudnn_deterministic(torch):
+    """cuDNN's deterministic algorithms inside, its setting before restored
+    after: its default weight-gradient algorithms may sum in another order
+    from run to run."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
 
 
 def expected_launches(**counts):
@@ -982,13 +1020,14 @@ def step_times(torch, step, state, label, first, steps=None):
 
 
 def step_device_time(torch, step, state, median, first,
-                     symbols=("sagan_attention_kernel",) + B4_SYMBOLS, keep_kernels=False, iters=3):
+                     symbols=("sagan_attention_kernel",) + B4_SYMBOLS, keep_kernels=False, iters=3, host=True):
     """A step's device time by kernel (torch.profiler over ``iters``
-    steps), the share of the kernels whose symbols contain ``symbols``
-    (B3/B4 unless given), and the step's peak device memory; with
-    ``keep_kernels`` also every kernel's time and count per step by name."""
+    steps; the device alone with ``host`` false), the share of the kernels
+    whose symbols contain ``symbols`` (B3/B4 unless given), and the step's
+    peak device memory; with ``keep_kernels`` also every kernel's time and
+    count per step by name."""
     it = iter(range(first, first + 100))
-    kernels = device_kernels(torch, lambda: step(state, next(it)), iters=iters)
+    kernels = device_kernels(torch, lambda: step(state, next(it)), iters=iters, host=host)
     busy = sum(ms for ms, _ in kernels.values())
     say(f"device time per step {busy:.3f} ms over {sum(n for _, n in kernels.values()):.0f} kernels "
         f"and copies = {busy / median * 100:.1f}% of the median step time; by name:")
@@ -1240,7 +1279,8 @@ def training_path(torch, dev, smi):
     del trainer, state
     torch.cuda.empty_cache()
 
-    replay_case2_on_cpu(torch, dev, e_align)
+    with cudnn_deterministic(torch):  # the comment at CPU_GPU_ATOL
+        replay_case2_on_cpu(torch, dev, e_align)
     return {"launches": b4_launches, "max_abs_err": bwd_err, "times": times}
 
 
@@ -1927,54 +1967,63 @@ class AdjointCount:
         self.upfirdn._UpFirDn2d.backward = staticmethod(self.real)
 
 
-def replay_sgv1_case2_on_cpu(torch, dev, e_align):
-    """One SGv1 case-2 step of Cat256 at SGV1_REPLAY_START_FEATURES on the
-    card, on the CPU and on the CPU in float64, from the same explicit
-    inputs (drawn on the CPU): loss_tsa and both gradients of the step, held
-    to the float64 run."""
+def sgv1_replay_request(torch, e_align):
+    """The SGv1 replay's arguments and its explicit inputs, drawn on the CPU."""
     from tpugan_torch.cli import infer_e
-    from tpugan_torch.losses.lpips import make_lpips_fn, random_params
-    from tpugan_torch.ops import cuda
-    from tpugan_torch.train.e_align import info_scalars
 
     argv = ["--mtype", "1", "--img_size", str(IMG_SIZE), "--start_features", str(SGV1_REPLAY_START_FEATURES),
             "--random_init", "--case", "2", "--iterations", "1", "--batch_size", str(BATCH),
             "--seed", str(SEED)]
-    parser = e_align.make_parser()
-    probe = e_align.build_trainer(parser.parse_args(argv + ["--device", "cpu"]))
-    request = infer_e.draw_request(probe.bundle, BATCH, 0)
-    del probe
-    runs = []
+    probe = e_align.build_trainer(e_align.make_parser().parse_args(argv + ["--device", "cpu"]))
+    return argv, infer_e.draw_request(probe.bundle, BATCH, 0)
+
+
+def sgv1_replay_step(torch, e_align, argv, request, device, place, dtype):
+    """One SGv1 case-2 step of the replay on ``device`` in ``dtype``:
+    loss_tsa, both gradients (float64, on the CPU), the seconds it took and
+    the encoder's parameter names."""
+    from tpugan_torch.losses.lpips import make_lpips_fn, random_params
+    from tpugan_torch.ops import cuda
+    from tpugan_torch.train.e_align import info_scalars
+
+    lpips = make_lpips_fn(random_params(torch.Generator().manual_seed(7)).to(place, dtype))
+    req = request.to(place)
+    req = req._replace(z=req.z.to(dtype), noise_g=[tuple(n.to(dtype) for n in b) for b in req.noise_g],
+                       noise_e=[tuple(n.to(dtype) for n in b) for b in req.noise_e],
+                       noise_g2=[tuple(n.to(dtype) for n in b) for b in req.noise_g2])
+    trainer = e_align.build_trainer(e_align.make_parser().parse_args(argv + ["--device", device]), lpips,
+                                    draw=lambda it, r=req: r)
+    for module in (trainer.bundle.generator, trainer.bundle.mapping, trainer.bundle.encoder):
+        module.to(dtype)
+    names = [n for n, _ in trainer.state.encoder.named_parameters()]
+    grads = []
+    opt_step = trainer.state.optimizer.step
+    trainer.state.optimizer.step = lambda g=None: (grads.append(g), opt_step(g))
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    _, info = trainer.step(trainer.state, 0)
+    if device == CARD:
+        torch.cuda.synchronize()
+        check(cuda.launches["upfirdn2d"] > 0, f"replay launches {cuda.launches}")
+    else:
+        check(not any(cuda.launches.values()), "the CPU replay launched a kernel")
+    seconds = time.perf_counter() - t0
+    check(len(grads) == 2, f"a case-2 step took {len(grads)} updates")
+    return (info_scalars(info)["loss_tsa"], [[g_.detach().double().cpu() for g_ in g] for g in grads], seconds,
+            names)
+
+
+def replay_sgv1_case2_on_cpu(torch, dev, e_align):
+    """One SGv1 case-2 step of Cat256 at SGV1_REPLAY_START_FEATURES on the
+    card, on the CPU and on the CPU in float64, from the same explicit
+    inputs (drawn on the CPU): loss_tsa and both gradients of the step, held
+    to the float64 run. Run it under :func:`cudnn_deterministic`."""
+    argv, request = sgv1_replay_request(torch, e_align)
     cpu = torch.device("cpu")
-    for device, place, dtype in ((CARD, dev, torch.float32), ("cpu", cpu, torch.float32),
-                                 ("cpu", cpu, torch.float64)):
-        lpips = make_lpips_fn(random_params(torch.Generator().manual_seed(7)).to(place, dtype))
-        req = request.to(place)
-        req = req._replace(z=req.z.to(dtype), noise_g=[tuple(n.to(dtype) for n in b) for b in req.noise_g],
-                           noise_e=[tuple(n.to(dtype) for n in b) for b in req.noise_e],
-                           noise_g2=[tuple(n.to(dtype) for n in b) for b in req.noise_g2])
-        trainer = e_align.build_trainer(parser.parse_args(argv + ["--device", device]), lpips,
-                                        draw=lambda it, r=req: r)
-        for module in (trainer.bundle.generator, trainer.bundle.mapping, trainer.bundle.encoder):
-            module.to(dtype)
-        names = [n for n, _ in trainer.state.encoder.named_parameters()]
-        grads = []
-        opt_step = trainer.state.optimizer.step
-        trainer.state.optimizer.step = lambda g=None: (grads.append(g), opt_step(g))
-        cuda.reset_launches()
-        t0 = time.perf_counter()
-        _, info = trainer.step(trainer.state, 0)
-        if device == CARD:
-            torch.cuda.synchronize()
-            check(cuda.launches["upfirdn2d"] > 0, f"replay launches {cuda.launches}")
-        else:
-            check(not any(cuda.launches.values()), "the CPU replay launched a kernel")
-        seconds = time.perf_counter() - t0
-        check(len(grads) == 2, f"a case-2 step took {len(grads)} updates")
-        runs.append((info_scalars(info)["loss_tsa"],
-                     [[g_.detach().double().cpu() for g_ in g] for g in grads], seconds))
-        del trainer
-    (loss_g, grads_g, sec_g), (loss_c, grads_c, sec_c), (loss_r, grads_r, sec_r) = runs
+    runs = [sgv1_replay_step(torch, e_align, argv, request, device, place, dtype)
+            for device, place, dtype in ((CARD, dev, torch.float32), ("cpu", cpu, torch.float32),
+                                         ("cpu", cpu, torch.float64))]
+    (loss_g, grads_g, sec_g, names), (loss_c, grads_c, sec_c, _), (loss_r, grads_r, sec_r, _) = runs
     say(f"replay of an SGv1 case-2 step: Cat256 at start_features {SGV1_REPLAY_START_FEATURES}, batch {BATCH}, "
         f"random LPIPS; {sec_g:.2f} s on the card (first call), {sec_c:.2f} s on the CPU, {sec_r:.2f} s "
         "on the CPU in float64")
@@ -2080,7 +2129,8 @@ def sgv1_training_path(torch, dev, smi):
             times[label] = {"median_ms": median, **(dev_time or {})}
     del trainer
     torch.cuda.empty_cache()
-    replay = replay_sgv1_case2_on_cpu(torch, dev, e_align)
+    with cudnn_deterministic(torch):  # the comment at CPU_GPU_ATOL
+        replay = replay_sgv1_case2_on_cpu(torch, dev, e_align)
     return {"launches": launches, "per_step": per_step, "times": times, "replay": replay}
 
 
@@ -2421,7 +2471,8 @@ def sg2_training_path(torch, dev, smi, bandwidth, fp32_peak):
     torch.cuda.empty_cache()
     check(firs is not None, "no SG2 case-2 step was timed")
     rows, sums, max_err = firs
-    replay = replay_sg2_case2_on_cpu(torch, dev, e_align)
+    with cudnn_deterministic(torch):  # the comment at CPU_GPU_ATOL
+        replay = replay_sg2_case2_on_cpu(torch, dev, e_align)
     return {"launches": launches, "per_step": per_step, "times": times, "fir_rows": rows, "fir_sums": sums,
             "max_abs_err": max_err, "replay": replay}
 
@@ -2737,8 +2788,9 @@ def bf16_gates(torch, dev, e_align):
         return [abs(y - x) / abs(x) for x, y in zip(a, b)]
 
     cpu = torch.device("cpu")
-    small = {f"{where} {kind}": gate_config_losses(torch, place, kind == "bf16")
-             for where, place in (("card", dev), ("cpu", cpu)) for kind in ("fp32", "bf16")}
+    with cudnn_deterministic(torch):  # the comment at CPU_GPU_ATOL
+        small = {f"{where} {kind}": gate_config_losses(torch, place, kind == "bf16")
+                 for where, place in (("card", dev), ("cpu", cpu)) for kind in ("fp32", "bf16")}
     small_rel = {name: rel(small["cpu fp32"], v) for name, v in small.items() if name != "cpu fp32"}
     say(f"bf16 at tpugan's gate configuration (StyleGAN2 {BF16_GATE_SG2}, E_Blur {BF16_GATE_ENCODER}), "
         f"{BF16_GATE_STEPS} case-2 steps on the card and on the CPU: loss_tsa on the CPU in fp32 "
@@ -3452,7 +3504,8 @@ def biggan_bf16_training_path(torch, dev, smi, fp32_times):
                                        fp32_times.get(label), "phase 6")
     del trainer, state
     torch.cuda.empty_cache()
-    replay = replay_bf16_case2_on_cpu(torch, dev, e_align)
+    with cudnn_deterministic(torch):  # the comment at CPU_GPU_ATOL
+        replay = replay_bf16_case2_on_cpu(torch, dev, e_align)
     return {"launches": launches, "max_abs_err": max_err, "times": times, "replay": replay}
 
 
@@ -3504,10 +3557,12 @@ INV_PROFILED = (1, 2)  # iterations of two profiled inversions (warm); their dif
 # configuration, held as the fp32 inversion. rec_real_img and edit: the
 # CLIs at INV_REPLAY_CLI (StyleGAN2 config F at 32 px) on the card and on
 # the CPU, from the same seed and PNG: w within CPU_GPU_ATOL x max(1, max
-# |ref|), the PNGs within one level of 255.
-# of max |ref|, about 17 fp32 epsilons: where the CPU's own distance is a
-# few ulps (optimising w, 1.3e-6 of values about 3.2), twice it is rounding
-# noise, which the card's reaches (1.78x on an H100)
+# |ref|), the PNGs within one level of 255. The card's runs of the inversion
+# and of baseline_i2s use cuDNN's deterministic algorithms (the comment at
+# CPU_GPU_ATOL), and two card runs of baseline_i2s must be bitwise equal.
+# REPLAY_FLOOR, of max |ref|, is about 17 fp32 epsilons: where the CPU's own
+# distance is a few ulps (optimising w, 1.3e-6 of values about 3.2), twice it
+# is rounding noise, which the card's reaches (1.78x on an H100)
 REPLAY_FLOOR = 2e-6
 INV_REPLAY_ENCODER = dict(BF16_GATE_ENCODER, use_blur=False)
 INV_REPLAY_ITERATIONS = 2
@@ -3880,7 +3935,8 @@ def replay_distance(torch, label, runs, keys, loss_keys):
 def replay_inversion_on_cpu(torch, dev):
     """The replay of phase 12 (the comment at INV_REPLAY_ENCODER): the
     inversion in each mode, bf16 fine-tuning E, and baseline_i2s's Adam, on
-    the card and on the CPU, held to float64 and by the 2x rule."""
+    the card and on the CPU, held to float64 and by the 2x rule. Run it
+    under :func:`cudnn_deterministic`."""
     from tpugan_torch.cli import baseline_i2s
     from tpugan_torch.ops import cuda
     from tpugan_torch.runtime import parity_mode
@@ -3932,14 +3988,17 @@ def replay_inversion_on_cpu(torch, dev):
                 ratios[key] = mine / theirs
             summary["bf16 ratio"] = ratios
     runs = {}
-    for name, place, dtype in (("card", dev, f32), ("cpu", "cpu", f32), ("f64", "cpu", f64)):
+    for name, place, dtype in (("card", dev, f32), ("card again", dev, f32), ("cpu", "cpu", f32),
+                               ("f64", "cpu", f64)):
         bundle = gate_inverter(torch, place, dtype, False).bundle
         resynth = baseline_i2s.train_resynth(bundle)
         w = torch.zeros((1, bundle.num_style_layers, 512), device=place, dtype=dtype, requires_grad=True)
         losses = baseline_i2s.optimise(resynth, target.to(place, dtype), w, baseline_i2s.adam(w, 0.01),
                                        INV_REPLAY_STEPS)
         runs[name] = {"w": w.detach().double().cpu(), "losses": losses.double().cpu()}
-    say(f"replay of baseline_i2s's Adam: {INV_REPLAY_STEPS} steps from w = 0 at the same configuration")
+    check(torch.equal(runs["card"]["w"], runs["card again"]["w"]), "replay baseline_i2s: two card runs differ")
+    say(f"replay of baseline_i2s's Adam: {INV_REPLAY_STEPS} steps from w = 0 at the same configuration; two card "
+        "runs bitwise equal")
     summary["baseline_i2s"] = replay_distance(torch, "replay baseline_i2s", runs, ("w",), ("losses",))
     return summary
 
@@ -4027,7 +4086,8 @@ def inversion_path(torch, dev, smi):
             torch.cuda.empty_cache()
             say(f"inversion {label} took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        replay = replay_inversion_on_cpu(torch, dev)
+        with cudnn_deterministic(torch):  # the comment at CPU_GPU_ATOL
+            replay = replay_inversion_on_cpu(torch, dev)
         say(f"the inversion replays took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         decode = forms["SG2 fine-tune E"]["per_iteration"]["forward"]
@@ -4304,7 +4364,8 @@ def mis_align_training(torch, dev, smi, workdir):
     times["bf16"] = mis_align_times(torch, trainer, "--bf16")
     del trainer, gen16, vgg16, frozen, frozen0
     torch.cuda.empty_cache()
-    replay = replay_mis_align_on_cpu(torch, dev, vgg)
+    with cudnn_deterministic(torch):  # the comment at CPU_GPU_ATOL
+        replay = replay_mis_align_on_cpu(torch, dev, vgg)
     return {"launches": launches, "launches_bf16": launches16, "per_step": per_step, "times": times,
             "max_abs_err": err32, "max_abs_err_bf16": err16, "replay": replay, "vgg": vgg}
 
@@ -4485,6 +4546,432 @@ def gradcam_path(torch, dev, smi):
     return {"training": train, "request": request, "inversion": inversion}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: slice 7a, tpugan's commands at their defaults: --resume, remat
+# (A3) and converted weights
+
+RESUME_EVERY = 2  # --checkpoint_every and --log_every: 4 unbroken iterations against 3 and a resume
+RESUME_SG2 = ("--mtype", "2", "--img_size", str(SG2_SIZE), "--start_features", str(SG2_START_FEATURES),
+              "--case", "2")
+RESUME_BIGGAN = ("--mtype", "4", "--img_size", str(BIGGAN_SIZE), "--start_features", "64", "--z_dim",
+                 str(BIGGAN_Z_DIM), "--case", "2")
+REMAT_FORMS = (("plain", ()), ("--remat", ("--remat",)), ("--remat_policy conv_outs", ("--remat_policy", "conv_outs")))
+REMAT_TIMED = 4  # host-clock steps of each remat form, after two warm-up steps
+
+
+def train_state_distance(torch, a, b):
+    """Whether two train states are bitwise equal (the encoder's parameters
+    and buffers, the spectral norms' u/v among them, the optimizer's second
+    moments and step counts, the step), and the largest |difference|."""
+    pairs = list(zip(a.encoder.state_dict().values(), b.encoder.state_dict().values()))
+    sa, sb = a.optimizer.state_dict()["state"], b.optimizer.state_dict()["state"]
+    pairs += [(sa[k]["nu"], sb[k]["nu"]) for k in sa]
+    steps = a.step == b.step and all(sa[k]["step"] == sb[k]["step"] for k in sa)
+    equal = steps and all(torch.equal(x, y) for x, y in pairs)
+    return equal, max((x.float() - y.float()).abs().max().item() for x, y in pairs)
+
+
+def card_vgg16(torch, dev):
+    """A 1000-class VGG16 made on the card (He-normal kernels, zero biases):
+    the resume runs need one and hold no VGG16 output to a reference."""
+    from tpugan_torch.losses.vgg import VGG16
+
+    with torch.device("meta"):
+        vgg = VGG16()
+    vgg = vgg.to_empty(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        for name, p in vgg.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            else:
+                p.normal_(0.0, math.sqrt(2.0 / p[0].numel()), generator=gen)
+    return vgg.requires_grad_(False)
+
+
+def resume_run(torch, label, cli, argv, workdir, step_want, adjust=None):
+    """``cli.main`` for 4 unbroken iterations against 3 (a save at iteration
+    2) and a ``--resume`` to 4, at full width, with cuDNN deterministic: the
+    final train states, and the Loss.txt records, bitwise equal; else the
+    resumed run held by the distance between two unbroken runs, printed.
+    The resumed run's launches (one off-tick step, iteration 3) are counted
+    from 0 against ``step_want(trainer) -> (launches, FIRs forward,
+    adjoint)``. ``adjust(trainer)`` runs on each built trainer, before the
+    counts are set to 0. The runs' own records go to a buffer, not the log."""
+    import contextlib
+    import io
+    import os
+
+    from tpugan_torch.io.checkpoint import latest_step
+    from tpugan_torch.ops import cuda, upfirdn
+
+    build, built = cli.build_trainer, []
+
+    def building(*args, **kwargs):
+        trainer = build(*args, **kwargs)
+        if adjust is not None:
+            adjust(trainer)
+        cuda.reset_launches()
+        upfirdn.reset_layout_launches()
+        built.append(trainer)
+        return trainer
+
+    common = [*argv, "--random_init", "--batch_size", str(BATCH), "--seed", str(SEED), "--device", CARD,
+              "--checkpoint_every", str(RESUME_EVERY), "--log_every", str(RESUME_EVERY)]
+
+    printed = io.StringIO()
+
+    def run(name, iterations, *extra):
+        with contextlib.redirect_stdout(printed):
+            return cli.main(common + ["--iterations", str(iterations), "--experiment_dir",
+                                      os.path.join(workdir, name), *extra])
+
+    t0 = time.perf_counter()
+    cli.build_trainer = building
+    try:
+        whole = run("whole", 2 * RESUME_EVERY)
+        run("parts", RESUME_EVERY + 1)
+        models = os.path.join(workdir, "parts", "models")
+        check(latest_step(models) == RESUME_EVERY, f"{label}: the run saved {os.listdir(models)}")
+        cuda.reset_launches()
+        upfirdn.reset_layout_launches()
+        with AdjointCount() as adjoint:
+            resumed = run("parts", 2 * RESUME_EVERY, "--resume")
+            torch.cuda.synchronize()
+        counted, total, adj = dict(cuda.launches), dict(upfirdn.layout_launches), dict(adjoint.counts)
+        fwd = {k: total[k] - adj[k] for k in total}
+        resumed_from = [line for line in printed.getvalue().splitlines() if line.startswith("resumed from")]
+        check(len(resumed_from) == 1, f"{label}: the CLI printed {resumed_from} on --resume")
+        say(f"{label}: {resumed_from[0]}")
+        launches_want, fwd_want, adj_want = step_want(built[-1])
+        check(counted == launches_want and fwd == fwd_want and adj == adj_want,
+              f"{label}: the resumed step's launches {counted}, FIRs forward {fwd}, adjoint {adj}; expected "
+              f"{launches_want}, forward {fwd_want}, adjoint {adj_want}")
+        check(all(bool(torch.isfinite(p).all()) for p in resumed.encoder.parameters()),
+              f"{label}: the resumed encoder is not finite")
+        equal, dist = train_state_distance(torch, whole, resumed)
+        records = [open(os.path.join(workdir, name, "Loss.txt")).read() for name in ("whole", "parts")]
+        if equal:
+            check(records[0] == records[1], f"{label}: the Loss.txt records differ")
+            say(f"{label}: 4 unbroken iterations and 3 + --resume to 4 are bitwise equal (encoder parameters, "
+                f"spectral-norm u/v, optimizer state, step {resumed.step}; Loss.txt too); the resumed step's "
+                f"launches {counted} as expected")
+        else:
+            again = run("again", 2 * RESUME_EVERY)
+            _, dist0 = train_state_distance(torch, whole, again)
+            say(f"{label}: the resumed run is {dist:.3e} from the unbroken one, and two unbroken runs are "
+                f"{dist0:.3e} apart (cuDNN)")
+            check(dist <= dist0, f"{label}: the resumed run is farther from the unbroken one than two unbroken "
+                  "runs are from each other")
+    finally:
+        cli.build_trainer = build
+    seconds = time.perf_counter() - t0
+    say(f"{label}: the three runs took {seconds:.1f} s")
+    return {"bitwise": equal, "max_abs_diff": dist, "launches": counted, "seconds": seconds}
+
+
+def resume_path(torch, dev, workdir):
+    """``e_align --mtype 2 --case 2`` (StyleGAN2-1024, E_Blur), ``e_align
+    --mtype 4 --case 2`` (BigGAN-deep-256 + E_BIG, B3/B4; every gamma 1 and
+    the z head scaled, as phase 6) and ``e_mis_align`` (SGv1 Cat256 at batch
+    5; iteration 3 is a lean step) saved and resumed through their ``main``."""
+    import os
+
+    from tpugan_torch.cli import e_align, e_mis_align, infer_e
+
+    def sg2_want(trainer):
+        fwd, adj = sg2_step_firs(trainer, 1, True)
+        return expected_launches(upfirdn2d=sum(fwd.values()) + sum(adj.values())), fwd, adj
+
+    def biggan_want(trainer):
+        zero = sgv1_step_firs_zero()
+        return expected_launches(sagan_attention=2, **{name: 1 for name in B4_KERNELS}), zero, zero
+
+    def biggan_adjust(trainer):
+        zt_std, z2_std = latent_stds(torch, infer_e, trainer.bundle, REQUEST_SEEDS[0])
+        scale_z_head(torch, trainer.state.encoder, zt_std / z2_std)
+        check(set_attention_gamma(torch, trainer.bundle.generator, ATTN_GAMMA) == 1, "expected one SelfAttn")
+
+    def mis_want(trainer):
+        fwd, _ = sgv1_step_firs(trainer, 0, False)
+        return expected_launches(upfirdn2d=sum(fwd.values())), fwd, sgv1_step_firs_zero()
+
+    build_vgg16 = e_mis_align.build_vgg16
+    vgg = card_vgg16(torch, dev)
+    e_mis_align.build_vgg16 = lambda args: vgg
+    try:
+        with cudnn_deterministic(torch):
+            out = {
+                f"e_align SG2-{SG2_SIZE} case 2": resume_run(
+                    torch, f"resume, e_align SG2-{SG2_SIZE} case 2", e_align, RESUME_SG2,
+                    os.path.join(workdir, "sg2"), sg2_want),
+                f"e_align BigGAN-deep-{BIGGAN_SIZE} case 2": resume_run(
+                    torch, f"resume, e_align BigGAN-deep-{BIGGAN_SIZE} + E_BIG case 2", e_align, RESUME_BIGGAN,
+                    os.path.join(workdir, "biggan"), biggan_want, biggan_adjust),
+                f"e_mis_align (batch {MIS_BATCH})": resume_run(
+                    torch, f"resume, e_mis_align batch {MIS_BATCH}", e_mis_align, MIS_ARGV[:6],
+                    os.path.join(workdir, "mis"), mis_want),
+            }
+    finally:
+        e_mis_align.build_vgg16 = build_vgg16
+    del vgg
+    torch.cuda.empty_cache()
+    return out
+
+
+def sgv1_step_firs_zero():
+    from tpugan_torch.ops import upfirdn
+
+    return {key: 0 for key in upfirdn.layout_launches}
+
+
+def remat_path(torch, dev, smi, bf16):
+    """The SG2-1024 case-2 step (``e_align --mtype 2 --case 2``, random LPIPS
+    as phase 9) plain, with ``--remat`` and with ``--remat_policy
+    conv_outs``, each one step from the same state: the FIR launches
+    forward and adjoint by TPU kernel against the counts derived from the
+    modules (each gradient group runs its own forward and each backward
+    through a region recomputes its forward: the synthesis's decode, two
+    of encode and resynth for the image group and two of encode for the
+    latent one), the update bitwise the plain step's (cuDNN deterministic),
+    then the step's host-clock and device time and its peak memory."""
+    from tpugan_torch.cli import e_align
+    from tpugan_torch.losses.lpips import random_lpips_fn
+    from tpugan_torch.optim import lreq_adam
+    from tpugan_torch.train.e_align import init_train_state, make_train_step
+
+    dtype = "bf16" if bf16 else "fp32"
+    kernel = "upfirdn2d_bf16" if bf16 else "upfirdn2d"
+    args = e_align.make_parser().parse_args(
+        [*RESUME_SG2, "--random_init", "--batch_size", str(BATCH), "--seed", str(SEED), "--device", CARD,
+         "--iterations", "1000"] + (["--bf16"] if bf16 else []))
+    lpips = random_lpips_fn(dev, dtype=torch.bfloat16 if bf16 else None)
+    pipeline = e_align.build_pipeline(args)
+    enc = pipeline.bundle.encoder
+    base = {k: t.clone() for k, t in enc.state_dict().items()}
+    fwd_plain, adj_plain = sg2_step_firs(pipeline, 1, True)
+    decode = sg2_decode_firs(pipeline.bundle.generator)
+    blurs = {k: sg2_step_firs(pipeline, 0, False)[0][k] - decode[k] for k in decode}
+    fwd_remat = {k: 3 * decode[k] + 4 * blurs[k] for k in decode}
+    out, after = {}, {}
+    for label, flags in REMAT_FORMS:
+        step = make_train_step(pipeline.encode, pipeline.synth, pipeline.resynth, pipeline.draw, case=2,
+                               lpips_fn=lpips, remat="--remat" in flags,
+                               remat_policy="conv_outs" if "conv_outs" in flags else None)
+
+        def fresh():
+            enc.load_state_dict(base)
+            return init_train_state(enc, lreq_adam(enc, args.lr))
+
+        state = fresh()
+        with cudnn_deterministic(torch):
+            launches, fwd, adj, scalars = counted_step(torch, step, state, 0)
+            fwd_want = fwd_plain if label == "plain" else fwd_remat
+            n = sum(fwd_want.values()) + sum(adj_plain.values())
+            check(launches == expected_launches(**{kernel: n}) and fwd == fwd_want and adj == adj_plain,
+                  f"SG2 case 2 {label} ({dtype}): launches {launches}, FIRs forward {fwd}, adjoint {adj}; derived "
+                  f"from the modules: {n} {kernel}, forward {fwd_want}, adjoint {adj_plain}")
+            check(all(math.isfinite(x) for x in scalars.values()), f"SG2 case 2 {label} ({dtype}): a loss is not finite")
+            after[label] = {k: t.clone() for k, t in enc.state_dict().items()}
+            if label == "plain":
+                again = fresh()
+                step(again, 0)
+                own = max((after[label][k].float() - t.float()).abs().max().item() for k, t in enc.state_dict().items())
+                say(f"SG2 case 2 plain ({dtype}): two steps from the same state are {own:.3e} apart")
+                state = again
+                distance = 0.0
+            else:
+                distance = max((after[label][k].float() - t.float()).abs().max().item()
+                               for k, t in after["plain"].items())
+                check(distance <= own, f"SG2 case 2 {label} ({dtype}): the update is {distance:.3e} from the "
+                      f"plain step's, whose own run-to-run distance is {own:.3e}")
+        same = "bitwise the plain step's" if distance == 0 else f"{distance:.3e} from the plain step's"
+        say(f"SG2 case 2 {label} ({dtype}): launches {launches}, FIRs forward {fwd}, adjoint {adj} as derived; "
+            f"the update {same}")
+        say(f"SG2 case 2 {label} ({dtype}) times below: {smi}")
+        median = step_times(torch, step, state, f"SG2 case 2 {label}, {dtype}, TF32 off", 10, steps=REMAT_TIMED)
+        try:
+            dev_time = step_device_time(torch, step, state, median, 100, symbols=("upfirdn2d",), host=False)
+        except RuntimeError as missed:
+            say(f"device time per SG2 case 2 {label} ({dtype}) step: not measured ({missed})")
+            dev_time = {}
+        out[label] = {"launches": launches[kernel], "forward": fwd, "adjoint": adj, "max_abs_diff_from_plain": distance,
+                      "median_ms": median, **dev_time}
+        del step, state
+        torch.cuda.empty_cache()
+    del pipeline, enc, lpips
+    torch.cuda.empty_cache()
+    return out
+
+
+def converted_path(torch, dev, smi, workdir):
+    """Converted weights: state dicts with the reference's key names and
+    shapes at full width, drawn from the seed (``tpugan_torch/tools/
+    reference_state.py``: StyleGAN2-1024 as ``generator_smooth``, its E,
+    BigGAN-deep-256 with spectral-norm triplets, one without ``_u`` and one
+    without ``_v``, and its config JSON, E_BIG, LPIPS, VGG16 with its
+    classifier), written with ``torch.save``. ``infer_e --mtype 2`` and
+    ``--mtype 4`` requests on the loaded bundles, held to the CPU bundles
+    that load the same files (phase 7's rule); one ``e_align --mtype 2
+    --case 2 --lpips_weights`` step and one ``e_mis_align --vgg_weights
+    --lpips_weights`` full step with their launches, the converted LPIPS
+    and VGG16 held to their CPU loads on the steps' own images."""
+    import os
+
+    import numpy as np
+
+    from tpugan_torch.cli import common, e_align, e_mis_align, infer_e
+    from tpugan_torch.losses.space_loss import space_loss
+    from tpugan_torch.models import BigGANConfig, BigGANEncoder, Encoder, StyleGAN2Generator
+    from tpugan_torch.ops import cuda, upfirdn
+    from tpugan_torch.tools import reference_state as ref
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    path = lambda name: os.path.join(workdir, name)  # noqa: E731
+    sg2_layers, big_layers = int(math.log2(SG2_SIZE)) - 1, int(math.log2(BIGGAN_SIZE)) - 1
+    cfg = BigGANConfig.for_resolution(BIGGAN_SIZE, z_dim=BIGGAN_Z_DIM)
+    with open(path("biggan-deep-256.json"), "w") as f:
+        f.write(cfg.to_json_string())
+    files = {
+        "sg2": ref.save(path("stylegan2-1024.pth"), {"generator_smooth": ref.stylegan2(
+            rng, lambda: StyleGAN2Generator(resolution=SG2_SIZE))}),
+        "sg2_e": ref.save(path("E-1024.pth"), ref.encoder(rng, lambda: Encoder(
+            startf=SG2_START_FEATURES, maxf=512, layer_count=sg2_layers, latent_size=512))),
+        "biggan": ref.save(path("G-256.pt"), ref.biggan(rng, cfg)),
+        "ebig": ref.save(path("E_BIG-256.pth"), ref.biggan_encoder(rng, lambda: BigGANEncoder(
+            startf=64, maxf=512, layer_count=big_layers, cond_dim=2 * cfg.z_dim, z_dim=cfg.z_dim,
+            img_size=BIGGAN_SIZE))),
+        "lpips": ref.save(path("lpips-vgg.pth"), ref.lpips(rng)),
+        "vgg": ref.save(path("vgg16.pth"), ref.vgg16(rng)),
+    }
+    sizes = {k: os.path.getsize(v) / 2**20 for k, v in files.items()}
+    say(f"converted weights: reference-named state dicts from seed {SEED} written in "
+        f"{time.perf_counter() - t0:.1f} s ({', '.join(f'{k} {v:.1f} MiB' for k, v in sizes.items())})")
+    parser = argparse.ArgumentParser()
+    common.add_common_args(parser, training=True)
+    seed = REQUEST_SEEDS[0]
+    out = {}
+
+    def request(label, argv, want, adjust=None):
+        card = common.build_bundle(parser.parse_args(argv + ["--device", CARD]))
+        cpu = common.build_bundle(parser.parse_args(argv + ["--device", "cpu"]))
+        if adjust is not None:
+            adjust(card, cpu)
+        req = infer_e.draw_request(cpu, BATCH, seed)
+        cuda.reset_launches()
+        upfirdn.reset_layout_launches()
+        on_card = infer_e.serve(card, req.to(dev))
+        torch.cuda.synchronize()
+        launches = dict(cuda.launches)
+        check(launches == want(card), f"{label}: launches {launches}, expected {want(card)}")
+        on_cpu = infer_e.serve(cpu, req)
+        errs = {}
+        for name, g, c in zip(("imgs1", "imgs2"), on_card, on_cpu):
+            check(bool(torch.isfinite(g).all()), f"{label}: {name} is not finite")
+            errs[name] = (g.cpu() - c).abs().max().item()
+            limit = CPU_GPU_ATOL * max(1.0, c.abs().max().item())
+            say(f"{label}: cuda vs cpu {name}, max |err| {errs[name]:.3e} (limit {limit:.3e}, max |ref| "
+                f"{c.abs().max().item():.3f})")
+            check(errs[name] <= limit, f"{label}: {name} differs from the CPU's load by {errs[name]:.3e}")
+        out[label] = {"launches": launches, "max_abs_err": errs}
+        del card, cpu
+        torch.cuda.empty_cache()
+
+    sg2_argv = ["--mtype", "2", "--img_size", str(SG2_SIZE), "--start_features", str(SG2_START_FEATURES),
+                "--batch_size", str(BATCH), "--seed", str(SEED), "--checkpoint_dir_GAN", files["sg2"],
+                "--checkpoint_dir_E", files["sg2_e"]]
+    request(f"infer_e --mtype 2 (converted StyleGAN2-{SG2_SIZE} and E)", sg2_argv, lambda b: expected_launches(
+        upfirdn2d=2 * sum(sg2_decode_firs(b.generator).values())))
+
+    def e_big_scale(card, cpu):
+        zt_std, z2_std = latent_stds(torch, infer_e, card, seed)
+        check(math.isfinite(z2_std) and z2_std > 0, f"the converted E_BIG's z2 has std {z2_std}")
+        for b in (card, cpu):
+            scale_z_head(torch, b.encoder, zt_std / z2_std)
+        say(f"converted E_BIG: z2 std {z2_std:.4f} against zt's {zt_std:.4f}; the z head scaled on both "
+            "bundles, as phase 5")
+
+    big_argv = ["--mtype", "4", "--img_size", str(BIGGAN_SIZE), "--start_features", "64", "--z_dim",
+                str(BIGGAN_Z_DIM), "--batch_size", str(BATCH), "--seed", str(SEED), "--config_dir",
+                path("biggan-deep-256.json"), "--checkpoint_dir_GAN", files["biggan"], "--checkpoint_dir_E",
+                files["ebig"]]
+    request(f"infer_e --mtype 4 (converted BigGAN-deep-{BIGGAN_SIZE} and E_BIG)", big_argv,
+            lambda b: expected_launches(sagan_attention=2), e_big_scale)
+
+    # e_align --mtype 2 --case 2 with the converted LPIPS: one counted step
+    args = e_align.make_parser().parse_args(sg2_argv + ["--case", "2", "--iterations", "1", "--lpips_weights",
+                                                        files["lpips"], "--device", CARD])
+    trainer = e_align.build_trainer(args, common.build_lpips_fn(args))
+    fwd_want, adj_want = sg2_step_firs(trainer, 1, True)
+    vis = trainer.visuals(trainer.state, 0)
+    launches, fwd, adj, scalars = counted_step(torch, trainer.step, trainer.state, 0)
+    n = sum(fwd_want.values()) + sum(adj_want.values())
+    check(launches == expected_launches(upfirdn2d=n) and fwd == fwd_want and adj == adj_want,
+          f"converted e_align step: launches {launches}, forward {fwd}, adjoint {adj}")
+    check(all(math.isfinite(x) for x in scalars.values()) and scalars["loss_imgs_lpips"] > 0,
+          f"converted e_align step: scalars {scalars}")
+    args.device = "cpu"
+    _, cpu_info = space_loss(vis["imgs1"].cpu(), vis["imgs2"].cpu(), lpips_fn=common.build_lpips_fn(args))
+    err = abs(scalars["loss_imgs_lpips"] - cpu_info.lpips.item())
+    limit = CPU_GPU_ATOL * max(1.0, abs(cpu_info.lpips.item()))
+    say(f"converted e_align --mtype 2 --case 2 --lpips_weights step: launches {launches}; loss_imgs_lpips "
+        f"{scalars['loss_imgs_lpips']:.6f} against the CPU's LPIPS load on the step's own images "
+        f"{cpu_info.lpips.item():.6f}, |err| {err:.3e} (limit {limit:.3e})")
+    check(err <= limit, "the converted LPIPS differs from its CPU load")
+    out["e_align --lpips_weights"] = {"launches": launches, "lpips_err": err}
+    del trainer, vis
+    torch.cuda.empty_cache()
+
+    # e_mis_align with the converted VGG16 and LPIPS: one counted full step
+    args = mis_align_args("--iterations", "1", "--vgg_weights", files["vgg"], "--lpips_weights", files["lpips"])
+    trainer = e_mis_align.build_trainer(args, common.build_lpips_fn(args))
+    fwd_full, _ = sgv1_step_firs(trainer, 0, True)
+    imgs1 = trainer.pipeline.synth(trainer.pipeline.draw(0)).imgs1
+    scalars = hold_step_launches("converted e_mis_align full step", counted_step(
+        torch, trainer.step, trainer.state, 0), fwd_full, "upfirdn2d")
+    check(scalars["loss_imgs_lpips"] > 0, "the converted LPIPS did not enter the mis-align step")
+    args.device = "cpu"
+    x = imgs1.permute(0, 3, 1, 2)
+    with torch.no_grad():
+        logits = trainer.vgg(x)[0]
+        ref_logits = common.build_vgg16(args)(x.cpu())[0]
+    err = (logits.cpu() - ref_logits).abs().max().item()
+    limit = CPU_GPU_ATOL * max(1.0, ref_logits.abs().max().item())
+    say(f"converted e_mis_align --vgg_weights --lpips_weights full step (batch {MIS_BATCH}): FIRs {sum(fwd_full.values())}"
+        f" as derived; the converted VGG16's logits on the step's imgs1 against its CPU load: max |err| {err:.3e} "
+        f"(limit {limit:.3e}, max |ref| {ref_logits.abs().max().item():.3f})")
+    check(err <= limit, "the converted VGG16 differs from its CPU load")
+    out["e_mis_align --vgg_weights --lpips_weights"] = {"launches": sum(fwd_full.values()), "vgg_logits_err": err}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def slice7a_path(torch, dev, smi):
+    """Phase 14: ``--resume`` bitwise through the training CLIs' ``main``,
+    remat on the SG2-1024 case-2 step in fp32 and bf16, and converted
+    weights through ``--checkpoint_dir_GAN``/``_E``, ``--config_dir``,
+    ``--lpips_weights`` and ``--vgg_weights``."""
+    import shutil
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_slice7a_")
+    try:
+        t0 = time.perf_counter()
+        resume = resume_path(torch, dev, workdir)
+        say(f"phase 14: resume took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        remat = {"fp32": remat_path(torch, dev, smi, False), "bf16": remat_path(torch, dev, smi, True)}
+        say(f"phase 14: remat took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        converted = converted_path(torch, dev, smi, workdir)
+        say(f"phase 14: converted weights took {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"resume": resume, "remat": remat, "converted": converted}
+
+
 def main() -> int:
     import torch
 
@@ -4577,7 +5064,8 @@ def main() -> int:
         say(f"cuda vs cpu {label}: max |err| {err:.3e} (max |ref| {c.abs().max().item():.3f})")
         check(err <= CPU_GPU_ATOL, f"{label}: cuda and cpu differ by {err:.3e} > {CPU_GPU_ATOL:g}")
 
-    grad_launches = sgv1_gradient(torch, dev, parser, argv)
+    with cudnn_deterministic(torch):  # the comment at CPU_GPU_ATOL
+        grad_launches = sgv1_gradient(torch, dev, parser, argv)
 
     # ---- 4. times ----------------------------------------------------------
     say(f"times below: {smi}; device times from torch.profiler, request times from the host clock")
@@ -4666,6 +5154,24 @@ def main() -> int:
                "infer_e --gradcam": cam["request"],
                "embedding --gradcam": {"per_iteration": cam_inv["per_iteration"], "times": cam_inv["times"]}}
 
+    # ---- 14. slice 7a: --resume, remat (A3), converted weights ----
+    t0 = time.perf_counter()
+    s7a = slice7a_path(torch, dev, smi)
+    resumed, converted = s7a["resume"], s7a["converted"]
+    s7a_fir = {f"resume: {label}": r["launches"]["upfirdn2d"] for label, r in resumed.items()}
+    s7a_fir.update({f"remat: SG2 case 2 {label}": f["launches"] for label, f in s7a["remat"]["fp32"].items()})
+    s7a_fir.update({f"converted: {label}": (c["launches"] if isinstance(c["launches"], int)
+                                             else c["launches"]["upfirdn2d"])
+                    for label, c in converted.items()})
+    s7a_fir = {label: n for label, n in s7a_fir.items() if n}
+    s7a_fir16 = {f"remat: SG2 case 2 {label} bf16": f["launches"] for label, f in s7a["remat"]["bf16"].items()}
+    big_resume = resumed[f"e_align BigGAN-deep-{BIGGAN_SIZE} case 2"]["launches"]
+    big_conv = converted[f"infer_e --mtype 4 (converted BigGAN-deep-{BIGGAN_SIZE} and E_BIG)"]["launches"]
+    check(len(s7a_fir) == 8 and all(s7a_fir16.values()) and big_resume["sagan_attention"] > 0
+          and all(big_resume[name] > 0 for name in B4_KERNELS) and big_conv["sagan_attention"] > 0,
+          f"phase 14 missed a kernel: FIR {s7a_fir}, bf16 {s7a_fir16}, B3/B4 {big_resume}, {big_conv}")
+    say(f"phase 14 (slice 7a) took {time.perf_counter() - t0:.1f} s; the script {time.perf_counter() - start:.1f} s")
+
     sg2_bf16 = bf16["firs"]["SG2"][1]
     bf16_step = {k: sum(p_[k] for parts in sg2_bf16.values() for p_ in parts.values())
                  for k in ("ms", "fp32_ms", "plain_ms", "library_ms", "bound_ms")}
@@ -4678,18 +5184,20 @@ def main() -> int:
         "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas); "
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c)",
         "launches": (launches["upfirdn2d"] + sg2["launches"] + sgv1_train["launches"] + sg2_train["launches"]
-                     + sum(fir_inv.values()) + mis["launches"] + cam["request"]["launches"]),
+                     + sum(fir_inv.values()) + mis["launches"] + cam["request"]["launches"] + sum(s7a_fir.values())),
         "launches_by_path": {"SGv1 Cat256 serving": launches["upfirdn2d"],
                              f"StyleGAN2-{SG2_SIZE} serving": sg2["launches"],
                              "SGv1 Cat256 training": sgv1_train["launches"],
                              f"StyleGAN2-{SG2_SIZE} training": sg2_train["launches"],
                              **{f"inversion: {label}": n for label, n in fir_inv.items()},
                              "e_mis_align (batch 5)": mis["launches"],
-                             "infer_e --gradcam": cam["request"]["launches"]},
+                             "infer_e --gradcam": cam["request"]["launches"],
+                             **s7a_fir},
         "max_abs_err": max(fir_err, adjoint_err, sg2["max_abs_err"], sg2_train["max_abs_err"], inv_err["upfirdn2d"],
                            mis["max_abs_err"]),
         "inversion": inversion,
         "gradcam": gradcam,
+        "slice7a": s7a,
         **fir,
         "gradient_path_launches": grad_launches,
         "adjoint": adjoint_rows,
@@ -4718,10 +5226,11 @@ def main() -> int:
         "source": "tpugan_torch/csrc/upfirdn2d.cu",
         "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas, bf16); "
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c, bf16)",
-        "launches": bf16["launches"] + sum(fir16_inv.values()) + mis["launches_bf16"],
+        "launches": bf16["launches"] + sum(fir16_inv.values()) + mis["launches_bf16"] + sum(s7a_fir16.values()),
         "launches_by_path": {"bf16 training": bf16["launches"],
                              **{f"inversion: {label}": n for label, n in fir16_inv.items()},
-                             "e_mis_align --bf16 (batch 5)": mis["launches_bf16"]},
+                             "e_mis_align --bf16 (batch 5)": mis["launches_bf16"],
+                             **s7a_fir16},
         "max_abs_err": max(bf16_err, bf16["max_abs_err"], inv_err["upfirdn2d_bf16"], mis["max_abs_err_bf16"]),
         "ms": bf16_step["ms"],
         "plain_ms": bf16_step["plain_ms"],
@@ -4746,10 +5255,13 @@ def main() -> int:
         "source": "tpugan_torch/csrc/sagan_attention.cu",
         "replaces": "tpugan/ops/pallas/attention.py:68 (sagan_attention_pallas); "
                     "tpugan/ops/pallas/attention.py:77 (sagan_attention_pallas, return_lse=True)",
-        "launches": attn["launches"] + big_inv["sagan_attention"] + cam_inv["launches"]["sagan_attention"],
+        "launches": (attn["launches"] + big_inv["sagan_attention"] + cam_inv["launches"]["sagan_attention"]
+                     + big_resume["sagan_attention"] + big_conv["sagan_attention"]),
         "launches_by_path": {"BigGAN-deep-256 serving": attn["launches"],
                              "inversion: BigGAN fine-tune E": big_inv["sagan_attention"],
-                             f"inversion: {cam_label}": cam_inv["launches"]["sagan_attention"]},
+                             f"inversion: {cam_label}": cam_inv["launches"]["sagan_attention"],
+                             "resume: E_BIG case 2": big_resume["sagan_attention"],
+                             "converted: BigGAN-deep-256 request": big_conv["sagan_attention"]},
         "max_abs_err": max(attn["max_abs_err"], attn_err, inv_err["sagan_attention"],
                            cam_inv["max_abs_err"]["sagan_attention"]),
         **b3_times,
@@ -4760,10 +5272,12 @@ def main() -> int:
         "replaces": "tpugan/ops/pallas/attention.py:149,168 (sagan_attention_bwd_pallas: _dq_kernel, "
                     "_dkv_kernel)",
         "launches": (attn_bwd["launches"] + sum(big_inv[name] for name in B4_KERNELS)
-                     + sum(cam_inv["launches"][name] for name in B4_KERNELS)),
+                     + sum(cam_inv["launches"][name] for name in B4_KERNELS)
+                     + sum(big_resume[name] for name in B4_KERNELS)),
         "launches_by_path": {"E_BIG training": attn_bwd["launches"],
                              "inversion: BigGAN fine-tune E": sum(big_inv[name] for name in B4_KERNELS),
-                             f"inversion: {cam_label}": sum(cam_inv["launches"][name] for name in B4_KERNELS)},
+                             f"inversion: {cam_label}": sum(cam_inv["launches"][name] for name in B4_KERNELS),
+                             "resume: E_BIG case 2": sum(big_resume[name] for name in B4_KERNELS)},
         "max_abs_err": max(attn_bwd["max_abs_err"], bwd_err, inv_err["sagan_attention_bwd"],
                            cam_inv["max_abs_err"]["sagan_attention_bwd"]),
         **b4_times,

@@ -57,6 +57,7 @@ from tpugan.train.e_align import info_scalars as jinfo_scalars
 from tpugan.train.e_align import init_train_state as jinit_train_state
 from tpugan.train.e_align import make_train_step as jmake_train_step
 from tpugan_torch import precision
+from torch_flag_checks import check_flag_runs
 from tpugan_torch.cli import e_align
 from tpugan_torch.io.bridge import load_variables
 from tpugan_torch.losses.lpips import LPIPS, make_lpips_fn, random_lpips_fn
@@ -778,10 +779,13 @@ def test_cli_bf16_runs_every_fir_through_the_bf16_kernel(card_route):
     assert layout16 == layout32 and card_route["plain"] == 0
 
 
-@pytest.mark.parametrize("extra,match", [
+# each form with the ROADMAP item that brought it
+@pytest.mark.parametrize("extra,item", [
     (("--mtype", "2", "--remat"), "A3"),
     (("--mtype", "1", "--remat_policy", "conv_outs"), "A3"),
 ])
-def test_cli_bf16_forms_of_later_work_raise(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        e_align.main([*TINY, "--bf16", "--iterations", "1", "--experiment_dir", str(tmp_path), *extra])
+def test_cli_bf16_forms_of_later_work_raise(tmp_path, extra, item):
+    """Refused until A3, remat now runs with --bf16, as tpugan allows: the
+    update is the plain bf16 step's, bit for bit."""
+    mtype, remat = extra[:2], extra[2:]
+    check_flag_runs(e_align.main, [*TINY, *mtype, "--bf16", "--case", "2"], remat, tmp_path)

@@ -707,12 +707,25 @@ def test_mtype4_raises_where_tpugan_raises(tool, tmp_path):
         tool.main(argv)
 
 
-def test_later_parts_raise(sgv1):
+def test_later_parts_raise(sgv1, monkeypatch):
     """Grad-CAM attention (slice 6) runs now (tests/test_torch_gradcam.py);
-    it needs its VGG16, and converted VGG16 weights wait for slice 7."""
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        embedding.main(["--gradcam", "--vgg_weights", "vgg16.pth", "--mtype", "1", "--img_size", "32",
-                        "--start_features", "64", "--random_init", "--device", "cpu"])
+    it needs its VGG16. Converted VGG16 and LPIPS weights (slice 7a) load:
+    reference-named state dicts from a seed, handed over in place of the
+    files. Parallelism still waits."""
+    from tpugan_torch.cli.common import build_lpips_fn
+    from tpugan_torch.io import convert
+    from tpugan_torch.tools import reference_state
+
+    states = {"vgg16.pth": reference_state.vgg16(np.random.default_rng(0)),
+              "x.pth": reference_state.lpips(np.random.default_rng(1))}
+    monkeypatch.setattr(convert, "load_torch_state_dict", states.get)
+    args = embedding.make_parser().parse_args([
+        "--gradcam", "--vgg_weights", "vgg16.pth", "--lpips_weights", "x.pth", "--mtype", "1", "--img_size",
+        "32", "--start_features", "64", "--random_init", "--device", "cpu"])
+    inverter = embedding.build_inverter(args, build_lpips_fn(args))
+    assert torch.equal(inverter.vgg.head.fc_0.weight, torch.from_numpy(states["vgg16.pth"]["classifier.0.weight"]))
+    x = torch.zeros(1, 32, 32, 3)
+    assert float(build_lpips_fn(args)(x, x + 0.5)[0]) > 0
     encode, resynth, encoder = sgv1.port(torch.float32)
     with pytest.raises(ValueError, match="vgg"):
         make_embedder(encode, resynth, encoder, EmbeddingConfig(attention="gradcam"))
@@ -720,5 +733,3 @@ def test_later_parts_raise(sgv1):
         make_embedder(encode, resynth, encoder, EmbeddingConfig(), mesh=object())
     with pytest.raises(NotImplementedError, match="parallelism"):
         make_embedder(encode, resynth, encoder, EmbeddingConfig(), spatial=True)
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        embedding.main(["--lpips_weights", "x.pth", "--random_init", "--device", "cpu"])

@@ -310,10 +310,21 @@ def test_e_mis_align_cli_lean_steps_and_defaults(setup):
     eager = e_mis_align.build_trainer(e_mis_align.parse_args(TINY + ["--iterations", "3", "--eager_metrics"]),
                                       vgg=vgg)
     assert eager.lean is None
-    for flags, match in ((["--resume"], "slice 7"), (["--iterations", "5001"], "slice 7"),
-                         (["--vgg_weights", "vgg16.pth"], "slice 7")):
-        with pytest.raises(NotImplementedError, match=match):
-            e_mis_align.build_trainer(e_mis_align.parse_args(TINY + flags))
+    # refused until slice 7a: --resume and runs past --checkpoint_every build as
+    # others do (tests/test_torch_checkpoint.py resumes them), and
+    # --vgg_weights loads the converted torchvision VGG16 (a reference-named
+    # state dict from a seed, handed over in place of the file)
+    for flags in (["--resume"], ["--iterations", "5001"]):
+        assert e_mis_align.build_trainer(e_mis_align.parse_args(TINY + flags), vgg=vgg).lean is not None
+    from tpugan_torch.io import convert
+    from tpugan_torch.tools import reference_state
+
+    state = reference_state.vgg16(np.random.default_rng(0))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(convert, "load_torch_state_dict", lambda path: state if path == "vgg16.pth" else None)
+        loaded = e_mis_align.build_trainer(e_mis_align.parse_args(TINY + ["--vgg_weights", "vgg16.pth"]))
+    assert torch.equal(loaded.vgg.head.fc_2.weight, torch.from_numpy(state["classifier.6.weight"]))
+    assert torch.equal(loaded.vgg.conv_0.weight, torch.from_numpy(state["features.0.weight"]))
 
 
 def test_infer_e_gradcam_writes_the_cam_dump(tmp_path, setup_vgg):

@@ -62,6 +62,7 @@ from tpugan.optim import lreq_adam as jlreq_adam
 from tpugan.train.e_align import info_scalars as jinfo_scalars
 from tpugan.train.e_align import init_train_state as jinit_train_state
 from tpugan.train.e_align import make_train_step as jmake_train_step
+from torch_flag_checks import check_flag_runs
 from tpugan_torch.cli import e_align
 from tpugan_torch import models as pmodels
 from tpugan_torch.io.bridge import load_variables
@@ -366,13 +367,15 @@ def test_cli_ablation_1_is_stylegan1_only():
                                                                 "--iterations", "1"]))
 
 
-@pytest.mark.parametrize("extra,match", [
+# each flag with the ROADMAP item that brought it
+@pytest.mark.parametrize("extra,item", [
     (("--bf16", "--remat"), "A2"),  # --bf16 itself runs (tests/test_torch_bf16.py)
     (("--remat",), "A3"),
     (("--remat_policy", "conv_outs"), "A3"),
     (("--resume",), "slice 7"),
     (("--iterations", "6", "--checkpoint_every", "5"), "slice 7"),
 ])
-def test_cli_mtype_2_options_of_later_work_raise(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        e_align.main([*TINY, "--iterations", "1", "--experiment_dir", str(tmp_path), *extra])
+def test_cli_mtype_2_options_of_later_work_raise(tmp_path, extra, item):
+    """Refused until their items came (A3 remat, slice 7a's io/checkpoint),
+    these flags now run as tpugan's do (tests/torch_flag_checks.py)."""
+    check_flag_runs(e_align.main, [*TINY, "--case", "2"], extra, tmp_path)

@@ -39,6 +39,7 @@ from tpugan.train.e_align import SynthBatch as JSynthBatch
 from tpugan.train.e_align import info_scalars as jinfo_scalars
 from tpugan.train.e_align import init_train_state as jinit_train_state
 from tpugan.train.e_align import make_train_step as jmake_train_step
+from torch_flag_checks import check_flag_runs
 from tpugan_torch.cli import common, e_align
 from tpugan_torch.io import bridge
 from tpugan_torch.io.bridge import load_variables
@@ -579,16 +580,18 @@ def test_cli_has_no_lean_step_where_images_train(extra):
     assert trainer.lean is None
 
 
-@pytest.mark.parametrize("extra,match", [
+# each flag with the ROADMAP item that brought it
+@pytest.mark.parametrize("extra,item", [
     (("--bf16", "--remat"), "A2"),  # --bf16 itself runs (tests/test_torch_bf16.py)
     (("--remat",), "A3"),
     (("--remat_policy", "conv_outs"), "A3"),
     (("--resume",), "slice 7"),
     (("--iterations", "6", "--checkpoint_every", "5"), "slice 7"),
 ])
-def test_cli_mtype_1_options_of_later_slices_raise(tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        e_align.main([*TINY, "--iterations", "1", "--experiment_dir", str(tmp_path), *extra])
+def test_cli_mtype_1_options_of_later_slices_raise(tmp_path, extra, item):
+    """Refused until their items came (A3 remat, slice 7a's io/checkpoint),
+    these flags now run as tpugan's do (tests/torch_flag_checks.py)."""
+    check_flag_runs(e_align.main, [*TINY, "--case", "2"], extra, tmp_path)
 
 
 def _biggan_argv(tmp_path, *extra):

@@ -151,7 +151,24 @@ def test_cli_writes_grids_on_cpu(tmp_path):
         (("--multihost",), "parallelism"),
     ],
 )
-def test_later_slices_raise(extra, match):
+def test_later_slices_raise(tmp_path, monkeypatch, extra, match):
+    """PGGAN and parallelism wait for their ROADMAP items; a converted
+    encoder (``--checkpoint_dir_E``, slice 7a) now loads: a reference-named
+    E state dict from a seed, written to the file the flag names."""
+    if extra[0] == "--checkpoint_dir_E":
+        from tpugan_torch.io import convert
+        from tpugan_torch.tools import reference_state
+
+        monkeypatch.chdir(tmp_path)
+        state = reference_state.encoder(np.random.default_rng(0), lambda: Encoder(
+            startf=64, maxf=512, layer_count=4, latent_size=512))
+        reference_state.save(extra[1], state)
+        bundle = common.build_bundle(_args("--device", "cpu", *extra))
+        want = convert.load_state(Encoder(startf=64, maxf=512, layer_count=4, latent_size=512),
+                                  convert.encoder(state, 4))
+        for name, value in want.state_dict().items():
+            assert torch.equal(bundle.encoder.state_dict()[name], value), name
+        return
     with pytest.raises(NotImplementedError, match=match):
         common.build_bundle(_args("--device", "cpu", *extra))
 
@@ -166,14 +183,20 @@ def test_ablation_encoders_serve(ablation):
     assert imgs2.shape == (2, 32, 32, 3) and torch.isfinite(imgs2).all()
 
 
-def test_gradcam_raises_until_its_slice(tmp_path):
+def test_gradcam_raises_until_its_slice(tmp_path, monkeypatch):
     """--gradcam, refused until slice 6, now runs (tests/test_torch_mis_align.py
-    writes its CAM dumps); converted VGG16 weights wait for slice 7's
-    converter."""
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        infer_e.main(["--gradcam", "--vgg_weights", "vgg16.pth", "--mtype", "1", "--img_size", "32",
-                      "--start_features", "64", "--random_init", "--device", "cpu", "--count", "1",
-                      "--experiment_dir", str(tmp_path)])
+    writes its CAM dumps), and since slice 7a with converted VGG16 weights:
+    a reference-named torchvision state dict from a seed, handed over in
+    place of the file."""
+    from tpugan_torch.io import convert
+    from tpugan_torch.tools import reference_state
+
+    state = reference_state.vgg16(np.random.default_rng(0))
+    monkeypatch.setattr(convert, "load_torch_state_dict", {"vgg16.pth": state}.get)
+    infer_e.main(["--gradcam", "--vgg_weights", "vgg16.pth", "--mtype", "1", "--img_size", "32",
+                  "--start_features", "64", "--random_init", "--device", "cpu", "--count", "1",
+                  "--experiment_dir", str(tmp_path)])
+    assert (tmp_path / "imgs" / "cam_seed30000.png").exists()
 
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tpugan"}

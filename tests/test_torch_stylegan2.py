@@ -288,9 +288,20 @@ def test_cli_needs_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
                       "--random_init", "--experiment_dir", str(tmp_path)])
 
 
-def test_converted_checkpoints_stay_refused():
+def test_converted_checkpoints_stay_refused(tmp_path):
+    """Refused until slice 7a, a converted StyleGAN2 ``.pth`` now loads: a
+    reference-named ``generator_smooth`` state dict from a seed (the
+    converter is held to tpugan's in tests/test_torch_convert.py)."""
+    from tpugan_torch.io import convert
+    from tpugan_torch.tools import reference_state
+
+    inner = reference_state.stylegan2(np.random.default_rng(0), lambda: P.StyleGAN2Generator(resolution=32))
+    reference_state.save(str(tmp_path / "g.pth"), {"generator_smooth": inner})
     parser = common.add_common_args(argparse.ArgumentParser(), training=True)
-    args = parser.parse_args(["--mtype", "2", "--img_size", "32", "--checkpoint_dir_GAN", "g.pth",
+    args = parser.parse_args(["--mtype", "2", "--img_size", "32", "--checkpoint_dir_GAN", str(tmp_path / "g.pth"),
                               "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        common.build_bundle(args)
+    bundle = common.build_bundle(args)
+    assert torch.equal(bundle.generator.synthesis.const, torch.from_numpy(inner["synthesis.early_layer.const"]))
+    want = convert.load_state(P.StyleGAN2Generator(resolution=32), convert.stylegan2_generator(inner))
+    for name, value in want.state_dict().items():
+        assert torch.equal(bundle.generator.state_dict()[name], value), name

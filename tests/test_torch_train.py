@@ -31,6 +31,7 @@ from tpugan.train.e_align import SynthBatch as JSynthBatch
 from tpugan.train.e_align import info_scalars as jinfo_scalars
 from tpugan.train.e_align import init_train_state as jinit_train_state
 from tpugan.train.e_align import make_train_step as jmake_train_step
+from torch_flag_checks import check_flag_runs
 from tpugan_torch.cli import e_align
 from tpugan_torch.io.bridge import load_variables
 from tpugan_torch.losses.lpips import LPIPS, make_lpips_fn
@@ -315,6 +316,7 @@ def test_cli_bf16_trains_two_iterations_on_cpu(tmp_path, case):
     assert all(np.isfinite(v) for r in records for v in r.values())
 
 
+# each flag with the error it raised until its ROADMAP item came
 @pytest.mark.parametrize("extra,error,match", [
     (("--remat",), NotImplementedError, "A3"),
     (("--remat_policy", "conv_outs"), NotImplementedError, "A3"),
@@ -322,9 +324,23 @@ def test_cli_bf16_trains_two_iterations_on_cpu(tmp_path, case):
     (("--iterations", "6", "--checkpoint_every", "5"), NotImplementedError, "slice 7"),
     (("--lpips_weights", "lpips.pth"), NotImplementedError, "slice 7"),
 ])
-def test_cli_options_of_later_slices_raise(tmp_path, extra, error, match):
-    with pytest.raises(error, match=match):
-        e_align.main(_tiny_argv(tmp_path, "--iterations", "1", *extra))
+def test_cli_options_of_later_slices_raise(tmp_path, monkeypatch, extra, error, match):
+    """Refused until A3 (remat) and slice 7a (io/checkpoint, io/convert),
+    these flags now run on mtype 4 as tpugan's do (tests/torch_flag_checks.py);
+    the converted LPIPS (a reference-named state dict from a seed) enters
+    the logged losses."""
+    argv = _tiny_argv(tmp_path, "--case", "2")
+    argv = argv[:argv.index("--experiment_dir")]
+    if extra[0] != "--lpips_weights":
+        check_flag_runs(e_align.main, argv, extra, tmp_path)
+        return
+    from tpugan_torch.tools import reference_state
+
+    monkeypatch.chdir(tmp_path)
+    reference_state.save("lpips.pth", reference_state.lpips(np.random.default_rng(0)))
+    e_align.main(argv + ["--iterations", "1", "--experiment_dir", "out", *extra])
+    records = [json.loads(line) for line in (tmp_path / "out" / "Loss.txt").read_text().splitlines()]
+    assert records[0]["loss_imgs_lpips"] > 0 and np.isfinite(records[0]["loss_tsa"])
 
 
 def test_cli_trains_mtype_1_which_slice_2_brought(tmp_path):

@@ -4,10 +4,17 @@ flags, plus ``--device {cuda,cpu}``, and the model factory for ``--mtype 1``
 ``--mtype 2`` (StyleGAN2, config F, with E or E_Blur) and ``--mtype 4``
 (BigGAN-deep with E_BIG).
 
+Weights are random, seeded by ``--seed``, with ``--random_init``; else the
+generator comes from ``--checkpoint_dir_GAN`` (StyleGANv1's directory of
+``Gs_dict.pth``, ``Gm_dict.pth`` and ``center_tensor.pt``, StyleGAN2's
+``.pth``, BigGAN's ``.pt`` with ``--config_dir``), and the encoder from
+``--checkpoint_dir_E`` where it is given, LPIPS from ``--lpips_weights`` and
+VGG16 from ``--vgg_weights``, each converted from the reference's torch
+state dict (``tpugan_torch/io/convert.py``; file paths only).
+
 What later slices bring raises :class:`NotImplementedError` naming the
-ROADMAP slice: other mtypes, converted checkpoints (so ``--random_init`` is
-required), ``--space_shards`` above 1, ``--multihost``, ``--lpips_weights``
-and ``--vgg_weights``.
+ROADMAP item: PGGAN (mtype 3), ``--space_shards`` above 1 and
+``--multihost``.
 """
 
 from __future__ import annotations
@@ -19,10 +26,11 @@ from typing import Any, NamedTuple
 
 import torch
 
+from tpugan_torch.io import convert
 from tpugan_torch.runtime import resolve_device
 
 _LATER = {
-    3: "PGGAN (mtype 3) comes with ROADMAP slice 7 (PGGAN, eval, I/O, CLIs)",
+    3: "PGGAN (mtype 3) comes with ROADMAP slice 7, A item 5 (PGGAN and GAN training)",
 }
 
 
@@ -68,7 +76,9 @@ class GanBundle(NamedTuple):
     ``encoder`` give the noise shapes (and BigGAN's config). For mtype 1,
     ``mapping`` is the frozen mapping and ``remap(z) -> w+`` runs it with
     the truncation coefficients of 2 * layer_count style layers (psi 0.7 on
-    the first half): ablation 1's re-mapping of the encoder's z."""
+    the first half): ablation 1's re-mapping of the encoder's z. Converted
+    StyleGANv1 weights bring ``center``, the truncation center that synth
+    and remap truncate towards."""
 
     synth: Any  # (z, noise) or (zt, label) -> SynthBatch
     resynth: Any  # (w, batch, noise) -> images [N, H, W, C]
@@ -83,6 +93,7 @@ class GanBundle(NamedTuple):
     mtype: int = 1
     mapping: Any = None  # nn.Module (frozen; mtype 1)
     remap: Any = None  # (z) -> w+ (mtype 1)
+    center: Any = None  # the mapping's truncation center [num_layers, 512] (mtype 1, converted)
 
 
 def _encoder_variant_kwargs(ablation: int, case: int) -> dict:
@@ -105,9 +116,21 @@ def _layer_count(img_size: int) -> int:
     return int(math.log2(img_size)) - 1
 
 
+def _load_encoder(enc, args, layer_count: int):
+    """``enc`` with ``--checkpoint_dir_E`` converted into it, where given."""
+    if args.checkpoint_dir_E:
+        to_port = convert.biggan_encoder if args.mtype == 4 else convert.encoder
+        convert.load_state(enc, to_port(convert.load_torch_state_dict(args.checkpoint_dir_E), layer_count))
+    return enc
+
+
 def build_bundle(args) -> GanBundle:
-    """Construct the frozen G (+ mapping) and the encoder E for args.mtype,
-    from random weights seeded by ``args.seed``, on ``args.device``."""
+    """Construct the frozen G (+ mapping) and the encoder E for args.mtype
+    on ``args.device``: random weights seeded by ``args.seed`` with
+    ``--random_init``, else the generator converted from
+    ``--checkpoint_dir_GAN``; the encoder converted from
+    ``--checkpoint_dir_E`` where it is given (``tpugan/cli/common.py:
+    114-307``)."""
     if getattr(args, "multihost", False):
         raise NotImplementedError("--multihost comes with ROADMAP slice 7 (parallelism)")
     if getattr(args, "space_shards", 1) != 1:
@@ -116,11 +139,9 @@ def build_bundle(args) -> GanBundle:
         raise NotImplementedError(_LATER[args.mtype])
     if args.mtype not in (1, 2, 4):
         raise ValueError(f"unknown mtype {args.mtype}")
-    if not args.random_init or args.checkpoint_dir_E:
-        raise NotImplementedError(
-            "loading converted checkpoints comes with ROADMAP slice 7 (io/convert); "
-            "pass --random_init and no --checkpoint_dir_E"
-        )
+    if not args.random_init and not args.checkpoint_dir_GAN:
+        raise ValueError("pass --checkpoint_dir_GAN (the reference's generator weights) or "
+                         "--random_init")
     device = resolve_device(getattr(args, "device", "cuda"))
     layer_count = _layer_count(args.img_size)
     g = torch.Generator(device="cpu").manual_seed(args.seed)
@@ -136,22 +157,31 @@ def build_bundle(args) -> GanBundle:
     gen = StyleGANv1Generator(
         startf=args.start_features, maxf=512, layer_count=layer_count, latent_size=512,
         generator=g,
-    ).to(device)
-    gm = StyleGANv1Mapping(num_layers=2 * layer_count, mapping_layers=8, generator=g).to(device)
-    enc = Encoder(
+    )
+    gm = StyleGANv1Mapping(num_layers=2 * layer_count, mapping_layers=8, generator=g)
+    center = None
+    if not args.random_init:
+        path = args.checkpoint_dir_GAN
+        gs_state = convert.load_torch_state_dict(os.path.join(path, "Gs_dict.pth"))
+        gm_state = convert.load_torch_state_dict(os.path.join(path, "Gm_dict.pth"))
+        convert.load_state(gen, convert.stylegan1_generator(gs_state, layer_count))
+        convert.load_state(gm, convert.stylegan1_mapping(gm_state))
+        center = torch.from_numpy(convert.center_tensor(os.path.join(path, "center_tensor.pt"))).to(device)
+    gen, gm = gen.to(device), gm.to(device)
+    enc = _load_encoder(Encoder(
         startf=args.start_features, maxf=512, layer_count=layer_count, latent_size=512,
         **_encoder_variant_kwargs(getattr(args, "ablation", 0), getattr(args, "case", 1)),
         generator=g,
-    ).to(device)
-    synth, resynth = build_stylegan1_pipeline(gen, gm, lod=layer_count - 1)
+    ), args, layer_count).to(device)
+    synth, resynth = build_stylegan1_pipeline(gen, gm, lod=layer_count - 1, center=center)
     coefs = truncation_coefs(2 * layer_count)
 
     def remap(z: torch.Tensor) -> torch.Tensor:
-        return gm(z, coefs)
+        return gm(z, coefs, center)
 
     return GanBundle(
         synth, resynth, make_encode_fn(enc), enc, 512, layer_count, 2 * layer_count, gen, device,
-        args.img_size, mapping=gm, remap=remap,
+        args.img_size, mapping=gm, remap=remap, center=center,
     )
 
 
@@ -165,11 +195,15 @@ def _build_stylegan2_bundle(args, layer_count: int, g: torch.Generator,
     from tpugan_torch.models import Encoder, StyleGAN2Generator
     from tpugan_torch.train.e_align import build_stylegan2_pipeline, make_encode_fn
 
-    gen = StyleGAN2Generator(resolution=args.img_size, generator=g).to(device)
-    enc = Encoder(
+    gen = StyleGAN2Generator(resolution=args.img_size, generator=g)
+    if not args.random_init:
+        state = convert.stylegan2_state(convert.load_torch_state_dict(args.checkpoint_dir_GAN))
+        convert.load_state(gen, convert.stylegan2_generator(state))
+    gen = gen.to(device)
+    enc = _load_encoder(Encoder(
         startf=args.start_features, maxf=512, layer_count=layer_count, latent_size=512,
         use_blur=getattr(args, "case", 1) == 2, generator=g,
-    ).to(device)
+    ), args, layer_count).to(device)
     synth, resynth = build_stylegan2_pipeline(gen)
     return GanBundle(
         synth, resynth, make_encode_fn(enc), enc, 512, layer_count, 2 * layer_count, gen, device,
@@ -180,8 +214,9 @@ def _build_stylegan2_bundle(args, layer_count: int, g: torch.Generator,
 def _build_biggan_bundle(args, layer_count: int, g: torch.Generator,
                          device: torch.device) -> GanBundle:
     """BigGAN-deep (the config from ``--config_dir`` or the zoo layout for
-    ``--img_size`` with ``--z_dim``) and E_BIG, in eval mode: the spectral
-    norms read their stored ``u`` and ``v``."""
+    ``--img_size`` with ``--z_dim``; converted from ``--checkpoint_dir_GAN``
+    unless ``--random_init``) and E_BIG, in eval mode: the spectral norms
+    read their stored ``u`` and ``v``."""
     from tpugan_torch.models import BigGAN, BigGANConfig, BigGANEncoder
     from tpugan_torch.train.e_align import build_biggan_pipeline, make_encode_fn
 
@@ -193,11 +228,14 @@ def _build_biggan_bundle(args, layer_count: int, g: torch.Generator,
     if cfg.output_dim != args.img_size:
         raise ValueError(f"the BigGAN config makes {cfg.output_dim}px images, "
                          f"but --img_size is {args.img_size}")
-    model = BigGAN(cfg, generator=g).eval().to(device)
-    enc = BigGANEncoder(
+    model = BigGAN(cfg, generator=g).eval()
+    if not args.random_init:
+        convert.load_state(model, convert.biggan(convert.load_torch_state_dict(args.checkpoint_dir_GAN)))
+    model = model.to(device)
+    enc = _load_encoder(BigGANEncoder(
         startf=args.start_features, maxf=512, layer_count=layer_count,
         cond_dim=2 * cfg.z_dim, z_dim=cfg.z_dim, img_size=args.img_size, generator=g,
-    ).eval().to(device)
+    ), args, layer_count).eval().to(device)
     synth, resynth = build_biggan_pipeline(model)
     return GanBundle(
         synth, resynth, make_encode_fn(enc, conditional=True), enc, cfg.z_dim, layer_count,
@@ -220,34 +258,42 @@ def warn_random_weights(flag: str, consequence: str) -> None:
 
 
 def build_lpips_fn(args):
-    """The LPIPS closure of ``--lpips_weights``. The reference always trains
-    with real LPIPS (E_align_cropping_s1.py:98); without weights the term is
-    disabled, loudly, as in ``tpugan``. Converting the official weights
-    comes with ROADMAP slice 7 (io/convert)."""
+    """The LPIPS closure of ``--lpips_weights`` (the official VGG LPIPS
+    state dict, converted), on ``args.device``; in bf16 under ``--bf16``
+    unless ``--fp32_lpips`` (``tpugan/cli/common.py:327-353``). The
+    reference always trains with real LPIPS (E_align_cropping_s1.py:98);
+    without weights the term is disabled, loudly, as in ``tpugan``."""
     if getattr(args, "lpips_weights", None):
-        raise NotImplementedError(
-            "--lpips_weights needs the LPIPS converter, which comes with ROADMAP slice 7 "
-            "(io/convert)"
-        )
+        from tpugan_torch.losses.lpips import LPIPS, make_lpips_fn
+
+        state = convert.lpips_vgg(convert.load_torch_state_dict(args.lpips_weights))
+        model = convert.built(LPIPS, state).to(resolve_device(getattr(args, "device", "cuda")))
+        if getattr(args, "bf16", False) and not getattr(args, "fp32_lpips", False):
+            # the bf16 LPIPS of tpugan's bf16 runs: bf16 VGG weights and
+            # inputs, fp32 distances. The training CLIs' perceptual terms
+            # are log-only; the inversion's is in the gradient, where
+            # --fp32_lpips keeps it fp32
+            from tpugan_torch.precision import BF16, bf16_lpips
+
+            return bf16_lpips(make_lpips_fn(model.to(BF16)))
+        return make_lpips_fn(model)
     warn_random_weights("lpips_weights", "the LPIPS loss term is DISABLED")
     return None
 
 
 def build_vgg16(args):
-    """The Grad-CAM VGG16 (1000 classes) on ``args.device``, frozen, with
-    random weights seeded by ``args.seed`` and a loud warning, as ``tpugan``
-    runs without ``--vgg_weights``: the attention over random features is
-    exercised, not meaningful. Converting torchvision's weights comes with
-    ROADMAP slice 7 (io/convert)."""
+    """The Grad-CAM VGG16 (1000 classes) on ``args.device``, frozen: from
+    ``--vgg_weights`` (torchvision's state dict, classifier included,
+    converted; ``tpugan/cli/common.py:356-372``), else with random weights
+    seeded by ``args.seed`` and a loud warning, as ``tpugan`` runs without
+    it: the attention over random features is exercised, not meaningful."""
     from tpugan_torch.losses.vgg import VGG16
 
     if getattr(args, "vgg_weights", None):
-        raise NotImplementedError(
-            "--vgg_weights needs the torchvision VGG16 converter, which comes with ROADMAP slice 7 "
-            "(io/convert)"
-        )
-    warn_random_weights("vgg_weights", "VGG16 (Grad-CAM/GBP) weights are RANDOM")
-    vgg = VGG16(generator=torch.Generator().manual_seed(args.seed))
+        vgg = convert.built(VGG16, convert.vgg16(convert.load_torch_state_dict(args.vgg_weights)))
+    else:
+        warn_random_weights("vgg_weights", "VGG16 (Grad-CAM/GBP) weights are RANDOM")
+        vgg = VGG16(generator=torch.Generator().manual_seed(args.seed))
     return vgg.requires_grad_(False).to(resolve_device(getattr(args, "device", "cuda")))
 
 

@@ -26,10 +26,15 @@ and optimizer state; on the card every FIR is the FIR kernel's bf16 form,
 forward and adjoint, and BigGAN's attention the attention kernels' bf16
 forms, forward and backward.
 
+``--remat`` and ``--remat_policy conv_outs`` (either, with or without
+``--bf16``) recompute the activations of encode and resynth in the backward
+(:func:`~tpugan_torch.train.e_align.rematerialised`), with the same update.
+
 :func:`build_trainer` makes the state and the step functions; ``main``
-loops and writes. What later work brings raises :class:`NotImplementedError`
-naming its ROADMAP item: ``--remat`` and ``--remat_policy`` (A3), and
-``--resume`` and checkpoints (slice 7).
+loops and writes. Every ``--checkpoint_every`` iterations (past iteration
+0) it saves the train state to ``models/step_<N>``; ``--resume`` continues
+from the newest one at the iteration after it, and the run is bitwise the
+unbroken one (the draws are a function of the iteration).
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from tpugan_torch.cli.common import (
     build_lpips_fn,
     make_result_dirs,
 )
+from tpugan_torch.io.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from tpugan_torch.optim import lreq_adam
 from tpugan_torch.precision import bf16_encode, bf16_frozen, bf16_pipeline
 from tpugan_torch.train.e_align import (
@@ -69,9 +75,10 @@ def make_parser() -> argparse.ArgumentParser:
     add_common_args(parser, training=True)
     parser.add_argument("--case", type=int, default=1, choices=(1, 2))
     parser.add_argument("--remat", action="store_true",
-                        help="rematerialise activations (not in the port yet)")
+                        help="rematerialise the activations of encode and resynth in the backward")
     parser.add_argument("--remat_policy", default=None, choices=("conv_outs",),
-                        help="selective remat (not in the port yet)")
+                        help="selective remat: save the convolutions' outputs, recompute the rest "
+                             "in the backward")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute for the generator and the encoder's forward and "
                              "backward (fp32 master weights, fp32 norm moments, fp32 losses); "
@@ -79,7 +86,9 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--log_every", type=int, default=100)
     parser.add_argument("--checkpoint_every", type=int, default=5000)
     parser.add_argument("--resume", action="store_true",
-                        help="resume from the latest checkpoint (not in the port yet)")
+                        help="resume from the latest step_<N> checkpoint in this experiment's models "
+                             "dir (encoder, spectral-norm buffers, optimizer state, step); the "
+                             "continued run is bitwise the unbroken one")
     parser.add_argument("--eager_metrics", action="store_true",
                         help="compute the log-only image losses on every iteration; by default "
                              "(case 1) off-tick steps skip them, with the same trajectory")
@@ -121,20 +130,6 @@ class Pipeline(NamedTuple):
     draw: Callable
 
 
-def check_training_flags(args) -> None:
-    """Raise on the flags whose work comes with a later ROADMAP item."""
-    if getattr(args, "remat", False) or getattr(args, "remat_policy", None) is not None:
-        raise NotImplementedError("--remat and --remat_policy come with ROADMAP A3 (remat)"
-                                  + (", with --bf16 (A2) as without" if args.bf16 else ""))
-    if args.resume:
-        raise NotImplementedError("--resume comes with ROADMAP slice 7 (io/checkpoint)")
-    if args.iterations > args.checkpoint_every:
-        raise NotImplementedError(
-            f"--iterations {args.iterations} reaches --checkpoint_every {args.checkpoint_every}, "
-            "and saving checkpoints comes with ROADMAP slice 7 (io/checkpoint)"
-        )
-
-
 def build_pipeline(args, draw=None) -> Pipeline:
     """The frozen generator (a bf16 copy with ``--bf16``), the encoder and
     the train-mode closures for ``args``, on ``args.device``, from random
@@ -156,7 +151,7 @@ def build_pipeline(args, draw=None) -> Pipeline:
         synth_fn, resynth = build_stylegan2_pipeline(bundle.generator, train=True)
     else:
         synth_fn, resynth = build_stylegan1_pipeline(
-            bundle.generator, bundle.mapping, bundle.layer_count - 1, train=True)
+            bundle.generator, bundle.mapping, bundle.layer_count - 1, center=bundle.center, train=True)
     encode = make_encode_fn(bundle.encoder, conditional=args.mtype == 4, train=True)
     if ab == 1:
         # E_Blur_Z: const1 is z and the encoder's z2 is re-mapped to w+
@@ -193,7 +188,6 @@ def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
     iteration) -> Request`` replaces the iteration's seeded draws (a replay
     of given inputs). With ``--bf16`` the trainer's bundle holds the bf16
     copies of the generator and mapping that the step runs."""
-    check_training_flags(args)
     bundle, encode, synth, resynth, draw = build_pipeline(args, draw)
     ab = args.ablation
     case = 2 if ab else args.case  # every ablation script trains through its image losses
@@ -202,12 +196,28 @@ def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
         weights = dict(image_weights=ABLATION_IMAGE_WEIGHTS[ab],
                        latent_weights=ABLATION_LATENT_WEIGHTS[ab],
                        sequential_image_steps=ab in SEQUENTIAL_ABLATIONS)
+    remat = dict(remat=args.remat, remat_policy=args.remat_policy)
     state = init_train_state(bundle.encoder, lreq_adam(bundle.encoder, args.lr))
-    step = make_train_step(encode, synth, resynth, draw, case=case, lpips_fn=lpips_fn, **weights)
+    step = make_train_step(encode, synth, resynth, draw, case=case, lpips_fn=lpips_fn, **weights, **remat)
     lean = None
     if case == 1 and not args.eager_metrics:
-        lean = make_train_step(encode, synth, resynth, draw, case=1, compute_image_losses=False)
+        lean = make_train_step(encode, synth, resynth, draw, case=1, compute_image_losses=False, **remat)
     return Trainer(bundle, state, step, lean, make_align_visuals(encode, synth, resynth, draw))
+
+
+def resume(state: EncoderTrainState, models_dir: str, wanted: bool) -> int:
+    """With ``--resume``, load the newest ``step_<N>`` under ``models_dir``
+    into ``state`` and return N + 1, the iteration to go on from; else, or
+    when there is none, 0 (``tpugan/cli/e_align.py:176-183``)."""
+    if not wanted:
+        return 0
+    last = latest_step(models_dir)
+    if last is None:
+        print(f"--resume: no step_<N> checkpoint under {models_dir}, starting fresh")
+        return 0
+    _, last = load_checkpoint(models_dir, state, last)
+    print(f"resumed from {models_dir}/step_{last} (next iteration {last + 1})")
+    return last + 1
 
 
 def main(argv=None):
@@ -217,25 +227,28 @@ def main(argv=None):
     trainer = build_trainer(args, build_lpips_fn(args))
     name = f"mtype{args.mtype}-{args.img_size}-case{args.case}" + (
         f"-ab{args.ablation}" if args.ablation else "")
-    base, imgs_dir, _ = make_result_dirs(args.experiment_dir, name)
+    base, imgs_dir, models_dir = make_result_dirs(args.experiment_dir, name)
     state = trainer.state
+    start = resume(state, models_dir, args.resume)
     with open(os.path.join(base, "Loss.txt"), "a") as loss_log:
-        for iteration in range(args.iterations):
+        for iteration in range(start, args.iterations):
             on_tick = iteration % args.log_every == 0
             step_fn = trainer.step if (on_tick or trainer.lean is None) else trainer.lean
             vis = trainer.visuals(state, iteration) if on_tick else None
             state, info = step_fn(state, iteration)
-            if not on_tick:
-                continue
-            rec = {"iteration": iteration, "epoch": iteration // 30000, **info_scalars(info)}
-            print(json.dumps(rec), flush=True)
-            loss_log.write(json.dumps(rec) + "\n")
-            loss_log.flush()
-            grid = np.concatenate([to_unit(vis["imgs1"]), to_unit(vis["imgs2"])], axis=0)
-            save_image_grid(
-                os.path.join(imgs_dir, f"ep{iteration // 30000}_iter{iteration % 30000}.jpg"),
-                np.clip(grid, 0, 1), nrow=args.batch_size,
-            )
+            if on_tick:
+                rec = {"iteration": iteration, "epoch": iteration // 30000, **info_scalars(info)}
+                print(json.dumps(rec), flush=True)
+                loss_log.write(json.dumps(rec) + "\n")
+                loss_log.flush()
+                grid = np.concatenate([to_unit(vis["imgs1"]), to_unit(vis["imgs2"])], axis=0)
+                save_image_grid(
+                    os.path.join(imgs_dir, f"ep{iteration // 30000}_iter{iteration % 30000}.jpg"),
+                    np.clip(grid, 0, 1), nrow=args.batch_size,
+                )
+            if iteration % args.checkpoint_every == 0 and iteration > 0:
+                save_checkpoint(models_dir, state, iteration)
+    return state
 
 
 if __name__ == "__main__":

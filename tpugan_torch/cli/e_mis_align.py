@@ -21,9 +21,11 @@ parameters cast, the images cast down at its boundary; the masks and
 gradients come back fp32). The attention stack is log-only, so the
 trajectory is the fp32 one's, bit for bit.
 
-What later work brings raises :class:`NotImplementedError` naming its
-ROADMAP item: ``--vgg_weights`` and ``--lpips_weights`` (slice 7's
-converters), ``--resume`` and checkpoints (slice 7).
+``--vgg_weights`` and ``--lpips_weights`` load converted torchvision and
+LPIPS weights (``tpugan_torch/io/convert.py``). Every ``--checkpoint_every``
+iterations (past iteration 0) the train state is saved to
+``models/step_<N>``, and ``--resume`` continues from the newest one, bitwise
+the unbroken run, as in ``tpugan/cli/e_mis_align.py:146-153``, ``:219-220``.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ import numpy as np
 import torch
 
 from tpugan_torch.cli.common import GanBundle, add_common_args, build_lpips_fn, build_vgg16, make_result_dirs
-from tpugan_torch.cli.e_align import Pipeline, build_pipeline, check_training_flags
+from tpugan_torch.cli.e_align import Pipeline, build_pipeline, resume
+from tpugan_torch.io.checkpoint import save_checkpoint
 from tpugan_torch.optim import lreq_adam
 from tpugan_torch.precision import BF16
 from tpugan_torch.train.e_align import EncoderTrainState, info_scalars, init_train_state
@@ -53,7 +56,8 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--log_every", type=int, default=100)
     parser.add_argument("--checkpoint_every", type=int, default=5000)
     parser.add_argument("--resume", action="store_true",
-                        help="resume from the latest checkpoint (not in the port yet)")
+                        help="resume from the latest step_<N> checkpoint in this experiment's models "
+                             "dir; the continued run is bitwise the unbroken one")
     parser.add_argument("--eager_metrics", action="store_true",
                         help="compute the log-only attention and image losses on every iteration; by "
                              "default off-tick steps skip them, with the same trajectory")
@@ -83,7 +87,6 @@ def build_trainer(args, lpips_fn=None, draw=None, vgg=None) -> Trainer:
     :func:`parse_args` gives them), on ``args.device``, from random weights
     seeded by ``args.seed``; ``vgg`` replaces :func:`build_vgg16`'s and
     ``draw(iteration) -> Request`` the iteration's seeded draws."""
-    check_training_flags(args)
     pipeline = build_pipeline(args, draw)
     bundle, encode, synth, resynth, draw = pipeline
     vgg = build_vgg16(args) if vgg is None else vgg
@@ -124,29 +127,32 @@ def save_visuals(vis: dict, base: str, imgs_dir: str, iteration: int, nrow: int)
 def run(trainer: Trainer, args) -> EncoderTrainState:
     """Train for ``--iterations`` and write the records and dumps; returns
     the final state."""
-    base, imgs_dir, _ = make_result_dirs(args.experiment_dir, f"mtype{args.mtype}-{args.img_size}-misalign")
+    base, imgs_dir, models_dir = make_result_dirs(args.experiment_dir,
+                                                  f"mtype{args.mtype}-{args.img_size}-misalign")
     state = trainer.state
+    start = resume(state, models_dir, args.resume)
     with open(os.path.join(base, "Loss.txt"), "a") as loss_log:
-        for iteration in range(args.iterations):
+        for iteration in range(start, args.iterations):
             on_tick = iteration % args.log_every == 0
             step_fn = trainer.step if (on_tick or trainer.lean is None) else trainer.lean
             # the dumps use the iteration's initial parameters, as the
             # reference saves tensors computed before its update
             vis = trainer.visuals(state, iteration) if on_tick else None
             state, info = step_fn(state, iteration)
-            if not on_tick:
-                continue
-            rec = {"iteration": iteration, "epoch": iteration // 30000, **info_scalars(info)}
-            print(json.dumps(rec), flush=True)
-            loss_log.write(json.dumps(rec) + "\n")
-            loss_log.flush()
-            save_visuals(vis, base, imgs_dir, iteration, args.batch_size)
+            if on_tick:
+                rec = {"iteration": iteration, "epoch": iteration // 30000, **info_scalars(info)}
+                print(json.dumps(rec), flush=True)
+                loss_log.write(json.dumps(rec) + "\n")
+                loss_log.flush()
+                save_visuals(vis, base, imgs_dir, iteration, args.batch_size)
+            if iteration % args.checkpoint_every == 0 and iteration > 0:
+                save_checkpoint(models_dir, state, iteration)
     return state
 
 
 def main(argv=None):
     args = parse_args(argv)
-    run(build_trainer(args, build_lpips_fn(args)), args)
+    return run(build_trainer(args, build_lpips_fn(args)), args)
 
 
 if __name__ == "__main__":

@@ -18,9 +18,16 @@ parameters computes only activation gradients there.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    set_checkpoint_early_stop,
+)
 
 from tpugan_torch.losses.space_loss import SpaceLossInfo, space_loss, zero_space_info
 from tpugan_torch.models.biggan import BigGAN
@@ -262,6 +269,49 @@ def init_train_state(encoder: torch.nn.Module, optimizer: LREQAdam) -> EncoderTr
     return EncoderTrainState(encoder=encoder, optimizer=optimizer)
 
 
+# the ops whose outputs ``remat_policy="conv_outs"`` saves: every convolution
+# (plain, transposed, grouped), as ``tpugan`` saves the outputs it tags
+# ``conv_out`` (EqConv, tpugan/nn/layers.py:159; ModulatedConv,
+# tpugan/models/stylegan2.py:259, :330). The port's EqConv folds its bias
+# into ``F.conv2d`` where tpugan adds it after the cut, and BigGAN's and
+# E_BIG's plain convolutions are saved too where tpugan recomputes them:
+# that changes which tensors are kept, not any value.
+CONV_OUT_OPS = frozenset({torch.ops.aten.convolution.default})
+
+
+def _save_conv_outs(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in CONV_OUT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def rematerialised(fn: Callable, remat: bool = False, remat_policy: Optional[str] = None) -> Callable:
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant), as
+    ``tpugan`` wraps encode and resynth in ``jax.checkpoint``
+    (tpugan/train/e_align.py:228-247): ``remat`` keeps only the region's
+    inputs and recomputes the rest in the backward; ``remat_policy=
+    "conv_outs"`` keeps the convolutions' outputs and recomputes everything
+    else, the FIR and attention kernels included (their launches are not
+    aten ops, so the policy never sees their buffers). A recompute runs the
+    whole region again (no early stop), so each backward through it
+    launches its forward kernels once more. ``fn`` must write no state."""
+    if remat and remat_policy is not None:
+        raise ValueError("remat (full rematerialisation) and remat_policy are mutually exclusive "
+                         "— pass one or the other")
+    if remat_policy == "conv_outs":
+        extra = dict(context_fn=functools.partial(create_selective_checkpoint_contexts, _save_conv_outs))
+    elif remat_policy is not None:
+        raise ValueError(f"unknown remat_policy {remat_policy!r}")
+    elif remat:
+        extra = {}
+    else:
+        return fn
+
+    def run(*args):
+        with set_checkpoint_early_stop(False):
+            return checkpoint(fn, *args, use_reentrant=False, **extra)
+
+    return run
+
+
 def make_train_step(
     encode: Callable,
     synth: Callable[[Request], SynthBatch],
@@ -274,6 +324,8 @@ def make_train_step(
     latent_weights: Optional[tuple] = None,
     detach_image_losses: Optional[bool] = None,
     sequential_image_steps: bool = False,
+    remat: bool = False,
+    remat_policy: Optional[str] = None,
 ):
     """Build the per-iteration train step ``step(state, iteration) ->
     (state, StepInfo)``, which updates ``state`` in place.
@@ -305,6 +357,14 @@ def make_train_step(
     iterations: no resynthesis and no image losses, their info zero; the
     parameter trajectory is the full step's, bit for bit. It needs detached
     image losses.
+
+    ``remat`` or ``remat_policy="conv_outs"`` runs encode and resynth under
+    :func:`rematerialised`; the two are mutually exclusive. Each gradient is
+    then taken from a forward of its own, as ``tpugan`` takes each from its
+    own ``value_and_grad`` trace (:360-385): a selectively checkpointed
+    region takes one backward only, and the group of the latent loss skips
+    the resynthesis and the image losses, which it does not read. The
+    gradients are the one-forward step's.
     """
     if case not in (1, 2):
         raise ValueError(f"case must be 1 or 2, got {case}")
@@ -320,6 +380,9 @@ def make_train_step(
             "gradients through them (case 2, the ablations) the lean step would change the "
             "trajectory"
         )
+    remat_on = remat or remat_policy is not None
+    encode = rematerialised(encode, remat, remat_policy)
+    resynth = rematerialised(resynth, remat, remat_policy)
 
     def image_losses(batch: SynthBatch, w2, noise_g2):
         imgs2 = resynth(w2, batch, noise_g2)
@@ -330,9 +393,9 @@ def make_train_step(
         l_small, i_small = space_loss(at2_1, at2_2, lpips_fn=lpips_fn)
         return (l_imgs, l_med, l_small), (i_imgs, i_med, i_small)
 
-    def losses(batch: SynthBatch, request: Request):
+    def losses(batch: SynthBatch, request: Request, images: bool = compute_image_losses):
         const2, w2 = encode(batch, request.noise_e)
-        if not compute_image_losses:
+        if not images:
             zero = torch.zeros((), device=w2.device)
             parts, infos = (zero,) * 3, (zero_space_info(w2.device),) * 3
         elif detach_image_losses:
@@ -361,22 +424,36 @@ def make_train_step(
         batch = synth(request)
         power_iterate(state.encoder)
         params = list(state.encoder.parameters())
-        loss_tsa, loss_mtv, weighted, info = losses(batch, request)
+        out = losses(batch, request)
+        info = out[3]
         if case == 1:
-            groups = [loss_mtv]
+            groups = ["mtv"]
         elif sequential_image_steps:
-            groups = [g for g, w in zip(weighted, image_weights) if w != 0.0] + [loss_mtv]
+            groups = [i for i, w in enumerate(image_weights) if w != 0.0] + ["mtv"]
         else:
-            groups = [loss_tsa, loss_mtv]
-        # every gradient from the one forward, before any update moves the
-        # parameters that it saved
-        grads = [_grad(loss, params, retain=i + 1 < len(groups)) for i, loss in enumerate(groups)]
+            groups = ["tsa", "mtv"]
+        if remat_on:
+            grads = [_grad(_group(out, groups[0]), params, retain=False)]
+            grads += [_grad(_group(losses(batch, request, images=g != "mtv"), g), params, retain=False)
+                      for g in groups[1:]]
+        else:
+            # every gradient from the one forward, before any update moves
+            # the parameters that it saved
+            grads = [_grad(_group(out, g), params, retain=i + 1 < len(groups))
+                     for i, g in enumerate(groups)]
         for g in grads:
             state.optimizer.step(g)
         state.step += 1
         return state, info
 
     return step
+
+
+def _group(out, group):
+    """A gradient group's loss from ``losses``' ``(loss_tsa, loss_mtv,
+    weighted image losses, info)``: "tsa", "mtv" or an image part's index."""
+    loss_tsa, loss_mtv, weighted, _ = out
+    return loss_tsa if group == "tsa" else loss_mtv if group == "mtv" else weighted[group]
 
 
 def _grad(loss: torch.Tensor, params: list, retain: bool):
