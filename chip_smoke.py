@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive tpugan_torch's serving and training paths on one NVIDIA GPU and check its kernels.
+"""Drive tpugan_torch's serving, training and eval paths on one NVIDIA GPU and check its kernels.
 
 Run from the repository root: ``python3 chip_smoke.py``. It needs one CUDA
 card and ``nvcc``: it builds ``tpugan_torch/csrc`` from the checkout. Any
@@ -150,7 +150,31 @@ Phases:
      ``torch.save``): ``infer_e --mtype 2`` and ``--mtype 4`` requests held
      to CPU loads of the same files, one ``e_align --lpips_weights`` step
      and one ``e_mis_align --vgg_weights --lpips_weights`` step with their
-     launches and the converted LPIPS and VGG16 held to their CPU loads. is the kernel table as JSON; the last line is
+     launches and the converted LPIPS and VGG16 held to their CPU loads.
+ 15. slice 7b, eval and PGGAN: ``synthesize`` through its own ``main``, one
+     seed each, on StyleGAN2-1024, BigGAN-deep-256 (E_BIG's z head scaled
+     and gamma set, as phase 5) and PGGAN-1024, in the default form (bf16
+     generators on the card) and with ``--fp32``: the files, and the
+     launches by TPU kernel against the counts derived from the modules
+     (StyleGAN2 32 FIRs a seed, BigGAN 2 attention calls, on the bf16 forms
+     by default and the fp32 ones with --fp32; PGGAN none); each fp32 seed
+     held to its CPU replay, each bf16 seed to the fp32 one within twice
+     the CPU's bf16 distance; per-seed times; ``compare`` through its own
+     ``main`` over one grid's imgs1 against its imgs2, on the card against
+     the CPU, with and without ``--lpips_weights``; PGGAN-1024 with E_PG
+     (``--mtype 3``): ``infer_e`` requests (no kernel of this repo runs),
+     one replayed on the CPU, latency, device time and peak memory (timed
+     with PyTorch's defaults, TF32 convolutions: with TF32 off cuDNN runs
+     one of PGGAN's shapes as an FFT of 0.3 s, timed as synthesize's fp32
+     seed); ``e_align`` case 1, its lean step and case 2 with step times and
+     device time (PyTorch's defaults), a case-2 step at 256 px held to
+     float64 with TF32 off, on the card with cuDNN off (PyTorch's own
+     convolutions), the run with cuDNN's deterministic algorithms measured
+     beside it and not held; ``embedding`` for 2 iterations with its files; an
+     ``infer_e`` request on converted reference-named files held to their
+     CPU load.
+
+The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -338,6 +362,10 @@ SG2_START_FEATURES = 16
 # the device-side sleep of queued_ms: cycles per ms, above the H100's boost
 # clock (1.98 GHz), so that a sleep lasts at least as long as asked
 SLEEP_CYCLES_PER_MS = 2.0e6
+# pauses (s) before the retakes of a profiler trace that saw no device time or
+# missed launches: on an H100, CUPTI returned 9 of 2,851 traces with no device
+# time, each alone (tpugan_torch/tools/profiler_gaps.py), and once three in a row
+PROFILER_RETAKE_PAUSES = (0.5, 2.0, 5.0)
 
 
 def check(cond, msg):
@@ -401,14 +429,17 @@ def device_kernels(torch, fn, iters, expect=(), warmup=True, host=True):
     annotations (``Optimizer.step#...``) span kernels already counted and are
     left out. A trace with no device time at all, or one that holds fewer
     than one launch per call of a kernel whose symbol is in ``expect``, is
-    taken again, twice at most, and each retake prints a line. When every
-    trace missed launches, raises MissedLaunches with the last one."""
+    taken again after each pause of PROFILER_RETAKE_PAUSES, and each retake
+    prints a line. When every trace missed, raises MissedLaunches with the
+    last one (empty where none saw device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     if warmup:
         fn()
     torch.cuda.synchronize()
-    for attempt in range(1, 4):
+    takes = len(PROFILER_RETAKE_PAUSES) + 1
+    for attempt, pause in enumerate((0.0,) + PROFILER_RETAKE_PAUSES, start=1):
+        time.sleep(pause)
         activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
         with profile(activities=activities) as prof:
             for _ in range(iters):
@@ -423,27 +454,31 @@ def device_kernels(torch, fn, iters, expect=(), warmup=True, host=True):
         short = [sym for sym in expect if sum(n for key, (_, n) in found.items() if sym in key) < 1]
         if found and not short:
             return found
-        say(f"profiler: trace {attempt} of 3 saw no device time or missed launches of {short}; "
-            "taking it again")
-    if found:
-        raise MissedLaunches(found)
-    raise RuntimeError("chip_smoke: three profiler traces in a row saw no device time")
+        say(f"profiler: trace {attempt} of {takes} " + (f"missed launches of {short}" if found else
+                                                        "saw no device time")
+            + (f"; taking it again in {PROFILER_RETAKE_PAUSES[attempt - 1]} s" if attempt < takes else ""))
+    raise MissedLaunches(found)
 
 
 class MissedLaunches(RuntimeError):
+    """Every trace of a ``device_kernels`` call missed: ``found`` is the
+    last trace's kernels, empty where no trace saw device time."""
+
     def __init__(self, found):
-        super().__init__("chip_smoke: three profiler traces in a row missed kernel launches")
+        super().__init__(f"chip_smoke: {len(PROFILER_RETAKE_PAUSES) + 1} profiler traces in a row "
+                         + ("missed kernel launches" if found else "saw no device time"))
         self.found = found
 
 
 def kernel_ms(torch, fn, expect, device_bound=False):
     """Device time per call of ``fn`` (ms), the kernels a trace of it saw,
     and where the time comes from: torch.profiler, or CUDA events around 20
-    back-to-back calls where three traces in a row missed launches of a
-    kernel in ``expect``. On the card, traces taken after the paths'
-    profiled requests and steps recorded 1 launch of 20, none, or 20
+    back-to-back calls where every trace saw no device time or missed
+    launches of a kernel in ``expect``. On the card, traces taken after the
+    paths' profiled requests and steps recorded 1 launch of 20, none, or 20
     launches at half the kernel's time, while the same calls traced alone
-    record all 20. For a call whose back-to-back time is the device's
+    record all 20; and CUPTI has returned runs of traces with no device
+    time at all. For a call whose back-to-back time is the device's
     (``device_bound``: long kernels, not the small blurs, whose back-to-back
     time is the host's), a trace under 0.9 of that time is taken again too."""
     events = time_ms(torch, fn, iters=20)
@@ -459,16 +494,17 @@ def kernel_ms(torch, fn, expect, device_bound=False):
             return total, kernels, "torch.profiler"
         say(f"profiler: trace {attempt} of 3 held {total * 1e3:.2f} us per call, under 0.9 of the "
             f"CUDA events' {events * 1e3:.2f} us; taking it again")
-    say(f"profiler: no complete trace of {list(expect)}; CUDA events instead: {events * 1e3:.2f} us "
-        "per call")
+    say(f"profiler: no complete trace of {list(expect) or 'the call'}; CUDA events instead: "
+        f"{events * 1e3:.2f} us per call")
     return events, kernels, "CUDA events"
 
 
-def request_latency(torch, run, seed, label):
-    """Host-clock latency of 20 requests ``run(seed + i)``, each ending in a
-    synchronize, after two warm-up requests; returns the median (ms)."""
+def request_latency(torch, run, seed, label, requests=20):
+    """Host-clock latency of ``requests`` requests ``run(seed + i)``, each
+    ending in a synchronize, after two warm-up requests; returns the median
+    (ms)."""
     lat = []
-    for i in range(22):
+    for i in range(requests + 2):
         t0 = time.perf_counter()
         run(seed + i)
         torch.cuda.synchronize()
@@ -479,21 +515,32 @@ def request_latency(torch, run, seed, label):
     return statistics.median(lat)
 
 
-def request_device_time(torch, run, seed, median, symbol, name):
-    """A request's device time by kernel (torch.profiler over 5 requests),
-    the share of the kernel whose symbol contains ``symbol``, and the
-    request's peak device memory."""
-    kernels = device_kernels(torch, lambda: run(seed), iters=5)
-    busy = sum(ms for ms, _ in kernels.values())
-    say(f"device time per request {busy:.3f} ms over {sum(n for _, n in kernels.values()):.0f} "
-        f"kernels and copies = {busy / median * 100:.1f}% of the median latency; by name:")
-    for kname, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]:
-        say(f"  {ms:8.3f} ms  x{n:5.0f}  {kname[:100]}")
-    own = sum(ms for kname, (ms, _) in kernels.items() if symbol in kname)
-    say(f"{name} kernel: {own:.3f} ms per request, {own / busy * 100:.2f}% of device time")
+def request_device_time(torch, run, seed, median, symbol, name, iters=5):
+    """A request's device time by kernel (torch.profiler over ``iters`` requests, the device alone),
+    the share of the kernel whose symbol contains ``symbol`` (none where it
+    is None), and the request's peak device memory; returns the device time
+    and the peak (the peak alone, with a line, where no trace saw device
+    time)."""
+    out = {}
+    try:
+        kernels = device_kernels(torch, lambda: run(seed), iters=iters, host=False)
+    except MissedLaunches as missed:
+        say(f"device time per request: not measured ({missed})")
+    else:
+        busy = sum(ms for ms, _ in kernels.values())
+        say(f"device time per request {busy:.3f} ms over {sum(n for _, n in kernels.values()):.0f} "
+            f"kernels and copies = {busy / median * 100:.1f}% of the median latency; by name:")
+        for kname, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]:
+            say(f"  {ms:8.3f} ms  x{n:5.0f}  {kname[:100]}")
+        if symbol is not None:
+            own = sum(ms for kname, (ms, _) in kernels.items() if symbol in kname)
+            say(f"{name} kernel: {own:.3f} ms per request, {own / busy * 100:.2f}% of device time")
+        out["device_ms"] = busy
     torch.cuda.reset_peak_memory_stats()
     run(seed)
-    say(f"peak device memory of a request: {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    say(f"peak device memory of a request: {out['peak_mib']:.1f} MiB")
+    return out
 
 
 def attention_tiers():
@@ -846,16 +893,14 @@ def time_calls(torch, calls, expect):
     """Device time per call of each of ``calls`` ({key: fn}): the kernel's
     (key "ms", and "fp32_ms" for the fp32 kernel beside a bf16 one) from
     ``kernel_ms`` (``expect``: its symbols), the others' summed over a
-    trace of 20 calls. Returns the times (and "ms_from", "fp32_ms_from"),
-    the kernels each call ran by name (longest first) and by key, and each
-    call's back-to-back time from CUDA events."""
+    trace of 20 calls (``kernel_ms`` with no symbols). Returns the times
+    (each with its source, "<key>_from"), the kernels each call ran by name
+    (longest first) and by key, and each call's back-to-back time from CUDA
+    events."""
     row, names, kernels_of = {}, {}, {}
     for key, fn in calls.items():
-        if key in ("ms", "fp32_ms"):
-            row[key], kernels, row[f"{key}_from"] = kernel_ms(torch, fn, expect, device_bound=True)
-        else:
-            kernels = device_kernels(torch, fn, iters=20)
-            row[key] = sum(ms for ms, _ in kernels.values())
+        row[key], kernels, row[f"{key}_from"] = kernel_ms(
+            torch, fn, expect if key in ("ms", "fp32_ms") else (), device_bound=key in ("ms", "fp32_ms"))
         names[key] = sorted(kernels, key=lambda name: -kernels[name][0])
         kernels_of[key] = kernels
     issue = {key: time_ms(torch, fn, iters=20) for key, fn in calls.items()}
@@ -1020,32 +1065,38 @@ def step_times(torch, step, state, label, first, steps=None):
 
 
 def step_device_time(torch, step, state, median, first,
-                     symbols=("sagan_attention_kernel",) + B4_SYMBOLS, keep_kernels=False, iters=3, host=True):
+                     symbols=("sagan_attention_kernel",) + B4_SYMBOLS, keep_kernels=False, iters=3):
     """A step's device time by kernel (torch.profiler over ``iters``
-    steps; the device alone with ``host`` false), the share of the kernels
-    whose symbols contain ``symbols`` (B3/B4 unless given), and the step's
+    steps, the device alone: recording a step's host ops costs seconds a
+    trace), the share of the kernels whose symbols contain ``symbols`` (B3/B4 unless given), and the step's
     peak device memory; with ``keep_kernels`` also every kernel's time and
-    count per step by name."""
+    count per step by name. Where no trace saw device time, the peak alone,
+    with a line."""
     it = iter(range(first, first + 100))
-    kernels = device_kernels(torch, lambda: step(state, next(it)), iters=iters, host=host)
-    busy = sum(ms for ms, _ in kernels.values())
-    say(f"device time per step {busy:.3f} ms over {sum(n for _, n in kernels.values()):.0f} kernels "
-        f"and copies = {busy / median * 100:.1f}% of the median step time; by name:")
-    for kname, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
-        say(f"  {ms:8.3f} ms  x{n:5.0f}  {kname[:100]}")
-    shares = {}
-    for symbol in symbols:
-        own = sum(ms for kname, (ms, _) in kernels.items() if symbol in kname)
-        shares[symbol] = own
-        say(f"  {symbol}: {own:.3f} ms per step, {own / busy * 100:.2f}% of device time")
+    out = {}
+    try:
+        kernels = device_kernels(torch, lambda: step(state, next(it)), iters=iters, host=False)
+    except MissedLaunches as missed:
+        say(f"device time per step: not measured ({missed})")
+    else:
+        busy = sum(ms for ms, _ in kernels.values())
+        say(f"device time per step {busy:.3f} ms over {sum(n for _, n in kernels.values()):.0f} kernels "
+            f"and copies = {busy / median * 100:.1f}% of the median step time; by name:")
+        for kname, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
+            say(f"  {ms:8.3f} ms  x{n:5.0f}  {kname[:100]}")
+        shares = {}
+        for symbol in symbols:
+            own = sum(ms for kname, (ms, _) in kernels.items() if symbol in kname)
+            shares[symbol] = own
+            say(f"  {symbol}: {own:.3f} ms per step, {own / busy * 100:.2f}% of device time")
+        out.update(device_ms=busy, kernel_ms=shares)
+        if keep_kernels:
+            out["kernels"] = kernels
     torch.cuda.reset_peak_memory_stats()
     step(state, next(it))
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    say(f"peak device memory of a step: {peak:.1f} MiB")
-    out = {"device_ms": busy, "kernel_ms": shares, "peak_mib": peak}
-    if keep_kernels:
-        out["kernels"] = kernels
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    say(f"peak device memory of a step: {out['peak_mib']:.1f} MiB")
     return out
 
 
@@ -1515,24 +1566,22 @@ def flushed_ms(torch, fn, flush, expect):
     over 20 (write, call) pairs with the write's fill kernel left out; the
     wrapper's host time per call is longer than the write, so CUDA events
     around a call would time the host. None, with a line, where every trace
-    missed launches of a kernel in ``expect``."""
+    saw no device time or missed launches of a kernel in ``expect``."""
     try:
         kernels = device_kernels(torch, lambda: (flush.zero_(), fn()), iters=20, expect=expect)
-    except MissedLaunches:
-        say(f"profiler: every trace of the L2-flushed calls missed launches of {list(expect)}")
+    except MissedLaunches as missed:
+        say(f"profiler: L2-flushed calls of {list(expect)}: {missed}")
         return None
     return sum(ms for name, (ms, _) in kernels.items() if "FillFunctor" not in name)
 
 
 def fir_row(torch, calls, nbytes, flops, bandwidth, fp32_peak):
     """Device times (ms) of the kernel, plain and library calls in ``calls``
-    (a library call where given) and the bound of one call."""
+    (a library call where given), each with its source (``kernel_ms``), and
+    the bound of one call."""
     row = {}
     for key, fn in calls.items():
-        if key == "ms":
-            row[key], _, row["ms_from"] = kernel_ms(torch, fn, ("upfirdn2d_kernel",))
-        else:
-            row[key] = sum(ms for ms, _ in device_kernels(torch, fn, iters=20).values())
+        row[key], _, row[f"{key}_from"] = kernel_ms(torch, fn, ("upfirdn2d_kernel",) if key == "ms" else ())
     row["bound_ms"] = max(nbytes / bandwidth, flops / fp32_peak) * 1e3
     row["bound_by"] = "bytes" if nbytes / bandwidth >= flops / fp32_peak else "operations"
     row["share_of_bound"] = row["bound_ms"] / row["ms"]
@@ -1586,7 +1635,10 @@ def fir_times(torch, dev, gen, bandwidth, fp32_peak):
         issue = {key: time_ms(torch, fn) for key, fn in calls.items()}
         flushed = ""
         if (c, r) in FLUSHED_BLURS:
-            library = tuple(device_kernels(torch, calls["library_ms"], iters=5))
+            try:
+                library = tuple(device_kernels(torch, calls["library_ms"], iters=5))
+            except MissedLaunches as missed:
+                library = tuple(missed.found)
             row["flushed_ms"] = flushed_ms(torch, calls["ms"], flush, ("upfirdn2d_kernel",))
             row["library_flushed_ms"] = flushed_ms(torch, calls["library_ms"], flush, library)
             flushed = "; L2 flushed: " + ", ".join(
@@ -1860,10 +1912,7 @@ def sg2_serving_path(torch, dev, parser, smi, bandwidth, fp32_peak):
         "clock")
     run = lambda s: infer_e.run(bundle, BATCH, s)  # noqa: E731
     median = request_latency(torch, run, seed, f"StyleGAN2-{SG2_SIZE} + E, fp32, TF32 off")
-    try:
-        request_device_time(torch, run, seed, median, "upfirdn2d_kernel", "upfirdn2d")
-    except RuntimeError as missed:  # device_kernels: three traces in a row saw no device time
-        say(f"device time per SG2 request: not measured ({missed})")
+    request_device_time(torch, run, seed, median, "upfirdn2d_kernel", "upfirdn2d")
     del bundle
     torch.cuda.empty_cache()
     return {"launches": launches["upfirdn2d"], "max_abs_err": max_err, "per_request": request_sums,
@@ -2121,12 +2170,8 @@ def sgv1_training_path(torch, dev, smi):
             say(f"SGv1 training times below: {smi}; step times from the host clock, device times from "
                 "torch.profiler")
             median = step_times(torch, step, state, f"SGv1 {label}, fp32, TF32 off", 100)
-            try:
-                dev_time = step_device_time(torch, step, state, median, 200, symbols=("upfirdn2d_kernel",))
-            except RuntimeError as missed:  # device_kernels: three traces saw no device time
-                say(f"device time per SGv1 {label} step: not measured ({missed})")
-                dev_time = None
-            times[label] = {"median_ms": median, **(dev_time or {})}
+            times[label] = {"median_ms": median, **step_device_time(torch, step, state, median, 200,
+                                                                    symbols=("upfirdn2d_kernel",))}
     del trainer
     torch.cuda.empty_cache()
     with cudnn_deterministic(torch):  # the comment at CPU_GPU_ATOL
@@ -2308,26 +2353,47 @@ def sg2_step_fir_times(torch, step, state, first, bandwidth, fp32_peak):
 
 def replay_sg2_case2_on_cpu(torch, dev, e_align):
     """One StyleGAN2 case-2 step at SG2_REPLAY_SIZE (E_Blur at
-    SG2_REPLAY_START_FEATURES) on the card, on the CPU and on the CPU in
-    float64, from the same explicit inputs (drawn on the CPU): loss_tsa and
-    both gradients of the step, held to the float64 run; the card's FIR
-    launches by TPU kernel."""
+    SG2_REPLAY_START_FEATURES) held to float64 (:func:`replay_case2_on_float64`),
+    the card's FIRs on B1 and B2."""
+    from tpugan_torch.ops import upfirdn
+
+    def card_launches(launches):
+        layouts = dict(upfirdn.layout_launches)
+        check(layouts["B1"] > 0 and layouts["B2"] > 0, f"the replay's FIR launches {layouts} miss B1 or B2")
+        return layouts
+
+    return replay_case2_on_float64(
+        torch, dev, e_align, "an SG2", ["--mtype", "2", "--img_size", str(SG2_REPLAY_SIZE), "--start_features",
+                                     str(SG2_REPLAY_START_FEATURES)],
+        f"StyleGAN2-{SG2_REPLAY_SIZE} config F, E_Blur at start_features {SG2_REPLAY_START_FEATURES}", card_launches)
+
+
+def replay_case2_on_float64(torch, dev, e_align, name, flags, what, card_launches, card_forms=(("cuda", None),)):
+    """One case-2 step of ``e_align`` at ``flags`` (a reduced configuration,
+    ``what``) on the card, on the CPU and on the CPU in float64, from the
+    same explicit inputs (drawn on the CPU): loss_tsa and both gradients of
+    the step, held to the float64 run within CPU_GPU_ATOL x max(1, max |g|)
+    or twice the CPU fp32 run's own distance from it.
+    ``card_launches(cuda.launches)`` checks the card's launches and returns
+    what the record keeps. ``card_forms``: (label, context) of each card
+    run, the context (None: none) entered around its step; the first form
+    is held to the rule, the others are measured and printed beside it."""
     from tpugan_torch.cli import infer_e
     from tpugan_torch.losses.lpips import make_lpips_fn, random_params
     from tpugan_torch.ops import cuda, upfirdn
     from tpugan_torch.train.e_align import info_scalars
 
-    argv = ["--mtype", "2", "--img_size", str(SG2_REPLAY_SIZE), "--start_features",
-            str(SG2_REPLAY_START_FEATURES), "--random_init", "--case", "2", "--iterations", "1",
-            "--batch_size", str(BATCH), "--seed", str(SEED)]
+    argv = list(flags) + ["--random_init", "--case", "2", "--iterations", "1", "--batch_size", str(BATCH),
+                          "--seed", str(SEED)]
     parser = e_align.make_parser()
     probe = e_align.build_trainer(parser.parse_args(argv + ["--device", "cpu"]))
     request = infer_e.draw_request(probe.bundle, BATCH, 0)
     del probe
-    runs = []
+    runs = {}
     cpu = torch.device("cpu")
-    for device, place, dtype in ((CARD, dev, torch.float32), ("cpu", cpu, torch.float32),
-                                 ("cpu", cpu, torch.float64)):
+    forms = [(label, CARD, dev, torch.float32, ctx) for label, ctx in card_forms] + [
+        ("cpu fp32", "cpu", cpu, torch.float32, None), ("cpu float64", "cpu", cpu, torch.float64, None)]
+    for label, device, place, dtype, ctx in forms:
         lpips = make_lpips_fn(random_params(torch.Generator().manual_seed(7)).to(place, dtype))
         req = request.to(place)
         req = req._replace(z=req.z.to(dtype), noise_e=[tuple(n.to(dtype) for n in b) for b in req.noise_e])
@@ -2342,40 +2408,48 @@ def replay_sg2_case2_on_cpu(torch, dev, e_align):
         cuda.reset_launches()
         upfirdn.reset_layout_launches()
         t0 = time.perf_counter()
-        _, info = trainer.step(trainer.state, 0)
+        with contextlib.nullcontext() if ctx is None else ctx(torch):
+            _, info = trainer.step(trainer.state, 0)
+            if device == CARD:
+                torch.cuda.synchronize()
         if device == CARD:
-            torch.cuda.synchronize()
-            layouts = dict(upfirdn.layout_launches)
-            check(layouts["B1"] > 0 and layouts["B2"] > 0, f"the replay's FIR launches {layouts} miss B1 or B2")
+            layouts = card_launches(dict(cuda.launches))
         else:
             check(not any(cuda.launches.values()), "the CPU replay launched a kernel")
         seconds = time.perf_counter() - t0
         check(len(grads) == 2, f"a case-2 step took {len(grads)} updates")
-        runs.append((info_scalars(info)["loss_tsa"],
-                     [[g_.detach().double().cpu() for g_ in g] for g in grads], seconds))
+        runs[label] = (info_scalars(info)["loss_tsa"], [[g_.detach().double().cpu() for g_ in g] for g in grads],
+                       seconds)
         del trainer
-    (loss_g, grads_g, sec_g), (loss_c, grads_c, sec_c), (loss_r, grads_r, sec_r) = runs
-    say(f"replay of an SG2 case-2 step: StyleGAN2-{SG2_REPLAY_SIZE} config F, E_Blur at start_features "
-        f"{SG2_REPLAY_START_FEATURES}, batch {BATCH}, random LPIPS; FIR launches on the card {layouts}; "
-        f"{sec_g:.2f} s on the card (first call), {sec_c:.2f} s on the CPU, {sec_r:.2f} s on the CPU in float64")
+    held = card_forms[0][0]
+    loss_r, grads_r, sec_r = runs.pop("cpu float64")
+    say(f"replay of {name} case-2 step: {what}, batch {BATCH}, random LPIPS; launches on the card "
+        f"{layouts}; " + ", ".join(f"{label} {sec:.2f} s" for label, (_, _, sec) in runs.items())
+        + f", cpu float64 {sec_r:.2f} s (the card's runs are first calls)")
     scale = max(r.abs().max().item() for g in grads_r for r in g)
     errs = {}
-    for label, loss, grads in (("cuda", loss_g, grads_g), ("cpu fp32", loss_c, grads_c)):
+    for label, (loss, grads, _) in runs.items():
         worst = max((((a - r).abs().max().item()), f"gradient {k} of {names[i]}")
                     for k, (ga, gr) in enumerate(zip(grads, grads_r))
                     for i, (a, r) in enumerate(zip(ga, gr)))
         errs[label] = (abs(loss - loss_r) / abs(loss_r), worst[0])
         say(f"  {label} vs cpu float64: loss_tsa {loss:.6f} against {loss_r:.6f} (rel err "
             f"{errs[label][0]:.3e}, limit {REPLAY_LOSS_RTOL:g}); gradients max |err| {worst[0]:.3e} (at "
-            f"{worst[1]}) against max |g| {scale:.3e}")
+            f"{worst[1]}) against max |g| {scale:.3e}" + ("" if label in (held, "cpu fp32") else
+                                                         " (measured beside the held run, not held)"))
     limit = max(CPU_GPU_ATOL * max(1.0, scale), 2 * errs["cpu fp32"][1])
-    check(math.isfinite(loss_r) and errs["cuda"][0] <= REPLAY_LOSS_RTOL, "the replayed SG2 loss_tsa disagrees")
-    check(scale > 0 and errs["cuda"][1] <= limit,
-          f"the card's SG2 step gradients are {errs['cuda'][1]:.3e} from float64, over {limit:.3e}")
-    say(f"  the card's gradients within {limit:.3e} of float64 (CPU_GPU_ATOL {CPU_GPU_ATOL:g} x max(1, max |g|), "
-        "or twice the CPU fp32 run's own error)")
-    return {"loss_rel_err": errs["cuda"][0], "grad_max_abs_err": errs["cuda"][1], "limit": limit,
-            "cpu_fp32_grad_max_abs_err": errs["cpu fp32"][1], "grad_scale": scale, "launches": layouts}
+    check(math.isfinite(loss_r) and errs[held][0] <= REPLAY_LOSS_RTOL, f"the replayed {name} loss_tsa disagrees")
+    check(scale > 0 and errs[held][1] <= limit,
+          f"the card's {name} step gradients ({held}) are {errs[held][1]:.3e} from float64, over {limit:.3e}")
+    say(f"  the card's gradients ({held}) within {limit:.3e} of float64 (CPU_GPU_ATOL {CPU_GPU_ATOL:g} x max(1, "
+        "max |g|), or twice the CPU fp32 run's own error)")
+    out = {"loss_rel_err": errs[held][0], "grad_max_abs_err": errs[held][1], "limit": limit,
+           "cpu_fp32_grad_max_abs_err": errs["cpu fp32"][1], "grad_scale": scale, "launches": layouts}
+    others = {label: {"loss_rel_err": e[0], "grad_max_abs_err": e[1]} for label, e in errs.items()
+              if label not in (held, "cpu fp32")}
+    if others:
+        out["not_held"] = others
+    return out
 
 
 def sg2_training_path(torch, dev, smi, bandwidth, fp32_peak):
@@ -2461,12 +2535,8 @@ def sg2_training_path(torch, dev, smi, bandwidth, fp32_peak):
             say(f"SG2 training times below: {smi}; step times from the host clock, device times from "
                 "torch.profiler")
             median = step_times(torch, step, state, f"SG2 {label}, fp32, TF32 off", 100)
-            try:
-                dev_time = step_device_time(torch, step, state, median, 200, symbols=("upfirdn2d_kernel",))
-            except RuntimeError as missed:  # device_kernels: three traces saw no device time
-                say(f"device time per SG2 {label} step: not measured ({missed})")
-                dev_time = None
-            times[label] = {"median_ms": median, **(dev_time or {})}
+            times[label] = {"median_ms": median, **step_device_time(torch, step, state, median, 200,
+                                                                    symbols=("upfirdn2d_kernel",))}
     del trainer
     torch.cuda.empty_cache()
     check(firs is not None, "no SG2 case-2 step was timed")
@@ -2917,11 +2987,10 @@ def bf16_form_times(torch, step, state, label, symbols, kernels, fp32, fp32_from
     row."""
     median = step_times(torch, step, state, f"{label}, bf16", 100, steps=BF16_TIMED_STEPS)
     row = {"median_ms": median}
-    try:
-        dev_time = step_device_time(torch, step, state, median, 200, symbols=symbols,
-                                    keep_kernels=True, iters=BF16_PROFILED_STEPS)
-    except RuntimeError as missed:  # device_kernels: three traces saw no device time
-        say(f"device time per bf16 {label} step: not measured ({missed})")
+    dev_time = step_device_time(torch, step, state, median, 200, symbols=symbols,
+                                keep_kernels=True, iters=BF16_PROFILED_STEPS)
+    if "kernels" not in dev_time:  # no trace saw device time
+        row.update(dev_time)
         return row
     bf16_ms, other_ms, by_name = conv_split(dev_time.pop("kernels"))
     row.update(dev_time, bf16_conv_ms=bf16_ms, other_conv_ms=other_ms)
@@ -3844,7 +3913,7 @@ def inversion_form(torch, dev, smi, label, flags, workdir):
         runs = {n: embedder(n) for n in INV_PROFILED}
         found = {n: device_kernels(torch, lambda n=n: runs[n](batch), iters=1, warmup=False, host=False)
                  for n in INV_PROFILED}
-    except RuntimeError as missed:  # device_kernels: three traces saw no device time
+    except MissedLaunches as missed:
         say(f"device time per {label} iteration: not measured ({missed})")
         found = None
     if found is not None:
@@ -4185,15 +4254,16 @@ def mis_align_times(torch, trainer, label, vgg_passes=None):
     times = {}
     for kind, step in (("full", trainer.step), ("lean", trainer.lean)):
         median = step_times(torch, step, trainer.state, f"e_mis_align {label} {kind}", 100, steps=MIS_TIMED)
-        try:
-            dev_time = step_device_time(torch, step, trainer.state, median, 200, symbols=("upfirdn2d_kernel",))
+        dev_time = step_device_time(torch, step, trainer.state, median, 200, symbols=("upfirdn2d_kernel",))
+        if "device_ms" in dev_time:
             dev_time["busy_share"] = dev_time["device_ms"] / median
-        except RuntimeError as missed:  # device_kernels: three traces saw no device time
-            say(f"device time per e_mis_align {label} {kind} step: not measured ({missed})")
-            dev_time = {}
         times[kind] = {"median_ms": median, **dev_time}
     if vgg_passes is not None and "device_ms" in times["full"]:
-        kernels = device_kernels(torch, vgg_passes, iters=3)
+        try:
+            kernels = device_kernels(torch, vgg_passes, iters=3)
+        except MissedLaunches as missed:
+            say(f"e_mis_align {label}: the VGG16 passes' device time not measured ({missed})")
+            return times
         vgg_ms = sum(ms for ms, _ in kernels.values())
         share = vgg_ms / times["full"]["device_ms"]
         times["full"].update(vgg16_ms=vgg_ms, vgg16_share=share)
@@ -4790,11 +4860,7 @@ def remat_path(torch, dev, smi, bf16):
             f"the update {same}")
         say(f"SG2 case 2 {label} ({dtype}) times below: {smi}")
         median = step_times(torch, step, state, f"SG2 case 2 {label}, {dtype}, TF32 off", 10, steps=REMAT_TIMED)
-        try:
-            dev_time = step_device_time(torch, step, state, median, 100, symbols=("upfirdn2d",), host=False)
-        except RuntimeError as missed:
-            say(f"device time per SG2 case 2 {label} ({dtype}) step: not measured ({missed})")
-            dev_time = {}
+        dev_time = step_device_time(torch, step, state, median, 100, symbols=("upfirdn2d",))
         out[label] = {"launches": launches[kernel], "forward": fwd, "adjoint": adj, "max_abs_diff_from_plain": distance,
                       "median_ms": median, **dev_time}
         del step, state
@@ -4802,6 +4868,40 @@ def remat_path(torch, dev, smi, bf16):
     del pipeline, enc, lpips
     torch.cuda.empty_cache()
     return out
+
+
+def converted_request(torch, dev, parser, label, argv, want, adjust=None):
+    """One ``infer_e`` request of REQUEST_SEEDS[0] on the bundle that
+    ``argv`` loads (converted files), on the card and on the CPU from the
+    same files and draws: the card's launches against ``want(bundle)`` and
+    the images held to the CPU's (phase 7's rule). ``adjust(card, cpu)``
+    runs on the two bundles first."""
+    from tpugan_torch.cli import common, infer_e
+    from tpugan_torch.ops import cuda, upfirdn
+
+    card = common.build_bundle(parser.parse_args(argv + ["--device", CARD]))
+    cpu = common.build_bundle(parser.parse_args(argv + ["--device", "cpu"]))
+    if adjust is not None:
+        adjust(card, cpu)
+    req = infer_e.draw_request(cpu, BATCH, REQUEST_SEEDS[0])
+    cuda.reset_launches()
+    upfirdn.reset_layout_launches()
+    on_card = infer_e.serve(card, req.to(dev))
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    check(launches == want(card), f"{label}: launches {launches}, expected {want(card)}")
+    on_cpu = infer_e.serve(cpu, req)
+    errs = {}
+    for name, g, c in zip(("imgs1", "imgs2"), on_card, on_cpu):
+        check(bool(torch.isfinite(g).all()), f"{label}: {name} is not finite")
+        errs[name] = (g.cpu() - c).abs().max().item()
+        limit = CPU_GPU_ATOL * max(1.0, c.abs().max().item())
+        say(f"{label}: cuda vs cpu {name}, max |err| {errs[name]:.3e} (limit {limit:.3e}, max |ref| "
+            f"{c.abs().max().item():.3f})")
+        check(errs[name] <= limit, f"{label}: {name} differs from the CPU's load by {errs[name]:.3e}")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": errs}
 
 
 def converted_path(torch, dev, smi, workdir):
@@ -4823,7 +4923,6 @@ def converted_path(torch, dev, smi, workdir):
     from tpugan_torch.cli import common, e_align, e_mis_align, infer_e
     from tpugan_torch.losses.space_loss import space_loss
     from tpugan_torch.models import BigGANConfig, BigGANEncoder, Encoder, StyleGAN2Generator
-    from tpugan_torch.ops import cuda, upfirdn
     from tpugan_torch.tools import reference_state as ref
 
     t0 = time.perf_counter()
@@ -4854,29 +4953,7 @@ def converted_path(torch, dev, smi, workdir):
     out = {}
 
     def request(label, argv, want, adjust=None):
-        card = common.build_bundle(parser.parse_args(argv + ["--device", CARD]))
-        cpu = common.build_bundle(parser.parse_args(argv + ["--device", "cpu"]))
-        if adjust is not None:
-            adjust(card, cpu)
-        req = infer_e.draw_request(cpu, BATCH, seed)
-        cuda.reset_launches()
-        upfirdn.reset_layout_launches()
-        on_card = infer_e.serve(card, req.to(dev))
-        torch.cuda.synchronize()
-        launches = dict(cuda.launches)
-        check(launches == want(card), f"{label}: launches {launches}, expected {want(card)}")
-        on_cpu = infer_e.serve(cpu, req)
-        errs = {}
-        for name, g, c in zip(("imgs1", "imgs2"), on_card, on_cpu):
-            check(bool(torch.isfinite(g).all()), f"{label}: {name} is not finite")
-            errs[name] = (g.cpu() - c).abs().max().item()
-            limit = CPU_GPU_ATOL * max(1.0, c.abs().max().item())
-            say(f"{label}: cuda vs cpu {name}, max |err| {errs[name]:.3e} (limit {limit:.3e}, max |ref| "
-                f"{c.abs().max().item():.3f})")
-            check(errs[name] <= limit, f"{label}: {name} differs from the CPU's load by {errs[name]:.3e}")
-        out[label] = {"launches": launches, "max_abs_err": errs}
-        del card, cpu
-        torch.cuda.empty_cache()
+        out[label] = converted_request(torch, dev, parser, label, argv, want, adjust)
 
     sg2_argv = ["--mtype", "2", "--img_size", str(SG2_SIZE), "--start_features", str(SG2_START_FEATURES),
                 "--batch_size", str(BATCH), "--seed", str(SEED), "--checkpoint_dir_GAN", files["sg2"],
@@ -4970,6 +5047,557 @@ def slice7a_path(torch, dev, smi):
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return {"resume": resume, "remat": remat, "converted": converted}
+
+
+# phase 15, slice 7b: eval and PGGAN. PGGAN-1024 at tpugan's CLI defaults
+# (GenForce's CelebA-HQ 1024 generator, fmaps min(16384 / res, 512); E_PG at
+# start_features 16, layer_count 9), batch 2, random weights from SEED.
+PG_SIZE = 1024
+PG_START_FEATURES = 16
+PG_ARGV = ("--mtype", "3", "--img_size", str(PG_SIZE), "--start_features", str(PG_START_FEATURES))
+# synthesize's families, one seed (SYN_SEED) each, in the default form (bf16
+# generators on the card) and with --fp32: (label, flags). BigGAN's E_BIG z
+# head is scaled and its SelfAttn gamma set to ATTN_GAMMA in both packages'
+# sense of phase 5 (the CLI's bundle adjusted as it is built), so that the
+# images are finite and carry the attention.
+SYN_FAMILIES = (
+    (f"StyleGAN2-{SG2_SIZE}", ("--mtype", "2", "--img_size", str(SG2_SIZE), "--start_features",
+                               str(SG2_START_FEATURES))),
+    (f"BigGAN-deep-{BIGGAN_SIZE}", ("--mtype", "4", "--img_size", str(BIGGAN_SIZE), "--start_features", "64",
+                                    "--z_dim", str(BIGGAN_Z_DIM))),
+    (f"PGGAN-{PG_SIZE}", PG_ARGV),
+)
+SYN_SEED = REQUEST_SEEDS[0]
+SYN_TIMED = 2  # host-clock seeds of each form, after 2 warm-up ones
+COMPARE_RTOL = 1e-4  # compare's PSNR, SSIM, MSE and cosine on the card against the CPU's
+PG_TRAIN_FORMS = (("case 1", ("--case", "1")), ("case 1 lean", ("--case", "1")), ("case 2", ("--case", "2")))
+# PGGAN's times. With TF32 off, as every other phase measures, one
+# convolution shape (N 2, 256 -> 128 channels at 128 px: layer10 of
+# PGGAN-1024) takes cuDNN's FFT algorithm, 33024 complex GEMMs and about
+# 0.35 s, forward and data gradient alike
+# (tpugan_torch/tools/pggan_conv_probe.py): a request takes 0.9 s and its
+# trace holds 66k kernels. That request is synthesize --fp32's PGGAN seed,
+# timed there; PGGAN's infer_e requests and e_align steps are timed with
+# PyTorch's defaults (cuDNN's convolutions in TF32), as the CLIs run, and
+# every number from them is labelled so. The CPU replays keep TF32 off.
+PG_TIMED = (12, 1)  # (host-clock calls, profiled calls) of each PGGAN request and step form
+# the replay of a PGGAN case-2 step against float64: PGGAN-256 (its fmaps,
+# the FFT shape among them), E_PG at start_features 64. Its fp32 gradient is
+# ill-conditioned (every conv block begins with a pixel norm, whose backward
+# removes the radial part of the upstream gradient), and cuDNN's fp32
+# algorithms (FFT, and E_PG's own) put the card 4.314e-2 from float64
+# against the CPU's 8.647e-3; with cuDNN off, PyTorch's own convolutions
+# (im2col and cuBLAS) on the card, 1.323e-2
+# (tpugan_torch/tools/pggan_conv_probe.py --replay). So the card's run held
+# to the rule has cuDNN off, and the cuDNN run is measured beside it and
+# printed, not held: ROADMAP C records it as open.
+PG_REPLAY_SIZE = 256
+PG_REPLAY_START_FEATURES = 64
+PG_INV_ITERATIONS = 2
+
+
+@contextlib.contextmanager
+def cudnn_off(torch):
+    """cuDNN off inside (PyTorch's own CUDA convolutions), on after."""
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.enabled = saved
+
+
+@contextlib.contextmanager
+def pytorch_defaults(torch):
+    """PyTorch's default numerics inside, which the CLIs keep (cuDNN's
+    convolutions in TF32); parity mode (TF32 off) restored after."""
+    from tpugan_torch.runtime import parity_mode
+
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        parity_mode()
+
+
+def conv_flops(torch, bundle, run):
+    """The multiply-adds of the convolutions and dense layers of one call of
+    ``run`` on an mtype-3 bundle (PGGAN's conv blocks, E_PG's EqConv and
+    EqLinear), times 2: FLOPs, counted by forward hooks from the outputs."""
+    from tpugan_torch.models import PGConvBlock
+    from tpugan_torch.nn.layers import EqConv, EqLinear
+
+    total = [0]
+
+    def hook(module, args, out):
+        total[0] += 2 * out.numel() * module.weight[0].numel()
+
+    handles = [m.register_forward_hook(hook) for model in (bundle.generator, bundle.encoder)
+               for m in model.modules() if isinstance(m, (PGConvBlock, EqConv, EqLinear))]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def synthesize_launches(bundle, bf16):
+    """One synthesize seed's kernel launches and FIR launches by TPU kernel,
+    derived from the bundle's generator (two decodes): StyleGAN2's FIRs
+    (``sg2_decode_firs``), BigGAN's attention (a launch per SelfAttn), none
+    for PGGAN; on the bf16 forms in the default run."""
+    from tpugan_torch.models import SelfAttn
+    from tpugan_torch.ops import upfirdn
+
+    suffix = "_bf16" if bf16 else ""
+    layouts = {key: 0 for key in upfirdn.layout_launches}
+    if bundle.mtype == 2:
+        layouts = {key: 2 * n for key, n in sg2_decode_firs(bundle.generator).items()}
+        return expected_launches(**{f"upfirdn2d{suffix}": sum(layouts.values())}), layouts
+    if bundle.mtype == 4:
+        n = sum(isinstance(m, SelfAttn) for m in bundle.generator.modules())
+        return expected_launches(**{f"sagan_attention{suffix}": 2 * n}), layouts
+    return expected_launches(), layouts
+
+
+def synthesize_run(torch, label, flags, workdir, fp32, adjust=None):
+    """``synthesize.main`` for SYN_SEED in one form, every count set to 0
+    just before: its file, its launches against the counts derived from the
+    bundle, and, kept from the run through wrappers of
+    ``infer_e.draw_request`` and ``serve``, the request it drew, its images
+    and its bundle. ``adjust(bundle)`` runs on the CLI's bundle as it is
+    built."""
+    import os
+
+    from tpugan_torch.cli import infer_e, synthesize
+    from tpugan_torch.io.image import load_image
+    from tpugan_torch.ops import cuda, upfirdn
+
+    form = "--fp32" if fp32 else "default"
+    out_dir = os.path.join(workdir, f"{label} {form}")
+    argv = list(flags) + ["--random_init", "--batch_size", str(BATCH), "--seed", str(SEED), "--device", CARD,
+                          "--start_seed", str(SYN_SEED), "--count", "1", "--experiment_dir", out_dir]
+    kept = {}
+    real = (synthesize.build_bundle, infer_e.draw_request, infer_e.serve)
+
+    def build(args):
+        bundle = real[0](args)
+        if adjust is not None:
+            adjust(bundle)
+        return bundle
+
+    def draw(bundle, batch_size, seed):
+        kept["request"] = real[1](bundle, batch_size, seed)
+        return kept["request"]
+
+    def serve(bundle, request):
+        kept["bundle"], kept["images"] = bundle, real[2](bundle, request)
+        return kept["images"]
+
+    synthesize.build_bundle, infer_e.draw_request, infer_e.serve = build, draw, serve
+    try:
+        cuda.reset_launches()
+        upfirdn.reset_layout_launches()
+        t0 = time.perf_counter()
+        paths = synthesize.main(argv + (["--fp32"] if fp32 else []))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches, layouts = dict(cuda.launches), dict(upfirdn.layout_launches)
+    finally:
+        synthesize.build_bundle, infer_e.draw_request, infer_e.serve = real
+    bundle = kept["bundle"]
+    want, want_layouts = synthesize_launches(bundle, bf16=not fp32)
+    check(launches == want and layouts == want_layouts, f"synthesize {label} {form}: launches {launches}, by TPU "
+          f"kernel {layouts}; derived from the modules: {want}, {want_layouts}")
+    path = os.path.join(out_dir, "imgs", f"seed{SYN_SEED}.png")
+    size = bundle.img_size
+    grid = load_image(path)
+    check(paths == [path] and grid.shape == (2 * size + 6, BATCH * size + 2 * (BATCH + 1), 3),
+          f"synthesize {label} {form}: files {paths}, grid {grid.shape}")
+    imgs = kept["images"]
+    for name, img in zip(("imgs1", "imgs2"), imgs):
+        check(tuple(img.shape) == (BATCH, size, size, 3) and img.dtype == torch.float32
+              and bool(torch.isfinite(img).all()), f"synthesize {label} {form}: {name} {tuple(img.shape)}, "
+              f"{img.dtype}, not all finite")
+    used = {k: n for k, n in launches.items() if n}
+    say(f"synthesize {label} {form}: {path} ({grid.shape[1]}x{grid.shape[0]}), launches {used or 'none'}, FIRs by "
+        f"TPU kernel {layouts}, as derived from the modules; {seconds:.2f} s with the bundle's build; imgs1 in "
+        f"[{imgs[0].min().item():.4f}, {imgs[0].max().item():.4f}], imgs2 in [{imgs[1].min().item():.4f}, "
+        f"{imgs[1].max().item():.4f}]")
+    return {"bundle": bundle, "request": kept["request"], "images": imgs, "launches": used, "layouts": layouts,
+            "path": path}
+
+
+def seed_times(torch, bundle, label, symbols):
+    """Host-clock time of SYN_TIMED seeds of a synthesize bundle (a request
+    each, ending in a synchronize) after two warm-up ones, and one seed's
+    device time by kernel (torch.profiler, the device alone), with the
+    share of the kernels whose symbols contain ``symbols`` (the host-clock
+    time alone where no trace saw device time)."""
+    from tpugan_torch.cli import infer_e
+
+    lat = []
+    for i in range(SYN_TIMED + 2):
+        t0 = time.perf_counter()
+        infer_e.run(bundle, BATCH, SYN_SEED + i)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    median = statistics.median(lat[2:])
+    try:
+        kernels = device_kernels(torch, lambda: infer_e.run(bundle, BATCH, SYN_SEED), iters=1, host=False)
+    except MissedLaunches as missed:
+        say(f"synthesize {label}: a seed {median:.3f} ms on the host clock (median of {SYN_TIMED}); device time "
+            f"not measured ({missed})")
+        return {"median_ms": median}
+    busy = sum(ms for ms, _ in kernels.values())
+    own = sum(ms for kname, (ms, _) in kernels.items() if any(s in kname for s in symbols))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:3]
+    say(f"synthesize {label}: a seed {median:.3f} ms on the host clock (median of {SYN_TIMED}), {busy:.3f} ms of "
+        f"device time over {sum(n for _, n in kernels.values()):.0f} kernels and copies ({busy / median * 100:.1f}%"
+        f" busy); the TPU kernels' counterparts {own:.3f} ms; largest: "
+        + "; ".join(f"{ms:.3f} ms x{n:.0f} {k[:60]}" for k, (ms, n) in top))
+    return {"median_ms": median, "device_ms": busy, "tpu_kernel_ms": own}
+
+
+def synthesize_family(torch, dev, label, flags, workdir, adjust=None, cpu_adjust=None):
+    """A family's two synthesize runs (the default, bf16 on the card, and
+    --fp32) and their holds: the fp32 seed against its CPU replay (the
+    request the CLI drew, moved; phase 7's rule), the bf16 seed against the
+    card's fp32 one within twice the CPU's bf16 distance from its fp32 (the
+    same request through ``synthesize.bf16_bundle`` of the CPU bundle;
+    phase 10's rule), each image over its max |value|; and each form's
+    times."""
+    from tpugan_torch.cli import common, infer_e, synthesize
+
+    runs = {form: synthesize_run(torch, label, flags, workdir, form == "fp32", adjust) for form in ("bf16", "fp32")}
+    req = runs["fp32"]["request"]
+    check(torch.equal(runs["bf16"]["request"].z, req.z), f"synthesize {label}: the two forms drew other inputs")
+    symbols = ("upfirdn2d_kernel", "sagan_attention_kernel")
+    times = {form: seed_times(torch, r["bundle"], f"{label} {form}", symbols) for form, r in runs.items()}
+    cpu = common.build_bundle(synthesize.make_parser().parse_args(
+        list(flags) + ["--random_init", "--batch_size", str(BATCH), "--seed", str(SEED), "--device", "cpu"]))
+    if cpu_adjust is not None:
+        cpu_adjust(cpu)
+    t0 = time.perf_counter()
+    cpu32 = infer_e.serve(cpu, req.to("cpu"))
+    t1 = time.perf_counter()
+    cpu16 = infer_e.serve(synthesize.bf16_bundle(cpu), req.to("cpu"))
+    t2 = time.perf_counter()
+    say(f"synthesize {label}: the CLI's fp32 request replayed on the CPU in {t1 - t0:.2f} s, in bf16 in "
+        f"{t2 - t1:.2f} s")
+    held = {}
+    for i, name in enumerate(("imgs1", "imgs2")):
+        g32, g16 = runs["fp32"]["images"][i].cpu(), runs["bf16"]["images"][i].cpu()
+        ref = cpu32[i].abs().max().item()
+        err = (g32 - cpu32[i]).abs().max().item()
+        limit = CPU_GPU_ATOL * max(1.0, ref)
+        card16 = (g16 - g32).abs().max().item() / g32.abs().max().item()
+        cpu16_d = (cpu16[i] - cpu32[i]).abs().max().item() / ref
+        say(f"  {name}: card fp32 vs CPU max |err| {err:.3e} (limit {limit:.3e}, max |ref| {ref:.3f}); bf16 from "
+            f"fp32 over max |value|: card {card16:.3e}, CPU {cpu16_d:.3e} (limit twice the CPU's)")
+        check(err <= limit, f"synthesize {label} {name}: the card's fp32 seed is {err:.3e} from the CPU's")
+        check(0 < card16 <= 2 * cpu16_d, f"synthesize {label} {name}: the card's bf16 seed is {card16:.3e} from "
+              f"its fp32, the CPU's {cpu16_d:.3e}")
+        held[name] = {"fp32_err": err, "fp32_limit": limit, "bf16_card": card16, "bf16_cpu": cpu16_d}
+    del cpu, cpu32, cpu16
+    out = {form: {"launches": r["launches"], "fir_by_tpu_kernel": r["layouts"], **times[form]}
+           for form, r in runs.items()}
+    return out, held, runs["fp32"]["path"]
+
+
+def compare_path(torch, workdir, png, size):
+    """``compare.main`` over one synthesize grid's imgs1 against its imgs2,
+    split into two directories (the tiles of the PNG), on the card and on
+    the CPU, without and with ``--lpips_weights`` (a reference-named LPIPS
+    state dict from SEED): PSNR, SSIM, MSE and cosine within COMPARE_RTOL of
+    the CPU's, LPIPS within phase 14's rule."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+
+    from tpugan_torch.cli import compare
+    from tpugan_torch.io.image import load_image, save_image
+    from tpugan_torch.tools import reference_state as ref
+
+    grid = load_image(png)
+    dirs = [os.path.join(workdir, f"compare{r + 1}") for r in range(2)]
+    for r, d in enumerate(dirs):
+        for c in range(BATCH):
+            y, x = 2 + r * (size + 2), 2 + c * (size + 2)
+            save_image(os.path.join(d, f"{c:05d}.png"), grid[y:y + size, x:x + size])
+    weights = ref.save(os.path.join(workdir, "lpips-vgg.pth"), ref.lpips(np.random.default_rng(SEED)))
+    out = {}
+    for form, extra in (("without --lpips_weights", []), ("with --lpips_weights", ["--lpips_weights", weights])):
+        argv = ["--dir1", dirs[0], "--dir2", dirs[1], "--img_size", str(size)] + extra
+        with contextlib.redirect_stderr(io.StringIO()):  # the LPIPS warning, once a run
+            card = compare.main(argv + ["--device", CARD])
+            cpu = compare.main(argv + ["--device", "cpu"])
+        errs = {}
+        for metric, want in cpu.items():
+            err = abs(card[metric] - want)
+            if metric == "lpips":
+                limit = CPU_GPU_ATOL * max(1.0, abs(want))
+                check(err <= limit and (want != 0.0) == bool(extra), f"compare {form}: LPIPS {card[metric]} on the "
+                      f"card, {want} on the CPU")
+            else:
+                limit = COMPARE_RTOL * abs(want)
+                check(err <= limit, f"compare {form}: {metric} {card[metric]} on the card, {want} on the CPU")
+            errs[metric] = err
+        say(f"compare {form} ({BATCH} pairs at {size} px): card {json.dumps(card)}; |card - CPU| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (limits: {COMPARE_RTOL:g} relative, LPIPS "
+            f"CPU_GPU_ATOL x max(1, |ref|))")
+        out[form] = {"card": card, "cpu": cpu, "abs_err": errs}
+    return out
+
+
+def pggan_serving_path(torch, dev, parser, smi, fp32_peak, tf32_peak):
+    """``infer_e --mtype 3`` at PGGAN-1024: REQUEST_SEEDS' requests with
+    every count at 0 (no kernel of this repo runs), a request replayed on
+    the CPU (phase 7's rule, TF32 off), its convolution FLOPs and their
+    time at the card's fp32 and TF32 rates, and its latency, device time
+    and peak memory with PyTorch's defaults (PG_TIMED's comment)."""
+    from tpugan_torch.cli import common, infer_e
+    from tpugan_torch.ops import cuda, upfirdn
+
+    argv = list(PG_ARGV) + ["--random_init", "--batch_size", str(BATCH), "--seed", str(SEED)]
+    t0 = time.perf_counter()
+    bundle = common.build_bundle(parser.parse_args(argv + ["--device", CARD]))
+    torch.cuda.synchronize()
+    gen = bundle.generator
+    say(f"bundle: mtype 3, PGGAN-{PG_SIZE} (fmaps {[gen.get_nf(2**r) for r in range(2, gen.final_log2 + 1)]} at "
+        f"4-{PG_SIZE} px, nearest up-sampling) + E_PG (startf {PG_START_FEATURES}, maxf 512, layer_count "
+        f"{bundle.layer_count}) built in {time.perf_counter() - t0:.2f} s")
+    with torch.no_grad():
+        flops = conv_flops(torch, bundle, lambda: infer_e.run(bundle, BATCH, REQUEST_SEEDS[0]))
+    cuda.reset_launches()
+    upfirdn.reset_layout_launches()
+    with pytorch_defaults(torch):  # PG_TIMED's comment
+        for s in REQUEST_SEEDS:
+            imgs1, imgs2 = infer_e.run(bundle, BATCH, s)
+            torch.cuda.synchronize()
+            for label, img in (("imgs1", imgs1), ("imgs2", imgs2)):
+                check(tuple(img.shape) == (BATCH, PG_SIZE, PG_SIZE, 3) and bool(torch.isfinite(img).all()),
+                      f"PGGAN {label} of seed {s}: shape {tuple(img.shape)}, or not finite")
+        say(f"PGGAN request of seed {s}: imgs1 in [{imgs1.min().item():.4f}, {imgs1.max().item():.4f}], "
+            f"imgs2 in [{imgs2.min().item():.4f}, {imgs2.max().item():.4f}]")
+    launches, layouts = dict(cuda.launches), dict(upfirdn.layout_launches)
+    check(launches == expected_launches() and not any(layouts.values()),
+          f"PGGAN path launches {launches}, FIRs {layouts}: PGGAN runs no TPU kernel")
+    say(f"PGGAN path: {len(REQUEST_SEEDS)} requests, no kernel of this repo launched (PGGAN runs no TPU kernel); "
+        f"{flops / 1e12:.4f} TFLOP of convolutions and dense layers a request (G, E_PG, G), at the card's fp32 "
+        f"rate {flops / fp32_peak * 1e3:.3f} ms (the bound with TF32 off), at its TF32 rate "
+        f"{flops / tf32_peak * 1e3:.3f} ms (the bound with PyTorch's defaults)")
+    cpu = common.build_bundle(parser.parse_args(argv + ["--device", "cpu"]))
+    request = infer_e.draw_request(cpu, BATCH, REQUEST_SEEDS[0])
+    on_gpu = infer_e.serve(bundle, request.to(dev))
+    t0 = time.perf_counter()
+    on_cpu = infer_e.serve(cpu, request)
+    say(f"cuda vs cpu (PGGAN): the request of seed {REQUEST_SEEDS[0]} took {time.perf_counter() - t0:.2f} s on the "
+        "CPU")
+    errs = {}
+    for label, g, c in zip(("imgs1", "imgs2"), on_gpu, on_cpu):
+        err, ref = (g.cpu() - c).abs().max().item(), c.abs().max().item()
+        limit = CPU_GPU_ATOL * max(1.0, ref)
+        say(f"cuda vs cpu (PGGAN) {label}: max |err| {err:.3e}, limit {limit:.3e} (max |ref| {ref:.3f})")
+        check(err <= limit, f"PGGAN {label}: cuda and cpu differ by {err:.3e} > {limit:.3e}")
+        errs[label] = err
+    del cpu, on_gpu, on_cpu
+    say(f"PGGAN request times below: {smi}; device times from torch.profiler, request times from the host clock")
+    run = lambda s: infer_e.run(bundle, BATCH, s)  # noqa: E731
+    calls, profiled = PG_TIMED
+    with pytorch_defaults(torch):
+        median = request_latency(torch, run, REQUEST_SEEDS[0], f"PGGAN-{PG_SIZE} + E_PG, fp32 with TF32 "
+                                 "convolutions (PyTorch defaults)", calls)
+        times = {"median_ms": median, **request_device_time(torch, run, REQUEST_SEEDS[0], median, None, None,
+                                                            iters=profiled)}
+    del bundle
+    torch.cuda.empty_cache()
+    return {"tflop": flops / 1e12, "bound_ms_fp32": flops / fp32_peak * 1e3, "bound_ms_tf32": flops / tf32_peak * 1e3,
+            "times_pytorch_defaults": times, "replay_max_abs_err": errs}
+
+
+def pggan_training_path(torch, dev, smi):
+    """``e_align --mtype 3`` at PGGAN-1024 (E_PG training, batch 2): case 1,
+    its lean step and case 2, TRAIN_STEPS counted steps each with no kernel
+    of this repo launched, the encoder moving and the generator frozen; step
+    times, device time by kernel and peak memory (all with PyTorch's
+    defaults: PG_TIMED's comment); a case-2 step at PG_REPLAY_SIZE replayed
+    with TF32 off, on the card with cuDNN off held to float64 and beside it
+    with cuDNN's deterministic algorithms (PG_REPLAY_SIZE's comment)."""
+    from tpugan_torch.cli import e_align
+    from tpugan_torch.losses.lpips import random_lpips_fn
+
+    parser = e_align.make_parser()
+    argv = list(PG_ARGV) + ["--random_init", "--iterations", "1000", "--batch_size", str(BATCH), "--seed",
+                            str(SEED), "--device", CARD]
+    lpips = random_lpips_fn(dev)
+    times, trainer = {}, None
+    zero = {key: 0 for key in AdjointCount().counts}
+    for label, flags in PG_TRAIN_FORMS:
+        lean = label == "case 1 lean"
+        if not lean:
+            del trainer
+            torch.cuda.empty_cache()
+            trainer = e_align.build_trainer(parser.parse_args(argv + list(flags)), lpips)
+        step = trainer.lean if lean else trainer.step
+        check(step is not None, f"PGGAN {label}: no step")
+        state = trainer.state
+        frozen = list(trainer.bundle.generator.parameters())
+        frozen0 = [p.detach().clone() for p in frozen]
+        params0 = {n: p.detach().clone() for n, p in state.encoder.named_parameters()}
+        torch.cuda.reset_peak_memory_stats()
+        for it in range(TRAIN_STEPS):
+            with pytorch_defaults(torch):
+                launches, fwd, adj, scalars = counted_step(torch, step, state, it)
+            check(launches == expected_launches() and fwd == zero and adj == zero,
+                  f"PGGAN {label} step {it}: launches {launches}, FIRs {fwd} + {adj}; PGGAN runs no TPU kernel")
+            check(all(math.isfinite(x) for x in scalars.values()), f"PGGAN {label} step {it}: a loss is not finite")
+        moved = sum(not torch.equal(p, params0[n]) for n, p in state.encoder.named_parameters())
+        check(moved > 0 and all(bool(torch.isfinite(p).all()) for p in state.encoder.parameters()),
+              f"PGGAN {label}: the encoder did not train, or is not finite")
+        check(all(torch.equal(a, b) and a.grad is None for a, b in zip(frozen, frozen0)),
+              f"PGGAN {label}: the frozen generator moved")
+        say(f"PGGAN {label} path: {TRAIN_STEPS} steps, no kernel of this repo launched; loss_tsa "
+            f"{scalars['loss_tsa']:.4f}, loss_mtv {scalars['loss_mtv']:.4f}, loss_c_mse {scalars['loss_c_mse']:.4f}; "
+            f"{moved} of {len(params0)} E_PG parameters moved, the generator did not; peak device memory over the "
+            f"counted steps (PyTorch defaults) {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        say(f"PGGAN training times below: {smi}; step times from the host clock, device times from torch.profiler")
+        calls, profiled = PG_TIMED
+        with pytorch_defaults(torch):
+            median = step_times(torch, step, state, f"PGGAN {label}, fp32 with TF32 convolutions (PyTorch "
+                                "defaults)", 100, steps=calls)
+            times[label] = {"median_ms": median, **step_device_time(torch, step, state, median, 200, symbols=(),
+                                                                    iters=profiled)}
+    del trainer
+    torch.cuda.empty_cache()
+
+    def card_launches(launches):
+        check(launches == expected_launches(), f"the PGGAN replay launched {launches}")
+        return launches
+
+    with cudnn_deterministic(torch):  # the comment at CPU_GPU_ATOL
+        replay = replay_case2_on_float64(
+            torch, dev, e_align, "a PGGAN", ["--mtype", "3", "--img_size", str(PG_REPLAY_SIZE), "--start_features",
+                                           str(PG_REPLAY_START_FEATURES)],
+            f"PGGAN-{PG_REPLAY_SIZE} (its fmaps), E_PG at start_features {PG_REPLAY_START_FEATURES}", card_launches,
+            card_forms=(("cuda, cuDNN off", cudnn_off), ("cuda, cuDNN deterministic", None)))
+    return {"times": times, "replay": replay}
+
+
+def pggan_inversion(torch, dev, workdir):
+    """``embedding --mtype 3`` (fine-tuning E_PG, batch 1, lr 0.01, the CLI
+    without LPIPS weights) for PG_INV_ITERATIONS iterations on a target PNG
+    of the bundle's own (``write_target``), through the CLI's ``run``: its
+    files, w moving, the encoder restored, the generator frozen, no kernel
+    of this repo launched."""
+    import os
+
+    import numpy as np
+
+    from tpugan_torch.cli import embedding
+    from tpugan_torch.ops import cuda
+
+    img_dir, out = os.path.join(workdir, "pggan-target"), os.path.join(workdir, "pggan-embedding")
+    args = embedding.make_parser().parse_args(list(PG_ARGV) + [
+        "--random_init", "--seed", str(SEED), "--device", CARD, "--img_dir", img_dir, "--iterations",
+        str(PG_INV_ITERATIONS), "--experiment_dir", out])
+    inverter = embedding.build_inverter(args)
+    write_target(torch, inverter.bundle, img_dir)
+    base = {k: v.clone() for k, v in inverter.bundle.encoder.state_dict().items()}
+    frozen = {k: v.clone() for k, v in inverter.bundle.generator.state_dict().items()}
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    embedding.run(inverter, args)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    check(cuda.launches == expected_launches(), f"embedding --mtype 3 launched {cuda.launches}")
+    models = os.path.join(out, "models")
+    w0, w1 = (np.load(os.path.join(models, f"id0-i0-w{i}.npy")) for i in (0, PG_INV_ITERATIONS))
+    w, w_all = np.load(os.path.join(models, "id0-i0-w.npy")), np.load(os.path.join(models, "w_all.npy"))
+    check(os.path.exists(os.path.join(out, "imgs", "00000_rec.png")) and w.shape == (512,) and w_all.shape == (1, 512)
+          and np.isfinite(w).all(), f"embedding --mtype 3: files, w {w.shape}")
+    moved = float(np.abs(w1 - w0).max())
+    check(moved > 0, "embedding --mtype 3: w did not move")
+    check(all(torch.equal(v, base[k]) for k, v in inverter.bundle.encoder.state_dict().items())
+          and all(torch.equal(v, frozen[k]) for k, v in inverter.bundle.generator.state_dict().items()),
+          "embedding --mtype 3: the encoder was not restored, or the generator moved")
+    say(f"embedding --mtype 3 (PGGAN-{PG_SIZE}, E_PG fine-tuned, batch 1): {PG_INV_ITERATIONS} iterations in "
+        f"{seconds:.2f} s with the files (first calls); no kernel of this repo launched; z moved by up to {moved:.4e}; "
+        "the encoder restored, the generator frozen")
+    del inverter
+    torch.cuda.empty_cache()
+    return {"seconds": seconds, "w_moved": moved}
+
+
+def slice7b_path(torch, dev, smi, fp32_peak, tf32_peak):
+    """Phase 15: synthesize on every family (the default bf16 run and
+    --fp32) and compare over its files; PGGAN-1024 with E_PG through
+    infer_e, e_align (case 1, lean, case 2), embedding and converted
+    weights."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from tpugan_torch.cli import common, infer_e
+    from tpugan_torch.models import PGEncoder, PGGANGenerator
+    from tpugan_torch.tools import reference_state as ref
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_slice7b_")
+    parser = common.add_common_args(argparse.ArgumentParser(), training=True)
+    try:
+        t0 = time.perf_counter()
+        syn, held, pngs = {}, {}, {}
+        for label, flags in SYN_FAMILIES:
+            adjust = cpu_adjust = None
+            if flags[1] == "4":
+                probe = common.build_bundle(parser.parse_args(list(flags) + [
+                    "--random_init", "--batch_size", str(BATCH), "--seed", str(SEED), "--device", CARD]))
+                zt_std, z2_std = latent_stds(torch, infer_e, probe, SYN_SEED)
+                del probe
+                factor = zt_std / z2_std
+
+                def adjust(bundle, factor=factor):
+                    scale_z_head(torch, bundle.encoder, factor)
+                    check(set_attention_gamma(torch, bundle.generator, ATTN_GAMMA) == 1, "expected one SelfAttn")
+
+                cpu_adjust = adjust
+                say(f"synthesize {label}: E_BIG's z head scaled by {factor:.4e} and SelfAttn.gamma set to "
+                    f"{ATTN_GAMMA:g} as the CLI builds its bundle (phase 5's adjustments)")
+            syn[label], held[label], pngs[label] = synthesize_family(torch, dev, label, flags, workdir, adjust,
+                                                                     cpu_adjust)
+            torch.cuda.empty_cache()
+        say(f"phase 15: synthesize took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cmp = compare_path(torch, workdir, pngs[f"BigGAN-deep-{BIGGAN_SIZE}"], BIGGAN_SIZE)
+        say(f"phase 15: compare took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        serving = pggan_serving_path(torch, dev, parser, smi, fp32_peak, tf32_peak)
+        say(f"phase 15: PGGAN serving took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        training = pggan_training_path(torch, dev, smi)
+        say(f"phase 15: PGGAN training took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        inversion = pggan_inversion(torch, dev, workdir)
+        rng = np.random.default_rng(SEED)
+        layers = int(math.log2(PG_SIZE)) - 1
+        files = [ref.save(os.path.join(workdir, "pggan-1024.pth"), {f"generator_smooth.{k}": v for k, v in ref.pggan(
+                     rng, lambda: PGGANGenerator(resolution=PG_SIZE)).items()}),
+                 ref.save(os.path.join(workdir, "E_PG-1024.pth"), ref.encoder(rng, lambda: PGEncoder(
+                     startf=PG_START_FEATURES, maxf=512, layer_count=layers, latent_size=512, img_size=PG_SIZE)))]
+        argv = list(PG_ARGV) + ["--batch_size", str(BATCH), "--seed", str(SEED), "--checkpoint_dir_GAN", files[0],
+                                "--checkpoint_dir_E", files[1]]
+        converted = converted_request(torch, dev, parser, f"infer_e --mtype 3 (converted PGGAN-{PG_SIZE} and E_PG)",
+                                      argv, lambda b: expected_launches())
+        say(f"phase 15: PGGAN embedding and converted weights took {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"synthesize": syn, "synthesize_holds": held, "compare": cmp, "pggan_serving": serving,
+            "pggan_training": training, "pggan_embedding": inversion, "pggan_converted": converted}
 
 
 def main() -> int:
@@ -5073,9 +5701,8 @@ def main() -> int:
     run = lambda s: infer_e.run(bundle, BATCH, s)  # noqa: E731
     median = request_latency(torch, run, seed, "fp32, TF32 off")
     request_device_time(torch, run, seed, median, "upfirdn2d_kernel", "upfirdn2d")
-    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, which the CLI keeps
-    request_latency(torch, run, seed, "PyTorch defaults (cuDNN convolutions in TF32)")
-    parity_mode()
+    with pytorch_defaults(torch):
+        request_latency(torch, run, seed, "PyTorch defaults (cuDNN convolutions in TF32)")
 
     for name, part in fir["split"].items():
         part["launches"] = layouts[name]
@@ -5172,6 +5799,15 @@ def main() -> int:
           f"phase 14 missed a kernel: FIR {s7a_fir}, bf16 {s7a_fir16}, B3/B4 {big_resume}, {big_conv}")
     say(f"phase 14 (slice 7a) took {time.perf_counter() - t0:.1f} s; the script {time.perf_counter() - start:.1f} s")
 
+    # ---- 15. slice 7b: synthesize and compare on every family, PGGAN-1024 with E_PG ----
+    t0 = time.perf_counter()
+    s7b = slice7b_path(torch, dev, smi, fp32_peak, tf32_peak)
+    s7b_launches = {name: {f"synthesize {label} {form}": r["launches"][name] for label, forms in s7b["synthesize"].items()
+                           for form, r in forms.items() if name in r["launches"]}
+                    for name in ("upfirdn2d", "upfirdn2d_bf16", "sagan_attention", "sagan_attention_bf16")}
+    check(all(len(v) == 1 for v in s7b_launches.values()), f"phase 15 missed a kernel: {s7b_launches}")
+    say(f"phase 15 (slice 7b) took {time.perf_counter() - t0:.1f} s; the script {time.perf_counter() - start:.1f} s")
+
     sg2_bf16 = bf16["firs"]["SG2"][1]
     bf16_step = {k: sum(p_[k] for parts in sg2_bf16.values() for p_ in parts.values())
                  for k in ("ms", "fp32_ms", "plain_ms", "library_ms", "bound_ms")}
@@ -5184,7 +5820,8 @@ def main() -> int:
         "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas); "
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c)",
         "launches": (launches["upfirdn2d"] + sg2["launches"] + sgv1_train["launches"] + sg2_train["launches"]
-                     + sum(fir_inv.values()) + mis["launches"] + cam["request"]["launches"] + sum(s7a_fir.values())),
+                     + sum(fir_inv.values()) + mis["launches"] + cam["request"]["launches"] + sum(s7a_fir.values())
+                     + sum(s7b_launches["upfirdn2d"].values())),
         "launches_by_path": {"SGv1 Cat256 serving": launches["upfirdn2d"],
                              f"StyleGAN2-{SG2_SIZE} serving": sg2["launches"],
                              "SGv1 Cat256 training": sgv1_train["launches"],
@@ -5192,12 +5829,13 @@ def main() -> int:
                              **{f"inversion: {label}": n for label, n in fir_inv.items()},
                              "e_mis_align (batch 5)": mis["launches"],
                              "infer_e --gradcam": cam["request"]["launches"],
-                             **s7a_fir},
+                             **s7a_fir, **s7b_launches["upfirdn2d"]},
         "max_abs_err": max(fir_err, adjoint_err, sg2["max_abs_err"], sg2_train["max_abs_err"], inv_err["upfirdn2d"],
                            mis["max_abs_err"]),
         "inversion": inversion,
         "gradcam": gradcam,
         "slice7a": s7a,
+        "slice7b": s7b,
         **fir,
         "gradient_path_launches": grad_launches,
         "adjoint": adjoint_rows,
@@ -5226,11 +5864,12 @@ def main() -> int:
         "source": "tpugan_torch/csrc/upfirdn2d.cu",
         "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas, bf16); "
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c, bf16)",
-        "launches": bf16["launches"] + sum(fir16_inv.values()) + mis["launches_bf16"] + sum(s7a_fir16.values()),
+        "launches": (bf16["launches"] + sum(fir16_inv.values()) + mis["launches_bf16"] + sum(s7a_fir16.values())
+                     + sum(s7b_launches["upfirdn2d_bf16"].values())),
         "launches_by_path": {"bf16 training": bf16["launches"],
                              **{f"inversion: {label}": n for label, n in fir16_inv.items()},
                              "e_mis_align --bf16 (batch 5)": mis["launches_bf16"],
-                             **s7a_fir16},
+                             **s7a_fir16, **s7b_launches["upfirdn2d_bf16"]},
         "max_abs_err": max(bf16_err, bf16["max_abs_err"], inv_err["upfirdn2d_bf16"], mis["max_abs_err_bf16"]),
         "ms": bf16_step["ms"],
         "plain_ms": bf16_step["plain_ms"],
@@ -5256,12 +5895,14 @@ def main() -> int:
         "replaces": "tpugan/ops/pallas/attention.py:68 (sagan_attention_pallas); "
                     "tpugan/ops/pallas/attention.py:77 (sagan_attention_pallas, return_lse=True)",
         "launches": (attn["launches"] + big_inv["sagan_attention"] + cam_inv["launches"]["sagan_attention"]
-                     + big_resume["sagan_attention"] + big_conv["sagan_attention"]),
+                     + big_resume["sagan_attention"] + big_conv["sagan_attention"]
+                     + sum(s7b_launches["sagan_attention"].values())),
         "launches_by_path": {"BigGAN-deep-256 serving": attn["launches"],
                              "inversion: BigGAN fine-tune E": big_inv["sagan_attention"],
                              f"inversion: {cam_label}": cam_inv["launches"]["sagan_attention"],
                              "resume: E_BIG case 2": big_resume["sagan_attention"],
-                             "converted: BigGAN-deep-256 request": big_conv["sagan_attention"]},
+                             "converted: BigGAN-deep-256 request": big_conv["sagan_attention"],
+                             **s7b_launches["sagan_attention"]},
         "max_abs_err": max(attn["max_abs_err"], attn_err, inv_err["sagan_attention"],
                            cam_inv["max_abs_err"]["sagan_attention"]),
         **b3_times,
@@ -5288,7 +5929,8 @@ def main() -> int:
         "entry_points": ["tpugan_sagan_attention_bf16"],
         "replaces": "tpugan/ops/pallas/attention.py:68 (sagan_attention_pallas, bf16); "
                     "tpugan/ops/pallas/attention.py:77 (sagan_attention_pallas, bf16, return_lse=True)",
-        "launches": b3_bf16_launches,
+        "launches": b3_bf16_launches + sum(s7b_launches["sagan_attention_bf16"].values()),
+        "launches_by_path": {"bf16 E_BIG training": b3_bf16_launches, **s7b_launches["sagan_attention_bf16"]},
         "max_abs_err": max(attn_bf16_err, big16["max_abs_err"]),
         "max_abs_err_is": "bf16 outputs against the plain version run in float64 on the same bf16 values (one "
                           "bf16 ulp plus the fp32 contract); bitwise the fp32 kernel's on the widened inputs, "

@@ -152,9 +152,19 @@ def test_cli_writes_grids_on_cpu(tmp_path):
     ],
 )
 def test_later_slices_raise(tmp_path, monkeypatch, extra, match):
-    """PGGAN and parallelism wait for their ROADMAP items; a converted
-    encoder (``--checkpoint_dir_E``, slice 7a) now loads: a reference-named
-    E state dict from a seed, written to the file the flag names."""
+    """Parallelism waits for its ROADMAP item; a converted encoder
+    (``--checkpoint_dir_E``, slice 7a) now loads: a reference-named E state
+    dict from a seed, written to the file the flag names; PGGAN (mtype 3,
+    slice 7b) now builds on the CPU with E_PG and answers a request
+    (tests/test_torch_pggan.py holds it to tpugan)."""
+    if extra[0] == "--mtype":
+        bundle = common.build_bundle(_args("--device", "cpu", *extra))
+        assert bundle.mtype == 3 and type(bundle.generator).__name__ == "PGGANGenerator"
+        assert type(bundle.encoder).__name__ == "PGEncoder"
+        imgs1, imgs2 = infer_e.run(bundle, 2, 30000)
+        assert imgs1.shape == imgs2.shape == (2, 32, 32, 3)
+        assert torch.isfinite(imgs1).all() and torch.isfinite(imgs2).all()
+        return
     if extra[0] == "--checkpoint_dir_E":
         from tpugan_torch.io import convert
         from tpugan_torch.tools import reference_state

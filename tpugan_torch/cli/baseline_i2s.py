@@ -13,7 +13,8 @@ As in ``tpugan``, an untrained StyleGANv1 goes NaN from w = 0 by the
 task's design (its docstring): the generator's noise weights and biases
 start at 0, so each instance norm sees zero variance and amplifies the
 backward by about 1/sqrt(eps). ``--mtype 4`` raises, as ``tpugan``'s does:
-BigGAN needs a class label, which this tool does not build.
+BigGAN needs a class label, which this tool does not build. So does
+``--mtype 3``: PGGAN takes z [N, 512], not a w+ code.
 """
 
 from __future__ import annotations
@@ -24,9 +25,15 @@ import os
 import numpy as np
 import torch
 
-from tpugan_torch.cli.common import GanBundle, add_common_args, build_bundle, draw_inputs, make_result_dirs
+from tpugan_torch.cli.common import (
+    GanBundle,
+    add_common_args,
+    build_bundle,
+    draw_inputs,
+    family_pipeline,
+    make_result_dirs,
+)
 from tpugan_torch.losses.space_loss import space_loss
-from tpugan_torch.train.e_align import build_stylegan1_pipeline, build_stylegan2_pipeline
 
 CHUNK = 100  # iterations between logs (tpugan's scan length)
 
@@ -47,11 +54,9 @@ def adam(w: torch.Tensor, lr: float) -> torch.optim.Adam:
 
 def train_resynth(bundle: GanBundle):
     """``resynth(w) -> images`` through the frozen generator, differentiable
-    with respect to w, on :func:`draw_inputs`'s generator noise."""
-    if bundle.mtype == 2:
-        return build_stylegan2_pipeline(bundle.generator, train=True)[1]
-    _, resynth = build_stylegan1_pipeline(bundle.generator, bundle.mapping, bundle.layer_count - 1,
-                                          train=True)
+    with respect to w, on :func:`draw_inputs`'s generator noise (StyleGAN2
+    reads its noise buffers)."""
+    _, resynth = family_pipeline(bundle, bundle.generator, bundle.mapping, train=True)
     noise_g = draw_inputs(bundle, 1).noise_g
     return lambda w: resynth(w, None, noise_g)
 
@@ -75,6 +80,9 @@ def main(argv=None):
     if args.mtype == 4:
         raise TypeError("baseline_i2s regenerates without BigGAN's class label (tpugan's fails the "
                         "same way); it optimises StyleGAN w+ codes (mtypes 1 and 2)")
+    if args.mtype == 3:
+        raise TypeError("baseline_i2s optimises a w+ code [1, layers, 512], which PGGAN's generator "
+                        "refuses (tpugan's fails the same way); it optimises StyleGAN w+ codes (mtypes 1 and 2)")
 
     from tpugan_torch.io.image import from_unit, load_image_dir, save_image, to_unit
 

@@ -1,20 +1,19 @@
 """Shared CLI plumbing (counterpart of ``tpugan/cli/common.py``): the same
 flags, plus ``--device {cuda,cpu}``, and the model factory for ``--mtype 1``
 (StyleGANv1 with E, E_Blur in case 2, or the encoder of ``--ablation``),
-``--mtype 2`` (StyleGAN2, config F, with E or E_Blur) and ``--mtype 4``
-(BigGAN-deep with E_BIG).
+``--mtype 2`` (StyleGAN2, config F, with E or E_Blur), ``--mtype 3``
+(PGGAN with E_PG) and ``--mtype 4`` (BigGAN-deep with E_BIG).
 
 Weights are random, seeded by ``--seed``, with ``--random_init``; else the
 generator comes from ``--checkpoint_dir_GAN`` (StyleGANv1's directory of
-``Gs_dict.pth``, ``Gm_dict.pth`` and ``center_tensor.pt``, StyleGAN2's
-``.pth``, BigGAN's ``.pt`` with ``--config_dir``), and the encoder from
+``Gs_dict.pth``, ``Gm_dict.pth`` and ``center_tensor.pt``, StyleGAN2's and
+PGGAN's ``.pth``, BigGAN's ``.pt`` with ``--config_dir``), and the encoder from
 ``--checkpoint_dir_E`` where it is given, LPIPS from ``--lpips_weights`` and
 VGG16 from ``--vgg_weights``, each converted from the reference's torch
 state dict (``tpugan_torch/io/convert.py``; file paths only).
 
 What later slices bring raises :class:`NotImplementedError` naming the
-ROADMAP item: PGGAN (mtype 3), ``--space_shards`` above 1 and
-``--multihost``.
+ROADMAP item: ``--space_shards`` above 1 and ``--multihost``.
 """
 
 from __future__ import annotations
@@ -28,11 +27,6 @@ import torch
 
 from tpugan_torch.io import convert
 from tpugan_torch.runtime import resolve_device
-
-_LATER = {
-    3: "PGGAN (mtype 3) comes with ROADMAP slice 7, A item 5 (PGGAN and GAN training)",
-}
-
 
 def add_common_args(parser: argparse.ArgumentParser, training: bool = True):
     if training:
@@ -69,8 +63,9 @@ def add_common_args(parser: argparse.ArgumentParser, training: bool = True):
 class GanBundle(NamedTuple):
     """Frozen generator closures + encoder for one mtype, on ``device``.
 
-    ``synth(z, noise)`` (mtype 1 and 2; StyleGAN2 reads its noise buffers,
-    so its ``noise`` is ``None``) or ``synth(zt, label)`` (mtype 4) and
+    ``synth(z, noise)`` (mtype 1, 2 and 3; StyleGAN2 reads its noise
+    buffers and PGGAN has none, so their ``noise`` is ``None``) or
+    ``synth(zt, label)`` (mtype 4) and
     ``resynth(w, batch, noise)`` close over the frozen generator,
     ``encode(batch, noise)`` over the encoder; ``generator`` and
     ``encoder`` give the noise shapes (and BigGAN's config). For mtype 1,
@@ -119,7 +114,7 @@ def _layer_count(img_size: int) -> int:
 def _load_encoder(enc, args, layer_count: int):
     """``enc`` with ``--checkpoint_dir_E`` converted into it, where given."""
     if args.checkpoint_dir_E:
-        to_port = convert.biggan_encoder if args.mtype == 4 else convert.encoder
+        to_port = {3: convert.pg_encoder, 4: convert.biggan_encoder}.get(args.mtype, convert.encoder)
         convert.load_state(enc, to_port(convert.load_torch_state_dict(args.checkpoint_dir_E), layer_count))
     return enc
 
@@ -135,9 +130,7 @@ def build_bundle(args) -> GanBundle:
         raise NotImplementedError("--multihost comes with ROADMAP slice 7 (parallelism)")
     if getattr(args, "space_shards", 1) != 1:
         raise NotImplementedError("--space_shards > 1 comes with ROADMAP slice 7 (parallelism)")
-    if args.mtype in _LATER:
-        raise NotImplementedError(_LATER[args.mtype])
-    if args.mtype not in (1, 2, 4):
+    if args.mtype not in (1, 2, 3, 4):
         raise ValueError(f"unknown mtype {args.mtype}")
     if not args.random_init and not args.checkpoint_dir_GAN:
         raise ValueError("pass --checkpoint_dir_GAN (the reference's generator weights) or "
@@ -147,6 +140,8 @@ def build_bundle(args) -> GanBundle:
     g = torch.Generator(device="cpu").manual_seed(args.seed)
     if args.mtype == 4:
         return _build_biggan_bundle(args, layer_count, g, device)
+    if args.mtype == 3:
+        return _build_pggan_bundle(args, layer_count, g, device)
     if args.mtype == 2:
         return _build_stylegan2_bundle(args, layer_count, g, device)
 
@@ -209,6 +204,49 @@ def _build_stylegan2_bundle(args, layer_count: int, g: torch.Generator,
         synth, resynth, make_encode_fn(enc), enc, 512, layer_count, 2 * layer_count, gen, device,
         args.img_size, mtype=2,
     )
+
+
+def _build_pggan_bundle(args, layer_count: int, g: torch.Generator,
+                        device: torch.device) -> GanBundle:
+    """PGGAN at ``--img_size`` (GenForce's fmaps, min(16384 / res, 512);
+    converted from the ``.pth`` of ``--checkpoint_dir_GAN``, its
+    ``generator_smooth`` unwrapped, unless ``--random_init``) and E_PG
+    (``tpugan/cli/common.py:211-249``). ``synth(z)`` gives ``w1 = z`` and
+    ``resynth(z2)`` regenerates from E_PG's z
+    (:func:`~tpugan_torch.train.e_align.build_pggan_pipeline`)."""
+    from tpugan_torch.models import PGEncoder, PGGANGenerator
+    from tpugan_torch.train.e_align import build_pggan_pipeline, make_encode_fn
+
+    gen = PGGANGenerator(resolution=args.img_size, generator=g)
+    if not args.random_init:
+        state = convert.stylegan2_state(convert.load_torch_state_dict(args.checkpoint_dir_GAN))
+        convert.load_state(gen, convert.pggan_generator(state))
+    gen = gen.to(device)
+    enc = _load_encoder(PGEncoder(
+        startf=args.start_features, maxf=512, layer_count=layer_count, latent_size=512,
+        img_size=args.img_size, generator=g,
+    ), args, layer_count).to(device)
+    synth, resynth = build_pggan_pipeline(gen)
+    return GanBundle(
+        synth, resynth, make_encode_fn(enc), enc, args.z_dim, layer_count, 2 * layer_count, gen, device,
+        args.img_size, mtype=3,
+    )
+
+
+def family_pipeline(bundle: GanBundle, generator, mapping=None, train: bool = False):
+    """``(synth, resynth)`` of the bundle's family over ``generator`` (and,
+    for mtype 1, ``mapping``, with the bundle's truncation center): a
+    bf16 copy of the bundle's generator, or the train-mode closures."""
+    from tpugan_torch.train import e_align as ea
+
+    if bundle.mtype == 4:
+        return ea.build_biggan_pipeline(generator, train=train)
+    if bundle.mtype == 3:
+        return ea.build_pggan_pipeline(generator, train=train)
+    if bundle.mtype == 2:
+        return ea.build_stylegan2_pipeline(generator, train=train)
+    return ea.build_stylegan1_pipeline(generator, mapping, bundle.layer_count - 1, center=bundle.center,
+                                       train=train)
 
 
 def _build_biggan_bundle(args, layer_count: int, g: torch.Generator,
@@ -318,8 +356,9 @@ class InversionDraws(NamedTuple):
 
 
 def draw_inputs(bundle: GanBundle, batch_size: int, iterations: int = 0) -> InversionDraws:
-    """StyleGANv1's generator noise from seed 0, the encoder's noise from
-    seed 1 and BigGAN's truncated z (at 0.4) from the seed ``iterations %
+    """StyleGANv1's generator noise from seed 0 (StyleGAN2 reads its noise
+    buffers, PGGAN and BigGAN have none), the encoder's noise from seed 1
+    (E_PG's too) and BigGAN's truncated z (at 0.4) from the seed ``iterations %
     30000``, drawn on the CPU (once a run: the same draws on every device)
     and moved to the bundle's device. ``embedding``, ``rec_real_img``,
     ``edit`` and ``baseline_i2s`` read these draws on every call, as

@@ -8,17 +8,20 @@ a frozen StyleGAN2-1024, config F, on its noise buffers; ``--mtype 1
 --img_size 256 --start_features 64`` trains StyleGANv1 Cat256's encoder (E
 in case 1, E_Blur in case 2, the ladder's encoder with ``--ablation``), and
 ``--mtype 4 --img_size 256 --start_features 64 --z_dim 128`` trains E_BIG
-against a frozen BigGAN-deep-256. Case 1 logs its image losses without
+against a frozen BigGAN-deep-256, and ``--mtype 3 --img_size 1024
+--start_features 16`` E_PG against a frozen PGGAN-1024 (z in, z out; its
+zero const1 broadcast to E_PG's features for the const loss, as tpugan's).
+Case 1 logs its image losses without
 gradient and, unless ``--eager_metrics``, skips them on off-tick iterations
 (the lean step); case 2 trains through them. ``--ablation n``
 (ablation_utils/1..8) forces case 2 and sets the loss weights; ablation 1
 (StyleGANv1 only) encodes z and re-maps it to w+ through the frozen
-mapping, and ablations 7 and 8 take one update per loss group. On mtypes 2
-and 4 the ladder's weights apply to the usual encoder, as in ``tpugan``.
+mapping, and ablations 7 and 8 take one update per loss group. On mtypes 2,
+3 and 4 the ladder's weights apply to the usual encoder, as in ``tpugan``.
 Every ``--log_every`` iterations a JSON record goes to stdout and
 ``Loss.txt``, and a grid of imgs1 over imgs2 to ``imgs/``.
 
-``--bf16`` (mtypes 1, 2 and 4) runs tpugan's bf16 scheme
+``--bf16`` (every mtype) runs tpugan's bf16 scheme
 (``tpugan_torch/precision.py``): a bf16 copy of the frozen generator (and
 mapping), the encoder computing in bf16 from its fp32 parameters (E_BIG's
 spectral-norm pair advanced on the fp32 weights), fp32 losses, gradients
@@ -52,6 +55,7 @@ from tpugan_torch.cli.common import (
     add_common_args,
     build_bundle,
     build_lpips_fn,
+    family_pipeline,
     make_result_dirs,
 )
 from tpugan_torch.io.checkpoint import latest_step, load_checkpoint, save_checkpoint
@@ -59,9 +63,6 @@ from tpugan_torch.optim import lreq_adam
 from tpugan_torch.precision import bf16_encode, bf16_frozen, bf16_pipeline
 from tpugan_torch.train.e_align import (
     EncoderTrainState,
-    build_biggan_pipeline,
-    build_stylegan1_pipeline,
-    build_stylegan2_pipeline,
     info_scalars,
     init_train_state,
     make_align_visuals,
@@ -81,8 +82,7 @@ def make_parser() -> argparse.ArgumentParser:
                              "in the backward")
     parser.add_argument("--bf16", action="store_true",
                         help="bfloat16 compute for the generator and the encoder's forward and "
-                             "backward (fp32 master weights, fp32 norm moments, fp32 losses); "
-                             "mtypes 1, 2 and 4")
+                             "backward (fp32 master weights, fp32 norm moments, fp32 losses)")
     parser.add_argument("--log_every", type=int, default=100)
     parser.add_argument("--checkpoint_every", type=int, default=5000)
     parser.add_argument("--resume", action="store_true",
@@ -145,13 +145,7 @@ def build_pipeline(args, draw=None) -> Pipeline:
         # remap reads the fp32 tree
         mapping = None if bundle.mapping is None else bf16_frozen(bundle.mapping)
         bundle = bundle._replace(generator=bf16_frozen(bundle.generator), mapping=mapping)
-    if args.mtype == 4:
-        synth_fn, resynth = build_biggan_pipeline(bundle.generator, train=True)
-    elif args.mtype == 2:
-        synth_fn, resynth = build_stylegan2_pipeline(bundle.generator, train=True)
-    else:
-        synth_fn, resynth = build_stylegan1_pipeline(
-            bundle.generator, bundle.mapping, bundle.layer_count - 1, center=bundle.center, train=True)
+    synth_fn, resynth = family_pipeline(bundle, bundle.generator, bundle.mapping, train=True)
     encode = make_encode_fn(bundle.encoder, conditional=args.mtype == 4, train=True)
     if ab == 1:
         # E_Blur_Z: const1 is z and the encoder's z2 is re-mapped to w+
@@ -171,7 +165,7 @@ def build_pipeline(args, draw=None) -> Pipeline:
     def synth(request):
         if args.mtype == 4:
             return synth_fn(request.z, request.label)
-        if args.mtype == 2:
+        if args.mtype in (2, 3):
             return synth_fn(request.z)
         return synth_fn(request.z, request.noise_g)
 

@@ -86,7 +86,12 @@ def build_trainer(args, lpips_fn=None, draw=None, vgg=None) -> Trainer:
     """The encoder's train state and step functions for ``args`` (as
     :func:`parse_args` gives them), on ``args.device``, from random weights
     seeded by ``args.seed``; ``vgg`` replaces :func:`build_vgg16`'s and
-    ``draw(iteration) -> Request`` the iteration's seeded draws."""
+    ``draw(iteration) -> Request`` the iteration's seeded draws. PGGAN
+    (mtype 3) raises: its const1 [N, 1] meets E_PG's features unbroadcast
+    in the const loss, and tpugan's step fails the same way."""
+    if args.mtype == 3:
+        raise TypeError("e_mis_align's const loss takes PGGAN's const1 [N, 1] against E_PG's features "
+                        "without a broadcast (tpugan's mis-align step fails the same way); use e_align --mtype 3")
     pipeline = build_pipeline(args, draw)
     bundle, encode, synth, resynth, draw = pipeline
     vgg = build_vgg16(args) if vgg is None else vgg

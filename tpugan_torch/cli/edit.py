@@ -8,7 +8,8 @@ layers ``start .. start + end - 1`` and regenerates the image. w codes are
 ``.npy`` or the reference's torch ``.pt``. The generator noise is
 :func:`~tpugan_torch.cli.common.draw_inputs`'s. ``--mtype 4`` raises,
 as ``tpugan``'s does: BigGAN needs a class label, which this tool does not
-build.
+build. So does ``--mtype 3``: PGGAN takes z [N, 512], not a w code of
+layers.
 """
 
 from __future__ import annotations
@@ -49,6 +50,9 @@ def main(argv=None):
     if args.mtype == 4:
         raise TypeError("edit regenerates without BigGAN's class label (tpugan's edit fails the "
                         "same way); it edits StyleGAN w codes (mtypes 1 and 2)")
+    if args.mtype == 3:
+        raise TypeError("edit reshapes w to [1, layers, 512], which PGGAN's generator refuses (tpugan's "
+                        "edit fails the same way); it edits StyleGAN w codes (mtypes 1 and 2)")
 
     from tpugan_torch.io.image import save_image, to_unit
 

@@ -10,6 +10,7 @@ codes (.npy) and reconstructions every 100 iterations, the final w and
 reconstruction, the best-loss snapshot with ``loss_min.txt``, and the
 stacked ``w_all.npy``/``img_all.npy`` (embedding_img.py:163-170).
 
+``--mtype 3`` inverts into PGGAN's z through E_PG (w is z [N, 512]).
 ``--mtype 4`` conditions BigGAN and E_BIG on a fixed ``--class_id`` (30 by
 default) and a truncated z at 0.4 drawn from the seed ``iterations %
 30000`` (embedding_v2_BigGAN.py:36-47). The noise of the encoder and of
@@ -56,17 +57,12 @@ from tpugan_torch.cli.common import (
     build_lpips_fn,
     build_vgg16,
     draw_inputs,
+    family_pipeline,
     make_result_dirs,
 )
 from tpugan_torch.invert import EmbeddingConfig, make_embedder
 from tpugan_torch.precision import BF16, bf16_encode_images, bf16_frozen
-from tpugan_torch.train.e_align import (
-    build_biggan_pipeline,
-    build_stylegan1_pipeline,
-    build_stylegan2_pipeline,
-    nchw_to_nhwc,
-    nhwc_to_nchw,
-)
+from tpugan_torch.train.e_align import nchw_to_nhwc, nhwc_to_nchw
 from tpugan_torch.utils import one_hot
 
 
@@ -118,20 +114,16 @@ def build_inverter(args, lpips_fn=None, bundle: Optional[GanBundle] = None, vgg=
     gen.requires_grad_(False)
     if args.bf16:
         gen = bf16_frozen(gen)
-    batch = noise_g = cond = None
+    batch = cond = None
+    _, resynth_g = family_pipeline(bundle, gen, bundle.mapping, train=True)
     if args.mtype == 4:
-        _, resynth_g = build_biggan_pipeline(gen, train=True)
         embeddings = bundle.generator.embeddings
         label = one_hot(torch.full((args.batch_size,), args.class_id, device=bundle.device),
                         gen.config.num_classes).to(embeddings.weight.dtype)
         batch = argparse.Namespace(label=label)
         with torch.no_grad():
             cond = torch.cat([draws.zt, embeddings(label)], dim=1)
-    elif args.mtype == 2:
-        _, resynth_g = build_stylegan2_pipeline(gen, train=True)
-    else:
-        _, resynth_g = build_stylegan1_pipeline(gen, bundle.mapping, bundle.layer_count - 1, train=True)
-        noise_g = draws.noise_g
+    noise_g = draws.noise_g  # StyleGANv1's; None for the others
 
     def resynth(w):
         if args.bf16:

@@ -8,9 +8,11 @@ StyleGAN2-1024 instead: z -> SG2Mapping -> truncation (psi 0.7, 8 layers)
 -> SG2Synthesis -> E -> SG2Synthesis, on the generator's noise buffers.
 ``--mtype 4 --img_size 256 --start_features 64 --z_dim 128`` serves
 BigGAN-deep-256 with E_BIG: truncated z and a class label -> G -> E_BIG ->
-G. One request is :func:`run`: :func:`draw_request` draws its inputs from
-the seed, :func:`serve` computes ``(imgs1, imgs2)``; ``main`` only adds the
-files. ``--gradcam`` also writes each request's Grad-CAM++ overlay of imgs1
+G. ``--mtype 3 --img_size 1024 --start_features 16`` serves PGGAN-1024
+with E_PG: z -> G -> E_PG -> G. One request is :func:`run`:
+:func:`draw_request` draws its inputs from the seed, :func:`serve`
+computes ``(imgs1, imgs2)``; ``main`` only adds the files. ``--gradcam``
+also writes each request's Grad-CAM++ overlay of imgs1
 (``cam_seed<k>.png``, :func:`cam_overlay`), from a random VGG16 without
 ``--vgg_weights`` (which comes with ROADMAP slice 7), as in ``tpugan``.
 """
@@ -33,14 +35,14 @@ def draw_request(bundle: GanBundle, batch_size: int, seed: int) -> Request:
     """Draw a request's inputs from the seed (``seed % 30000``) on the
     bundle's device. BigGAN's request is a truncated z, one class shared by
     the batch (cli/common.py:277-281 of ``tpugan``) and E_BIG's noise;
-    StyleGAN2's is z and the encoder's noise (its generator reads its noise
-    buffers in both decodes)."""
+    StyleGAN2's and PGGAN's are z and the encoder's noise (StyleGAN2 reads
+    its noise buffers in both decodes, PGGAN has none)."""
     if bundle.mtype == 4:
         return draw_biggan_request(bundle.encoder, bundle.generator.config.num_classes,
                                    bundle.z_dim, bundle.img_size, batch_size, seed, bundle.device)
     g = iteration_generator(seed, bundle.device)
     z = torch.randn(batch_size, bundle.z_dim, generator=g, device=bundle.device)
-    if bundle.mtype == 2:
+    if bundle.mtype in (2, 3):
         noise_e = draw_noise(bundle.encoder.noise_shapes(batch_size, bundle.img_size), g)
         return Request(z, None, noise_e, None)
     g_shapes = bundle.generator.noise_shapes(batch_size)

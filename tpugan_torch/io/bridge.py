@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from tpugan_torch.losses.vgg import FlattenedLinear
+from tpugan_torch.models.pggan import PGConvBlock
 from tpugan_torch.models.stylegan2 import ModulatedConv, SG2ConvBlock, SG2Dense
 from tpugan_torch.nn.layers import EqConv, EqLinear
 from tpugan_torch.nn.spectral import SNDense
@@ -60,6 +61,8 @@ def _convert(owner: nn.Module, name: str, value: np.ndarray) -> np.ndarray:
         return value.T
     if name == "weight" and isinstance(owner, (ModulatedConv, SG2ConvBlock)):
         return value.transpose(3, 2, 0, 1)
+    if name == "weight" and isinstance(owner, PGConvBlock):
+        return value.transpose((2, 3, 0, 1) if owner.fused else (3, 2, 0, 1))
     return value
 
 

@@ -5,8 +5,8 @@ The reference's formats (SURVEY.md §5):
 
 * StyleGANv1's three files, ``Gs_dict.pth``, ``Gm_dict.pth`` and
   ``center_tensor.pt`` (readme.md:67-71; E_align_cropping_s1.py:30-35);
-* StyleGAN2's single ``.pth`` holding ``generator_smooth`` (or
-  ``generator``), nested or as a key prefix (:52-55);
+* StyleGAN2's and PGGAN's single ``.pth`` holding ``generator_smooth``
+  (or ``generator``), nested or as a key prefix (:52-55, 70-74);
 * BigGAN's ``.pt`` with a config JSON (:82-84), its spectral norms folded;
 * torchvision's VGG16 and the official LPIPS (VGG) state dicts;
 * the trained encoders' state dicts (model/E/*.py), E_BIG's spectral-norm
@@ -16,11 +16,12 @@ The reference and the port are both NCHW with OIHW kernels, ``[out, in]``
 dense weights and ``[in, out, kh, kw]`` transposed-conv kernels (SGv1's
 fused up-sampling ``conv_1``), so each converter renames the reference's
 keys to the port module's own ``state_dict`` names and reshapes per-channel
-leaves (``[1, C, 1, 1]`` -> ``[C]``); no kernel is transposed. Flattens:
+leaves (``[1, C, 1, 1]`` -> ``[C]``); no kernel is transposed (PGGAN's
+fused up-sampling convs stay ``[in, out, kh, kw]`` in both). Flattens:
 VGG16's classifier flattens its 7x7 map (c, h, w), torchvision's order, so
-``classifier.0`` is copied as it is; E_BIG's ``new_final_1`` reads the last
-map in ``tpugan``'s (h, w, c) order, so its input columns are reordered from
-the reference's (c, h, w).
+``classifier.0`` is copied as it is; E_BIG's ``new_final_1`` and E_PG's
+``new_final`` read the last map in ``tpugan``'s (h, w, c) order, so their
+input columns are reordered from the reference's (c, h, w).
 
 Every converter is a pure dict -> dict map over numpy arrays;
 :func:`load_torch_state_dict` reads a file, :func:`load_state` copies a
@@ -197,6 +198,25 @@ def stylegan2_generator(state: State) -> State:
 
 
 # ---------------------------------------------------------------------------
+# PGGAN (model/pggan/pggan_generator.py)
+
+
+def pggan_generator(state: State) -> State:
+    """The generator's dict (:func:`stylegan2_state` unwraps a ``.pth``) ->
+    :class:`~tpugan_torch.models.PGGANGenerator`: ``layer<i>`` and
+    ``output<i>`` weights and biases, as they are (the fused up-sampling
+    convs ``[in, out, kh, kw]`` in both); the ``lod`` buffer is the
+    forward's argument here."""
+    return {k: v for k, v in state.items() if re.match(r"(layer|output)\d+\.(weight|bias)$", k)}
+
+
+def _flatten_columns(w: np.ndarray, channels: int) -> np.ndarray:
+    """A dense weight over the reference's (c, h, w) flatten of a
+    ``[channels, 4, 4]`` map, reordered for the port's (h, w, c) one."""
+    return w.reshape(w.shape[0], channels, 4, 4).transpose(0, 2, 3, 1).reshape(w.shape[0], -1)
+
+
+# ---------------------------------------------------------------------------
 # BigGAN (model/biggan_generator.py)
 
 
@@ -244,6 +264,19 @@ def encoder(state: State, layer_count: int) -> State:
     return out
 
 
+def pg_encoder(state: State, layer_count: int, maxf: int = 512) -> State:
+    """E_PG state dict (model/E/E_PG.py) ->
+    :class:`~tpugan_torch.models.PGEncoder`: the blocks as :func:`encoder`
+    maps them (no style heads; ``instance_norm_3`` is the affine IN of the
+    residual), ``new_final``'s input columns reordered from the
+    reference's (c, h, w) flatten of the last ``[maxf, 4, 4]`` map to the
+    port's (h, w, c)."""
+    out = encoder(state, layer_count)
+    out["new_final.weight"] = _flatten_columns(state["new_final.weight"], maxf)
+    out["new_final.bias"] = state["new_final.bias"]
+    return out
+
+
 def biggan_encoder(state: State, layer_count: int, maxf: int = 512) -> State:
     """E_BIG state dict (model/E/E_BIG.py) ->
     :class:`~tpugan_torch.models.BigGANEncoder`. The conditional batch
@@ -269,8 +302,7 @@ def biggan_encoder(state: State, layer_count: int, maxf: int = 512) -> State:
             for lin in ("scale", "offset"):
                 for ref, port in (("weight_orig", "weight"), ("weight_u", "u"), ("weight_v", "v")):
                     out[f"{dst}{bn}.{lin}.{port}"] = state[f"{src}{bn}.{lin}.{ref}"]
-    w = state["new_final_1.weight"]
-    out["new_final_1.weight"] = w.reshape(w.shape[0], maxf, 4, 4).transpose(0, 2, 3, 1).reshape(w.shape[0], -1)
+    out["new_final_1.weight"] = _flatten_columns(state["new_final_1.weight"], maxf)
     out["new_final_1.bias"] = state["new_final_1.bias"]
     for name in ("weight", "bias"):
         out[f"new_final_2.{name}"] = state[f"new_final_2.{name}"]

@@ -6,7 +6,15 @@ from tpugan_torch.models.biggan import (
     GenBlock,
     SelfAttn,
 )
-from tpugan_torch.models.encoders import BigGANEncoder, BigGANEncoderBlock, Encoder, EncoderBlock
+from tpugan_torch.models.encoders import (
+    BigGANEncoder,
+    BigGANEncoderBlock,
+    Encoder,
+    EncoderBlock,
+    PGEncoder,
+    PGEncoderBlock,
+)
+from tpugan_torch.models.pggan import PGConvBlock, PGGANGenerator
 from tpugan_torch.models.stylegan1 import (
     DecodeBlock,
     StyleGANv1Generator,
@@ -36,6 +44,10 @@ __all__ = [
     "EncoderBlock",
     "GenBlock",
     "ModulatedConv",
+    "PGConvBlock",
+    "PGEncoder",
+    "PGEncoderBlock",
+    "PGGANGenerator",
     "SG2ConvBlock",
     "SG2Dense",
     "SG2Mapping",

@@ -1,6 +1,7 @@
 """The trainable encoders, NCHW (counterpart of
 ``tpugan/models/encoders.py``: ``EncoderBlock`` (its v2 and v1 forwards),
-``Encoder``, ``BigGANEncoderBlock`` and ``BigGANEncoder``).
+``Encoder``, ``PGEncoderBlock``, ``PGEncoder``, ``BigGANEncoderBlock`` and
+``BigGANEncoder``).
 
 ``use_blur=False`` is case 1 (E.py); ``use_blur=True`` is case 2 (E_Blur.py),
 which blurs before the downsampling conv and fuses that conv (stride 2,
@@ -14,6 +15,10 @@ encoders (model/E/Ablation_Study) are flags of the same classes: E_Blur_W
 and E_v1. tpugan's space-to-depth forward (``_s2d_forward``) computes the
 dense forward's function in a layout for TPU lanes; the dense forward is its
 counterpart.
+
+E_PG (:class:`PGEncoder`, PGGAN's encoder) has no style heads: instance
+norm before each conv, noise, an affine instance-normed 1x1 residual and a
+2x average-pool after each block, then z from the flattened 4x4 features.
 
 E_BIG (:class:`BigGANEncoder`) conditions every block on BigGAN's condition
 vector through spectral-normalised batch norms and ends in two heads, the
@@ -236,6 +241,91 @@ class Encoder(nn.Module):
         if self.out_z is None:
             return x, None
         return x, self.out_z(x).reshape(x.shape[0], -1)
+
+
+class PGEncoderBlock(nn.Module):
+    """E_PG's BEBlock: IN -> conv -> noise -> bias -> lrelu, then (except in
+    the last block) IN -> conv -> noise -> bias, the residual (through
+    ``conv_3`` and an affine IN, ``in3_scale``/``in3_bias``, where the width
+    changes) added, lrelu and a 2x average-pool."""
+
+    def __init__(self, in_features: int, out_features: int, has_second_conv: bool = True,
+                 generator=None):
+        super().__init__()
+        cin, cout = in_features, out_features
+        self.has_second_conv = has_second_conv
+        self.conv_1 = EqConv(cin, cin, 3, padding=1, use_bias=False, generator=generator)
+        self.noise_weight_1 = nn.Parameter(torch.zeros(cin))
+        self.bias_1 = nn.Parameter(torch.zeros(cin))
+        self.conv_3 = None
+        if has_second_conv:
+            self.conv_2 = EqConv(cin, cout, 3, padding=1, use_bias=False, generator=generator)
+            self.noise_weight_2 = nn.Parameter(torch.zeros(cout))
+            self.bias_2 = nn.Parameter(torch.zeros(cout))
+            if cin != cout:
+                self.conv_3 = EqConv(cin, cout, 1, generator=generator)
+                self.in3_scale = nn.Parameter(torch.ones(cout))
+                self.in3_bias = nn.Parameter(torch.zeros(cout))
+
+    def noise_shapes(self, batch: int, r: int) -> tuple:
+        """Both convs run at the block's input size ``r``; the last block
+        has one."""
+        return ((batch, 1, r, r),) * (2 if self.has_second_conv else 1)
+
+    def forward(self, x, noise: Optional[Sequence[torch.Tensor]] = None):
+        residual = x
+        x = self.conv_1(instance_norm(x))
+        x = noise_inject(x, self.noise_weight_1, noise[0] if noise is not None else None)
+        x = leaky_relu(x + self.bias_1[None, :, None, None], 0.2)
+        if not self.has_second_conv:
+            return x
+        x = self.conv_2(instance_norm(x))
+        x = noise_inject(x, self.noise_weight_2, noise[1] if noise is not None else None)
+        x = x + self.bias_2[None, :, None, None]
+        if self.conv_3 is not None:
+            residual = instance_norm(self.conv_3(residual))
+            residual = residual * self.in3_scale[None, :, None, None] + self.in3_bias[None, :, None, None]
+        return downscale2d(leaky_relu(x + residual, 0.2))
+
+
+class PGEncoder(nn.Module):
+    """E_PG: images [N, C, R, R] -> (features [N, C', s, s], z [N, latent]).
+
+    ``new_final`` reads the last block's features flattened in (h, w, c)
+    order, as ``tpugan``'s NHWC reshape gives them (E_BIG's rule), so the
+    bridge copies its kernel as it is and the converter reorders the
+    reference's (c, h, w) columns. Returns ``(features, z)``: tpugan's
+    contract, not the reference's forward, which returns two zeros
+    (E_PG.py:163-164)."""
+
+    def __init__(self, startf: int = 64, maxf: int = 512, layer_count: int = 7, latent_size: int = 512,
+                 channels: int = 3, *, img_size: int, generator=None):
+        super().__init__()
+        self.layer_count = layer_count
+        self.from_rgb = EqConv(channels, startf, 1, generator=generator)
+        inputs, outputs = startf, startf * 2
+        for i in range(layer_count):
+            self.add_module(f"block_{i}", PGEncoderBlock(inputs, outputs, has_second_conv=i + 1 != layer_count,
+                                                         generator=generator))
+            last_width = inputs  # the last block keeps its input width
+            inputs = min(maxf, inputs * 2)
+            outputs = min(maxf, outputs * 2)
+        side = img_size >> (layer_count - 1)
+        if side < 1:
+            raise ValueError(f"{layer_count} blocks do not fit a {img_size}px image")
+        self.new_final = EqLinear(last_width * side * side, latent_size, gain=1.0, generator=generator)
+
+    def noise_shapes(self, batch: int, resolution: int) -> list:
+        """Noise shapes per block for ``resolution``-pixel input (block i at
+        ``resolution >> i``)."""
+        return [getattr(self, f"block_{i}").noise_shapes(batch, resolution >> i)
+                for i in range(self.layer_count)]
+
+    def forward(self, x, noise=None):
+        x = leaky_relu(self.from_rgb(x), 0.2)
+        for i in range(self.layer_count):
+            x = getattr(self, f"block_{i}")(x, noise[i] if noise is not None else None)
+        return x, self.new_final(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
 
 
 class BigGANEncoderBlock(nn.Module):

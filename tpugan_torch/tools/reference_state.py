@@ -2,12 +2,12 @@
 
 Each function returns ``{reference key: numpy float32}`` with the key names
 and shapes of the reference's checkpoints (StyleGANv1's ``Gs``/``Gm``/
-center, StyleGAN2's generator, BigGAN with ``weight_orig``/``_u``/``_v``
-triplets, E, E_BIG, torchvision's VGG16, the official LPIPS), filled from a
-numpy seed. The shapes come from this package's modules, built on the meta
-device (no values, no time), renamed to the reference's keys: the inverse of
-``tpugan_torch/io/convert.py``'s maps, which the converter tests check
-against ``tpugan``'s converters. :func:`save` writes one with ``torch.save``
+center, StyleGAN2's and PGGAN's generators, BigGAN with ``weight_orig``/
+``_u``/``_v`` triplets, E, E_PG, E_BIG, torchvision's VGG16, the official
+LPIPS), filled from a numpy seed. The shapes come from this package's
+modules, built on the meta device (no values, no time), renamed to the
+reference's keys: the inverse of ``tpugan_torch/io/convert.py``'s maps,
+which the converter tests check against ``tpugan``'s converters. :func:`save` writes one with ``torch.save``
 as the reference does. Real weights are not in the repository; these stand
 in for them.
 """
@@ -80,8 +80,20 @@ def stylegan2(rng, make) -> dict:
     return state
 
 
+def pggan(rng, make) -> dict:
+    """PGGAN's generator (GenForce's model/pggan/pggan_generator.py) for the
+    module ``make()`` builds: ``layer<i>``/``output<i>`` weights, N(0, 1)
+    as the reference keeps them unscaled, and its ``lod`` buffer, which
+    the converter skips. Wrap it as :func:`stylegan2`'s dict."""
+    state = {k: _fill(rng, k, shape) for k, shape in _shapes(make).items()}
+    state["lod"] = np.zeros((), np.float32)
+    return state
+
+
 def encoder(rng, make) -> dict:
-    """E / E_Blur (model/E/*.py) for the module ``make()`` builds."""
+    """E / E_Blur / E_PG (model/E/*.py) for the module ``make()`` builds;
+    E_PG's ``new_final`` is drawn in the shape of the (c, h, w) flatten,
+    the same as the port's."""
     state = {}
     for k, shape in _shapes(make).items():
         ref = re.sub(r"^from_rgb\.", "FromRGB.from_rgb.", k)

@@ -1,6 +1,6 @@
 """Encoder alignment (counterpart of ``tpugan/train/e_align.py``): the
 frozen generators' synth/resynth closures (StyleGANv1, mtype 1; StyleGAN2,
-mtype 2; BigGAN, mtype 4), the encode closure, and the train step of cases
+mtype 2; PGGAN, mtype 3; BigGAN, mtype 4), the encode closure, and the train step of cases
 1 and 2 and of the ablation ladder.
 
 Images cross this boundary NHWC, as in ``tpugan``; the models run NCHW.
@@ -31,6 +31,7 @@ from torch.utils.checkpoint import (
 
 from tpugan_torch.losses.space_loss import SpaceLossInfo, space_loss, zero_space_info
 from tpugan_torch.models.biggan import BigGAN
+from tpugan_torch.models.pggan import PGGANGenerator
 from tpugan_torch.models.stylegan1 import StyleGANv1Generator, StyleGANv1Mapping, truncation_coefs
 from tpugan_torch.models.stylegan2 import StyleGAN2Generator
 from tpugan_torch.nn.spectral import SNDense, power_iterate
@@ -43,8 +44,8 @@ BIGGAN_TRUNCATION = 0.4
 
 class SynthBatch(NamedTuple):
     """A frozen-generator sample: latents, target images [N, H, W, C], the
-    generator const [N, C, 4, 4] (BigGAN: the condition vector [N, 2 z_dim])
-    and, for BigGAN, the one-hot class label."""
+    generator const [N, C, 4, 4] (BigGAN: the condition vector [N, 2 z_dim];
+    PGGAN: zeros [N, 1]) and, for BigGAN, the one-hot class label."""
 
     w1: torch.Tensor
     imgs1: torch.Tensor
@@ -166,6 +167,36 @@ def build_stylegan2_pipeline(gen: StyleGAN2Generator, train: bool = False):
     def resynth(w2: torch.Tensor, batch=None, noise=None) -> torch.Tensor:
         buffers_only(noise)
         return nchw_to_nhwc(gen.synthesize(w2)["image"])
+
+    return synth, (resynth if train else torch.no_grad()(resynth))
+
+
+def build_pggan_pipeline(gen: PGGANGenerator, train: bool = False):
+    """Frozen PGGAN synth/resynth closures (mtype 3, as
+    ``tpugan/cli/common.py:228-233``): ``imgs1 = G(z)`` with ``w1 = z`` and
+    ``const1`` zeros [N, 1] (E_align_cropping_s1.py:75; the train step
+    broadcasts it to E_PG's features), and ``imgs2 = G(z2)``.
+
+    ``synth(z, noise=None) -> SynthBatch`` and ``resynth(z2, batch=None,
+    noise=None) -> images``; PGGAN has no noise, so any ``noise`` raises.
+    With ``train`` the resynthesis records the graph back to z2 and G takes
+    no gradient (``requires_grad_(False)``); synth never does."""
+    if train:
+        gen.requires_grad_(False)
+
+    def no_noise(noise):
+        if noise is not None:
+            raise ValueError("PGGAN takes no noise")
+
+    @torch.no_grad()
+    def synth(z: torch.Tensor, noise=None) -> SynthBatch:
+        no_noise(noise)
+        imgs1 = nchw_to_nhwc(gen(z)["image"])
+        return SynthBatch(w1=z, imgs1=imgs1, const1=z.new_zeros(z.shape[0], 1))
+
+    def resynth(z2: torch.Tensor, batch=None, noise=None) -> torch.Tensor:
+        no_noise(noise)
+        return nchw_to_nhwc(gen(z2)["image"])
 
     return synth, (resynth if train else torch.no_grad()(resynth))
 
@@ -409,6 +440,10 @@ def make_train_step(
         loss_tsa = weighted[0] + weighted[1] + weighted[2]
         l_w, i_w = space_loss(batch.w1, w2, image_space=False)
         const1 = batch.const1
+        if const1.shape != const2.shape:
+            # PGGAN's const1 is zeros [N, 1]; tpugan broadcasts it to the
+            # encoder's features before the losses (tpugan/train/e_align.py:300-308)
+            const1 = const1.reshape((const1.shape[0],) + (1,) * (const2.dim() - 1)).expand(const2.shape)
         if const2.dim() == 4:
             # feature maps enter the losses NHWC, as tpugan's do: the KL's
             # softmax runs over the last axis of a 4-D input, the channels
