@@ -173,6 +173,19 @@ Phases:
      beside it and not held; ``embedding`` for 2 iterations with its files; an
      ``infer_e`` request on converted reference-named files held to their
      CPU load.
+ 16. slice 7c, StyleGANv1 adversarial training (``tpugan_torch.train.gan``)
+     at SGv1 Cat256's full width, lod 6, batch 16, random weights from the
+     seed: three D + G step pairs (D with the R1 penalty) each followed by
+     ``ema_params`` onto a smoothed G, and one pair at a fade-in blend of
+     ``LODSchedule`` (decode2), every step's FIR launches counted forward,
+     adjoint and second order (R1's adjoint of the adjoint) by TPU kernel
+     against the counts derived from the modules; every FIR of a D step and
+     of a G step on its own inputs against the plain version; step times,
+     device time by kernel, the FIR's share, the forward convolutions'
+     FLOPs and peak memory; decode3 at lod 6 and Mapping2 (both ways),
+     Mapping3 and Mapping4 against the CPU; a D step and a G step at 256 px,
+     batch 4, replayed on the CPU and held to float64 (GAN_REPLAY_SIZE's
+     comment).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2254,40 +2267,70 @@ def sg2_step_firs(trainer, image_gradients, resynthesis):
 
 class FirCapture:
     """Keeps one input of each distinct FIR launch (shape, taps, up, down,
-    pads) made while it is entered, forward and adjoint apart, with the
-    number of launches of each."""
+    pads) made while it is entered, with the number of launches of each, by
+    direction: "forward", "adjoint" (inside upfirdn2d's backward) and
+    "second order" (the backward of an upfirdn2d node that an adjoint made
+    while a graph was being built, as the R1 penalty's
+    ``autograd.grad(..., create_graph=True)`` makes them). With ``keep``
+    false it counts and keeps no input."""
 
-    def __init__(self):
+    def __init__(self, keep=True):
         from tpugan_torch.ops import upfirdn
 
         self.upfirdn = upfirdn
+        self.keep = keep
         self.firs = {}  # (direction, shape, taps bytes, up, down, pads) -> [x, taps, launches]
         self.direction = "forward"
 
     def __enter__(self):
         upfirdn, fn = self.upfirdn, self.upfirdn._UpFirDn2d
-        self.real_fir, self.real_backward = upfirdn._fir_cuda, fn.backward
+        self.real_fir, self.real_forward, self.real_backward = upfirdn._fir_cuda, fn.forward, fn.backward
 
         def fir_cuda(x, taps, up, down, pads):
             key = (self.direction, tuple(x.shape), taps.tobytes(), up, down, tuple(pads))
-            entry = self.firs.setdefault(key, [x.detach().clone(), taps, 0])
+            entry = self.firs.setdefault(key, [x.detach().clone() if self.keep else None, taps, 0])
             entry[2] += 1
             return self.real_fir(x, taps, up, down, pads)
 
+        def forward(ctx, *args):
+            ctx.second_order = self.direction != "forward"  # made inside a backward
+            return self.real_forward(ctx, *args)
+
         def backward(ctx, g):
-            self.direction = "adjoint"
+            self.direction = "second order" if getattr(ctx, "second_order", False) else "adjoint"
             try:
                 return self.real_backward(ctx, g)
             finally:
                 self.direction = "forward"
 
         upfirdn._fir_cuda = fir_cuda
+        fn.forward = staticmethod(forward)
         fn.backward = staticmethod(backward)
         return self
 
     def __exit__(self, *exc):
         self.upfirdn._fir_cuda = self.real_fir
+        self.upfirdn._UpFirDn2d.forward = staticmethod(self.real_forward)
         self.upfirdn._UpFirDn2d.backward = staticmethod(self.real_backward)
+
+    def counts(self):
+        """Launches by direction and by the TPU kernel that tpugan's dispatch
+        gives each (:func:`fir_tpu_key`)."""
+        out = {}
+        for (direction, shape, _, up, down, pads), (_, taps, n) in self.firs.items():
+            by_key = out.setdefault(direction, {key: 0 for key in self.upfirdn.layout_launches})
+            by_key[fir_tpu_key(shape, taps, up, down, pads)] += n
+        return out
+
+
+def fir_tpu_key(shape, taps, up, down, pads):
+    """The TPU kernel that ``upfirdn._fir_cuda`` counts a FIR under: tpugan's
+    own where the pads of H and W agree, else its XLA form."""
+    from tpugan_torch.ops import upfirdn
+
+    py0, py1, px0, px1 = pads
+    kh, kw = taps.shape
+    return upfirdn.tpu_layout(shape[1], up, down, kh, kw, (py0, py1)) if (py0, py1) == (px0, px1) else "XLA"
 
 
 def sg2_step_fir_times(torch, step, state, first, bandwidth, fp32_peak):
@@ -2305,9 +2348,7 @@ def sg2_step_fir_times(torch, step, state, first, bandwidth, fp32_peak):
         torch.cuda.synchronize()
     rows, sums, max_err = [], {}, 0.0
     for (direction, shape, _, up, down, pads), (x, taps, n) in capture.firs.items():
-        py0, py1, px0, px1 = pads
-        kh, kw = taps.shape
-        key = upfirdn.tpu_layout(shape[1], up, down, kh, kw, (py0, py1)) if (py0, py1) == (px0, px1) else "XLA"
+        key = fir_tpu_key(shape, taps, up, down, pads)
         calls = {"ms": lambda: upfirdn._fir_cuda(x, taps, up, down, pads),
                  "plain_ms": lambda: upfirdn._fir_plain(x, taps, up, down, pads)}
         library = fir_library(torch, x, taps, up, down, pads)
@@ -5120,19 +5161,21 @@ def pytorch_defaults(torch):
         parity_mode()
 
 
-def conv_flops(torch, bundle, run):
-    """The multiply-adds of the convolutions and dense layers of one call of
-    ``run`` on an mtype-3 bundle (PGGAN's conv blocks, E_PG's EqConv and
-    EqLinear), times 2: FLOPs, counted by forward hooks from the outputs."""
+def conv_flops(torch, models, run):
+    """The multiply-adds of the convolutions and dense layers of ``models``
+    (PGGAN's conv blocks, EqConv and EqLinear) in the forward passes of one
+    call of ``run``, times 2: FLOPs, counted by forward hooks from the
+    outputs (a transposed EqConv from its input)."""
     from tpugan_torch.models import PGConvBlock
     from tpugan_torch.nn.layers import EqConv, EqLinear
 
     total = [0]
 
     def hook(module, args, out):
-        total[0] += 2 * out.numel() * module.weight[0].numel()
+        x = args[0] if getattr(module, "transpose", False) else out
+        total[0] += 2 * x.numel() * module.weight[0].numel()
 
-    handles = [m.register_forward_hook(hook) for model in (bundle.generator, bundle.encoder)
+    handles = [m.register_forward_hook(hook) for model in models
                for m in model.modules() if isinstance(m, (PGConvBlock, EqConv, EqLinear))]
     try:
         run()
@@ -5371,7 +5414,8 @@ def pggan_serving_path(torch, dev, parser, smi, fp32_peak, tf32_peak):
         f"4-{PG_SIZE} px, nearest up-sampling) + E_PG (startf {PG_START_FEATURES}, maxf 512, layer_count "
         f"{bundle.layer_count}) built in {time.perf_counter() - t0:.2f} s")
     with torch.no_grad():
-        flops = conv_flops(torch, bundle, lambda: infer_e.run(bundle, BATCH, REQUEST_SEEDS[0]))
+        flops = conv_flops(torch, (bundle.generator, bundle.encoder),
+                           lambda: infer_e.run(bundle, BATCH, REQUEST_SEEDS[0]))
     cuda.reset_launches()
     upfirdn.reset_layout_launches()
     with pytorch_defaults(torch):  # PG_TIMED's comment
@@ -5600,6 +5644,333 @@ def slice7b_path(torch, dev, smi, fp32_peak, tf32_peak):
             "pggan_training": training, "pggan_embedding": inversion, "pggan_converted": converted}
 
 
+# phase 16, slice 7c: tpugan/train/gan.py at SGv1 Cat256's full width
+# (tpugan/cli/common.py:117-120: G startf 64, maxf 512, layer_count 7,
+# latent 512; its mapping 14 style layers from 8 mapping layers; D startf
+# 64, maxf 512, layer_count 7), none of it cut: lod 6 at LODSchedule(max_lod
+# 6)'s batch there (lod_2_batch[5], 16), ALAE's lr 0.0015 and beta2 0.99 in
+# LREQAdam for both networks, r1_gamma 10, reals drawn from SEED; fp32, TF32
+# off (tpugan's GAN step has no bf16 form). GAN_STEPS counted D + G pairs,
+# each followed by ema_params onto a smoothed G, then one pair at the blend
+# of GAN_TRANSITION (lod 6's fade-in: decode2).
+GAN_MAX_LOD = 6
+GAN_EPOCH = 97  # lod 6, past its fade-in (epochs 90-96)
+GAN_TRANSITION = (93, 0)  # (epoch, iteration) inside the fade-in
+GAN_LR, GAN_BETA2, GAN_R1_GAMMA = 0.0015, 0.99, 10.0
+GAN_STEPS = 3
+GAN_TIMED = (6, 2)  # (host-clock steps after 2 warm-up ones, profiled steps) of each step kind
+# The replay: one D step and one G step, each from the same weights (the
+# seed's, at full width), reals and draws (made on the CPU), at batch 4 (one
+# minibatch-stddev group) and GAN_REPLAY_SIZE px, on the card (TF32 off), on
+# the CPU and on the CPU in float64. Written before its first run: the
+# losses within REPLAY_LOSS_RTOL of float64; each step's gradients (all
+# leaves together) and the dlatent average after the G step no farther from
+# float64 than twice the CPU fp32 run is, or REPLAY_FLOOR x max |ref| where
+# that is larger (replay_distance). The R1 gradient is ill-conditioned in
+# fp32, and cuDNN's fp32 algorithms (deterministic, default or benchmark)
+# put the card's D gradient 2.915e-4 from float64 and its G gradient 26.6,
+# against the CPU's 5.089e-5 and 2.51; with cuDNN off (PyTorch's own
+# convolutions) 4.862e-5 and 2.52 (tpugan_torch/tools/gan_replay_forms.py,
+# 256 px; at 128 px cuDNN off is 2.567e-5 against the CPU's 9.544e-6). So,
+# as for PGGAN (PG_REPLAY_SIZE), the held card run has cuDNN off and the run
+# with cuDNN's deterministic algorithms is measured beside it and printed;
+# ROADMAP C records it as open. The CPU side takes about 65 s at 256 px.
+GAN_REPLAY_BATCH = 4
+GAN_REPLAY_SIZE = 256
+
+
+def gan_modules(torch, size):
+    """SGv1's G, mapping and D at ``size`` px and full width, random weights
+    from SEED, on the CPU."""
+    from tpugan_torch.models import StyleGANv1Discriminator, StyleGANv1Generator, StyleGANv1Mapping
+
+    layers = int(math.log2(size)) - 1
+    g = torch.Generator().manual_seed(SEED)
+    return (StyleGANv1Generator(startf=64, maxf=512, layer_count=layers, latent_size=512, generator=g),
+            StyleGANv1Mapping(num_layers=2 * layers, mapping_layers=8, generator=g),
+            StyleGANv1Discriminator(startf=64, maxf=512, layer_count=layers, generator=g))
+
+
+def gan_optimizers(torch, gen, gm, disc):
+    """LREQAdam for G (gen and gm together, as tpugan's covers {'gen', 'gm'})
+    and for D, at GAN_LR and GAN_BETA2."""
+    from torch import nn
+
+    from tpugan_torch.optim.lreq_adam import lreq_adam
+
+    return (lreq_adam(nn.ModuleDict({"gen": gen, "gm": gm}), GAN_LR, GAN_BETA2),
+            lreq_adam(disc, GAN_LR, GAN_BETA2))
+
+
+def gan_step_firs(gen, disc, lod):
+    """The FIR launches of a D step and of a G step at ``lod`` by direction
+    and TPU kernel, derived from the modules: G's blur after each
+    up-sampling conv (blocks 1 to lod, on their outputs; decode2 runs the
+    same blocks) and D's blur before each down-sampling conv (every block
+    from the lod's first but the last, on its input channels). D step:
+    forward G's once (no graph) and D's on the reals and on the fakes;
+    adjoint D's on the reals in the R1 gradient (built with a graph), then
+    in the loss's backward D's on the reals and on the fakes; second order
+    the backward of each R1 adjoint. G step: G's and D's forward and their
+    adjoints."""
+    from tpugan_torch.ops import upfirdn
+
+    def by_key(channels):
+        keys = [upfirdn.tpu_layout(c, 1, 1, 3, 3, (1, 1)) for c in channels]
+        return {key: keys.count(key) for key in upfirdn.layout_launches}
+
+    g = by_key(getattr(gen, f"decode_block_{i}").bias_1.shape[0] for i in range(1, lod + 1))
+    blocks = [getattr(disc, f"encode_block_{i}") for i in range(disc.layer_count - lod - 1, disc.layer_count)]
+    d = by_key(b.bias_1.shape[0] for b in blocks if not b.last)
+    add = lambda *parts: {key: sum(p_[key] for p_ in parts) for key in g}  # noqa: E731
+    return {"D step": {"forward": add(g, d, d), "adjoint": add(d, d, d), "second order": d},
+            "G step": {"forward": add(g, d), "adjoint": add(g, d)}}
+
+
+def counted_gan_step(torch, label, run, want):
+    """One GAN step with every count set to 0 just before it, its FIR
+    launches by direction and TPU kernel held to ``want``; returns the
+    launches and the loss."""
+    from tpugan_torch.ops import cuda, upfirdn
+
+    cuda.reset_launches()
+    upfirdn.reset_layout_launches()
+    with FirCapture(keep=False) as capture:
+        _, loss = run()
+        torch.cuda.synchronize()
+    launches, counted = dict(cuda.launches), capture.counts()
+    total = sum(sum(v.values()) for v in want.values())
+    check(launches == expected_launches(upfirdn2d=total) and sum(upfirdn.layout_launches.values()) == total,
+          f"{label}: launches {launches}, expected {total} upfirdn2d and nothing else")
+    check(counted == want, f"{label}: FIR launches {counted}; derived from the modules {want}")
+    check(math.isfinite(loss.item()), f"{label}: the loss is not finite")
+    return total, loss.item()
+
+
+def gan_replay(torch, dev, card_forms=(("cuda, cuDNN off", cudnn_off),
+                                      ("cuda, cuDNN deterministic", cudnn_deterministic))):
+    """A D step and a G step at GAN_REPLAY_SIZE px, batch GAN_REPLAY_BATCH,
+    on the card, on the CPU and on the CPU in float64 (GAN_REPLAY_SIZE's
+    comment). ``card_forms``: (label, context) of each card run; the first
+    is held, the others are measured and printed beside it."""
+    from tpugan_torch.models import StyleGANv1Generator
+    from tpugan_torch.ops import cuda
+    from tpugan_torch.train import gan
+
+    size, batch = GAN_REPLAY_SIZE, GAN_REPLAY_BATCH
+    lod = int(math.log2(size)) - 2
+    g = torch.Generator().manual_seed(SEED)
+    reals = torch.randn(batch, 3, size, size, generator=g)
+    draws = gan.draw(StyleGANv1Generator(1, 1, lod + 1, 1), batch, 512, lod, g)  # its noise_shapes
+    cpu = torch.device("cpu")
+    runs, seconds, names, launches = {}, {}, {}, {}
+    forms = [(label, CARD, dev, torch.float32, ctx) for label, ctx in card_forms] + [
+        ("cpu", "cpu", cpu, torch.float32, None), ("f64", "cpu", cpu, torch.float64, None)]
+    for label, device, place, dtype, ctx in forms:
+        run, t0 = {}, time.perf_counter()
+        d = draws._replace(z=draws.z.to(place, dtype), z2=draws.z2.to(place, dtype), cutoff=draws.cutoff.to(place),
+                           mix=draws.mix.to(place), noise=[tuple(n.to(place, dtype) for n in p_) for p_ in draws.noise])
+        cuda.reset_launches()
+        for kind in ("d", "g"):
+            gen, gm, disc = (m.to(dtype) for m in gan_modules(torch, size))
+            g_opt, d_opt = gan_optimizers(torch, gen, gm, disc)
+            owner = disc if kind == "d" else torch.nn.ModuleDict({"gen": gen, "gm": gm})
+            opt, grads = (d_opt if kind == "d" else g_opt), {}
+            step_with = opt.step
+            opt.step = lambda: (grads.update((n, p_.grad.detach().double().cpu()) for n, p_ in owner.named_parameters()
+                                             if p_.grad is not None), step_with())
+            state = gan.init_gan_state(gen, gm, disc, g_opt, d_opt, device=device, seed=SEED)
+            state.dlatent_avg = state.dlatent_avg.to(dtype)
+            d_step, g_step = gan.make_gan_steps(lod, 1.0, 512, GAN_R1_GAMMA)
+            with contextlib.nullcontext() if ctx is None else ctx(torch):
+                _, loss = d_step(state, reals.to(place, dtype), d) if kind == "d" else g_step(state, batch, d)
+            run[f"{kind}_loss"] = loss.double().cpu().reshape(1)
+            names[kind] = list(grads)
+            run[f"{kind}_leaves"] = grads
+            run[f"{kind}_grads"] = torch.cat([x.flatten() for x in grads.values()])
+            if kind == "g":
+                run["avg"] = state.dlatent_avg.double().cpu()
+            del state, gen, gm, disc, g_opt, d_opt, opt, owner
+        if label not in ("cpu", "f64"):
+            torch.cuda.synchronize()
+            launches = dict(cuda.launches)
+            check(launches["upfirdn2d"] > 0, f"the GAN replay's {label} run launched {launches}")
+        else:
+            check(not any(cuda.launches.values()), "the GAN replay's CPU run launched a kernel")
+        runs[label], seconds[label] = run, time.perf_counter() - t0
+    say(f"replay of a GAN D step and G step: SGv1 at {size} px, full width, batch {batch}, lod {lod}; launches on "
+        f"the card {launches['upfirdn2d']} upfirdn2d a run; " + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
+        + " (the card's first run is a first call)")
+    ref = runs["f64"]
+    for label in [f[0] for f in card_forms] + ["cpu"]:
+        for kind in ("d", "g"):
+            worst = sorted(((float((runs[label][f"{kind}_leaves"][n] - r).abs().max()), n)
+                            for n, r in ref[f"{kind}_leaves"].items()), reverse=True)[:3]
+            say(f"  GAN replay {label} {kind.upper()} gradient, worst leaves against float64: "
+                + ", ".join(f"{n} {e:.3e} (max |ref| {ref[f'{kind}_leaves'][n].abs().max().item():.3e})"
+                            for e, n in worst))
+    others = {}
+    for label, _ in card_forms[1:]:
+        others[label] = {key: float((runs[label][key] - ref[key]).abs().max()) for key in ("d_grads", "g_grads", "avg")}
+        say(f"  GAN replay {label} (measured beside the held run, not held): " + ", ".join(
+            f"{key} {v:.3e} from float64" for key, v in others[label].items()))
+    held = {"card": runs[card_forms[0][0]], "cpu": runs["cpu"], "f64": ref}
+    out = replay_distance(torch, f"GAN replay ({card_forms[0][0]})", held, ("d_grads", "g_grads", "avg"),
+                          ("d_loss", "g_loss"))
+    torch.cuda.empty_cache()
+    return {"size": size, "batch": batch, "seconds": seconds, "held": card_forms[0][0], **out,
+            **({"not_held": others} if others else {})}
+
+
+def gan_module_checks(torch, dev, gen, lod):
+    """decode3 (blob removal) at ``lod`` with its FIR launches, and
+    Mapping2 (both directions), Mapping3 and Mapping4 at full width (14
+    style layers, latent 512) from SEED, each on the card against the CPU
+    within CPU_GPU_ATOL x max(1, max |ref|)."""
+    import copy
+
+    from tpugan_torch.models import StyleGANv1Mapping2, StyleGANv1Mapping3, StyleGANv1Mapping4
+    from tpugan_torch.ops import cuda, upfirdn
+
+    g = torch.Generator().manual_seed(SEED)
+    layers = 2 * gen.layer_count
+    styles = torch.randn(BATCH, layers, 512, generator=g)
+    noise = [tuple(torch.randn(s_, generator=g) for s_ in pair) for pair in gen.noise_shapes(BATCH, lod)]
+    z, w = torch.randn(16, 512, generator=g), torch.randn(16, layers, 512, generator=g)
+    cases = [("decode3", gen, copy.deepcopy(gen).cpu(), lambda m, place: m.decode3(
+        styles.to(place), lod, [tuple(n.to(place) for n in p_) for p_ in noise]))]
+    for label, make, x in (("Mapping2", lambda: StyleGANv1Mapping2(layers, 8, 512, generator=g), z),
+                           ("Mapping2 inverse", lambda: StyleGANv1Mapping2(layers, 8, 512, inverse=True,
+                                                                           generator=g), w),
+                           ("Mapping3", lambda: StyleGANv1Mapping3(layers, 512, generator=g), z),
+                           ("Mapping4", lambda: StyleGANv1Mapping4(layers, 512, generator=g), w)):
+        module = make()
+        cases.append((label, copy.deepcopy(module).to(dev), module, lambda m, place, x=x: m(x.to(place))))
+    out, decode3_launches = {}, 0
+    for label, card_module, cpu_module, call in cases:
+        cuda.reset_launches()
+        upfirdn.reset_layout_launches()
+        with torch.no_grad():
+            got = call(card_module, dev)
+            torch.cuda.synchronize()
+            launches = dict(cuda.launches)
+            want = call(cpu_module, torch.device("cpu"))
+        if label == "decode3":
+            # G's blurs, blocks 1 to lod; from block 4 on, the pair's too
+            decode3_launches = sum(1 + (i >= 4) for i in range(1, lod + 1))
+            check(launches == expected_launches(upfirdn2d=decode3_launches),
+                  f"decode3 launched {launches}, expected {decode3_launches} upfirdn2d")
+        else:
+            check(launches == expected_launches(), f"{label} launched {launches}")
+        err, ref = (got.cpu() - want).abs().max().item(), want.abs().max().item()
+        limit = CPU_GPU_ATOL * max(1.0, ref)
+        say(f"cuda vs cpu {label}: output {list(got.shape)}, max |err| {err:.3e}, limit {limit:.3e} (max |ref| "
+            f"{ref:.3f}); launches {launches['upfirdn2d']} upfirdn2d")
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()) and err <= limit,
+              f"{label}: the card and the CPU differ by {err:.3e} > {limit:.3e}")
+        out[label] = err
+        del card_module, cpu_module, got, want
+    torch.cuda.empty_cache()
+    return out, decode3_launches
+
+
+def gan_training_path(torch, dev, smi, fp32_peak):
+    """Phase 16 (GAN_MAX_LOD's comment): the counted D + G pairs with their
+    FIR launches by direction (forward, adjoint, second order) and TPU
+    kernel against ``gan_step_firs``, ema_params onto the smoothed G, the
+    transition pair; every FIR of a D step and of a G step on its own inputs
+    against the plain version; step times, device time by kernel, the FIR's
+    share, the convolutions' forward FLOPs and peak memory; decode3 and
+    Mapping2/3/4 against the CPU; the float64 replay."""
+    import copy
+
+    from tpugan_torch.train import gan
+
+    t0 = time.perf_counter()
+    schedule = gan.LODSchedule(max_lod=GAN_MAX_LOD)
+    lod, batch, blend = schedule.lod(GAN_EPOCH), schedule.batch_size(GAN_EPOCH), schedule.blend(*GAN_TRANSITION)
+    check(schedule.blend(GAN_EPOCH, 0) == 1.0 and schedule.lod(GAN_TRANSITION[0]) == lod and 0 < blend < 1,
+          f"LODSchedule: lod {lod}, transition blend {blend}")
+    gen, gm, disc = gan_modules(torch, IMG_SIZE)
+    check(lod == gen.layer_count - 1, f"lod {lod} is not the top of a {IMG_SIZE} px G")
+    smooth = copy.deepcopy(gen).to(dev)
+    state = gan.init_gan_state(gen, gm, disc, *gan_optimizers(torch, gen, gm, disc), device=CARD, seed=SEED)
+    smooth0 = [p.detach().clone() for p in smooth.parameters()]
+    reals = torch.randn(batch, 3, IMG_SIZE, IMG_SIZE, generator=torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    want = gan_step_firs(gen, disc, lod)
+    d0 = {n: p.detach().clone() for n, p in disc.named_parameters()}
+    g0 = {n: p.detach().clone() for n, p in gen.named_parameters()}
+    torch.cuda.synchronize()
+    say(f"GAN: SGv1 Cat256 G (startf 64, maxf 512, layer_count {gen.layer_count}) + mapping (8 layers) + D (startf "
+        f"64, maxf 512) built in {time.perf_counter() - t0:.2f} s; lod {lod}, batch {batch} (LODSchedule(max_lod="
+        f"{GAN_MAX_LOD}) at epoch {GAN_EPOCH}), transition blend {blend:.6f} at (epoch, iteration) {GAN_TRANSITION}; "
+        f"FIR launches a step derived from the modules: {want}")
+
+    # the main path: GAN_STEPS pairs and a transition pair, counts at 0 before each step
+    launches, losses = 0, []
+    for form, pairs, b in (("stable", GAN_STEPS, 1.0), ("transition", 1, blend)):
+        d_step, g_step = gan.make_gan_steps(lod, b, 512, GAN_R1_GAMMA)
+        for it in range(pairs):
+            n_d, d_loss = counted_gan_step(torch, f"GAN {form} D step {it}", lambda: d_step(state, reals),
+                                           want["D step"])
+            n_g, g_loss = counted_gan_step(torch, f"GAN {form} G step {it}", lambda: g_step(state, batch),
+                                           want["G step"])
+            gan.ema_params(smooth, gen)
+            launches += n_d + n_g
+            losses.append((form, d_loss, g_loss))
+    d_moved = sum(not torch.equal(p, d0[n]) for n, p in disc.named_parameters())
+    g_moved = sum(not torch.equal(p, g0[n]) for n, p in gen.named_parameters())
+    s_moved = sum(not torch.equal(p, p0) for p, p0 in zip(smooth.parameters(), smooth0))
+    finite = all(bool(torch.isfinite(p).all()) for m in (gen, gm, disc, smooth) for p in m.parameters())
+    check(state.step == GAN_STEPS + 1 and d_moved and g_moved and s_moved and finite
+          and bool(state.dlatent_avg.abs().sum() > 0),
+          f"GAN: step {state.step}, D {d_moved}, G {g_moved}, smoothed G {s_moved} parameters moved, finite {finite}")
+    say(f"GAN path: {GAN_STEPS} D + G pairs and one at blend {blend:.6f}, each followed by ema_params; "
+        f"{launches} upfirdn2d launches, a D step {sum(sum(v.values()) for v in want['D step'].values())} and a G step "
+        f"{sum(sum(v.values()) for v in want['G step'].values())} as derived; losses (form, D, G) "
+        + "; ".join(f"{f} {d:.4f} {g:.4f}" for f, d, g in losses)
+        + f"; parameters moved: D {d_moved}, G {g_moved}, the smoothed G {s_moved}; state.step {state.step}")
+
+    # every FIR of a D step and of a G step on its own inputs
+    d_step, g_step = gan.make_gan_steps(lod, 1.0, 512, GAN_R1_GAMMA)
+    runs = {"D step": (lambda st, it: d_step(st, reals)), "G step": (lambda st, it: g_step(st, batch))}
+    max_err = 0.0
+    for kind, run in runs.items():
+        with FirCapture() as capture:
+            run(state, 0)
+            torch.cuda.synchronize()
+        max_err = max(max_err, hold_captured_firs(torch, capture, f"SGv1 Cat256 GAN {kind}", torch.float32,
+                                                  directions=tuple(want[kind]), what=kind))
+        del capture
+        torch.cuda.empty_cache()
+
+    say(f"GAN training times below: {smi}; step times from the host clock, device times from torch.profiler")
+    times = {}
+    for kind, run in runs.items():
+        flops = conv_flops(torch, (gen, gm, disc), lambda: run(state, 0))
+        median = step_times(torch, run, state, f"SGv1 Cat256 GAN {kind}, lod {lod}, batch {batch}, fp32, TF32 off",
+                            0, steps=GAN_TIMED[0])
+        t = step_device_time(torch, run, state, median, 0, symbols=("upfirdn2d_kernel",), iters=GAN_TIMED[1])
+        t.update(median_ms=median, forward_conv_tflop=flops / 1e12, forward_conv_bound_ms=flops / fp32_peak * 1e3)
+        if "device_ms" in t:
+            t["fir_share"] = t["kernel_ms"]["upfirdn2d_kernel"] / t["device_ms"]
+        say(f"GAN {kind}: the forward passes' convolutions and dense layers {flops / 1e12:.4f} TFLOP, "
+            f"{flops / fp32_peak * 1e3:.3f} ms at the card's fp32 rate"
+            + (f"; upfirdn2d {t['fir_share'] * 100:.2f}% of the device time" if "fir_share" in t else ""))
+        times[kind] = t
+    say(f"phase 16: the GAN path took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    modules, decode3_launches = gan_module_checks(torch, dev, gen, lod)
+    del state, gen, gm, disc, smooth
+    torch.cuda.empty_cache()
+    say(f"phase 16: decode3 and the mappings took {time.perf_counter() - t1:.1f} s")
+    replay = gan_replay(torch, dev)
+    return {"launches": launches, "decode3_launches": decode3_launches, "max_abs_err": max_err, "lod": lod,
+            "batch": batch, "transition_blend": blend, "per_step": want, "times": times, "modules": modules,
+            "replay": replay}
+
+
 def main() -> int:
     import torch
 
@@ -5808,6 +6179,12 @@ def main() -> int:
     check(all(len(v) == 1 for v in s7b_launches.values()), f"phase 15 missed a kernel: {s7b_launches}")
     say(f"phase 15 (slice 7b) took {time.perf_counter() - t0:.1f} s; the script {time.perf_counter() - start:.1f} s")
 
+    # ---- 16. slice 7c: StyleGANv1 adversarial training (D with R1, G, EMA, LOD schedule) ----
+    t0 = time.perf_counter()
+    s7c = gan_training_path(torch, dev, smi, fp32_peak)
+    check(s7c["launches"] > 0 and s7c["decode3_launches"] > 0, f"phase 16 missed the FIR kernel: {s7c['launches']}")
+    say(f"phase 16 (slice 7c) took {time.perf_counter() - t0:.1f} s; the script {time.perf_counter() - start:.1f} s")
+
     sg2_bf16 = bf16["firs"]["SG2"][1]
     bf16_step = {k: sum(p_[k] for parts in sg2_bf16.values() for p_ in parts.values())
                  for k in ("ms", "fp32_ms", "plain_ms", "library_ms", "bound_ms")}
@@ -5821,7 +6198,7 @@ def main() -> int:
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c)",
         "launches": (launches["upfirdn2d"] + sg2["launches"] + sgv1_train["launches"] + sg2_train["launches"]
                      + sum(fir_inv.values()) + mis["launches"] + cam["request"]["launches"] + sum(s7a_fir.values())
-                     + sum(s7b_launches["upfirdn2d"].values())),
+                     + sum(s7b_launches["upfirdn2d"].values()) + s7c["launches"] + s7c["decode3_launches"]),
         "launches_by_path": {"SGv1 Cat256 serving": launches["upfirdn2d"],
                              f"StyleGAN2-{SG2_SIZE} serving": sg2["launches"],
                              "SGv1 Cat256 training": sgv1_train["launches"],
@@ -5829,13 +6206,18 @@ def main() -> int:
                              **{f"inversion: {label}": n for label, n in fir_inv.items()},
                              "e_mis_align (batch 5)": mis["launches"],
                              "infer_e --gradcam": cam["request"]["launches"],
-                             **s7a_fir, **s7b_launches["upfirdn2d"]},
+                             **s7a_fir, **s7b_launches["upfirdn2d"],
+                             "SGv1 Cat256 GAN training": s7c["launches"], "decode3": s7c["decode3_launches"]},
         "max_abs_err": max(fir_err, adjoint_err, sg2["max_abs_err"], sg2_train["max_abs_err"], inv_err["upfirdn2d"],
-                           mis["max_abs_err"]),
+                           mis["max_abs_err"], s7c["max_abs_err"]),
         "inversion": inversion,
         "gradcam": gradcam,
         "slice7a": s7a,
         "slice7b": s7b,
+        "slice7c": {"gan_training": {k: v for k, v in s7c.items() if k not in ("launches", "decode3_launches")},
+                    "launches_per_step_are": f"FIR launches of one D step and one G step at lod {s7c['lod']}, batch "
+                                             f"{s7c['batch']}, by direction and TPU kernel, as counted in every "
+                                             "step and derived from the modules"},
         **fir,
         "gradient_path_launches": grad_launches,
         "adjoint": adjoint_rows,

@@ -72,3 +72,23 @@ def noise_inject(
     if noise is None:
         return x
     return x + noise_weight[None, :, None, None] * noise.to(x.dtype)
+
+
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4) -> torch.Tensor:
+    """Append a cross-sample stddev feature channel (discriminators only):
+    [N, C, H, W] -> [N, C+1, H, W], the statistic at channel index C.
+
+    Groups are strided, as ``tpugan``'s reshape to (g, -1, ...) makes them:
+    sample i falls in group i mod (n'/g), n' being n padded to a multiple
+    of g by repeating the first samples (wrapping), and the tiled
+    statistic is cut back to n samples."""
+    n, c, h, w = x.shape
+    g = min(group_size, n)
+    pad = (g - n % g) % g
+    y = torch.cat([x, x[:pad]], dim=0) if pad else x
+    y = y.reshape(g, -1, c, h, w)
+    y = y - y.mean(dim=0, keepdim=True)
+    y = torch.sqrt(y.square().mean(dim=0) + 1e-8)
+    y = y.mean(dim=(1, 2, 3))  # [n'/g]
+    y = y.repeat(g)[:n]
+    return torch.cat([x, y[:, None, None, None].expand(n, 1, h, w)], dim=1)
