@@ -186,6 +186,23 @@ Phases:
      Mapping3 and Mapping4 against the CPU; a D step and a G step at 256 px,
      batch 4, replayed on the CPU and held to float64 (GAN_REPLAY_SIZE's
      comment).
+ 17. slice 7d, ``tpugan_torch.cli.export_model``'s own ``main`` with
+     ``--check`` at full width (random weights from the seed, batch 2):
+     SGv1 Cat256 synthesis, its E_Blur encode (``--ablation 8``),
+     StyleGAN2-1024 synthesis fp32 and ``--bf16``, BigGAN-deep-256
+     synthesis fp32 and ``--bf16`` (gamma set as phase 5), PGGAN-1024
+     synthesis and E_BIG encode (``torch.export`` artifacts in which every
+     kernel is a ``torch.ops.tpugan_torch`` node): exporting launches
+     nothing, the graph's operator nodes and a call's launches (on the
+     form of its dtype, FIRs by TPU kernel) equal the counts derived from
+     the modules, no plain version runs on a CUDA tensor, the artifact is
+     bitwise the live function and timed beside it; the SGv1 artifact
+     loaded in a fresh process that imports ``tpugan_torch.io.export``
+     alone and held to the CPU run of its weights; ``profiling.
+     trace_roofline`` and ``op_table`` on the StyleGAN2 artifact (CUPTI's
+     counters, or the GPU driver's refusal); the operators' host cost a call
+     beside the ctypes launch; PGGAN's discriminator (lods 0 and 0.5, on G's
+     images) and the Pro-GAN stack at its defaults held to the CPU.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -197,6 +214,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -360,7 +378,7 @@ BIGGAN_SIZE = 256
 BIGGAN_Z_DIM = 128
 ATTN_GAMMA = 1.0  # every SelfAttn.gamma in the CUDA-vs-CPU BigGAN check (random init gives 0)
 TRAIN_STEPS = 3  # counted steps of each train-step variant
-TIMED_STEPS = 12  # host-clock steps of each variant, after 2 warm-up steps
+TIMED_STEPS = 8  # host-clock steps of each variant, after 2 warm-up steps
 # the CPU replay of a case-2 step: BigGAN-deep-256's layout at channel width
 # 32 (the path has 128) and E_BIG at start_features 16 (64), so the host's
 # CPU runs it in seconds; the card runs the same configuration
@@ -1078,10 +1096,10 @@ def step_times(torch, step, state, label, first, steps=None):
 
 
 def step_device_time(torch, step, state, median, first,
-                     symbols=("sagan_attention_kernel",) + B4_SYMBOLS, keep_kernels=False, iters=3):
+                     symbols=("sagan_attention_kernel",) + B4_SYMBOLS, keep_kernels=False, iters=1):
     """A step's device time by kernel (torch.profiler over ``iters``
-    steps, the device alone: recording a step's host ops costs seconds a
-    trace), the share of the kernels whose symbols contain ``symbols`` (B3/B4 unless given), and the step's
+    steps, one unless given, the device alone: recording a step's host ops
+    costs seconds a trace, and a step's device time varies little), the share of the kernels whose symbols contain ``symbols`` (B3/B4 unless given), and the step's
     peak device memory; with ``keep_kernels`` also every kernel's time and
     count per step by name. Where no trace saw device time, the peak alone,
     with a line."""
@@ -1987,14 +2005,8 @@ def sgv1_step_firs(trainer, image_gradients, resynthesis):
     resynthesis and the encoder, the latent loss's gradient through the
     encoder alone (every block's style heads, or E_Blur_Z's z head, read
     the output of every earlier block's blur)."""
-    from tpugan_torch.ops import upfirdn
-
-    enc = trainer.bundle.encoder
     decode = sgv1_decode_firs(trainer.bundle.generator)
-    blocks = [getattr(enc, f"block_{i}") for i in range(enc.layer_count)]
-    blurs = [upfirdn.tpu_layout(b.conv_1.weight.shape[0], 1, 1, 3, 3, (1, 1)) for b in blocks
-             if b.use_blur and b.has_last_conv and b.block_version == 2]
-    encoder = {key: blurs.count(key) for key in decode}
+    encoder = e_blur_firs(trainer.bundle.encoder)
     forward = {key: decode[key] * (1 + resynthesis) + encoder[key] for key in decode}
     adjoint = {key: image_gradients * (decode[key] + encoder[key]) + encoder[key] for key in decode}
     return forward, adjoint
@@ -4667,7 +4679,7 @@ RESUME_SG2 = ("--mtype", "2", "--img_size", str(SG2_SIZE), "--start_features", s
 RESUME_BIGGAN = ("--mtype", "4", "--img_size", str(BIGGAN_SIZE), "--start_features", "64", "--z_dim",
                  str(BIGGAN_Z_DIM), "--case", "2")
 REMAT_FORMS = (("plain", ()), ("--remat", ("--remat",)), ("--remat_policy conv_outs", ("--remat_policy", "conv_outs")))
-REMAT_TIMED = 4  # host-clock steps of each remat form, after two warm-up steps
+REMAT_TIMED = 2  # host-clock steps of each remat form, after two warm-up steps
 
 
 def train_state_distance(torch, a, b):
@@ -5121,7 +5133,7 @@ PG_TRAIN_FORMS = (("case 1", ("--case", "1")), ("case 1 lean", ("--case", "1")),
 # timed there; PGGAN's infer_e requests and e_align steps are timed with
 # PyTorch's defaults (cuDNN's convolutions in TF32), as the CLIs run, and
 # every number from them is labelled so. The CPU replays keep TF32 off.
-PG_TIMED = (12, 1)  # (host-clock calls, profiled calls) of each PGGAN request and step form
+PG_TIMED = (6, 1)  # (host-clock calls, profiled calls) of each PGGAN request and step form
 # the replay of a PGGAN case-2 step against float64: PGGAN-256 (its fmaps,
 # the FFT shape among them), E_PG at start_features 64. Its fp32 gradient is
 # ill-conditioned (every conv block begins with a pixel norm, whose backward
@@ -5658,7 +5670,7 @@ GAN_EPOCH = 97  # lod 6, past its fade-in (epochs 90-96)
 GAN_TRANSITION = (93, 0)  # (epoch, iteration) inside the fade-in
 GAN_LR, GAN_BETA2, GAN_R1_GAMMA = 0.0015, 0.99, 10.0
 GAN_STEPS = 3
-GAN_TIMED = (6, 2)  # (host-clock steps after 2 warm-up ones, profiled steps) of each step kind
+GAN_TIMED = (6, 1)  # (host-clock steps after 2 warm-up ones, profiled steps) of each step kind
 # The replay: one D step and one G step, each from the same weights (the
 # seed's, at full width), reals and draws (made on the CPU), at batch 4 (one
 # minibatch-stddev group) and GAN_REPLAY_SIZE px, on the card (TF32 off), on
@@ -5971,6 +5983,357 @@ def gan_training_path(torch, dev, smi, fp32_peak):
             "replay": replay}
 
 
+# ---- phase 17: slice 7d, export_model through torch.export; profiling; PGGAN's D and pggan_alt ----
+EXPORT_SGV1 = ("--mtype", "1", "--img_size", str(IMG_SIZE), "--start_features", "64")
+EXPORT_SG2 = ("--mtype", "2", "--img_size", str(SG2_SIZE), "--start_features", str(SG2_START_FEATURES))
+EXPORT_BIGGAN = ("--mtype", "4", "--img_size", str(BIGGAN_SIZE), "--start_features", "64", "--z_dim",
+                 str(BIGGAN_Z_DIM))
+# (label, argv, --what, extra flags) of each artifact export_model's main writes, with --check
+EXPORTS = (
+    ("SGv1 Cat256 synthesis", EXPORT_SGV1, "synthesis", ()),
+    ("SGv1 Cat256 E_Blur encode", EXPORT_SGV1, "encode", ("--ablation", "8")),
+    (f"StyleGAN2-{SG2_SIZE} synthesis", EXPORT_SG2, "synthesis", ()),
+    (f"StyleGAN2-{SG2_SIZE} synthesis --bf16", EXPORT_SG2, "synthesis", ("--bf16",)),
+    (f"BigGAN-deep-{BIGGAN_SIZE} synthesis", EXPORT_BIGGAN, "synthesis", ()),
+    (f"BigGAN-deep-{BIGGAN_SIZE} synthesis --bf16", EXPORT_BIGGAN, "synthesis", ("--bf16",)),
+    (f"PGGAN-{PG_SIZE} synthesis", PG_ARGV, "synthesis", ()),
+    (f"E_BIG-{BIGGAN_SIZE} encode", EXPORT_BIGGAN, "encode", ()),
+)
+FRESH_PROCESS_ARTIFACT = "SGv1 Cat256 synthesis"  # loaded in a process that imports tpugan_torch.io.export alone
+EXPORT_TIMED = (5, 3)  # profiling.timeit_ms: calls a window, windows (best of)
+PROGAN_CLASSES = 10  # the conditional Pro-GAN discriminator's classes
+
+
+def e_blur_firs(encoder):
+    """E_Blur's blurs by TPU kernel: the same-size 3x3 blur before each
+    block's fused downsampling conv, on the block's input channels."""
+    from tpugan_torch.ops import upfirdn
+
+    blocks = [getattr(encoder, f"block_{i}") for i in range(encoder.layer_count)]
+    keys = [upfirdn.tpu_layout(b.conv_1.weight.shape[0], 1, 1, 3, 3, (1, 1)) for b in blocks
+            if b.use_blur and b.has_last_conv and b.block_version == 2]
+    return {key: keys.count(key) for key in upfirdn.layout_launches}
+
+
+def artifact_calls(module, bf16):
+    """The kernel launches of one artifact call (``cuda.launches`` of the
+    dtype's form) and its FIRs by TPU kernel, derived from its generator or
+    encoder as phases 3, 7 and 15 derive them; an artifact's graph holds one
+    operator node per launch."""
+    from tpugan_torch.models import Encoder, SelfAttn, StyleGAN2Generator, StyleGANv1Generator
+
+    layouts = {"B1": 0, "B2": 0, "XLA": 0}
+    if isinstance(module, Encoder):
+        layouts = e_blur_firs(module)
+    elif isinstance(module, StyleGANv1Generator):
+        layouts = sgv1_decode_firs(module)
+    elif isinstance(module, StyleGAN2Generator):
+        layouts = sg2_decode_firs(module)
+    firs, attn = sum(layouts.values()), sum(isinstance(m, SelfAttn) for m in module.modules())
+    suffix = "_bf16" if bf16 else ""
+    counts = {name: n for name, n in ((f"upfirdn2d{suffix}", firs), (f"sagan_attention{suffix}", attn)) if n}
+    nodes = {name: n for name, n in (("upfirdn2d", firs), ("sagan_attention", attn)) if n}
+    return counts, layouts, nodes
+
+
+class PlainOnCard:
+    """Counts, while entered, the calls of the plain FIR and attention
+    versions on CUDA tensors (the card's route must never reach them)."""
+
+    def __init__(self):
+        from tpugan_torch.ops import attention, upfirdn
+
+        self.targets = [(upfirdn, "_fir_plain"), (attention, "sagan_attention_plain"),
+                        (attention, "sagan_attention_bwd_plain")]
+        self.calls = 0
+
+    def __enter__(self):
+        self.saved = [getattr(mod, name) for mod, name in self.targets]
+        for (mod, name), real in zip(self.targets, self.saved):
+            def spy(x, *args, _real=real, **kwargs):
+                self.calls += x.is_cuda
+                return _real(x, *args, **kwargs)
+
+            setattr(mod, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), real in zip(self.targets, self.saved):
+            setattr(mod, name, real)
+
+
+def fresh_process_start(torch, path, example, workdir):
+    """Start a new Python process that imports ``tpugan_torch.io.export``
+    alone, with the parent's numerics (TF32 off, cuDNN's deterministic
+    algorithms), loads the artifact at ``path`` and calls it once; it runs
+    beside the parent's next exports (:func:`fresh_process_result`)."""
+    inputs, output = f"{workdir}/fresh_inputs.pt", f"{workdir}/fresh_output.pt"
+    torch.save(tuple(example), inputs)
+    code = (
+        "import json, sys, torch\n"
+        "torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False  # as the parent\n"
+        "torch.backends.cudnn.deterministic = True\n"
+        "from tpugan_torch.io.export import load_exported_file\n"
+        "from tpugan_torch.ops import cuda\n"
+        f"f = load_exported_file({path!r})\n"
+        f"out = f(*torch.load({inputs!r}))\n"
+        "torch.cuda.synchronize()\n"
+        f"torch.save(out, {output!r})\n"
+        "print(json.dumps({'launches': {k: v for k, v in cuda.launches.items() if v}, 'modules': sorted("
+        "m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'tpugan') or m.startswith(("
+        "'tpugan_torch.models', 'tpugan_torch.train', 'tpugan_torch.cli')))}))\n"
+    )
+    proc = subprocess.Popen([sys.executable, "-c", code], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, output, time.perf_counter()
+
+
+def fresh_process_result(torch, started):
+    """The fresh process's output, its launches and the port's model,
+    training and CLI modules (and JAX) it imported, which must be none, and
+    its seconds; waits for it (at most 300 s)."""
+    proc, output, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    check(proc.returncode == 0, f"the fresh process failed: {stderr[-2000:]}")
+    report = json.loads(stdout.strip().splitlines()[-1])
+    return torch.load(output, map_location="cuda"), report, time.perf_counter() - t0
+
+
+def export_artifacts(torch, dev, smi, workdir):
+    """Every artifact of EXPORTS through ``export_model.main`` with
+    ``--check`` (bitwise against the live function, both on cuDNN's
+    deterministic algorithms: ``check_artifact``'s comment): exporting launches
+    nothing; the graph's operator nodes, and one call's launches on the
+    form of its dtype with its FIRs by TPU kernel, equal the counts derived
+    from the modules; no plain version runs on a CUDA tensor; the artifact
+    against the live function per call (``profiling.timeit_ms``). BigGAN's
+    SelfAttn gammas are set as phase 5 sets them; PGGAN runs with PyTorch's
+    defaults (TF32 convolutions; the FFT trap of TF32 off). One artifact is
+    loaded in a fresh process, which runs beside the later exports, and held
+    to the CPU run of the same weights."""
+    from tpugan_torch import profiling
+    from tpugan_torch.cli import common, export_model
+    from tpugan_torch.ops import cuda, upfirdn
+
+    real_build, real_export = export_model.build_bundle, export_model.export_program
+    exported = []
+
+    def build(args):
+        bundle = real_build(args)
+        if bundle.mtype == 4:
+            set_attention_gamma(torch, bundle.generator, ATTN_GAMMA)
+        return bundle
+
+    def export(*args, **kwargs):
+        cuda.reset_launches()
+        upfirdn.reset_layout_launches()
+        program = real_export(*args, **kwargs)
+        torch.cuda.synchronize()
+        exported.append(sum(cuda.launches.values()) + sum(upfirdn.layout_launches.values()))
+        return program
+
+    rows, artifacts, fresh = {}, {}, None
+    export_model.build_bundle, export_model.export_program = build, export
+    try:
+        for label, argv, what, extra in EXPORTS:
+            bf16, pg = "--bf16" in extra, argv is PG_ARGV
+            path = f"{workdir}/{len(rows)}.pt2"
+            flags = [*argv, *extra, "--random_init", "--batch_size", str(BATCH), "--seed", str(SEED),
+                     "--what", what, "--out", path, "--check"]
+            with (pytorch_defaults(torch) if pg else contextlib.nullcontext()):
+                t0 = time.perf_counter()
+                out = export_model.main(flags)
+                main_s = time.perf_counter() - t0
+                check(exported[-1] == 0, f"{label}: exporting launched {exported[-1]} kernels")
+                want, layouts_want, nodes_want = artifact_calls(out.modules[0], bf16)
+                check(out.nodes == nodes_want, f"{label}: operator nodes {out.nodes}, derived {nodes_want}")
+                artifact = out.artifact
+                cuda.reset_launches()
+                upfirdn.reset_layout_launches()
+                with PlainOnCard() as plain, torch.no_grad(), cudnn_deterministic(torch):  # check_artifact's comment
+                    got = artifact(*out.example)
+                    torch.cuda.synchronize()
+                    launches, layouts = dict(cuda.launches), dict(upfirdn.layout_launches)
+                    live = out.fn(*out.example)
+                check(launches == expected_launches(**want) and layouts == layouts_want,
+                      f"{label}: a call launched {launches}, FIRs {layouts}; derived {want}, {layouts_want}")
+                check(plain.calls == 0, f"{label}: a plain version ran {plain.calls} times on a CUDA tensor")
+                got_t = got if isinstance(got, tuple) else (got,)
+                live_t = live if isinstance(live, tuple) else (live,)
+                check(all(torch.equal(a, b) for a, b in zip(got_t, live_t))
+                      and all(bool(torch.isfinite(a).all()) for a in got_t),
+                      f"{label}: the artifact's call is not bitwise the live function's, or not finite")
+                with torch.no_grad():  # cuDNN's default algorithms: two live calls
+                    first, second = (out.fn(*out.example) for _ in range(2))
+                spread = max((a.float() - b.float()).abs().max().item() for a, b in
+                             zip(*((x if isinstance(x, tuple) else (x,)) for x in (first, second))))
+                del first, second
+                t_art = profiling.timeit_ms(artifact, *out.example, iters=EXPORT_TIMED[0], windows=EXPORT_TIMED[1])
+                t_live = profiling.timeit_ms(out.fn, *out.example, iters=EXPORT_TIMED[0], windows=EXPORT_TIMED[1])
+            rows[label] = {"what": what, "mtype": int(argv[1]), "bf16": bf16, "export_s": out.seconds,
+                           "main_s": main_s, "mib": out.size / 2**20, "nodes": out.nodes, "launches": want,
+                           "firs_by_tpu_kernel": layouts, "artifact_ms": t_art, "live_ms": t_live,
+                           "live_spread_default_cudnn": spread,
+                           "graph_calls": sum(n.op == "call_function" for n in artifact.graph.nodes),
+                           "outputs": [list(a.shape) for a in got_t]}
+            say(f"export {label}: {out.size / 2**20:.1f} MiB in {out.seconds:.2f} s (main with --check "
+                f"{main_s:.2f} s, {rows[label]['graph_calls']} calls in the graph), exporting launched nothing; "
+                f"operator nodes {out.nodes} as derived; a call "
+                f"launched {want} (FIRs by TPU kernel {layouts}), no plain version on the card; bitwise the live "
+                f"function under cuDNN's deterministic algorithms (two live calls with its default ones part by "
+                f"{spread:.3e}); per call artifact {t_art:.3f} ms, live {t_live:.3f} ms ({t_art / t_live:.3f}x)"
+                + (" (PyTorch defaults: TF32 convolutions)" if pg else ""))
+            if label == FRESH_PROCESS_ARTIFACT:
+                fresh = (label, fresh_process_start(torch, path, out.example, workdir), got.clone(), want)
+                cpu = common.build_bundle(export_model.make_parser().parse_args(
+                    [*argv, "--random_init", "--batch_size", str(BATCH), "--seed", str(SEED), "--out", path,
+                     "--device", "cpu"]))
+                fn_cpu, _, example_cpu = export_model.synthesis_program(cpu, BATCH)
+                with torch.no_grad():
+                    ref = fn_cpu(*example_cpu)
+                err, peak = (got.cpu() - ref).abs().max().item(), ref.abs().max().item()
+                limit = CPU_GPU_ATOL * max(1.0, peak)
+                say(f"export {label}: the artifact on the card against the CPU run of the same weights: max |err| "
+                    f"{err:.3e}, limit {limit:.3e} (max |ref| {peak:.3f})")
+                check(err <= limit, f"{label}: card and CPU differ by {err:.3e} > {limit:.3e}")
+                rows[label]["cpu_max_abs_err"] = err
+                del cpu, fn_cpu, ref
+            if label.startswith(f"StyleGAN2-{SG2_SIZE} synthesis") and not bf16:
+                artifacts["sg2"] = (artifact, out.example)
+            if pg:
+                with torch.no_grad():
+                    artifacts["pggan_images"] = out.fn(*out.example)
+            del out, got, live, got_t, live_t
+            if label != FRESH_PROCESS_ARTIFACT:
+                os.remove(path)
+            torch.cuda.empty_cache()
+        label, started, parent, want = fresh
+        got, report, secs = fresh_process_result(torch, started)
+        check(torch.equal(got, parent) and report["launches"] == want and not report["modules"],
+              f"fresh process: bitwise {torch.equal(got, parent)}, launches {report['launches']}, "
+              f"imported {report['modules']}")
+        rows[label]["fresh_process"] = {"seconds": secs, **report}
+        say(f"export {label}: loaded in a fresh process that imports tpugan_torch.io.export alone ({secs:.2f} s, "
+            f"beside the later exports): launches {report['launches']}, no model, training or CLI module, no JAX; "
+            "bitwise the parent's output")
+    finally:
+        export_model.build_bundle, export_model.export_program = real_build, real_export
+        if fresh is not None and fresh[1][0].poll() is None:  # a check failed while it ran
+            fresh[1][0].kill()
+            fresh[1][0].communicate()
+    return rows, artifacts
+
+
+def roofline_of(torch, label, fn, args, workdir):
+    """``profiling.trace_roofline`` and ``op_table`` of one call."""
+    from tpugan_torch import profiling
+
+    r = profiling.trace_roofline(fn, args, iters=3, logdir=f"{workdir}/roofline")
+    say(f"trace_roofline {label}: {r['seconds_per_call'] * 1e3:.3f} ms of device time a call over "
+        f"{r['kernels_per_call']:.0f} kernels; {r['flops_per_call'] / 1e12:.4f} TFLOP counted; measured HBM "
+        + ("not measured" if r["hbm_bytes_per_call"] is None else f"{r['hbm_bytes_per_call'] / 1e9:.3f} GB")
+        + ", tensor-core use " + ("not measured" if r["tensor_core_use"] is None else f"{r['tensor_core_use']:.3f}")
+        + f"; counters: {r['counters'][:400]}")
+    table = profiling.op_table(r, top=10)
+    for name, category, time_share, byte_share, tc in table:
+        say(f"  {time_share * 100:6.2f}%  {category:20s} bytes {'n/a' if byte_share is None else f'{byte_share:.3f}'}"
+            f"  tc {'n/a' if tc is None else f'{tc:.3f}'}  {name[:90]}")
+    return {k: v for k, v in r.items() if not k.startswith("_") and k != "logdir"} | {
+        "op_table": [list(row) for row in table]}
+
+
+def hold_on_cpu(torch, label, module, args):
+    """``module`` (built on the CPU) on the card against itself on the CPU,
+    TF32 off, by CPU_GPU_ATOL x max(1, max |ref|); returns the error and
+    the card's module."""
+    import copy
+
+    with torch.no_grad():
+        ref = module(*args)
+        card = copy.deepcopy(module).to(CARD)
+        got = card(*(a.to(CARD) if isinstance(a, torch.Tensor) else a for a in args))
+        torch.cuda.synchronize()
+    err, peak = (got.cpu() - ref).abs().max().item(), ref.abs().max().item()
+    limit = CPU_GPU_ATOL * max(1.0, peak)
+    say(f"cuda vs cpu {label}: output {list(got.shape)}, max |err| {err:.3e}, limit {limit:.3e} (max |ref| "
+        f"{peak:.3f})")
+    check(got.shape == ref.shape and bool(torch.isfinite(got).all()) and err <= limit,
+          f"{label}: cuda and cpu differ by {err:.3e} > {limit:.3e}, or not finite")
+    return err, card
+
+
+def discriminators_on_cpu(torch, dev, pggan_images):
+    """PGGANDiscriminator at PGGAN-1024's widths on G's images (the PGGAN
+    artifact's live images) at lod 0 and 0.5, and the pggan_alt forms at
+    their defaults (depth/height 7, 512 features, 256 px; SmallEncoder at
+    its 1024 px) held to the CPU with TF32 off, timed with PyTorch's
+    defaults (``profiling.timeit_ms``)."""
+    from tpugan_torch import profiling
+    from tpugan_torch.models import pggan, pggan_alt
+
+    g = torch.Generator().manual_seed(SEED)
+    images = pggan_images.permute(0, 3, 1, 2).contiguous().cpu()
+    out, cards = {}, []
+    d = pggan.PGGANDiscriminator(resolution=PG_SIZE, generator=g).requires_grad_(False)
+    for lod in (0.0, 0.5):
+        err, card = hold_on_cpu(torch, f"PGGANDiscriminator-{PG_SIZE} lod {lod}", d, (images, lod))
+        out[f"PGGANDiscriminator lod {lod}"] = {"max_abs_err": err}
+        cards.append((f"PGGANDiscriminator lod {lod}", card, (images.to(dev), lod)))
+    gen = pggan_alt.ProGANGenerator(generator=g).requires_grad_(False)
+    z = torch.randn(BATCH, 512, generator=g)
+    err, card = hold_on_cpu(torch, "ProGANGenerator (depth 7)", gen, (z,))
+    out["ProGANGenerator"] = {"max_abs_err": err}
+    cards.append(("ProGANGenerator", card, (z.to(dev),)))
+    with torch.no_grad():
+        fakes = gen(z)
+    labels = torch.arange(BATCH) % PROGAN_CLASSES
+    for name, module, args in (
+            ("ProGANDiscriminator (height 7)", pggan_alt.ProGANDiscriminator(generator=g), (fakes,)),
+            ("ProGANDiscriminator conditional", pggan_alt.ProGANDiscriminator(
+                conditional=True, num_classes=PROGAN_CLASSES, generator=g), (fakes, None, 1.0, labels)),
+            ("ProGANEncoder (height 7)", pggan_alt.ProGANEncoder(generator=g), (fakes,)),
+            (f"SmallEncoder ({PG_SIZE} px)", pggan_alt.SmallEncoder(PG_SIZE, generator=g), (images,))):
+        err, card = hold_on_cpu(torch, name, module.requires_grad_(False), args)
+        out[name] = {"max_abs_err": err}
+        cards.append((name, card, tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)))
+    with pytorch_defaults(torch), torch.no_grad():
+        for name, card, args in cards:
+            out[name]["ms_pytorch_defaults"] = profiling.timeit_ms(card, *args, iters=EXPORT_TIMED[0],
+                                                                   windows=EXPORT_TIMED[1])
+    say("discriminators and the Pro-GAN stack per call, PyTorch defaults (TF32 convolutions): "
+        + "; ".join(f"{name} {r['ms_pytorch_defaults']:.3f} ms" for name, r in out.items()))
+    return out
+
+
+def slice7d_path(torch, dev, smi):
+    """Phase 17 (the module docstring's item 17)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tpugan_export_") as workdir:
+        say(f"phase 17 times below: {smi}")
+        rows, artifacts = export_artifacts(torch, dev, smi, workdir)
+        artifact, example = artifacts.pop("sg2")
+        roofline = roofline_of(torch, f"StyleGAN2-{SG2_SIZE} synthesis artifact", artifact, example, workdir)
+        del artifact, example
+        torch.cuda.empty_cache()
+    say(f"phase 17: the exports took {time.perf_counter() - t0:.1f} s")
+    from tpugan_torch.tools import operator_overhead
+
+    overhead = operator_overhead.measure(dev, say=say)
+    t1 = time.perf_counter()
+    discriminators = discriminators_on_cpu(torch, dev, artifacts.pop("pggan_images"))
+    say(f"phase 17: the discriminators took {time.perf_counter() - t1:.1f} s")
+    torch.cuda.empty_cache()
+    return {"artifacts": rows, "roofline": roofline, "operator_overhead": overhead,
+            "discriminators": discriminators}
+
+
+
 def main() -> int:
     import torch
 
@@ -6185,6 +6548,15 @@ def main() -> int:
     check(s7c["launches"] > 0 and s7c["decode3_launches"] > 0, f"phase 16 missed the FIR kernel: {s7c['launches']}")
     say(f"phase 16 (slice 7c) took {time.perf_counter() - t0:.1f} s; the script {time.perf_counter() - start:.1f} s")
 
+    # ---- 17. slice 7d: export_model through torch.export; profiling; PGGAN's D and pggan_alt ----
+    t0 = time.perf_counter()
+    s7d = slice7d_path(torch, dev, smi)
+    s7d_launches = {name: {f"export: {label}": r["launches"][name] for label, r in s7d["artifacts"].items()
+                           if name in r["launches"]}
+                    for name in ("upfirdn2d", "upfirdn2d_bf16", "sagan_attention", "sagan_attention_bf16")}
+    check(all(s7d_launches.values()), f"phase 17 missed a kernel: {s7d_launches}")
+    say(f"phase 17 (slice 7d) took {time.perf_counter() - t0:.1f} s; the script {time.perf_counter() - start:.1f} s")
+
     sg2_bf16 = bf16["firs"]["SG2"][1]
     bf16_step = {k: sum(p_[k] for parts in sg2_bf16.values() for p_ in parts.values())
                  for k in ("ms", "fp32_ms", "plain_ms", "library_ms", "bound_ms")}
@@ -6193,12 +6565,14 @@ def main() -> int:
     say(json.dumps({"kernels": [{
         "name": "upfirdn2d",
         "route": "cuda",
+        "operator": "torch.ops.tpugan_torch.upfirdn2d",
         "source": "tpugan_torch/csrc/upfirdn2d.cu",
         "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas); "
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c)",
         "launches": (launches["upfirdn2d"] + sg2["launches"] + sgv1_train["launches"] + sg2_train["launches"]
                      + sum(fir_inv.values()) + mis["launches"] + cam["request"]["launches"] + sum(s7a_fir.values())
-                     + sum(s7b_launches["upfirdn2d"].values()) + s7c["launches"] + s7c["decode3_launches"]),
+                     + sum(s7b_launches["upfirdn2d"].values()) + s7c["launches"] + s7c["decode3_launches"]
+                     + sum(s7d_launches["upfirdn2d"].values())),
         "launches_by_path": {"SGv1 Cat256 serving": launches["upfirdn2d"],
                              f"StyleGAN2-{SG2_SIZE} serving": sg2["launches"],
                              "SGv1 Cat256 training": sgv1_train["launches"],
@@ -6207,13 +6581,15 @@ def main() -> int:
                              "e_mis_align (batch 5)": mis["launches"],
                              "infer_e --gradcam": cam["request"]["launches"],
                              **s7a_fir, **s7b_launches["upfirdn2d"],
-                             "SGv1 Cat256 GAN training": s7c["launches"], "decode3": s7c["decode3_launches"]},
+                             "SGv1 Cat256 GAN training": s7c["launches"], "decode3": s7c["decode3_launches"],
+                             **s7d_launches["upfirdn2d"]},
         "max_abs_err": max(fir_err, adjoint_err, sg2["max_abs_err"], sg2_train["max_abs_err"], inv_err["upfirdn2d"],
                            mis["max_abs_err"], s7c["max_abs_err"]),
         "inversion": inversion,
         "gradcam": gradcam,
         "slice7a": s7a,
         "slice7b": s7b,
+        "slice7d": s7d,
         "slice7c": {"gan_training": {k: v for k, v in s7c.items() if k not in ("launches", "decode3_launches")},
                     "launches_per_step_are": f"FIR launches of one D step and one G step at lod {s7c['lod']}, batch "
                                              f"{s7c['batch']}, by direction and TPU kernel, as counted in every "
@@ -6243,15 +6619,16 @@ def main() -> int:
     }, {
         "name": "upfirdn2d_bf16",
         "route": "cuda",
+        "operator": "torch.ops.tpugan_torch.upfirdn2d",
         "source": "tpugan_torch/csrc/upfirdn2d.cu",
         "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas, bf16); "
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c, bf16)",
         "launches": (bf16["launches"] + sum(fir16_inv.values()) + mis["launches_bf16"] + sum(s7a_fir16.values())
-                     + sum(s7b_launches["upfirdn2d_bf16"].values())),
+                     + sum(s7b_launches["upfirdn2d_bf16"].values()) + sum(s7d_launches["upfirdn2d_bf16"].values())),
         "launches_by_path": {"bf16 training": bf16["launches"],
                              **{f"inversion: {label}": n for label, n in fir16_inv.items()},
                              "e_mis_align --bf16 (batch 5)": mis["launches_bf16"],
-                             **s7a_fir16, **s7b_launches["upfirdn2d_bf16"]},
+                             **s7a_fir16, **s7b_launches["upfirdn2d_bf16"], **s7d_launches["upfirdn2d_bf16"]},
         "max_abs_err": max(bf16_err, bf16["max_abs_err"], inv_err["upfirdn2d_bf16"], mis["max_abs_err_bf16"]),
         "ms": bf16_step["ms"],
         "plain_ms": bf16_step["plain_ms"],
@@ -6273,24 +6650,26 @@ def main() -> int:
     }, {
         "name": "sagan_attention",
         "route": "cuda",
+        "operator": "torch.ops.tpugan_torch.sagan_attention, torch.ops.tpugan_torch.sagan_attention_lse",
         "source": "tpugan_torch/csrc/sagan_attention.cu",
         "replaces": "tpugan/ops/pallas/attention.py:68 (sagan_attention_pallas); "
                     "tpugan/ops/pallas/attention.py:77 (sagan_attention_pallas, return_lse=True)",
         "launches": (attn["launches"] + big_inv["sagan_attention"] + cam_inv["launches"]["sagan_attention"]
                      + big_resume["sagan_attention"] + big_conv["sagan_attention"]
-                     + sum(s7b_launches["sagan_attention"].values())),
+                     + sum(s7b_launches["sagan_attention"].values()) + sum(s7d_launches["sagan_attention"].values())),
         "launches_by_path": {"BigGAN-deep-256 serving": attn["launches"],
                              "inversion: BigGAN fine-tune E": big_inv["sagan_attention"],
                              f"inversion: {cam_label}": cam_inv["launches"]["sagan_attention"],
                              "resume: E_BIG case 2": big_resume["sagan_attention"],
                              "converted: BigGAN-deep-256 request": big_conv["sagan_attention"],
-                             **s7b_launches["sagan_attention"]},
+                             **s7b_launches["sagan_attention"], **s7d_launches["sagan_attention"]},
         "max_abs_err": max(attn["max_abs_err"], attn_err, inv_err["sagan_attention"],
                            cam_inv["max_abs_err"]["sagan_attention"]),
         **b3_times,
     }, {
         "name": "sagan_attention_bwd",
         "route": "cuda",
+        "operator": "torch.ops.tpugan_torch.sagan_attention_bwd",
         "source": "tpugan_torch/csrc/sagan_attention_bwd.cu",
         "replaces": "tpugan/ops/pallas/attention.py:149,168 (sagan_attention_bwd_pallas: _dq_kernel, "
                     "_dkv_kernel)",
@@ -6307,12 +6686,15 @@ def main() -> int:
     }, {
         "name": "sagan_attention_bf16",
         "route": "cuda",
+        "operator": "torch.ops.tpugan_torch.sagan_attention, torch.ops.tpugan_torch.sagan_attention_lse",
         "source": "tpugan_torch/csrc/sagan_attention.cu",
         "entry_points": ["tpugan_sagan_attention_bf16"],
         "replaces": "tpugan/ops/pallas/attention.py:68 (sagan_attention_pallas, bf16); "
                     "tpugan/ops/pallas/attention.py:77 (sagan_attention_pallas, bf16, return_lse=True)",
-        "launches": b3_bf16_launches + sum(s7b_launches["sagan_attention_bf16"].values()),
-        "launches_by_path": {"bf16 E_BIG training": b3_bf16_launches, **s7b_launches["sagan_attention_bf16"]},
+        "launches": (b3_bf16_launches + sum(s7b_launches["sagan_attention_bf16"].values())
+                     + sum(s7d_launches["sagan_attention_bf16"].values())),
+        "launches_by_path": {"bf16 E_BIG training": b3_bf16_launches, **s7b_launches["sagan_attention_bf16"],
+                             **s7d_launches["sagan_attention_bf16"]},
         "max_abs_err": max(attn_bf16_err, big16["max_abs_err"]),
         "max_abs_err_is": "bf16 outputs against the plain version run in float64 on the same bf16 values (one "
                           "bf16 ulp plus the fp32 contract); bitwise the fp32 kernel's on the widened inputs, "
@@ -6324,6 +6706,7 @@ def main() -> int:
     }, {
         "name": "sagan_attention_bwd_bf16",
         "route": "cuda",
+        "operator": "torch.ops.tpugan_torch.sagan_attention_bwd",
         "source": "tpugan_torch/csrc/sagan_attention_bwd.cu",
         "entry_points": [f"tpugan_{name}_bf16" for name in B4_KERNELS],
         "replaces": "tpugan/ops/pallas/attention.py:149,168 (sagan_attention_bwd_pallas on bf16: _dq_kernel, "

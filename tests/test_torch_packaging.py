@@ -35,3 +35,22 @@ def test_the_attention_header_is_shipped():
     """B3 and B4 include ``tf32_wgmma.cuh``; an install without it cannot
     build either."""
     assert _shipped("csrc/tf32_wgmma.cuh")
+
+
+def _scripts():
+    return tomllib.loads((ROOT / "pyproject.toml").read_text())["project"]["scripts"]
+
+
+@pytest.mark.parametrize("name", sorted(n for n in _scripts() if n.startswith("tpugan-") and not
+                                        n.startswith("tpugan-torch-")))
+def test_every_tpugan_console_script_has_the_ports(name):
+    """Each of tpugan's console scripts has a ``tpugan-torch-`` twin whose
+    target is the port's module of the same name, with a ``main``."""
+    import importlib
+
+    scripts = _scripts()
+    module, _, func = scripts[name].partition(":")
+    twin = scripts[name.replace("tpugan-", "tpugan-torch-", 1)]
+    assert twin == f"{module.replace('tpugan.', 'tpugan_torch.', 1)}:{func}"
+    port_module, _, port_func = twin.partition(":")
+    assert callable(getattr(importlib.import_module(port_module), port_func))

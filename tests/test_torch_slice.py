@@ -233,3 +233,13 @@ def test_port_imports_no_jax_and_no_tpugan(path):
     found = set(_imported(ast.walk(tree))) & FORBIDDEN
     assert not found, f"{path} imports {found}"
     assert "triton" not in set(_imported(tree.body))
+
+
+@pytest.mark.parametrize("module", ["config.py", "profiling.py", "io/export.py", "cli/export_model.py",
+                                    "models/pggan_alt.py", "tools/operator_overhead.py"])
+def test_slice_7d_modules_are_read_by_the_ast_test(module):
+    """Slice 7d's modules exist and are among the files
+    ``test_port_imports_no_jax_and_no_tpugan`` reads."""
+    path = ROOT / "tpugan_torch" / module
+    assert path in set((ROOT / "tpugan_torch").rglob("*.py"))
+    test_port_imports_no_jax_and_no_tpugan(path)

@@ -5,8 +5,9 @@ caller converts them; this module imports no JAX). The port's modules carry
 the same names as ``tpugan``'s variable trees, so the walk is name for name:
 ``params`` into the module's parameters, ``buffers`` (BigGAN batch norms'
 running statistics) and ``sn`` (spectral norms' ``u`` and ``v``) into its
-buffers. Generators, encoders, VGG16's features and LPIPS (plain 3x3 and
-1x1 convs) all load this way. Only the layouts differ:
+buffers, as do ``batch_stats`` (flax's batch-norm statistics). Generators,
+discriminators, encoders, VGG16's features and LPIPS (plain 3x3 and 1x1
+convs) all load this way. Only the layouts differ:
 
 * conv kernels (Eq or plain), HWIO ``[kh, kw, in, out]`` -> OIHW
   ``[out, in, kh, kw]``;
@@ -16,6 +17,11 @@ buffers. Generators, encoders, VGG16's features and LPIPS (plain 3x3 and
   input rows reordered from ``tpugan``'s NHWC flatten, (h, w, c), to the
   port's NCHW one, (c, h, w), torchvision's;
 * the generator's ``const`` ``[1, 4, 4, C]`` -> NCHW ``[1, C, 4, 4]``;
+* PGGAN's and the Pro-GAN stack's unscaled ``weight`` leaves: conv blocks
+  (``PGConvBlock``, ``PGDConvBlock``, ``EqlConv``) HWIO -> OIHW, transposed
+  ones (``PGConvBlock`` fused, ``EqlDeconv``) HWIO -> ``[in, out, kh, kw]``,
+  ``PGDense`` ``[in, out]`` -> ``[out, in]``, its rows reordered from the NHWC
+  flatten to the NCHW one where it flattens a feature map;
 * StyleGAN2's ``weight`` leaves, stored unscaled as ``tpugan`` stores them:
   ``ModulatedConv``/``SG2ConvBlock`` HWIO -> OIHW, ``SG2Dense`` ``[in, out]``
   -> ``[out, in]``; a ``ModulatedConv``'s ``noise`` buffer ``[1, r, r, 1]``
@@ -33,21 +39,28 @@ import torch
 from torch import nn
 
 from tpugan_torch.losses.vgg import FlattenedLinear
-from tpugan_torch.models.pggan import PGConvBlock
+from tpugan_torch.models.pggan import PGConvBlock, PGDConvBlock, PGDense
+from tpugan_torch.models.pggan_alt import EqlConv, EqlDeconv
 from tpugan_torch.models.stylegan2 import ModulatedConv, SG2ConvBlock, SG2Dense
 from tpugan_torch.nn.layers import EqConv, EqLinear
 from tpugan_torch.nn.spectral import SNDense
 
 _DENSE = (EqLinear, nn.Linear, SNDense)
 # the collections copied, and whether each goes to parameters or buffers
-_COLLECTIONS = (("params", "parameters"), ("buffers", "buffers"), ("sn", "buffers"))
+_COLLECTIONS = (("params", "parameters"), ("buffers", "buffers"), ("sn", "buffers"), ("batch_stats", "buffers"))
+
+
+def _nhwc_rows_to_nchw(value: np.ndarray, in_shape) -> np.ndarray:
+    """A dense kernel ``[h * w * c, out]`` over tpugan's NHWC flatten as
+    ``[out, c * h * w]`` over the NCHW one."""
+    c, h, w = in_shape
+    return value.reshape(h, w, c, -1).transpose(3, 2, 0, 1).reshape(-1, c * h * w)
 
 
 def _convert(owner: nn.Module, name: str, value: np.ndarray) -> np.ndarray:
     if name == "kernel":
         if isinstance(owner, FlattenedLinear):
-            c, h, w = owner.in_shape
-            return value.reshape(h, w, c, -1).transpose(3, 2, 0, 1).reshape(-1, c * h * w)
+            return _nhwc_rows_to_nchw(value, owner.in_shape)
         if isinstance(owner, _DENSE):
             return value.T
         if isinstance(owner, EqConv):
@@ -63,6 +76,12 @@ def _convert(owner: nn.Module, name: str, value: np.ndarray) -> np.ndarray:
         return value.transpose(3, 2, 0, 1)
     if name == "weight" and isinstance(owner, PGConvBlock):
         return value.transpose((2, 3, 0, 1) if owner.fused else (3, 2, 0, 1))
+    if name == "weight" and isinstance(owner, (PGDConvBlock, EqlConv)):
+        return value.transpose(3, 2, 0, 1)
+    if name == "weight" and isinstance(owner, EqlDeconv):
+        return value.transpose(2, 3, 0, 1)
+    if name == "weight" and isinstance(owner, PGDense):
+        return value.T if owner.in_shape is None else _nhwc_rows_to_nchw(value, owner.in_shape)
     return value
 
 

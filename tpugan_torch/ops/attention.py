@@ -7,14 +7,20 @@ the backward reads. q, k and v are fp32 or bf16, all three alike, as
 ``tpugan``'s Pallas kernels take them: the sums are fp32 and the output and
 the gradients come back in the inputs' dtype.
 
-Dispatch: a CPU tensor takes the plain versions (:func:`sagan_attention_plain`,
-:func:`sagan_attention_bwd_plain`); a CUDA tensor launches the hand-written
-kernels through :func:`sagan_attention_cuda` (``csrc/sagan_attention.cu``)
-and :func:`sagan_attention_bwd_cuda` (``csrc/sagan_attention_bwd.cu``), which
-raise on any input outside the kernels' contract. Nothing falls back: the
-kernels mask their tails and take any length. A bf16 input launches the
-kernels' bf16 entry points (``KERNEL_OF_DTYPE``, ``BWD_KERNELS_OF_DTYPE``),
-which read and write bf16 themselves.
+Dispatch: every call goes through a PyTorch operator
+(``torch.library``), so that ``torch.export`` keeps it as one node:
+``torch.ops.tpugan_torch.sagan_attention`` and ``sagan_attention_lse`` (the
+forward without and with the logsumexp) and ``sagan_attention_bwd`` (the
+backward's pack, dq and dkv kernels). Their CPU implementations are the
+plain versions (:func:`sagan_attention_plain`,
+:func:`sagan_attention_bwd_plain`); their CUDA ones launch the hand-written
+kernels (``csrc/sagan_attention.cu``, ``csrc/sagan_attention_bwd.cu``),
+reached through :func:`sagan_attention_cuda` and
+:func:`sagan_attention_bwd_cuda`, which raise on any input outside the
+kernels' contract; their fake ones give shapes and dtypes alone. Nothing
+falls back: the kernels mask their tails and take any length. A bf16 input
+launches the kernels' bf16 entry points (``KERNEL_OF_DTYPE``,
+``BWD_KERNELS_OF_DTYPE``), which read and write bf16 themselves.
 
 When a gradient is wanted (grad mode on and an input that requires grad),
 :func:`sagan_attention` runs as an :class:`torch.autograd.Function`: the
@@ -47,6 +53,8 @@ BWD_KERNELS_OF_DTYPE = {
 
 
 def _on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` takes the card's route: a CUDA tensor (tests route CPU
+    tensors that way by replacing this and the launching functions)."""
     return x.device.type != "cpu"
 
 
@@ -61,7 +69,7 @@ def sagan_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, return_ls
         return _SaganAttention.apply(q, k, v)
     if _on_card(q):
         return sagan_attention_cuda(q, k, v, return_lse)
-    return sagan_attention_plain(q, k, v, return_lse)
+    return _forward_op(return_lse)(q, k, v)
 
 
 def sagan_attention_bwd(q, k, v, o, lse, do):
@@ -69,7 +77,63 @@ def sagan_attention_bwd(q, k, v, o, lse, do):
     logsumexp ``lse`` and the output's gradient ``do``."""
     if _on_card(q):
         return sagan_attention_bwd_cuda(q, k, v, o, lse, do)
+    return torch.ops.tpugan_torch.sagan_attention_bwd.default(q, k, v, o, lse, do)
+
+
+def _forward_op(return_lse: bool):
+    ops = torch.ops.tpugan_torch
+    return ops.sagan_attention_lse.default if return_lse else ops.sagan_attention.default
+
+
+def _attention_cpu(q, k, v):
+    """``softmax(q k^T) v`` on the CPU: the plain version, or the card's
+    route where :func:`_on_card` says so."""
+    if _on_card(q):
+        return _launch_attention(q, k, v, False)
+    return sagan_attention_plain(q, k, v)
+
+
+def _attention_lse_cpu(q, k, v):
+    if _on_card(q):
+        return _launch_attention(q, k, v, True)
+    return sagan_attention_plain(q, k, v, True)
+
+
+def _attention_bwd_cpu(q, k, v, o, lse, do):
+    if _on_card(q):
+        return _launch_attention_bwd(q, k, v, o, lse, do)
     return sagan_attention_bwd_plain(q, k, v, o, lse, do)
+
+
+def _attention_fake(q, k, v):
+    return q.new_empty((q.shape[0], q.shape[1], v.shape[2]))
+
+
+def _attention_lse_fake(q, k, v):
+    return _attention_fake(q, k, v), q.new_empty((q.shape[0], q.shape[1], 1), dtype=torch.float32)
+
+
+def _attention_bwd_fake(q, k, v, o, lse, do):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+# The forward without and with the logsumexp, and the backward; none carries
+# a gradient (``_SaganAttention`` is the differentiable form). Defined with
+# torch.library's define/impl, not custom_op, whose Python dispatch costs
+# more host time a call (tpugan_torch/tools/operator_overhead.py).
+for _name, _schema, _cpu, _cuda, _fake in (
+        ("sagan_attention", "(Tensor q, Tensor k, Tensor v) -> Tensor", _attention_cpu,
+         lambda q, k, v: _launch_attention(q, k, v, False), _attention_fake),
+        ("sagan_attention_lse", "(Tensor q, Tensor k, Tensor v) -> (Tensor, Tensor)", _attention_lse_cpu,
+         lambda q, k, v: _launch_attention(q, k, v, True), _attention_lse_fake),
+        ("sagan_attention_bwd", "(Tensor q, Tensor k, Tensor v, Tensor o, Tensor lse, Tensor do) "
+         "-> (Tensor, Tensor, Tensor)", _attention_bwd_cpu,
+         lambda q, k, v, o, lse, do: _launch_attention_bwd(q, k, v, o, lse, do), _attention_bwd_fake)):
+    torch.library.define(f"tpugan_torch::{_name}", _schema)
+    torch.library.impl(f"tpugan_torch::{_name}", "cpu", _cpu)
+    torch.library.impl(f"tpugan_torch::{_name}", "cuda", _cuda)
+    torch.library.register_fake(f"tpugan_torch::{_name}", _fake)
+del _name, _schema, _cpu, _cuda, _fake
 
 
 class _SaganAttention(torch.autograd.Function):
@@ -164,13 +228,22 @@ def _check_device(tensors, name: str) -> None:
 
 def sagan_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          return_lse: bool = False):
-    """Launch ``csrc/sagan_attention.cu`` on PyTorch's current stream.
+    """``csrc/sagan_attention.cu`` on PyTorch's current stream, through the
+    operator (one launch).
 
     Takes contiguous ``[N, L, d]`` CUDA tensors on one device, all fp32 or
     all bf16 (the output in their dtype, lse fp32), any lengths, dk <= 128
     and dv <= 256; raises on anything else. The output carries no gradient:
     :func:`sagan_attention` is the differentiable form.
     """
+    check_attention_args(q, k, v)
+    _check_device((q, k, v), "sagan_attention_cuda")
+    return _forward_op(return_lse)(q, k, v)
+
+
+def _launch_attention(q, k, v, return_lse):
+    """One launch of the forward kernel of q's dtype, counted under its name
+    in ``cuda.launches``."""
     n, lq, lk, dk, dv = check_attention_args(q, k, v)
     _check_device((q, k, v), "sagan_attention_cuda")
     out = torch.empty((n, lq, dv), dtype=q.dtype, device=q.device)
@@ -187,17 +260,26 @@ def sagan_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def sagan_attention_bwd_cuda(q, k, v, o, lse, do):
-    """Launch ``csrc/sagan_attention_bwd.cu``'s three kernels on PyTorch's
-    current stream: pack (k, v, do and q laid out for the tensor cores, hi
-    and lo, in a workspace allocated here), dq (which also writes p and ds
-    to the workspace's scratch), then dk and dv from that scratch.
-    ``delta = rowsum(do * o)`` is computed here in plain PyTorch, in fp32,
-    as ``tpugan`` computes it outside its kernels. bf16 inputs launch the
-    bf16 entry points, which return bf16 gradients.
+    """``csrc/sagan_attention_bwd.cu``'s three kernels on PyTorch's current
+    stream, through the operator ``tpugan_torch::sagan_attention_bwd``:
+    pack (k, v, do and q laid out for the tensor cores, hi and lo, in a
+    workspace allocated there), dq (which also writes p and ds to the
+    workspace's scratch), then dk and dv from that scratch.
+    ``delta = rowsum(do * o)`` is computed in plain PyTorch, in fp32, as
+    ``tpugan`` computes it outside its kernels. bf16 inputs launch the bf16
+    entry points, which return bf16 gradients.
 
     Takes the contract of :func:`check_attention_bwd_args` on CUDA tensors
     of one device; raises on anything else. Returns ``(dq, dk, dv)``.
     """
+    check_attention_bwd_args(q, k, v, o, lse, do)
+    _check_device((q, k, v, o, lse, do), "sagan_attention_bwd_cuda")
+    return torch.ops.tpugan_torch.sagan_attention_bwd.default(q, k, v, o, lse, do)
+
+
+def _launch_attention_bwd(q, k, v, o, lse, do):
+    """The backward's pack, dq and dkv launches of q's dtype, each counted
+    under its name in ``cuda.launches``."""
     n, lq, lk, dk, dv = check_attention_bwd_args(q, k, v, o, lse, do)
     _check_device((q, k, v, o, lse, do), "sagan_attention_bwd_cuda")
     delta = (do.float() * o.float()).sum(-1)

@@ -6,13 +6,17 @@ flipped convolution); pads ``(pad0, pad1)`` apply to both spatial dims; the
 output size is ``(H*up + pad0 + pad1 - kh) // down + 1``; ``gain``
 multiplies the taps.
 
-Dispatch: a CPU tensor takes :func:`upfirdn2d_plain`; a CUDA tensor launches
+Dispatch: every FIR goes through one PyTorch operator,
+``torch.ops.tpugan_torch.upfirdn2d`` (``torch.library``), so that
+``torch.export`` keeps each call as one node of its graph. Its CPU
+implementation is :func:`upfirdn2d_plain`'s arithmetic; its CUDA one launches
 the hand-written kernel (``csrc/upfirdn2d.cu``), which raises on any input
-outside the kernel's contract (:func:`upfirdn2d_cuda` is one call of it).
-Nothing falls back. Each launch is counted in ``cuda.launches``, under
-``upfirdn2d`` (fp32) or ``upfirdn2d_bf16`` (bf16), and, by the TPU kernel
-that tpugan runs for the same FIR (:func:`tpu_layout`), in
-:data:`layout_launches`.
+outside the kernel's contract (:func:`upfirdn2d_cuda` is one call of it);
+its fake one gives the output's shape and dtype alone. Nothing falls back.
+Each launch is counted in ``cuda.launches``, under ``upfirdn2d`` (fp32) or
+``upfirdn2d_bf16`` (bf16), and, by the TPU kernel that tpugan runs for the
+same FIR (:func:`tpu_layout`), in :data:`layout_launches`; a trace counts
+nothing.
 
 dtypes: fp32 and bf16, as the Pallas kernels take them. A bf16 FIR reads
 bf16, sums in fp32 with fp32 taps and rounds each output once to bf16, on
@@ -213,6 +217,8 @@ def reset_layout_launches() -> None:
 
 
 def _on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` takes the card's route: a CUDA tensor (tests route CPU
+    tensors that way by replacing this and :func:`_launch`)."""
     return x.device.type != "cpu"
 
 
@@ -230,9 +236,69 @@ def _fir(x, taps, up, down, pads):
     ``(top, bottom, left, right)``, any of them negative (a crop)."""
     if torch.is_grad_enabled() and x.requires_grad:
         return _UpFirDn2d.apply(x, taps, up, down, pads)
-    if not _on_card(x):
-        return _fir_plain(x, taps, up, down, pads)
-    return _fir_cuda(x, taps, up, down, pads)
+    if _on_card(x):
+        return _fir_cuda(x, taps, up, down, pads)
+    return _fir_op(x, taps, up, down, pads, _layout_key(x.shape[1], taps, up, down, pads))
+
+
+def _layout_key(c, taps, up, down, pads):
+    """The TPU kernel a FIR with pads per axis is counted under: tpugan's
+    own FIR where the pads of H and W agree (the VJP's back pads; its front
+    pad is kh's on both axes), else its XLA form."""
+    kh, kw = taps.shape
+    py0, py1, px0, px1 = pads
+    return tpu_layout(c, up, down, kh, kw, (py0, py1)) if (py0, py1) == (px0, px1) else "XLA"
+
+
+def _fir_op(x, taps, up, down, pads, key):
+    """One call of the operator ``tpugan_torch::upfirdn2d``: the taps as a
+    list of floats with their shape, the pads as a list."""
+    kh, kw = taps.shape
+    return torch.ops.tpugan_torch.upfirdn2d.default(x, taps.ravel().tolist(), kh, kw, up, down, list(pads), key)
+
+
+def _out_size(size, up, down, pad0, pad1, k):
+    return (size * up + pad0 + pad1 - k) // down + 1
+
+
+def _upfirdn2d_cpu(x, taps, kh, kw, up, down, pads, key):
+    """The operator on the CPU: the plain version (any pads), or the card's
+    route where :func:`_on_card` says so (tests route CPU tensors through
+    the launch code that way)."""
+    if _on_card(x):
+        return _fir_kernel(x, taps, kh, kw, up, down, pads, key)
+    return _fir_plain(x, np.asarray(taps, dtype=np.float32).reshape(kh, kw), up, down, tuple(pads))
+
+
+def _fir_kernel(x, taps, kh, kw, up, down, pads, key):
+    """The operator on the card: one launch of the kernel, which takes one
+    non-negative front pad for both axes and any output size (the back pads
+    follow from it); other pads are applied in torch before the operator
+    (:func:`_fir_cuda`)."""
+    py0, py1, px0, px1 = pads
+    if py0 != px0 or py0 < 0:
+        raise ValueError(f"the FIR kernel takes one non-negative front pad for both axes, got pads {pads}")
+    ho, wo = _out_size(x.shape[2], up, down, py0, py1, kh), _out_size(x.shape[3], up, down, px0, px1, kw)
+    return _launch(x, np.asarray(taps, dtype=np.float32).reshape(kh, kw), up, down, py0, ho, wo, key)
+
+
+def _upfirdn2d_fake(x, taps, kh, kw, up, down, pads, key):
+    """The operator under tracing: the output's shape and dtype alone."""
+    n, c, h, w = x.shape
+    py0, py1, px0, px1 = pads
+    return x.new_empty((n, c, _out_size(h, up, down, py0, py1, kh), _out_size(w, up, down, px0, px1, kw)))
+
+
+# The FIR of ``taps`` (kh x kw, the gain folded in) with pads ``(top, bottom,
+# left, right)``; ``key`` is the TPU kernel a launch is counted under. It
+# carries no gradient (``_UpFirDn2d`` is the differentiable form). Defined
+# with torch.library's define/impl, not custom_op, whose Python dispatch
+# costs more host time a call (tpugan_torch/tools/operator_overhead.py).
+torch.library.define("tpugan_torch::upfirdn2d",
+                     "(Tensor x, float[] taps, int kh, int kw, int up, int down, int[] pads, str key) -> Tensor")
+torch.library.impl("tpugan_torch::upfirdn2d", "cpu", _upfirdn2d_cpu)
+torch.library.impl("tpugan_torch::upfirdn2d", "cuda", _fir_kernel)
+torch.library.register_fake("tpugan_torch::upfirdn2d", _upfirdn2d_fake)
 
 
 class _UpFirDn2d(torch.autograd.Function):
@@ -295,23 +361,17 @@ def upfirdn2d_plain(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
 
 
 def _fir_cuda(x, taps, up, down, pads):
-    """A FIR with pads per axis (a forward, or an adjoint) through the
-    kernel, which takes one non-negative front pad for both axes and any
-    output size (the back pads follow from it). Equal non-negative front
-    pads launch as they are; otherwise the input is stuffed and padded (or
-    cropped) here and the kernel runs with up 1 and no pad. Counted by the
-    TPU kernel tpugan runs: its own FIR where the pads of H and W agree (the
-    VJP's back pads; its front pad is kh's on both axes), else its XLA form."""
-    n, c, hi, wi = x.shape
-    kh, kw = taps.shape
+    """A FIR with pads per axis (a forward, or an adjoint) on the card's
+    route: equal non-negative front pads reach the operator as they are;
+    otherwise the input is stuffed and padded (or cropped) here, in torch,
+    and the kernel runs with up 1 and no pad. Counted by the TPU kernel
+    tpugan runs (:func:`_layout_key`)."""
+    key = _layout_key(x.shape[1], taps, up, down, pads)
     py0, py1, px0, px1 = pads
-    h = (hi * up + py0 + py1 - kh) // down + 1
-    w = (wi * up + px0 + px1 - kw) // down + 1
-    key = tpu_layout(c, up, down, kh, kw, (py0, py1)) if (py0, py1) == (px0, px1) else "XLA"
     if py0 == px0 >= 0:
-        return _launch(x, taps, up, down, py0, h, w, key)
+        return _fir_op(x, taps, up, down, pads, key)
     x = F.pad(_stuff(x, up), (px0, px1, py0, py1)).contiguous()
-    return _launch(x, taps, 1, down, 0, h, w, key)
+    return _fir_op(x, taps, 1, down, (0, 0, 0, 0), key)
 
 
 def upfirdn2d_cuda(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
@@ -327,7 +387,13 @@ def upfirdn2d_cuda(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
         raise ValueError(f"pads must be non-negative, got {pad}")
     if x.dim() != 4:
         raise ValueError("upfirdn2d_cuda takes a contiguous [N, C, H, W] tensor")
-    return _fir_cuda(x, _taps(kernel, gain), up, down, (p0, p1, p0, p1))
+    taps = _taps(kernel, gain)
+    kh, kw = taps.shape
+    check_launch(x, taps, up, down, p0, _out_size(x.shape[2], up, down, p0, p1, kh),
+                 _out_size(x.shape[3], up, down, p0, p1, kw))
+    if not x.is_cuda:
+        raise ValueError(f"upfirdn2d_cuda needs a CUDA tensor, got one on {x.device}")
+    return _fir_cuda(x, taps, up, down, (p0, p1, p0, p1))
 
 
 def check_launch(x, taps, up, down, pad0, ho, wo) -> None:
