@@ -99,7 +99,7 @@ Phases:
  12. real-image inversion, ``tpugan_torch.cli.embedding`` at batch 1 (its
      default), each form on a target PNG that the script writes (the
      bundle's own image at a held-out seed) and reads back through
-     ``io/image.load_image_dir``, 4 iterations in chunks of 2, random LPIPS:
+     ``io/native.load_image_dir_fast``, 4 iterations in chunks of 2, random LPIPS:
      StyleGAN2-1024 fine-tuning E, optimising w, and fine-tuning E in bf16
      (every FIR on the bf16 form, none on the fp32 one; fp32 encoder
      masters, the bf16 generator frozen), BigGAN-deep-256 fine-tuning E_BIG
@@ -203,6 +203,20 @@ Phases:
      counters, or the GPU driver's refusal); the operators' host cost a call
      beside the ctypes launch; PGGAN's discriminator (lods 0 and 0.5, on G's
      images) and the Pro-GAN stack at its defaults held to the CPU.
+ 18. slice 7e, the PNG loader and data parallelism: whether libpng's
+     headers are there (the port's loader needs none), the loader's C++
+     library built with g++, PNGs at 1024 x 1024 and 1000 x 1100 read at
+     1024 with 1 and 8 threads bitwise against the plain version (PIL's
+     decode, the resize in numpy), ``embedding --mtype 2`` on a 1000 x 1100
+     PNG through the loader (its target the plain version's pixels); the
+     StyleGAN2-1024 case-2 step (phase 9's) at global batch 2 in this
+     process, then over two gloo processes on the one card (one row a
+     rank, tpugan's ``auto_mesh``) and a one-rank NCCL group, all under
+     cuDNN's deterministic algorithms: each rank's FIR launches forward and
+     adjoint by TPU kernel as derived, the ranks' encoders bitwise equal,
+     every rank held to the one-process step (DP_BATCH's comment); then on
+     cuDNN's default algorithms each step's host time, its time in
+     collectives, device time and peak memory.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3636,7 +3650,7 @@ def biggan_bf16_training_path(torch, dev, smi, fp32_times):
 # 1, lr 0.01, fine-tuning E). Each form runs the embedding CLI's own loop
 # (cli/embedding.py: build_inverter, then run) on one target PNG that the
 # script writes (the bundle's own imgs1 at INV_TARGET_SEED) and run reads
-# back through io/image.load_image_dir: INV_ITERATIONS iterations in chunks
+# back through io/native.load_image_dir_fast: INV_ITERATIONS iterations in chunks
 # of INV_CHUNK, random LPIPS injected (a bf16 LPIPS with --bf16, as tpugan
 # builds it without --fp32_lpips). (label, embedding flags)
 INV_SG2 = ("--mtype", "2", "--img_size", str(SG2_SIZE), "--start_features", str(SG2_START_FEATURES))
@@ -6333,6 +6347,388 @@ def slice7d_path(torch, dev, smi):
             "discriminators": discriminators}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: slice 7e, the PNG loader and data parallelism
+
+# PNGs the loader reads: (height, width, count); 1000 x 1100 needs the
+# resize at LOADER_SIZE (aligned corners, no antialias), 1024 x 1024 not
+LOADER_IMAGES = ((1024, 1024, 2), (1000, 1100, 2))
+LOADER_SIZE = 1024
+LOADER_THREADS = (1, 8)
+LOADER_INV_ITERATIONS = 2
+# The data-parallel step: phase 9's StyleGAN2-1024 case-2 step (config F,
+# E_Blur at startf 16, random LPIPS) at global batch DP_BATCH, once in this
+# process and once over DP_WORLD processes on the one card (gloo: NCCL
+# refuses two ranks on one device), one row a rank, both under cuDNN's
+# deterministic algorithms with TF32 off; then one step of a one-rank NCCL
+# group (a 1 x 1 mesh, every collective through NCCL). The tolerance,
+# written before the first run: every logged scalar within CPU_GPU_ATOL x
+# max(1, |ref|), the card-against-CPU rule of the requests; the encoder's
+# parameters after the step by LREQAdam's rule of the CPU tests
+# (tests/test_torch_sgv1_train.py::_check_trajectory): the mean |difference|
+# of each parameter within 0.05 lr c (c its coefficient), each element
+# within the most two LREQAdam trajectories can part by, 2 lr c a step
+# times sqrt((1 - beta2^t) / (1 - beta2)) summed over the updates t (a
+# gradient near zero may take either sign: 4.82 lr c after case 2's two);
+# the ranks' encoders bitwise equal. The gradients handed to
+# LREQAdam are printed as shares of their max |g|, not held: in fp32 this
+# step's gradients move by 0.8-1.3% of their max when imgs1 differs by the
+# rounding of a batch of one against a batch of two (the CPU at 32 px; in
+# float64 the data-parallel step is the one-process one within 4e-7).
+# Each rank's FIR launches a step as derived (sg2_step_firs): forward B1 17,
+# B2 7, XLA 16; adjoint B1 16, B2 8, XLA 8.
+DP_BATCH = 2
+DP_WORLD = 2
+DP_GROUPS = {"gloo": DP_WORLD, "nccl": 1}  # backend -> ranks; a group's ranks are spawned together
+DP_STEPS = 4  # the checked step, a warm-up step, a host-clock step, a profiled step
+DP_FIRS = ({"B1": 17, "B2": 7, "XLA": 16}, {"B1": 16, "B2": 8, "XLA": 8})
+DP_TIMEOUT = 600
+
+
+def dp_argv():
+    return ["--mtype", "2", "--img_size", str(SG2_SIZE), "--start_features", str(SG2_START_FEATURES),
+            "--random_init", "--case", "2", "--iterations", "1000", "--batch_size", str(DP_BATCH),
+            "--seed", str(SEED), "--device", CARD]
+
+
+def write_pngs(directory, images, seed=SEED):
+    """Random 8-bit RGB PNGs of (height, width, count) in ``directory``;
+    returns their paths in name order."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(directory, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    paths = []
+    for h, w, count in images:
+        for i in range(count):
+            path = os.path.join(directory, f"{h}x{w}_{i}.png")
+            Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(path)
+            paths.append(path)
+    return sorted(paths)
+
+
+def loader_path(torch, dev, smi, workdir):
+    """The loader: libpng's headers (which the port does not need), the
+    library's build, PNGs at 1024 x 1024 and at 1000 x 1100 read at 1024
+    with 1 and 8 threads bitwise against the plain version; then
+    ``embedding --mtype 2`` on a directory of one 1000 x 1100 PNG, through
+    the loader, its target bitwise the plain version's pixels."""
+    import numpy as np
+
+    from tpugan_torch.cli import embedding
+    from tpugan_torch.io import native
+    from tpugan_torch.io.image import from_unit
+    from tpugan_torch.losses.lpips import random_lpips_fn
+    from tpugan_torch.ops import cuda
+
+    headers = [p for p in ("/usr/include/png.h", "/usr/include/libpng/png.h", "/usr/local/include/png.h")
+               if os.path.exists(p)]
+    say(f"loader: libpng headers {headers or 'none'} (the port's library needs none: PIL decodes)")
+    built = cuda.library_path(native.LIBRARY).exists()  # by phase 12's embedding runs, which read through it
+    t0 = time.perf_counter()
+    try:
+        cuda.host_library(native.LIBRARY)
+    except (RuntimeError, OSError) as e:
+        raise RuntimeError(f"chip_smoke: the loader's library did not build or load: {e}") from e
+    build_s = time.perf_counter() - t0
+    say(f"loader: {cuda.library_path(native.LIBRARY).name} " + (
+        "was built with g++ at its first use in this run" if built else f"built with g++ in {build_s:.2f} s")
+        + f", loaded in {build_s:.2f} s")
+    paths = write_pngs(os.path.join(workdir, "pngs"), LOADER_IMAGES)
+    plain = native.load_png_batch_plain(paths, LOADER_SIZE)
+    rows = {}
+    for threads in LOADER_THREADS:
+        native.load_png_batch(paths, LOADER_SIZE, threads)  # warm
+        t0 = time.perf_counter()
+        got = native.load_png_batch(paths, LOADER_SIZE, threads)
+        ms = (time.perf_counter() - t0) * 1e3
+        err = float(np.abs(got - plain).max())
+        check(got.shape == (len(paths), LOADER_SIZE, LOADER_SIZE, 3) and np.array_equal(got, plain),
+              f"loader with {threads} threads: max |err| {err:.3e} from the plain version")
+        rows[threads] = {"ms": ms, "max_abs_err": err}
+        say(f"loader: {len(paths)} PNGs ({', '.join(f'{n} at {h}x{w}' for h, w, n in LOADER_IMAGES)}) read at "
+            f"{LOADER_SIZE} with {threads} thread(s) in {ms:.1f} ms (host), bitwise the plain version")
+    resized = [i for i, p in enumerate(paths) if not os.path.basename(p).startswith(f"{LOADER_SIZE}x")]
+    check(resized and all(plain[i].std() > 0 for i in resized), "the resized PNGs read empty")
+
+    # embedding --mtype 2 on a directory that needs the resize
+    img_dir, out = os.path.join(workdir, "inv_img"), os.path.join(workdir, "inv_out")
+    target = write_pngs(img_dir, ((1000, 1100, 1),), seed=SEED + 1)
+    args = embedding.make_parser().parse_args(list(INV_SG2) + [
+        "--random_init", "--iterations", str(LOADER_INV_ITERATIONS), "--seed", str(SEED), "--device", CARD,
+        "--img_dir", img_dir, "--experiment_dir", out])
+    lpips = random_lpips_fn(dev)
+    inverter = rechunked(embedding.build_inverter(args, lpips), args, LOADER_INV_ITERATIONS, lpips)
+    seen, reads = [], []
+    real_invert, real_load = inverter.invert, native.load_png_batch
+
+    def invert(batch, chunk_callback=None):
+        seen.append(batch.detach().clone())
+        return real_invert(batch, chunk_callback)
+
+    def load(paths_, size, n_threads=8):
+        reads.append(list(paths_))
+        return real_load(paths_, size, n_threads)
+
+    native.load_png_batch = load
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        result = embedding.run(inverter._replace(invert=invert), args)[0]
+        torch.cuda.synchronize()
+    finally:
+        native.load_png_batch = real_load
+    seconds = time.perf_counter() - t0
+    want = torch.from_numpy(from_unit(native.load_png_batch_plain(target, args.img_size))).to(dev)
+    check(reads == [target] and len(seen) == 1 and torch.equal(seen[0], want),
+          "embedding did not read its target through the loader, bitwise the plain version")
+    launches = dict(cuda.launches)
+    check(launches["upfirdn2d"] > 0 and bool(torch.isfinite(result.w).all()),
+          f"embedding through the loader: launches {launches}, w finite {bool(torch.isfinite(result.w).all())}")
+    say(f"loader: embedding --mtype 2 --img_size {SG2_SIZE} on a 1000x1100 PNG, {LOADER_INV_ITERATIONS} "
+        f"iterations in {seconds:.2f} s, its target bitwise the plain loader's, launches {launches}")
+    del inverter
+    torch.cuda.empty_cache()
+    return {"libpng_headers": headers, "built_earlier_in_the_run": built, "build_s": build_s, "reads": rows,
+            "embedding_launches": launches}
+
+
+def dp_ms(ms):
+    return "not measured" if ms is None else f"{ms:.3f} ms"
+
+
+def dp_record(torch, state):
+    """The gradients handed to the optimizer, recorded as they come."""
+    grads = []
+    step = state.optimizer.step
+    state.optimizer.step = lambda g=None: (grads.append([None if x is None else x.detach().clone() for x in g]),
+                                           step(g))
+    return grads
+
+
+class CollectiveClock:
+    """The host time spent in torch.distributed's all_reduce and broadcast
+    (each bracketed by a synchronize) while it is entered."""
+
+    def __init__(self, torch):
+        self.torch, self.ms, self.calls = torch, 0.0, 0
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.dist, self.real = dist, (dist.all_reduce, dist.broadcast)
+
+        def clocked(fn):
+            def run(*args, **kwargs):
+                self.torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kwargs)
+                self.torch.cuda.synchronize()
+                self.ms += (time.perf_counter() - t0) * 1e3
+                self.calls += 1
+                return out
+            return run
+
+        dist.all_reduce, dist.broadcast = (clocked(fn) for fn in self.real)
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce, self.dist.broadcast = self.real
+
+
+def dp_steps(torch, dev, mesh):
+    """DP_STEPS steps of the StyleGAN2-1024 case-2 trainer on ``mesh``
+    (None: this process alone): the first, under cuDNN's deterministic
+    algorithms, its gradients, parameters, scalars and FIR launches
+    (forward and adjoint by TPU kernel, counted from 0); then, on cuDNN's
+    default algorithms as the CLI runs, a warm-up step (a fresh process
+    loads each kernel at its first call), the third's host time and time
+    in collectives and the fourth's device time (one trace, no retake:
+    every rank takes the same steps)."""
+    from tpugan_torch.cli import e_align
+    from tpugan_torch.losses.lpips import random_lpips_fn
+    from tpugan_torch.ops import cuda, upfirdn
+    from tpugan_torch.ops.eq_lr import lreq_coefs
+    from tpugan_torch.train.e_align import info_scalars
+
+    args = e_align.make_parser().parse_args(dp_argv())
+    out = {}
+    with cudnn_deterministic(torch):
+        trainer = e_align.build_trainer(args, random_lpips_fn(dev), mesh=mesh)
+        state = trainer.state
+        out["derived"] = sg2_step_firs(trainer, step_image_gradients(e_align, args), True)
+        grads = dp_record(torch, state)
+        cuda.reset_launches()
+        upfirdn.reset_layout_launches()
+        with AdjointCount() as adjoint:
+            _, info = trainer.step(state, 0)
+            torch.cuda.synchronize()
+        total, adj = dict(upfirdn.layout_launches), dict(adjoint.counts)
+        out["launches"] = dict(cuda.launches)
+        out["firs"] = ({key: total[key] - adj[key] for key in total}, adj)
+        out["info"] = info_scalars(info)
+        out["grads"] = [[None if g is None else g.cpu() for g in gs] for gs in grads]
+        out["params"] = {n: p.detach().cpu() for n, p in state.encoder.named_parameters()}
+        out["coefs"], out["lr"] = lreq_coefs(state.encoder), args.lr
+    trainer.step(state, 1)
+    torch.cuda.synchronize()
+    with CollectiveClock(torch) as clock:
+        t0 = time.perf_counter()
+        trainer.step(state, 2)
+        torch.cuda.synchronize()
+        out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["collective_ms"], out["collective_calls"] = clock.ms, clock.calls
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.step(state, 3)
+        torch.cuda.synchronize()
+    out["device_ms"] = sum(e.device_time_total for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and not getattr(e, "is_user_annotation", False)) / 1e3 or None
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    return out
+
+
+def dp_rank_main(rank, world, store, out_path, backend):
+    """One rank of phase 18's group (``chip_smoke.py --dp-rank ...``): the
+    group through ``runtime.init_distributed``, the mesh (tpugan's
+    ``auto_mesh`` of the batch; a 1 x 1 mesh for a one-rank group, so that
+    every collective runs), :func:`dp_steps`, the result to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    from tpugan_torch.parallel import mesh as mesh_mod
+    from tpugan_torch.runtime import init_distributed, parity_mode
+
+    dev = torch.device(CARD)
+    init_distributed(f"file://{store}", num_processes=world, process_id=rank, backend=backend)
+    parity_mode()
+    if world > 1:
+        mesh = mesh_mod.auto_mesh(DP_BATCH, device_type=dev.type)
+    else:
+        mesh = mesh_mod.make_mesh([0], device_type=dev.type)
+    result = dp_steps(torch, dev, mesh)
+    result.update(rank=rank, backend=dist.get_backend(), group_size=mesh_mod.group_size(mesh_mod.data_group(mesh)),
+                  jax_loaded=any(n == "jax" or n.startswith("jax.") for n in sys.modules))
+    torch.save(result, out_path)
+    dist.destroy_process_group()
+    return 0
+
+
+def lreq_part_bound(updates, beta2=0.99):
+    """The most (in lr c) that an element of two LREQAdam trajectories of
+    ``updates`` updates can part by: each update is at most lr c
+    sqrt((1 - beta2^t) / (1 - beta2)), with either sign."""
+    return sum(2 * math.sqrt((1 - beta2**t) / (1 - beta2)) for t in range(1, updates + 1))
+
+
+def dp_distance(torch, label, got, want, coefs, lr, updates):
+    """``got`` (a rank's step) against ``want`` (the one-process step) by
+    phase 18's rule (DP_BATCH's comment); returns the distances."""
+    info = max(abs(got["info"][k] - v) / max(1.0, abs(v)) for k, v in want["info"].items())
+    grad_share = 0.0
+    for gs, ws in zip(got["grads"], want["grads"], strict=True):
+        for g, w in zip(gs, ws, strict=True):
+            check((g is None) == (w is None), f"{label}: the gradients handed to LREQAdam differ in kind")
+            if w is not None:
+                grad_share = max(grad_share, float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30))
+    param_max, param_mean = 0.0, 0.0  # in units of lr c
+    for name, p in want["params"].items():
+        diff = (got["params"][name] - p).abs() / (lr * coefs[name])
+        param_max, param_mean = max(param_max, float(diff.max())), max(param_mean, float(diff.mean()))
+    out = {"info": info, "grad_share_of_max": grad_share, "param_max_lr_c": param_max,
+           "param_mean_lr_c": param_mean}
+    check(info <= CPU_GPU_ATOL and param_max <= lreq_part_bound(updates) and param_mean <= 0.05,
+          f"{label} against the one-process step: {out}; limits: scalars {CPU_GPU_ATOL} (CPU_GPU_ATOL), "
+          f"parameters {lreq_part_bound(updates):.2f} lr c an element and 0.05 lr c on average")
+    return out
+
+
+def data_parallel_path(torch, dev, smi, workdir):
+    """Phase 18's data parallelism: the one-process step, then DP_WORLD
+    gloo ranks, then one NCCL rank, on the one card."""
+    one = dp_steps(torch, dev, None)
+    check(tuple(one["firs"][0][k] for k in ("B1", "B2", "XLA")) == tuple(DP_FIRS[0].values())
+          and tuple(one["firs"][1][k] for k in ("B1", "B2", "XLA")) == tuple(DP_FIRS[1].values()),
+          f"the one-process step's FIR launches {one['firs']}, expected {DP_FIRS}")
+    say(f"data parallel: the one-process SG2-{SG2_SIZE} case-2 step at batch {DP_BATCH}: {one['step_ms']:.3f} ms "
+        f"(host), device time {dp_ms(one['device_ms'])}, peak {one['peak_mib']:.1f} MiB; {smi}")
+    torch.cuda.empty_cache()
+    groups = DP_GROUPS
+    procs = {}
+    for backend, world in groups.items():  # one group after the other: a rank's times are its group's
+        t0 = time.perf_counter()
+        store = os.path.join(workdir, f"store_{backend}")
+        group = {}
+        for rank in range(world):
+            out_path = os.path.join(workdir, f"{backend}_{rank}.pt")
+            cmd = [sys.executable, os.path.abspath(__file__), "--dp-rank", str(rank), str(world), store,
+                   out_path, backend]
+            group[(backend, rank)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                                       text=True), out_path)
+        logs = {}
+        try:
+            for key, (proc, _) in group.items():
+                logs[key] = proc.communicate(timeout=DP_TIMEOUT)[0]
+        finally:
+            for proc, _ in group.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for key, (proc, _) in group.items():
+            check(proc.returncode == 0, f"data-parallel rank {key} exited {proc.returncode}:\n{logs[key][-4000:]}")
+        say(f"data parallel: {world} {backend} rank(s) ran in {time.perf_counter() - t0:.1f} s")
+        procs.update(group)
+    ranks = {key: torch.load(path, weights_only=False) for key, (_, path) in procs.items()}
+    out = {"one_process": {k: one[k] for k in ("step_ms", "device_ms", "peak_mib")}, "ranks": {}}
+    gloo = [ranks[("gloo", r)] for r in range(DP_WORLD)]
+    for name, p in gloo[0]["params"].items():
+        check(all(torch.equal(p, other["params"][name]) for other in gloo[1:]), f"the ranks' {name} differ")
+    for key, r in ranks.items():
+        label = f"{key[0]} rank {key[1]}"
+        check(not r["jax_loaded"] and r["backend"] == key[0] and r["group_size"] == groups[key[0]],
+              f"{label}: backend {r['backend']}, group of {r['group_size']}, JAX loaded {r['jax_loaded']}")
+        fwd, adj = r["firs"]
+        check((fwd, adj) == tuple(r["derived"]) and all(fwd[k] == n for k, n in DP_FIRS[0].items())
+              and all(adj[k] == n for k, n in DP_FIRS[1].items()),
+              f"{label}: FIR launches forward {fwd}, adjoint {adj}; derived {r['derived']}, expected {DP_FIRS}")
+        check(r["launches"] == expected_launches(upfirdn2d=sum(fwd.values()) + sum(adj.values())),
+              f"{label}: launches {r['launches']}")
+        distance = dp_distance(torch, label, r, one, one["coefs"], one["lr"], len(one["grads"]))
+        out["ranks"][label] = {"launches": r["launches"]["upfirdn2d"], "firs": {"forward": fwd, "adjoint": adj},
+                               "step_ms": r["step_ms"], "collective_ms": r["collective_ms"],
+                               "collective_calls": r["collective_calls"], "device_ms": r["device_ms"],
+                               "peak_mib": r["peak_mib"], "distance": distance}
+        say(f"data parallel {label}: FIR launches a step forward {fwd}, adjoint {adj} (as derived); "
+            f"against the one-process step: scalars {distance['info']:.3e} (limit {CPU_GPU_ATOL}), parameters "
+            f"{distance['param_max_lr_c']:.3f} lr c at most (limit {lreq_part_bound(len(one['grads'])):.2f}), "
+            f"{distance['param_mean_lr_c']:.4f} lr c on average (limit 0.05), gradients "
+            f"{distance['grad_share_of_max']:.3e} of max |g| (not held); step {r['step_ms']:.3f} ms (host), of it "
+            f"{r['collective_ms']:.3f} ms in "
+            f"{r['collective_calls']} collectives, device time {dp_ms(r['device_ms'])}, peak {r['peak_mib']:.1f} MiB; "
+            f"{smi}")
+    say(f"data parallel: the {DP_WORLD} gloo ranks' encoders are bitwise equal after the step")
+    return out
+
+
+def slice7e_path(torch, dev, smi):
+    """Phase 18 (the module docstring's item 18)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="tpugan_7e_") as workdir:
+        t0 = time.perf_counter()
+        loader = loader_path(torch, dev, smi, workdir)
+        say(f"phase 18: the loader took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dp = data_parallel_path(torch, dev, smi, workdir)
+        say(f"phase 18: data parallelism took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    return {"loader": loader, "data_parallel": dp}
+
+
 
 def main() -> int:
     import torch
@@ -6557,6 +6953,14 @@ def main() -> int:
     check(all(s7d_launches.values()), f"phase 17 missed a kernel: {s7d_launches}")
     say(f"phase 17 (slice 7d) took {time.perf_counter() - t0:.1f} s; the script {time.perf_counter() - start:.1f} s")
 
+    # ---- 18. slice 7e: the PNG loader, data parallelism over processes ----
+    t0 = time.perf_counter()
+    s7e = slice7e_path(torch, dev, smi)
+    s7e_fir = {"embedding through the PNG loader": s7e["loader"]["embedding_launches"]["upfirdn2d"]}
+    s7e_fir.update({f"data parallel: {label}": r["launches"] for label, r in s7e["data_parallel"]["ranks"].items()})
+    check(len(s7e_fir) == DP_WORLD + 2 and all(s7e_fir.values()), f"phase 18 missed the FIR kernel: {s7e_fir}")
+    say(f"phase 18 (slice 7e) took {time.perf_counter() - t0:.1f} s; the script {time.perf_counter() - start:.1f} s")
+
     sg2_bf16 = bf16["firs"]["SG2"][1]
     bf16_step = {k: sum(p_[k] for parts in sg2_bf16.values() for p_ in parts.values())
                  for k in ("ms", "fp32_ms", "plain_ms", "library_ms", "bound_ms")}
@@ -6572,7 +6976,7 @@ def main() -> int:
         "launches": (launches["upfirdn2d"] + sg2["launches"] + sgv1_train["launches"] + sg2_train["launches"]
                      + sum(fir_inv.values()) + mis["launches"] + cam["request"]["launches"] + sum(s7a_fir.values())
                      + sum(s7b_launches["upfirdn2d"].values()) + s7c["launches"] + s7c["decode3_launches"]
-                     + sum(s7d_launches["upfirdn2d"].values())),
+                     + sum(s7d_launches["upfirdn2d"].values()) + sum(s7e_fir.values())),
         "launches_by_path": {"SGv1 Cat256 serving": launches["upfirdn2d"],
                              f"StyleGAN2-{SG2_SIZE} serving": sg2["launches"],
                              "SGv1 Cat256 training": sgv1_train["launches"],
@@ -6582,7 +6986,7 @@ def main() -> int:
                              "infer_e --gradcam": cam["request"]["launches"],
                              **s7a_fir, **s7b_launches["upfirdn2d"],
                              "SGv1 Cat256 GAN training": s7c["launches"], "decode3": s7c["decode3_launches"],
-                             **s7d_launches["upfirdn2d"]},
+                             **s7d_launches["upfirdn2d"], **s7e_fir},
         "max_abs_err": max(fir_err, adjoint_err, sg2["max_abs_err"], sg2_train["max_abs_err"], inv_err["upfirdn2d"],
                            mis["max_abs_err"], s7c["max_abs_err"]),
         "inversion": inversion,
@@ -6590,6 +6994,7 @@ def main() -> int:
         "slice7a": s7a,
         "slice7b": s7b,
         "slice7d": s7d,
+        "slice7e": s7e,
         "slice7c": {"gan_training": {k: v for k, v in s7c.items() if k not in ("launches", "decode3_launches")},
                     "launches_per_step_are": f"FIR launches of one D step and one G step at lod {s7c['lod']}, batch "
                                              f"{s7c['batch']}, by direction and TPU kernel, as counted in every "
@@ -6722,4 +7127,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6]))
     sys.exit(main())

@@ -707,17 +707,22 @@ def test_mtype4_raises_where_tpugan_raises(tool, tmp_path):
         tool.main(argv)
 
 
-def test_later_parts_raise(sgv1, monkeypatch):
+def test_later_parts_raise(sgv1, monkeypatch, tmp_path):
     """Grad-CAM attention (slice 6) runs now (tests/test_torch_gradcam.py);
     it needs its VGG16. Converted VGG16 and LPIPS weights (slice 7a) load:
     reference-named state dicts from a seed, handed over in place of the
-    files. Parallelism still waits."""
+    files (which the flags name, and so must exist: io/fetch.py's rule).
+    A mesh inverts data-parallel (slice 7e, tests/test_torch_parallel.py);
+    the space axis still waits."""
     from tpugan_torch.cli.common import build_lpips_fn
     from tpugan_torch.io import convert
     from tpugan_torch.tools import reference_state
 
     states = {"vgg16.pth": reference_state.vgg16(np.random.default_rng(0)),
               "x.pth": reference_state.lpips(np.random.default_rng(1))}
+    monkeypatch.chdir(tmp_path)
+    for name in states:
+        (tmp_path / name).touch()
     monkeypatch.setattr(convert, "load_torch_state_dict", states.get)
     args = embedding.make_parser().parse_args([
         "--gradcam", "--vgg_weights", "vgg16.pth", "--lpips_weights", "x.pth", "--mtype", "1", "--img_size",
@@ -729,7 +734,6 @@ def test_later_parts_raise(sgv1, monkeypatch):
     encode, resynth, encoder = sgv1.port(torch.float32)
     with pytest.raises(ValueError, match="vgg"):
         make_embedder(encode, resynth, encoder, EmbeddingConfig(attention="gradcam"))
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        make_embedder(encode, resynth, encoder, EmbeddingConfig(), mesh=object())
+    assert callable(make_embedder(encode, resynth, encoder, EmbeddingConfig(), mesh=None))
     with pytest.raises(NotImplementedError, match="parallelism"):
         make_embedder(encode, resynth, encoder, EmbeddingConfig(), spatial=True)

@@ -301,7 +301,7 @@ def test_e_mis_align_cli_trains_and_writes_its_files(tmp_path, capsys, request, 
     assert bf16 or "VGG16 (Grad-CAM/GBP) weights are RANDOM" in capsys.readouterr().err
 
 
-def test_e_mis_align_cli_lean_steps_and_defaults(setup):
+def test_e_mis_align_cli_lean_steps_and_defaults(setup, tmp_path):
     args = e_mis_align.parse_args(TINY + ["--iterations", "3"])
     assert args.batch_size == 5 and args.lr == 0.0015
     vgg = setup["vgg"]
@@ -321,6 +321,9 @@ def test_e_mis_align_cli_lean_steps_and_defaults(setup):
 
     state = reference_state.vgg16(np.random.default_rng(0))
     with pytest.MonkeyPatch.context() as mp:
+        # the flag names a file, which must exist (io/fetch.py's rule)
+        mp.chdir(tmp_path)
+        (tmp_path / "vgg16.pth").touch()
         mp.setattr(convert, "load_torch_state_dict", lambda path: state if path == "vgg16.pth" else None)
         loaded = e_mis_align.build_trainer(e_mis_align.parse_args(TINY + ["--vgg_weights", "vgg16.pth"]))
     assert torch.equal(loaded.vgg.head.fc_2.weight, torch.from_numpy(state["classifier.6.weight"]))

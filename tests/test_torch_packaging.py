@@ -1,5 +1,6 @@
 """The port's packaging: an installed ``tpugan_torch`` ships every file its
-CUDA sources include, so that it can build its kernels outside a checkout."""
+CUDA and C++ sources include, so that it can build its kernels and its PNG
+loader outside a checkout."""
 
 import fnmatch
 import pathlib
@@ -7,6 +8,8 @@ import re
 import tomllib
 
 import pytest
+
+from tpugan_torch.ops import cuda
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CSRC = ROOT / "tpugan_torch" / "csrc"
@@ -29,6 +32,15 @@ def test_every_quoted_include_of_a_source_is_shipped(source):
     for header in re.findall(r'^\s*#\s*include\s+"([^"]+)"', source.read_text(), re.MULTILINE):
         assert (CSRC / header).is_file(), f"{source.name} includes {header}, which is not in csrc/"
         assert _shipped(f"csrc/{header}"), f"{source.name} includes {header}, which is not shipped"
+
+
+@pytest.mark.parametrize("name", sorted(source for source, _ in cuda.HOST_LIBRARIES.values()))
+def test_every_host_source_is_shipped(name):
+    """The PNG loader's C++ source (``ops/cuda.py``'s HOST_LIBRARIES), which
+    an install builds with g++ at first use, is shipped and includes
+    nothing of its own beside it."""
+    assert (CSRC / name).is_file() and _shipped(f"csrc/{name}")
+    assert not re.findall(r'^\s*#\s*include\s+"([^"]+)"', (CSRC / name).read_text(), re.MULTILINE)
 
 
 def test_the_attention_header_is_shipped():

@@ -152,11 +152,14 @@ def test_cli_writes_grids_on_cpu(tmp_path):
     ],
 )
 def test_later_slices_raise(tmp_path, monkeypatch, extra, match):
-    """Parallelism waits for its ROADMAP item; a converted encoder
+    """The space axis waits for its ROADMAP item; a converted encoder
     (``--checkpoint_dir_E``, slice 7a) now loads: a reference-named E state
     dict from a seed, written to the file the flag names; PGGAN (mtype 3,
     slice 7b) now builds on the CPU with E_PG and answers a request
-    (tests/test_torch_pggan.py holds it to tpugan)."""
+    (tests/test_torch_pggan.py holds it to tpugan); ``--multihost`` (slice
+    7e) starts a process group where one is described and is a no-op for a
+    single process, as tpugan's (tests/test_torch_parallel.py runs a
+    2-rank group)."""
     if extra[0] == "--mtype":
         bundle = common.build_bundle(_args("--device", "cpu", *extra))
         assert bundle.mtype == 3 and type(bundle.generator).__name__ == "PGGANGenerator"
@@ -178,6 +181,14 @@ def test_later_slices_raise(tmp_path, monkeypatch, extra, match):
                                   convert.encoder(state, 4))
         for name, value in want.state_dict().items():
             assert torch.equal(bundle.encoder.state_dict()[name], value), name
+        return
+    if extra[0] == "--multihost":
+        import torch.distributed as dist
+
+        for var in ("WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT"):
+            monkeypatch.delenv(var, raising=False)
+        bundle = common.build_bundle(_args("--device", "cpu", *extra))
+        assert not dist.is_initialized() and bundle.mtype == 1
         return
     with pytest.raises(NotImplementedError, match=match):
         common.build_bundle(_args("--device", "cpu", *extra))
@@ -202,6 +213,8 @@ def test_gradcam_raises_until_its_slice(tmp_path, monkeypatch):
     from tpugan_torch.tools import reference_state
 
     state = reference_state.vgg16(np.random.default_rng(0))
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "vgg16.pth").touch()  # the flag names a file, which must exist (io/fetch.py's rule)
     monkeypatch.setattr(convert, "load_torch_state_dict", {"vgg16.pth": state}.get)
     infer_e.main(["--gradcam", "--vgg_weights", "vgg16.pth", "--mtype", "1", "--img_size", "32",
                   "--start_features", "64", "--random_init", "--device", "cpu", "--count", "1",
@@ -222,13 +235,15 @@ def _imported(nodes):
 
 @pytest.mark.parametrize(
     "path",
-    sorted((ROOT / "tpugan_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    sorted((ROOT / "tpugan_torch").rglob("*.py"))
+    + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_worker.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_port_imports_no_jax_and_no_tpugan(path):
-    """Neither the package nor chip_smoke.py imports JAX, flax, optax or the
-    JAX package anywhere; triton, where a kernel needs it, is imported
-    inside the launching function, never at module level."""
+    """Neither the package, chip_smoke.py nor the data-parallel test's
+    worker (the spawned ranks) imports JAX, flax, optax or the JAX package
+    anywhere; triton, where a kernel needs it, is imported inside the
+    launching function, never at module level."""
     tree = ast.parse(path.read_text(), filename=str(path))
     found = set(_imported(ast.walk(tree))) & FORBIDDEN
     assert not found, f"{path} imports {found}"
@@ -242,4 +257,15 @@ def test_slice_7d_modules_are_read_by_the_ast_test(module):
     ``test_port_imports_no_jax_and_no_tpugan`` reads."""
     path = ROOT / "tpugan_torch" / module
     assert path in set((ROOT / "tpugan_torch").rglob("*.py"))
+    test_port_imports_no_jax_and_no_tpugan(path)
+
+
+@pytest.mark.parametrize("module", ["parallel/__init__.py", "parallel/mesh.py", "io/native.py", "io/fetch.py",
+                                    "runtime.py", "../tests/torch_parallel_worker.py"])
+def test_slice_7e_modules_are_read_by_the_ast_test(module):
+    """Slice 7e's modules (and the spawned ranks' worker) exist and are among
+    the files ``test_port_imports_no_jax_and_no_tpugan`` reads."""
+    path = (ROOT / "tpugan_torch" / module).resolve()
+    assert path in {p.resolve() for p in (ROOT / "tpugan_torch").rglob("*.py")} | {
+        ROOT / "tests" / "torch_parallel_worker.py"}
     test_port_imports_no_jax_and_no_tpugan(path)

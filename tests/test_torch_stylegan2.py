@@ -111,7 +111,10 @@ def test_update_w_avg_matches(rng):
     ref = J.update_w_avg(jnp.asarray(w_avg), jnp.asarray(w), 0.9)
     got = P.update_w_avg(torch.from_numpy(w_avg), torch.from_numpy(w), 0.9)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **LAYER_TOL)
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    # the cross-replica mean takes a process group, the counterpart of the
+    # named axis (tests/test_torch_parallel.py holds it to tpugan's pmean
+    # over a 2-rank group); a name is refused
+    with pytest.raises(TypeError, match="process group"):
         P.update_w_avg(torch.from_numpy(w_avg), torch.from_numpy(w), axis_name="data")
 
 

@@ -84,7 +84,8 @@ def main(argv=None):
         raise TypeError("baseline_i2s optimises a w+ code [1, layers, 512], which PGGAN's generator "
                         "refuses (tpugan's fails the same way); it optimises StyleGAN w+ codes (mtypes 1 and 2)")
 
-    from tpugan_torch.io.image import from_unit, load_image_dir, save_image, to_unit
+    from tpugan_torch.io.image import from_unit, save_image, to_unit
+    from tpugan_torch.io.native import load_image_dir_fast as load_image_dir
 
     bundle = build_bundle(args)
     resynth = train_resynth(bundle)

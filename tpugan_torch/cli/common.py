@@ -10,10 +10,14 @@ generator comes from ``--checkpoint_dir_GAN`` (StyleGANv1's directory of
 PGGAN's ``.pth``, BigGAN's ``.pt`` with ``--config_dir``), and the encoder from
 ``--checkpoint_dir_E`` where it is given, LPIPS from ``--lpips_weights`` and
 VGG16 from ``--vgg_weights``, each converted from the reference's torch
-state dict (``tpugan_torch/io/convert.py``; file paths only).
+state dict (``tpugan_torch/io/convert.py``); the last two take a path or an
+http(s) URL, downloaded once (``tpugan_torch/io/fetch.py``).
 
-What later slices bring raises :class:`NotImplementedError` naming the
-ROADMAP item: ``--space_shards`` above 1 and ``--multihost``.
+Data parallelism: ``--multihost``, or torchrun's environment naming more
+than one process, starts the process group (``runtime.init_distributed``),
+and the training and inversion CLIs shard their batch over
+:func:`data_parallel`'s mesh. ``--space_shards`` above 1 (the ``space``
+axis) raises :class:`NotImplementedError` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ from typing import Any, NamedTuple
 import torch
 
 from tpugan_torch.io import convert
-from tpugan_torch.runtime import resolve_device
+from tpugan_torch.io.fetch import cached_path
+from tpugan_torch.parallel.mesh import SPACE_AXIS_TODO, auto_mesh, takes_part
+from tpugan_torch.runtime import init_distributed, resolve_device
 
 def add_common_args(parser: argparse.ArgumentParser, training: bool = True):
     if training:
@@ -54,7 +60,8 @@ def add_common_args(parser: argparse.ArgumentParser, training: bool = True):
     parser.add_argument("--vgg_weights", default=None,
                         help="torchvision vgg16 state dict (grad-cam path)")
     parser.add_argument("--multihost", action="store_true",
-                        help="span several hosts (not in the port yet)")
+                        help="start the process group (runtime.init_distributed: torchrun's environment) "
+                             "so that the mesh spans every process; a no-op for a single process")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="run on the GPU (default; raises if there is none) or the CPU")
     return parser
@@ -89,6 +96,30 @@ class GanBundle(NamedTuple):
     mapping: Any = None  # nn.Module (frozen; mtype 1)
     remap: Any = None  # (z) -> w+ (mtype 1)
     center: Any = None  # the mapping's truncation center [num_layers, 512] (mtype 1, converted)
+
+
+def start_distributed(args) -> bool:
+    """Start the process group with ``--multihost`` or where torchrun's
+    environment names more than one process (tpugan's ``--multihost``, and
+    its view of a host's local devices without it); gloo for ``--device
+    cpu``. True when a group of more than one process is up."""
+    world = os.environ.get("WORLD_SIZE", "").strip()
+    if not (getattr(args, "multihost", False) or (world and int(world) > 1)):
+        return False
+    return init_distributed(backend="gloo" if getattr(args, "device", "cuda") == "cpu" else None)
+
+
+def data_parallel(args):
+    """``(mesh, takes_part)`` of a training or inversion CLI: the group
+    started (:func:`start_distributed`), tpugan's ``auto_mesh(batch_size,
+    space=space_shards)`` over its processes (``None`` for one), and whether
+    this process runs the steps (ranks past the mesh leave after its note).
+    ``--space_shards`` above 1 raises."""
+    if getattr(args, "space_shards", 1) != 1:
+        raise NotImplementedError(SPACE_AXIS_TODO)
+    start_distributed(args)
+    mesh = auto_mesh(args.batch_size, space=args.space_shards, device_type=resolve_device(args.device).type)
+    return mesh, takes_part(mesh)
 
 
 def _encoder_variant_kwargs(ablation: int, case: int) -> dict:
@@ -126,10 +157,9 @@ def build_bundle(args) -> GanBundle:
     ``--checkpoint_dir_GAN``; the encoder converted from
     ``--checkpoint_dir_E`` where it is given (``tpugan/cli/common.py:
     114-307``)."""
-    if getattr(args, "multihost", False):
-        raise NotImplementedError("--multihost comes with ROADMAP slice 7 (parallelism)")
     if getattr(args, "space_shards", 1) != 1:
-        raise NotImplementedError("--space_shards > 1 comes with ROADMAP slice 7 (parallelism)")
+        raise NotImplementedError(SPACE_AXIS_TODO)
+    start_distributed(args)
     if args.mtype not in (1, 2, 3, 4):
         raise ValueError(f"unknown mtype {args.mtype}")
     if not args.random_init and not args.checkpoint_dir_GAN:
@@ -297,14 +327,15 @@ def warn_random_weights(flag: str, consequence: str) -> None:
 
 def build_lpips_fn(args):
     """The LPIPS closure of ``--lpips_weights`` (the official VGG LPIPS
-    state dict, converted), on ``args.device``; in bf16 under ``--bf16``
-    unless ``--fp32_lpips`` (``tpugan/cli/common.py:327-353``). The
+    state dict, converted; a path or URL, ``io/fetch.py``), on
+    ``args.device``; in bf16 under ``--bf16`` unless ``--fp32_lpips``
+    (``tpugan/cli/common.py:327-353``). The
     reference always trains with real LPIPS (E_align_cropping_s1.py:98);
     without weights the term is disabled, loudly, as in ``tpugan``."""
     if getattr(args, "lpips_weights", None):
         from tpugan_torch.losses.lpips import LPIPS, make_lpips_fn
 
-        state = convert.lpips_vgg(convert.load_torch_state_dict(args.lpips_weights))
+        state = convert.lpips_vgg(convert.load_torch_state_dict(cached_path(args.lpips_weights)))
         model = convert.built(LPIPS, state).to(resolve_device(getattr(args, "device", "cuda")))
         if getattr(args, "bf16", False) and not getattr(args, "fp32_lpips", False):
             # the bf16 LPIPS of tpugan's bf16 runs: bf16 VGG weights and
@@ -324,15 +355,29 @@ def build_vgg16(args):
     ``--vgg_weights`` (torchvision's state dict, classifier included,
     converted; ``tpugan/cli/common.py:356-372``), else with random weights
     seeded by ``args.seed`` and a loud warning, as ``tpugan`` runs without
-    it: the attention over random features is exercised, not meaningful."""
+    it: the attention over random features is exercised, not meaningful.
+    ``--vgg_weights`` takes a path or URL (``io/fetch.py``)."""
     from tpugan_torch.losses.vgg import VGG16
 
     if getattr(args, "vgg_weights", None):
-        vgg = convert.built(VGG16, convert.vgg16(convert.load_torch_state_dict(args.vgg_weights)))
+        vgg = convert.built(VGG16, convert.vgg16(convert.load_torch_state_dict(cached_path(args.vgg_weights))))
     else:
         warn_random_weights("vgg_weights", "VGG16 (Grad-CAM/GBP) weights are RANDOM")
         vgg = VGG16(generator=torch.Generator().manual_seed(args.seed))
     return vgg.requires_grad_(False).to(resolve_device(getattr(args, "device", "cuda")))
+
+
+def loss_log_of(base: str):
+    """``Loss.txt`` under ``base``, opened for appending on the primary
+    process (``runtime.is_primary_host``); elsewhere a context that gives
+    ``None``: the other processes of a group write nothing."""
+    import contextlib
+
+    from tpugan_torch.runtime import is_primary_host
+
+    if is_primary_host():
+        return open(os.path.join(base, "Loss.txt"), "a")
+    return contextlib.nullcontext()
 
 
 def make_result_dirs(experiment_dir, default_name: str):

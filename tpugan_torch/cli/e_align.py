@@ -38,6 +38,14 @@ loops and writes. Every ``--checkpoint_every`` iterations (past iteration
 0) it saves the train state to ``models/step_<N>``; ``--resume`` continues
 from the newest one at the iteration after it, and the run is bitwise the
 unbroken one (the draws are a function of the iteration).
+
+Data parallel: ``torchrun --nproc_per_node N -m tpugan_torch.cli.e_align
+...`` (or ``--multihost`` under any launcher that sets torchrun's
+environment) runs one process per GPU over tpugan's ``auto_mesh`` of the
+batch (``cli/common.py::data_parallel``): each rank takes its rows of the
+iteration's draws and every step is the one-process step on the global
+batch (``train/e_align.py::make_train_step``). Rank 0 alone writes the log,
+the grids and the checkpoints; the others wait for each save.
 """
 
 from __future__ import annotations
@@ -55,11 +63,14 @@ from tpugan_torch.cli.common import (
     add_common_args,
     build_bundle,
     build_lpips_fn,
+    data_parallel,
     family_pipeline,
+    loss_log_of,
     make_result_dirs,
 )
 from tpugan_torch.io.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from tpugan_torch.optim import lreq_adam
+from tpugan_torch.parallel.mesh import barrier, replicate
 from tpugan_torch.precision import bf16_encode, bf16_frozen, bf16_pipeline
 from tpugan_torch.train.e_align import (
     EncoderTrainState,
@@ -130,15 +141,19 @@ class Pipeline(NamedTuple):
     draw: Callable
 
 
-def build_pipeline(args, draw=None) -> Pipeline:
+def build_pipeline(args, draw=None, mesh=None) -> Pipeline:
     """The frozen generator (a bf16 copy with ``--bf16``), the encoder and
     the train-mode closures for ``args``, on ``args.device``, from random
     weights seeded by ``args.seed``. ``draw(iteration) -> Request`` replaces
-    the iteration's seeded draws (a replay of given inputs)."""
+    the iteration's seeded draws (a replay of given inputs). With ``mesh``
+    the models are broadcast from its first rank."""
     ab = args.ablation
     if ab == 1 and args.mtype != 1:
         raise ValueError("ablation 1 (z re-mapping) is StyleGANv1-only")
     bundle = build_bundle(args)
+    for module in (bundle.encoder, bundle.generator, bundle.mapping):
+        if module is not None:
+            replicate(mesh, module)
     bundle.generator.requires_grad_(False)
     if args.bf16:
         # the fp32 mapping stays with bundle.remap (ablation 1), as tpugan's
@@ -176,13 +191,15 @@ def build_pipeline(args, draw=None) -> Pipeline:
     return Pipeline(bundle, encode, synth, resynth, draw)
 
 
-def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
+def build_trainer(args, lpips_fn=None, draw=None, mesh=None) -> Trainer:
     """The encoder's train state and step functions for ``args``, on
     ``args.device``, from random weights seeded by ``args.seed``. ``draw(
     iteration) -> Request`` replaces the iteration's seeded draws (a replay
-    of given inputs). With ``--bf16`` the trainer's bundle holds the bf16
-    copies of the generator and mapping that the step runs."""
-    bundle, encode, synth, resynth, draw = build_pipeline(args, draw)
+    of given inputs); with ``mesh`` (:func:`~tpugan_torch.cli.common.
+    data_parallel`) the steps and the grid take this rank's rows of them.
+    With ``--bf16`` the trainer's bundle holds the bf16 copies of the
+    generator and mapping that the step runs."""
+    bundle, encode, synth, resynth, draw = build_pipeline(args, draw, mesh)
     ab = args.ablation
     case = 2 if ab else args.case  # every ablation script trains through its image losses
     weights = {}
@@ -190,13 +207,13 @@ def build_trainer(args, lpips_fn=None, draw=None) -> Trainer:
         weights = dict(image_weights=ABLATION_IMAGE_WEIGHTS[ab],
                        latent_weights=ABLATION_LATENT_WEIGHTS[ab],
                        sequential_image_steps=ab in SEQUENTIAL_ABLATIONS)
-    remat = dict(remat=args.remat, remat_policy=args.remat_policy)
+    remat = dict(remat=args.remat, remat_policy=args.remat_policy, mesh=mesh)
     state = init_train_state(bundle.encoder, lreq_adam(bundle.encoder, args.lr))
     step = make_train_step(encode, synth, resynth, draw, case=case, lpips_fn=lpips_fn, **weights, **remat)
     lean = None
     if case == 1 and not args.eager_metrics:
         lean = make_train_step(encode, synth, resynth, draw, case=1, compute_image_losses=False, **remat)
-    return Trainer(bundle, state, step, lean, make_align_visuals(encode, synth, resynth, draw))
+    return Trainer(bundle, state, step, lean, make_align_visuals(encode, synth, resynth, draw, mesh))
 
 
 def resume(state: EncoderTrainState, models_dir: str, wanted: bool) -> int:
@@ -216,21 +233,24 @@ def resume(state: EncoderTrainState, models_dir: str, wanted: bool) -> int:
 
 def main(argv=None):
     args = make_parser().parse_args(argv)
+    mesh, takes_part = data_parallel(args)
+    if not takes_part:
+        return None
     from tpugan_torch.io.image import save_image_grid, to_unit
 
-    trainer = build_trainer(args, build_lpips_fn(args))
+    trainer = build_trainer(args, build_lpips_fn(args), mesh=mesh)
     name = f"mtype{args.mtype}-{args.img_size}-case{args.case}" + (
         f"-ab{args.ablation}" if args.ablation else "")
     base, imgs_dir, models_dir = make_result_dirs(args.experiment_dir, name)
     state = trainer.state
     start = resume(state, models_dir, args.resume)
-    with open(os.path.join(base, "Loss.txt"), "a") as loss_log:
+    with loss_log_of(base) as loss_log:
         for iteration in range(start, args.iterations):
             on_tick = iteration % args.log_every == 0
             step_fn = trainer.step if (on_tick or trainer.lean is None) else trainer.lean
             vis = trainer.visuals(state, iteration) if on_tick else None
             state, info = step_fn(state, iteration)
-            if on_tick:
+            if on_tick and loss_log is not None:
                 rec = {"iteration": iteration, "epoch": iteration // 30000, **info_scalars(info)}
                 print(json.dumps(rec), flush=True)
                 loss_log.write(json.dumps(rec) + "\n")
@@ -241,7 +261,9 @@ def main(argv=None):
                     np.clip(grid, 0, 1), nrow=args.batch_size,
                 )
             if iteration % args.checkpoint_every == 0 and iteration > 0:
-                save_checkpoint(models_dir, state, iteration)
+                if loss_log is not None:  # the primary process
+                    save_checkpoint(models_dir, state, iteration)
+                barrier(mesh)
     return state
 
 

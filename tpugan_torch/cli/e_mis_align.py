@@ -26,6 +26,11 @@ LPIPS weights (``tpugan_torch/io/convert.py``). Every ``--checkpoint_every``
 iterations (past iteration 0) the train state is saved to
 ``models/step_<N>``, and ``--resume`` continues from the newest one, bitwise
 the unbroken run, as in ``tpugan/cli/e_mis_align.py:146-153``, ``:219-220``.
+
+Data parallel as ``cli/e_align.py``: under ``torchrun --nproc_per_node N``
+(or ``--multihost``) each rank trains on its rows of tpugan's ``auto_mesh``
+of the batch, the masks and overlays those of the global batch; rank 0
+writes.
 """
 
 from __future__ import annotations
@@ -38,10 +43,19 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from tpugan_torch.cli.common import GanBundle, add_common_args, build_lpips_fn, build_vgg16, make_result_dirs
+from tpugan_torch.cli.common import (
+    GanBundle,
+    add_common_args,
+    build_lpips_fn,
+    build_vgg16,
+    data_parallel,
+    loss_log_of,
+    make_result_dirs,
+)
 from tpugan_torch.cli.e_align import Pipeline, build_pipeline, resume
 from tpugan_torch.io.checkpoint import save_checkpoint
 from tpugan_torch.optim import lreq_adam
+from tpugan_torch.parallel.mesh import barrier, replicate
 from tpugan_torch.precision import BF16
 from tpugan_torch.train.e_align import EncoderTrainState, info_scalars, init_train_state
 from tpugan_torch.train.e_mis_align import make_mis_align_step, make_mis_align_visuals
@@ -82,28 +96,30 @@ class Trainer(NamedTuple):
     vgg: torch.nn.Module  # the VGG16 the attention runs (bf16 with --bf16)
 
 
-def build_trainer(args, lpips_fn=None, draw=None, vgg=None) -> Trainer:
+def build_trainer(args, lpips_fn=None, draw=None, vgg=None, mesh=None) -> Trainer:
     """The encoder's train state and step functions for ``args`` (as
     :func:`parse_args` gives them), on ``args.device``, from random weights
     seeded by ``args.seed``; ``vgg`` replaces :func:`build_vgg16`'s and
-    ``draw(iteration) -> Request`` the iteration's seeded draws. PGGAN
+    ``draw(iteration) -> Request`` the iteration's seeded draws; with
+    ``mesh`` the steps and dumps take this rank's rows of them. PGGAN
     (mtype 3) raises: its const1 [N, 1] meets E_PG's features unbroadcast
     in the const loss, and tpugan's step fails the same way."""
     if args.mtype == 3:
         raise TypeError("e_mis_align's const loss takes PGGAN's const1 [N, 1] against E_PG's features "
                         "without a broadcast (tpugan's mis-align step fails the same way); use e_align --mtype 3")
-    pipeline = build_pipeline(args, draw)
+    pipeline = build_pipeline(args, draw, mesh)
     bundle, encode, synth, resynth, draw = pipeline
-    vgg = build_vgg16(args) if vgg is None else vgg
+    vgg = replicate(mesh, build_vgg16(args) if vgg is None else vgg)
     if args.bf16:
         vgg = vgg.to(BF16)  # the VGG16's parameters cast, as tpugan's cast_floating(vgg_vars)
     state = init_train_state(bundle.encoder, lreq_adam(bundle.encoder, args.lr))
-    step = make_mis_align_step(encode, synth, resynth, draw, vgg, lpips_fn=lpips_fn, cam_bf16=args.bf16)
+    step = make_mis_align_step(encode, synth, resynth, draw, vgg, lpips_fn=lpips_fn, cam_bf16=args.bf16,
+                               mesh=mesh)
     lean = None
     if not args.eager_metrics:
         lean = make_mis_align_step(encode, synth, resynth, draw, vgg, cam_bf16=args.bf16,
-                                   compute_attention_losses=False)
-    visuals = make_mis_align_visuals(encode, synth, resynth, draw, vgg)
+                                   compute_attention_losses=False, mesh=mesh)
+    visuals = make_mis_align_visuals(encode, synth, resynth, draw, vgg, mesh)
     return Trainer(bundle, pipeline, state, step, lean, visuals, vgg)
 
 
@@ -129,14 +145,15 @@ def save_visuals(vis: dict, base: str, imgs_dir: str, iteration: int, nrow: int)
     save_image_grid(os.path.join(cam_dir, f"gb_{iteration}.png"), np.clip(gb, 0, 1), nrow=nrow)
 
 
-def run(trainer: Trainer, args) -> EncoderTrainState:
-    """Train for ``--iterations`` and write the records and dumps; returns
-    the final state."""
+def run(trainer: Trainer, args, mesh=None) -> EncoderTrainState:
+    """Train for ``--iterations`` and write the records and dumps (on the
+    primary process; with ``mesh`` the others wait for each checkpoint);
+    returns the final state."""
     base, imgs_dir, models_dir = make_result_dirs(args.experiment_dir,
                                                   f"mtype{args.mtype}-{args.img_size}-misalign")
     state = trainer.state
     start = resume(state, models_dir, args.resume)
-    with open(os.path.join(base, "Loss.txt"), "a") as loss_log:
+    with loss_log_of(base) as loss_log:
         for iteration in range(start, args.iterations):
             on_tick = iteration % args.log_every == 0
             step_fn = trainer.step if (on_tick or trainer.lean is None) else trainer.lean
@@ -144,20 +161,25 @@ def run(trainer: Trainer, args) -> EncoderTrainState:
             # reference saves tensors computed before its update
             vis = trainer.visuals(state, iteration) if on_tick else None
             state, info = step_fn(state, iteration)
-            if on_tick:
+            if on_tick and loss_log is not None:
                 rec = {"iteration": iteration, "epoch": iteration // 30000, **info_scalars(info)}
                 print(json.dumps(rec), flush=True)
                 loss_log.write(json.dumps(rec) + "\n")
                 loss_log.flush()
                 save_visuals(vis, base, imgs_dir, iteration, args.batch_size)
             if iteration % args.checkpoint_every == 0 and iteration > 0:
-                save_checkpoint(models_dir, state, iteration)
+                if loss_log is not None:  # the primary process
+                    save_checkpoint(models_dir, state, iteration)
+                barrier(mesh)
     return state
 
 
 def main(argv=None):
     args = parse_args(argv)
-    return run(build_trainer(args, build_lpips_fn(args)), args)
+    mesh, takes_part = data_parallel(args)
+    if not takes_part:
+        return None
+    return run(build_trainer(args, build_lpips_fn(args), mesh=mesh), args, mesh)
 
 
 if __name__ == "__main__":

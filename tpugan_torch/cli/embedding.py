@@ -35,9 +35,14 @@ build_vgg16``, random without ``--vgg_weights``, as in ``tpugan``; fp32
 under ``--bf16`` too, as tpugan leaves it): ``imgs + mask + Gcam``, the
 attention terms from the detached reconstruction.
 
-What later slices bring raises :class:`NotImplementedError` naming its
-ROADMAP slice: ``--lpips_weights`` (slice 7, which gives ``--fp32_lpips``
-its effect) and ``--vgg_weights`` (slice 7).
+The image directory is read through ``io/native.py::load_image_dir_fast``
+(tpugan's loader: an all-PNG directory resized bilinearly with aligned
+corners by the C++ library, else PIL), so the targets are tpugan's pixels.
+
+Data parallel as ``cli/e_align.py``: under ``torchrun --nproc_per_node N``
+(or ``--multihost``) each image batch is split over tpugan's ``auto_mesh``
+of ``--batch_size`` and every iteration is the one-process iteration on the
+whole batch; rank 0 writes.
 """
 
 from __future__ import annotations
@@ -56,11 +61,13 @@ from tpugan_torch.cli.common import (
     build_bundle,
     build_lpips_fn,
     build_vgg16,
+    data_parallel,
     draw_inputs,
     family_pipeline,
     make_result_dirs,
 )
 from tpugan_torch.invert import EmbeddingConfig, make_embedder
+from tpugan_torch.parallel.mesh import data_group, gather_rows, replicate, shard_batch
 from tpugan_torch.precision import BF16, bf16_encode_images, bf16_frozen
 from tpugan_torch.train.e_align import nchw_to_nhwc, nhwc_to_nchw
 from tpugan_torch.utils import one_hot
@@ -98,18 +105,29 @@ class Inverter(NamedTuple):
     resynth: Callable  # w -> imgs, as the loop runs it (differentiable in w)
     generator: Any  # the generator that resynth runs (the bf16 copy with --bf16)
     vgg: Any = None  # the Grad-CAM VGG16 with --gradcam
+    mesh: Any = None  # the data-parallel mesh (encode and resynth take this rank's rows)
+
+    def reconstruct(self, w: torch.Tensor) -> torch.Tensor:
+        """The images of a global batch of w, without gradient (with a
+        mesh, every rank resynthesises its rows and gets the batch)."""
+        with torch.no_grad():
+            return gather_rows(self.resynth(shard_batch(self.mesh, w)), data_group(self.mesh))
 
 
-def build_inverter(args, lpips_fn=None, bundle: Optional[GanBundle] = None, vgg=None) -> Inverter:
+def build_inverter(args, lpips_fn=None, bundle: Optional[GanBundle] = None, vgg=None, mesh=None) -> Inverter:
     """The embedder of ``args`` on ``args.device`` (random weights from
     ``args.seed``), on :func:`draw_inputs`'s draws, with a callback every
     100 iterations (``EmbeddingConfig``'s chunk, tpugan's). ``bundle`` and
     ``vgg`` are seams for tests: the embedder over those models, on their
-    device."""
+    device. With ``mesh`` the models are broadcast from its first rank and
+    the closures hold this rank's rows of the draws."""
     bundle = bundle or build_bundle(args)
     if args.gradcam and vgg is None:
         vgg = build_vgg16(args)
-    draws = draw_inputs(bundle, args.batch_size, args.iterations)
+    for module in (bundle.encoder, bundle.generator, bundle.mapping, vgg):
+        if module is not None:
+            replicate(mesh, module)
+    draws = shard_batch(mesh, draw_inputs(bundle, args.batch_size, args.iterations))
     gen, enc = bundle.generator, bundle.encoder
     gen.requires_grad_(False)
     if args.bf16:
@@ -118,8 +136,8 @@ def build_inverter(args, lpips_fn=None, bundle: Optional[GanBundle] = None, vgg=
     _, resynth_g = family_pipeline(bundle, gen, bundle.mapping, train=True)
     if args.mtype == 4:
         embeddings = bundle.generator.embeddings
-        label = one_hot(torch.full((args.batch_size,), args.class_id, device=bundle.device),
-                        gen.config.num_classes).to(embeddings.weight.dtype)
+        label = shard_batch(mesh, one_hot(torch.full((args.batch_size,), args.class_id, device=bundle.device),
+                                          gen.config.num_classes).to(embeddings.weight.dtype))
         batch = argparse.Namespace(label=label)
         with torch.no_grad():
             cond = torch.cat([draws.zt, embeddings(label)], dim=1)
@@ -141,8 +159,8 @@ def build_inverter(args, lpips_fn=None, bundle: Optional[GanBundle] = None, vgg=
     if args.bf16 and args.optimizeE:
         encode = bf16_encode_images(encode, enc)
     cfg = embedding_config(args)
-    invert = make_embedder(encode, resynth, enc, cfg, lpips_fn=lpips_fn, vgg=vgg)
-    return Inverter(bundle, invert, encode, resynth, gen, vgg)
+    invert = make_embedder(encode, resynth, enc, cfg, lpips_fn=lpips_fn, vgg=vgg, mesh=mesh)
+    return Inverter(bundle, invert, encode, resynth, gen, vgg, mesh)
 
 
 def embedding_config(args, **overrides) -> EmbeddingConfig:
@@ -154,10 +172,14 @@ def embedding_config(args, **overrides) -> EmbeddingConfig:
 
 
 def run(inverter: Inverter, args) -> list:
-    """Invert every batch of ``--img_dir`` and write the files; returns the
-    :class:`~tpugan_torch.invert.InversionResult` of each batch."""
-    from tpugan_torch.io.image import from_unit, load_image_dir, save_image, save_image_grid, to_unit
+    """Invert every batch of ``--img_dir`` and write the files (on the
+    primary process); returns the :class:`~tpugan_torch.invert.InversionResult`
+    of each batch."""
+    from tpugan_torch.io.image import from_unit, save_image, save_image_grid, to_unit
+    from tpugan_torch.io.native import load_image_dir_fast as load_image_dir
+    from tpugan_torch.runtime import is_primary_host
 
+    primary = is_primary_host()
     images = from_unit(load_image_dir(args.img_dir, args.img_size))
     base, imgs_dir, models_dir = make_result_dirs(args.experiment_dir, f"mtype{args.mtype}-embedding")
     device, bs = inverter.bundle.device, args.batch_size
@@ -167,6 +189,8 @@ def run(inverter: Inverter, args) -> list:
 
         def save_cadence(iteration, w_c, imgs2_c, g=g, batch=batch):
             # the per-100-iteration dumps (embedding_img.py:142-160)
+            if not primary:
+                return
             w_c, imgs2_c = w_c.cpu().numpy(), imgs2_c.cpu().numpy()
             for i in range(bs):
                 np.save(os.path.join(models_dir, f"id{g}-i{i}-w{iteration}.npy"), w_c[i])
@@ -178,20 +202,24 @@ def run(inverter: Inverter, args) -> list:
         result = inverter.invert(batch, chunk_callback=save_cadence)
         results.append(result)
         w, rec = result.w.cpu().numpy(), result.images.cpu().numpy()
+        # the best-loss snapshot (embedding_v2_styleGAN1.py:127-135): its w
+        # and grid, and one loss_min.txt line per new minimum after arming
+        it_b, lb = int(result.iter_best), float(result.loss_best)
+        snapshot = it_b >= 0 and np.isfinite(lb)
+        imgs_best = inverter.reconstruct(result.w_best) if snapshot else None
+        w_all.append(w[0])
+        img_all.append(rec[0])
+        if not primary:
+            continue
         for i in range(bs):
             np.save(os.path.join(models_dir, f"id{g}-i{i}-w.npy"), w[i])
             save_image(os.path.join(imgs_dir, f"{str(g).rjust(5, '0')}_rec.png"),
                        np.clip(to_unit(rec[i]), 0, 1))
-        # the best-loss snapshot (embedding_v2_styleGAN1.py:127-135): its w
-        # and grid, and one loss_min.txt line per new minimum after arming
-        it_b, lb = int(result.iter_best), float(result.loss_best)
-        if it_b >= 0 and np.isfinite(lb):
+        if snapshot:
             w_best = result.w_best.cpu().numpy()
             wn = float(np.linalg.norm(w_best))
             np.save(os.path.join(models_dir, f"id{g}-iter{it_b}-norm{wn:.6f}-imgLoss-min{lb:.6f}.npy"),
                     w_best)
-            with torch.no_grad():
-                imgs_best = inverter.resynth(result.w_best)
             grid = np.concatenate([to_unit(batch), to_unit(imgs_best)], axis=0)
             save_image_grid(os.path.join(imgs_dir, f"id{g}_ep{it_b}-norm{wn:.2f}-imgLoss-min{lb:.6f}.jpg"),
                             np.clip(grid, 0, 1), nrow=bs)
@@ -201,17 +229,19 @@ def run(inverter: Inverter, args) -> list:
                 for it_i in np.nonzero(result.improved_history.cpu().numpy())[0]:
                     f.write(f"ep{g}_iter{int(it_i)}_minImg{float(msiv[it_i]):.5f}"
                             f"_wNorm{float(wnorms[it_i]):f}\n")
-        w_all.append(w[0])
-        img_all.append(rec[0])
         print(f"image group {g}: final losses {tuple(float(x) for x in result.losses[-1])}", flush=True)
-    np.save(os.path.join(models_dir, "w_all.npy"), np.stack(w_all))
-    np.save(os.path.join(models_dir, "img_all.npy"), np.stack(img_all))
+    if primary:
+        np.save(os.path.join(models_dir, "w_all.npy"), np.stack(w_all))
+        np.save(os.path.join(models_dir, "img_all.npy"), np.stack(img_all))
     return results
 
 
 def main(argv=None):
     args = make_parser().parse_args(argv)
-    run(build_inverter(args, build_lpips_fn(args)), args)
+    mesh, takes_part = data_parallel(args)
+    if not takes_part:
+        return None
+    return run(build_inverter(args, build_lpips_fn(args), mesh=mesh), args)
 
 
 if __name__ == "__main__":

@@ -35,7 +35,8 @@ def main(argv=None):
         raise TypeError("rec_real_img runs E_BIG without the condition vector it needs "
                         "(tpugan's rec_real_img fails the same way); use embedding --mtype 4")
 
-    from tpugan_torch.io.image import from_unit, load_image_dir, save_image, to_unit
+    from tpugan_torch.io.image import from_unit, save_image, to_unit
+    from tpugan_torch.io.native import load_image_dir_fast as load_image_dir
 
     bundle = build_bundle(args)
     bs = args.batch_size

@@ -35,6 +35,16 @@ from tpugan_torch.losses.gradcam import grad_cam, mask2cam
 from tpugan_torch.losses.space_loss import pool_for_lpips, space_loss
 from tpugan_torch.nn.spectral import SNDense, power_iterate
 from tpugan_torch.optim.lreq_adam import LREQAdam, lreq_adam
+from tpugan_torch.parallel.mesh import (
+    SPACE_AXIS_TODO,
+    all_sum,
+    all_sum_grad,
+    average_gradients,
+    batch_mean,
+    data_group,
+    gather_rows,
+    shard_batch,
+)
 from tpugan_torch.train.e_align import attention_crops
 
 
@@ -100,16 +110,27 @@ def make_embedder(
     encoder's state on entry, parameters and ``u``/``v``, and puts it back
     on return, so every batch starts from the base E.
 
-    ``attention="gradcam"`` takes ``vgg``, the VGG16 of the masks. ``mesh``
-    and ``spatial`` come with ROADMAP slice 7 (parallelism).
+    ``attention="gradcam"`` takes ``vgg``, the VGG16 of the masks.
+
+    With ``mesh`` (``parallel.auto_mesh``; tpugan's ``mesh``), ``invert``
+    still takes and returns the global batch: each rank of the data axis
+    inverts its rows, with ``encode`` and ``resynth`` closed over that
+    rank's rows of the noise and the condition, and the losses, the
+    w-norm, the snapshot's loss and the histories are the global batch's,
+    so each iteration is the one-process iteration. Fine-tuning E, the
+    gradients are averaged over the ranks and the encoders stay equal;
+    optimising w, each rank's rows of w take their share of the global
+    gradient. ``spatial`` (the ``space`` axis) raises
+    :class:`NotImplementedError`.
     """
     if cfg.attention not in ("crops", "gradcam"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
     gradcam = cfg.attention == "gradcam"
     if gradcam and vgg is None:
         raise ValueError("attention='gradcam' needs a vgg")
-    if mesh is not None or spatial:
-        raise NotImplementedError("mesh and spatial inversion come with ROADMAP slice 7 (parallelism)")
+    if spatial:
+        raise NotImplementedError(SPACE_AXIS_TODO)
+    group = data_group(mesh)
     has_sn = any(isinstance(m, SNDense) for m in encoder.modules())
     can_cache_feats = lpips_fn is not None and hasattr(lpips_fn, "features")
     half = cfg.iterations // 2
@@ -123,15 +144,16 @@ def make_embedder(
         # the live E re-encodes imgs2 when it is fine-tuned (one module,
         # embedding_img.py:86-88); the base E when w is optimised
         const3, w2 = encode(imgs2)
-        l_imgs, _ = space_loss(imgs1, imgs2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("full"))
+        l_imgs, _ = space_loss(imgs1, imgs2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("full"), group=group)
         if gradcam:
             # m2 and cam2 from the detached imgs2; m1 and cam1 are the cache's
             i2 = imgs2.detach()
-            m2 = grad_cam(vgg, i2, plus_plus=True)
-            _, cam2 = mask2cam(m2, i2)
+            m2 = grad_cam(vgg, i2, plus_plus=True, group=group)
+            _, cam2 = mask2cam(m2, i2, group=group)
             l_med, _ = space_loss(cache["m1"].expand(-1, -1, -1, 3), m2.expand(-1, -1, -1, 3),
-                                  lpips_fn=lpips_fn, lpips_a_feats=cache.get("m1_feats"))
-            l_small, _ = space_loss(cache["cam1"], cam2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("cam1_feats"))
+                                  lpips_fn=lpips_fn, lpips_a_feats=cache.get("m1_feats"), group=group)
+            l_small, _ = space_loss(cache["cam1"], cam2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("cam1_feats"),
+                                    group=group)
             # the reference's weights: imgs + mask + Gcam (embedding_v2_BigGAN.py:148)
             loss_msiv = l_imgs + l_med + l_small
         else:
@@ -139,14 +161,14 @@ def make_embedder(
             at1_2, at2_2 = attention_crops(imgs2)
             if cfg.detach_crops:
                 at1_1, at2_1, at1_2, at2_2 = (x.detach() for x in (at1_1, at2_1, at1_2, at2_2))
-            l_med, _ = space_loss(at1_1, at1_2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("at1"))
-            l_small, _ = space_loss(at2_1, at2_2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("at2"))
+            l_med, _ = space_loss(at1_1, at1_2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("at1"), group=group)
+            l_small, _ = space_loss(at2_1, at2_2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("at2"), group=group)
             loss_msiv = l_imgs + cfg.crop_weight_medium * l_med + cfg.crop_weight_small * l_small
-        l_w, _ = space_loss(w1, w2, image_space=False)
-        l_c1, _ = space_loss(const2, const3, image_space=False)
+        l_w, _ = space_loss(w1, w2, image_space=False, group=group)
+        l_c1, _ = space_loss(const2, const3, image_space=False, group=group)
         loss_mslv = 0.01 * (l_w + l_c1)
         if cfg.beta > 0.0:
-            wnorm = torch.sum(torch.abs(w1) ** cfg.norm_p) ** (1.0 / cfg.norm_p)
+            wnorm = all_sum_grad(torch.sum(torch.abs(w1) ** cfg.norm_p), group) ** (1.0 / cfg.norm_p)
             loss_mslv = loss_mslv + cfg.beta * wnorm
         return loss_msiv, loss_mslv, w1
 
@@ -158,8 +180,8 @@ def make_embedder(
         and of its crops, or of m1 and cam1."""
         cache = {}
         if gradcam:
-            m1 = grad_cam(vgg, imgs1, plus_plus=True)
-            cache["m1"], cache["cam1"] = m1, mask2cam(m1, imgs1)[1]
+            m1 = grad_cam(vgg, imgs1, plus_plus=True, group=group)
+            cache["m1"], cache["cam1"] = m1, mask2cam(m1, imgs1, group=group)[1]
             sides = (("full", imgs1), ("m1_feats", m1.expand(-1, -1, -1, 3)), ("cam1_feats", cache["cam1"]))
         else:
             at1, at2 = attention_crops(imgs1)
@@ -177,7 +199,8 @@ def make_embedder(
         # initial parameters; then two updates, one after the other
         g1 = torch.autograd.grad(loss_msiv, params, retain_graph=True, allow_unused=True)
         g2 = torch.autograd.grad(loss_mslv, params, allow_unused=True)
-        l_msiv, w1 = loss_msiv.detach(), w1.detach()
+        g1, g2 = (average_gradients(g, group, replicated=cfg.optimize_e) for g in (g1, g2))
+        l_msiv, w1 = batch_mean(loss_msiv.detach(), group), w1.detach()
 
         best_loss, best_w, best_it = best
         if it == half:
@@ -186,10 +209,10 @@ def make_embedder(
         take = improved | (it == half)
         best = (torch.where(improved, l_msiv, best_loss), torch.where(take, w1, best_w),
                 torch.where(take, it, best_it))
-        wnorm = torch.sqrt(torch.sum(torch.square(w1)))  # torch's w1.norm()
+        wnorm = torch.sqrt(all_sum(torch.sum(torch.square(w1)), group))  # torch's w1.norm()
         opt.step(g1)
         opt.step(g2)
-        return best, (l_msiv, loss_mslv.detach(), improved, wnorm)
+        return best, (l_msiv, batch_mean(loss_mslv.detach(), group), improved, wnorm)
 
     def run(imgs1, chunk_callback):
         with torch.no_grad():
@@ -207,11 +230,11 @@ def make_embedder(
 
         def reconstruct(w):
             with torch.no_grad():
-                return resynth(w)
+                return gather_rows(resynth(w), group)
 
         cache = precompute_cache(imgs1)
         if chunk_callback is not None:
-            chunk_callback(0, w0, reconstruct(w0))
+            chunk_callback(0, gather_rows(w0, group), reconstruct(w0))
         # whole chunks and one remainder: exactly cfg.iterations iterations
         lengths = [cfg.chunk] * (cfg.iterations // cfg.chunk)
         if cfg.iterations % cfg.chunk:
@@ -229,24 +252,24 @@ def make_embedder(
             history.append(records[-1][:2])
             if chunk_callback is not None:
                 w_c = current_w()
-                chunk_callback(done, w_c, reconstruct(w_c))
+                chunk_callback(done, gather_rows(w_c, group), reconstruct(w_c))
         w_final = current_w()
         msiv, _, improved, wnorm = (torch.stack(r) for r in zip(*records))
         return InversionResult(
-            w=w_final, images=reconstruct(w_final), losses=history,
-            w_best=best[1], loss_best=best[0], iter_best=best[2],
+            w=gather_rows(w_final, group), images=reconstruct(w_final), losses=history,
+            w_best=gather_rows(best[1], group), loss_best=best[0], iter_best=best[2],
             msiv_history=msiv, improved_history=improved, wnorm_history=wnorm,
         )
 
     def invert(imgs1: torch.Tensor, chunk_callback=None) -> InversionResult:
-        """Invert one image batch [N, H, W, C] in [-1, 1].
-        ``chunk_callback(iteration, w, imgs2)`` fires at iteration 0 and
-        after every chunk (the reference's per-100-iteration saves,
-        embedding_img.py:142-160) with that iteration's w and its
+        """Invert one image batch [N, H, W, C] in [-1, 1] (with a mesh, the
+        global batch). ``chunk_callback(iteration, w, imgs2)`` fires at
+        iteration 0 and after every chunk (the reference's per-100-iteration
+        saves, embedding_img.py:142-160) with that iteration's w and its
         reconstruction."""
         base = _encoder_state(encoder)
         try:
-            return run(imgs1, chunk_callback)
+            return run(shard_batch(mesh, imgs1), chunk_callback)
         finally:
             encoder.load_state_dict(base)
 

@@ -56,7 +56,8 @@ def load_torch_state_dict(path) -> dict:
 
     The file is read with ``weights_only=True``: a pickled module (the
     reference's classes on the path) is refused; save its ``state_dict()``.
-    Paths only: a URL is refused, since this package downloads nothing."""
+    Paths only: a URL is refused here (the CLIs' ``--lpips_weights`` and
+    ``--vgg_weights`` resolve one first through ``io/fetch.py``)."""
     path = str(path)
     if "://" in path:
         raise ValueError(f"{path} is a URL; pass the path of a downloaded file")

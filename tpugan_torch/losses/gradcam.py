@@ -9,6 +9,11 @@ backward never reaches a graph the images came from. Everything stays on
 the images' device, in their dtype up to the masks; the colormap is an fp32
 lookup table on the device (no host round trip), so the heatmaps and
 overlays are fp32, as ``tpugan``'s are.
+
+With a process ``group`` (data parallelism, ``parallel/mesh.py``) the
+images are this rank's rows of the batch, and what couples the batch is
+taken over the whole of it: the majority class, the class score's mean
+(the gradients' scale) and the overlays' minimum.
 """
 
 from __future__ import annotations
@@ -20,14 +25,21 @@ import torch
 import torch.nn.functional as F
 
 from tpugan_torch.losses.vgg import VGG16
+from tpugan_torch.parallel.mesh import all_min, all_sum, group_size
 
 
-def majority_class(logits: torch.Tensor) -> torch.Tensor:
+def majority_class(logits: torch.Tensor, group=None) -> torch.Tensor:
     """argmax per image, then the most frequent class across the batch
     (grad_cam.py:91-93, ``np.argmax(np.bincount(index))``); ties go to the
     smallest class, as in ``tpugan``."""
     idx = torch.argmax(logits, dim=-1)
-    return torch.argmax(F.one_hot(idx, logits.shape[-1]).sum(dim=0))
+    return torch.argmax(all_sum(F.one_hot(idx, logits.shape[-1]).sum(dim=0), group))
+
+
+def _class_mean(scores: torch.Tensor, group) -> torch.Tensor:
+    """The batch mean of the class scores [N] (with ``group``, over the
+    whole batch: this rank's sum over the global count)."""
+    return scores.mean() if group is None else scores.sum() / (scores.shape[0] * group_size(group))
 
 
 def _normalize_resize(cam: torch.Tensor, height: int, width: int) -> torch.Tensor:
@@ -42,7 +54,7 @@ def _normalize_resize(cam: torch.Tensor, height: int, width: int) -> torch.Tenso
 
 
 def grad_cam(vgg: VGG16, images: torch.Tensor, index=None, plus_plus: bool = False,
-             guided: bool = True) -> torch.Tensor:
+             guided: bool = True, group=None) -> torch.Tensor:
     """CAM masks [N, H, W, 1] in [0, 1] for NHWC images: Grad-CAM++'s alpha
     weighting with ``plus_plus`` (grad_cam.py:157-194), plain Grad-CAM
     (:82-115) otherwise, for class ``index`` or, when None, the batch's
@@ -52,10 +64,10 @@ def grad_cam(vgg: VGG16, images: torch.Tensor, index=None, plus_plus: bool = Fal
     guided = guided or vgg.guided
     with torch.no_grad():
         logits, _, feature = vgg(images.permute(0, 3, 1, 2), return_conv_out=True, guided=guided)
-    cls = majority_class(logits) if index is None else index
+    cls = majority_class(logits, group) if index is None else index
     with torch.enable_grad():
         f = feature.detach().requires_grad_(True)
-        target = vgg.head_from_conv(f, guided=guided)[:, cls].mean()
+        target = _class_mean(vgg.head_from_conv(f, guided=guided)[:, cls], group)
         (gradient,) = torch.autograd.grad(target, f)  # [N, C, h, w]
     if plus_plus:
         g = gradient.clamp(min=0)
@@ -71,15 +83,15 @@ def grad_cam(vgg: VGG16, images: torch.Tensor, index=None, plus_plus: bool = Fal
     return _normalize_resize(cam, images.shape[1], images.shape[2])
 
 
-def guided_backprop(vgg: VGG16, images: torch.Tensor, index=None) -> torch.Tensor:
+def guided_backprop(vgg: VGG16, images: torch.Tensor, index=None, group=None) -> torch.Tensor:
     """The gradient of the class score with respect to the NHWC images,
     through guided ReLUs (grad_cam.py:196-232), for class ``index`` or the
     batch's majority class."""
     with torch.enable_grad():
         x = images.detach().requires_grad_(True)
         logits, _ = vgg(x.permute(0, 3, 1, 2), guided=True)
-        cls = majority_class(logits.detach()) if index is None else index
-        (grad,) = torch.autograd.grad(logits[:, cls].mean(), x)
+        cls = majority_class(logits.detach(), group) if index is None else index
+        (grad,) = torch.autograd.grad(_class_mean(logits[:, cls], group), x)
     return grad
 
 
@@ -132,13 +144,13 @@ def jet_colormap(x: torch.Tensor) -> torch.Tensor:
     return _jet_lut(x.device)[idx]
 
 
-def mask2cam(mask: torch.Tensor, imgs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def mask2cam(mask: torch.Tensor, imgs: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     """CAM overlays (grad_cam.py:234-251): the JET heatmap of mask [N, H, W,
     1], and heatmap + imgs [N, H, W, 3] less the batch's minimum, divided by
     each image's maximum (``tpugan``'s reading of the reference's
     ``np.max(np.min(cam), 0)``: the 0 is numpy's axis, not a clamp)."""
     heatmap = jet_colormap(mask[..., 0])
     cam = heatmap + imgs
-    cam = cam - cam.min()
+    cam = cam - all_min(cam.min(), group)
     cmax = cam.amax(dim=(1, 2, 3), keepdim=True)
     return heatmap, cam / torch.where(cmax > 0, cmax, 1.0)

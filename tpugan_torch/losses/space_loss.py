@@ -12,6 +12,11 @@ images are average-pooled to at most 256 px before SSIM and LPIPS.
 
 ``info`` comes back as a :class:`SpaceLossInfo` of 0-d tensors, so callers
 read them at their own cadence without a host sync per step.
+
+With a process ``group`` (data parallelism, ``parallel/mesh.py``) ``a`` and
+``b`` are this rank's rows of the batch: the cosine distance sums its dot
+products over the ranks with a gradient, and ``info`` holds the whole
+batch's statistics (the KL of a 3-D input softmaxes over the whole batch).
 """
 
 from __future__ import annotations
@@ -50,15 +55,26 @@ def _kl_quirk(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     torch's legacy ``_get_softmax_dim`` takes dim 0 for 0-, 1- and 3-D
     inputs and dim 1 otherwise, which is the channel axis (NHWC axis -1)
     for images, dim 0 for [N, 18, 512] w-latents and dim 1 (-1) for [N, C]
-    latents."""
-    dim = 0 if a.dim() in (0, 1, 3) else -1
+    latents. nan is guarded to 0 and inf to 1."""
+    return _kl_guard(_kl_mean(a, b))
+
+
+def _softmax_over_batch(a: torch.Tensor) -> bool:
+    return a.dim() in (0, 1, 3)
+
+
+def _kl_mean(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    dim = 0 if _softmax_over_batch(a) else -1
     # probabilities below fp32's smallest normal are flushed to zero, as
     # XLA does on the CPU and the TPU: a denormal pb would keep log(pb)
     # finite where the reference's KL is inf (and so guarded to 1)
     tiny = torch.finfo(torch.float32).tiny
     pa, pb = (torch.where(p < tiny, 0.0, p) for p in (torch.softmax(a, dim=dim),
                                                        torch.softmax(b, dim=dim)))
-    kl = torch.mean(pa * (torch.log(pa) - torch.log(pb)))
+    return torch.mean(pa * (torch.log(pa) - torch.log(pb)))
+
+
+def _kl_guard(kl: torch.Tensor) -> torch.Tensor:
     kl = torch.where(torch.isnan(kl), torch.zeros_like(kl), kl)
     return torch.where(torch.isinf(kl), torch.ones_like(kl), kl)
 
@@ -81,6 +97,7 @@ def space_loss(
     image_space: bool = True,
     lpips_fn: Optional[Callable] = None,
     lpips_a_feats=None,
+    group=None,
 ) -> tuple[torch.Tensor, SpaceLossInfo]:
     """Multi-term distance between ``a`` (target) and ``b`` (reconstruction).
 
@@ -88,7 +105,14 @@ def space_loss(
     -> [N]`` is the perceptual distance; None contributes 0.
     ``lpips_a_feats`` are features of ``pool_for_lpips(a)``
     (``lpips_fn.features``) for loops whose a-side is fixed.
+
+    With ``group``, the total is this rank's share: the mean terms of its
+    rows and the whole batch's cosine distance. The whole batch's total is
+    the mean of the shares over the ranks, and so is its gradient with
+    respect to replicated parameters (``parallel.mesh.average_gradients``).
     """
+    if group is not None:
+        return _space_loss_shard(a, b, image_space, lpips_fn, lpips_a_feats, group)
     mse = torch.mean(torch.square(a - b))
     mse_mean = torch.square(a.mean() - b.mean())
     mse_std = torch.square(_unbiased_std(a) - _unbiased_std(b))
@@ -113,4 +137,43 @@ def space_loss(
     total = 5.0 * mse + 3.0 * cosine + ssim_loss + 2.0 * lpips_val
     info = SpaceLossInfo(mse=mse, mse_mean=mse_mean, mse_std=mse_std, kl=kl,
                          cosine=cosine, ssim=ssim_loss, lpips=lpips_val)
+    return total, info
+
+
+def _space_loss_shard(a, b, image_space, lpips_fn, lpips_a_feats, group):
+    """:func:`space_loss` on this rank's rows of the batch (see there)."""
+    from tpugan_torch.parallel.mesh import all_sum, all_sum_grad, gather_rows, group_size
+
+    n = group_size(group)
+    mse = torch.mean(torch.square(a - b))
+    af, bf = a.reshape(-1), b.reshape(-1)
+    dots = all_sum_grad(torch.stack([torch.dot(af, af), torch.dot(bf, bf), torch.dot(af, bf)]), group)
+    denom = torch.sqrt(dots[0] + 1e-12) * torch.sqrt(dots[1] + 1e-12)
+    cosine = 1.0 - dots[2] / denom
+    zero = torch.zeros((), dtype=mse.dtype, device=mse.device)
+    if image_space:
+        pa, pb = pool_for_lpips(a), pool_for_lpips(b)
+        ssim_loss = 1.0 - ssim_fn(pa, pb)
+        lpips_val = zero if lpips_fn is None else torch.mean(lpips_fn(pa, pb, a_feats=lpips_a_feats))
+    else:
+        ssim_loss = lpips_val = zero
+    total = 5.0 * mse + 3.0 * cosine + ssim_loss + 2.0 * lpips_val
+
+    # the whole batch's logged statistics
+    with torch.no_grad():
+        count = a.numel() * n
+        kl_batch = _softmax_over_batch(a)  # the KL's softmax runs over the batch (see _kl_quirk)
+        local = [mse, ssim_loss, lpips_val, a.sum(), b.sum()] + ([] if kl_batch else [_kl_mean(a, b)])
+        sums = all_sum(torch.stack([v.detach().to(mse.dtype) for v in local]), group)
+        mean_a, mean_b = sums[3] / count, sums[4] / count
+        dev = all_sum(torch.stack([torch.sum(torch.square(a - mean_a)), torch.sum(torch.square(b - mean_b))]),
+                      group)
+        std_a, std_b = (torch.sqrt(d / max(count - 1, 1)) for d in dev)
+        if kl_batch:
+            kl = _kl_quirk(gather_rows(a, group), gather_rows(b, group))
+        else:
+            kl = _kl_guard(sums[5] / n)
+    info = SpaceLossInfo(mse=sums[0] / n, mse_mean=torch.square(mean_a - mean_b),
+                         mse_std=torch.square(std_a - std_b), kl=kl, cosine=cosine,
+                         ssim=sums[1] / n, lpips=sums[2] / n)
     return total, info

@@ -143,13 +143,20 @@ class SG2Truncation(nn.Module):
 
 
 def update_w_avg(w_avg: torch.Tensor, w: torch.Tensor, decay: float = 0.995,
-                 axis_name: Optional[str] = None) -> torch.Tensor:
-    """The training-mode w_avg EMA towards the batch mean of ``w``."""
+                 axis_name=None) -> torch.Tensor:
+    """The training-mode w_avg EMA towards the batch mean of ``w``. With
+    ``axis_name``, a process group (the counterpart of tpugan's named axis;
+    ``parallel.mesh.data_group(mesh)``), the batch mean is the mean of the
+    ranks' batch means, as tpugan's ``pmean``."""
+    batch_mean = w.mean(dim=0)
     if axis_name is not None:
-        raise NotImplementedError(
-            "update_w_avg's cross-replica mean (axis_name) comes with ROADMAP slice 7 (parallelism)"
-        )
-    return w_avg * decay + w.mean(dim=0) * (1.0 - decay)
+        if isinstance(axis_name, str):
+            raise TypeError("update_w_avg takes a process group (parallel.mesh.data_group(mesh)) where tpugan "
+                            f"takes a named axis, not the name {axis_name!r}")
+        from tpugan_torch.parallel.mesh import all_sum, group_size
+
+        batch_mean = all_sum(batch_mean, axis_name) / group_size(axis_name)
+    return w_avg * decay + batch_mean * (1.0 - decay)
 
 
 class ModulatedConv(nn.Module):

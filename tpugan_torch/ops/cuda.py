@@ -1,12 +1,15 @@
-"""Build and load the port's CUDA kernels (``tpugan_torch/csrc``).
+"""Build and load the port's native libraries (``tpugan_torch/csrc``).
 
-Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
-plain C entry points and loaded with :mod:`ctypes` (no PyTorch headers, so a
-build takes seconds). A kernel is one entry point; several kernels may share
-a source and so a library; sources share the headers (``*.cuh``) beside
-them. Libraries go to ``tpugan_torch/_build/`` under a name that hashes the
-source, the headers and the flags, so an edited source or header is rebuilt.
-Nothing is built at import: :func:`build` runs on first use, or ahead of it.
+Each CUDA source (``*.cu``) is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with plain C entry points and loaded with :mod:`ctypes` (no
+PyTorch headers, so a build takes seconds). A kernel is one entry point;
+several kernels may share a source and so a library; sources share the
+headers (``*.cuh``) beside them. Host C++ sources (``*.cpp``,
+:data:`HOST_LIBRARIES`: the PNG loader) are built the same way with ``g++``
+and their link flags. Libraries go to ``tpugan_torch/_build/`` under a name
+that hashes the source, the headers and the flags, so an edited source or
+header is rebuilt. Nothing is built at import: :func:`build` runs on first
+use, or ahead of it.
 
 ``launches`` counts, per kernel, the launches its wrapper made, so a run can
 show that its path went through the kernel.
@@ -29,6 +32,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-Wall")
 
 _c_int = ctypes.c_int
 _c_ptr = ctypes.c_void_p
@@ -104,6 +108,11 @@ HELPERS = {
     ),
 }
 
+# host C++ libraries: name -> (source, link flags), built with g++
+HOST_LIBRARIES = {
+    "image_io": ("image_io.cpp", ("-lpthread",)),
+}
+
 launches = {name: 0 for name in KERNELS}
 
 _funcs: dict = {}
@@ -127,33 +136,57 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
 
 
+def cxx_path() -> str:
+    found = shutil.which(os.environ.get("CXX", "g++"))
+    if found:
+        return found
+    raise RuntimeError("no C++ compiler found (looked for $CXX, else g++, on PATH)")
+
+
+def _source(name: str) -> tuple[str, tuple]:
+    """(source file, link flags) of kernel, helper or host library ``name``."""
+    if name in HOST_LIBRARIES:
+        return HOST_LIBRARIES[name]
+    return {**KERNELS, **HELPERS}[name][0], ()
+
+
 def library_path(name: str) -> Path:
-    """The library that holds kernel (or helper) ``name``: one per source,
-    named by a hash of the source, the headers beside it and the flags."""
-    source = CSRC / {**KERNELS, **HELPERS}[name][0]
-    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{source.stem}-{digest.hexdigest()[:16]}.so"
+    """The library that holds kernel, helper or host library ``name``: one
+    per source, named by a hash of the source, the headers beside a CUDA
+    source and the flags."""
+    source, libs = _source(name)
+    path = CSRC / source
+    if path.suffix == ".cpp":
+        extra, flags = b"", CXX_FLAGS + libs
+    else:
+        extra, flags = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh"))), NVCC_FLAGS
+    digest = hashlib.sha256(path.read_bytes() + extra + " ".join(flags).encode())
+    return BUILD_DIR / f"lib{path.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def _command(source: str, libs: tuple, out: Path) -> list:
+    if source.endswith(".cpp"):
+        return [cxx_path(), *CXX_FLAGS, "-o", str(out), str(CSRC / source), *libs]
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / source)]
 
 
 def build(names=None) -> dict[str, str]:
-    """Compile the sources of the named kernels (all by default) that are
-    not built yet, one ``nvcc`` per source, all started together. Returns
-    the compiler's output (``-Xptxas -v``: registers, shared memory, spills)
-    by source; raises if any build fails."""
+    """Compile the sources of the named kernels (all by default) or host
+    libraries that are not built yet, one compiler per source, all started
+    together. Returns the compiler's output by source (``nvcc -Xptxas -v``:
+    registers, shared memory, spills); raises with the log if any build
+    fails."""
     names = list(KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = None
     running = {}
     for name in names:
-        source = {**KERNELS, **HELPERS}[name][0]
+        source, libs = _source(name)
         out = library_path(name)
         if source in running or out.exists():
             continue
-        nvcc = nvcc or nvcc_path()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        proc = subprocess.Popen(_command(source, libs, tmp), stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
         running[source] = (proc, tmp, out)
     logs, failed = {}, []
     for name, (proc, tmp, out) in running.items():
@@ -164,10 +197,22 @@ def build(names=None) -> dict[str, str]:
             failed.append(name)
     if failed:
         raise RuntimeError(
-            "nvcc failed for " + ", ".join(failed) + ":\n"
+            "the build failed for " + ", ".join(failed) + ":\n"
             + "\n".join(logs[name] for name in failed)
         )
     return logs
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """Host library ``name`` of :data:`HOST_LIBRARIES`, built and loaded on
+    first use; raises if it cannot build or load."""
+    with _lock:
+        path = library_path(name)
+        lib = _libs.get(path)
+        if lib is None:
+            build([name])
+            lib = _libs[path] = ctypes.CDLL(str(path))
+    return lib
 
 
 def kernel(name: str):

@@ -36,6 +36,14 @@ from tpugan_torch.models.stylegan1 import StyleGANv1Generator, StyleGANv1Mapping
 from tpugan_torch.models.stylegan2 import StyleGAN2Generator
 from tpugan_torch.nn.spectral import SNDense, power_iterate
 from tpugan_torch.optim.lreq_adam import LREQAdam
+from tpugan_torch.parallel.mesh import (
+    SPACE_AXIS_TODO,
+    average_gradients,
+    batch_mean,
+    data_group,
+    gather_rows,
+    shard_batch,
+)
 from tpugan_torch.utils import iteration_generator, one_hot, truncated_noise_sample
 
 # BigGAN's truncation in the encoder pipeline (E_align_cropping_s1.py:140-150)
@@ -357,6 +365,8 @@ def make_train_step(
     sequential_image_steps: bool = False,
     remat: bool = False,
     remat_policy: Optional[str] = None,
+    mesh=None,
+    spatial: bool = False,
 ):
     """Build the per-iteration train step ``step(state, iteration) ->
     (state, StepInfo)``, which updates ``state`` in place.
@@ -396,7 +406,18 @@ def make_train_step(
     region takes one backward only, and the group of the latent loss skips
     the resynthesis and the image losses, which it does not read. The
     gradients are the one-forward step's.
+
+    With ``mesh`` (``parallel.auto_mesh``; tpugan's ``mesh``), each rank
+    of its data axis takes its rows of ``draw(iteration)``'s global batch,
+    the losses sum their batch-coupled reductions over the ranks, and each
+    gradient is averaged over them before the update, so every rank takes
+    the one-process step on the global batch and the encoders stay
+    bitwise equal; the info is the global batch's. ``spatial`` (the
+    ``space`` axis) raises :class:`NotImplementedError`.
     """
+    if spatial:
+        raise NotImplementedError(SPACE_AXIS_TODO)
+    group = data_group(mesh)
     if case not in (1, 2):
         raise ValueError(f"case must be 1 or 2, got {case}")
     if image_weights is None:
@@ -417,11 +438,11 @@ def make_train_step(
 
     def image_losses(batch: SynthBatch, w2, noise_g2):
         imgs2 = resynth(w2, batch, noise_g2)
-        l_imgs, i_imgs = space_loss(batch.imgs1, imgs2, lpips_fn=lpips_fn)
+        l_imgs, i_imgs = space_loss(batch.imgs1, imgs2, lpips_fn=lpips_fn, group=group)
         at1_1, at2_1 = attention_crops(batch.imgs1)
         at1_2, at2_2 = attention_crops(imgs2)
-        l_med, i_med = space_loss(at1_1, at1_2, lpips_fn=lpips_fn)
-        l_small, i_small = space_loss(at2_1, at2_2, lpips_fn=lpips_fn)
+        l_med, i_med = space_loss(at1_1, at1_2, lpips_fn=lpips_fn, group=group)
+        l_small, i_small = space_loss(at2_1, at2_2, lpips_fn=lpips_fn, group=group)
         return (l_imgs, l_med, l_small), (i_imgs, i_med, i_small)
 
     def losses(batch: SynthBatch, request: Request, images: bool = compute_image_losses):
@@ -438,7 +459,7 @@ def make_train_step(
             parts, infos = image_losses(batch, w2, request.noise_g2)
         weighted = [w * part for w, part in zip(image_weights, parts)]
         loss_tsa = weighted[0] + weighted[1] + weighted[2]
-        l_w, i_w = space_loss(batch.w1, w2, image_space=False)
+        l_w, i_w = space_loss(batch.w1, w2, image_space=False, group=group)
         const1 = batch.const1
         if const1.shape != const2.shape:
             # PGGAN's const1 is zeros [N, 1]; tpugan broadcasts it to the
@@ -448,14 +469,15 @@ def make_train_step(
             # feature maps enter the losses NHWC, as tpugan's do: the KL's
             # softmax runs over the last axis of a 4-D input, the channels
             const1, const2 = nchw_to_nhwc(const1), nchw_to_nhwc(const2)
-        l_c, i_c = space_loss(const1, const2, image_space=False)
+        l_c, i_c = space_loss(const1, const2, image_space=False, group=group)
         ww, wc = latent_weights
         loss_mtv = 0.01 * (ww * l_w + wc * l_c)
-        info = StepInfo(*infos, loss_w=i_w, loss_c=i_c, loss_tsa=loss_tsa, loss_mtv=loss_mtv)
+        info = StepInfo(*infos, loss_w=i_w, loss_c=i_c, loss_tsa=batch_mean(loss_tsa.detach(), group),
+                        loss_mtv=batch_mean(loss_mtv.detach(), group))
         return loss_tsa, loss_mtv, weighted, _detached(info)
 
     def step(state: EncoderTrainState, iteration: int):
-        request = draw(iteration)
+        request = shard_batch(mesh, draw(iteration))
         batch = synth(request)
         power_iterate(state.encoder)
         params = list(state.encoder.parameters())
@@ -477,7 +499,7 @@ def make_train_step(
             grads = [_grad(_group(out, g), params, retain=i + 1 < len(groups))
                      for i, g in enumerate(groups)]
         for g in grads:
-            state.optimizer.step(g)
+            state.optimizer.step(average_gradients(g, group))
         state.step += 1
         return state, info
 
@@ -506,17 +528,20 @@ def _detached(info: StepInfo) -> StepInfo:
     return StepInfo(*(leaf(x) for x in info))
 
 
-def make_align_visuals(encode, synth, resynth, draw):
+def make_align_visuals(encode, synth, resynth, draw, mesh=None):
     """The on-tick reconstruction grid of the aligned CLI
     (E_align_cropping_s1.py:282-285): the iteration's imgs1 and imgs2 at
     the iteration's initial parameters, after the same single power
     iteration the step applies before encoding. The spectral norms' buffers
     are put back afterwards, so the step that follows starts from the same
-    pair. Returns ``visuals(state, iteration) -> {"imgs1", "imgs2"}``."""
+    pair. With ``mesh`` each rank computes its rows and every rank gets the
+    global batch. Returns ``visuals(state, iteration) -> {"imgs1",
+    "imgs2"}``."""
+    group = data_group(mesh)
 
     @torch.no_grad()
     def visuals(state: EncoderTrainState, iteration: int):
-        request = draw(iteration)
+        request = shard_batch(mesh, draw(iteration))
         batch = synth(request)
         sn = [m for m in state.encoder.modules() if isinstance(m, SNDense)]
         saved = [(m.u.clone(), m.v.clone()) for m in sn]
@@ -526,6 +551,6 @@ def make_align_visuals(encode, synth, resynth, draw):
         for m, (u, v) in zip(sn, saved):
             m.u.copy_(u)
             m.v.copy_(v)
-        return {"imgs1": batch.imgs1, "imgs2": imgs2}
+        return {"imgs1": gather_rows(batch.imgs1, group), "imgs2": gather_rows(imgs2, group)}
 
     return visuals
