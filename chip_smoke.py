@@ -217,6 +217,18 @@ Phases:
      every rank held to the one-process step (DP_BATCH's comment); then on
      cuDNN's default algorithms each step's host time, its time in
      collectives, device time and peak memory.
+ 19. slice 7f, the space axis: the same step through ``e_align``'s
+     ``--space_shards 2`` over two gloo ranks of one space group on the one
+     card (each rank holds half of every image's rows on the encoder side
+     and in the losses; halo exchanges and all-reduces, ``parallel/
+     spatial.py``), held to the one-process step under cuDNN's
+     deterministic algorithms, the ranks bitwise equal, each rank's FIR
+     launches by TPU kernel as derived, every FIR of a rank's step held to
+     the plain version on its own halo'd inputs and the halo'd blurs' pad
+     copies timed, each rank's peak memory, host step time and time in
+     collectives beside one process's; then ``embedding --mtype 2
+     --space_shards 2`` fine-tuning E held to one process the same way
+     (SPACE_BATCH's comment).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2298,7 +2310,9 @@ class FirCapture:
     "second order" (the backward of an upfirdn2d node that an adjoint made
     while a graph was being built, as the R1 penalty's
     ``autograd.grad(..., create_graph=True)`` makes them). With ``keep``
-    false it counts and keeps no input."""
+    false it counts and keeps no input. A FIR launched under a key of its
+    own (a row shard's, counted as the whole image's FIR) keeps it in
+    ``keys``."""
 
     def __init__(self, keep=True):
         from tpugan_torch.ops import upfirdn
@@ -2306,17 +2320,20 @@ class FirCapture:
         self.upfirdn = upfirdn
         self.keep = keep
         self.firs = {}  # (direction, shape, taps bytes, up, down, pads) -> [x, taps, launches]
+        self.keys = {}  # the same -> the TPU kernel it was launched under, where given
         self.direction = "forward"
 
     def __enter__(self):
         upfirdn, fn = self.upfirdn, self.upfirdn._UpFirDn2d
         self.real_fir, self.real_forward, self.real_backward = upfirdn._fir_cuda, fn.forward, fn.backward
 
-        def fir_cuda(x, taps, up, down, pads):
-            key = (self.direction, tuple(x.shape), taps.tobytes(), up, down, tuple(pads))
-            entry = self.firs.setdefault(key, [x.detach().clone() if self.keep else None, taps, 0])
+        def fir_cuda(x, taps, up, down, pads, key=None):
+            fir = (self.direction, tuple(x.shape), taps.tobytes(), up, down, tuple(pads))
+            entry = self.firs.setdefault(fir, [x.detach().clone() if self.keep else None, taps, 0])
             entry[2] += 1
-            return self.real_fir(x, taps, up, down, pads)
+            if key is not None:
+                self.keys[fir] = key
+            return self.real_fir(x, taps, up, down, pads, key)
 
         def forward(ctx, *args):
             ctx.second_order = self.direction != "forward"  # made inside a backward
@@ -2343,9 +2360,10 @@ class FirCapture:
         """Launches by direction and by the TPU kernel that tpugan's dispatch
         gives each (:func:`fir_tpu_key`)."""
         out = {}
-        for (direction, shape, _, up, down, pads), (_, taps, n) in self.firs.items():
+        for fir, (_, taps, n) in self.firs.items():
+            direction, shape, _, up, down, pads = fir
             by_key = out.setdefault(direction, {key: 0 for key in self.upfirdn.layout_launches})
-            by_key[fir_tpu_key(shape, taps, up, down, pads)] += n
+            by_key[self.keys.get(fir) or fir_tpu_key(shape, taps, up, down, pads)] += n
         return out
 
 
@@ -6625,9 +6643,11 @@ def lreq_part_bound(updates, beta2=0.99):
     return sum(2 * math.sqrt((1 - beta2**t) / (1 - beta2)) for t in range(1, updates + 1))
 
 
-def dp_distance(torch, label, got, want, coefs, lr, updates):
+def dp_distance(torch, label, got, want, coefs, lr, updates, hold=True):
     """``got`` (a rank's step) against ``want`` (the one-process step) by
-    phase 18's rule (DP_BATCH's comment); returns the distances."""
+    phase 18's rule (DP_BATCH's comment); returns the distances (with the
+    parameter of the largest mean), which ``hold=False`` leaves to the
+    caller to hold (:func:`dp_held`)."""
     info = max(abs(got["info"][k] - v) / max(1.0, abs(v)) for k, v in want["info"].items())
     grad_share = 0.0
     for gs, ws in zip(got["grads"], want["grads"], strict=True):
@@ -6635,16 +6655,55 @@ def dp_distance(torch, label, got, want, coefs, lr, updates):
             check((g is None) == (w is None), f"{label}: the gradients handed to LREQAdam differ in kind")
             if w is not None:
                 grad_share = max(grad_share, float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30))
-    param_max, param_mean = 0.0, 0.0  # in units of lr c
+    param_max, means, total, count = 0.0, {}, 0.0, 0  # in units of lr c
     for name, p in want["params"].items():
         diff = (got["params"][name] - p).abs() / (lr * coefs[name])
-        param_max, param_mean = max(param_max, float(diff.max())), max(param_mean, float(diff.mean()))
+        param_max = max(param_max, float(diff.max()))
+        means[f"{name} ({p.numel()} elements)"] = float(diff.mean())
+        total, count = total + float(diff.sum()), count + p.numel()
+    worst = sorted(means, key=means.get, reverse=True)
     out = {"info": info, "grad_share_of_max": grad_share, "param_max_lr_c": param_max,
-           "param_mean_lr_c": param_mean}
-    check(info <= CPU_GPU_ATOL and param_max <= lreq_part_bound(updates) and param_mean <= 0.05,
-          f"{label} against the one-process step: {out}; limits: scalars {CPU_GPU_ATOL} (CPU_GPU_ATOL), "
-          f"parameters {lreq_part_bound(updates):.2f} lr c an element and 0.05 lr c on average")
+           "param_mean_lr_c": means[worst[0]], "param_mean_worst": worst[0],
+           "param_means_top": {name: means[name] for name in worst[:4]}, "encoder_mean_lr_c": total / count}
+    if hold:
+        dp_held(label, out, updates)
     return out
+
+
+def dp_held(label, distance, updates, mean_limit=0.05):
+    """Phase 18's rule on :func:`dp_distance`'s distances (``mean_limit``:
+    the parameters' mean difference, lr c)."""
+    check(distance["info"] <= CPU_GPU_ATOL and distance["param_max_lr_c"] <= lreq_part_bound(updates)
+          and distance["param_mean_lr_c"] <= mean_limit,
+          f"{label} against the one-process step: {distance}; limits: scalars {CPU_GPU_ATOL} (CPU_GPU_ATOL), "
+          f"parameters {lreq_part_bound(updates):.2f} lr c an element and {mean_limit:.4f} lr c on average")
+
+
+def spawn_ranks(flag, world, workdir, timeout, *extra):
+    """``world`` children of this script (``flag RANK WORLD STORE OUT
+    *extra``) on a file store in ``workdir``, waited for; returns each
+    rank's result."""
+    import torch
+
+    name = "_".join([flag.strip("-"), *extra])
+    store = os.path.join(workdir, f"store_{name}")
+    procs = []
+    for rank in range(world):
+        out_path = os.path.join(workdir, f"{name}_{rank}.pt")
+        cmd = [sys.executable, os.path.abspath(__file__), flag, str(rank), str(world), store, out_path, *extra]
+        procs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out_path))
+    logs = []
+    try:
+        for proc, _ in procs:
+            logs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for rank, ((proc, _), log) in enumerate(zip(procs, logs)):
+        check(proc.returncode == 0, f"{flag} rank {rank} exited {proc.returncode}:\n{log[-4000:]}")
+    return [torch.load(path, weights_only=False) for _, path in procs]
 
 
 def data_parallel_path(torch, dev, smi, workdir):
@@ -6658,31 +6717,12 @@ def data_parallel_path(torch, dev, smi, workdir):
         f"(host), device time {dp_ms(one['device_ms'])}, peak {one['peak_mib']:.1f} MiB; {smi}")
     torch.cuda.empty_cache()
     groups = DP_GROUPS
-    procs = {}
+    ranks = {}
     for backend, world in groups.items():  # one group after the other: a rank's times are its group's
         t0 = time.perf_counter()
-        store = os.path.join(workdir, f"store_{backend}")
-        group = {}
-        for rank in range(world):
-            out_path = os.path.join(workdir, f"{backend}_{rank}.pt")
-            cmd = [sys.executable, os.path.abspath(__file__), "--dp-rank", str(rank), str(world), store,
-                   out_path, backend]
-            group[(backend, rank)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                                       text=True), out_path)
-        logs = {}
-        try:
-            for key, (proc, _) in group.items():
-                logs[key] = proc.communicate(timeout=DP_TIMEOUT)[0]
-        finally:
-            for proc, _ in group.values():
-                if proc.poll() is None:
-                    proc.kill()
-                    proc.wait()
-        for key, (proc, _) in group.items():
-            check(proc.returncode == 0, f"data-parallel rank {key} exited {proc.returncode}:\n{logs[key][-4000:]}")
+        for rank, result in enumerate(spawn_ranks("--dp-rank", world, workdir, DP_TIMEOUT, backend)):
+            ranks[(backend, rank)] = result
         say(f"data parallel: {world} {backend} rank(s) ran in {time.perf_counter() - t0:.1f} s")
-        procs.update(group)
-    ranks = {key: torch.load(path, weights_only=False) for key, (_, path) in procs.items()}
     out = {"one_process": {k: one[k] for k in ("step_ms", "device_ms", "peak_mib")}, "ranks": {}}
     gloo = [ranks[("gloo", r)] for r in range(DP_WORLD)]
     for name, p in gloo[0]["params"].items():
@@ -6728,6 +6768,297 @@ def slice7e_path(torch, dev, smi):
     torch.cuda.empty_cache()
     return {"loader": loader, "data_parallel": dp}
 
+
+
+# The space axis (phase 19): phase 18's StyleGAN2-1024 case-2 step at
+# global batch SPACE_BATCH (config F, E_Blur at startf 16, random LPIPS)
+# in this process and over one space group of SPACE_WORLD gloo ranks on the
+# one card (e_align --space_shards 2, mesh 1 x 2: each rank holds half of
+# every image's rows on the encoder side and in the losses; the resynthesis
+# runs whole on each rank and is cut to its rows). The first step runs under
+# cuDNN's deterministic algorithms with TF32 off and is held to the
+# one-process step by phase 18's rule (dp_distance: scalars within
+# CPU_GPU_ATOL x max(1, |ref|), the encoder's parameters by LREQAdam's rule,
+# the gradients printed, not held); the ranks' encoders bitwise equal. Each
+# rank's FIR launches a step as derived (sg2_step_firs: a row shard's blur
+# and its adjoint count as the whole image's, so a rank's are one
+# process's, SPACE_FIRS); every FIR of each rank's second step held to the
+# plain version on its own halo'd inputs (hold_captured_firs), and the
+# halo'd blurs' torch-side pad copies timed (halo_pad_times). Each rank's
+# peak memory in its first step beside one process's (above what was
+# allocated when the step began: the parent keeps what earlier phases left,
+# about 1 GiB by this phase on an H100), its host step time and
+# its time in collectives on its third. Then embedding --mtype 2 --space_shards
+# 2 fine-tuning E for SPACE_INV_ITERATIONS iterations at batch 1 the same
+# way: the histories within CPU_GPU_ATOL x max(1, |ref|), the fine-tuned
+# encoder by LREQAdam's rule over its four updates, its mean difference
+# within 0.05 lr c or twice the one-process inversion's own when its target
+# moves by one fp32 ulp, whichever is larger (on an H100 a rank parts from
+# one process by 0.077 lr c on average and one process from itself on the
+# moved target by 0.076, both on the same 128-element noise weight:
+# sign-like first updates of near-zero gradients compound over four
+# updates). The ranks time-slice the card: a functional check; no speed-up
+# is claimed.
+SPACE_BATCH = DP_BATCH
+SPACE_WORLD = 2
+SPACE_INV_ITERATIONS = 2
+SPACE_FIRS = DP_FIRS  # forward B1 17, B2 7, XLA 16; adjoint B1 16, B2 8, XLA 8, as one process's (PERF.md §6)
+SPACE_TIMEOUT = 600
+
+
+def space_argv():
+    return dp_argv() + ["--space_shards", str(SPACE_WORLD)]
+
+
+def halo_pad_times(torch, capture):
+    """Every distinct FIR that ``capture`` kept whose front pads differ
+    between H and W (a row shard's halo'd blur, forward and adjoint), on its
+    own input: the card's route (``upfirdn._fir_cuda``: the input padded in
+    torch, then the launch) and the launch alone on the padded input, device
+    times from ``queued_ms``, summed over a step's launches by direction."""
+    import torch.nn.functional as F
+
+    from tpugan_torch.ops import upfirdn
+
+    sums = {}
+    for fir, (x, taps, n) in capture.firs.items():
+        direction, _, _, up, down, pads = fir
+        py0, py1, px0, px1 = pads
+        if py0 == px0 >= 0:
+            continue
+        key = capture.keys.get(fir)
+        padded = F.pad(upfirdn._stuff(x, up), (px0, px1, py0, py1)).contiguous()
+        route = queued_ms(torch, lambda: upfirdn._fir_cuda(x, taps, up, down, pads, key))
+        launch = queued_ms(torch, lambda: upfirdn._fir_op(padded, taps, 1, down, (0, 0, 0, 0), key))
+        row = sums.setdefault(direction, {"calls": 0, "route_ms": 0.0, "launch_ms": 0.0})
+        row["calls"] += n
+        row["route_ms"] += n * route
+        row["launch_ms"] += n * launch
+        del padded
+    return sums
+
+
+def space_steps(torch, dev, spatial):
+    """Three steps of the StyleGAN2-1024 case-2 trainer, in this process or
+    (``spatial``) on this rank's rows of the CLI's mesh
+    (``common.data_parallel``): the first under cuDNN's deterministic
+    algorithms with its gradients, parameters, scalars, FIR launches
+    (forward and adjoint by TPU kernel, counted from 0) and peak memory;
+    the second with every FIR kept and held to the plain version on its own
+    inputs (and, on shards, the halo'd FIRs' pad copies timed); the third on
+    the host clock with its time in collectives."""
+    from tpugan_torch.cli import common, e_align
+    from tpugan_torch.losses.lpips import random_lpips_fn
+    from tpugan_torch.ops import cuda, upfirdn
+    from tpugan_torch.ops.eq_lr import lreq_coefs
+    from tpugan_torch.train.e_align import info_scalars
+
+    args = e_align.make_parser().parse_args(space_argv() if spatial else dp_argv())
+    mesh = common.data_parallel(args)[0] if spatial else None
+    out = {}
+    with cudnn_deterministic(torch):
+        trainer = e_align.build_trainer(args, random_lpips_fn(dev), mesh=mesh)
+        state = trainer.state
+        out["derived"] = sg2_step_firs(trainer, step_image_gradients(e_align, args), True)
+        grads = dp_record(torch, state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # the models, and what earlier phases left in this process
+        cuda.reset_launches()
+        upfirdn.reset_layout_launches()
+        with AdjointCount() as adjoint:
+            _, info = trainer.step(state, 0)
+            torch.cuda.synchronize()
+        out["peak_mib"], out["base_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20, base / 2**20
+        total, adj = dict(upfirdn.layout_launches), dict(adjoint.counts)
+        out["launches"] = dict(cuda.launches)
+        out["firs"] = ({key: total[key] - adj[key] for key in total}, adj)
+        out["info"] = info_scalars(info)
+        out["grads"] = [[None if g is None else g.cpu() for g in gs] for gs in grads]
+        out["params"] = {n: p.detach().cpu() for n, p in state.encoder.named_parameters()}
+        out["coefs"], out["lr"] = lreq_coefs(state.encoder), args.lr
+        grads.clear()
+        with FirCapture() as capture:
+            trainer.step(state, 1)
+            torch.cuda.synchronize()
+        label = f"space axis {'rank ' + str(torch.distributed.get_rank()) if spatial else 'one process'} step"
+        out["fir_max_abs_err"] = hold_captured_firs(torch, capture, label, torch.float32, what="step")
+        out["pad_copies"] = halo_pad_times(torch, capture)
+        del capture
+        torch.cuda.empty_cache()
+        with CollectiveClock(torch) as clock:
+            t0 = time.perf_counter()
+            trainer.step(state, 2)
+            torch.cuda.synchronize()
+            out["step_ms"] = (time.perf_counter() - t0) * 1e3
+        out["collective_ms"], out["collective_calls"] = clock.ms, clock.calls
+    del trainer, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def space_inversion(torch, dev, spatial, moved=False):
+    """``embedding --mtype 2`` fine-tuning E for SPACE_INV_ITERATIONS
+    iterations at batch 1, in this process or (``spatial``) on this rank's
+    rows, under cuDNN's deterministic algorithms, on the bundle's imgs1 at
+    INV_TARGET_SEED (``moved``: each pixel moved by about one fp32 ulp): its
+    histories, the encoder after its last update, its FIR launches and peak
+    memory."""
+    from tpugan_torch.cli import common, embedding, infer_e
+    from tpugan_torch.losses.lpips import random_lpips_fn
+    from tpugan_torch.ops import cuda
+    from tpugan_torch.ops.eq_lr import lreq_coefs
+    from tpugan_torch.optim.lreq_adam import LREQAdam
+
+    argv = list(INV_SG2) + ["--random_init", "--iterations", str(SPACE_INV_ITERATIONS), "--seed", str(SEED),
+                            "--device", CARD] + (["--space_shards", str(SPACE_WORLD)] if spatial else [])
+    args = embedding.make_parser().parse_args(argv)
+    mesh = common.data_parallel(args)[0] if spatial else None
+    with cudnn_deterministic(torch):
+        inverter = embedding.build_inverter(args, random_lpips_fn(dev), mesh=mesh)
+        bundle = inverter.bundle
+        with torch.no_grad():
+            target = bundle.synth(infer_e.draw_request(bundle, 1, INV_TARGET_SEED).z).imgs1
+            if moved:
+                target = (target.double() * (1 + 2.0**-23)).float()
+        last, real = {}, LREQAdam.step
+
+        def recording(self, grads=None):
+            result = real(self, grads)
+            last["params"] = {n: p.detach().cpu().clone() for n, p in bundle.encoder.named_parameters()}
+            last["updates"] = last.get("updates", 0) + 1
+            return result
+
+        LREQAdam.step = recording
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        cuda.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            result = inverter.invert(target)
+            torch.cuda.synchronize()
+        finally:
+            LREQAdam.step = real
+        seconds = time.perf_counter() - t0
+    info = {f"{name}_{i}": float(v) for name, hist in (("msiv", result.msiv_history), ("wnorm", result.wnorm_history))
+            for i, v in enumerate(hist)}
+    info.update({f"loss_{i}": float(v) for i, v in enumerate(result.losses[-1])})
+    out = {"info": info, "grads": [], "params": last["params"], "updates": last["updates"],
+           "coefs": lreq_coefs(bundle.encoder), "lr": args.lr, "launches": dict(cuda.launches),
+           "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2**20, "base_mib": base / 2**20,
+           "seconds": seconds, "w": result.w.cpu()}
+    del inverter, bundle, result
+    torch.cuda.empty_cache()
+    return out
+
+
+def space_rank_main(rank, world, store, out_path):
+    """One rank of phase 19's space group (``chip_smoke.py --space-rank
+    ...``): the gloo group through ``runtime.init_distributed``, the
+    CLI's mesh of ``--space_shards``, :func:`space_steps` and
+    :func:`space_inversion`, the result to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    from tpugan_torch.runtime import init_distributed, parity_mode
+
+    dev = torch.device(CARD)
+    init_distributed(f"file://{store}", num_processes=world, process_id=rank, backend="gloo")
+    parity_mode()
+    result = {"step": space_steps(torch, dev, True), "inversion": space_inversion(torch, dev, True), "rank": rank,
+              "jax_loaded": any(n == "jax" or n.startswith("jax.") for n in sys.modules)}
+    torch.save(result, out_path)
+    dist.destroy_process_group()
+    return 0
+
+
+def space_axis_path(torch, dev, smi, workdir):
+    """Phase 19: the one-process step and inversion, then the space group's."""
+    one = {"step": space_steps(torch, dev, False), "inversion": space_inversion(torch, dev, False)}
+    # the inversion's own spread: one process on a target moved by one fp32 ulp
+    moved = space_inversion(torch, dev, False, moved=True)
+    spread = dp_distance(torch, "the one-process inversion on a target moved by one fp32 ulp", moved, one["inversion"],
+                         one["inversion"]["coefs"], one["inversion"]["lr"], one["inversion"]["updates"], hold=False)
+    spread["w_max_abs_err"] = float((moved["w"] - one["inversion"]["w"]).abs().max())
+    inv_mean_limit = max(0.05, 2 * spread["param_mean_lr_c"])
+    say(f"space axis: the one-process inversion on a target moved by one fp32 ulp: histories {spread['info']:.3e}, "
+        f"encoder {spread['param_max_lr_c']:.3f} lr c at most, {spread['param_mean_lr_c']:.4f} on average (the largest "
+        f"four {spread['param_means_top']}; over the whole encoder {spread['encoder_mean_lr_c']:.5f}), w "
+        f"{spread['w_max_abs_err']:.3e}; a rank's inversion is held to {inv_mean_limit:.4f} lr c on average")
+    check(tuple(one["step"]["firs"][0][k] for k in ("B1", "B2", "XLA")) == tuple(SPACE_FIRS[0].values())
+          and tuple(one["step"]["firs"][1][k] for k in ("B1", "B2", "XLA")) == tuple(SPACE_FIRS[1].values()),
+          f"the one-process step's FIR launches {one['step']['firs']}, expected {SPACE_FIRS}")
+    say(f"space axis: the one-process SG2-{SG2_SIZE} case-2 step at batch {SPACE_BATCH}: peak {one['step']['peak_mib']:.1f} "
+        f"MiB above the {one['step']['base_mib']:.1f} allocated when it began, step {one['step']['step_ms']:.3f} ms "
+        f"(host); embedding fine-tuning E at batch 1: peak {one['inversion']['peak_mib']:.1f} MiB above "
+        f"{one['inversion']['base_mib']:.1f}, {SPACE_INV_ITERATIONS} iterations in {one['inversion']['seconds']:.2f} s; {smi}")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks("--space-rank", SPACE_WORLD, workdir, SPACE_TIMEOUT)
+    say(f"space axis: {SPACE_WORLD} gloo ranks of one space group ran in {time.perf_counter() - t0:.1f} s")
+    for part in ("step", "inversion"):
+        for name, p in ranks[0][part]["params"].items():
+            check(all(torch.equal(p, r[part]["params"][name]) for r in ranks[1:]), f"the ranks' {part} {name} differ")
+    out = {"one_process": {"step": {k: one["step"][k] for k in ("peak_mib", "base_mib", "step_ms", "collective_ms",
+                                                                "pad_copies")},
+                           "inversion": {k: one["inversion"][k] for k in ("peak_mib", "base_mib", "seconds")},
+                           "inversion_moved_target": spread},
+           "ranks": {}, "max_abs_err": one["step"]["fir_max_abs_err"]}
+    for r in ranks:
+        label = f"rank {r['rank']}"
+        step, inv = r["step"], r["inversion"]
+        check(not r["jax_loaded"], f"{label} loaded JAX")
+        fwd, adj = step["firs"]
+        check((fwd, adj) == tuple(step["derived"]) and all(fwd[k] == n for k, n in SPACE_FIRS[0].items())
+              and all(adj[k] == n for k, n in SPACE_FIRS[1].items()),
+              f"space {label}: FIR launches forward {fwd}, adjoint {adj}; derived {step['derived']}, expected {SPACE_FIRS}")
+        check(step["launches"] == expected_launches(upfirdn2d=sum(fwd.values()) + sum(adj.values())),
+              f"space {label}: launches {step['launches']}")
+        check(inv["launches"]["upfirdn2d"] > 0, f"space {label}: the inversion launched {inv['launches']}")
+        distance = dp_distance(torch, f"space {label} step", step, one["step"], one["step"]["coefs"], one["step"]["lr"],
+                               len(one["step"]["grads"]), hold=False)
+        inv_distance = dp_distance(torch, f"space {label} inversion", inv, one["inversion"], one["inversion"]["coefs"],
+                                   one["inversion"]["lr"], one["inversion"]["updates"], hold=False)
+        w_err = float((inv["w"] - one["inversion"]["w"]).abs().max())
+        out["max_abs_err"] = max(out["max_abs_err"], step["fir_max_abs_err"])
+        out["ranks"][label] = {"launches": step["launches"]["upfirdn2d"], "inversion_launches": inv["launches"]["upfirdn2d"],
+                               "firs": {"forward": fwd, "adjoint": adj}, "peak_mib": step["peak_mib"],
+                               "base_mib": step["base_mib"], "inversion_peak_mib": inv["peak_mib"], "step_ms": step["step_ms"],
+                               "collective_ms": step["collective_ms"], "collective_calls": step["collective_calls"],
+                               "pad_copies": step["pad_copies"], "distance": distance,
+                               "inversion_distance": inv_distance, "inversion_w_max_abs_err": w_err}
+        pads = "; ".join(f"{d} {row['calls']} calls, route {row['route_ms']:.3f} ms against the launch alone "
+                         f"{row['launch_ms']:.3f} ms" for d, row in step["pad_copies"].items())
+        say(f"space axis {label}: FIR launches a step forward {fwd}, adjoint {adj} (as derived); every FIR of a step on "
+            f"its own halo'd inputs within {KERNEL_TOL:g} of the plain version (max |err| {step['fir_max_abs_err']:.3e}); "
+            f"halo'd FIRs a step: {pads}; against the one-process step: scalars {distance['info']:.3e} (limit "
+            f"{CPU_GPU_ATOL}), parameters {distance['param_max_lr_c']:.3f} lr c at most (limit "
+            f"{lreq_part_bound(len(one['step']['grads'])):.2f}), {distance['param_mean_lr_c']:.4f} on average (limit "
+            f"0.05; largest {distance['param_mean_worst']}), gradients {distance['grad_share_of_max']:.3e} of max |g| "
+            f"(not held); peak {step['peak_mib']:.1f} MiB above the {step['base_mib']:.1f} allocated when the step "
+            f"began, against one process's {one['step']['peak_mib']:.1f}; step {step['step_ms']:.3f} ms (host), of it "
+            f"{step['collective_ms']:.3f} ms in {step['collective_calls']} collectives; {smi}")
+        say(f"space axis {label} inversion: histories {inv_distance['info']:.3e} (limit {CPU_GPU_ATOL}), encoder "
+            f"{inv_distance['param_max_lr_c']:.3f} lr c at most (limit {lreq_part_bound(one['inversion']['updates']):.2f}), "
+            f"{inv_distance['param_mean_lr_c']:.4f} on average (limit {inv_mean_limit:.4f}; largest "
+            f"{inv_distance['param_mean_worst']}; the largest four {inv_distance['param_means_top']}; over the whole "
+            f"encoder {inv_distance['encoder_mean_lr_c']:.5f}), w {w_err:.3e} from one process's (not held); peak "
+            f"{inv['peak_mib']:.1f} MiB above {inv['base_mib']:.1f}, against {one['inversion']['peak_mib']:.1f}; "
+            f"{SPACE_INV_ITERATIONS} iterations in {inv['seconds']:.2f} s")
+        dp_held(f"space {label} step", distance, len(one["step"]["grads"]))
+        dp_held(f"space {label} inversion", inv_distance, one["inversion"]["updates"], inv_mean_limit)
+    say(f"space axis: the {SPACE_WORLD} ranks' encoders are bitwise equal after the step and after the inversion")
+    return out
+
+
+def slice7f_path(torch, dev, smi):
+    """Phase 19 (the module docstring's item 19)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="tpugan_7f_") as workdir:
+        out = space_axis_path(torch, dev, smi, workdir)
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -6961,6 +7292,14 @@ def main() -> int:
     check(len(s7e_fir) == DP_WORLD + 2 and all(s7e_fir.values()), f"phase 18 missed the FIR kernel: {s7e_fir}")
     say(f"phase 18 (slice 7e) took {time.perf_counter() - t0:.1f} s; the script {time.perf_counter() - start:.1f} s")
 
+    # ---- 19. slice 7f: the space axis (image rows across ranks) ----
+    t0 = time.perf_counter()
+    s7f = slice7f_path(torch, dev, smi)
+    s7f_fir = {f"space axis: {label} step": r["launches"] for label, r in s7f["ranks"].items()}
+    s7f_fir.update({f"space axis: {label} inversion": r["inversion_launches"] for label, r in s7f["ranks"].items()})
+    check(len(s7f_fir) == 2 * SPACE_WORLD and all(s7f_fir.values()), f"phase 19 missed the FIR kernel: {s7f_fir}")
+    say(f"phase 19 (slice 7f) took {time.perf_counter() - t0:.1f} s; the script {time.perf_counter() - start:.1f} s")
+
     sg2_bf16 = bf16["firs"]["SG2"][1]
     bf16_step = {k: sum(p_[k] for parts in sg2_bf16.values() for p_ in parts.values())
                  for k in ("ms", "fp32_ms", "plain_ms", "library_ms", "bound_ms")}
@@ -6976,7 +7315,7 @@ def main() -> int:
         "launches": (launches["upfirdn2d"] + sg2["launches"] + sgv1_train["launches"] + sg2_train["launches"]
                      + sum(fir_inv.values()) + mis["launches"] + cam["request"]["launches"] + sum(s7a_fir.values())
                      + sum(s7b_launches["upfirdn2d"].values()) + s7c["launches"] + s7c["decode3_launches"]
-                     + sum(s7d_launches["upfirdn2d"].values()) + sum(s7e_fir.values())),
+                     + sum(s7d_launches["upfirdn2d"].values()) + sum(s7e_fir.values()) + sum(s7f_fir.values())),
         "launches_by_path": {"SGv1 Cat256 serving": launches["upfirdn2d"],
                              f"StyleGAN2-{SG2_SIZE} serving": sg2["launches"],
                              "SGv1 Cat256 training": sgv1_train["launches"],
@@ -6986,15 +7325,16 @@ def main() -> int:
                              "infer_e --gradcam": cam["request"]["launches"],
                              **s7a_fir, **s7b_launches["upfirdn2d"],
                              "SGv1 Cat256 GAN training": s7c["launches"], "decode3": s7c["decode3_launches"],
-                             **s7d_launches["upfirdn2d"], **s7e_fir},
+                             **s7d_launches["upfirdn2d"], **s7e_fir, **s7f_fir},
         "max_abs_err": max(fir_err, adjoint_err, sg2["max_abs_err"], sg2_train["max_abs_err"], inv_err["upfirdn2d"],
-                           mis["max_abs_err"], s7c["max_abs_err"]),
+                           mis["max_abs_err"], s7c["max_abs_err"], s7f["max_abs_err"]),
         "inversion": inversion,
         "gradcam": gradcam,
         "slice7a": s7a,
         "slice7b": s7b,
         "slice7d": s7d,
         "slice7e": s7e,
+        "slice7f": s7f,
         "slice7c": {"gan_training": {k: v for k, v in s7c.items() if k not in ("launches", "decode3_launches")},
                     "launches_per_step_are": f"FIR launches of one D step and one G step at lod {s7c['lod']}, batch "
                                              f"{s7c['batch']}, by direction and TPU kernel, as counted in every "
@@ -7127,6 +7467,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--space-rank"]:
+        sys.exit(space_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     if sys.argv[1:2] == ["--dp-rank"]:
         sys.exit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6]))
     sys.exit(main())

@@ -735,5 +735,5 @@ def test_later_parts_raise(sgv1, monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="vgg"):
         make_embedder(encode, resynth, encoder, EmbeddingConfig(attention="gradcam"))
     assert callable(make_embedder(encode, resynth, encoder, EmbeddingConfig(), mesh=None))
-    with pytest.raises(NotImplementedError, match="parallelism"):
+    with pytest.raises(ValueError, match="space axis"):  # the space axis runs on a mesh's (test_torch_spatial_steps.py)
         make_embedder(encode, resynth, encoder, EmbeddingConfig(), spatial=True)

@@ -152,7 +152,7 @@ def test_cli_writes_grids_on_cpu(tmp_path):
     ],
 )
 def test_later_slices_raise(tmp_path, monkeypatch, extra, match):
-    """The space axis waits for its ROADMAP item; a converted encoder
+    """The space axis on mtypes 3 and 4 waits for ROADMAP A 1's part 2; a converted encoder
     (``--checkpoint_dir_E``, slice 7a) now loads: a reference-named E state
     dict from a seed, written to the file the flag names; PGGAN (mtype 3,
     slice 7b) now builds on the CPU with E_PG and answers a request
@@ -181,6 +181,13 @@ def test_later_slices_raise(tmp_path, monkeypatch, extra, match):
                                   convert.encoder(state, 4))
         for name, value in want.state_dict().items():
             assert torch.equal(bundle.encoder.state_dict()[name], value), name
+        return
+    if extra[0] == "--space_shards":
+        # the space axis runs mtypes 1 and 2 (tests/test_torch_spatial_steps.py);
+        # mtypes 3 and 4 wait for ROADMAP A 1's part 2
+        assert common.build_bundle(_args("--device", "cpu", *extra)).mtype == 1
+        with pytest.raises(NotImplementedError, match=match):
+            common.build_bundle(_args("--device", "cpu", *extra, "--mtype", "4"))
         return
     if extra[0] == "--multihost":
         import torch.distributed as dist
@@ -236,7 +243,7 @@ def _imported(nodes):
 @pytest.mark.parametrize(
     "path",
     sorted((ROOT / "tpugan_torch").rglob("*.py"))
-    + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_worker.py"],
+    + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_worker.py", ROOT / "tests" / "torch_spatial_worker.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_port_imports_no_jax_and_no_tpugan(path):
@@ -268,4 +275,16 @@ def test_slice_7e_modules_are_read_by_the_ast_test(module):
     path = (ROOT / "tpugan_torch" / module).resolve()
     assert path in {p.resolve() for p in (ROOT / "tpugan_torch").rglob("*.py")} | {
         ROOT / "tests" / "torch_parallel_worker.py"}
+    test_port_imports_no_jax_and_no_tpugan(path)
+
+
+@pytest.mark.parametrize("module", ["parallel/spatial.py", "parallel/mesh.py", "models/encoders.py",
+                                    "losses/space_loss.py", "../tests/torch_spatial_worker.py"])
+def test_slice_7f_modules_are_read_by_the_ast_test(module):
+    """The space axis's modules (and the spatial tests' spawned ranks'
+    worker) exist and are among the files
+    ``test_port_imports_no_jax_and_no_tpugan`` reads."""
+    path = (ROOT / "tpugan_torch" / module).resolve()
+    assert path in {p.resolve() for p in (ROOT / "tpugan_torch").rglob("*.py")} | {
+        ROOT / "tests" / "torch_spatial_worker.py"}
     test_port_imports_no_jax_and_no_tpugan(path)

@@ -16,8 +16,10 @@ http(s) URL, downloaded once (``tpugan_torch/io/fetch.py``).
 Data parallelism: ``--multihost``, or torchrun's environment naming more
 than one process, starts the process group (``runtime.init_distributed``),
 and the training and inversion CLIs shard their batch over
-:func:`data_parallel`'s mesh. ``--space_shards`` above 1 (the ``space``
-axis) raises :class:`NotImplementedError` naming its ROADMAP item.
+:func:`data_parallel`'s mesh. ``--space_shards`` above 1 adds tpugan's
+``space`` axis: ``e_align`` and ``embedding`` on mtypes 1 and 2 shard the
+images' rows over it (``parallel/spatial.py``); on mtypes 3 and 4 it raises
+:class:`NotImplementedError` naming ROADMAP A 1's part 2.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from tpugan_torch.io import convert
 from tpugan_torch.io.fetch import cached_path
-from tpugan_torch.parallel.mesh import SPACE_AXIS_TODO, auto_mesh, takes_part
+from tpugan_torch.parallel.mesh import SPACE_AXIS_PART2, auto_mesh, takes_part
 from tpugan_torch.runtime import init_distributed, resolve_device
 
 def add_common_args(parser: argparse.ArgumentParser, training: bool = True):
@@ -109,14 +111,24 @@ def start_distributed(args) -> bool:
     return init_distributed(backend="gloo" if getattr(args, "device", "cuda") == "cpu" else None)
 
 
+def spatial(args) -> bool:
+    """Whether ``args`` ask for the ``space`` axis (tpugan's
+    ``spatial=args.space_shards > 1``); raises where the port has no row
+    shards yet (ROADMAP A 1's part 2: mtypes 3 and 4)."""
+    if getattr(args, "space_shards", 1) == 1:
+        return False
+    if args.mtype not in (1, 2):
+        raise NotImplementedError(SPACE_AXIS_PART2)
+    return True
+
+
 def data_parallel(args):
     """``(mesh, takes_part)`` of a training or inversion CLI: the group
     started (:func:`start_distributed`), tpugan's ``auto_mesh(batch_size,
     space=space_shards)`` over its processes (``None`` for one), and whether
     this process runs the steps (ranks past the mesh leave after its note).
-    ``--space_shards`` above 1 raises."""
-    if getattr(args, "space_shards", 1) != 1:
-        raise NotImplementedError(SPACE_AXIS_TODO)
+    ``--space_shards`` above 1 on mtypes 3 and 4 raises (:func:`spatial`)."""
+    spatial(args)
     start_distributed(args)
     mesh = auto_mesh(args.batch_size, space=args.space_shards, device_type=resolve_device(args.device).type)
     return mesh, takes_part(mesh)
@@ -157,8 +169,7 @@ def build_bundle(args) -> GanBundle:
     ``--checkpoint_dir_GAN``; the encoder converted from
     ``--checkpoint_dir_E`` where it is given (``tpugan/cli/common.py:
     114-307``)."""
-    if getattr(args, "space_shards", 1) != 1:
-        raise NotImplementedError(SPACE_AXIS_TODO)
+    spatial(args)
     start_distributed(args)
     if args.mtype not in (1, 2, 3, 4):
         raise ValueError(f"unknown mtype {args.mtype}")

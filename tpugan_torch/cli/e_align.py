@@ -45,7 +45,12 @@ environment) runs one process per GPU over tpugan's ``auto_mesh`` of the
 batch (``cli/common.py::data_parallel``): each rank takes its rows of the
 iteration's draws and every step is the one-process step on the global
 batch (``train/e_align.py::make_train_step``). Rank 0 alone writes the log,
-the grids and the checkpoints; the others wait for each save.
+the grids and the checkpoints; the others wait for each save. With
+``--space_shards S`` (mtypes 1 and 2) the mesh has tpugan's ``space`` axis:
+each rank of a space group of S holds its rows of the images, on the
+encoder side and in the losses, and the step is still the one-process step
+(``torchrun --nproc_per_node 2 -m tpugan_torch.cli.e_align --mtype 2
+--space_shards 2 --device cpu ...``).
 """
 
 from __future__ import annotations
@@ -67,10 +72,11 @@ from tpugan_torch.cli.common import (
     family_pipeline,
     loss_log_of,
     make_result_dirs,
+    spatial,
 )
 from tpugan_torch.io.checkpoint import latest_step, load_checkpoint, save_checkpoint
 from tpugan_torch.optim import lreq_adam
-from tpugan_torch.parallel.mesh import barrier, replicate
+from tpugan_torch.parallel.mesh import barrier, replicate, space_group
 from tpugan_torch.precision import bf16_encode, bf16_frozen, bf16_pipeline
 from tpugan_torch.train.e_align import (
     EncoderTrainState,
@@ -146,7 +152,8 @@ def build_pipeline(args, draw=None, mesh=None) -> Pipeline:
     the train-mode closures for ``args``, on ``args.device``, from random
     weights seeded by ``args.seed``. ``draw(iteration) -> Request`` replaces
     the iteration's seeded draws (a replay of given inputs). With ``mesh``
-    the models are broadcast from its first rank."""
+    the models are broadcast from its first rank, and with ``--space_shards``
+    the encoder runs on the rank's rows of the images."""
     ab = args.ablation
     if ab == 1 and args.mtype != 1:
         raise ValueError("ablation 1 (z re-mapping) is StyleGANv1-only")
@@ -161,7 +168,8 @@ def build_pipeline(args, draw=None, mesh=None) -> Pipeline:
         mapping = None if bundle.mapping is None else bf16_frozen(bundle.mapping)
         bundle = bundle._replace(generator=bf16_frozen(bundle.generator), mapping=mapping)
     synth_fn, resynth = family_pipeline(bundle, bundle.generator, bundle.mapping, train=True)
-    encode = make_encode_fn(bundle.encoder, conditional=args.mtype == 4, train=True)
+    encode = make_encode_fn(bundle.encoder, conditional=args.mtype == 4, train=True,
+                            space=space_group(mesh) if spatial(args) else None)
     if ab == 1:
         # E_Blur_Z: const1 is z and the encoder's z2 is re-mapped to w+
         # (1.E_align_z.py:62-67)
@@ -207,13 +215,14 @@ def build_trainer(args, lpips_fn=None, draw=None, mesh=None) -> Trainer:
         weights = dict(image_weights=ABLATION_IMAGE_WEIGHTS[ab],
                        latent_weights=ABLATION_LATENT_WEIGHTS[ab],
                        sequential_image_steps=ab in SEQUENTIAL_ABLATIONS)
-    remat = dict(remat=args.remat, remat_policy=args.remat_policy, mesh=mesh)
+    sharded = spatial(args)
+    remat = dict(remat=args.remat, remat_policy=args.remat_policy, mesh=mesh, spatial=sharded)
     state = init_train_state(bundle.encoder, lreq_adam(bundle.encoder, args.lr))
     step = make_train_step(encode, synth, resynth, draw, case=case, lpips_fn=lpips_fn, **weights, **remat)
     lean = None
     if case == 1 and not args.eager_metrics:
         lean = make_train_step(encode, synth, resynth, draw, case=1, compute_image_losses=False, **remat)
-    return Trainer(bundle, state, step, lean, make_align_visuals(encode, synth, resynth, draw, mesh))
+    return Trainer(bundle, state, step, lean, make_align_visuals(encode, synth, resynth, draw, mesh, sharded))
 
 
 def resume(state: EncoderTrainState, models_dir: str, wanted: bool) -> int:

@@ -55,7 +55,7 @@ from tpugan_torch.cli.common import (
 from tpugan_torch.cli.e_align import Pipeline, build_pipeline, resume
 from tpugan_torch.io.checkpoint import save_checkpoint
 from tpugan_torch.optim import lreq_adam
-from tpugan_torch.parallel.mesh import barrier, replicate
+from tpugan_torch.parallel.mesh import SPACE_AXIS_PART2, barrier, replicate
 from tpugan_torch.precision import BF16
 from tpugan_torch.train.e_align import EncoderTrainState, info_scalars, init_train_state
 from tpugan_torch.train.e_mis_align import make_mis_align_step, make_mis_align_visuals
@@ -176,6 +176,8 @@ def run(trainer: Trainer, args, mesh=None) -> EncoderTrainState:
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.space_shards != 1:
+        raise NotImplementedError(SPACE_AXIS_PART2)  # Grad-CAM over row shards
     mesh, takes_part = data_parallel(args)
     if not takes_part:
         return None

@@ -42,7 +42,9 @@ corners by the C++ library, else PIL), so the targets are tpugan's pixels.
 Data parallel as ``cli/e_align.py``: under ``torchrun --nproc_per_node N``
 (or ``--multihost``) each image batch is split over tpugan's ``auto_mesh``
 of ``--batch_size`` and every iteration is the one-process iteration on the
-whole batch; rank 0 writes.
+whole batch; rank 0 writes. With ``--space_shards S`` (mtypes 1 and 2) each
+rank of a space group of S inverts its rows of the images
+(``invert/embedding.py::make_embedder``'s ``spatial``).
 """
 
 from __future__ import annotations
@@ -65,9 +67,10 @@ from tpugan_torch.cli.common import (
     draw_inputs,
     family_pipeline,
     make_result_dirs,
+    spatial,
 )
 from tpugan_torch.invert import EmbeddingConfig, make_embedder
-from tpugan_torch.parallel.mesh import data_group, gather_rows, replicate, shard_batch
+from tpugan_torch.parallel.mesh import data_group, gather_rows, replicate, shard_batch, space_group
 from tpugan_torch.precision import BF16, bf16_encode_images, bf16_frozen
 from tpugan_torch.train.e_align import nchw_to_nhwc, nhwc_to_nchw
 from tpugan_torch.utils import one_hot
@@ -120,7 +123,8 @@ def build_inverter(args, lpips_fn=None, bundle: Optional[GanBundle] = None, vgg=
     100 iterations (``EmbeddingConfig``'s chunk, tpugan's). ``bundle`` and
     ``vgg`` are seams for tests: the embedder over those models, on their
     device. With ``mesh`` the models are broadcast from its first rank and
-    the closures hold this rank's rows of the draws."""
+    the closures hold this rank's rows of the draws; with ``--space_shards``
+    the encoder runs on the rank's rows of the images."""
     bundle = bundle or build_bundle(args)
     if args.gradcam and vgg is None:
         vgg = build_vgg16(args)
@@ -151,15 +155,20 @@ def build_inverter(args, lpips_fn=None, bundle: Optional[GanBundle] = None, vgg=
     if args.bf16 and args.optimizeE and cond is not None:
         cond = cond.to(BF16)  # E_BIG's condition follows the compute dtype
 
+    space = space_group(mesh) if spatial(args) else None
+
     def encode(imgs):
         x = nhwc_to_nchw(imgs)
-        const, w = enc(x, cond, draws.noise_e) if cond is not None else enc(x, draws.noise_e)
+        if cond is not None:
+            const, w = enc(x, cond, draws.noise_e)
+        else:
+            const, w = enc(x, draws.noise_e, space=space) if space is not None else enc(x, draws.noise_e)
         return (nchw_to_nhwc(const) if const.dim() == 4 else const), w
 
     if args.bf16 and args.optimizeE:
         encode = bf16_encode_images(encode, enc)
     cfg = embedding_config(args)
-    invert = make_embedder(encode, resynth, enc, cfg, lpips_fn=lpips_fn, vgg=vgg, mesh=mesh)
+    invert = make_embedder(encode, resynth, enc, cfg, lpips_fn=lpips_fn, vgg=vgg, mesh=mesh, spatial=space is not None)
     return Inverter(bundle, invert, encode, resynth, gen, vgg, mesh)
 
 

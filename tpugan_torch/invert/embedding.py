@@ -32,20 +32,24 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from tpugan_torch.losses.gradcam import grad_cam, mask2cam
-from tpugan_torch.losses.space_loss import pool_for_lpips, space_loss
+from tpugan_torch.losses.space_loss import pool_for_lpips, pooled_whole, space_loss
 from tpugan_torch.nn.spectral import SNDense, power_iterate
 from tpugan_torch.optim.lreq_adam import LREQAdam, lreq_adam
 from tpugan_torch.parallel.mesh import (
-    SPACE_AXIS_TODO,
+    SPACE_AXIS_PART2,
     all_sum,
     all_sum_grad,
     average_gradients,
     batch_mean,
     data_group,
     gather_rows,
+    group_size,
     shard_batch,
+    space_group,
+    take_rows,
 )
-from tpugan_torch.train.e_align import attention_crops
+from tpugan_torch.parallel.spatial import Rows
+from tpugan_torch.train.e_align import attention_crops_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,17 +124,32 @@ def make_embedder(
     so each iteration is the one-process iteration. Fine-tuning E, the
     gradients are averaged over the ranks and the encoders stay equal;
     optimising w, each rank's rows of w take their share of the global
-    gradient. ``spatial`` (the ``space`` axis) raises
-    :class:`NotImplementedError`.
+    gradient.
+
+    With ``spatial`` (the mesh's ``space`` axis) each rank of a space
+    group inverts its rows of its images: ``encode`` runs on a rank's rows
+    (its encoder built with ``space=space_group(mesh)``), ``resynth`` whole
+    on every rank, cut to the rank's rows before the losses, which sum over
+    the group; every rank differentiates its share of the loss, and the
+    gradients are summed over the group (``train/e_align.py::
+    make_train_step``). Grad-CAM on row shards raises
+    :class:`NotImplementedError` (ROADMAP A 1's part 2).
     """
     if cfg.attention not in ("crops", "gradcam"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
     gradcam = cfg.attention == "gradcam"
     if gradcam and vgg is None:
         raise ValueError("attention='gradcam' needs a vgg")
-    if spatial:
-        raise NotImplementedError(SPACE_AXIS_TODO)
+    if spatial and mesh is None:
+        raise ValueError("spatial=True needs a mesh with a space axis")
+    if spatial and gradcam:
+        raise NotImplementedError(SPACE_AXIS_PART2)
     group = data_group(mesh)
+    space = space_group(mesh) if spatial else None
+    share = 1.0 / group_size(space)
+
+    def rows_of(imgs):
+        return None if space is None else Rows.even(space, imgs.shape[1])
     has_sn = any(isinstance(m, SNDense) for m in encoder.modules())
     can_cache_feats = lpips_fn is not None and hasattr(lpips_fn, "features")
     half = cfg.iterations // 2
@@ -141,10 +160,14 @@ def make_embedder(
         else:
             w1, const2 = target, const2_fixed  # encoded once per batch (:77)
         imgs2 = resynth(w1)
+        rows = rows_of(imgs1)
+        if rows is not None:
+            imgs2 = take_rows(imgs2, space, 1)
         # the live E re-encodes imgs2 when it is fine-tuned (one module,
         # embedding_img.py:86-88); the base E when w is optimised
         const3, w2 = encode(imgs2)
-        l_imgs, _ = space_loss(imgs1, imgs2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("full"), group=group)
+        l_imgs, _ = space_loss(imgs1, imgs2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("full"), group=group,
+                               space=rows)
         if gradcam:
             # m2 and cam2 from the detached imgs2; m1 and cam1 are the cache's
             i2 = imgs2.detach()
@@ -157,12 +180,14 @@ def make_embedder(
             # the reference's weights: imgs + mask + Gcam (embedding_v2_BigGAN.py:148)
             loss_msiv = l_imgs + l_med + l_small
         else:
-            at1_1, at2_1 = attention_crops(imgs1)
-            at1_2, at2_2 = attention_crops(imgs2)
+            (at1_1, rows1), (at2_1, rows2) = attention_crops_rows(imgs1, rows)
+            (at1_2, _), (at2_2, _) = attention_crops_rows(imgs2, rows)
             if cfg.detach_crops:
                 at1_1, at2_1, at1_2, at2_2 = (x.detach() for x in (at1_1, at2_1, at1_2, at2_2))
-            l_med, _ = space_loss(at1_1, at1_2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("at1"), group=group)
-            l_small, _ = space_loss(at2_1, at2_2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("at2"), group=group)
+            l_med, _ = space_loss(at1_1, at1_2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("at1"), group=group,
+                                  space=rows1)
+            l_small, _ = space_loss(at2_1, at2_2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("at2"), group=group,
+                                    space=rows2)
             loss_msiv = l_imgs + cfg.crop_weight_medium * l_med + cfg.crop_weight_small * l_small
         l_w, _ = space_loss(w1, w2, image_space=False, group=group)
         l_c1, _ = space_loss(const2, const3, image_space=False, group=group)
@@ -182,12 +207,14 @@ def make_embedder(
         if gradcam:
             m1 = grad_cam(vgg, imgs1, plus_plus=True, group=group)
             cache["m1"], cache["cam1"] = m1, mask2cam(m1, imgs1, group=group)[1]
-            sides = (("full", imgs1), ("m1_feats", m1.expand(-1, -1, -1, 3)), ("cam1_feats", cache["cam1"]))
+            sides = (("full", (imgs1, None)), ("m1_feats", (m1.expand(-1, -1, -1, 3), None)),
+                     ("cam1_feats", (cache["cam1"], None)))
         else:
-            at1, at2 = attention_crops(imgs1)
-            sides = (("full", imgs1), ("at1", at1), ("at2", at2))
+            rows = rows_of(imgs1)
+            sides = (("full", (imgs1, rows)), *zip(("at1", "at2"), attention_crops_rows(imgs1, rows)))
         if can_cache_feats:
-            cache.update({key: lpips_fn.features(pool_for_lpips(x)) for key, x in sides})
+            cache.update({key: lpips_fn.features(pool_for_lpips(x) if x_rows is None else pooled_whole(x, x_rows))
+                          for key, (x, x_rows) in sides})
         return cache
 
     def one_iteration(target, opt, imgs1, const2_fixed, cache, best, it):
@@ -197,9 +224,9 @@ def make_embedder(
         loss_msiv, loss_mslv, w1 = losses(target, imgs1, const2_fixed, cache)
         # both gradients from the one forward graph, at the iteration's
         # initial parameters; then two updates, one after the other
-        g1 = torch.autograd.grad(loss_msiv, params, retain_graph=True, allow_unused=True)
-        g2 = torch.autograd.grad(loss_mslv, params, allow_unused=True)
-        g1, g2 = (average_gradients(g, group, replicated=cfg.optimize_e) for g in (g1, g2))
+        g1 = torch.autograd.grad(share * loss_msiv, params, retain_graph=True, allow_unused=True)
+        g2 = torch.autograd.grad(share * loss_mslv, params, allow_unused=True)
+        g1, g2 = (average_gradients(g, group, replicated=cfg.optimize_e, space=space) for g in (g1, g2))
         l_msiv, w1 = batch_mean(loss_msiv.detach(), group), w1.detach()
 
         best_loss, best_w, best_it = best
@@ -269,7 +296,7 @@ def make_embedder(
         reconstruction."""
         base = _encoder_state(encoder)
         try:
-            return run(shard_batch(mesh, imgs1), chunk_callback)
+            return run(shard_batch(mesh, imgs1, spatial=spatial), chunk_callback)
         finally:
             encoder.load_state_dict(base)
 

@@ -17,6 +17,13 @@ With a process ``group`` (data parallelism, ``parallel/mesh.py``) ``a`` and
 ``b`` are this rank's rows of the batch: the cosine distance sums its dot
 products over the ranks with a gradient, and ``info`` holds the whole
 batch's statistics (the KL of a 3-D input softmaxes over the whole batch).
+
+With ``space`` (a ``parallel.spatial.Rows``: the space axis) the images are
+this rank's rows of its batch: the MSE's, the cosine's and the statistics'
+sums run over the space group too, the average-pool ladder counts the whole
+image's height, and SSIM and LPIPS run on the pooled images gathered whole
+on every rank. The loss and ``info`` are then the same on every rank of
+the group.
 """
 
 from __future__ import annotations
@@ -64,6 +71,10 @@ def _softmax_over_batch(a: torch.Tensor) -> bool:
 
 
 def _kl_mean(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.mean(_kl_terms(a, b))
+
+
+def _kl_terms(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     dim = 0 if _softmax_over_batch(a) else -1
     # probabilities below fp32's smallest normal are flushed to zero, as
     # XLA does on the CPU and the TPU: a denormal pb would keep log(pb)
@@ -71,7 +82,7 @@ def _kl_mean(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     tiny = torch.finfo(torch.float32).tiny
     pa, pb = (torch.where(p < tiny, 0.0, p) for p in (torch.softmax(a, dim=dim),
                                                        torch.softmax(b, dim=dim)))
-    return torch.mean(pa * (torch.log(pa) - torch.log(pb)))
+    return pa * (torch.log(pa) - torch.log(pb))
 
 
 def _kl_guard(kl: torch.Tensor) -> torch.Tensor:
@@ -83,12 +94,36 @@ def _downscale_nhwc(x: torch.Tensor) -> torch.Tensor:
     return F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
 
 
-def pool_for_lpips(a: torch.Tensor) -> torch.Tensor:
+def lpips_pools(height: int) -> int:
+    """The 2x average pools that bring ``height`` rows to at most 256."""
+    pools = 0
+    while height > 256:
+        height, pools = height // 2, pools + 1
+    return pools
+
+
+def pool_for_lpips(a: torch.Tensor, space=None) -> torch.Tensor:
     """The <=256 px average-pool ladder applied before SSIM and LPIPS, for
-    callers that cache a fixed target's LPIPS features."""
-    while a.shape[1] > 256:
+    callers that cache a fixed target's LPIPS features. With ``space`` (a
+    ``parallel.spatial.Rows``) ``a`` is this rank's rows and the ladder is
+    the whole image's, which the rows must align with."""
+    pools = lpips_pools(a.shape[1] if space is None else space.total)
+    if space is not None and (space.start % 2**pools or a.shape[1] % 2**pools):
+        raise ValueError(f"rows [{space.start}, {space.start + a.shape[1]}) of {space.total} do not align with "
+                         f"{pools} 2x pools")
+    for _ in range(pools):
         a = _downscale_nhwc(a)
     return a
+
+
+def pooled_whole(a: torch.Tensor, space) -> torch.Tensor:
+    """``pool_for_lpips`` of the whole image on every rank of the space
+    group, from this rank's rows ``a`` (``space``, a
+    ``parallel.spatial.Rows``): pooled on the rows, then gathered."""
+    from tpugan_torch.parallel.spatial import Rows, gather
+
+    pools = lpips_pools(space.total)
+    return gather(pool_for_lpips(a, space), Rows(space.group, space.start >> pools, space.total >> pools))
 
 
 def space_loss(
@@ -98,6 +133,7 @@ def space_loss(
     lpips_fn: Optional[Callable] = None,
     lpips_a_feats=None,
     group=None,
+    space=None,
 ) -> tuple[torch.Tensor, SpaceLossInfo]:
     """Multi-term distance between ``a`` (target) and ``b`` (reconstruction).
 
@@ -110,9 +146,14 @@ def space_loss(
     rows and the whole batch's cosine distance. The whole batch's total is
     the mean of the shares over the ranks, and so is its gradient with
     respect to replicated parameters (``parallel.mesh.average_gradients``).
+
+    With ``space`` (a ``parallel.spatial.Rows``), ``a`` and ``b`` are NHWC
+    images of which this rank holds its rows of the space group; the total
+    and ``info`` are its data rank's, the same on every rank of the group.
+    ``lpips_a_feats`` are then the features of ``pooled_whole(a, space)``.
     """
-    if group is not None:
-        return _space_loss_shard(a, b, image_space, lpips_fn, lpips_a_feats, group)
+    if group is not None or space is not None:
+        return _space_loss_shard(a, b, image_space, lpips_fn, lpips_a_feats, group, space)
     mse = torch.mean(torch.square(a - b))
     mse_mean = torch.square(a.mean() - b.mean())
     mse_std = torch.square(_unbiased_std(a) - _unbiased_std(b))
@@ -140,19 +181,27 @@ def space_loss(
     return total, info
 
 
-def _space_loss_shard(a, b, image_space, lpips_fn, lpips_a_feats, group):
-    """:func:`space_loss` on this rank's rows of the batch (see there)."""
+def _space_loss_shard(a, b, image_space, lpips_fn, lpips_a_feats, group, space):
+    """:func:`space_loss` on this rank's rows of the batch (``group``) and,
+    with ``space``, of its images' rows: every sum over the space group,
+    then over the data group (see there)."""
     from tpugan_torch.parallel.mesh import all_sum, all_sum_grad, gather_rows, group_size
 
     n = group_size(group)
-    mse = torch.mean(torch.square(a - b))
+    rows = None if space is None else space.group
+    if space is not None and a.dim() != 4:
+        raise ValueError(f"row shards are NHWC images, got a {a.dim()}-D input")
+    count = a.numel() if space is None else a.shape[0] * space.total * a.shape[2] * a.shape[3]
+    mse = all_sum_grad(torch.sum(torch.square(a - b)), rows) / count  # this data rank's share
     af, bf = a.reshape(-1), b.reshape(-1)
-    dots = all_sum_grad(torch.stack([torch.dot(af, af), torch.dot(bf, bf), torch.dot(af, bf)]), group)
+    dots = all_sum_grad(all_sum_grad(torch.stack([torch.dot(af, af), torch.dot(bf, bf), torch.dot(af, bf)]), rows),
+                        group)
     denom = torch.sqrt(dots[0] + 1e-12) * torch.sqrt(dots[1] + 1e-12)
     cosine = 1.0 - dots[2] / denom
     zero = torch.zeros((), dtype=mse.dtype, device=mse.device)
     if image_space:
-        pa, pb = pool_for_lpips(a), pool_for_lpips(b)
+        pa, pb = (pool_for_lpips(a), pool_for_lpips(b)) if space is None else (pooled_whole(a, space),
+                                                                             pooled_whole(b, space))
         ssim_loss = 1.0 - ssim_fn(pa, pb)
         lpips_val = zero if lpips_fn is None else torch.mean(lpips_fn(pa, pb, a_feats=lpips_a_feats))
     else:
@@ -161,19 +210,16 @@ def _space_loss_shard(a, b, image_space, lpips_fn, lpips_a_feats, group):
 
     # the whole batch's logged statistics
     with torch.no_grad():
-        count = a.numel() * n
+        count *= n
         kl_batch = _softmax_over_batch(a)  # the KL's softmax runs over the batch (see _kl_quirk)
-        local = [mse, ssim_loss, lpips_val, a.sum(), b.sum()] + ([] if kl_batch else [_kl_mean(a, b)])
-        sums = all_sum(torch.stack([v.detach().to(mse.dtype) for v in local]), group)
-        mean_a, mean_b = sums[3] / count, sums[4] / count
-        dev = all_sum(torch.stack([torch.sum(torch.square(a - mean_a)), torch.sum(torch.square(b - mean_b))]),
-                      group)
+        local = [a.sum(), b.sum()] + ([] if kl_batch else [torch.sum(_kl_terms(a, b))])
+        sums = all_sum(all_sum(torch.stack(local).to(mse.dtype), rows), group)
+        mean_a, mean_b = sums[0] / count, sums[1] / count
+        dev = all_sum(all_sum(torch.stack([torch.sum(torch.square(a - mean_a)), torch.sum(torch.square(b - mean_b))]),
+                              rows), group)
         std_a, std_b = (torch.sqrt(d / max(count - 1, 1)) for d in dev)
-        if kl_batch:
-            kl = _kl_quirk(gather_rows(a, group), gather_rows(b, group))
-        else:
-            kl = _kl_guard(sums[5] / n)
-    info = SpaceLossInfo(mse=sums[0] / n, mse_mean=torch.square(mean_a - mean_b),
-                         mse_std=torch.square(std_a - std_b), kl=kl, cosine=cosine,
-                         ssim=sums[1] / n, lpips=sums[2] / n)
+        kl = _kl_quirk(gather_rows(a, group), gather_rows(b, group)) if kl_batch else _kl_guard(sums[2] / count)
+        shared = all_sum(torch.stack([mse, ssim_loss, lpips_val]).detach(), group) / n
+    info = SpaceLossInfo(mse=shared[0], mse_mean=torch.square(mean_a - mean_b), mse_std=torch.square(std_a - std_b),
+                         kl=kl, cosine=cosine, ssim=shared[1], lpips=shared[2])
     return total, info

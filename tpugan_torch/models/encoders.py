@@ -37,19 +37,19 @@ from tpugan_torch.models.biggan import BigGANBatchNorm
 from tpugan_torch.nn.layers import EqConv, EqLinear, plain_conv
 from tpugan_torch.ops.basic import (
     downscale2d,
-    instance_moments,
     instance_norm,
     leaky_relu,
     noise_inject,
 )
-from tpugan_torch.ops.upfirdn import blur3x3
+from tpugan_torch.parallel.mesh import all_gather_rows
+from tpugan_torch.parallel.spatial import RowOps
 
 
-def _stats(y: torch.Tensor, style_stats: str = "meanstd") -> torch.Tensor:
-    mean, std = instance_moments(y)
+def _stats(y: torch.Tensor, style_stats: str = "meanstd", ops: RowOps = RowOps()) -> torch.Tensor:
+    mean, std = ops.moments(y)
     if style_stats == "std":
         # E_v2_std reads torch's x.std((2, 3)): unbiased, unlike E.py's
-        nhw = y.shape[2] * y.shape[3]
+        nhw = ops.total(y) * y.shape[3]
         return std * math.sqrt(nhw / max(nhw - 1, 1))
     return torch.cat([mean, std], dim=1)
 
@@ -119,31 +119,41 @@ class EncoderBlock(nn.Module):
         r2 = r // 2 if self.fused_scale and self.block_version == 2 else r
         return (n1, (batch, 1, r2, r2))
 
-    def forward(self, x, noise: Optional[Sequence[torch.Tensor]] = None):
+    def runs_on_rows(self, rows: int) -> bool:
+        """Whether the block runs on shards of ``rows`` rows: a block that
+        halves its input needs an even count."""
+        return rows >= 1 and not (self.has_last_conv and rows % 2)
+
+    def forward(self, x, noise: Optional[Sequence[torch.Tensor]] = None, space=None):
+        """``space``: the space group whose ranks each hold equal shares of
+        ``x``'s rows (``parallel/spatial.py``), ``noise`` the whole image's
+        (each rank takes its rows); the style codes come out whole on every
+        rank."""
+        ops = RowOps(space)
         if self.block_version == 1:
-            return self._v1_forward(x, noise)
+            return self._v1_forward(x, noise, ops)
         heads = self.style_mode != "none"
         n1 = n2 = None
         if self.use_noise and noise:
-            n1, n2 = noise[0], noise[1] if len(noise) > 1 else None
+            n1, n2 = ops.rows(noise[0]), ops.rows(noise[1]) if len(noise) > 1 else None
         w1 = w2 = None
         if heads:
-            w1 = self.inver_mod1(_stats(x, self.style_stats))
+            w1 = self.inver_mod1(_stats(x, self.style_stats, ops))
         residual = x
-        x = self.conv_1(instance_norm(x))
+        x = ops.conv(self.conv_1, ops.instance_norm(x))
         if self.use_noise:
             x = noise_inject(x, self.noise_weight_1, n1)
         x = leaky_relu(x + self.bias_1[None, :, None, None], 0.2)
         if heads:
-            w2 = self.inver_mod2(_stats(x, self.style_stats))
+            w2 = self.inver_mod2(_stats(x, self.style_stats, ops))
             if self.style_mode == "single":
                 w1 = w2
 
-        x = instance_norm(x)
+        x = ops.instance_norm(x)
         if self.has_last_conv:
             if self.use_blur:
-                x = blur3x3(x)
-            x = self.conv_2(x)
+                x = ops.blur(x)
+            x = ops.conv(self.conv_2, x)
             if self.use_noise:
                 x = noise_inject(x, self.noise_weight_2, n2)
             x = leaky_relu(x + self.bias_2[None, :, None, None], 0.2)
@@ -154,21 +164,21 @@ class EncoderBlock(nn.Module):
             residual = self.conv_3(residual)
         return 0.111 * x + 0.889 * residual, w1, w2
 
-    def _v1_forward(self, x, noise):
+    def _v1_forward(self, x, noise, ops: RowOps):
         """E_v1's block (Ablation_Study/E_v1.py:67-100)."""
-        n1, n2 = (noise[0], noise[1] if len(noise) > 1 else None) if noise else (None, None)
+        n1, n2 = (ops.rows(noise[0]), ops.rows(noise[1]) if len(noise) > 1 else None) if noise else (None, None)
         residual = x
-        w1 = self.inver_mod1(_stats(x))
-        x = instance_norm(self.conv_1(x))
+        w1 = self.inver_mod1(_stats(x, ops=ops))
+        x = ops.instance_norm(ops.conv(self.conv_1, x))
         x = noise_inject(x, self.noise_weight_1, n1)
         x = leaky_relu(x + self.bias_1[None, :, None, None], 0.2)
-        w2 = self.inver_mod2(_stats(x))
+        w2 = self.inver_mod2(_stats(x, ops=ops))
         if self.has_last_conv:
-            x = instance_norm(self.conv_2(x))
+            x = ops.instance_norm(ops.conv(self.conv_2, x))
             x = noise_inject(x, self.noise_weight_2, n2)
             x = x + self.bias_2[None, :, None, None]
             if self.conv_3 is not None:
-                residual = instance_norm(self.conv_3(residual))
+                residual = ops.instance_norm(self.conv_3(residual))
                 residual = residual * self.in3_scale[None, :, None, None] \
                     + self.in3_bias[None, :, None, None]
             x = downscale2d(leaky_relu(x + residual, 0.2))
@@ -225,17 +235,29 @@ class Encoder(nn.Module):
         return [getattr(self, f"block_{i}").noise_shapes(batch, resolution >> i)
                 for i in range(self.layer_count)]
 
-    def forward(self, x, noise=None, start_block: int = 0):
+    def forward(self, x, noise=None, start_block: int = 0, space=None):
         """``start_block`` skips the blocks before it (the reference's
         progressive ``block_num`` offset, E.py:122-134); ``noise[i]`` is
-        block i's."""
+        block i's, the whole image's.
+
+        ``space``: the space group whose ranks each hold equal shares of the
+        images' rows (``parallel/spatial.py``). Each block runs on the rows
+        while its input leaves every rank rows enough
+        (:meth:`EncoderBlock.runs_on_rows`); from the first that does not,
+        the rows are gathered and the rest runs whole on every rank. The
+        outputs come out whole on every rank."""
         x = leaky_relu(self.from_rgb(x), 0.2)
         styles = []
         for i in range(start_block, self.layer_count):
             ni = noise[i] if noise is not None else None
-            x, w1, w2 = getattr(self, f"block_{i}")(x, ni)
+            block = getattr(self, f"block_{i}")
+            if space is not None and not block.runs_on_rows(x.shape[2]):
+                x, space = all_gather_rows(x, space), None
+            x, w1, w2 = block(x, ni, space=space)
             if self.style_mode != "none":
                 styles.append(torch.stack([w2, w1], dim=1))
+        if space is not None:
+            x = all_gather_rows(x, space)
         if self.style_mode != "none":
             return x, torch.cat(styles[::-1], dim=1)
         if self.out_z is None:

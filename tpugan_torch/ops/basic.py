@@ -37,22 +37,36 @@ def downscale2d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
     return F.avg_pool2d(x, factor)
 
 
-def instance_moments(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def moments32(x: torch.Tensor, whole_sum=None, count: int | None = None):
+    """``(mean, centred, var)``: x's per-sample, per-channel spatial mean
+    [N, C], ``x - mean`` and biased variance [N, C] in fp32 (float64 stays
+    float64), in two passes: the mean, then the centred square sum. A row
+    shard (``parallel/spatial.py``) passes ``whole_sum``, which maps the sums
+    [N, C] over its rows to the whole image's, and ``count``, the whole
+    image's H x W."""
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+    if whole_sum is None:
+        mean = x32.mean(dim=(2, 3))
+        centred = x32 - mean[:, :, None, None]
+        return mean, centred, centred.square().mean(dim=(2, 3))
+    mean = whole_sum(x32.sum(dim=(2, 3))) / count
+    centred = x32 - mean[:, :, None, None]
+    return mean, centred, whole_sum(centred.square().sum(dim=(2, 3))) / count
+
+
+def instance_moments(x: torch.Tensor, whole_sum=None, count: int | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-sample, per-channel spatial mean and biased std (no eps), each
-    [N, C], moments in fp32."""
-    x32 = x.float()
-    mean = x32.mean(dim=(2, 3))
-    var = (x32 - mean[:, :, None, None]).square().mean(dim=(2, 3))
+    [N, C], moments in fp32, float64 for float64 (:func:`moments32`)."""
+    mean, _, var = moments32(x, whole_sum, count)
     return mean.to(x.dtype), var.sqrt().to(x.dtype)
 
 
-def instance_norm(x: torch.Tensor, epsilon: float = 1e-8) -> torch.Tensor:
+def instance_norm(x: torch.Tensor, epsilon: float = 1e-8, whole_sum=None, count: int | None = None) -> torch.Tensor:
     """InstanceNorm2d(affine=False) with biased variance and eps 1e-8
-    (not ``F.instance_norm``'s default 1e-5), moments in fp32."""
-    x32 = x.float()
-    mean = x32.mean(dim=(2, 3), keepdim=True)
-    var = (x32 - mean).square().mean(dim=(2, 3), keepdim=True)
-    return ((x32 - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)
+    (not ``F.instance_norm``'s default 1e-5), moments in fp32, float64 for
+    float64 (:func:`moments32`)."""
+    _, centred, var = moments32(x, whole_sum, count)
+    return (centred * torch.rsqrt(var + epsilon)[:, :, None, None]).to(x.dtype)
 
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:

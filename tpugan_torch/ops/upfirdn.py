@@ -231,14 +231,18 @@ def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
     return _fir(x, _taps(kernel, gain), up, down, (p0, p1, p0, p1))
 
 
-def _fir(x, taps, up, down, pads):
+def _fir(x, taps, up, down, pads, keys=None):
     """upfirdn2d with the gain folded into ``taps`` and pads per axis,
-    ``(top, bottom, left, right)``, any of them negative (a crop)."""
+    ``(top, bottom, left, right)``, any of them negative (a crop).
+    ``keys``: the TPU kernels its launch and its adjoint's are counted
+    under, where they are not this FIR's own (:func:`_layout_key`): a row
+    shard's FIR is counted as the whole image's (:func:`upfirdn2d_rows`)."""
     if torch.is_grad_enabled() and x.requires_grad:
-        return _UpFirDn2d.apply(x, taps, up, down, pads)
+        return _UpFirDn2d.apply(x, taps, up, down, pads, keys)
+    key = keys[0] if keys else _layout_key(x.shape[1], taps, up, down, pads)
     if _on_card(x):
-        return _fir_cuda(x, taps, up, down, pads)
-    return _fir_op(x, taps, up, down, pads, _layout_key(x.shape[1], taps, up, down, pads))
+        return _fir_cuda(x, taps, up, down, pads, key)
+    return _fir_op(x, taps, up, down, pads, key)
 
 
 def _layout_key(c, taps, up, down, pads):
@@ -305,15 +309,15 @@ class _UpFirDn2d(torch.autograd.Function):
     """upfirdn2d whose backward is the adjoint FIR (tpugan's custom VJP)."""
 
     @staticmethod
-    def forward(ctx, x, taps, up, down, pads):
-        ctx.geometry = (x.shape[2], x.shape[3], taps, up, down, pads)
-        return _fir(x, taps, up, down, pads)
+    def forward(ctx, x, taps, up, down, pads, keys=None):
+        ctx.geometry = (x.shape[2], x.shape[3], taps, up, down, pads, keys)
+        return _fir(x, taps, up, down, pads, keys)
 
     @staticmethod
     def backward(ctx, g):
-        h, w, taps, up, down, pads = ctx.geometry
-        return _fir(g.contiguous(), *adjoint(h, w, g.shape[2], g.shape[3], taps, up, down, pads)), \
-            None, None, None, None
+        h, w, taps, up, down, pads, keys = ctx.geometry
+        return _fir(g.contiguous(), *adjoint(h, w, g.shape[2], g.shape[3], taps, up, down, pads),
+                    keys=None if keys is None else keys[::-1]), None, None, None, None, None
 
 
 def adjoint(h, w, gh, gw, taps, up, down, pads):
@@ -360,13 +364,13 @@ def upfirdn2d_plain(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
     return _fir_plain(x, _taps(kernel, gain), up, down, (p0, p1, p0, p1))
 
 
-def _fir_cuda(x, taps, up, down, pads):
+def _fir_cuda(x, taps, up, down, pads, key=None):
     """A FIR with pads per axis (a forward, or an adjoint) on the card's
     route: equal non-negative front pads reach the operator as they are;
     otherwise the input is stuffed and padded (or cropped) here, in torch,
-    and the kernel runs with up 1 and no pad. Counted by the TPU kernel
-    tpugan runs (:func:`_layout_key`)."""
-    key = _layout_key(x.shape[1], taps, up, down, pads)
+    and the kernel runs with up 1 and no pad. Counted under ``key``, by
+    default the TPU kernel tpugan runs for it (:func:`_layout_key`)."""
+    key = key or _layout_key(x.shape[1], taps, up, down, pads)
     py0, py1, px0, px1 = pads
     if py0 == px0 >= 0:
         return _fir_op(x, taps, up, down, pads, key)
@@ -445,6 +449,17 @@ _BLUR_TAPS = setup_fir_kernel((1.0, 2.0, 1.0))
 def blur3x3(x: torch.Tensor) -> torch.Tensor:
     """Depthwise (1, 2, 1) binomial blur, same size."""
     return upfirdn2d(x, _BLUR_TAPS, pad=(1, 1))
+
+
+def blur3x3_rows(x: torch.Tensor) -> torch.Tensor:
+    """:func:`blur3x3` on a row shard that carries its 1-row halo
+    (``parallel.mesh.halo_rows``: zero rows at the image's edges), so H
+    takes no pad and W its 1 and 1. Its launches, forward and adjoint, are
+    counted under the TPU kernel of the whole image's blur (whose adjoint is
+    the same blur). Its front pads differ between H and W, so the card's
+    route pads the input in torch before the launch (:func:`_fir_cuda`)."""
+    key = tpu_layout(x.shape[1], 1, 1, 3, 3, (1, 1))
+    return _fir(x, _BLUR_TAPS, 1, 1, (0, 0, 1, 1), (key, key))
 
 
 def upsample_fir(x: torch.Tensor, kernel, factor: int = 2) -> torch.Tensor:

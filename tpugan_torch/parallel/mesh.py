@@ -10,11 +10,24 @@ keeps its rows (:func:`shard_batch`); the ``make_*_step`` functions take the mes
 sum each batch-coupled reduction over the data group, so that a step with a
 mesh computes the one-process step on the global batch (the cosine
 distance's dot products, the logged statistics, Grad-CAM's majority class,
-the parameters' gradients). The ``space`` axis (image height across ranks)
-is ROADMAP A item 10: :data:`SPACE_AXIS_TODO` is what asking for it raises.
+the parameters' gradients).
+
+The ``space`` axis shards image height across the ranks of a space group
+(:func:`space_group`): each rank holds its rows of every image-shaped tensor
+on the encoder side and in the losses (``parallel/spatial.py``), and the
+step computes the one-process step on the global batch. Its collectives are
+:func:`halo_rows` (a convolution's rows from the neighbours) and
+:func:`all_gather_rows` (a level too thin to shard), both differentiable.
+Every rank of a space group differentiates its share of the loss, the
+loss over the group's size, and each collective's backward is its
+transpose, so the shares' gradients sum to the loss's. The space axis on
+``e_mis_align``, E_PG and E_BIG (mtypes 3 and 4) is ROADMAP A 1's part 2:
+:data:`SPACE_AXIS_PART2` is what asking for it raises.
 
 With ``group=None`` every collective here is the identity, so a path
-without a mesh runs the one-process code.
+without a mesh runs the one-process code. Every collective is an
+all-reduce or a broadcast, the only ones gloo offers on CUDA tensors, so
+one code path serves gloo and NCCL.
 """
 
 from __future__ import annotations
@@ -26,8 +39,9 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 SPACE_AXIS = "space"
-SPACE_AXIS_TODO = ("the space axis (image height sharded across ranks: --space_shards > 1, spatial=True) "
-                   "comes with ROADMAP A item 10 (spatial parallelism)")
+SPACE_AXIS_PART2 = ("the space axis (spatial parallelism: --space_shards > 1, spatial=True) runs e_align and "
+                    "embedding on StyleGANv1 and StyleGAN2 (mtypes 1 and 2); e_mis_align's Grad-CAM over rows, "
+                    "BigGAN/E_BIG (mtype 4) and PGGAN/E_PG (mtype 3) come with ROADMAP A 1's part 2")
 
 
 def _world() -> int:
@@ -91,29 +105,46 @@ def data_group(mesh):
     return None if mesh is None else mesh.get_group(DATA_AXIS)
 
 
+def space_group(mesh):
+    """The process group of ``mesh``'s space axis (``None`` without a mesh)."""
+    return None if mesh is None else mesh.get_group(SPACE_AXIS)
+
+
 def group_size(group) -> int:
     return 1 if group is None else dist.get_world_size(group)
 
 
-def shard_batch(mesh, batch, spatial: bool = False):
+def group_rank(group) -> int:
+    return 0 if group is None else dist.get_rank(group)
+
+
+def take_rows(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's equal share of ``x`` along ``dim`` over ``group`` (rank
+    order); ``x`` as it is without a group. Differentiable (the backward
+    pads with zeros)."""
+    n = group_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"{x.shape[dim]} rows do not split over {n} ranks")
+    share = x.shape[dim] // n
+    return x.narrow(dim, group_rank(group) * share, share)
+
+
+def shard_batch(mesh, batch, spatial: bool = False, h_dim: int = 1):
     """This rank's rows of a global batch: a tensor, or a tuple, list or
     NamedTuple of them (``None`` kept), each split along dim 0 over the data
-    axis. The batch as it is without a mesh."""
-    if spatial:
-        raise NotImplementedError(SPACE_AXIS_TODO)
+    axis and, with ``spatial``, then along ``h_dim`` over the space axis
+    (images NHWC: 1; the encoder's noise NCHW: 2). The batch as it is
+    without a mesh."""
     if mesh is None:
         return batch
     group = data_group(mesh)
-    n, rank = group_size(group), dist.get_rank(group)
 
     def rows(x):
         if x is None:
             return None
         if isinstance(x, torch.Tensor):
-            if x.shape[0] % n:
-                raise ValueError(f"a batch of {x.shape[0]} does not split over {n} ranks")
-            share = x.shape[0] // n
-            return x[rank * share:(rank + 1) * share]
+            x = take_rows(x, group, 0)
+            return take_rows(x, space_group(mesh), h_dim) if spatial else x
         if isinstance(x, tuple) and hasattr(x, "_fields"):
             return type(x)(*(rows(v) for v in x))
         if isinstance(x, (tuple, list)):
@@ -125,21 +156,25 @@ def shard_batch(mesh, batch, spatial: bool = False):
 
 def replicate(mesh, module: torch.nn.Module) -> torch.nn.Module:
     """Broadcast ``module``'s parameters and buffers from the mesh's first
-    rank over its data axis, in place (tpugan's replicated placement).
-    ``module`` as it is without a mesh."""
+    rank to every rank of the mesh, in place (tpugan's replicated
+    placement): along the space axis from each row's first rank, then along
+    the data axis from the first row. ``module`` as it is without a mesh."""
     if mesh is None:
         return module
-    group = data_group(mesh)
-    src = int(mesh.mesh.flatten()[0])
+    layout = mesh.mesh.reshape(-1, mesh.mesh.shape[-1])
+    row, col = mesh.get_coordinate()
     with torch.no_grad():
         for t in [*module.parameters(), *module.buffers()]:
-            dist.broadcast(t.data, src=src, group=group)
+            dist.broadcast(t.data, src=int(layout[row, 0]), group=space_group(mesh))
+            dist.broadcast(t.data, src=int(layout[0, col]), group=data_group(mesh))
     return module
 
 
 def barrier(mesh) -> None:
-    """Wait for every rank of ``mesh``'s data axis (no-op without one)."""
+    """Wait for every rank of ``mesh`` (no-op without one): its space
+    axis, then its data axis."""
     if mesh is not None:
+        dist.barrier(group=space_group(mesh))
         dist.barrier(group=data_group(mesh))
 
 
@@ -192,22 +227,111 @@ def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     return full
 
 
-def average_gradients(grads, group, replicated: bool = True):
+def average_gradients(grads, group, replicated: bool = True, space=None):
     """A gradient list (``None`` kept) of one rank's share of the loss ->
-    the global loss's gradient: summed over the ranks and divided by their
-    count for ``replicated`` parameters, divided alone for a rank's own
-    tensors (its rows of w). One all-reduce for the whole list."""
-    if group is None:
+    the global loss's gradient: summed over the ``space`` group (its ranks'
+    shares of one data rank's loss), then summed over the data ``group``
+    and divided by its size for ``replicated`` parameters, divided alone for
+    a data rank's own tensors (its rows of w). One all-reduce a group for
+    the whole list."""
+    if group is None and space is None:
         return grads
-    n = group_size(group)
     present = [g for g in grads if g is not None]
     if not present:
         return grads
-    if replicated:
-        flat = torch.cat([g.reshape(-1) for g in present])
-        dist.all_reduce(flat, group=group)
-        present = [p.view_as(g) for p, g in zip(flat.split([g.numel() for g in present]), present)]
+    flat = torch.cat([g.reshape(-1) for g in present])
+    for reduce_over in ((space,) if space is not None else ()) + ((group,) if replicated and group is not None else ()):
+        dist.all_reduce(flat, group=reduce_over)
+    present = [p.view_as(g) for p, g in zip(flat.split([g.numel() for g in present]), present)]
+    n = group_size(group)
     out, it = [], iter(present)
     for g in grads:
         out.append(None if g is None else next(it) / n)
     return out
+
+
+class _HaloRows(torch.autograd.Function):
+    """:func:`halo_rows`; the backward sends each halo row's gradient back
+    to its owner, which adds it to its own."""
+
+    @staticmethod
+    def forward(ctx, x, above, below, group, dim):
+        n, rank = group_size(group), group_rank(group)
+        h = x.shape[dim]
+        if h < max(above, below):
+            raise ValueError(f"a halo of {above} + {below} rows needs shards of as many rows, got {h}")
+        ctx.geometry = (above, below, group, dim, h)
+        xt = x.movedim(dim, 0)
+        slots = xt.new_zeros((n, above + below) + tuple(xt.shape[1:]))
+        slots[rank, :above] = xt[h - above:]  # to the rank below, as its top halo
+        slots[rank, above:] = xt[:below]  # to the rank above, as its bottom halo
+        dist.all_reduce(slots, group=group)
+        top = slots[rank - 1, :above] if rank > 0 else xt.new_zeros((above,) + tuple(xt.shape[1:]))
+        bottom = slots[rank + 1, above:] if rank + 1 < n else xt.new_zeros((below,) + tuple(xt.shape[1:]))
+        return torch.cat([top, xt, bottom]).movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        above, below, group, dim, h = ctx.geometry
+        n, rank = group_size(group), group_rank(group)
+        gt = g.movedim(dim, 0)
+        slots = gt.new_zeros((n, above + below) + tuple(gt.shape[1:]))
+        if rank > 0:
+            slots[rank - 1, :above] = gt[:above]
+        if rank + 1 < n:
+            slots[rank + 1, above:] = gt[above + h:]
+        dist.all_reduce(slots, group=group)
+        out = gt[above:above + h].clone()
+        out[h - above:] += slots[rank, :above]
+        out[:below] += slots[rank, above:]
+        return out.movedim(0, dim).contiguous(), None, None, None, None
+
+
+def halo_rows(x: torch.Tensor, above: int, below: int, group, dim: int = 2) -> torch.Tensor:
+    """This rank's rows of ``x`` (equal shares along ``dim`` over ``group``,
+    rank order) with ``above`` rows of the rank before it on top and
+    ``below`` rows of the rank after it underneath; zero rows at the image's
+    true top and bottom edges, as a convolution's zero padding. One
+    all-reduce forward and one backward, whose halo gradients return to
+    their owners and add there. ``x`` as it is without a group."""
+    if group is None:
+        return x
+    return _HaloRows.apply(x, above, below, group, dim)
+
+
+class _GatherRows(torch.autograd.Function):
+    """:func:`all_gather_rows`; its backward is the gather's transpose:
+    the incoming gradients summed over the group, this rank's rows of it."""
+
+    @staticmethod
+    def forward(ctx, x, group, start, total, dim):
+        ctx.geometry = (group, start, x.shape[dim], dim)
+        shape = list(x.shape)
+        shape[dim] = total
+        full = x.new_zeros(shape)
+        full.narrow(dim, start, x.shape[dim]).copy_(x)
+        dist.all_reduce(full, group=group)
+        return full
+
+    @staticmethod
+    def backward(ctx, g):
+        group, start, h, dim = ctx.geometry
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=group)
+        return g.narrow(dim, start, h).contiguous(), None, None, None, None
+
+
+def all_gather_rows(x: torch.Tensor, group, start: int | None = None, total: int | None = None,
+                    dim: int = 2) -> torch.Tensor:
+    """The whole tensor on every rank of ``group`` from each rank's rows
+    ``[start, start + x.shape[dim])`` of ``total`` (by default equal shares
+    in rank order; a crop's shares may differ or be empty): an all-reduce of
+    zero-padded copies, differentiable. Each rank's share of the loss reads
+    the result alike, so the backward sums their gradients and keeps this
+    rank's rows. ``x`` as it is without a group."""
+    if group is None:
+        return x
+    h = x.shape[dim]
+    if start is None:
+        start, total = group_rank(group) * h, h * group_size(group)
+    return _GatherRows.apply(x, group, start, total, dim)

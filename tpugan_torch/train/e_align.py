@@ -37,13 +37,17 @@ from tpugan_torch.models.stylegan2 import StyleGAN2Generator
 from tpugan_torch.nn.spectral import SNDense, power_iterate
 from tpugan_torch.optim.lreq_adam import LREQAdam
 from tpugan_torch.parallel.mesh import (
-    SPACE_AXIS_TODO,
+    SPACE_AXIS_PART2,
     average_gradients,
     batch_mean,
     data_group,
     gather_rows,
+    group_size,
     shard_batch,
+    space_group,
+    take_rows,
 )
+from tpugan_torch.parallel.spatial import Rows, crop_rows
 from tpugan_torch.utils import iteration_generator, one_hot, truncated_noise_sample
 
 # BigGAN's truncation in the encoder pipeline (E_align_cropping_s1.py:140-150)
@@ -237,16 +241,22 @@ def build_biggan_pipeline(model: BigGAN, train: bool = False):
     return synth, (resynth if train else torch.no_grad()(resynth))
 
 
-def make_encode_fn(encoder, conditional: bool = False, train: bool = False):
+def make_encode_fn(encoder, conditional: bool = False, train: bool = False, space=None):
     """Encode closure: ``(batch, noise) -> (const2, w2)`` on ``batch.imgs1``;
     a ``conditional`` encoder (E_BIG) also reads the condition vector
     ``batch.const1`` (E_align_cropping_s1.py:155). With ``train`` it records
-    the graph for the encoder's gradients."""
+    the graph for the encoder's gradients. With ``space`` (a space group)
+    ``batch.imgs1`` is this rank's rows of the images and the encoder runs
+    on them (``models/encoders.py::Encoder``), its outputs whole."""
+    if space is not None and conditional:
+        raise NotImplementedError(SPACE_AXIS_PART2)
 
     def encode(batch: SynthBatch, noise=None):
         imgs = nhwc_to_nchw(batch.imgs1)
         if conditional:
             return encoder(imgs, batch.const1, noise)
+        if space is not None:
+            return encoder(imgs, noise, space=space)
         return encoder(imgs, noise)
 
     return encode if train else torch.no_grad()(encode)
@@ -286,11 +296,39 @@ def attention_crops(imgs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """AT1/AT2 center crops for aligned data (NHWC): AT1 keeps the height
     and the middle 3/4 of the width (E_align_cropping_s1.py:188); AT2 crops
     both by 1/8 + 1/32 per side (:193-199)."""
-    h, w = imgs.shape[1], imgs.shape[2]
+    (at1, _), (at2, _) = attention_crops_rows(imgs, None)
+    return at1, at2
+
+
+def attention_crops_rows(imgs: torch.Tensor, space: Optional[Rows]):
+    """:func:`attention_crops` of the whole images from this rank's rows
+    ``imgs`` of them (``space``, a ``parallel.spatial.Rows``): ``((at1,
+    its Rows), (at2, its Rows))``. AT1 crops W alone and keeps the rows;
+    AT2's rows ``[dh, h - dh)`` of the whole height leave the ranks shares
+    of their own, uneven or empty. Without ``space``, the whole crops with
+    ``None``."""
+    h = imgs.shape[1] if space is None else space.total
+    w = imgs.shape[2]
     at1 = imgs[:, :, w // 8 : w - w // 8, :]
     dh = h // 8 + h // 32
     dw = w // 8 + w // 32
-    return at1, imgs[:, dh : h - dh, dw : w - dw, :]
+    if space is None:
+        return (at1, None), (imgs[:, dh : h - dh, dw : w - dw, :], None)
+    at2, rows2 = crop_rows(imgs, space, dh, h - dh)
+    return (at1, space), (at2[:, :, dw : w - dw, :], rows2)
+
+
+def image_rows(batch: SynthBatch, mesh, spatial: bool):
+    """``(batch, rows)``: with ``spatial``, ``batch`` with this rank's rows
+    of its images (the generator made them whole on every rank of the
+    space group) and their ``Rows``; else as it is and ``None``."""
+    if not spatial:
+        return batch, None
+    space = space_group(mesh)
+    h, n = batch.imgs1.shape[1], group_size(space)
+    if h % n:
+        raise ValueError(f"{h}-row images do not split over a space axis of {n}")
+    return batch._replace(imgs1=take_rows(batch.imgs1, space, 1)), Rows.even(space, h // n)
 
 
 @dataclasses.dataclass
@@ -412,12 +450,24 @@ def make_train_step(
     the losses sum their batch-coupled reductions over the ranks, and each
     gradient is averaged over them before the update, so every rank takes
     the one-process step on the global batch and the encoders stay
-    bitwise equal; the info is the global batch's. ``spatial`` (the
-    ``space`` axis) raises :class:`NotImplementedError`.
+    bitwise equal; the info is the global batch's.
+
+    With ``spatial`` (the mesh's ``space`` axis; tpugan's ``spatial``) each
+    rank of a space group holds its rows of the images: ``encode`` must run
+    on them (``make_encode_fn(..., space=space_group(mesh))``), the
+    resynthesis runs whole on every rank and is cut to the rank's rows
+    before the losses, which sum over the group. Every rank differentiates
+    its share of the loss, the loss over the group's size; the collectives'
+    backwards sum the shares' partial gradients (the rank's rows of imgs2's
+    reach w2 through the style statistics' sums), and the gradients are
+    summed over the space group before they are averaged over the data
+    group. The step is the one-process step on the global batch.
     """
-    if spatial:
-        raise NotImplementedError(SPACE_AXIS_TODO)
+    if spatial and mesh is None:
+        raise ValueError("spatial=True needs a mesh with a space axis")
     group = data_group(mesh)
+    space = space_group(mesh) if spatial else None
+    share = 1.0 / group_size(space)
     if case not in (1, 2):
         raise ValueError(f"case must be 1 or 2, got {case}")
     if image_weights is None:
@@ -436,16 +486,19 @@ def make_train_step(
     encode = rematerialised(encode, remat, remat_policy)
     resynth = rematerialised(resynth, remat, remat_policy)
 
-    def image_losses(batch: SynthBatch, w2, noise_g2):
+    def image_losses(batch: SynthBatch, rows, w2, noise_g2):
         imgs2 = resynth(w2, batch, noise_g2)
-        l_imgs, i_imgs = space_loss(batch.imgs1, imgs2, lpips_fn=lpips_fn, group=group)
-        at1_1, at2_1 = attention_crops(batch.imgs1)
-        at1_2, at2_2 = attention_crops(imgs2)
-        l_med, i_med = space_loss(at1_1, at1_2, lpips_fn=lpips_fn, group=group)
-        l_small, i_small = space_loss(at2_1, at2_2, lpips_fn=lpips_fn, group=group)
-        return (l_imgs, l_med, l_small), (i_imgs, i_med, i_small)
+        if rows is not None:
+            imgs2 = take_rows(imgs2, space, 1)
+        parts, infos = [], []
+        for (a, a_rows), (b, _) in zip([(batch.imgs1, rows), *attention_crops_rows(batch.imgs1, rows)],
+                                       [(imgs2, rows), *attention_crops_rows(imgs2, rows)]):
+            part, info = space_loss(a, b, lpips_fn=lpips_fn, group=group, space=a_rows)
+            parts.append(part)
+            infos.append(info)
+        return tuple(parts), tuple(infos)
 
-    def losses(batch: SynthBatch, request: Request, images: bool = compute_image_losses):
+    def losses(batch: SynthBatch, rows, request: Request, images: bool = compute_image_losses):
         const2, w2 = encode(batch, request.noise_e)
         if not images:
             zero = torch.zeros((), device=w2.device)
@@ -454,9 +507,9 @@ def make_train_step(
             # the reference detaches both sides of every image-space loss
             # (E_align_cropping_s1.py:185-201): log-only, no gradient
             with torch.no_grad():
-                parts, infos = image_losses(batch, w2, request.noise_g2)
+                parts, infos = image_losses(batch, rows, w2, request.noise_g2)
         else:
-            parts, infos = image_losses(batch, w2, request.noise_g2)
+            parts, infos = image_losses(batch, rows, w2, request.noise_g2)
         weighted = [w * part for w, part in zip(image_weights, parts)]
         loss_tsa = weighted[0] + weighted[1] + weighted[2]
         l_w, i_w = space_loss(batch.w1, w2, image_space=False, group=group)
@@ -478,10 +531,10 @@ def make_train_step(
 
     def step(state: EncoderTrainState, iteration: int):
         request = shard_batch(mesh, draw(iteration))
-        batch = synth(request)
+        batch, rows = image_rows(synth(request), mesh, spatial)
         power_iterate(state.encoder)
         params = list(state.encoder.parameters())
-        out = losses(batch, request)
+        out = losses(batch, rows, request)
         info = out[3]
         if case == 1:
             groups = ["mtv"]
@@ -490,16 +543,16 @@ def make_train_step(
         else:
             groups = ["tsa", "mtv"]
         if remat_on:
-            grads = [_grad(_group(out, groups[0]), params, retain=False)]
-            grads += [_grad(_group(losses(batch, request, images=g != "mtv"), g), params, retain=False)
+            grads = [_grad(share * _group(out, groups[0]), params, retain=False)]
+            grads += [_grad(share * _group(losses(batch, rows, request, images=g != "mtv"), g), params, retain=False)
                       for g in groups[1:]]
         else:
             # every gradient from the one forward, before any update moves
             # the parameters that it saved
-            grads = [_grad(_group(out, g), params, retain=i + 1 < len(groups))
+            grads = [_grad(share * _group(out, g), params, retain=i + 1 < len(groups))
                      for i, g in enumerate(groups)]
         for g in grads:
-            state.optimizer.step(average_gradients(g, group))
+            state.optimizer.step(average_gradients(g, group, space=space))
         state.step += 1
         return state, info
 
@@ -528,15 +581,16 @@ def _detached(info: StepInfo) -> StepInfo:
     return StepInfo(*(leaf(x) for x in info))
 
 
-def make_align_visuals(encode, synth, resynth, draw, mesh=None):
+def make_align_visuals(encode, synth, resynth, draw, mesh=None, spatial: bool = False):
     """The on-tick reconstruction grid of the aligned CLI
     (E_align_cropping_s1.py:282-285): the iteration's imgs1 and imgs2 at
     the iteration's initial parameters, after the same single power
     iteration the step applies before encoding. The spectral norms' buffers
     are put back afterwards, so the step that follows starts from the same
     pair. With ``mesh`` each rank computes its rows and every rank gets the
-    global batch. Returns ``visuals(state, iteration) -> {"imgs1",
-    "imgs2"}``."""
+    global batch (with ``spatial`` the encoder runs on the rank's rows of
+    its images, as the step's). Returns ``visuals(state, iteration) ->
+    {"imgs1", "imgs2"}``."""
     group = data_group(mesh)
 
     @torch.no_grad()
@@ -546,7 +600,7 @@ def make_align_visuals(encode, synth, resynth, draw, mesh=None):
         sn = [m for m in state.encoder.modules() if isinstance(m, SNDense)]
         saved = [(m.u.clone(), m.v.clone()) for m in sn]
         power_iterate(state.encoder)
-        _, w2 = encode(batch, request.noise_e)
+        _, w2 = encode(image_rows(batch, mesh, spatial)[0], request.noise_e)
         imgs2 = resynth(w2, batch, request.noise_g2)
         for m, (u, v) in zip(sn, saved):
             m.u.copy_(u)

@@ -27,7 +27,7 @@ from tpugan_torch.losses.space_loss import SpaceLossInfo, space_loss, zero_space
 from tpugan_torch.losses.vgg import VGG16
 from tpugan_torch.nn.spectral import power_iterate
 from tpugan_torch.parallel.mesh import (
-    SPACE_AXIS_TODO,
+    SPACE_AXIS_PART2,
     average_gradients,
     batch_mean,
     data_group,
@@ -94,7 +94,7 @@ def make_mis_align_step(
     minimum, its class-score mean).
     """
     if spatial:
-        raise NotImplementedError(SPACE_AXIS_TODO)
+        raise NotImplementedError(SPACE_AXIS_PART2)
     group = data_group(mesh)
 
     def attention_losses(batch: SynthBatch, w2, noise_g2):
