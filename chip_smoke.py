@@ -229,6 +229,25 @@ Phases:
      collectives beside one process's; then ``embedding --mtype 2
      --space_shards 2`` fine-tuning E held to one process the same way
      (SPACE_BATCH's comment).
+ 20. slice 7g, the space axis part 2 (E_BIG, E_PG and Grad-CAM's VGG16
+     stack on row shards), two gloo ranks of one space group on the one
+     card, each held to one process (S7G_WORLD's comment): the
+     BigGAN-deep-256 + E_BIG case-2 step through ``e_align --mtype 4
+     --space_shards 2`` (phase 6's gamma and z head), its B3 and B4
+     launches a rank as one process's and every B3/B4 call of a rank's step
+     held to the plain version on its own inputs; ``e_mis_align --mtype 1
+     --space_shards 2`` at Cat256, batch 5, a full and a lean step, the FIR
+     launches as derived, the masks and overlays against one process's with
+     their JET-bin flips counted; ``embedding --mtype 3 --space_shards 2``
+     on PGGAN-1024 in TF32, fine-tuning E for 2 iterations; each rank's
+     peak memory beside one process's.
+
+The CPU sides of the replays (their fp32 and float64 runs on the CPU) run
+in a worker process forked before the card is used (:class:`CpuWorker`,
+:func:`cpu_jobs`), beside the card's work; the card's run of a replay takes
+the worker's inputs. Phases 18-20 run their ranks on two children of this
+script started with phase 17 (:class:`RankServers`), each of which runs
+its rank of every group in turn.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -404,7 +423,7 @@ BIGGAN_SIZE = 256
 BIGGAN_Z_DIM = 128
 ATTN_GAMMA = 1.0  # every SelfAttn.gamma in the CUDA-vs-CPU BigGAN check (random init gives 0)
 TRAIN_STEPS = 3  # counted steps of each train-step variant
-TIMED_STEPS = 8  # host-clock steps of each variant, after 2 warm-up steps
+TIMED_STEPS = 4  # host-clock steps of each variant, after 2 warm-up steps
 # the CPU replay of a case-2 step: BigGAN-deep-256's layout at channel width
 # 32 (the path has 128) and E_BIG at start_features 16 (64), so the host's
 # CPU runs it in seconds; the card runs the same configuration
@@ -445,6 +464,138 @@ def cudnn_deterministic(torch):
         yield
     finally:
         torch.backends.cudnn.deterministic = saved
+
+
+class CpuWorker:
+    """A process forked before the card is used that runs the CPU sides of
+    the replays (their fp32 and float64 runs, built from the same seeds and
+    arguments) while this process drives the card. Jobs run one at a time in
+    the order submitted, each with ``threads`` intra-op threads; a job is a
+    function of this module called as ``fn(torch, *args)``, and its result
+    comes back through a file (``torch.save``) in ``workdir``."""
+
+    def __init__(self, workdir, threads):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("fork")
+        self.workdir, self.threads = workdir, threads
+        self.jobs, self.done = ctx.Queue(), ctx.Queue()
+        self.proc = ctx.Process(target=cpu_worker_loop, args=(self.jobs, self.done, workdir, threads), daemon=True)
+        self.proc.start()
+        self.results, self.submitted = {}, []
+
+    def submit(self, name, fn, *args):
+        import pickle
+
+        # pickled here, by value: the queue's own pickler would share tensors through /dev/shm
+        self.jobs.put((name, fn.__name__, pickle.dumps(args)))
+        self.submitted.append(name)
+
+    def result(self, name):
+        """The job's result, waited for; the seconds it took and how long
+        this process waited for it are printed."""
+        import queue
+
+        import torch
+
+        check(name in self.submitted, f"no CPU job {name!r} was submitted")
+        t0 = time.perf_counter()
+        while name not in self.results:
+            try:
+                got, path, seconds, error = self.done.get(timeout=5)
+            except queue.Empty:
+                check(self.proc.is_alive(), f"the CPU worker exited ({self.proc.exitcode}) before job {name!r}")
+                continue
+            check(error is None, f"the CPU job {got!r} failed:\n{error}")
+            self.results[got] = (path, seconds)
+        path, seconds = self.results.pop(name)
+        out = torch.load(path, weights_only=False)
+        os.remove(path)
+        say(f"CPU job {name}: {seconds:.2f} s in the CPU worker ({self.threads} threads), waited for "
+            f"{time.perf_counter() - t0:.2f} s")
+        return out
+
+    def close(self):
+        if self.proc.is_alive():
+            self.jobs.put(None)
+            self.proc.join(timeout=10)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+        self.jobs.close()
+        self.done.close()
+
+
+def cpu_worker_loop(jobs, done, workdir, threads):
+    """:class:`CpuWorker`'s process: runs each job, saves its result and
+    reports the file (or the traceback of its failure); ends at None, or
+    when its parent is gone."""
+    import pickle
+    import queue
+    import traceback
+
+    import torch
+
+    torch.set_num_threads(threads)
+    parent = os.getppid()
+    while True:
+        try:
+            job = jobs.get(timeout=5)
+        except queue.Empty:
+            if os.getppid() != parent:  # the parent is gone (killed): end with it
+                return
+            continue
+        if job is None:
+            return
+        name, fn, args = job
+        t0 = time.perf_counter()
+        try:
+            path = os.path.join(workdir, f"cpu_job_{name}.pt")
+            torch.save(globals()[fn](torch, *pickle.loads(args)), path)
+            done.put((name, path, time.perf_counter() - t0, None))
+        except BaseException:  # noqa: BLE001 - reported to the parent, which fails the run
+            done.put((name, None, time.perf_counter() - t0, traceback.format_exc()))
+
+
+def cpu_threads():
+    """The worker's intra-op threads: the cores this process may run on, but
+    two left for the process that drives the card."""
+    return max(2, len(os.sched_getaffinity(0)) - 2)
+
+
+WORKER = None  # main's CpuWorker; None runs each CPU job in this process when it is asked for
+
+
+LATE_JOBS = {}  # CPU jobs that a phase hands over once its inputs exist: name -> (function, arguments)
+
+
+def submit_cpu_job(name, fn, *args):
+    """Hand the CPU job ``name`` (``fn(torch, *args)``) to the worker, where
+    there is one; :func:`cpu_result` gives its result."""
+    LATE_JOBS[name] = (fn, args)
+    if WORKER is not None:
+        WORKER.submit(name, fn, *args)
+
+
+def cpu_result(name):
+    """The result of the CPU job ``name`` (:func:`cpu_jobs`, or one handed
+    over by :func:`submit_cpu_job`): from the worker where it was submitted
+    there, else run here and now."""
+    if WORKER is not None and name in WORKER.submitted:
+        return WORKER.result(name)
+    import torch
+
+    fn, args = LATE_JOBS[name] if name in LATE_JOBS else cpu_jobs()[name]
+    return fn(torch, *args)
+
+
+def common_parser():
+    """``tpugan_torch.cli.common``'s arguments of a training CLI."""
+    from tpugan_torch.cli import common
+
+    parser = argparse.ArgumentParser()
+    common.add_common_args(parser, training=True)
+    return parser
 
 
 def expected_launches(**counts):
@@ -556,7 +707,7 @@ def kernel_ms(torch, fn, expect, device_bound=False):
     return events, kernels, "CUDA events"
 
 
-def request_latency(torch, run, seed, label, requests=20):
+def request_latency(torch, run, seed, label, requests=10):
     """Host-clock latency of ``requests`` requests ``run(seed + i)``, each
     ending in a synchronize, after two warm-up requests; returns the median
     (ms)."""
@@ -1167,9 +1318,10 @@ def replay_steps(torch, dev, e_align, forms):
     """One case-2 step of a reduced configuration (BigGAN-deep-BIGGAN_SIZE's
     layout at channel width REPLAY_CHANNEL_WIDTH, E_BIG at
     REPLAY_START_FEATURES, batch BATCH; gamma ATTN_GAMMA, the z head scaled)
-    in each of ``forms``, (name, device, bf16), on the same explicit inputs.
-    Returns the z head's factor and, by name, loss_tsa, the first gradient
-    (of loss_tsa) of REPLAY_LEAVES and the step's seconds."""
+    in each of ``forms``, (name, device, bf16), on the same explicit inputs
+    (a form whose name begins with "card" is the card's run). Returns the z
+    head's factor and, by name, loss_tsa, the first gradient (of loss_tsa)
+    of REPLAY_LEAVES and the step's seconds."""
     import tempfile
 
     from tpugan_torch.cli import infer_e
@@ -1209,7 +1361,7 @@ def replay_steps(torch, dev, e_align, forms):
             cuda.reset_launches()
             t0 = time.perf_counter()
             _, info = trainer.step(trainer.state, 0)
-            if device == CARD:
+            if name.startswith("card"):
                 torch.cuda.synchronize()
                 form, other = ("_bf16", "") if bf16 else ("", "_bf16")
                 check(cuda.launches[f"sagan_attention_bwd_dkv{form}"] == 1
@@ -1534,57 +1686,83 @@ def fir_adjoint(torch, dev, gen, bandwidth):
     return max_err, rows
 
 
+def sgv1_argv():
+    """Phase 3's bundle: SGv1 Cat256 at full width, batch BATCH, random weights from SEED."""
+    return ["--mtype", "1", "--img_size", str(IMG_SIZE), "--start_features", "64", "--random_init",
+            "--batch_size", str(BATCH), "--seed", str(SEED)]
+
+
+def sgv1_gradient_run(torch, bundle, request, imgs, device, dtype):
+    """One run of :func:`sgv1_gradient` on ``bundle`` (moved to ``dtype``):
+    the loss, the gradients (float64, on the CPU), the FIR launches of the
+    forward and of the backward, and the parameters' names."""
+    from tpugan_torch.ops import cuda, upfirdn
+
+    bundle.encoder.to(dtype)
+    bundle.generator.to(dtype)
+    cast = lambda blocks: [tuple(n.to(device, dtype) for n in b_) for b_ in blocks]  # noqa: E731
+    x = imgs.to(device, dtype)
+    cuda.reset_launches()
+    upfirdn.reset_layout_launches()
+    _, w2 = bundle.encoder(x, cast(request.noise_e))
+    imgs2 = bundle.generator(w2, bundle.layer_count - 1, cast(request.noise_g2))
+    loss = (imgs2 - x).square().mean()
+    fwd = (cuda.launches["upfirdn2d"], dict(upfirdn.layout_launches))
+    names, params = zip(*bundle.encoder.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    adj = (cuda.launches["upfirdn2d"] - fwd[0],
+           {key: n - fwd[1][key] for key, n in upfirdn.layout_launches.items()})
+    return loss.item(), [g_.detach().double().cpu() for g_ in grads], fwd, adj, names
+
+
+def sgv1_gradient_cpu(torch):
+    """:func:`sgv1_gradient`'s CPU side (a CPU job): its explicit inputs
+    (the first pass's images, drawn on the CPU) and the CPU's fp32 and
+    float64 runs, with the E_Blur's fused blocks and layer count."""
+    from tpugan_torch.cli import common, infer_e
+
+    args = common_parser().parse_args(sgv1_argv() + ["--device", "cpu"])
+    args.case = 2  # E_Blur
+    bundle = common.build_bundle(args)
+    request = infer_e.draw_request(bundle, BATCH, REQUEST_SEEDS[0])
+    with torch.no_grad():
+        imgs = bundle.synth(request.z, request.noise_g).imgs1.permute(0, 3, 1, 2).contiguous()
+    runs = [sgv1_gradient_run(torch, bundle, request, imgs, "cpu", dtype) for dtype in (torch.float32, torch.float64)]
+    return {"request": request, "imgs": imgs, "runs": runs, "blocks": sum(bundle.encoder.fused),
+            "layer_count": bundle.layer_count}
+
+
 def sgv1_gradient(torch, dev, parser, argv):
     """A full-width gradient through SGv1 Cat256's G -> E_Blur -> G: an MSE
     between the resynthesis and the first pass, differentiated with respect
     to every parameter of E_Blur (the case-2 encoder, a blur in every
     block), from the same explicit inputs (the first pass's images drawn on
-    the CPU) on the card, on the CPU and on the CPU in float64, with the FIR
-    launches of the forward and of the backward counted on the card.
+    the CPU) on the card, on the CPU and on the CPU in float64 (those two
+    in the CPU worker: :func:`sgv1_gradient_cpu`), with the FIR launches of
+    the forward and of the backward counted on the card.
 
     The reference is the float64 run: the gradient is ill-conditioned at
     this size (the CPU's own fp32 gradient is about 1e-2 from it here, 7e-4
     at 128 px, 1e-6 at 32 px), so the card's fp32 gradient is held within
     CPU_GPU_ATOL or twice the CPU's fp32 error of it, whichever is larger.
     Returns the launch counts."""
-    from tpugan_torch.cli import common, infer_e
-    from tpugan_torch.ops import cuda, upfirdn
+    from tpugan_torch.cli import common
 
-    bundles = []
-    for device in (CARD, "cpu"):
-        args = parser.parse_args(argv + ["--device", device])
-        args.case = 2  # E_Blur
-        bundles.append(common.build_bundle(args))
-    request = infer_e.draw_request(bundles[1], BATCH, REQUEST_SEEDS[0])
-    imgs = bundles[1].synth(request.z, request.noise_g).imgs1.permute(0, 3, 1, 2).contiguous()
-    runs = []
-    for bundle, device, dtype in ((bundles[0], dev, torch.float32), (bundles[1], "cpu", torch.float32),
-                                  (bundles[1], "cpu", torch.float64)):
-        bundle.encoder.to(dtype)
-        bundle.generator.to(dtype)
-        cast = lambda blocks: [tuple(n.to(device, dtype) for n in b_) for b_ in blocks]  # noqa: E731
-        x = imgs.to(device, dtype)
-        cuda.reset_launches()
-        upfirdn.reset_layout_launches()
-        _, w2 = bundle.encoder(x, cast(request.noise_e))
-        imgs2 = bundle.generator(w2, bundle.layer_count - 1, cast(request.noise_g2))
-        loss = (imgs2 - x).square().mean()
-        fwd = (cuda.launches["upfirdn2d"], dict(upfirdn.layout_launches))
-        names, params = zip(*bundle.encoder.named_parameters())
-        grads = torch.autograd.grad(loss, params)
-        if device == dev:
-            torch.cuda.synchronize()
-        adj = (cuda.launches["upfirdn2d"] - fwd[0],
-               {key: n - fwd[1][key] for key, n in upfirdn.layout_launches.items()})
-        runs.append((loss.item(), [g_.detach().double().cpu() for g_ in grads], fwd, adj))
-        del w2, imgs2, loss, grads
-    (loss_g, grads_g, fwd, adj), (loss_c, grads_c, fwd_c, adj_c), (loss_r, grads_r, _, _) = runs
+    cpu_side = cpu_result("sgv1 gradient")
+    args = parser.parse_args(argv + ["--device", CARD])
+    args.case = 2  # E_Blur
+    bundle = common.build_bundle(args)
+    loss_g, grads_g, fwd, adj, names = sgv1_gradient_run(torch, bundle, cpu_side["request"], cpu_side["imgs"], dev,
+                                                         torch.float32)
+    del bundle
+    (loss_c, grads_c, fwd_c, adj_c, _), (loss_r, grads_r, _, _, _) = cpu_side["runs"]
     check(fwd_c[0] == adj_c[0] == 0, "the CPU's gradient launched the kernel")
-    blocks = sum(bundles[1].encoder.fused)
     say(f"SGv1 Cat256 G -> E_Blur -> G gradient (batch {BATCH}, MSE of the resynthesis against the "
         f"first pass, {len(names)} E_Blur parameters): FIR launches forward {fwd[0]} {fwd[1]}, "
         f"adjoint {adj[0]} {adj[1]} ({len(PATH_BLURS)} in G's resynthesis, the rest in E_Blur's "
-        f"{bundles[1].layer_count} blocks, {blocks} with fused downsampling)")
+        f"{cpu_side['layer_count']} blocks, {cpu_side['blocks']} with fused downsampling)")
     check(fwd[0] > len(PATH_BLURS) and adj == fwd, "the backward's FIR launches are not the forward's, one "
           "adjoint for each FIR (the blur at pad (1, 1) is its own adjoint, so under the same TPU kernel)")
     scale = max(r.abs().max().item() for r in grads_r)
@@ -1600,7 +1778,6 @@ def sgv1_gradient(torch, dev, parser, argv):
           f"the card's SGv1 gradient is {errs['cuda']:.3e} from float64, over {limit:.3e}")
     say(f"  the card's gradient within {limit:.3e} of float64 (CPU_GPU_ATOL {CPU_GPU_ATOL:g}, or twice the "
         "CPU fp32 run's own error)")
-    del bundles
     return {"forward": fwd[0], "adjoint": adj[0], "adjoint_by_tpu_kernel": adj[1]}
 
 
@@ -1870,6 +2047,29 @@ def sg2_fir_times(torch, dev, captured, bandwidth, fp32_peak):
     return rows, max_err
 
 
+def sg2_argv():
+    """Phase 7's bundle: StyleGAN2-1024 with the case-1 encoder at full width, batch BATCH, random weights from SEED."""
+    return ["--mtype", "2", "--img_size", str(SG2_SIZE), "--start_features", str(SG2_START_FEATURES),
+            "--random_init", "--batch_size", str(BATCH), "--seed", str(SEED)]
+
+
+def sg2_request_cpu(torch):
+    """Phase 7's CPU side (a CPU job): the request of REQUEST_SEEDS[0]
+    drawn on the CPU and served there through the plain versions, and the
+    seconds the request took."""
+    from tpugan_torch.cli import common, infer_e
+    from tpugan_torch.ops import cuda
+
+    cpu = common.build_bundle(common_parser().parse_args(sg2_argv() + ["--device", "cpu"]))
+    request = infer_e.draw_request(cpu, BATCH, REQUEST_SEEDS[0])
+    cuda.reset_launches()
+    t0 = time.perf_counter()
+    images = tuple(x.detach() for x in infer_e.serve(cpu, request))
+    seconds = time.perf_counter() - t0
+    check(not any(cuda.launches.values()), "the CPU request launched the kernel")
+    return {"request": request, "images": images, "seconds": seconds}
+
+
 def sg2_serving_path(torch, dev, parser, smi, bandwidth, fp32_peak):
     """Phase 7: ``infer_e --mtype 2 --img_size 1024 --start_features 16``,
     tpugan's default request, at full width and batch 2 on random weights
@@ -1880,8 +2080,7 @@ def sg2_serving_path(torch, dev, parser, smi, bandwidth, fp32_peak):
     from tpugan_torch.models import stylegan2 as sg2_model
     from tpugan_torch.ops import cuda, upfirdn
 
-    argv = ["--mtype", "2", "--img_size", str(SG2_SIZE), "--start_features", str(SG2_START_FEATURES),
-            "--random_init", "--batch_size", str(BATCH), "--seed", str(SEED)]
+    argv = sg2_argv()
     t0 = time.perf_counter()
     bundle = common.build_bundle(parser.parse_args(argv + ["--device", CARD]))
     torch.cuda.synchronize()
@@ -1944,26 +2143,22 @@ def sg2_serving_path(torch, dev, parser, smi, bandwidth, fp32_peak):
         f"{name} kernel {p_['ms'] * 1e3:.2f} us, flushed {p_['flushed_ms'] * 1e3:.2f} us, library "
         f"{p_['library_ms'] * 1e3:.2f} us, bound {p_['bound_ms'] * 1e3:.2f} us" for name, p_ in split.items()))
 
-    # the same explicit request, drawn on the CPU, through the plain versions there
-    cpu = common.build_bundle(parser.parse_args(argv + ["--device", "cpu"]))
+    # the same explicit request, drawn on the CPU, through the plain versions there (sg2_request_cpu)
     seed = REQUEST_SEEDS[0]
-    request = infer_e.draw_request(cpu, BATCH, seed)
+    cpu_side = cpu_result("sg2 request")
+    request, on_cpu = cpu_side["request"], cpu_side["images"]
     cuda.reset_launches()
     on_gpu = infer_e.serve(bundle, request.to(dev))
     torch.cuda.synchronize()
     check(cuda.launches["upfirdn2d"] == firs, f"cuda SG2 request launches {cuda.launches}")
-    t0 = time.perf_counter()
-    on_cpu = infer_e.serve(cpu, request)
-    cpu_seconds = time.perf_counter() - t0
-    check(cuda.launches["upfirdn2d"] == firs, "the CPU request launched the kernel")
-    say(f"cuda vs cpu (SG2): the request of seed {seed} took {cpu_seconds:.2f} s on the CPU")
+    say(f"cuda vs cpu (SG2): the request of seed {seed} took {cpu_side['seconds']:.2f} s on the CPU")
     for label, g, c in zip(("imgs1", "imgs2"), on_gpu, on_cpu):
         err, ref = (g.cpu() - c).abs().max().item(), c.abs().max().item()
         limit = CPU_GPU_ATOL * max(1.0, ref)
         say(f"cuda vs cpu (SG2) {label}: max |err| {err:.3e}, limit {limit:.3e} (CPU_GPU_ATOL "
             f"{CPU_GPU_ATOL:g} x max(1, max |ref| {ref:.3f}))")
         check(err <= limit, f"SG2 {label}: cuda and cpu differ by {err:.3e} > {limit:.3e}")
-    del cpu, on_gpu, on_cpu
+    del cpu_side, on_gpu, on_cpu
 
     say(f"SG2 request times below: {smi}; device times from torch.profiler, request times from the host "
         "clock")
@@ -2078,10 +2273,10 @@ def sgv1_replay_request(torch, e_align):
     return argv, infer_e.draw_request(probe.bundle, BATCH, 0)
 
 
-def sgv1_replay_step(torch, e_align, argv, request, device, place, dtype):
-    """One SGv1 case-2 step of the replay on ``device`` in ``dtype``:
-    loss_tsa, both gradients (float64, on the CPU), the seconds it took and
-    the encoder's parameter names."""
+def sgv1_replay_step(torch, e_align, argv, request, device, place, dtype, card=False):
+    """One SGv1 case-2 step of the replay on ``device`` in ``dtype``
+    (``card``: the card's run): loss_tsa, both gradients (float64, on the
+    CPU), the seconds it took and the encoder's parameter names."""
     from tpugan_torch.losses.lpips import make_lpips_fn, random_params
     from tpugan_torch.ops import cuda
     from tpugan_torch.train.e_align import info_scalars
@@ -2102,7 +2297,7 @@ def sgv1_replay_step(torch, e_align, argv, request, device, place, dtype):
     cuda.reset_launches()
     t0 = time.perf_counter()
     _, info = trainer.step(trainer.state, 0)
-    if device == CARD:
+    if card:
         torch.cuda.synchronize()
         check(cuda.launches["upfirdn2d"] > 0, f"replay launches {cuda.launches}")
     else:
@@ -2113,17 +2308,28 @@ def sgv1_replay_step(torch, e_align, argv, request, device, place, dtype):
             names)
 
 
-def replay_sgv1_case2_on_cpu(torch, dev, e_align):
-    """One SGv1 case-2 step of Cat256 at SGV1_REPLAY_START_FEATURES on the
-    card, on the CPU and on the CPU in float64, from the same explicit
-    inputs (drawn on the CPU): loss_tsa and both gradients of the step, held
-    to the float64 run. Run it under :func:`cudnn_deterministic`."""
+def sgv1_replay_cpu(torch):
+    """:func:`replay_sgv1_case2_on_cpu`'s CPU side (a CPU job): the
+    arguments, the explicit inputs and the CPU's fp32 and float64 steps."""
+    from tpugan_torch.cli import e_align
+
     argv, request = sgv1_replay_request(torch, e_align)
     cpu = torch.device("cpu")
-    runs = [sgv1_replay_step(torch, e_align, argv, request, device, place, dtype)
-            for device, place, dtype in ((CARD, dev, torch.float32), ("cpu", cpu, torch.float32),
-                                         ("cpu", cpu, torch.float64))]
-    (loss_g, grads_g, sec_g, names), (loss_c, grads_c, sec_c, _), (loss_r, grads_r, sec_r, _) = runs
+    return {"argv": argv, "request": request,
+            "runs": [sgv1_replay_step(torch, e_align, argv, request, "cpu", cpu, dtype)
+                     for dtype in (torch.float32, torch.float64)]}
+
+
+def replay_sgv1_case2_on_cpu(torch, dev, e_align):
+    """One SGv1 case-2 step of Cat256 at SGV1_REPLAY_START_FEATURES on the
+    card, on the CPU and on the CPU in float64 (those two in the CPU
+    worker: :func:`sgv1_replay_cpu`), from the same explicit inputs (drawn
+    on the CPU): loss_tsa and both gradients of the step, held to the
+    float64 run. Run it under :func:`cudnn_deterministic`."""
+    cpu_side = cpu_result("sgv1 replay")
+    loss_g, grads_g, sec_g, names = sgv1_replay_step(torch, e_align, cpu_side["argv"], cpu_side["request"], CARD,
+                                                     dev, torch.float32, card=True)
+    (loss_c, grads_c, sec_c, _), (loss_r, grads_r, sec_r, _) = cpu_side["runs"]
     say(f"replay of an SGv1 case-2 step: Cat256 at start_features {SGV1_REPLAY_START_FEATURES}, batch {BATCH}, "
         f"random LPIPS; {sec_g:.2f} s on the card (first call), {sec_c:.2f} s on the CPU, {sec_r:.2f} s "
         "on the CPU in float64")
@@ -2436,7 +2642,7 @@ def sg2_step_fir_times(torch, step, state, first, bandwidth, fp32_peak):
     return rows, sums, max_err
 
 
-def replay_sg2_case2_on_cpu(torch, dev, e_align):
+def replay_sg2_case2_on_cpu(torch, dev):
     """One StyleGAN2 case-2 step at SG2_REPLAY_SIZE (E_Blur at
     SG2_REPLAY_START_FEATURES) held to float64 (:func:`replay_case2_on_float64`),
     the card's FIRs on B1 and B2."""
@@ -2448,64 +2654,97 @@ def replay_sg2_case2_on_cpu(torch, dev, e_align):
         return layouts
 
     return replay_case2_on_float64(
-        torch, dev, e_align, "an SG2", ["--mtype", "2", "--img_size", str(SG2_REPLAY_SIZE), "--start_features",
-                                     str(SG2_REPLAY_START_FEATURES)],
+        torch, dev, "an SG2", "sg2 replay",
         f"StyleGAN2-{SG2_REPLAY_SIZE} config F, E_Blur at start_features {SG2_REPLAY_START_FEATURES}", card_launches)
 
 
-def replay_case2_on_float64(torch, dev, e_align, name, flags, what, card_launches, card_forms=(("cuda", None),)):
-    """One case-2 step of ``e_align`` at ``flags`` (a reduced configuration,
-    ``what``) on the card, on the CPU and on the CPU in float64, from the
-    same explicit inputs (drawn on the CPU): loss_tsa and both gradients of
-    the step, held to the float64 run within CPU_GPU_ATOL x max(1, max |g|)
-    or twice the CPU fp32 run's own distance from it.
-    ``card_launches(cuda.launches)`` checks the card's launches and returns
-    what the record keeps. ``card_forms``: (label, context) of each card
-    run, the context (None: none) entered around its step; the first form
-    is held to the rule, the others are measured and printed beside it."""
-    from tpugan_torch.cli import infer_e
+def case2_replay_run(torch, flags, request, device, place, dtype, ctx=None, card=False):
+    """One case-2 step of :func:`replay_case2_on_float64` on ``device`` in
+    ``dtype``, on ``request`` (the context ``ctx``, None for none, entered
+    around it; ``card``: the card's run): loss_tsa, both gradients (float64,
+    on the CPU), the seconds and the encoder's parameter names. The counts
+    of the kernels' launches are those of this step when it returns."""
+    from tpugan_torch.cli import e_align
     from tpugan_torch.losses.lpips import make_lpips_fn, random_params
     from tpugan_torch.ops import cuda, upfirdn
     from tpugan_torch.train.e_align import info_scalars
 
-    argv = list(flags) + ["--random_init", "--case", "2", "--iterations", "1", "--batch_size", str(BATCH),
+    argv = case2_replay_argv(flags)
+    lpips = make_lpips_fn(random_params(torch.Generator().manual_seed(7)).to(place, dtype))
+    req = request.to(place)
+    req = req._replace(z=req.z.to(dtype), noise_e=[tuple(n.to(dtype) for n in b) for b in req.noise_e])
+    trainer = e_align.build_trainer(e_align.make_parser().parse_args(argv + ["--device", device]), lpips,
+                                    draw=lambda it, r=req: r)
+    for module in (trainer.bundle.generator, trainer.bundle.encoder):
+        module.to(dtype)
+    names = [n for n, _ in trainer.state.encoder.named_parameters()]
+    grads = []
+    opt_step = trainer.state.optimizer.step
+    trainer.state.optimizer.step = lambda g=None: (grads.append(g), opt_step(g))
+    cuda.reset_launches()
+    upfirdn.reset_layout_launches()
+    t0 = time.perf_counter()
+    with contextlib.nullcontext() if ctx is None else ctx(torch):
+        _, info = trainer.step(trainer.state, 0)
+        if card:
+            torch.cuda.synchronize()
+    if not card:
+        check(not any(cuda.launches.values()), "the CPU replay launched a kernel")
+    seconds = time.perf_counter() - t0
+    check(len(grads) == 2, f"a case-2 step took {len(grads)} updates")
+    return (info_scalars(info)["loss_tsa"], [[g_.detach().double().cpu() for g_ in g] for g in grads], seconds,
+            names)
+
+
+def case2_replay_argv(flags):
+    return list(flags) + ["--random_init", "--case", "2", "--iterations", "1", "--batch_size", str(BATCH),
                           "--seed", str(SEED)]
-    parser = e_align.make_parser()
-    probe = e_align.build_trainer(parser.parse_args(argv + ["--device", "cpu"]))
+
+
+def case2_replay_cpu(torch, flags):
+    """:func:`replay_case2_on_float64`'s CPU side (a CPU job): the explicit
+    inputs, drawn on the CPU, and the CPU's fp32 and float64 steps."""
+    from tpugan_torch.cli import e_align, infer_e
+
+    probe = e_align.build_trainer(e_align.make_parser().parse_args(case2_replay_argv(flags) + ["--device", "cpu"]))
     request = infer_e.draw_request(probe.bundle, BATCH, 0)
     del probe
-    runs = {}
     cpu = torch.device("cpu")
-    forms = [(label, CARD, dev, torch.float32, ctx) for label, ctx in card_forms] + [
-        ("cpu fp32", "cpu", cpu, torch.float32, None), ("cpu float64", "cpu", cpu, torch.float64, None)]
-    for label, device, place, dtype, ctx in forms:
-        lpips = make_lpips_fn(random_params(torch.Generator().manual_seed(7)).to(place, dtype))
-        req = request.to(place)
-        req = req._replace(z=req.z.to(dtype), noise_e=[tuple(n.to(dtype) for n in b) for b in req.noise_e])
-        trainer = e_align.build_trainer(parser.parse_args(argv + ["--device", device]), lpips,
-                                        draw=lambda it, r=req: r)
-        for module in (trainer.bundle.generator, trainer.bundle.encoder):
-            module.to(dtype)
-        names = [n for n, _ in trainer.state.encoder.named_parameters()]
-        grads = []
-        opt_step = trainer.state.optimizer.step
-        trainer.state.optimizer.step = lambda g=None: (grads.append(g), opt_step(g))
-        cuda.reset_launches()
-        upfirdn.reset_layout_launches()
-        t0 = time.perf_counter()
-        with contextlib.nullcontext() if ctx is None else ctx(torch):
-            _, info = trainer.step(trainer.state, 0)
-            if device == CARD:
-                torch.cuda.synchronize()
-        if device == CARD:
-            layouts = card_launches(dict(cuda.launches))
-        else:
-            check(not any(cuda.launches.values()), "the CPU replay launched a kernel")
-        seconds = time.perf_counter() - t0
-        check(len(grads) == 2, f"a case-2 step took {len(grads)} updates")
-        runs[label] = (info_scalars(info)["loss_tsa"], [[g_.detach().double().cpu() for g_ in g] for g in grads],
-                       seconds)
-        del trainer
+    return {"request": request,
+            "runs": {label: case2_replay_run(torch, flags, request, "cpu", cpu, dtype)
+                     for label, dtype in (("cpu fp32", torch.float32), ("cpu float64", torch.float64))}}
+
+
+def sg2_replay_flags():
+    return ["--mtype", "2", "--img_size", str(SG2_REPLAY_SIZE), "--start_features", str(SG2_REPLAY_START_FEATURES)]
+
+
+def pg_replay_flags():
+    return ["--mtype", "3", "--img_size", str(PG_REPLAY_SIZE), "--start_features", str(PG_REPLAY_START_FEATURES)]
+
+
+def replay_case2_on_float64(torch, dev, name, job, what, card_launches, card_forms=(("cuda", None),)):
+    """One case-2 step of ``e_align`` at the flags of the CPU job ``job``
+    (a reduced configuration, ``what``) on the card, on the CPU and on the
+    CPU in float64 (those two in the CPU worker: :func:`case2_replay_cpu`),
+    from the same explicit inputs (drawn on the CPU): loss_tsa and both
+    gradients of the step, held to the float64 run within CPU_GPU_ATOL x
+    max(1, max |g|) or twice the CPU fp32 run's own distance from it.
+    ``card_launches(cuda.launches)`` checks the card's launches and returns
+    what the record keeps. ``card_forms``: (label, context) of each card
+    run, the context (None: none) entered around its step; the first form
+    is held to the rule, the others are measured and printed beside it."""
+    from tpugan_torch.ops import cuda
+
+    cpu_side = cpu_result(job)
+    flags = cpu_jobs()[job][1][0]
+    runs = {}
+    for label, ctx in card_forms:
+        *run, names = case2_replay_run(torch, flags, cpu_side["request"], CARD, dev, torch.float32, ctx, card=True)
+        layouts = card_launches(dict(cuda.launches))
+        runs[label] = tuple(run)
+    for label, (*run, _) in cpu_side["runs"].items():
+        runs[label] = tuple(run)
     held = card_forms[0][0]
     loss_r, grads_r, sec_r = runs.pop("cpu float64")
     say(f"replay of {name} case-2 step: {what}, batch {BATCH}, random LPIPS; launches on the card "
@@ -2627,7 +2866,7 @@ def sg2_training_path(torch, dev, smi, bandwidth, fp32_peak):
     check(firs is not None, "no SG2 case-2 step was timed")
     rows, sums, max_err = firs
     with cudnn_deterministic(torch):  # the comment at CPU_GPU_ATOL
-        replay = replay_sg2_case2_on_cpu(torch, dev, e_align)
+        replay = replay_sg2_case2_on_cpu(torch, dev)
     return {"launches": launches, "per_step": per_step, "times": times, "fir_rows": rows, "fir_sums": sums,
             "max_abs_err": max_err, "replay": replay}
 
@@ -2676,7 +2915,7 @@ BF16_LOSS_RTOL = 0.05
 BF16_STEP_LOSS_RTOL = 0.03
 BF16_GATE_SG2 = dict(resolution=64, fmaps_base=1024, fmaps_max=64)
 BF16_GATE_ENCODER = dict(startf=16, maxf=64, layer_count=5, latent_size=512, use_blur=True)
-BF16_TIMED_STEPS = 6  # host-clock steps of each bf16 form, after 2 warm-up steps
+BF16_TIMED_STEPS = 4  # host-clock steps of each bf16 form, after 2 warm-up steps
 BF16_PROFILED_STEPS = 1  # steps of each bf16 form in its device-time trace
 BF16_IMAGE_TOL = {"2": 0.05, "1": 0.08}  # tpugan's image gates, by mtype (printed)
 
@@ -2923,6 +3162,51 @@ def gate_config_losses(torch, dev, bf16):
     return out
 
 
+def gate_config_cpu(torch):
+    """:func:`bf16_gates`' CPU side of the gate configuration (a CPU job):
+    :func:`gate_config_losses` on the CPU in fp32 and in bf16."""
+    cpu = torch.device("cpu")
+    return {f"cpu {kind}": gate_config_losses(torch, cpu, kind == "bf16") for kind in ("fp32", "bf16")}
+
+
+def bf16_image_bundles():
+    """(mtype, size, start_features) of the bundles whose images bf16_gates holds."""
+    return ("2", SG2_SIZE, SG2_START_FEATURES), ("1", IMG_SIZE, 64)
+
+
+def bf16_image_argv(mtype, size, startf):
+    return ["--mtype", mtype, "--img_size", str(size), "--start_features", str(startf), "--random_init",
+            "--iterations", "1", "--batch_size", str(BATCH), "--seed", str(SEED)]
+
+
+def bf16_images_cpu(torch):
+    """:func:`bf16_gates`' CPU side of the images (a CPU job): for each of
+    :func:`bf16_image_bundles`, the first request of REQUEST_SEEDS drawn on the CPU
+    and its imgs1 there through the fp32 bundle and through the CLI's bf16
+    generator (``bf16_frozen``, ``bf16_pipeline``)."""
+    from tpugan_torch.cli import common, e_align, infer_e
+    from tpugan_torch.precision import bf16_frozen, bf16_pipeline
+    from tpugan_torch.train.e_align import build_stylegan1_pipeline, build_stylegan2_pipeline
+
+    parser = e_align.make_parser()
+    out = {}
+    for mtype, size, startf in bf16_image_bundles():
+        bundle = common.build_bundle(parser.parse_args(bf16_image_argv(mtype, size, startf) + ["--device", "cpu"]))
+        request = infer_e.draw_request(bundle, BATCH, REQUEST_SEEDS[0])
+        gen16 = bf16_frozen(bundle.generator)
+        if mtype == "2":
+            synth, resynth = build_stylegan2_pipeline(gen16)
+        else:
+            synth, resynth = build_stylegan1_pipeline(gen16, bf16_frozen(bundle.mapping), bundle.layer_count - 1)
+        synth, resynth = bf16_pipeline(synth, resynth)
+        with torch.no_grad():
+            imgs1 = bundle.synth(request.z, request.noise_g).imgs1
+            batch = synth(request.z, request.noise_g)
+        check(batch.imgs1.dtype == torch.float32, f"cpu: bf16 imgs1 of dtype {batch.imgs1.dtype}")
+        out[mtype] = (request, {"cpu fp32": imgs1, "cpu bf16": batch.imgs1})
+    return out
+
+
 def bf16_gates(torch, dev, e_align):
     """bf16's checks of the step and the images (the comment above
     ``BF16_GATE_STEPS``): the gate configuration on the card against its
@@ -2934,7 +3218,7 @@ def bf16_gates(torch, dev, e_align):
     replay, tpugan's image gate and imgs2 through ``bf16_encode`` printed.
     Returns the losses and distances."""
     from tpugan_torch.cli import common, infer_e
-    from tpugan_torch.precision import bf16_encode, bf16_frozen, bf16_pipeline
+    from tpugan_torch.precision import bf16_encode, bf16_pipeline
     from tpugan_torch.runtime import parity_mode
     from tpugan_torch.train.e_align import (build_stylegan1_pipeline, build_stylegan2_pipeline,
                                             info_scalars)
@@ -2942,10 +3226,9 @@ def bf16_gates(torch, dev, e_align):
     def rel(a, b):
         return [abs(y - x) / abs(x) for x, y in zip(a, b)]
 
-    cpu = torch.device("cpu")
     with cudnn_deterministic(torch):  # the comment at CPU_GPU_ATOL
-        small = {f"{where} {kind}": gate_config_losses(torch, place, kind == "bf16")
-                 for where, place in (("card", dev), ("cpu", cpu)) for kind in ("fp32", "bf16")}
+        small = {f"card {kind}": gate_config_losses(torch, dev, kind == "bf16") for kind in ("fp32", "bf16")}
+    small.update(cpu_result("bf16 gate configuration"))
     small_rel = {name: rel(small["cpu fp32"], v) for name, v in small.items() if name != "cpu fp32"}
     say(f"bf16 at tpugan's gate configuration (StyleGAN2 {BF16_GATE_SG2}, E_Blur {BF16_GATE_ENCODER}), "
         f"{BF16_GATE_STEPS} case-2 steps on the card and on the CPU: loss_tsa on the CPU in fp32 "
@@ -3007,36 +3290,28 @@ def bf16_gates(torch, dev, e_align):
         f"{'held' if held else 'not held'} (printed, not a check of this script)")
 
     images = {}
-    for mtype, size, startf in (("2", SG2_SIZE, SG2_START_FEATURES), ("1", IMG_SIZE, 64)):
-        argv = ["--mtype", mtype, "--img_size", str(size), "--start_features", str(startf), "--random_init",
-                "--iterations", "1", "--batch_size", str(BATCH), "--seed", str(SEED)]
+    cpu_images = cpu_result("bf16 images")
+    for mtype, size, startf in bf16_image_bundles():
+        argv = bf16_image_argv(mtype, size, startf)
         trainer = e_align.build_trainer(parser.parse_args(argv + ["--device", CARD, "--bf16"]))
         bundle = common.build_bundle(parser.parse_args(argv + ["--device", CARD]))  # fp32, the same seed
-        cpu_bundle = common.build_bundle(parser.parse_args(argv + ["--device", "cpu"]))
-        request = infer_e.draw_request(cpu_bundle, BATCH, REQUEST_SEEDS[0])  # drawn on the CPU, for the replay
-        runs = (("card", bundle, request.to(dev), trainer.bundle.generator, trainer.bundle.mapping),
-                ("cpu", cpu_bundle, request, bf16_frozen(cpu_bundle.generator),
-                 None if cpu_bundle.mapping is None else bf16_frozen(cpu_bundle.mapping)))
-        out = {}
-        for where, b, req, gen16, gm16 in runs:
-            if mtype == "2":
-                synth, resynth = build_stylegan2_pipeline(gen16)
-            else:
-                synth, resynth = build_stylegan1_pipeline(gen16, gm16, b.layer_count - 1)
-            synth, resynth = bf16_pipeline(synth, resynth)
-            with torch.no_grad():
-                if where == "card":
-                    imgs1, imgs2 = infer_e.serve(b, req)
-                else:  # imgs1 alone
-                    imgs1 = b.synth(req.z, req.noise_g).imgs1
-                batch = synth(req.z, req.noise_g)
-                out[f"{where} fp32"], out[f"{where} bf16"] = imgs1.cpu(), batch.imgs1.cpu()
-                check(batch.imgs1.dtype == torch.float32, f"{where}: bf16 imgs1 of dtype {batch.imgs1.dtype}")
-                if where == "card":
-                    _, w2 = bf16_encode(b.encode, b.encoder)(batch, req.noise_e)
-                    imgs2_16 = resynth(w2, batch, req.noise_g2)
-                    d2 = (imgs2_16 - imgs2).abs().max().item() / imgs2.abs().max().item()
-            torch.cuda.synchronize()
+        request, out = cpu_images[mtype]  # drawn on the CPU, and the CPU's imgs1 in fp32 and bf16
+        b, req = bundle, request.to(dev)
+        if mtype == "2":
+            synth, resynth = build_stylegan2_pipeline(trainer.bundle.generator)
+        else:
+            synth, resynth = build_stylegan1_pipeline(trainer.bundle.generator, trainer.bundle.mapping,
+                                                      b.layer_count - 1)
+        synth, resynth = bf16_pipeline(synth, resynth)
+        with torch.no_grad():
+            imgs1, imgs2 = infer_e.serve(b, req)
+            batch = synth(req.z, req.noise_g)
+            out["card fp32"], out["card bf16"] = imgs1.cpu(), batch.imgs1.cpu()
+            check(batch.imgs1.dtype == torch.float32, f"card: bf16 imgs1 of dtype {batch.imgs1.dtype}")
+            _, w2 = bf16_encode(b.encode, b.encoder)(batch, req.noise_e)
+            imgs2_16 = resynth(w2, batch, req.noise_g2)
+            d2 = (imgs2_16 - imgs2).abs().max().item() / imgs2.abs().max().item()
+        torch.cuda.synchronize()
         ref = out["cpu fp32"]
         scale = ref.abs().max().item()
         dist = {k: (v - ref).abs().max().item() / scale for k, v in out.items() if k != "cpu fp32"}
@@ -3055,7 +3330,7 @@ def bf16_gates(torch, dev, e_align):
             f"{BF16_IMAGE_TOL[mtype]:g} of fp32's max |value|: {gate:.3e}, "
             f"{'held' if gate <= BF16_IMAGE_TOL[mtype] else 'not held'} (printed, not a check of this script); "
             f"imgs2 through the bf16 encoder {d2:.3e} from fp32's")
-        del trainer, bundle, cpu_bundle, out, ref
+        del trainer, bundle, out, ref
         torch.cuda.empty_cache()
     return {"gate_configuration": {"loss_tsa": small, "loss_rel": small_rel,
                                    "trajectory_gate_held": small_held},
@@ -3479,13 +3754,23 @@ def attention_bf16_times(torch, dev, gen, bandwidth, tf32_peak, bf16_peak):
     return b3, b4
 
 
+def replay_bf16_cpu(torch):
+    """:func:`replay_bf16_case2_on_cpu`'s CPU side (a CPU job):
+    :func:`replay_steps` on the CPU in fp32 and in bf16."""
+    from tpugan_torch.cli import e_align
+
+    return replay_steps(torch, torch.device("cpu"), e_align, (("cpu fp32", "cpu", False), ("cpu bf16", "cpu", True)))
+
+
 def replay_bf16_case2_on_cpu(torch, dev, e_align):
     """replay_steps in bf16 on the card and on the CPU, and in fp32 on the
     CPU: the card's bf16 loss_tsa and first gradients no farther from the
     CPU's fp32 ones than twice the CPU's bf16 ones are (the rule of
     tests/test_torch_bf16.py against tpugan). Returns the distances."""
-    factor, runs = replay_steps(torch, dev, e_align, (("card bf16", CARD, True), ("cpu fp32", "cpu", False),
-                                                      ("cpu bf16", "cpu", True)))
+    factor, runs = replay_steps(torch, dev, e_align, (("card bf16", CARD, True),))
+    cpu_factor, cpu_runs = cpu_result("biggan bf16 replay")
+    check(cpu_factor == factor, f"the CPU worker's z head factor {cpu_factor!r} is not the card's {factor!r}")
+    runs.update(cpu_runs)
     (loss_g, grads_g, sec_g), (loss_r, grads_r, sec_r), (loss_c, grads_c, sec_c) = (
         runs["card bf16"], runs["cpu fp32"], runs["cpu bf16"])
     say(f"bf16 replay of a case-2 step: BigGAN-deep-{BIGGAN_SIZE}'s layout at channel width "
@@ -3692,7 +3977,7 @@ INV_FORMS = (
 INV_ITERATIONS = 4
 INV_CHUNK = 2
 INV_TARGET_SEED = 30003  # held out: past infer_e's three request seeds
-INV_TIMED = 6  # host-clock iterations of each form, after 2 warm-up ones
+INV_TIMED = 3  # host-clock iterations of each form, after 2 warm-up ones
 INV_PROFILED = (1, 2)  # iterations of two profiled inversions (warm); their difference is one iteration
 # The replay: tpugan's bf16 gate configuration (StyleGAN2 at 64 px,
 # BF16_GATE_SG2, with E: BF16_GATE_ENCODER without its blur, as the
@@ -4262,7 +4547,7 @@ def inversion_path(torch, dev, smi):
 MIS_BATCH = 5
 MIS_ARGV = ("--mtype", "1", "--img_size", str(IMG_SIZE), "--start_features", "64", "--random_init")
 MIS_STEPS = 3  # steps of each counted trajectory
-MIS_TIMED = 6  # host-clock steps of each form, after two warm-up steps
+MIS_TIMED = 4  # host-clock steps of each form, after two warm-up steps
 # The replay: a full step of Cat256 at MIS_REPLAY_START_FEATURES with the
 # full-width VGG16, at MIS_REPLAY_BATCH (the CPU runs VGG16 at 256 px in
 # float64), on the card, on the CPU and on the CPU in float64, from the same
@@ -4555,49 +4840,78 @@ def heatmap_steps(torch, got, want):
     return float((a != b).float().mean()), int((a - b).abs().max())
 
 
-def replay_mis_align_on_cpu(torch, dev, vgg):
-    """A full e_mis_align step at MIS_REPLAY_START_FEATURES, batch
-    MIS_REPLAY_BATCH, on the card, on the CPU and on the CPU in float64 (the
-    rule at MIS_REPLAY_START_FEATURES' definition)."""
+def mis_replay_argv():
+    return ("--start_features", str(MIS_REPLAY_START_FEATURES), "--batch_size", str(MIS_REPLAY_BATCH),
+            "--iterations", "1")
+
+
+def mis_replay_run(torch, request, net, device, place, dtype, card=False):
+    """One full e_mis_align step of :func:`replay_mis_align_on_cpu` on
+    ``device`` in ``dtype`` with the VGG16 ``net``, on ``request``: the
+    images, imgs1's logits, the step's gradient, its scalars and seconds."""
+    from tpugan_torch.cli import e_mis_align
+    from tpugan_torch.train.e_align import info_scalars
+
+    cast = lambda blocks: [tuple(n.to(place, dtype) for n in b) for b in blocks]  # noqa: E731
+    req = request._replace(z=request.z.to(place, dtype), noise_g=cast(request.noise_g),
+                           noise_e=cast(request.noise_e), noise_g2=cast(request.noise_g2))
+    trainer = e_mis_align.build_trainer(mis_align_args(*mis_replay_argv(), device=device), draw=lambda it, r=req: r,
+                                        vgg=net)
+    for module in (trainer.bundle.generator, trainer.bundle.mapping, trainer.bundle.encoder):
+        module.to(dtype)
+    p = trainer.pipeline
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        batch = p.synth(req)
+        imgs2 = p.resynth(p.encode(batch, req.noise_e)[1], batch, req.noise_g2)
+        logits = net(batch.imgs1.permute(0, 3, 1, 2))[0]
+    grads = []
+    opt_step = trainer.state.optimizer.step
+    trainer.state.optimizer.step = lambda g=None: (grads.append([x.detach().clone() for x in g]), opt_step(g))
+    _, info = trainer.step(trainer.state, 0)
+    run = dict(imgs1=batch.imgs1, imgs2=imgs2, logits=logits, grads=grads[0], scalars=info_scalars(info))
+    if card:
+        torch.cuda.synchronize()
+    run["seconds"] = time.perf_counter() - t0
+    return run
+
+
+def mis_replay_cpu(torch):
+    """:func:`replay_mis_align_on_cpu`'s CPU side (a CPU job): the explicit
+    inputs, drawn on the CPU, and the CPU's fp32 and float64 runs (the
+    VGG16 made there from the seed, as on the card), each with its CAM++
+    masks at the float64 run's majority class."""
     import copy
 
     from tpugan_torch.cli import e_mis_align, infer_e
+    from tpugan_torch.cli.common import build_vgg16
     from tpugan_torch.losses.gradcam import grad_cam, majority_class
-    from tpugan_torch.train.e_align import info_scalars
 
-    argv = ("--start_features", str(MIS_REPLAY_START_FEATURES), "--batch_size", str(MIS_REPLAY_BATCH),
-            "--iterations", "1")
-    vgg_cpu = copy.deepcopy(vgg).cpu()
-    probe = e_mis_align.build_trainer(mis_align_args(*argv, device="cpu"), vgg=vgg_cpu)
+    vgg_cpu = build_vgg16(mis_align_args(*mis_replay_argv(), device="cpu"))
+    probe = e_mis_align.build_trainer(mis_align_args(*mis_replay_argv(), device="cpu"), vgg=vgg_cpu)
     request = infer_e.draw_request(probe.bundle, MIS_REPLAY_BATCH, 0)
     del probe
-    runs = {}
     cpu = torch.device("cpu")
-    for label, device, place, dtype in (("card", CARD, dev, torch.float32), ("cpu fp32", "cpu", cpu, torch.float32),
-                                        ("f64", "cpu", cpu, torch.float64)):
-        cast = lambda blocks: [tuple(n.to(place, dtype) for n in b) for b in blocks]  # noqa: E731
-        req = request._replace(z=request.z.to(place, dtype), noise_g=cast(request.noise_g),
-                               noise_e=cast(request.noise_e), noise_g2=cast(request.noise_g2))
-        net = vgg if label == "card" else vgg_cpu if dtype == torch.float32 else copy.deepcopy(vgg_cpu).double()
-        trainer = e_mis_align.build_trainer(mis_align_args(*argv, device=device), draw=lambda it, r=req: r, vgg=net)
-        for module in (trainer.bundle.generator, trainer.bundle.mapping, trainer.bundle.encoder):
-            module.to(dtype)
-        p = trainer.pipeline
-        t0 = time.perf_counter()
-        with torch.no_grad():
-            batch = p.synth(req)
-            imgs2 = p.resynth(p.encode(batch, req.noise_e)[1], batch, req.noise_g2)
-            logits = net(batch.imgs1.permute(0, 3, 1, 2))[0]
-        grads = []
-        opt_step = trainer.state.optimizer.step
-        trainer.state.optimizer.step = lambda g=None: (grads.append([x.detach().clone() for x in g]), opt_step(g))
-        _, info = trainer.step(trainer.state, 0)
-        runs[label] = dict(imgs1=batch.imgs1, imgs2=imgs2, logits=logits, grads=grads[0],
-                           scalars=info_scalars(info), net=net)
-        if device == CARD:
-            torch.cuda.synchronize()
-        runs[label]["seconds"] = time.perf_counter() - t0
-        del trainer
+    nets = {"cpu fp32": vgg_cpu, "f64": copy.deepcopy(vgg_cpu).double()}
+    runs = {label: mis_replay_run(torch, request, net, "cpu", cpu, torch.float64 if label == "f64" else torch.float32)
+            for label, net in nets.items()}
+    cls = int(majority_class(runs["f64"]["logits"]))
+    for label, r in runs.items():
+        for side in ("imgs1", "imgs2"):
+            r[f"mask_{side}"] = grad_cam(nets[label], r[side], index=cls, plus_plus=True)
+    return {"request": request, "runs": runs}
+
+
+def replay_mis_align_on_cpu(torch, dev, vgg):
+    """A full e_mis_align step at MIS_REPLAY_START_FEATURES, batch
+    MIS_REPLAY_BATCH, on the card, on the CPU and on the CPU in float64
+    (those two in the CPU worker: :func:`mis_replay_cpu`; the rule at
+    MIS_REPLAY_START_FEATURES' definition)."""
+    from tpugan_torch.losses.gradcam import grad_cam, majority_class
+
+    cpu_side = cpu_result("mis replay")
+    runs = {"card": mis_replay_run(torch, cpu_side["request"], vgg, CARD, dev, torch.float32, card=True)}
+    runs.update(cpu_side["runs"])
     say(f"replay of an e_mis_align full step: Cat256 at start_features {MIS_REPLAY_START_FEATURES}, batch "
         f"{MIS_REPLAY_BATCH}, the full-width VGG16; " + ", ".join(f"{k} {r['seconds']:.2f} s" for k, r in runs.items()))
     cls = int(majority_class(runs["f64"]["logits"]))
@@ -4605,9 +4919,8 @@ def replay_mis_align_on_cpu(torch, dev, vgg):
     say(f"  majority class of imgs1: {picks} (the card's own pick {'agrees' if picks['card'] == cls else 'differs'}); "
         f"top-2 logit margins of the float64 run {top2_margins(runs['f64']['logits'])}, largest |logit| "
         f"{float(runs['f64']['logits'].abs().max()):.4e}")
-    for label, r in runs.items():  # the masks at the float64 run's class, on each run's own images
-        for side in ("imgs1", "imgs2"):
-            r[f"mask_{side}"] = grad_cam(r["net"], r[side], index=cls, plus_plus=True)
+    for side in ("imgs1", "imgs2"):  # the masks at the float64 run's class, on the card's own images
+        runs["card"][f"mask_{side}"] = grad_cam(vgg, runs["card"][side], index=cls, plus_plus=True)
     out = {"majority_class": picks, "f64_class": cls}
     for key in ("imgs1", "imgs2", "mask_imgs1", "mask_imgs2"):
         out[key] = replay_distance_rule(torch, key, runs["card"][key], runs["cpu fp32"][key], runs["f64"][key])
@@ -4955,27 +5268,41 @@ def remat_path(torch, dev, smi, bf16):
     return out
 
 
-def converted_request(torch, dev, parser, label, argv, want, adjust=None):
+def converted_cpu(torch, argv, factor=None):
+    """:func:`converted_request`'s CPU side (a CPU job): the CPU bundle that
+    ``argv`` loads, its z head scaled by ``factor`` where given, the request
+    of REQUEST_SEEDS[0] drawn there and its images."""
+    from tpugan_torch.cli import common, infer_e
+
+    cpu = common.build_bundle(common_parser().parse_args(list(argv) + ["--device", "cpu"]))
+    if factor is not None:
+        scale_z_head(torch, cpu.encoder, factor)
+    req = infer_e.draw_request(cpu, BATCH, REQUEST_SEEDS[0])
+    with torch.no_grad():
+        images = tuple(x.detach() for x in infer_e.serve(cpu, req))
+    return {"request": req, "images": images}
+
+
+def converted_request(torch, dev, parser, label, argv, want, job, card=None):
     """One ``infer_e`` request of REQUEST_SEEDS[0] on the bundle that
     ``argv`` loads (converted files), on the card and on the CPU from the
-    same files and draws: the card's launches against ``want(bundle)`` and
-    the images held to the CPU's (phase 7's rule). ``adjust(card, cpu)``
-    runs on the two bundles first."""
+    same files and draws (the CPU job ``job``, :func:`converted_cpu`): the
+    card's launches against ``want(bundle)`` and the images held to the
+    CPU's (phase 7's rule). ``card``: the card's bundle where the caller
+    built (and adjusted) it."""
     from tpugan_torch.cli import common, infer_e
     from tpugan_torch.ops import cuda, upfirdn
 
-    card = common.build_bundle(parser.parse_args(argv + ["--device", CARD]))
-    cpu = common.build_bundle(parser.parse_args(argv + ["--device", "cpu"]))
-    if adjust is not None:
-        adjust(card, cpu)
-    req = infer_e.draw_request(cpu, BATCH, REQUEST_SEEDS[0])
+    if card is None:
+        card = common.build_bundle(parser.parse_args(argv + ["--device", CARD]))
+    cpu_side = cpu_result(job)
+    req, on_cpu = cpu_side["request"], cpu_side["images"]
     cuda.reset_launches()
     upfirdn.reset_layout_launches()
     on_card = infer_e.serve(card, req.to(dev))
     torch.cuda.synchronize()
     launches = dict(cuda.launches)
     check(launches == want(card), f"{label}: launches {launches}, expected {want(card)}")
-    on_cpu = infer_e.serve(cpu, req)
     errs = {}
     for name, g, c in zip(("imgs1", "imgs2"), on_card, on_cpu):
         check(bool(torch.isfinite(g).all()), f"{label}: {name} is not finite")
@@ -4984,7 +5311,7 @@ def converted_request(torch, dev, parser, label, argv, want, adjust=None):
         say(f"{label}: cuda vs cpu {name}, max |err| {errs[name]:.3e} (limit {limit:.3e}, max |ref| "
             f"{c.abs().max().item():.3f})")
         check(errs[name] <= limit, f"{label}: {name} differs from the CPU's load by {errs[name]:.3e}")
-    del card, cpu
+    del card, cpu_side
     torch.cuda.empty_cache()
     return {"launches": launches, "max_abs_err": errs}
 
@@ -5032,34 +5359,25 @@ def converted_path(torch, dev, smi, workdir):
     sizes = {k: os.path.getsize(v) / 2**20 for k, v in files.items()}
     say(f"converted weights: reference-named state dicts from seed {SEED} written in "
         f"{time.perf_counter() - t0:.1f} s ({', '.join(f'{k} {v:.1f} MiB' for k, v in sizes.items())})")
-    parser = argparse.ArgumentParser()
-    common.add_common_args(parser, training=True)
+    parser = common_parser()
     seed = REQUEST_SEEDS[0]
     out = {}
-
-    def request(label, argv, want, adjust=None):
-        out[label] = converted_request(torch, dev, parser, label, argv, want, adjust)
-
     sg2_argv = ["--mtype", "2", "--img_size", str(SG2_SIZE), "--start_features", str(SG2_START_FEATURES),
                 "--batch_size", str(BATCH), "--seed", str(SEED), "--checkpoint_dir_GAN", files["sg2"],
                 "--checkpoint_dir_E", files["sg2_e"]]
-    request(f"infer_e --mtype 2 (converted StyleGAN2-{SG2_SIZE} and E)", sg2_argv, lambda b: expected_launches(
-        upfirdn2d=2 * sum(sg2_decode_firs(b.generator).values())))
-
-    def e_big_scale(card, cpu):
-        zt_std, z2_std = latent_stds(torch, infer_e, card, seed)
-        check(math.isfinite(z2_std) and z2_std > 0, f"the converted E_BIG's z2 has std {z2_std}")
-        for b in (card, cpu):
-            scale_z_head(torch, b.encoder, zt_std / z2_std)
-        say(f"converted E_BIG: z2 std {z2_std:.4f} against zt's {zt_std:.4f}; the z head scaled on both "
-            "bundles, as phase 5")
-
     big_argv = ["--mtype", "4", "--img_size", str(BIGGAN_SIZE), "--start_features", "64", "--z_dim",
                 str(BIGGAN_Z_DIM), "--batch_size", str(BATCH), "--seed", str(SEED), "--config_dir",
                 path("biggan-deep-256.json"), "--checkpoint_dir_GAN", files["biggan"], "--checkpoint_dir_E",
                 files["ebig"]]
-    request(f"infer_e --mtype 4 (converted BigGAN-deep-{BIGGAN_SIZE} and E_BIG)", big_argv,
-            lambda b: expected_launches(sagan_attention=2), e_big_scale)
+    big = common.build_bundle(parser.parse_args(big_argv + ["--device", CARD]))
+    zt_std, z2_std = latent_stds(torch, infer_e, big, seed)
+    check(math.isfinite(z2_std) and z2_std > 0, f"the converted E_BIG's z2 has std {z2_std}")
+    scale_z_head(torch, big.encoder, zt_std / z2_std)
+    say(f"converted E_BIG: z2 std {z2_std:.4f} against zt's {zt_std:.4f}; the z head scaled on both "
+        "bundles, as phase 5")
+    # the CPU loads of both requests in the CPU worker, while the steps below run on the card
+    submit_cpu_job("converted sg2", converted_cpu, sg2_argv)
+    submit_cpu_job("converted biggan", converted_cpu, big_argv, zt_std / z2_std)
 
     # e_align --mtype 2 --case 2 with the converted LPIPS: one counted step
     args = e_align.make_parser().parse_args(sg2_argv + ["--case", "2", "--iterations", "1", "--lpips_weights",
@@ -5107,6 +5425,14 @@ def converted_path(torch, dev, smi, workdir):
     out["e_mis_align --vgg_weights --lpips_weights"] = {"launches": sum(fwd_full.values()), "vgg_logits_err": err}
     del trainer
     torch.cuda.empty_cache()
+
+    label = f"infer_e --mtype 2 (converted StyleGAN2-{SG2_SIZE} and E)"
+    out[label] = converted_request(torch, dev, parser, label, sg2_argv, lambda b: expected_launches(
+        upfirdn2d=2 * sum(sg2_decode_firs(b.generator).values())), "converted sg2")
+    label = f"infer_e --mtype 4 (converted BigGAN-deep-{BIGGAN_SIZE} and E_BIG)"
+    out[label] = converted_request(torch, dev, parser, label, big_argv, lambda b: expected_launches(sagan_attention=2),
+                                   "converted biggan", card=big)
+    del big
     return out
 
 
@@ -5165,7 +5491,7 @@ PG_TRAIN_FORMS = (("case 1", ("--case", "1")), ("case 1 lean", ("--case", "1")),
 # timed there; PGGAN's infer_e requests and e_align steps are timed with
 # PyTorch's defaults (cuDNN's convolutions in TF32), as the CLIs run, and
 # every number from them is labelled so. The CPU replays keep TF32 off.
-PG_TIMED = (6, 1)  # (host-clock calls, profiled calls) of each PGGAN request and step form
+PG_TIMED = (4, 1)  # (host-clock calls, profiled calls) of each PGGAN request and step form
 # the replay of a PGGAN case-2 step against float64: PGGAN-256 (its fmaps,
 # the FFT shape among them), E_PG at start_features 64. Its fp32 gradient is
 # ill-conditioned (every conv block begins with a pixel norm, whose backward
@@ -5347,35 +5673,66 @@ def seed_times(torch, bundle, label, symbols):
     return {"median_ms": median, "device_ms": busy, "tpu_kernel_ms": own}
 
 
-def synthesize_family(torch, dev, label, flags, workdir, adjust=None, cpu_adjust=None):
-    """A family's two synthesize runs (the default, bf16 on the card, and
-    --fp32) and their holds: the fp32 seed against its CPU replay (the
-    request the CLI drew, moved; phase 7's rule), the bf16 seed against the
-    card's fp32 one within twice the CPU's bf16 distance from its fp32 (the
-    same request through ``synthesize.bf16_bundle`` of the CPU bundle;
-    phase 10's rule), each image over its max |value|; and each form's
-    times."""
+def synthesize_cpu(torch, flags, request, factor):
+    """:func:`synthesize_family`'s CPU side (a CPU job): the card's request,
+    moved to the CPU, through the CPU bundle of ``flags`` in fp32 and
+    through ``synthesize.bf16_bundle`` of it, with BigGAN's adjustments
+    (phase 5's: E_BIG's z head scaled by ``factor``, SelfAttn's gamma set)
+    where ``factor`` is not None; both forms' images and seconds."""
     from tpugan_torch.cli import common, infer_e, synthesize
+
+    cpu = common.build_bundle(synthesize.make_parser().parse_args(
+        list(flags) + ["--random_init", "--batch_size", str(BATCH), "--seed", str(SEED), "--device", "cpu"]))
+    if factor is not None:
+        scale_z_head(torch, cpu.encoder, factor)
+        check(set_attention_gamma(torch, cpu.generator, ATTN_GAMMA) == 1, "expected one SelfAttn")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu32 = infer_e.serve(cpu, request)
+        t1 = time.perf_counter()
+        cpu16 = infer_e.serve(synthesize.bf16_bundle(cpu), request)
+    return {"fp32": cpu32, "bf16": cpu16, "seconds": (t1 - t0, time.perf_counter() - t1)}
+
+
+def synthesize_family(torch, dev, label, flags, workdir, factor=None):
+    """A family's two synthesize runs (the default, bf16 on the card, and
+    --fp32), BigGAN's adjusted by ``factor`` (:func:`synthesize_cpu`), and
+    each form's times; the CPU replay of the request the CLI drew, moved,
+    is handed to the CPU worker (job ``synthesize LABEL``). Returns the
+    record and what :func:`synthesize_hold` holds."""
+    adjust = None
+    if factor is not None:
+        def adjust(bundle):
+            scale_z_head(torch, bundle.encoder, factor)
+            check(set_attention_gamma(torch, bundle.generator, ATTN_GAMMA) == 1, "expected one SelfAttn")
 
     runs = {form: synthesize_run(torch, label, flags, workdir, form == "fp32", adjust) for form in ("bf16", "fp32")}
     req = runs["fp32"]["request"]
     check(torch.equal(runs["bf16"]["request"].z, req.z), f"synthesize {label}: the two forms drew other inputs")
+    job = f"synthesize {label}"
+    submit_cpu_job(job, synthesize_cpu, tuple(flags), req.to("cpu"), factor)
     symbols = ("upfirdn2d_kernel", "sagan_attention_kernel")
     times = {form: seed_times(torch, r["bundle"], f"{label} {form}", symbols) for form, r in runs.items()}
-    cpu = common.build_bundle(synthesize.make_parser().parse_args(
-        list(flags) + ["--random_init", "--batch_size", str(BATCH), "--seed", str(SEED), "--device", "cpu"]))
-    if cpu_adjust is not None:
-        cpu_adjust(cpu)
-    t0 = time.perf_counter()
-    cpu32 = infer_e.serve(cpu, req.to("cpu"))
-    t1 = time.perf_counter()
-    cpu16 = infer_e.serve(synthesize.bf16_bundle(cpu), req.to("cpu"))
-    t2 = time.perf_counter()
-    say(f"synthesize {label}: the CLI's fp32 request replayed on the CPU in {t1 - t0:.2f} s, in bf16 in "
-        f"{t2 - t1:.2f} s")
+    out = {form: {"launches": r["launches"], "fir_by_tpu_kernel": r["layouts"], **times[form]}
+           for form, r in runs.items()}
+    images = {form: tuple(x.cpu() for x in r["images"]) for form, r in runs.items()}
+    return out, (label, job, images), runs["fp32"]["path"]
+
+
+def synthesize_hold(torch, pending):
+    """The holds of a family's synthesize runs (:func:`synthesize_family`'s
+    ``pending``): the fp32 seed against its CPU replay (phase 7's rule), the
+    bf16 seed against the card's fp32 one within twice the CPU's bf16
+    distance from its fp32 (phase 10's rule), each image over its max
+    |value|."""
+    label, job, images = pending
+    cpu_side = cpu_result(job)
+    cpu32, cpu16 = cpu_side["fp32"], cpu_side["bf16"]
+    say(f"synthesize {label}: the CLI's fp32 request replayed on the CPU in {cpu_side['seconds'][0]:.2f} s, in bf16 "
+        f"in {cpu_side['seconds'][1]:.2f} s")
     held = {}
     for i, name in enumerate(("imgs1", "imgs2")):
-        g32, g16 = runs["fp32"]["images"][i].cpu(), runs["bf16"]["images"][i].cpu()
+        g32, g16 = images["fp32"][i], images["bf16"][i]
         ref = cpu32[i].abs().max().item()
         err = (g32 - cpu32[i]).abs().max().item()
         limit = CPU_GPU_ATOL * max(1.0, ref)
@@ -5387,10 +5744,7 @@ def synthesize_family(torch, dev, label, flags, workdir, adjust=None, cpu_adjust
         check(0 < card16 <= 2 * cpu16_d, f"synthesize {label} {name}: the card's bf16 seed is {card16:.3e} from "
               f"its fp32, the CPU's {cpu16_d:.3e}")
         held[name] = {"fp32_err": err, "fp32_limit": limit, "bf16_card": card16, "bf16_cpu": cpu16_d}
-    del cpu, cpu32, cpu16
-    out = {form: {"launches": r["launches"], "fir_by_tpu_kernel": r["layouts"], **times[form]}
-           for form, r in runs.items()}
-    return out, held, runs["fp32"]["path"]
+    return held
 
 
 def compare_path(torch, workdir, png, size):
@@ -5440,6 +5794,20 @@ def compare_path(torch, workdir, png, size):
     return out
 
 
+def pggan_request_cpu(torch):
+    """:func:`pggan_serving_path`'s CPU side (a CPU job): the request of
+    REQUEST_SEEDS[0] drawn on the CPU and served there (TF32 off), and the
+    seconds it took."""
+    from tpugan_torch.cli import common, infer_e
+
+    argv = list(PG_ARGV) + ["--random_init", "--batch_size", str(BATCH), "--seed", str(SEED), "--device", "cpu"]
+    cpu = common.build_bundle(common_parser().parse_args(argv))
+    request = infer_e.draw_request(cpu, BATCH, REQUEST_SEEDS[0])
+    t0 = time.perf_counter()
+    images = tuple(x.detach() for x in infer_e.serve(cpu, request))
+    return {"request": request, "images": images, "seconds": time.perf_counter() - t0}
+
+
 def pggan_serving_path(torch, dev, parser, smi, fp32_peak, tf32_peak):
     """``infer_e --mtype 3`` at PGGAN-1024: REQUEST_SEEDS' requests with
     every count at 0 (no kernel of this repo runs), a request replayed on
@@ -5478,13 +5846,10 @@ def pggan_serving_path(torch, dev, parser, smi, fp32_peak, tf32_peak):
         f"{flops / 1e12:.4f} TFLOP of convolutions and dense layers a request (G, E_PG, G), at the card's fp32 "
         f"rate {flops / fp32_peak * 1e3:.3f} ms (the bound with TF32 off), at its TF32 rate "
         f"{flops / tf32_peak * 1e3:.3f} ms (the bound with PyTorch's defaults)")
-    cpu = common.build_bundle(parser.parse_args(argv + ["--device", "cpu"]))
-    request = infer_e.draw_request(cpu, BATCH, REQUEST_SEEDS[0])
+    cpu_side = cpu_result("pggan request")
+    request, on_cpu = cpu_side["request"], cpu_side["images"]
     on_gpu = infer_e.serve(bundle, request.to(dev))
-    t0 = time.perf_counter()
-    on_cpu = infer_e.serve(cpu, request)
-    say(f"cuda vs cpu (PGGAN): the request of seed {REQUEST_SEEDS[0]} took {time.perf_counter() - t0:.2f} s on the "
-        "CPU")
+    say(f"cuda vs cpu (PGGAN): the request of seed {REQUEST_SEEDS[0]} took {cpu_side['seconds']:.2f} s on the CPU")
     errs = {}
     for label, g, c in zip(("imgs1", "imgs2"), on_gpu, on_cpu):
         err, ref = (g.cpu() - c).abs().max().item(), c.abs().max().item()
@@ -5492,7 +5857,7 @@ def pggan_serving_path(torch, dev, parser, smi, fp32_peak, tf32_peak):
         say(f"cuda vs cpu (PGGAN) {label}: max |err| {err:.3e}, limit {limit:.3e} (max |ref| {ref:.3f})")
         check(err <= limit, f"PGGAN {label}: cuda and cpu differ by {err:.3e} > {limit:.3e}")
         errs[label] = err
-    del cpu, on_gpu, on_cpu
+    del cpu_side, on_gpu, on_cpu
     say(f"PGGAN request times below: {smi}; device times from torch.profiler, request times from the host clock")
     run = lambda s: infer_e.run(bundle, BATCH, s)  # noqa: E731
     calls, profiled = PG_TIMED
@@ -5568,8 +5933,7 @@ def pggan_training_path(torch, dev, smi):
 
     with cudnn_deterministic(torch):  # the comment at CPU_GPU_ATOL
         replay = replay_case2_on_float64(
-            torch, dev, e_align, "a PGGAN", ["--mtype", "3", "--img_size", str(PG_REPLAY_SIZE), "--start_features",
-                                           str(PG_REPLAY_START_FEATURES)],
+            torch, dev, "a PGGAN", "pg replay",
             f"PGGAN-{PG_REPLAY_SIZE} (its fmaps), E_PG at start_features {PG_REPLAY_START_FEATURES}", card_launches,
             card_forms=(("cuda, cuDNN off", cudnn_off), ("cuda, cuDNN deterministic", None)))
     return {"times": times, "replay": replay}
@@ -5639,39 +6003,27 @@ def slice7b_path(torch, dev, smi, fp32_peak, tf32_peak):
     parser = common.add_common_args(argparse.ArgumentParser(), training=True)
     try:
         t0 = time.perf_counter()
-        syn, held, pngs = {}, {}, {}
+        syn, pending, pngs = {}, [], {}
         for label, flags in SYN_FAMILIES:
-            adjust = cpu_adjust = None
+            factor = None
             if flags[1] == "4":
                 probe = common.build_bundle(parser.parse_args(list(flags) + [
                     "--random_init", "--batch_size", str(BATCH), "--seed", str(SEED), "--device", CARD]))
                 zt_std, z2_std = latent_stds(torch, infer_e, probe, SYN_SEED)
                 del probe
                 factor = zt_std / z2_std
-
-                def adjust(bundle, factor=factor):
-                    scale_z_head(torch, bundle.encoder, factor)
-                    check(set_attention_gamma(torch, bundle.generator, ATTN_GAMMA) == 1, "expected one SelfAttn")
-
-                cpu_adjust = adjust
                 say(f"synthesize {label}: E_BIG's z head scaled by {factor:.4e} and SelfAttn.gamma set to "
                     f"{ATTN_GAMMA:g} as the CLI builds its bundle (phase 5's adjustments)")
-            syn[label], held[label], pngs[label] = synthesize_family(torch, dev, label, flags, workdir, adjust,
-                                                                     cpu_adjust)
+            syn[label], hold, pngs[label] = synthesize_family(torch, dev, label, flags, workdir, factor)
+            pending.append(hold)
             torch.cuda.empty_cache()
-        say(f"phase 15: synthesize took {time.perf_counter() - t0:.1f} s")
+        say(f"phase 15: synthesize took {time.perf_counter() - t0:.1f} s (its CPU replays in the CPU worker, held "
+            "at the end of the phase)")
         t0 = time.perf_counter()
         cmp = compare_path(torch, workdir, pngs[f"BigGAN-deep-{BIGGAN_SIZE}"], BIGGAN_SIZE)
         say(f"phase 15: compare took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        serving = pggan_serving_path(torch, dev, parser, smi, fp32_peak, tf32_peak)
-        say(f"phase 15: PGGAN serving took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        training = pggan_training_path(torch, dev, smi)
-        say(f"phase 15: PGGAN training took {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        inversion = pggan_inversion(torch, dev, workdir)
-        rng = np.random.default_rng(SEED)
+        rng = np.random.default_rng(SEED)  # the converted files first: their CPU load runs in the CPU worker
         layers = int(math.log2(PG_SIZE)) - 1
         files = [ref.save(os.path.join(workdir, "pggan-1024.pth"), {f"generator_smooth.{k}": v for k, v in ref.pggan(
                      rng, lambda: PGGANGenerator(resolution=PG_SIZE)).items()}),
@@ -5679,9 +6031,20 @@ def slice7b_path(torch, dev, smi, fp32_peak, tf32_peak):
                      startf=PG_START_FEATURES, maxf=512, layer_count=layers, latent_size=512, img_size=PG_SIZE)))]
         argv = list(PG_ARGV) + ["--batch_size", str(BATCH), "--seed", str(SEED), "--checkpoint_dir_GAN", files[0],
                                 "--checkpoint_dir_E", files[1]]
+        submit_cpu_job("converted pggan", converted_cpu, argv)
+        serving = pggan_serving_path(torch, dev, parser, smi, fp32_peak, tf32_peak)
+        say(f"phase 15: PGGAN serving took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        training = pggan_training_path(torch, dev, smi)
+        say(f"phase 15: PGGAN training took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        inversion = pggan_inversion(torch, dev, workdir)
         converted = converted_request(torch, dev, parser, f"infer_e --mtype 3 (converted PGGAN-{PG_SIZE} and E_PG)",
-                                      argv, lambda b: expected_launches())
+                                      argv, lambda b: expected_launches(), "converted pggan")
         say(f"phase 15: PGGAN embedding and converted weights took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        held = {hold[0]: synthesize_hold(torch, hold) for hold in pending}
+        say(f"phase 15: the synthesize holds took {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     return {"synthesize": syn, "synthesize_holds": held, "compare": cmp, "pggan_serving": serving,
@@ -5702,7 +6065,7 @@ GAN_EPOCH = 97  # lod 6, past its fade-in (epochs 90-96)
 GAN_TRANSITION = (93, 0)  # (epoch, iteration) inside the fade-in
 GAN_LR, GAN_BETA2, GAN_R1_GAMMA = 0.0015, 0.99, 10.0
 GAN_STEPS = 3
-GAN_TIMED = (6, 1)  # (host-clock steps after 2 warm-up ones, profiled steps) of each step kind
+GAN_TIMED = (4, 1)  # (host-clock steps after 2 warm-up ones, profiled steps) of each step kind
 # The replay: one D step and one G step, each from the same weights (the
 # seed's, at full width), reals and draws (made on the CPU), at batch 4 (one
 # minibatch-stddev group) and GAN_REPLAY_SIZE px, on the card (TF32 off), on
@@ -5791,14 +6154,9 @@ def counted_gan_step(torch, label, run, want):
     return total, loss.item()
 
 
-def gan_replay(torch, dev, card_forms=(("cuda, cuDNN off", cudnn_off),
-                                      ("cuda, cuDNN deterministic", cudnn_deterministic))):
-    """A D step and a G step at GAN_REPLAY_SIZE px, batch GAN_REPLAY_BATCH,
-    on the card, on the CPU and on the CPU in float64 (GAN_REPLAY_SIZE's
-    comment). ``card_forms``: (label, context) of each card run; the first
-    is held, the others are measured and printed beside it."""
+def gan_replay_inputs(torch):
+    """The GAN replay's explicit inputs, made on the CPU: the reals and the draws."""
     from tpugan_torch.models import StyleGANv1Generator
-    from tpugan_torch.ops import cuda
     from tpugan_torch.train import gan
 
     size, batch = GAN_REPLAY_SIZE, GAN_REPLAY_BATCH
@@ -5806,42 +6164,83 @@ def gan_replay(torch, dev, card_forms=(("cuda, cuDNN off", cudnn_off),
     g = torch.Generator().manual_seed(SEED)
     reals = torch.randn(batch, 3, size, size, generator=g)
     draws = gan.draw(StyleGANv1Generator(1, 1, lod + 1, 1), batch, 512, lod, g)  # its noise_shapes
-    cpu = torch.device("cpu")
-    runs, seconds, names, launches = {}, {}, {}, {}
-    forms = [(label, CARD, dev, torch.float32, ctx) for label, ctx in card_forms] + [
-        ("cpu", "cpu", cpu, torch.float32, None), ("f64", "cpu", cpu, torch.float64, None)]
-    for label, device, place, dtype, ctx in forms:
-        run, t0 = {}, time.perf_counter()
-        d = draws._replace(z=draws.z.to(place, dtype), z2=draws.z2.to(place, dtype), cutoff=draws.cutoff.to(place),
-                           mix=draws.mix.to(place), noise=[tuple(n.to(place, dtype) for n in p_) for p_ in draws.noise])
-        cuda.reset_launches()
-        for kind in ("d", "g"):
-            gen, gm, disc = (m.to(dtype) for m in gan_modules(torch, size))
-            g_opt, d_opt = gan_optimizers(torch, gen, gm, disc)
-            owner = disc if kind == "d" else torch.nn.ModuleDict({"gen": gen, "gm": gm})
-            opt, grads = (d_opt if kind == "d" else g_opt), {}
-            step_with = opt.step
-            opt.step = lambda: (grads.update((n, p_.grad.detach().double().cpu()) for n, p_ in owner.named_parameters()
-                                             if p_.grad is not None), step_with())
-            state = gan.init_gan_state(gen, gm, disc, g_opt, d_opt, device=device, seed=SEED)
-            state.dlatent_avg = state.dlatent_avg.to(dtype)
-            d_step, g_step = gan.make_gan_steps(lod, 1.0, 512, GAN_R1_GAMMA)
-            with contextlib.nullcontext() if ctx is None else ctx(torch):
-                _, loss = d_step(state, reals.to(place, dtype), d) if kind == "d" else g_step(state, batch, d)
-            run[f"{kind}_loss"] = loss.double().cpu().reshape(1)
-            names[kind] = list(grads)
-            run[f"{kind}_leaves"] = grads
-            run[f"{kind}_grads"] = torch.cat([x.flatten() for x in grads.values()])
-            if kind == "g":
-                run["avg"] = state.dlatent_avg.double().cpu()
-            del state, gen, gm, disc, g_opt, d_opt, opt, owner
-        if label not in ("cpu", "f64"):
-            torch.cuda.synchronize()
-            launches = dict(cuda.launches)
-            check(launches["upfirdn2d"] > 0, f"the GAN replay's {label} run launched {launches}")
-        else:
-            check(not any(cuda.launches.values()), "the GAN replay's CPU run launched a kernel")
-        runs[label], seconds[label] = run, time.perf_counter() - t0
+    return reals, draws
+
+
+def gan_replay_run(torch, reals, draws, device, place, dtype, ctx=None):
+    """A D step and a G step of the GAN replay on ``device`` in ``dtype``
+    (the context ``ctx``, None for none, entered around each): the losses,
+    each step's gradients (float64, on the CPU, by leaf and together) and
+    the dlatent average after the G step. The counts of the kernels'
+    launches are those of the two steps when it returns."""
+    from tpugan_torch.ops import cuda
+    from tpugan_torch.train import gan
+
+    size, batch = GAN_REPLAY_SIZE, GAN_REPLAY_BATCH
+    lod = int(math.log2(size)) - 2
+    run = {}
+    d = draws._replace(z=draws.z.to(place, dtype), z2=draws.z2.to(place, dtype), cutoff=draws.cutoff.to(place),
+                       mix=draws.mix.to(place), noise=[tuple(n.to(place, dtype) for n in p_) for p_ in draws.noise])
+    cuda.reset_launches()
+    for kind in ("d", "g"):
+        gen, gm, disc = (m.to(dtype) for m in gan_modules(torch, size))
+        g_opt, d_opt = gan_optimizers(torch, gen, gm, disc)
+        owner = disc if kind == "d" else torch.nn.ModuleDict({"gen": gen, "gm": gm})
+        opt, grads = (d_opt if kind == "d" else g_opt), {}
+        step_with = opt.step
+        opt.step = lambda: (grads.update((n, p_.grad.detach().double().cpu()) for n, p_ in owner.named_parameters()
+                                         if p_.grad is not None), step_with())
+        state = gan.init_gan_state(gen, gm, disc, g_opt, d_opt, device=device, seed=SEED)
+        state.dlatent_avg = state.dlatent_avg.to(dtype)
+        d_step, g_step = gan.make_gan_steps(lod, 1.0, 512, GAN_R1_GAMMA)
+        with contextlib.nullcontext() if ctx is None else ctx(torch):
+            _, loss = d_step(state, reals.to(place, dtype), d) if kind == "d" else g_step(state, batch, d)
+        run[f"{kind}_loss"] = loss.detach().double().cpu().reshape(1)
+        run[f"{kind}_leaves"] = grads
+        run[f"{kind}_grads"] = torch.cat([x.flatten() for x in grads.values()])
+        if kind == "g":
+            run["avg"] = state.dlatent_avg.detach().double().cpu()
+        del state, gen, gm, disc, g_opt, d_opt, opt, owner
+    return run
+
+
+def gan_replay_cpu(torch):
+    """:func:`gan_replay`'s CPU side (a CPU job): the explicit inputs and
+    the CPU's fp32 and float64 runs, each with its seconds."""
+    from tpugan_torch.ops import cuda
+
+    reals, draws = gan_replay_inputs(torch)
+    runs, seconds = {}, {}
+    for label, dtype in (("cpu", torch.float32), ("f64", torch.float64)):
+        t0 = time.perf_counter()
+        runs[label] = gan_replay_run(torch, reals, draws, "cpu", torch.device("cpu"), dtype)
+        check(not any(cuda.launches.values()), "the GAN replay's CPU run launched a kernel")
+        seconds[label] = time.perf_counter() - t0
+    return {"reals": reals, "draws": draws, "runs": runs, "seconds": seconds}
+
+
+def gan_replay(torch, dev, card_forms=(("cuda, cuDNN off", cudnn_off),
+                                      ("cuda, cuDNN deterministic", cudnn_deterministic))):
+    """A D step and a G step at GAN_REPLAY_SIZE px, batch GAN_REPLAY_BATCH,
+    on the card, on the CPU and on the CPU in float64 (those two in the CPU
+    worker: :func:`gan_replay_cpu`; GAN_REPLAY_SIZE's comment).
+    ``card_forms``: (label, context) of each card run; the first is held,
+    the others are measured and printed beside it."""
+    from tpugan_torch.ops import cuda
+
+    size, batch = GAN_REPLAY_SIZE, GAN_REPLAY_BATCH
+    lod = int(math.log2(size)) - 2
+    cpu_side = cpu_result("gan replay")
+    runs, seconds = {}, {}
+    for label, ctx in card_forms:
+        t0 = time.perf_counter()
+        runs[label] = gan_replay_run(torch, cpu_side["reals"], cpu_side["draws"], CARD, dev, torch.float32, ctx)
+        torch.cuda.synchronize()
+        launches = dict(cuda.launches)
+        check(launches["upfirdn2d"] > 0, f"the GAN replay's {label} run launched {launches}")
+        seconds[label] = time.perf_counter() - t0
+    runs.update(cpu_side["runs"])
+    seconds.update(cpu_side["seconds"])
     say(f"replay of a GAN D step and G step: SGv1 at {size} px, full width, batch {batch}, lod {lod}; launches on "
         f"the card {launches['upfirdn2d']} upfirdn2d a run; " + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
         + " (the card's first run is a first call)")
@@ -6032,7 +6431,7 @@ EXPORTS = (
     (f"E_BIG-{BIGGAN_SIZE} encode", EXPORT_BIGGAN, "encode", ()),
 )
 FRESH_PROCESS_ARTIFACT = "SGv1 Cat256 synthesis"  # loaded in a process that imports tpugan_torch.io.export alone
-EXPORT_TIMED = (5, 3)  # profiling.timeit_ms: calls a window, windows (best of)
+EXPORT_TIMED = (3, 2)  # profiling.timeit_ms: calls a window, windows (best of)
 PROGAN_CLASSES = 10  # the conditional Pro-GAN discriminator's classes
 
 
@@ -6670,23 +7069,129 @@ def dp_distance(torch, label, got, want, coefs, lr, updates, hold=True):
     return out
 
 
-def dp_held(label, distance, updates, mean_limit=0.05):
+def dp_held(label, distance, updates, mean_limit=0.05, info_limit=CPU_GPU_ATOL):
     """Phase 18's rule on :func:`dp_distance`'s distances (``mean_limit``:
-    the parameters' mean difference, lr c)."""
-    check(distance["info"] <= CPU_GPU_ATOL and distance["param_max_lr_c"] <= lreq_part_bound(updates)
+    the parameters' mean difference, lr c; ``info_limit``: the scalars')."""
+    check(distance["info"] <= info_limit and distance["param_max_lr_c"] <= lreq_part_bound(updates)
           and distance["param_mean_lr_c"] <= mean_limit,
-          f"{label} against the one-process step: {distance}; limits: scalars {CPU_GPU_ATOL} (CPU_GPU_ATOL), "
+          f"{label} against the one-process step: {distance}; limits: scalars {info_limit:.3e}, "
           f"parameters {lreq_part_bound(updates):.2f} lr c an element and {mean_limit:.4f} lr c on average")
 
 
+class RankServers:
+    """``count`` children of this script (``--rank-server``) started ahead
+    of the phases that run groups of processes (18-20), so that each
+    child's start (Python, torch, the card's context) overlaps this
+    process's work and is paid once: each child runs the rank commands
+    (``--dp-rank ...``, ``--space-rank ...``, ``--space2-rank ...``) it is
+    sent, one after the other, in the same process. Its output goes to a log
+    in ``workdir``."""
+
+    def __init__(self, count, workdir):
+        self.logs = [os.path.join(workdir, f"rank_server_{i}.log") for i in range(count)]
+        self.procs = []
+        for log in self.logs:
+            with open(log, "w") as out:
+                self.procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank-server"],
+                                                   stdin=subprocess.PIPE, stdout=out, stderr=subprocess.STDOUT,
+                                                   text=True))
+
+    def run(self, commands, timeout):
+        """Each command (an argv whose fifth item is the result's path) on
+        the server of its index, all at once; waits for every one, each
+        reporting its exit code beside its result."""
+        for proc, argv in zip(self.procs, commands, strict=False):
+            proc.stdin.write(json.dumps(argv) + "\n")
+            proc.stdin.flush()
+        deadline = time.perf_counter() + timeout
+        codes = [None] * len(commands)
+        while None in codes:
+            for i, argv in enumerate(commands):
+                done = argv[4] + ".rc"
+                if codes[i] is None and os.path.exists(done):
+                    with open(done) as f:
+                        codes[i] = int(f.read())
+                elif codes[i] is None:
+                    check(self.procs[i].poll() is None and time.perf_counter() < deadline,
+                          f"rank server {i} ({argv[0]} rank {argv[1]}) "
+                          + (f"exited {self.procs[i].returncode}" if self.procs[i].poll() is not None
+                             else f"ran past {timeout} s") + f":\n{self.tail(i)}")
+            time.sleep(0.1)
+        for i, (argv, code) in enumerate(zip(commands, codes)):
+            check(code == 0, f"{argv[0]} rank {argv[1]} exited {code}:\n{self.tail(i)}")
+
+    def tail(self, i):
+        with open(self.logs[i]) as f:
+            return f.read()[-4000:]
+
+    def close(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.stdin.close()
+        for proc in self.procs:
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+SERVERS = None  # phases()'s RankServers, from phase 17 on; None spawns a fresh child for every rank
+
+
+def rank_command(argv):
+    """Run one rank command of this script's (``--dp-rank``, ``--space-rank``
+    or ``--space2-rank`` and its arguments); returns its exit code."""
+    flag, rank, world, *rest = argv
+    mains = {"--dp-rank": dp_rank_main, "--space-rank": space_rank_main, "--space2-rank": s7g_rank_main}
+    return mains[flag](int(rank), int(world), *rest)
+
+
+def rank_server_main():
+    """``chip_smoke.py --rank-server``: the card's context and the port's
+    modules first, then each command read from stdin (a JSON argv), its exit
+    code written beside its result (``OUT.rc``) when it ends. Ends at the
+    end of stdin, or after a command that failed."""
+    import gc
+    import traceback
+
+    import torch
+
+    torch.zeros(1, device=CARD)
+    torch.cuda.synchronize()
+    from tpugan_torch.cli import e_align, e_mis_align, embedding  # noqa: F401
+
+    for line in sys.stdin:
+        argv = json.loads(line)
+        try:
+            code = rank_command(argv)
+        except BaseException:  # noqa: BLE001 - reported through the exit code and the log
+            traceback.print_exc()
+            code = 1
+        gc.collect()
+        torch.cuda.empty_cache()
+        sys.stdout.flush()
+        with open(argv[4] + ".rc.tmp", "w") as f:
+            f.write(str(code))
+        os.replace(argv[4] + ".rc.tmp", argv[4] + ".rc")
+        if code:
+            return code
+    return 0
+
+
 def spawn_ranks(flag, world, workdir, timeout, *extra):
-    """``world`` children of this script (``flag RANK WORLD STORE OUT
-    *extra``) on a file store in ``workdir``, waited for; returns each
+    """``world`` ranks of this script's ``flag RANK WORLD STORE OUT
+    *extra`` on a file store in ``workdir``, waited for: on SERVERS where
+    main started them, else each in a child of its own; returns each
     rank's result."""
     import torch
 
     name = "_".join([flag.strip("-"), *extra])
     store = os.path.join(workdir, f"store_{name}")
+    if SERVERS is not None:
+        outs = [os.path.join(workdir, f"{name}_{rank}.pt") for rank in range(world)]
+        SERVERS.run([[flag, str(rank), str(world), store, out, *extra] for rank, out in enumerate(outs)], timeout)
+        return [torch.load(path, weights_only=False) for path in outs]
     procs = []
     for rank in range(world):
         out_path = os.path.join(workdir, f"{name}_{rank}.pt")
@@ -6897,24 +7402,26 @@ def space_steps(torch, dev, spatial):
     return out
 
 
-def space_inversion(torch, dev, spatial, moved=False):
-    """``embedding --mtype 2`` fine-tuning E for SPACE_INV_ITERATIONS
-    iterations at batch 1, in this process or (``spatial``) on this rank's
-    rows, under cuDNN's deterministic algorithms, on the bundle's imgs1 at
-    INV_TARGET_SEED (``moved``: each pixel moved by about one fp32 ulp): its
-    histories, the encoder after its last update, its FIR launches and peak
-    memory."""
+def space_inversion(torch, dev, spatial, moved=False, cli=INV_SG2, tf32=False):
+    """``embedding`` of ``cli`` (``--mtype 2`` unless given) fine-tuning E
+    for SPACE_INV_ITERATIONS iterations at batch 1, in this process or
+    (``spatial``) on this rank's rows, under cuDNN's deterministic
+    algorithms (with ``tf32`` in TF32, PyTorch's default, as the CLI runs
+    PGGAN), on the bundle's imgs1 at INV_TARGET_SEED (``moved``: each pixel
+    moved by about one fp32 ulp): its histories, the encoder after its last
+    update, its FIR launches and peak memory."""
     from tpugan_torch.cli import common, embedding, infer_e
     from tpugan_torch.losses.lpips import random_lpips_fn
     from tpugan_torch.ops import cuda
     from tpugan_torch.ops.eq_lr import lreq_coefs
     from tpugan_torch.optim.lreq_adam import LREQAdam
 
-    argv = list(INV_SG2) + ["--random_init", "--iterations", str(SPACE_INV_ITERATIONS), "--seed", str(SEED),
-                            "--device", CARD] + (["--space_shards", str(SPACE_WORLD)] if spatial else [])
+    argv = list(cli) + ["--random_init", "--iterations", str(SPACE_INV_ITERATIONS), "--seed", str(SEED),
+                        "--device", CARD] + (["--space_shards", str(SPACE_WORLD)] if spatial else [])
     args = embedding.make_parser().parse_args(argv)
     mesh = common.data_parallel(args)[0] if spatial else None
-    with cudnn_deterministic(torch):
+    numerics = pytorch_defaults(torch) if tf32 else contextlib.nullcontext()
+    with numerics, cudnn_deterministic(torch):
         inverter = embedding.build_inverter(args, random_lpips_fn(dev), mesh=mesh)
         bundle = inverter.bundle
         with torch.no_grad():
@@ -7061,13 +7568,363 @@ def slice7f_path(torch, dev, smi):
     return out
 
 
+# Phase 20, the space axis part 2 (slice 7g): two gloo ranks of one space
+# group on the one card, as phase 19, each run held to the same run in one
+# process by phase 18's rule (``dp_distance``, ``dp_held``: the scalars
+# within CPU_GPU_ATOL, every parameter within LREQAdam's bound and 0.05 lr c
+# on average; the gradients printed, not held: fp32 and ill-conditioned),
+# under cuDNN's deterministic algorithms:
+# (a) the BigGAN-deep-256 + E_BIG case-2 step at batch 2 (phase 6's gamma
+#     and z head, the factor computed once by this process and handed to the
+#     ranks), TF32 off; a rank's B3/B4 launches equal one process's (2 B3, 1
+#     pack, 1 dq, 1 dkv) and every B3 and B4 call of its step is held to the
+#     plain version on its own inputs (B3 at the path shape's tolerance and
+#     LSE_TOL, B4 by compare_attention_bwd);
+# (b) ``e_mis_align`` at Cat256, batch 5: a full step, then a lean step
+#     (two updates held), the FIR launches of each as derived, and the
+#     masks and overlays of the full step against one process's, gated
+#     before the first run: every mask within S7G_MASK_ATOL, at most
+#     S7G_FLIP_SHARE of the pixels in another JET bin and none more than one
+#     bin away, the overlays within S7G_MASK_ATOL on the pixels whose bins
+#     agree (the VGG16 runs the same function on halo'd rows; a bin is a
+#     truncation of 255 x, so an ulp can move a pixel across one);
+# (c) ``embedding --mtype 3`` on PGGAN-1024 in TF32 (as phase 15 runs
+#     PGGAN; nothing in TF32 off touches its layer-10 FFT shape),
+#     fine-tuning E for 2 iterations at batch 1, its histories and the
+#     encoder's mean held to twice one process's spread on a target moved by
+#     an ulp (at least CPU_GPU_ATOL and 0.05 lr c).
+# The ranks time-slice the card: a functional check; no speed-up claimed.
+S7G_WORLD = SPACE_WORLD
+S7G_TIMEOUT = 600
+S7G_B3_TOL = 2e-5  # ATTENTION_CASES' tolerance at the path shape
+S7G_MASK_ATOL = CPU_GPU_ATOL
+S7G_FLIP_SHARE = HEATMAP_SHARE
+S7G_VGG_FILE = "vgg16.pt"  # the one-process run's VGG16, which the ranks read
+
+
+def s7g_big_argv(spatial):
+    return ["--mtype", "4", "--img_size", str(BIGGAN_SIZE), "--start_features", "64", "--z_dim", str(BIGGAN_Z_DIM),
+            "--random_init", "--case", "2", "--iterations", "1000", "--batch_size", str(BATCH), "--seed", str(SEED),
+            "--device", CARD] + (["--space_shards", str(S7G_WORLD)] if spatial else [])
+
+
+def s7g_big_step(torch, dev, spatial, factor=None):
+    """(a): one E_BIG case-2 step in this process or (``spatial``) on this
+    rank's rows, every B3/B4 call kept; its gradients, parameters, scalars,
+    launches and peak memory, and its B3/B4 calls held to the plain
+    version. ``factor`` scales E_BIG's z head (None: computed here, as
+    phase 6 does, and returned)."""
+    from tpugan_torch.cli import common, e_align, infer_e
+    from tpugan_torch.losses.lpips import random_lpips_fn
+    from tpugan_torch.ops import attention, cuda
+    from tpugan_torch.ops.eq_lr import lreq_coefs
+    from tpugan_torch.train.e_align import info_scalars
+
+    args = e_align.make_parser().parse_args(s7g_big_argv(spatial))
+    mesh = common.data_parallel(args)[0] if spatial else None
+    label = f"space part 2 {'rank ' + str(torch.distributed.get_rank()) if spatial else 'one process'} E_BIG step"
+    out = {}
+    with cudnn_deterministic(torch):
+        trainer = e_align.build_trainer(args, random_lpips_fn(dev), mesh=mesh)
+        state = trainer.state
+        if factor is None:
+            zt_std, z2_std = latent_stds(torch, infer_e, trainer.bundle, REQUEST_SEEDS[0])
+            factor = zt_std / z2_std
+        scale_z_head(torch, state.encoder, factor)
+        check(set_attention_gamma(torch, trainer.bundle.generator, ATTN_GAMMA) == 1, "expected one SelfAttn")
+        grads = dp_record(torch, state)
+        fwd_calls, bwd_calls = [], []
+        real_fwd, real_bwd = attention.sagan_attention_cuda, attention.sagan_attention_bwd_cuda
+
+        def fwd_spy(q, k, v, return_lse=False):
+            fwd_calls.append((q.detach().clone(), k.detach().clone(), v.detach().clone(), return_lse))
+            return real_fwd(q, k, v, return_lse)
+
+        def bwd_spy(*xs):
+            bwd_calls.append(tuple(x.detach().clone() for x in xs))
+            return real_bwd(*xs)
+
+        attention.sagan_attention_cuda, attention.sagan_attention_bwd_cuda = fwd_spy, bwd_spy
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        cuda.reset_launches()
+        try:
+            _, info = trainer.step(state, 0)
+            torch.cuda.synchronize()
+        finally:
+            attention.sagan_attention_cuda, attention.sagan_attention_bwd_cuda = real_fwd, real_bwd
+        out["peak_mib"], out["base_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20, base / 2**20
+        out["launches"] = dict(cuda.launches)
+        out["info"] = info_scalars(info)
+        out["grads"] = [[None if g is None else g.cpu() for g in gs] for gs in grads]
+        out["params"] = {n: p.detach().cpu() for n, p in state.encoder.named_parameters()}
+        out["coefs"], out["lr"], out["factor"] = lreq_coefs(state.encoder), args.lr, factor
+    check(all(math.isfinite(v) for v in out["info"].values()), f"{label}: a scalar is not finite")
+    check([c[3] for c in fwd_calls] == [False, True] and len(bwd_calls) == 1,
+          f"{label}: B3 calls with lse {[c[3] for c in fwd_calls]}, B4 calls {len(bwd_calls)}")
+    check(float(bwd_calls[0][5].abs().max()) > 0, f"{label}: the attention's upstream gradient is zero")
+    err = 0.0
+    for i, (q, k, v, with_lse) in enumerate(fwd_calls):
+        err = max(err, compare_attention(torch, f"{label}, B3 call {i} on its own inputs", q, k, v, S7G_B3_TOL,
+                                         S7G_B3_TOL, with_lse))
+    out["b3_max_abs_err"] = err
+    out["b4_max_abs_err"] = compare_attention_bwd(torch, f"{label}, B4 on its own inputs", *bwd_calls[0])
+    del trainer, state, fwd_calls, bwd_calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def s7g_vgg(torch, dev, args, path):
+    """The Grad-CAM VGG16 of ``args``: built (``common.build_vgg16``) and
+    its state written to ``path`` where that does not exist yet, else read
+    from it, so that every process of the phase holds the same weights
+    without drawing them again."""
+    from tpugan_torch.cli.common import build_vgg16
+    from tpugan_torch.losses.vgg import VGG16
+
+    if not os.path.exists(path):
+        vgg = build_vgg16(args)
+        torch.save(vgg.state_dict(), path)
+        return vgg
+    with torch.device("meta"):
+        vgg = VGG16()
+    vgg = vgg.to_empty(device=dev)
+    vgg.load_state_dict(torch.load(path, map_location=dev, weights_only=True))
+    return vgg.requires_grad_(False)
+
+
+def s7g_mis_steps(torch, dev, spatial, vgg_path):
+    """(b): ``e_mis_align``'s full step, then its lean step, in this
+    process or on this rank's rows: their launches and FIR launches against
+    the counts derived from the modules, the gradients, the parameters after
+    both updates, the full step's masks and overlays (this rank's rows and
+    their first row) and the peak memory."""
+    from tpugan_torch.cli import common, e_mis_align
+    from tpugan_torch.ops.eq_lr import lreq_coefs
+    from tpugan_torch.train import e_mis_align as mis_train
+
+    args = mis_align_args("--iterations", "2", *(["--space_shards", str(S7G_WORLD)] if spatial else []))
+    mesh = common.data_parallel(args)[0] if spatial else None
+    label = f"space part 2 {'rank ' + str(torch.distributed.get_rank()) if spatial else 'one process'} e_mis_align"
+    out = {}
+    with cudnn_deterministic(torch):
+        trainer = e_mis_align.build_trainer(args, vgg=s7g_vgg(torch, dev, args, vgg_path), mesh=mesh)
+        state = trainer.state
+        fwd_full, _ = sgv1_step_firs(trainer, 0, True)
+        fwd_lean, _ = sgv1_step_firs(trainer, 0, False)
+        grads = dp_record(torch, state)
+        attention_maps, real = [], mis_train._attention
+
+        def recorded(vgg, images, cam_bf16, group=None, space=None):
+            mask, cam = real(vgg, images, cam_bf16, group, space)
+            attention_maps.append((mask.cpu(), cam.cpu()))
+            return mask, cam
+
+        mis_train._attention = recorded
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        try:
+            full = hold_step_launches(f"{label} full step", counted_step(torch, trainer.step, state, 0), fwd_full,
+                                      "upfirdn2d")
+            lean = hold_step_launches(f"{label} lean step", counted_step(torch, trainer.lean, state, 1), fwd_lean,
+                                      "upfirdn2d")
+        finally:
+            mis_train._attention = real
+        out["peak_mib"], out["base_mib"] = (torch.cuda.max_memory_allocated() - base) / 2**20, base / 2**20
+        out["info"] = {**{f"full {k}": v for k, v in full.items()}, **{f"lean {k}": v for k, v in lean.items()}}
+        out["grads"] = [[None if g is None else g.cpu() for g in gs] for gs in grads]
+        out["params"] = {n: p.detach().cpu() for n, p in state.encoder.named_parameters()}
+        out["coefs"], out["lr"] = lreq_coefs(state.encoder), args.lr
+        out["firs"] = {"full": sum(fwd_full.values()), "lean": sum(fwd_lean.values())}
+        check(len(attention_maps) == 2, f"{label}: the full step made {len(attention_maps)} attention maps")
+        out["maps"] = attention_maps
+        out["first_row"] = 0 if not spatial else torch.distributed.get_rank() * attention_maps[0][0].shape[1]
+    del trainer, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def s7g_rank_main(rank, world, store, out_path, factor_hex):
+    """One rank of phase 20's space group (``chip_smoke.py --space2-rank
+    ...``): (a), (b) and (c) on this rank's rows, the result to
+    ``out_path``; E_BIG's z head scaled by ``factor_hex`` (``float.hex``),
+    the VGG16 read from the one-process run's file beside ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    from tpugan_torch.runtime import init_distributed, parity_mode
+
+    dev = torch.device(CARD)
+    vgg_path = os.path.join(os.path.dirname(out_path), S7G_VGG_FILE)
+    init_distributed(f"file://{store}", num_processes=world, process_id=rank, backend="gloo")
+    parity_mode()
+    result = {"big": s7g_big_step(torch, dev, True, float.fromhex(factor_hex)),
+              "mis": s7g_mis_steps(torch, dev, True, vgg_path),
+              "pg": space_inversion(torch, dev, True, cli=PG_ARGV, tf32=True), "rank": rank,
+              "jax_loaded": any(n == "jax" or n.startswith("jax.") for n in sys.modules)}
+    torch.save(result, out_path)
+    dist.destroy_process_group()
+    return 0
+
+
+def s7g_maps_held(torch, label, ranks, one):
+    """(b)'s masks and overlays: the ranks' rows put together against one
+    process's, by the gate at S7G_WORLD's comment; returns the distances."""
+    out = {}
+    for i, side in enumerate(("imgs1", "imgs2")):
+        parts = sorted(((r["first_row"], r["maps"][i]) for r in ranks), key=lambda x: x[0])
+        mask = torch.cat([m for _, (m, _) in parts], dim=1)
+        cam = torch.cat([c for _, (_, c) in parts], dim=1)
+        want_mask, want_cam = one["maps"][i]
+        bins, want_bins = ((255.0 * x[..., 0]).to(torch.uint8).int() for x in (mask, want_mask))
+        flips = bins != want_bins
+        agree = ~flips[..., None].expand_as(cam)
+        row = {"mask_max_abs_err": float((mask - want_mask).abs().max()), "flipped": int(flips.sum()),
+               "pixels": flips.numel(), "max_bin_step": int((bins - want_bins).abs().max()),
+               "cam_max_abs_err_where_bins_agree": float((cam - want_cam).abs()[agree].max())}
+        out[side] = row
+        say(f"{label} {side}'s mask: max |err| {row['mask_max_abs_err']:.3e} (limit {S7G_MASK_ATOL:g}); "
+            f"{row['flipped']} of {row['pixels']} pixels in another JET bin (limit {S7G_FLIP_SHARE:g} of them), "
+            f"at most {row['max_bin_step']} bin away (limit 1); overlay {row['cam_max_abs_err_where_bins_agree']:.3e} "
+            f"where the bins agree (limit {S7G_MASK_ATOL:g})")
+        check(row["mask_max_abs_err"] <= S7G_MASK_ATOL and row["flipped"] <= S7G_FLIP_SHARE * row["pixels"]
+              and row["max_bin_step"] <= 1 and row["cam_max_abs_err_where_bins_agree"] <= S7G_MASK_ATOL,
+              f"{label} {side}: the masks or overlays leave one process's: {row}")
+    return out
+
+
+def space_part2_path(torch, dev, smi, workdir):
+    """Phase 20: (a), (b) and (c) in this process, then over the space
+    group's ranks."""
+    vgg_path = os.path.join(workdir, S7G_VGG_FILE)
+    one = {"big": s7g_big_step(torch, dev, False)}
+    one["mis"] = s7g_mis_steps(torch, dev, False, vgg_path)
+    one["pg"] = space_inversion(torch, dev, False, cli=PG_ARGV, tf32=True)
+    moved = space_inversion(torch, dev, False, moved=True, cli=PG_ARGV, tf32=True)
+    spread = dp_distance(torch, "the one-process PGGAN inversion on a target moved by one fp32 ulp", moved, one["pg"],
+                         one["pg"]["coefs"], one["pg"]["lr"], one["pg"]["updates"], hold=False)
+    # TF32 rounds each layer's inputs to 10 bits: a shard's sums, in another
+    # order, cross a rounding boundary now and then, as a moved input does
+    pg_mean_limit = max(0.05, 2 * spread["param_mean_lr_c"])
+    pg_info_limit = max(CPU_GPU_ATOL, 2 * spread["info"])
+    big, mis = one["big"], one["mis"]
+    check(big["launches"] == expected_launches(sagan_attention=2, sagan_attention_bwd_pack=1, sagan_attention_bwd_dq=1,
+                                               sagan_attention_bwd_dkv=1),
+          f"the one-process E_BIG step launched {big['launches']}")
+    say(f"space part 2, one process: E_BIG case-2 step (z head scaled by {big['factor']:.4e}) peak "
+        f"{big['peak_mib']:.1f} MiB above {big['base_mib']:.1f}, launches {big['launches']}; e_mis_align full + lean "
+        f"peak {mis['peak_mib']:.1f} MiB above {mis['base_mib']:.1f}, FIRs {mis['firs']}; PGGAN-{PG_SIZE} inversion "
+        f"(TF32) peak {one['pg']['peak_mib']:.1f} MiB, {SPACE_INV_ITERATIONS} iterations in {one['pg']['seconds']:.2f} s, "
+        f"its spread on a target moved by an ulp: histories {spread['info']:.3e}, the encoder "
+        f"{spread['param_max_lr_c']:.3f} lr c at most, {spread['param_mean_lr_c']:.4f} on average (a rank held to "
+        f"{pg_info_limit:.3e} and {pg_mean_limit:.4f}); {smi}")
+    t0 = time.perf_counter()
+    ranks = spawn_ranks("--space2-rank", S7G_WORLD, workdir, S7G_TIMEOUT, big["factor"].hex())
+    say(f"space part 2: {S7G_WORLD} gloo ranks of one space group ran in {time.perf_counter() - t0:.1f} s")
+    for part in ("big", "mis", "pg"):
+        for name, p in ranks[0][part]["params"].items():
+            check(all(torch.equal(p, r[part]["params"][name]) for r in ranks[1:]), f"the ranks' {part} {name} differ")
+    out = {"one_process": {"big": {k: big[k] for k in ("peak_mib", "base_mib", "launches")},
+                           "mis": {k: mis[k] for k in ("peak_mib", "base_mib", "firs")},
+                           "pg": {k: one["pg"][k] for k in ("peak_mib", "base_mib", "seconds")},
+                           "pg_moved_target": spread},
+           "ranks": {}, "maps": s7g_maps_held(torch, "space part 2 e_mis_align", [r["mis"] for r in ranks], mis),
+           "b3_max_abs_err": big["b3_max_abs_err"], "b4_max_abs_err": big["b4_max_abs_err"]}
+    for r in ranks:
+        label = f"space part 2 rank {r['rank']}"
+        check(not r["jax_loaded"], f"{label} loaded JAX")
+        rb, rm, rp = r["big"], r["mis"], r["pg"]
+        check(rb["launches"] == big["launches"], f"{label}: E_BIG step launches {rb['launches']}, one process's "
+              f"{big['launches']}")
+        check(rm["firs"] == mis["firs"], f"{label}: e_mis_align FIRs {rm['firs']}, one process's {mis['firs']}")
+        distances = {
+            "big": dp_distance(torch, f"{label} E_BIG step", rb, big, big["coefs"], big["lr"], len(big["grads"]),
+                               hold=False),
+            "mis": dp_distance(torch, f"{label} e_mis_align", rm, mis, mis["coefs"], mis["lr"], len(mis["grads"]),
+                               hold=False),
+            "pg": dp_distance(torch, f"{label} PGGAN inversion", rp, one["pg"], one["pg"]["coefs"], one["pg"]["lr"],
+                              one["pg"]["updates"], hold=False)}
+        out["b3_max_abs_err"] = max(out["b3_max_abs_err"], rb["b3_max_abs_err"])
+        out["b4_max_abs_err"] = max(out["b4_max_abs_err"], rb["b4_max_abs_err"])
+        out["ranks"][label] = {"big_launches": rb["launches"], "mis_firs": rm["firs"], "big_peak_mib": rb["peak_mib"],
+                               "mis_peak_mib": rm["peak_mib"], "pg_peak_mib": rp["peak_mib"], "distances": distances}
+        for part, what, peak, one_peak in (("big", "E_BIG case-2 step", rb["peak_mib"], big["peak_mib"]),
+                                           ("mis", "e_mis_align full + lean", rm["peak_mib"], mis["peak_mib"]),
+                                           ("pg", f"PGGAN-{PG_SIZE} inversion (TF32)", rp["peak_mib"],
+                                            one["pg"]["peak_mib"])):
+            d = distances[part]
+            info_limit = pg_info_limit if part == "pg" else CPU_GPU_ATOL  # the limits dp_held holds below
+            say(f"{label} {what}: against one process scalars {d['info']:.3e} (limit {info_limit:.3e}), parameters "
+                f"{d['param_max_lr_c']:.3f} lr c at most, {d['param_mean_lr_c']:.4f} on average (largest "
+                f"{d['param_mean_worst']}), gradients {d['grad_share_of_max']:.3e} of max |g| (not held); peak "
+                f"{peak:.1f} MiB against one process's {one_peak:.1f}; {smi}")
+        say(f"{label}: B3/B4 launches of its step {rb['launches']} as one process's; its B3 calls within "
+            f"{S7G_B3_TOL:g} of the plain version in float64 (max |err| {rb['b3_max_abs_err']:.3e}), B4 "
+            f"{rb['b4_max_abs_err']:.3e}")
+        dp_held(f"{label} E_BIG step", distances["big"], len(big["grads"]))
+        dp_held(f"{label} e_mis_align", distances["mis"], len(mis["grads"]))
+        dp_held(f"{label} PGGAN inversion", distances["pg"], one["pg"]["updates"], pg_mean_limit, pg_info_limit)
+    say(f"space part 2: the {S7G_WORLD} ranks' encoders are bitwise equal after each run")
+    return out
+
+
+def slice7g_path(torch, dev, smi):
+    """Phase 20 (the module docstring's item 20)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="tpugan_7g_") as workdir:
+        out = space_part2_path(torch, dev, smi, workdir)
+    torch.cuda.empty_cache()
+    return out
+
+
+def cpu_jobs():
+    """The CPU sides of the replays, by name, in the order the phases ask
+    for them: (function, arguments), each called as ``fn(torch, *args)``."""
+    return {
+        "sgv1 gradient": (sgv1_gradient_cpu, ()),  # phase 3
+        "sg2 request": (sg2_request_cpu, ()),  # phase 7
+        "sgv1 replay": (sgv1_replay_cpu, ()),  # phase 8
+        "sg2 replay": (case2_replay_cpu, (sg2_replay_flags(),)),  # phase 9
+        "bf16 gate configuration": (gate_config_cpu, ()),  # phase 10
+        "bf16 images": (bf16_images_cpu, ()),  # phase 10
+        "biggan bf16 replay": (replay_bf16_cpu, ()),  # phase 11
+        "mis replay": (mis_replay_cpu, ()),  # phase 13
+        "pggan request": (pggan_request_cpu, ()),  # phase 15
+        "pg replay": (case2_replay_cpu, (pg_replay_flags(),)),  # phase 15
+        "gan replay": (gan_replay_cpu, ()),  # phase 16
+    }
+
+
 def main() -> int:
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
 
+    global WORKER, SERVERS
+    sys.stdout.flush()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        WORKER = CpuWorker(workdir, cpu_threads())  # forked before the card is used
+        try:
+            return phases(torch, workdir)
+        finally:
+            WORKER.close()
+            WORKER = None
+            if SERVERS is not None:
+                SERVERS.close()
+                SERVERS = None
+
+
+def phases(torch, workdir) -> int:
+    """Every phase of the module docstring, in order; the CPU sides of the
+    replays run in WORKER meanwhile, and phases 18-20's ranks on SERVERS,
+    started with phase 17. ``workdir`` holds their files."""
     from tpugan_torch.cli import common, infer_e
     from tpugan_torch.ops import cuda, upfirdn
     from tpugan_torch.runtime import parity_mode
@@ -7083,6 +7940,9 @@ def main() -> int:
     bandwidth, fp32_peak, tf32_peak, bf16_peak = card_specs(kind)
     say(f"card: {smi}")
     say(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.device_count()} device(s)")
+    for name, (fn, args) in cpu_jobs().items():
+        WORKER.submit(name, fn, *args)
+    say(f"CPU worker: {WORKER.threads} threads of {len(os.sched_getaffinity(0))} cores, jobs {WORKER.submitted}")
     t0 = time.perf_counter()
     logs = cuda.build()
     say(f"build: {sorted(cuda.KERNELS)} in {time.perf_counter() - t0:.2f} s")
@@ -7108,8 +7968,7 @@ def main() -> int:
     # ---- 3. the main path -----------------------------------------------------
     parser = argparse.ArgumentParser()
     common.add_common_args(parser, training=True)
-    argv = ["--mtype", "1", "--img_size", str(IMG_SIZE), "--start_features", "64", "--random_init",
-            "--batch_size", str(BATCH), "--seed", str(SEED)]
+    argv = sgv1_argv()
     t0 = time.perf_counter()
     bundle = common.build_bundle(parser.parse_args(argv + ["--device", CARD]))
     torch.cuda.synchronize()
@@ -7276,6 +8135,8 @@ def main() -> int:
     say(f"phase 16 (slice 7c) took {time.perf_counter() - t0:.1f} s; the script {time.perf_counter() - start:.1f} s")
 
     # ---- 17. slice 7d: export_model through torch.export; profiling; PGGAN's D and pggan_alt ----
+    global SERVERS
+    SERVERS = RankServers(max(DP_WORLD, SPACE_WORLD, S7G_WORLD), workdir)  # phases 18-20's ranks, starting now
     t0 = time.perf_counter()
     s7d = slice7d_path(torch, dev, smi)
     s7d_launches = {name: {f"export: {label}": r["launches"][name] for label, r in s7d["artifacts"].items()
@@ -7300,6 +8161,19 @@ def main() -> int:
     check(len(s7f_fir) == 2 * SPACE_WORLD and all(s7f_fir.values()), f"phase 19 missed the FIR kernel: {s7f_fir}")
     say(f"phase 19 (slice 7f) took {time.perf_counter() - t0:.1f} s; the script {time.perf_counter() - start:.1f} s")
 
+    # ---- 20. slice 7g: the space axis, part 2 (E_BIG, E_PG, Grad-CAM on rows) ----
+    t0 = time.perf_counter()
+    s7g = slice7g_path(torch, dev, smi)
+    s7g_fir = {f"{label} e_mis_align full + lean": r["mis_firs"]["full"] + r["mis_firs"]["lean"]
+               for label, r in s7g["ranks"].items()}
+    s7g_b3 = {f"{label} E_BIG case 2": r["big_launches"]["sagan_attention"] for label, r in s7g["ranks"].items()}
+    s7g_b4 = {f"{label} E_BIG case 2": sum(r["big_launches"][name] for name in B4_KERNELS)
+              for label, r in s7g["ranks"].items()}
+    check(len(s7g_fir) == S7G_WORLD and all(s7g_fir.values()) and all(s7g_b3.values()) and all(s7g_b4.values()),
+          f"phase 20 missed a kernel: FIR {s7g_fir}, B3 {s7g_b3}, B4 {s7g_b4}")
+    say(f"phase 20 (slice 7g) took {time.perf_counter() - t0:.1f} s; the script {time.perf_counter() - start:.1f} s")
+    SERVERS.close()
+
     sg2_bf16 = bf16["firs"]["SG2"][1]
     bf16_step = {k: sum(p_[k] for parts in sg2_bf16.values() for p_ in parts.values())
                  for k in ("ms", "fp32_ms", "plain_ms", "library_ms", "bound_ms")}
@@ -7315,7 +8189,8 @@ def main() -> int:
         "launches": (launches["upfirdn2d"] + sg2["launches"] + sgv1_train["launches"] + sg2_train["launches"]
                      + sum(fir_inv.values()) + mis["launches"] + cam["request"]["launches"] + sum(s7a_fir.values())
                      + sum(s7b_launches["upfirdn2d"].values()) + s7c["launches"] + s7c["decode3_launches"]
-                     + sum(s7d_launches["upfirdn2d"].values()) + sum(s7e_fir.values()) + sum(s7f_fir.values())),
+                     + sum(s7d_launches["upfirdn2d"].values()) + sum(s7e_fir.values()) + sum(s7f_fir.values())
+                     + sum(s7g_fir.values())),
         "launches_by_path": {"SGv1 Cat256 serving": launches["upfirdn2d"],
                              f"StyleGAN2-{SG2_SIZE} serving": sg2["launches"],
                              "SGv1 Cat256 training": sgv1_train["launches"],
@@ -7325,7 +8200,7 @@ def main() -> int:
                              "infer_e --gradcam": cam["request"]["launches"],
                              **s7a_fir, **s7b_launches["upfirdn2d"],
                              "SGv1 Cat256 GAN training": s7c["launches"], "decode3": s7c["decode3_launches"],
-                             **s7d_launches["upfirdn2d"], **s7e_fir, **s7f_fir},
+                             **s7d_launches["upfirdn2d"], **s7e_fir, **s7f_fir, **s7g_fir},
         "max_abs_err": max(fir_err, adjoint_err, sg2["max_abs_err"], sg2_train["max_abs_err"], inv_err["upfirdn2d"],
                            mis["max_abs_err"], s7c["max_abs_err"], s7f["max_abs_err"]),
         "inversion": inversion,
@@ -7335,6 +8210,7 @@ def main() -> int:
         "slice7d": s7d,
         "slice7e": s7e,
         "slice7f": s7f,
+        "slice7g": s7g,
         "slice7c": {"gan_training": {k: v for k, v in s7c.items() if k not in ("launches", "decode3_launches")},
                     "launches_per_step_are": f"FIR launches of one D step and one G step at lod {s7c['lod']}, batch "
                                              f"{s7c['batch']}, by direction and TPU kernel, as counted in every "
@@ -7401,15 +8277,16 @@ def main() -> int:
                     "tpugan/ops/pallas/attention.py:77 (sagan_attention_pallas, return_lse=True)",
         "launches": (attn["launches"] + big_inv["sagan_attention"] + cam_inv["launches"]["sagan_attention"]
                      + big_resume["sagan_attention"] + big_conv["sagan_attention"]
-                     + sum(s7b_launches["sagan_attention"].values()) + sum(s7d_launches["sagan_attention"].values())),
+                     + sum(s7b_launches["sagan_attention"].values()) + sum(s7d_launches["sagan_attention"].values())
+                     + sum(s7g_b3.values())),
         "launches_by_path": {"BigGAN-deep-256 serving": attn["launches"],
                              "inversion: BigGAN fine-tune E": big_inv["sagan_attention"],
                              f"inversion: {cam_label}": cam_inv["launches"]["sagan_attention"],
                              "resume: E_BIG case 2": big_resume["sagan_attention"],
                              "converted: BigGAN-deep-256 request": big_conv["sagan_attention"],
-                             **s7b_launches["sagan_attention"], **s7d_launches["sagan_attention"]},
+                             **s7b_launches["sagan_attention"], **s7d_launches["sagan_attention"], **s7g_b3},
         "max_abs_err": max(attn["max_abs_err"], attn_err, inv_err["sagan_attention"],
-                           cam_inv["max_abs_err"]["sagan_attention"]),
+                           cam_inv["max_abs_err"]["sagan_attention"], s7g["b3_max_abs_err"]),
         **b3_times,
     }, {
         "name": "sagan_attention_bwd",
@@ -7420,13 +8297,13 @@ def main() -> int:
                     "_dkv_kernel)",
         "launches": (attn_bwd["launches"] + sum(big_inv[name] for name in B4_KERNELS)
                      + sum(cam_inv["launches"][name] for name in B4_KERNELS)
-                     + sum(big_resume[name] for name in B4_KERNELS)),
+                     + sum(big_resume[name] for name in B4_KERNELS) + sum(s7g_b4.values())),
         "launches_by_path": {"E_BIG training": attn_bwd["launches"],
                              "inversion: BigGAN fine-tune E": sum(big_inv[name] for name in B4_KERNELS),
                              f"inversion: {cam_label}": sum(cam_inv["launches"][name] for name in B4_KERNELS),
-                             "resume: E_BIG case 2": sum(big_resume[name] for name in B4_KERNELS)},
+                             "resume: E_BIG case 2": sum(big_resume[name] for name in B4_KERNELS), **s7g_b4},
         "max_abs_err": max(attn_bwd["max_abs_err"], bwd_err, inv_err["sagan_attention_bwd"],
-                           cam_inv["max_abs_err"]["sagan_attention_bwd"]),
+                           cam_inv["max_abs_err"]["sagan_attention_bwd"], s7g["b4_max_abs_err"]),
         **b4_times,
     }, {
         "name": "sagan_attention_bf16",
@@ -7467,8 +8344,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--space-rank"]:
-        sys.exit(space_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
-    if sys.argv[1:2] == ["--dp-rank"]:
-        sys.exit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6]))
+    if sys.argv[1:2] == ["--rank-server"]:
+        sys.exit(rank_server_main())
+    if sys.argv[1:2] in (["--space2-rank"], ["--space-rank"], ["--dp-rank"]):
+        sys.exit(rank_command(sys.argv[1:]))
     sys.exit(main())

@@ -6,6 +6,7 @@ and no kernel launch for CPU tensors.
 
 import argparse
 import ast
+import inspect
 import pathlib
 
 import jax
@@ -152,7 +153,7 @@ def test_cli_writes_grids_on_cpu(tmp_path):
     ],
 )
 def test_later_slices_raise(tmp_path, monkeypatch, extra, match):
-    """The space axis on mtypes 3 and 4 waits for ROADMAP A 1's part 2; a converted encoder
+    """The space axis (``--space_shards``) now builds on every mtype; a converted encoder
     (``--checkpoint_dir_E``, slice 7a) now loads: a reference-named E state
     dict from a seed, written to the file the flag names; PGGAN (mtype 3,
     slice 7b) now builds on the CPU with E_PG and answers a request
@@ -183,11 +184,19 @@ def test_later_slices_raise(tmp_path, monkeypatch, extra, match):
             assert torch.equal(bundle.encoder.state_dict()[name], value), name
         return
     if extra[0] == "--space_shards":
-        # the space axis runs mtypes 1 and 2 (tests/test_torch_spatial_steps.py);
-        # mtypes 3 and 4 wait for ROADMAP A 1's part 2
-        assert common.build_bundle(_args("--device", "cpu", *extra)).mtype == 1
-        with pytest.raises(NotImplementedError, match=match):
-            common.build_bundle(_args("--device", "cpu", *extra, "--mtype", "4"))
+        # the space axis runs every mtype (tests/test_torch_spatial_steps.py,
+        # tests/test_torch_spatial_part2.py): PGGAN with E_PG and BigGAN-deep
+        # with E_BIG build, and their encoders take row shards
+        from test_torch_train import CFG
+        from tpugan_torch.models import BigGANConfig
+
+        assert common.spatial(_args(*extra)) and common.build_bundle(_args("--device", "cpu", *extra)).mtype == 1
+        config = tmp_path / "config.json"
+        config.write_text(BigGANConfig(**CFG).to_json_string())
+        for mtype, more in (("3", ()), ("4", ("--start_features", "16", "--z_dim", "8", "--config_dir", str(config)))):
+            bundle = common.build_bundle(_args("--device", "cpu", *extra, "--mtype", mtype, *more))
+            assert bundle.mtype == int(mtype)
+            assert "space" in inspect.signature(bundle.encoder.forward).parameters
         return
     if extra[0] == "--multihost":
         import torch.distributed as dist

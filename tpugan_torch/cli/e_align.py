@@ -46,7 +46,7 @@ batch (``cli/common.py::data_parallel``): each rank takes its rows of the
 iteration's draws and every step is the one-process step on the global
 batch (``train/e_align.py::make_train_step``). Rank 0 alone writes the log,
 the grids and the checkpoints; the others wait for each save. With
-``--space_shards S`` (mtypes 1 and 2) the mesh has tpugan's ``space`` axis:
+``--space_shards S`` (every mtype) the mesh has tpugan's ``space`` axis:
 each rank of a space group of S holds its rows of the images, on the
 encoder side and in the losses, and the step is still the one-process step
 (``torchrun --nproc_per_node 2 -m tpugan_torch.cli.e_align --mtype 2

@@ -30,7 +30,11 @@ the unbroken run, as in ``tpugan/cli/e_mis_align.py:146-153``, ``:219-220``.
 Data parallel as ``cli/e_align.py``: under ``torchrun --nproc_per_node N``
 (or ``--multihost``) each rank trains on its rows of tpugan's ``auto_mesh``
 of the batch, the masks and overlays those of the global batch; rank 0
-writes.
+writes. With ``--space_shards S`` each rank of a space group of S holds its
+rows of the images, on the encoder side, in VGG16's convolutions, the masks,
+overlays and guided gradients, and the losses (``torchrun --nproc_per_node
+2 -m tpugan_torch.cli.e_mis_align --mtype 1 --space_shards 2 --device cpu
+...``).
 """
 
 from __future__ import annotations
@@ -51,11 +55,12 @@ from tpugan_torch.cli.common import (
     data_parallel,
     loss_log_of,
     make_result_dirs,
+    spatial,
 )
 from tpugan_torch.cli.e_align import Pipeline, build_pipeline, resume
 from tpugan_torch.io.checkpoint import save_checkpoint
 from tpugan_torch.optim import lreq_adam
-from tpugan_torch.parallel.mesh import SPACE_AXIS_PART2, barrier, replicate
+from tpugan_torch.parallel.mesh import barrier, replicate
 from tpugan_torch.precision import BF16
 from tpugan_torch.train.e_align import EncoderTrainState, info_scalars, init_train_state
 from tpugan_torch.train.e_mis_align import make_mis_align_step, make_mis_align_visuals
@@ -113,13 +118,13 @@ def build_trainer(args, lpips_fn=None, draw=None, vgg=None, mesh=None) -> Traine
     if args.bf16:
         vgg = vgg.to(BF16)  # the VGG16's parameters cast, as tpugan's cast_floating(vgg_vars)
     state = init_train_state(bundle.encoder, lreq_adam(bundle.encoder, args.lr))
-    step = make_mis_align_step(encode, synth, resynth, draw, vgg, lpips_fn=lpips_fn, cam_bf16=args.bf16,
-                               mesh=mesh)
+    sharded = dict(mesh=mesh, spatial=spatial(args))
+    step = make_mis_align_step(encode, synth, resynth, draw, vgg, lpips_fn=lpips_fn, cam_bf16=args.bf16, **sharded)
     lean = None
     if not args.eager_metrics:
         lean = make_mis_align_step(encode, synth, resynth, draw, vgg, cam_bf16=args.bf16,
-                                   compute_attention_losses=False, mesh=mesh)
-    visuals = make_mis_align_visuals(encode, synth, resynth, draw, vgg, mesh)
+                                   compute_attention_losses=False, **sharded)
+    visuals = make_mis_align_visuals(encode, synth, resynth, draw, vgg, **sharded)
     return Trainer(bundle, pipeline, state, step, lean, visuals, vgg)
 
 
@@ -176,8 +181,6 @@ def run(trainer: Trainer, args, mesh=None) -> EncoderTrainState:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.space_shards != 1:
-        raise NotImplementedError(SPACE_AXIS_PART2)  # Grad-CAM over row shards
     mesh, takes_part = data_parallel(args)
     if not takes_part:
         return None

@@ -42,9 +42,9 @@ corners by the C++ library, else PIL), so the targets are tpugan's pixels.
 Data parallel as ``cli/e_align.py``: under ``torchrun --nproc_per_node N``
 (or ``--multihost``) each image batch is split over tpugan's ``auto_mesh``
 of ``--batch_size`` and every iteration is the one-process iteration on the
-whole batch; rank 0 writes. With ``--space_shards S`` (mtypes 1 and 2) each
-rank of a space group of S inverts its rows of the images
-(``invert/embedding.py::make_embedder``'s ``spatial``).
+whole batch; rank 0 writes. With ``--space_shards S`` (every mtype, with or
+without ``--gradcam``) each rank of a space group of S inverts its rows of
+the images (``invert/embedding.py::make_embedder``'s ``spatial``).
 """
 
 from __future__ import annotations
@@ -155,20 +155,17 @@ def build_inverter(args, lpips_fn=None, bundle: Optional[GanBundle] = None, vgg=
     if args.bf16 and args.optimizeE and cond is not None:
         cond = cond.to(BF16)  # E_BIG's condition follows the compute dtype
 
-    space = space_group(mesh) if spatial(args) else None
+    rows = {"space": space_group(mesh)} if spatial(args) else {}
+    conditions = () if cond is None else (cond,)
 
     def encode(imgs):
-        x = nhwc_to_nchw(imgs)
-        if cond is not None:
-            const, w = enc(x, cond, draws.noise_e)
-        else:
-            const, w = enc(x, draws.noise_e, space=space) if space is not None else enc(x, draws.noise_e)
+        const, w = enc(nhwc_to_nchw(imgs), *conditions, draws.noise_e, **rows)
         return (nchw_to_nhwc(const) if const.dim() == 4 else const), w
 
     if args.bf16 and args.optimizeE:
         encode = bf16_encode_images(encode, enc)
     cfg = embedding_config(args)
-    invert = make_embedder(encode, resynth, enc, cfg, lpips_fn=lpips_fn, vgg=vgg, mesh=mesh, spatial=space is not None)
+    invert = make_embedder(encode, resynth, enc, cfg, lpips_fn=lpips_fn, vgg=vgg, mesh=mesh, spatial=bool(rows))
     return Inverter(bundle, invert, encode, resynth, gen, vgg, mesh)
 
 

@@ -62,6 +62,6 @@ class TrainConfig:
     log_every: int = 100
     checkpoint_every: int = 5000
     # knobs without a reference equivalent, as tpugan has them
-    space_shards: int = 1  # shard image H across this many devices (e_align, embedding; mtypes 1 and 2)
+    space_shards: int = 1  # shard image H across this many devices (e_align, e_mis_align, embedding; every mtype)
     remat: bool = False  # recompute each encode and resynthesis in the backward (torch.utils.checkpoint)
     bf16: bool = False  # bfloat16 activations in the frozen generator

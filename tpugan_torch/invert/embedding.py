@@ -36,7 +36,6 @@ from tpugan_torch.losses.space_loss import pool_for_lpips, pooled_whole, space_l
 from tpugan_torch.nn.spectral import SNDense, power_iterate
 from tpugan_torch.optim.lreq_adam import LREQAdam, lreq_adam
 from tpugan_torch.parallel.mesh import (
-    SPACE_AXIS_PART2,
     all_sum,
     all_sum_grad,
     average_gradients,
@@ -132,8 +131,9 @@ def make_embedder(
     on every rank, cut to the rank's rows before the losses, which sum over
     the group; every rank differentiates its share of the loss, and the
     gradients are summed over the group (``train/e_align.py::
-    make_train_step``). Grad-CAM on row shards raises
-    :class:`NotImplementedError` (ROADMAP A 1's part 2).
+    make_train_step``). With Grad-CAM the masks and overlays of both sides
+    are the rank's rows (``losses/gradcam.py``'s ``space``), and their loss
+    groups sum over the group too.
     """
     if cfg.attention not in ("crops", "gradcam"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
@@ -142,8 +142,6 @@ def make_embedder(
         raise ValueError("attention='gradcam' needs a vgg")
     if spatial and mesh is None:
         raise ValueError("spatial=True needs a mesh with a space axis")
-    if spatial and gradcam:
-        raise NotImplementedError(SPACE_AXIS_PART2)
     group = data_group(mesh)
     space = space_group(mesh) if spatial else None
     share = 1.0 / group_size(space)
@@ -171,12 +169,12 @@ def make_embedder(
         if gradcam:
             # m2 and cam2 from the detached imgs2; m1 and cam1 are the cache's
             i2 = imgs2.detach()
-            m2 = grad_cam(vgg, i2, plus_plus=True, group=group)
-            _, cam2 = mask2cam(m2, i2, group=group)
+            m2 = grad_cam(vgg, i2, plus_plus=True, group=group, space=rows)
+            _, cam2 = mask2cam(m2, i2, group=group, space=rows)
             l_med, _ = space_loss(cache["m1"].expand(-1, -1, -1, 3), m2.expand(-1, -1, -1, 3),
-                                  lpips_fn=lpips_fn, lpips_a_feats=cache.get("m1_feats"), group=group)
+                                  lpips_fn=lpips_fn, lpips_a_feats=cache.get("m1_feats"), group=group, space=rows)
             l_small, _ = space_loss(cache["cam1"], cam2, lpips_fn=lpips_fn, lpips_a_feats=cache.get("cam1_feats"),
-                                    group=group)
+                                    group=group, space=rows)
             # the reference's weights: imgs + mask + Gcam (embedding_v2_BigGAN.py:148)
             loss_msiv = l_imgs + l_med + l_small
         else:
@@ -204,13 +202,13 @@ def make_embedder(
         cam1 (a VGG16 forward and backward), and the LPIPS features of imgs1
         and of its crops, or of m1 and cam1."""
         cache = {}
+        rows = rows_of(imgs1)
         if gradcam:
-            m1 = grad_cam(vgg, imgs1, plus_plus=True, group=group)
-            cache["m1"], cache["cam1"] = m1, mask2cam(m1, imgs1, group=group)[1]
-            sides = (("full", (imgs1, None)), ("m1_feats", (m1.expand(-1, -1, -1, 3), None)),
-                     ("cam1_feats", (cache["cam1"], None)))
+            m1 = grad_cam(vgg, imgs1, plus_plus=True, group=group, space=rows)
+            cache["m1"], cache["cam1"] = m1, mask2cam(m1, imgs1, group=group, space=rows)[1]
+            sides = (("full", (imgs1, rows)), ("m1_feats", (m1.expand(-1, -1, -1, 3), rows)),
+                     ("cam1_feats", (cache["cam1"], rows)))
         else:
-            rows = rows_of(imgs1)
             sides = (("full", (imgs1, rows)), *zip(("at1", "at2"), attention_crops_rows(imgs1, rows)))
         if can_cache_feats:
             cache.update({key: lpips_fn.features(pool_for_lpips(x) if x_rows is None else pooled_whole(x, x_rows))

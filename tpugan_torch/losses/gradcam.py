@@ -14,6 +14,16 @@ With a process ``group`` (data parallelism, ``parallel/mesh.py``) the
 images are this rank's rows of the batch, and what couples the batch is
 taken over the whole of it: the majority class, the class score's mean
 (the gradients' scale) and the overlays' minimum.
+
+With ``space`` (a ``parallel.spatial.Rows``: the space axis) the images
+are this rank's rows of its images, and VGG16 runs its convolutions on
+them (``VGG16.forward(..., space=)``), its last conv's output and the
+logits whole on every rank. The CAM is computed whole from the whole
+``conv_out`` and each rank keeps its rows of the mask; guided
+backpropagation differentiates this rank's share of the class score (the
+score over the group's size: the head runs replicated on every rank, and
+the gather's backward sums the shares); the overlays' minimum is taken over
+the data and space groups and each image's maximum over the space group.
 """
 
 from __future__ import annotations
@@ -25,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from tpugan_torch.losses.vgg import VGG16
-from tpugan_torch.parallel.mesh import all_min, all_sum, group_size
+from tpugan_torch.parallel.mesh import all_max, all_min, all_sum, group_size
 
 
 def majority_class(logits: torch.Tensor, group=None) -> torch.Tensor:
@@ -53,17 +63,23 @@ def _normalize_resize(cam: torch.Tensor, height: int, width: int) -> torch.Tenso
     return cam[:, 0, :, :, None]
 
 
+def _space_group(space):
+    return None if space is None else space.group
+
+
 def grad_cam(vgg: VGG16, images: torch.Tensor, index=None, plus_plus: bool = False,
-             guided: bool = True, group=None) -> torch.Tensor:
+             guided: bool = True, group=None, space=None) -> torch.Tensor:
     """CAM masks [N, H, W, 1] in [0, 1] for NHWC images: Grad-CAM++'s alpha
     weighting with ``plus_plus`` (grad_cam.py:157-194), plain Grad-CAM
     (:82-115) otherwise, for class ``index`` or, when None, the batch's
     majority class. ``guided`` (the default, what the reference executes:
     its GuidedBackPropagation hooks the same VGG16) takes the CAM's
-    backward through guided ReLUs."""
+    backward through guided ReLUs. With ``space`` (a ``Rows``, equal
+    shares) ``images`` are this rank's rows and so is the mask."""
     guided = guided or vgg.guided
     with torch.no_grad():
-        logits, _, feature = vgg(images.permute(0, 3, 1, 2), return_conv_out=True, guided=guided)
+        logits, _, feature = vgg(images.permute(0, 3, 1, 2), return_conv_out=True, guided=guided,
+                                 space=_space_group(space))
     cls = majority_class(logits, group) if index is None else index
     with torch.enable_grad():
         f = feature.detach().requires_grad_(True)
@@ -80,18 +96,25 @@ def grad_cam(vgg: VGG16, images: torch.Tensor, index=None, plus_plus: bool = Fal
     else:
         weight = gradient.mean(dim=(2, 3))
         cam = (feature * weight[:, :, None, None]).sum(dim=1).clamp(min=0)
-    return _normalize_resize(cam, images.shape[1], images.shape[2])
+    if space is None:
+        return _normalize_resize(cam, images.shape[1], images.shape[2])
+    return _normalize_resize(cam, space.total, images.shape[2]).narrow(1, space.start, images.shape[1])
 
 
-def guided_backprop(vgg: VGG16, images: torch.Tensor, index=None, group=None) -> torch.Tensor:
+def guided_backprop(vgg: VGG16, images: torch.Tensor, index=None, group=None, space=None) -> torch.Tensor:
     """The gradient of the class score with respect to the NHWC images,
     through guided ReLUs (grad_cam.py:196-232), for class ``index`` or the
-    batch's majority class."""
+    batch's majority class; with ``space`` (a ``Rows``, equal shares) with
+    respect to this rank's rows of them."""
+    rows = _space_group(space)
     with torch.enable_grad():
         x = images.detach().requires_grad_(True)
-        logits, _ = vgg(x.permute(0, 3, 1, 2), guided=True)
+        logits, _ = vgg(x.permute(0, 3, 1, 2), guided=True, space=rows)
         cls = majority_class(logits.detach(), group) if index is None else index
-        (grad,) = torch.autograd.grad(_class_mean(logits[:, cls], group), x)
+        # every rank of the space group runs the head on the gathered
+        # conv_out: each differentiates its share, which the gather's
+        # backward sums
+        (grad,) = torch.autograd.grad(_class_mean(logits[:, cls], group) / group_size(rows), x)
     return grad
 
 
@@ -144,13 +167,16 @@ def jet_colormap(x: torch.Tensor) -> torch.Tensor:
     return _jet_lut(x.device)[idx]
 
 
-def mask2cam(mask: torch.Tensor, imgs: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor]:
+def mask2cam(mask: torch.Tensor, imgs: torch.Tensor, group=None, space=None) -> tuple[torch.Tensor, torch.Tensor]:
     """CAM overlays (grad_cam.py:234-251): the JET heatmap of mask [N, H, W,
     1], and heatmap + imgs [N, H, W, 3] less the batch's minimum, divided by
     each image's maximum (``tpugan``'s reading of the reference's
-    ``np.max(np.min(cam), 0)``: the 0 is numpy's axis, not a clamp)."""
+    ``np.max(np.min(cam), 0)``: the 0 is numpy's axis, not a clamp). With
+    ``space`` (a ``Rows``) both are this rank's rows, and so are the
+    overlays."""
+    rows = _space_group(space)
     heatmap = jet_colormap(mask[..., 0])
     cam = heatmap + imgs
-    cam = cam - all_min(cam.min(), group)
-    cmax = cam.amax(dim=(1, 2, 3), keepdim=True)
+    cam = cam - all_min(all_min(cam.min(), rows), group)
+    cmax = all_max(cam.amax(dim=(1, 2, 3), keepdim=True), rows)
     return heatmap, cam / torch.where(cmax > 0, cmax, 1.0)

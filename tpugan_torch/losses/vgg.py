@@ -7,6 +7,13 @@ loads its params name for name. The classifier flattens its 7x7 map in
 NCHW order, torchvision's (c, h, w); ``tpugan`` flattens NHWC, (h, w, c), and
 the bridge permutes ``fc_0``'s input rows accordingly. There is no dropout:
 the reference runs VGG16 in eval mode.
+
+``forward(..., space=group)`` runs the convolutions on this rank's rows of
+a space group (``parallel/spatial.py``): the 3x3 convolutions on halo'd
+rows, the max pools local, a level too thin to shard gathered whole
+(``parallel.spatial.runs_on_rows``), and the last conv's output gathered
+whole, so that ``conv_out`` and everything after it (the classifier, the
+logits) are the one-process ones on every rank.
 """
 
 from __future__ import annotations
@@ -16,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpugan_torch.nn.layers import lecun_normal_, plain_conv, plain_linear
+from tpugan_torch.parallel.spatial import RowOps, runs_on_rows
 
 # channels per conv layer; 'M' = 2x2 max pool (torchvision 'D' config)
 VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M", 512, 512, 512, "M"]
@@ -93,15 +101,26 @@ class VGG16(nn.Module):
     def _guided(self, guided):
         return self.guided if guided is None else guided
 
-    def forward(self, x: torch.Tensor, return_conv_out: bool = False, guided: bool | None = None):
+    def forward(self, x: torch.Tensor, return_conv_out: bool = False, guided: bool | None = None, space=None):
+        """``space``: the space group whose ranks each hold equal shares of
+        ``x``'s rows. Each stage of convolutions (up to its pool) runs on
+        the rows while its input leaves every rank rows enough; from the
+        first that does not, the rows are gathered and the rest runs whole.
+        ``feats[j]`` is then the rank's rows up to that gather, whole after
+        it; ``conv_out`` and the logits are whole on every rank."""
         guided = self._guided(guided)
+        ops = RowOps(space)
         feats, conv_out = [], None
-        for name in self.plan:
+        for i, name in enumerate(self.plan):
             if name is None:
-                x = F.max_pool2d(x, 2)
+                x = ops.max_pool(x)
                 continue
-            x = getattr(self, name)(x)
+            stage_start = i == 0 or self.plan[i - 1] is None
+            if ops.group is not None and stage_start and not runs_on_rows(x.shape[2], None in self.plan[i:]):
+                x, ops = ops.gather(x)
+            x = ops.conv(getattr(self, name), x)
             if len(feats) == LAST_CONV_FEATURE:
+                x, ops = ops.gather(x)
                 conv_out = x
             x = self._relu(x, guided)
             feats.append(x)

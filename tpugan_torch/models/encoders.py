@@ -23,6 +23,15 @@ norm before each conv, noise, an affine instance-normed 1x1 residual and a
 E_BIG (:class:`BigGANEncoder`) conditions every block on BigGAN's condition
 vector through spectral-normalised batch norms and ends in two heads, the
 condition vector and z.
+
+Every encoder's ``forward`` takes ``space``, a space group whose ranks each
+hold equal shares of the images' rows (``parallel/spatial.py``): the 3x3
+convolutions take halos, instance norm and the style statistics sum over
+the group, 1x1 convolutions, noise, the average pools and E_BIG's batch
+norms (stored statistics, a per-image condition) are local; from the first
+block whose input is too thin to shard (``runs_on_rows``) the rows are
+gathered and the rest runs whole, and the outputs come out whole on every
+rank.
 """
 
 from __future__ import annotations
@@ -37,12 +46,10 @@ from tpugan_torch.models.biggan import BigGANBatchNorm
 from tpugan_torch.nn.layers import EqConv, EqLinear, plain_conv
 from tpugan_torch.ops.basic import (
     downscale2d,
-    instance_norm,
     leaky_relu,
     noise_inject,
 )
-from tpugan_torch.parallel.mesh import all_gather_rows
-from tpugan_torch.parallel.spatial import RowOps
+from tpugan_torch.parallel.spatial import RowOps, runs_on_rows
 
 
 def _stats(y: torch.Tensor, style_stats: str = "meanstd", ops: RowOps = RowOps()) -> torch.Tensor:
@@ -122,7 +129,7 @@ class EncoderBlock(nn.Module):
     def runs_on_rows(self, rows: int) -> bool:
         """Whether the block runs on shards of ``rows`` rows: a block that
         halves its input needs an even count."""
-        return rows >= 1 and not (self.has_last_conv and rows % 2)
+        return runs_on_rows(rows, self.has_last_conv)
 
     def forward(self, x, noise: Optional[Sequence[torch.Tensor]] = None, space=None):
         """``space``: the space group whose ranks each hold equal shares of
@@ -247,17 +254,17 @@ class Encoder(nn.Module):
         the rows are gathered and the rest runs whole on every rank. The
         outputs come out whole on every rank."""
         x = leaky_relu(self.from_rgb(x), 0.2)
+        ops = RowOps(space)
         styles = []
         for i in range(start_block, self.layer_count):
             ni = noise[i] if noise is not None else None
             block = getattr(self, f"block_{i}")
-            if space is not None and not block.runs_on_rows(x.shape[2]):
-                x, space = all_gather_rows(x, space), None
-            x, w1, w2 = block(x, ni, space=space)
+            if ops.group is not None and not block.runs_on_rows(x.shape[2]):
+                x, ops = ops.gather(x)
+            x, w1, w2 = block(x, ni, space=ops.group)
             if self.style_mode != "none":
                 styles.append(torch.stack([w2, w1], dim=1))
-        if space is not None:
-            x = all_gather_rows(x, space)
+        x = ops.gather(x)[0]
         if self.style_mode != "none":
             return x, torch.cat(styles[::-1], dim=1)
         if self.out_z is None:
@@ -294,18 +301,26 @@ class PGEncoderBlock(nn.Module):
         has one."""
         return ((batch, 1, r, r),) * (2 if self.has_second_conv else 1)
 
-    def forward(self, x, noise: Optional[Sequence[torch.Tensor]] = None):
+    def runs_on_rows(self, rows: int) -> bool:
+        """Whether the block runs on shards of ``rows`` rows: its pool
+        needs an even count."""
+        return runs_on_rows(rows, self.has_second_conv)
+
+    def forward(self, x, noise: Optional[Sequence[torch.Tensor]] = None, space=None):
+        """``space`` as :meth:`EncoderBlock.forward` takes it: ``x`` this
+        rank's rows, ``noise`` the whole image's."""
+        ops = RowOps(space)
         residual = x
-        x = self.conv_1(instance_norm(x))
-        x = noise_inject(x, self.noise_weight_1, noise[0] if noise is not None else None)
+        x = ops.conv(self.conv_1, ops.instance_norm(x))
+        x = noise_inject(x, self.noise_weight_1, ops.rows(noise[0]) if noise is not None else None)
         x = leaky_relu(x + self.bias_1[None, :, None, None], 0.2)
         if not self.has_second_conv:
             return x
-        x = self.conv_2(instance_norm(x))
-        x = noise_inject(x, self.noise_weight_2, noise[1] if noise is not None else None)
+        x = ops.conv(self.conv_2, ops.instance_norm(x))
+        x = noise_inject(x, self.noise_weight_2, ops.rows(noise[1]) if noise is not None else None)
         x = x + self.bias_2[None, :, None, None]
         if self.conv_3 is not None:
-            residual = instance_norm(self.conv_3(residual))
+            residual = ops.instance_norm(self.conv_3(residual))
             residual = residual * self.in3_scale[None, :, None, None] + self.in3_bias[None, :, None, None]
         return downscale2d(leaky_relu(x + residual, 0.2))
 
@@ -343,11 +358,26 @@ class PGEncoder(nn.Module):
         return [getattr(self, f"block_{i}").noise_shapes(batch, resolution >> i)
                 for i in range(self.layer_count)]
 
-    def forward(self, x, noise=None):
+    def forward(self, x, noise=None, space=None):
+        """``space`` as :meth:`Encoder.forward` takes it; the last level is
+        gathered whole before ``new_final``'s flatten."""
         x = leaky_relu(self.from_rgb(x), 0.2)
-        for i in range(self.layer_count):
-            x = getattr(self, f"block_{i}")(x, noise[i] if noise is not None else None)
+        x = _blocks_on_rows(self, x, noise, space)
         return x, self.new_final(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
+
+
+def _blocks_on_rows(encoder, x, noise, space, *extra):
+    """E_PG's or E_BIG's blocks in order (``extra`` after ``x``: E_BIG's
+    condition vector), on the rows of ``space`` while each block's input
+    leaves every rank rows enough, then gathered and whole; the last level
+    comes out whole."""
+    ops = RowOps(space)
+    for i in range(encoder.layer_count):
+        block = getattr(encoder, f"block_{i}")
+        if ops.group is not None and not block.runs_on_rows(x.shape[2]):
+            x, ops = ops.gather(x)
+        x = block(x, *extra, noise[i] if noise is not None else None, space=ops.group)
+    return ops.gather(x)[0]
 
 
 class BigGANEncoderBlock(nn.Module):
@@ -383,16 +413,26 @@ class BigGANEncoderBlock(nn.Module):
                 self.batch_norm_3 = bn()
                 self.conv_3 = EqConv(cin, cout, 1, generator=generator)
 
-    def forward(self, x, cond_vector, noise: Optional[Sequence[torch.Tensor]] = None):
+    def runs_on_rows(self, rows: int) -> bool:
+        """Whether the block runs on shards of ``rows`` rows: its pool
+        needs an even count."""
+        return runs_on_rows(rows, self.has_second_conv)
+
+    def forward(self, x, cond_vector, noise: Optional[Sequence[torch.Tensor]] = None, space=None):
+        """``space`` as :meth:`EncoderBlock.forward` takes it: ``x`` this
+        rank's rows, ``noise`` the whole image's, ``cond_vector`` per image
+        (whole); the batch norms normalise by stored statistics, so they
+        are local."""
+        ops = RowOps(space)
         t = self.truncation
         residual = x
-        x = self.conv_1(self.batch_norm_1(x, t, cond_vector))
-        x = noise_inject(x, self.noise_weight_1, noise[0] if noise is not None else None)
+        x = ops.conv(self.conv_1, self.batch_norm_1(x, t, cond_vector))
+        x = noise_inject(x, self.noise_weight_1, ops.rows(noise[0]) if noise is not None else None)
         x = leaky_relu(x + self.bias_1[None, :, None, None], 0.2)
         if not self.has_second_conv:
             return x
-        x = self.conv_2(self.batch_norm_2(x, t, cond_vector))
-        x = noise_inject(x, self.noise_weight_2, noise[1] if noise is not None else None)
+        x = ops.conv(self.conv_2, self.batch_norm_2(x, t, cond_vector))
+        x = noise_inject(x, self.noise_weight_2, ops.rows(noise[1]) if noise is not None else None)
         x = leaky_relu(x + self.bias_2[None, :, None, None], 0.2)
         if self.conv_3 is not None:
             residual = self.conv_3(self.batch_norm_3(residual, t, cond_vector))
@@ -439,10 +479,11 @@ class BigGANEncoder(nn.Module):
             for i in range(self.layer_count)
         ]
 
-    def forward(self, x, cond_vector, noise=None):
+    def forward(self, x, cond_vector, noise=None, space=None):
+        """``space`` as :meth:`Encoder.forward` takes it (``from_rgb`` is
+        1x1, local); the last level is gathered whole before
+        ``new_final_1``'s flatten."""
         x = leaky_relu(self.from_rgb(x), 0.2)
-        for i in range(self.layer_count):
-            ni = noise[i] if noise is not None else None
-            x = getattr(self, f"block_{i}")(x, cond_vector, ni)
+        x = _blocks_on_rows(self, x, noise, space, cond_vector)
         c_v = self.new_final_1(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
         return c_v, self.new_final_2(c_v)

@@ -20,9 +20,12 @@ step computes the one-process step on the global batch. Its collectives are
 :func:`all_gather_rows` (a level too thin to shard), both differentiable.
 Every rank of a space group differentiates its share of the loss, the
 loss over the group's size, and each collective's backward is its
-transpose, so the shares' gradients sum to the loss's. The space axis on
-``e_mis_align``, E_PG and E_BIG (mtypes 3 and 4) is ROADMAP A 1's part 2:
-:data:`SPACE_AXIS_PART2` is what asking for it raises.
+transpose, so the shares' gradients sum to the loss's. It runs every
+training and inversion path that tpugan shards by rows: ``e_align`` and
+``embedding`` on every mtype (E, E_Blur and the ablation encoders, E_PG,
+E_BIG), Grad-CAM's VGG16 stack (``e_mis_align``, ``embedding --gradcam``),
+whose per-image reductions (the overlays' minimum and maxima) are
+:func:`all_min` and :func:`all_max` over the group.
 
 With ``group=None`` every collective here is the identity, so a path
 without a mesh runs the one-process code. Every collective is an
@@ -39,9 +42,6 @@ import torch.distributed as dist
 
 DATA_AXIS = "data"
 SPACE_AXIS = "space"
-SPACE_AXIS_PART2 = ("the space axis (spatial parallelism: --space_shards > 1, spatial=True) runs e_align and "
-                    "embedding on StyleGANv1 and StyleGAN2 (mtypes 1 and 2); e_mis_align's Grad-CAM over rows, "
-                    "BigGAN/E_BIG (mtype 4) and PGGAN/E_PG (mtype 3) come with ROADMAP A 1's part 2")
 
 
 def _world() -> int:
@@ -200,10 +200,22 @@ def all_sum_grad(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def all_min(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise minimum of ``x`` over the group's ranks, without
+    gradient."""
     if group is None:
         return x
     x = x.detach().clone()
     dist.all_reduce(x, op=dist.ReduceOp.MIN, group=group)
+    return x
+
+
+def all_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over the group's ranks, without
+    gradient."""
+    if group is None:
+        return x
+    x = x.detach().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
     return x
 
 

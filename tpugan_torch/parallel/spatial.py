@@ -18,7 +18,14 @@ it is ``None``:
 * instance norm and the style statistics sum over H x W in tpugan's two
   fp32 passes (float64 for float64), each pass's sums over the rows
   all-reduced across the group (``ops.basic.moments32``);
-* the average pools are local on shards of even rows.
+* the average pools and VGG16's 2x2 max pools are local on shards of even
+  rows;
+* a level whose shards would be too thin (:func:`runs_on_rows`: no row, or
+  an odd count where the level ends by halving its rows) is gathered whole
+  on every rank (``parallel.mesh.all_gather_rows``) and the rest of the
+  network runs whole;
+* affine maps with a per-image condition (E_BIG's batch norms, which
+  normalise by stored statistics) and 1x1 convolutions are local.
 
 Each rank differentiates its share of the loss, the loss over the group's
 size; the collectives' backwards are their transposes, so the shares'
@@ -32,6 +39,7 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from tpugan_torch.ops import basic, upfirdn
 from tpugan_torch.ops.eq_lr import transform_kernel_2d
@@ -63,6 +71,14 @@ def conv2d_rows(x, weight, bias, stride: int, padding: int, group):
         raise ValueError(f"a {k}x{k} conv at stride {stride} does not run on shards of {x.shape[2]} rows")
     xh = halo_rows(x, above, below, group)
     return F.conv2d(xh, weight, bias, stride=stride, padding=(0, padding))
+
+
+def runs_on_rows(rows: int, halves: bool) -> bool:
+    """Whether a level of ``rows`` rows a rank runs on shards: at least one
+    row (a 3x3 convolution's halo comes from a neighbour's shard) and, where
+    the level ends by halving its rows (a pool, a stride-2 convolution), an
+    even count. Else the level is gathered whole (the thin-level rule)."""
+    return rows >= 1 and not (halves and rows % 2)
 
 
 class RowOps:
@@ -97,11 +113,28 @@ class RowOps:
         return basic.instance_norm(x, whole_sum=self.whole_sum(), count=self.total(x) * x.shape[3])
 
     def conv(self, module, x):
-        """An ``EqConv`` (not transposed) on the rows."""
+        """An ``EqConv`` (not transposed) or a plain ``nn.Conv2d`` (square
+        kernel, the same stride and padding on both axes: ``plain_conv``'s)
+        on the rows; a 1x1 convolution is local."""
         if self.group is None or module.weight.shape[2] == 1:
             return module(x)
+        if isinstance(module, nn.Conv2d):
+            return conv2d_rows(x, module.weight, module.bias, module.stride[0], module.padding[0], self.group)
         w = transform_kernel_2d(module.weight, average=True) if module.transform_kernel else module.weight
         return conv2d_rows(x, w, module.bias, module.stride, module.padding, self.group)
+
+    def max_pool(self, x):
+        """VGG16's 2x2 max pool, local on shards of even rows."""
+        if self.group is not None and x.shape[2] % 2:
+            raise ValueError(f"a 2x2 max pool does not run on shards of {x.shape[2]} rows")
+        return F.max_pool2d(x, 2)
+
+    def gather(self, x) -> tuple[torch.Tensor, "RowOps"]:
+        """``(x whole on every rank, the plain ops)``: a level too thin to
+        shard (:func:`runs_on_rows`) and the rest of the network after it."""
+        if self.group is None:
+            return x, self
+        return all_gather_rows(x, self.group), RowOps()
 
     def blur(self, x):
         if self.group is None:

@@ -144,7 +144,7 @@ def sgv1_stress(torch, smoke, n):
             found, seen = [], set()
             for _ in range(n):
                 _, grads, _, _ = smoke.sgv1_replay_step(torch, e_align, argv, request, "cuda", torch.device("cuda"),
-                                                        torch.float32)
+                                                        torch.float32, card=True)
                 found.append(distance(grads))
                 seen.add(tuple(float(g.sum()) for group in grads for g in group))
         dists = sorted(d for d, _ in found)

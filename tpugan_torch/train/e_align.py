@@ -37,7 +37,6 @@ from tpugan_torch.models.stylegan2 import StyleGAN2Generator
 from tpugan_torch.nn.spectral import SNDense, power_iterate
 from tpugan_torch.optim.lreq_adam import LREQAdam
 from tpugan_torch.parallel.mesh import (
-    SPACE_AXIS_PART2,
     average_gradients,
     batch_mean,
     data_group,
@@ -247,17 +246,13 @@ def make_encode_fn(encoder, conditional: bool = False, train: bool = False, spac
     ``batch.const1`` (E_align_cropping_s1.py:155). With ``train`` it records
     the graph for the encoder's gradients. With ``space`` (a space group)
     ``batch.imgs1`` is this rank's rows of the images and the encoder runs
-    on them (``models/encoders.py::Encoder``), its outputs whole."""
-    if space is not None and conditional:
-        raise NotImplementedError(SPACE_AXIS_PART2)
+    on them (``models/encoders.py``), its outputs whole; E_BIG's condition
+    vector is per image, whole on every rank."""
+    cond = (lambda batch: (batch.const1,)) if conditional else (lambda batch: ())
+    rows = {} if space is None else {"space": space}
 
     def encode(batch: SynthBatch, noise=None):
-        imgs = nhwc_to_nchw(batch.imgs1)
-        if conditional:
-            return encoder(imgs, batch.const1, noise)
-        if space is not None:
-            return encoder(imgs, noise, space=space)
-        return encoder(imgs, noise)
+        return encoder(nhwc_to_nchw(batch.imgs1), *cond(batch), noise, **rows)
 
     return encode if train else torch.no_grad()(encode)
 
