@@ -306,7 +306,7 @@ EXTRA_CASES = (
 )
 TAPS8 = (1, 7, 21, 35, 35, 21, 7, 1)
 # the tiled design's edges (label, up, down, taps, pad, NHWC shape, gain):
-# rows and plane bases off 16-byte boundaries (4-byte copies), a tall
+# rows and plane bases off 16-byte boundaries (per-row windows), a tall
 # narrow plane (row bands, the last one short) and a wide short one (2-D
 # tiles), 512 + 3 small planes (the last block holds fewer), 8x8 taps with
 # up 2 (both pad parities) and down 2 (odd sizes), a pad past the taps,
@@ -324,6 +324,24 @@ TILE_CASES = (
     ("pad (5, 4)", 1, 1, (1, 2, 1), (5, 4), (2, 12, 16, 4), 1.0),
     ("taps 3x5", 1, 1, ((1, 2, 0, -1, 3), (2, 4, 1, 0, 1), (0, 1, 5, 2, 1)), (2, 3), (2, 17, 36, 3), 1.0),
     ("taps 2x7 up2", 2, 1, ((1, 2, 3, 4, 3, 2, 1), (0, 1, 1, 2, 1, 1, 0)), (3, 3), (1, 10, 9, 3), 4.0),
+)
+# the staging and output edges (label, up, down, taps, pads (top, bottom,
+# left, right), NCHW shape, gain, x's offset in elements from a 16-byte
+# boundary, taken modulo a copy: 8 bf16, 4 fp32): odd widths from every
+# offset (each row then starts at another alignment), a 1025-wide plane, up
+# 2 at both phases on odd widths, the 4-tap adjoint's pads into odd widths
+# (16-byte strips into rows that are not 16-byte aligned: shuffled stores),
+# and front pads per axis (a row shard's blur; at up 2 two of one phase)
+LAYOUT_CASES = (
+    *((f"odd width, base +{k}", 1, 1, (1, 2, 1), (1, 1, 1, 1), (2, 3, 37, 13), 1.0, k) for k in range(8)),
+    ("1025 wide, base +3", 1, 1, (1, 3, 3, 1), (1, 1, 1, 1), (1, 4, 20, 1025), 4.0, 3),
+    ("up2 phase 0, odd, base +5", 2, 1, (1, 3, 3, 1), (2, 1, 2, 1), (2, 3, 9, 11), 4.0, 5),
+    ("up2 phase 1, odd, base +1", 2, 1, (1, 3, 3, 1), (1, 2, 1, 2), (2, 3, 9, 11), 4.0, 1),
+    ("4-tap adjoint into 513", 1, 1, (1, 3, 3, 1), (2, 2, 2, 2), (2, 8, 64, 512), 4.0, 0),
+    ("4-tap adjoint into 129, base +6", 1, 1, (1, 3, 3, 1), (2, 2, 2, 2), (2, 8, 64, 128), 4.0, 6),
+    ("row shard blur, pads (0, 0, 1, 1)", 1, 1, (1, 2, 1), (0, 0, 1, 1), (2, 64, 34, 256), 1.0, 0),
+    ("pads (2, 1, 0, 0), base +7", 1, 1, (1, 3, 3, 1), (2, 1, 0, 0), (2, 5, 21, 37), 1.0, 7),
+    ("up2, pads (2, 1, 0, 1)", 2, 1, (1, 3, 3, 1), (2, 1, 0, 1), (2, 3, 17, 9), 4.0, 0),
 )
 # slice 3's FIRs at their sizes (label, up, down, taps, pad, NCHW shape,
 # gain): the same-size 4-tap FIR after SG2-1024's transposed conv
@@ -343,6 +361,14 @@ SLICE3_FIRS = (
 ADJOINT_CASES = (
     ("pad past the taps", 1, 1, (1, 2, 1), (4, 3), (2, 16, 12, 10), 1.0),
     ("taps 3x2 up2", 2, 1, ((1, 2), (3, 1), (0, 2)), (1, 1), (2, 3, 9, 7), 4.0),
+)
+# the adjoint's cases with front pads per axis and an unaligned base
+# (LAYOUT_CASES' fields): a row shard's blur, whose adjoint front pads are
+# (2, 1); the reverse; the 4-tap FIR from an odd base, into odd widths
+ADJOINT_LAYOUT_CASES = (
+    ("row shard blur, pads (0, 0, 1, 1)", 1, 1, (1, 2, 1), (0, 0, 1, 1), (2, 64, 34, 256), 1.0, 0),
+    ("pads (2, 1, 0, 0), base +3", 1, 1, (1, 3, 3, 1), (2, 1, 0, 0), (2, 5, 21, 37), 1.0, 3),
+    ("4-tap, 129 wide, base +5", 1, 1, (1, 3, 3, 1), (1, 1, 1, 1), (2, 8, 40, 129), 4.0, 5),
 )
 # the blur shapes also timed with L2 flushed before each call (their inputs
 # and outputs are 33.6 and 67.1 MB; the L2 holds 50 MB)
@@ -1576,9 +1602,7 @@ def fir_parity(torch, dev, gen):
         kh, kw = taps.shape
         plan = upfirdn.fir_plan(n * c, h, w, up, down, pad[0], kh, kw, (h * up + sum(pad) - kh) // down + 1,
                                 (w * up + sum(pad) - kw) // down + 1, min_blocks=upfirdn.min_blocks(dev))
-        label = (f"{label} taps{taps.shape[0]}x{taps.shape[1]} pad{pad} NCHW{(n, c, h, w)} (strips "
-                 f"{plan.rh}x{plan.rw}, tile {plan.tile_rows}x{plan.tile_cols}, {plan.planes_per_block} "
-                 f"plane(s) a block, {plan.blocks} blocks, {'16' if plan.vec else '4'}-byte copies)")
+        label = f"{label} taps{taps.shape[0]}x{taps.shape[1]} pad{pad} NCHW{(n, c, h, w)} ({plan_text(plan)})"
         got = upfirdn2d_cuda(x, taps, up, down, pad, gain)
         want = upfirdn2d_plain(x, taps, up, down, pad, gain)
         torch.cuda.synchronize()
@@ -1590,6 +1614,19 @@ def fir_parity(torch, dev, gen):
         say(f"parity {label}: max |err| {err:.3e}")
         del x, got, want
     check(cuda.launches["upfirdn2d"] == len(cases), f"launch count {cuda.launches} != {len(cases)}")
+    for case in LAYOUT_CASES:
+        label, x, taps, got, want = layout_case(torch, dev, gen, case, torch.float32)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape, f"{label}: shape {tuple(got.shape)} vs {tuple(want.shape)}")
+        err = (got - want).abs().max().item()
+        max_err = max(max_err, err)
+        check(torch.allclose(got, want, rtol=KERNEL_TOL, atol=KERNEL_TOL),
+              f"{label}: kernel disagrees with plain version, max |err| {err:.3e}")
+        say(f"parity {label}: max |err| {err:.3e}")
+        del x, got, want
+    check(cuda.launches["upfirdn2d"] == len(cases) + len(LAYOUT_CASES),
+          f"launch count {cuda.launches} != {len(cases) + len(LAYOUT_CASES)}: a layout case was copied in torch")
+    cases = cases + list(LAYOUT_CASES)
     blur = setup_fir_kernel((1, 2, 1))
     x = torch.randn(1, 4, 8, 8, device=dev, generator=gen)
     refused = [
@@ -1612,7 +1649,9 @@ def fir_parity(torch, dev, gen):
     taps = upfirdn._taps(blur, 1.0)
     good = upfirdn.fir_plan(4, 8, 8, 1, 1, 1, 3, 3, 8, 8, min_blocks=upfirdn.min_blocks(dev)).as_array()
     bad_plans = {"a staged row short": ("in_rows", -1), "threads short": ("threads", -32),
-                 "a tile row short": ("tile_rows", -4), "odd phase at up 1": ("phase", 1)}
+                 "a tile row short": ("tile_rows", -4), "odd phase at up 1": ("phase", 1),
+                 "a window a copy short": ("in_stride", -4), "blocks short": ("blocks", -2),
+                 "shared memory short": ("shared_bytes", -16)}
     for name, (field, delta) in bad_plans.items():
         plan = good.copy()
         plan[fields.index(field)] += delta
@@ -1621,10 +1660,88 @@ def fir_parity(torch, dev, gen):
     torch.cuda.synchronize()
     check(bool((y == 7.0).all()), "a refused plan wrote the output")
     check(cuda.launches["upfirdn2d"] == len(cases), "a refused call launched")
+    # front pads of two up-2 phases: refused by the launch's checks and by the entry point
+    taps4 = upfirdn._taps(setup_fir_kernel((1, 3, 3, 1)), 4.0)
+    try:
+        upfirdn._launch(x, taps4, 2, 1, 2, 1, 15, 15, "XLA")
+        raise RuntimeError("chip_smoke: front pads of two up-2 phases were taken")
+    except ValueError:
+        pass
+    up2 = upfirdn.fir_plan(4, 8, 8, 2, 1, 2, 4, 4, 15, 15, min_blocks=upfirdn.min_blocks(dev)).as_array()
+    y2 = torch.full((1, 4, 15, 15), 7.0, device=dev)
+    check(launch_plan(torch, x, y2, taps4, 2, 1, 2, up2, pad_x0=1) == 1, "the C entry point took two phases")
+    torch.cuda.synchronize()
+    check(bool((y2 == 7.0).all()) and cuda.launches["upfirdn2d"] == len(cases), "a refused call launched")
     say(f"parity: {len(cases)} cases within {KERNEL_TOL:g} (max |err| {max_err:.3e}); "
         f"{len(refused)} out-of-contract calls and {len(bad_plans)} plans refused "
-        f"({', '.join(bad_plans)})")
+        f"({', '.join(bad_plans)}), and front pads of two up-2 phases")
     return max_err
+
+
+def fir_instances(log, elem):
+    """The FIR kernel's instantiations for element type ``elem`` ("f" fp32,
+    "13__nv_bfloat16" bf16, as mangled) in an ``nvcc -Xptxas -v`` log:
+    their template arguments (``vec``: the staging of 16-byte aligned rows;
+    else fp32's one-element copies or bf16's per-row windows), registers,
+    spill stores and loads and static shared memory (bytes; the tile is
+    dynamic shared memory, sized by each launch's plan)."""
+    import re
+
+    rows, row = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '[^']*upfirdn2d_kernelI" + elem
+                      + r"Li(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", line)
+        if m:
+            kh, kw, up, down, ph, rw, vec = (int(v) for v in m.groups())
+            row = {"taps": f"{kh}x{kw}" if kh else "runtime", "up": up, "down": down, "phase": ph, "rw": rw,
+                   "vec": vec}
+            rows.append(row)
+        elif "Compiling entry function" in line:
+            row = None
+        elif row is not None:
+            for key, pattern in (("spill_stores", r"(\d+) bytes spill stores"), ("spill_loads", r"(\d+) bytes spill loads"),
+                                 ("registers", r"Used (\d+) registers"), ("static_shared_bytes", r"(\d+) bytes smem")):
+                m = re.search(pattern, line)
+                if m:
+                    row[key] = int(m.group(1))
+    for row in rows:
+        row.setdefault("static_shared_bytes", 0)
+    return rows
+
+
+def plan_text(plan):
+    """A launch plan in a few words, for the parity lines."""
+    staging = "16-byte" if plan.vec else "per-row window" if plan.elem_bytes == 2 else "one-element"
+    return (f"strips {plan.rh}x{plan.rw}, tile {plan.tile_rows}x{plan.tile_cols}, {plan.planes_per_block} plane(s) "
+            f"a block, {plan.blocks} blocks, {plan.shared_bytes} B shared, {staging} copies")
+
+
+def layout_case(torch, dev, gen, case, dtype):
+    """One of LAYOUT_CASES on the card's route in ``dtype``: x drawn into a
+    buffer ``offset`` elements (modulo a 16-byte copy) past its 16-byte
+    start, the FIR through ``upfirdn._fir_cuda`` (one launch: the kernel
+    takes every pad there) and its plain version. Returns the line's label,
+    x, the taps (gain folded in), and the two outputs."""
+    import numpy as np
+
+    from tpugan_torch.ops import upfirdn
+    from tpugan_torch.ops.upfirdn import setup_fir_kernel
+
+    label, up, down, taps, pads, shape, gain, offset = case
+    offset %= upfirdn.COPY_BYTES // torch.empty((), dtype=dtype).element_size()
+    buf = torch.randn(int(np.prod(shape)) + offset, device=dev, generator=gen).to(dtype)
+    x = buf[offset:].view(shape)
+    check(x.data_ptr() % upfirdn.COPY_BYTES == offset * buf.element_size(), f"{label}: offset")
+    k = upfirdn._taps(setup_fir_kernel(taps), gain)
+    kh, kw = k.shape
+    n, c, h, w = shape
+    ho, wo = (h * up + pads[0] + pads[1] - kh) // down + 1, (w * up + pads[2] + pads[3] - kw) // down + 1
+    plan = upfirdn.fir_plan(n * c, h, w, up, down, pads[0], kh, kw, ho, wo, min_blocks=upfirdn.min_blocks(dev),
+                            elem_bytes=buf.element_size())
+    got = upfirdn._fir_cuda(x, k, up, down, pads)
+    want = upfirdn._fir_plain(x, k, up, down, pads)
+    return (f"{label} up{up} down{down} taps{kh}x{kw} pads {list(pads)} NCHW{shape} {dtype} ({plan_text(plan)})",
+            x, k, got, want)
 
 
 def fir_adjoint(torch, dev, gen, bandwidth):
@@ -1680,10 +1797,56 @@ def fir_adjoint(torch, dev, gen, bandwidth):
             msg += f"; the adjoint alone {ms * 1e3:.2f} us ({ms_from}), bound {bound * 1e3:.2f} us (bytes)"
         say(msg)
         del x, y, g, got, want, xr
+    for case in ADJOINT_LAYOUT_CASES:
+        label, up, down, taps, pads = case[:5]
+        err = layout_adjoint(torch, dev, gen, case, torch.float32)[0]
+        max_err = max(max_err, err)
+        say(f"adjoint {label} up{up} down{down} pads {list(pads)} NCHW{case[5]}: max |err| {err:.3e}; one launch "
+            "each way on the tensors as they are (the kernel takes the front pads apart)")
     torch.cuda.empty_cache()
-    say(f"FIR adjoint parity: {len(cases)} cases within {KERNEL_TOL:g} of autograd of the plain "
-        f"version (max |err| {max_err:.3e}), one forward and one adjoint launch each")
+    say(f"FIR adjoint parity: {len(cases) + len(ADJOINT_LAYOUT_CASES)} cases within {KERNEL_TOL:g} of autograd "
+        f"of the plain version (max |err| {max_err:.3e}), one forward and one adjoint launch each")
     return max_err, rows
+
+
+def layout_adjoint(torch, dev, gen, case, dtype):
+    """The gradient of one of ADJOINT_LAYOUT_CASES (LAYOUT_CASES' fields)
+    in ``dtype`` through ``upfirdn._fir`` on the card, x drawn from an
+    offset base, against autograd of the plain version: fp32 within
+    KERNEL_TOL; bf16 within one bf16 ulp and bitwise the fp32 kernel's
+    gradient on the same values rounded. One forward and one adjoint
+    launch, neither copied in torch. Returns the max |err| and the two
+    gradients."""
+    import numpy as np
+
+    from tpugan_torch.ops import cuda, upfirdn
+    from tpugan_torch.ops.upfirdn import setup_fir_kernel
+
+    label, up, down, taps, pads, shape, gain, offset = case
+    offset %= upfirdn.COPY_BYTES // torch.empty((), dtype=dtype).element_size()
+    buf = torch.randn(int(np.prod(shape)) + offset, device=dev, generator=gen).to(dtype)
+    x = buf[offset:].view(shape).requires_grad_()
+    k = upfirdn._taps(setup_fir_kernel(taps), gain)
+    name = upfirdn.KERNEL_OF_DTYPE[dtype]
+    cuda.reset_launches()
+    with AdjointCount() as adjoint:
+        y = upfirdn._fir(x, k, up, down, pads)
+        g = torch.randn(y.shape, device=dev, generator=gen).to(dtype)
+        (got,) = torch.autograd.grad(y, x, g)
+        torch.cuda.synchronize()
+    check(cuda.launches[name] == 2 and sum(adjoint.counts.values()) == 1,
+          f"adjoint {label}: launches {cuda.launches}, adjoint {adjoint.counts}")
+    xr = x.detach().requires_grad_()
+    (want,) = torch.autograd.grad(upfirdn._fir_plain(xr, k, up, down, pads), xr, g)
+    if dtype == torch.bfloat16:
+        x32 = x.detach().float().requires_grad_()
+        (f32,) = torch.autograd.grad(upfirdn._fir(x32, k, up, down, pads), x32, g.float())
+        err = check_bf16_fir(torch, f"bf16 adjoint {label}", got, want, f32.bfloat16())
+    else:
+        err = (got - want).abs().max().item()
+        check(torch.allclose(got, want, rtol=KERNEL_TOL, atol=KERNEL_TOL),
+              f"adjoint {label}: the kernel's gradient disagrees with the plain version's, max |err| {err:.3e}")
+    return err, got, want
 
 
 def sgv1_argv():
@@ -1781,17 +1944,19 @@ def sgv1_gradient(torch, dev, parser, argv):
     return {"forward": fwd[0], "adjoint": adj[0], "adjoint_by_tpu_kernel": adj[1]}
 
 
-def launch_plan(torch, x, y, taps, up, down, pad0, plan):
+def launch_plan(torch, x, y, taps, up, down, pad0, plan, pad_x0=None):
     """The FIR kernel's C entry point of x's dtype on ``plan`` (an int
-    array), uncounted: for plans that upfirdn2d_cuda would not make.
-    Returns its cudaError."""
+    array) from front pads ``pad0`` (H) and ``pad_x0`` (W, by default H's),
+    uncounted: for plans that upfirdn2d_cuda would not make. Returns its
+    cudaError."""
     from tpugan_torch.ops import cuda, upfirdn
 
     n, c, h, w = x.shape
     kh, kw = taps.shape
     return cuda.kernel(upfirdn.KERNEL_OF_DTYPE[x.dtype])(
-        x.data_ptr(), y.data_ptr(), n * c, h, w, y.shape[2], y.shape[3], up, down, pad0, kh, kw,
-        taps.ctypes.data, plan.ctypes.data, x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), y.data_ptr(), n * c, h, w, y.shape[2], y.shape[3], up, down, pad0,
+        pad0 if pad_x0 is None else pad_x0, kh, kw, taps.ctypes.data, plan.ctypes.data, x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
 
 
 def flushed_ms(torch, fn, flush, expect):
@@ -2978,7 +3143,16 @@ def fir_bf16_parity(torch, dev, gen):
         del x, got, want, f32
     check(cuda.launches == expected_launches(upfirdn2d=len(cases), upfirdn2d_bf16=len(cases)),
           f"bf16 parity launches {cuda.launches}")
-    say(f"bf16 parity: {len(cases)} cases (phase 2's) within one bf16 ulp of the plain version and "
+    for case in LAYOUT_CASES:
+        label, x, taps, got, want = layout_case(torch, dev, gen, case, torch.bfloat16)
+        f32 = upfirdn._fir_cuda(x.float(), taps, case[1], case[2], case[4]).bfloat16()
+        torch.cuda.synchronize()
+        max_err = max(max_err, check_bf16_fir(torch, f"bf16 {label}", got, want, f32))
+        del x, got, want, f32
+    n = len(cases) + len(LAYOUT_CASES)
+    check(cuda.launches == expected_launches(upfirdn2d=n, upfirdn2d_bf16=n),
+          f"bf16 parity launches {cuda.launches}: a layout case was copied in torch")
+    say(f"bf16 parity: {n} cases (phase 2's) within one bf16 ulp of the plain version and "
         f"bitwise the fp32 kernel rounded to bf16 (max |err| {max_err:.3e})")
 
     adjoint_cases = [(f"blur {c}x{r}x{r}", 1, 1, (1, 2, 1), (1, 1), (BATCH, c, r, r), 1.0)
@@ -3000,6 +3174,9 @@ def fir_bf16_parity(torch, dev, gen):
         (want,) = torch.autograd.grad(upfirdn2d_plain(xr, k, up, down, pad, gain), xr, g)
         max_err = max(max_err, check_bf16_fir(torch, f"bf16 adjoint {label}", got, want, f32.bfloat16()))
         del x, y, g, got, want, f32, x32, xr
+    for case in ADJOINT_LAYOUT_CASES:
+        max_err = max(max_err, layout_adjoint(torch, dev, gen, case, torch.bfloat16)[0])
+    adjoint_cases += list(ADJOINT_LAYOUT_CASES)
     say(f"bf16 adjoint parity: {len(adjoint_cases)} cases (phase 2's) within one bf16 ulp of autograd of "
         f"the plain version, bitwise the fp32 kernel's adjoint rounded to bf16 (max |err| {max_err:.3e})")
 
@@ -7318,9 +7495,12 @@ def space_argv():
 def halo_pad_times(torch, capture):
     """Every distinct FIR that ``capture`` kept whose front pads differ
     between H and W (a row shard's halo'd blur, forward and adjoint), on its
-    own input: the card's route (``upfirdn._fir_cuda``: the input padded in
-    torch, then the launch) and the launch alone on the padded input, device
-    times from ``queued_ms``, summed over a step's launches by direction."""
+    own input: the card's route (``upfirdn._fir_cuda``: one launch on the
+    shard as it is, the kernel taking the two front pads apart; checked to
+    need no torch copy) beside the form it replaces (the input padded in
+    torch, then a launch at pad 0), device times from ``queued_ms``, summed
+    over a step's launches by direction. The route's output is bitwise the
+    padded form's and the plain version's."""
     import torch.nn.functional as F
 
     from tpugan_torch.ops import upfirdn
@@ -7332,14 +7512,19 @@ def halo_pad_times(torch, capture):
         if py0 == px0 >= 0:
             continue
         key = capture.keys.get(fir)
-        padded = F.pad(upfirdn._stuff(x, up), (px0, px1, py0, py1)).contiguous()
-        route = queued_ms(torch, lambda: upfirdn._fir_cuda(x, taps, up, down, pads, key))
-        launch = queued_ms(torch, lambda: upfirdn._fir_op(padded, taps, 1, down, (0, 0, 0, 0), key))
-        row = sums.setdefault(direction, {"calls": 0, "route_ms": 0.0, "launch_ms": 0.0})
+        check(upfirdn._kernel_takes(pads, up), f"a halo'd FIR with pads {list(pads)} is copied in torch")
+        route = lambda: upfirdn._fir_cuda(x, taps, up, down, pads, key)  # noqa: E731
+        padded = lambda: upfirdn._fir_op(F.pad(upfirdn._stuff(x, up), (px0, px1, py0, py1)).contiguous(),  # noqa: E731
+                                         taps, 1, down, (0, 0, 0, 0), key)
+        got = route()
+        check(torch.equal(got, padded()) and torch.equal(got, upfirdn._fir_plain(x, taps, up, down, pads)),
+              f"a halo'd FIR {direction} {list(x.shape)} pads {list(pads)} is not bitwise its padded form and "
+              "its plain version")
+        row = sums.setdefault(direction, {"calls": 0, "route_ms": 0.0, "padded_ms": 0.0})
         row["calls"] += n
-        row["route_ms"] += n * route
-        row["launch_ms"] += n * launch
-        del padded
+        row["route_ms"] += n * queued_ms(torch, route)
+        row["padded_ms"] += n * queued_ms(torch, padded)
+        del got
     return sums
 
 
@@ -7534,8 +7719,9 @@ def space_axis_path(torch, dev, smi, workdir):
                                "collective_ms": step["collective_ms"], "collective_calls": step["collective_calls"],
                                "pad_copies": step["pad_copies"], "distance": distance,
                                "inversion_distance": inv_distance, "inversion_w_max_abs_err": w_err}
-        pads = "; ".join(f"{d} {row['calls']} calls, route {row['route_ms']:.3f} ms against the launch alone "
-                         f"{row['launch_ms']:.3f} ms" for d, row in step["pad_copies"].items())
+        pads = "; ".join(f"{d} {row['calls']} calls, one launch each with no torch pad copy {row['route_ms']:.3f} ms "
+                         f"against a torch pad and a launch {row['padded_ms']:.3f} ms, both bitwise the plain "
+                         "version" for d, row in step["pad_copies"].items())
         say(f"space axis {label}: FIR launches a step forward {fwd}, adjoint {adj} (as derived); every FIR of a step on "
             f"its own halo'd inputs within {KERNEL_TOL:g} of the plain version (max |err| {step['fir_max_abs_err']:.3e}); "
             f"halo'd FIRs a step: {pads}; against the one-process step: scalars {distance['info']:.3e} (limit "
@@ -7946,6 +8132,13 @@ def phases(torch, workdir) -> int:
     t0 = time.perf_counter()
     logs = cuda.build()
     say(f"build: {sorted(cuda.KERNELS)} in {time.perf_counter() - t0:.2f} s")
+    fir_log = logs.get(cuda.KERNELS["upfirdn2d"][0], "")
+    fir_ptxas = {"upfirdn2d": fir_instances(fir_log, "f"), "upfirdn2d_bf16": fir_instances(fir_log, "13__nv_bfloat16")}
+    for name, rows in fir_ptxas.items():
+        say(f"ptxas {name}: {len(rows)} instantiations, " + "; ".join(
+            f"{r['taps']} up{r['up']} down{r['down']} phase {r['phase']} rw {r['rw']}: {r.get('registers')} registers, "
+            f"{r.get('spill_stores')}/{r.get('spill_loads')} B spilled, {r['static_shared_bytes']} B static shared"
+            for r in rows))
     for name, log in logs.items():
         for line in log.splitlines():
             if any(word in line for word in ("entry function", "registers", "spill", "rror")):
@@ -8184,6 +8377,7 @@ def phases(torch, workdir) -> int:
         "route": "cuda",
         "operator": "torch.ops.tpugan_torch.upfirdn2d",
         "source": "tpugan_torch/csrc/upfirdn2d.cu",
+        "ptxas": fir_ptxas["upfirdn2d"],
         "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas); "
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c)",
         "launches": (launches["upfirdn2d"] + sg2["launches"] + sgv1_train["launches"] + sg2_train["launches"]
@@ -8242,6 +8436,17 @@ def phases(torch, workdir) -> int:
         "route": "cuda",
         "operator": "torch.ops.tpugan_torch.upfirdn2d",
         "source": "tpugan_torch/csrc/upfirdn2d.cu",
+        "design": "the plan selects the staging from the rows: 16-byte cp.async copies from the tile's first "
+                  "column rounded down where every row is 16-byte aligned (w % 8 == 0, an aligned base); "
+                  "otherwise a window of 16-byte copies a staged row from the boundary at or below its own "
+                  "first column, read through the row's lead, no copy reading outside its row (the chunk "
+                  "across the row's end copies the row's bytes and cp.async zero-fills the rest; the chunk "
+                  "before the row's start is loaded element by element); one tile a block and one strip a "
+                  "thread; strips of 8 columns (16-byte stores) on rows of 128 or more or aligned rows of 64 "
+                  "or more, else 4 columns (8-byte stores) from 32, else 1; warp-shuffled 16-byte stores into "
+                  "rows that are not 16-byte aligned; staged rows of 6 or more elements read as 32-bit pairs; "
+                  "front pads per axis; at most 48 KB of shared memory a block",
+        "ptxas": fir_ptxas["upfirdn2d_bf16"],
         "replaces": "tpugan/ops/pallas/upfirdn2d.py:96 (upfirdn2d_pallas, bf16); "
                     "tpugan/ops/pallas/upfirdn2d.py:153 (upfirdn2d_pallas_small_c, bf16)",
         "launches": (bf16["launches"] + sum(fir16_inv.values()) + mis["launches_bf16"] + sum(s7a_fir16.values())

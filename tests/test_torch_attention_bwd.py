@@ -117,14 +117,14 @@ def _detached_plain(check, plain):
     return fake
 
 
-def _plain_fir_launch(x, taps, up, down, pad0, ho, wo, key):
+def _plain_fir_launch(x, taps, up, down, py0, px0, ho, wo, key):
     """The FIR kernel's launch, swapped for the plain version after the
-    launch's own checks: ho x wo outputs from front pad ``pad0`` (the back
-    pads follow from ho and wo, as in the kernel), counted as the launch
-    counts them."""
-    upfirdn.check_launch(x, taps, up, down, pad0, ho, wo)
+    launch's own checks: ho x wo outputs from front pads ``py0`` and ``px0``
+    (the back pads follow from ho and wo, as in the kernel), counted as the
+    launch counts them."""
+    upfirdn.check_launch(x, taps, up, down, py0, ho, wo, px0)
     (h, w), (kh, kw) = x.shape[2:], taps.shape
-    pads = (pad0, (ho - 1) * down + kh - h * up - pad0, pad0, (wo - 1) * down + kw - w * up - pad0)
+    pads = (py0, (ho - 1) * down + kh - h * up - py0, px0, (wo - 1) * down + kw - w * up - px0)
     with torch.no_grad():
         y = upfirdn._fir_plain(x, taps, up, down, pads)
     cuda.launches["upfirdn2d"] += 1

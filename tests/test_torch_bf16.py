@@ -209,10 +209,10 @@ def card_route(monkeypatch):
     plain = upfirdn._fir_plain
     calls = {"plain": 0, "dtypes": set()}
 
-    def launch(x, taps, up, down, pad0, ho, wo, key):
-        upfirdn.check_launch(x, taps, up, down, pad0, ho, wo)
+    def launch(x, taps, up, down, py0, px0, ho, wo, key):
+        upfirdn.check_launch(x, taps, up, down, py0, ho, wo, px0)
         (h, w), (kh, kw) = x.shape[2:], taps.shape
-        pads = (pad0, (ho - 1) * down + kh - h * up - pad0, pad0, (wo - 1) * down + kw - w * up - pad0)
+        pads = (py0, (ho - 1) * down + kh - h * up - py0, px0, (wo - 1) * down + kw - w * up - px0)
         with torch.no_grad():
             y = plain(x, taps, up, down, pads)
         cuda.launches[upfirdn.KERNEL_OF_DTYPE[x.dtype]] += 1

@@ -201,11 +201,39 @@ def test_cuda_route_blur_needs_no_copy(rng, on_card, monkeypatch):  # noqa: F811
     stuffing or padding in torch."""
     launched = []
     real = upfirdn._launch
-    monkeypatch.setattr(upfirdn, "_launch", lambda x, *a: launched.append((x.shape, a[1:5])) or real(x, *a))
+    monkeypatch.setattr(upfirdn, "_launch", lambda x, *a: launched.append((x.shape, a[1:6])) or real(x, *a))
     xt = nchw(rng.randn(2, 16, 16, 8).astype(np.float32)).requires_grad_()
     upfirdn.blur3x3(xt).square().sum().backward()
     assert xt.grad.shape == xt.shape and cuda.launches["upfirdn2d"] == 2
-    assert launched == [(xt.shape, (1, 1, 1, 16))] * 2  # (up, down, front pad, rows out)
+    assert launched == [(xt.shape, (1, 1, 1, 1, 16))] * 2  # (up, down, front pads of H and W, rows out)
+
+
+@pytest.mark.parametrize("pads", [(0, 0, 1, 1), (2, 1, 0, 0), (2, 1, 0, 1)], ids=str)
+def test_cuda_route_per_axis_pads_need_no_copy(rng, on_card, monkeypatch, pads):  # noqa: F811
+    """Front pads that differ between H and W (a row shard's halo'd blur
+    is (0, 0, 1, 1)) reach the kernel as they are, forward and adjoint: one
+    launch each on the tensor itself (its own shape, not a padded copy's),
+    the two front pads apart; the gradient is autograd's of the plain
+    version. At up 2 two front pads of one phase do the same."""
+    launched = []
+    real = upfirdn._launch
+    monkeypatch.setattr(upfirdn, "_launch", lambda x, *a: launched.append((x.shape, a[1:6])) or real(x, *a))
+    up = 2 if pads == (2, 1, 0, 1) else 1
+    k = upfirdn.setup_fir_kernel((1, 3, 3, 1) if up == 2 else (1, 2, 1))
+    x = nchw(rng.randn(2, 10, 13, 4).astype(np.float32))
+    xt = x.clone().requires_grad_()
+    y = upfirdn._fir(xt, upfirdn._taps(k, 4.0 if up == 2 else 1.0), up, 1, pads)
+    g = torch.from_numpy(rng.randn(*y.shape).astype(np.float32))
+    (got,) = torch.autograd.grad(y, xt, g)
+    monkeypatch.undo()
+    xr = x.clone().requires_grad_()
+    (want,) = torch.autograd.grad(upfirdn._fir_plain(xr, upfirdn._taps(k, 4.0 if up == 2 else 1.0), up, 1, pads),
+                                  xr, g)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **FIR_TOL)
+    back = upfirdn.adjoint(10, 13, y.shape[2], y.shape[3], k, up, 1, pads)[3]
+    assert launched == [(x.shape, (up, 1, pads[0], pads[2], y.shape[2])),
+                        (g.shape, (1, up, back[0], back[2], 10))]
+    assert back[0] != back[2] and cuda.launches["upfirdn2d"] == 2
 
 
 def test_slice_gradient_matches_jax_grad(rng):

@@ -41,13 +41,13 @@ KERNELS = {
     "upfirdn2d": (
         "upfirdn2d.cu",
         "tpugan_upfirdn2d_f32",
-        [_c_ptr, _c_ptr, ctypes.c_int64] + [_c_int] * 9 + [_c_ptr, _c_ptr, _c_int, _c_ptr],
+        [_c_ptr, _c_ptr, ctypes.c_int64] + [_c_int] * 10 + [_c_ptr, _c_ptr, _c_int, _c_ptr],
     ),
     # the same kernel on bf16 tensors (fp32 taps and sums)
     "upfirdn2d_bf16": (
         "upfirdn2d.cu",
         "tpugan_upfirdn2d_bf16",
-        [_c_ptr, _c_ptr, ctypes.c_int64] + [_c_int] * 9 + [_c_ptr, _c_ptr, _c_int, _c_ptr],
+        [_c_ptr, _c_ptr, ctypes.c_int64] + [_c_int] * 10 + [_c_ptr, _c_ptr, _c_int, _c_ptr],
     ),
     "sagan_attention": (
         "sagan_attention.cu",

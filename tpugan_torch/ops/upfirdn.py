@@ -28,9 +28,10 @@ adjoint FIR, as tpugan's custom VJP: the gradient stuffed by ``down``,
 correlated with the flipped taps at the same gain and decimated by ``up``,
 with pads taken per axis (``kh`` for H, ``kw`` for W) so that the input's
 size comes back, in the gradient's dtype, as tpugan's custom VJP runs it.
-On the card that is one more launch of the same kernel;
-pads it does not take (negative, or unequal front pads of H and W) are
-applied to the gradient in torch first (:func:`_fir_cuda`).
+On the card that is one more launch of the same kernel, which takes the
+front pads of H and W apart; pads it does not take (negative, or front
+pads of another parity at up 2) are applied in torch first
+(:func:`_fir_cuda`).
 """
 
 from __future__ import annotations
@@ -47,11 +48,14 @@ from tpugan_torch.ops import cuda
 MAX_TAPS = 8  # csrc/upfirdn2d.cu kMaxTaps
 THREADS = 128  # kMaxThreads: threads of a block, at most
 STRIP_ROWS = 4  # kStripRows: output rows of a thread's strip
+COPY_BYTES = 16  # kCopyBytes: a cp.async copy of a staged row, where rows allow it
 MAX_SHARED_BYTES = 48 * 1024  # kMaxSharedBytes: a block's staged tile, at most
 MAX_STRIP_COLS = 64  # strips across a tile of a wide plane
 WIDE_STRIP_MIN_COLS = 32  # same-size FIRs on rows this wide take 4-column strips
+# bf16 ones take 8-column (16-byte) strips on rows this wide, or on 16-byte
+# aligned rows half as wide
+BF16_WIDE_STRIP_MIN_COLS = 128
 BLOCKS_PER_SM = 2  # blocks a launch should have per SM before small planes share one
-VEC_BYTES = 16  # a cp.async copy of a staged row, where rows allow it
 # the C entry point of each dtype, by its name in cuda.KERNELS
 KERNEL_OF_DTYPE = {torch.float32: "upfirdn2d", torch.bfloat16: "upfirdn2d_bf16"}
 
@@ -80,11 +84,13 @@ class FirPlan:
     ``tile_rows`` x ``tile_cols`` at (tile_y * tile_rows, tile_x *
     tile_cols); blocks run planes-group-major, then tile_y, then tile_x. It
     stages ``in_rows`` input rows of ``in_stride`` elements of
-    ``elem_bytes`` bytes per plane from row ``(oy0*down - pad0 - phase) //
-    up`` and column ``(ox0*down - pad0 - phase) // up`` on; with ``vec``
-    (16-byte copies, of 4 floats or 8 bf16) the first column is rounded down
-    to a multiple of the copy and reads start ``lead`` columns in. Each
-    thread computes ``rh`` x ``rw`` outputs."""
+    ``elem_bytes`` bytes per plane from row ``(oy0*down - pad_y0 - phase) //
+    up`` and column ``ix0 = (ox0*down - pad_x0 - phase) // up`` on: with
+    ``vec`` (every row 16-byte aligned) in 16-byte copies from ix0 rounded
+    down to a copy, read ``lead`` columns in; otherwise fp32 one element a
+    copy, and bf16 each row in its own window of 16-byte copies from the
+    boundary at or below its column ix0, read through that row's lead.
+    Each thread computes ``rh`` x ``rw`` outputs."""
 
     rh: int
     rw: int
@@ -110,43 +116,56 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def strip_width(up: int, down: int, wo: int) -> int:
+def strip_width(up: int, down: int, wo: int, elem_bytes: int = 4) -> int:
     """Output columns of a thread's strip: a pair for up 2 (so each
-    column's phase is fixed); for a same-size FIR four (16-byte stores) on
-    rows of WIDE_STRIP_MIN_COLS or more, one on narrower ones, where more
-    threads a plane finish sooner; one otherwise."""
+    column's phase is fixed); for a same-size FIR four on rows of
+    WIDE_STRIP_MIN_COLS or more (a 16-byte store in fp32, 8 bytes in bf16),
+    eight in bf16 (16 bytes) on rows of BF16_WIDE_STRIP_MIN_COLS or more,
+    or of half that that are 16-byte aligned (an odd width's strips store
+    through warp shuffles, which cost more there than 8-byte strips), one
+    on narrower rows, where more threads a plane finish sooner; one
+    otherwise."""
     if (up, down) == (2, 1):
         return 2
-    return 4 if (up, down) == (1, 1) and wo >= WIDE_STRIP_MIN_COLS else 1
+    if (up, down) != (1, 1) or wo < WIDE_STRIP_MIN_COLS:
+        return 1
+    if elem_bytes == 2 and (wo >= BF16_WIDE_STRIP_MIN_COLS or (wo >= BF16_WIDE_STRIP_MIN_COLS // 2 and wo % 8 == 0)):
+        return 8
+    return 4
 
 
 def fir_plan(planes: int, h: int, w: int, up: int, down: int, pad0: int, kh: int, kw: int,
              ho: int, wo: int, *, min_blocks: int, aligned: bool = True,
              rw: int | None = None, elem_bytes: int = 4) -> FirPlan:
-    """The launch plan for ``planes`` planes of h x w -> ho x wo.
+    """The launch plan for ``planes`` planes of h x w -> ho x wo; ``pad0``
+    is a front pad (the plan reads only its up-2 phase, which both axes'
+    front pads share).
 
     Small planes (a whole plane in at most THREADS strips) go several to a
     block, as many as keep ``min_blocks`` blocks (:func:`min_blocks`);
     larger ones are cut into bands of rows across the full width, or 2-D
-    tiles of MAX_STRIP_COLS strips for wide planes. A tile whose staged
-    input exceeds MAX_SHARED_BYTES holds fewer planes, then fewer rows, then
-    fewer columns. ``elem_bytes``: 4 (fp32) or 2 (bf16). ``aligned``: the
-    input's base is 16-byte aligned; when w is a multiple of a 16-byte copy
-    (4 floats, 8 bf16) every row is, and the tile is copied 16 bytes at a
-    time. ``rw``: the strip width, :func:`strip_width` unless given (a
-    same-size FIR runs with 1 or 4)."""
+    tiles of at most MAX_STRIP_COLS strips, the columns split evenly, for
+    wide planes. A tile whose staged input exceeds MAX_SHARED_BYTES holds
+    fewer planes, then fewer rows, then fewer columns. ``elem_bytes``: 4
+    (fp32) or 2 (bf16). ``aligned``: the input's base is 16-byte aligned;
+    when w is a multiple of a 16-byte copy (4 floats, 8 bf16) every row is
+    (``vec``). Staged rows of 16-byte copies (``vec``, or bf16's per-row
+    windows) are up to a copy longer than what the tile reads. ``rw``: the
+    strip width, :func:`strip_width` unless given (a same-size FIR runs
+    with 1, 4 or, in bf16, 8)."""
     if elem_bytes not in (2, 4):
         raise ValueError(f"elements of 4 (fp32) or 2 (bf16) bytes, got {elem_bytes}")
     rh = STRIP_ROWS
-    rw = strip_width(up, down, wo) if rw is None else rw
+    rw = strip_width(up, down, wo, elem_bytes) if rw is None else rw
     phase = -pad0 % up
-    v = VEC_BYTES // elem_bytes
+    v = COPY_BYTES // elem_bytes
     vec = int(aligned and w % v == 0)
+    windows = vec or elem_bytes == 2  # 16-byte copies; fp32 rows off 16-byte boundaries copy elements
 
     def staged(tile_rows, tile_cols):
         rows = (phase + (tile_rows - 1) * down + kh - 1) // up + 1
         cols = (phase + (tile_cols - 1) * down + kw - 1) // up + 1
-        return rows, (-(-(cols + v - 1) // v) * v if vec else cols)
+        return rows, (_cdiv(cols + v - 1, v) * v if windows else cols)
 
     strip_cols, strip_rows = _cdiv(wo, rw), _cdiv(ho, rh)
     if strip_cols * strip_rows <= THREADS:
@@ -154,7 +173,7 @@ def fir_plan(planes: int, h: int, w: int, up: int, down: int, pad0: int, kh: int
                         max(1, planes))
     else:
         per_block = 1
-        strip_cols = min(strip_cols, MAX_STRIP_COLS)
+        strip_cols = _cdiv(strip_cols, _cdiv(strip_cols, MAX_STRIP_COLS))  # even column tiles
         strip_rows = min(strip_rows, THREADS // strip_cols)
     while True:
         in_rows, in_stride = staged(strip_rows * rh, strip_cols * rw)
@@ -274,16 +293,23 @@ def _upfirdn2d_cpu(x, taps, kh, kw, up, down, pads, key):
     return _fir_plain(x, np.asarray(taps, dtype=np.float32).reshape(kh, kw), up, down, tuple(pads))
 
 
+def _kernel_takes(pads, up) -> bool:
+    """Whether the kernel takes these pads as they are: non-negative front
+    pads of H and W with one up-2 phase (at up 1, any); the back pads
+    follow from the output size."""
+    py0, _, px0, _ = pads
+    return py0 >= 0 and px0 >= 0 and (py0 - px0) % up == 0
+
+
 def _fir_kernel(x, taps, kh, kw, up, down, pads, key):
-    """The operator on the card: one launch of the kernel, which takes one
-    non-negative front pad for both axes and any output size (the back pads
-    follow from it); other pads are applied in torch before the operator
-    (:func:`_fir_cuda`)."""
+    """The operator on the card: one launch of the kernel, with the front
+    pads of H and W as :func:`_kernel_takes` allows and any output size;
+    other pads are applied in torch before the operator (:func:`_fir_cuda`)."""
     py0, py1, px0, px1 = pads
-    if py0 != px0 or py0 < 0:
-        raise ValueError(f"the FIR kernel takes one non-negative front pad for both axes, got pads {pads}")
+    if not _kernel_takes(pads, up):
+        raise ValueError(f"the FIR kernel takes non-negative front pads of one up-{up} phase, got pads {pads}")
     ho, wo = _out_size(x.shape[2], up, down, py0, py1, kh), _out_size(x.shape[3], up, down, px0, px1, kw)
-    return _launch(x, np.asarray(taps, dtype=np.float32).reshape(kh, kw), up, down, py0, ho, wo, key)
+    return _launch(x, np.asarray(taps, dtype=np.float32).reshape(kh, kw), up, down, py0, px0, ho, wo, key)
 
 
 def _upfirdn2d_fake(x, taps, kh, kw, up, down, pads, key):
@@ -366,13 +392,14 @@ def upfirdn2d_plain(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
 
 def _fir_cuda(x, taps, up, down, pads, key=None):
     """A FIR with pads per axis (a forward, or an adjoint) on the card's
-    route: equal non-negative front pads reach the operator as they are;
-    otherwise the input is stuffed and padded (or cropped) here, in torch,
-    and the kernel runs with up 1 and no pad. Counted under ``key``, by
-    default the TPU kernel tpugan runs for it (:func:`_layout_key`)."""
+    route: pads the kernel takes (:func:`_kernel_takes`) reach the operator
+    as they are; otherwise (a negative pad, or front pads of two phases at
+    up 2) the input is stuffed and padded (or cropped) here, in torch, and
+    the kernel runs with up 1 and no pad. Counted under ``key``, by default
+    the TPU kernel tpugan runs for it (:func:`_layout_key`)."""
     key = key or _layout_key(x.shape[1], taps, up, down, pads)
     py0, py1, px0, px1 = pads
-    if py0 == px0 >= 0:
+    if _kernel_takes(pads, up):
         return _fir_op(x, taps, up, down, pads, key)
     x = F.pad(_stuff(x, up), (px0, px1, py0, py1)).contiguous()
     return _fir_op(x, taps, 1, down, (0, 0, 0, 0), key)
@@ -400,10 +427,11 @@ def upfirdn2d_cuda(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
     return _fir_cuda(x, taps, up, down, (p0, p1, p0, p1))
 
 
-def check_launch(x, taps, up, down, pad0, ho, wo) -> None:
+def check_launch(x, taps, up, down, pad0, ho, wo, pad_x0=None) -> None:
     """The kernel's contract, short of the device: a contiguous fp32 or bf16
-    [N, C, H, W] tensor, up and down in {1, 2}, up to 8x8 taps, a
-    non-negative front pad and a non-empty output; raises on anything else."""
+    [N, C, H, W] tensor, up and down in {1, 2}, up to 8x8 taps, non-negative
+    front pads ``pad0`` (H's) and ``pad_x0`` (W's, by default H's) of one
+    up-2 phase and a non-empty output; raises on anything else."""
     if x.dtype not in KERNEL_OF_DTYPE:
         raise TypeError(f"upfirdn2d_cuda takes float32 or bfloat16, got {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
@@ -413,28 +441,31 @@ def check_launch(x, taps, up, down, pad0, ho, wo) -> None:
         raise ValueError(f"up and down must be 1 or 2, got up={up}, down={down}")
     if not (1 <= kh <= MAX_TAPS and 1 <= kw <= MAX_TAPS):
         raise ValueError(f"kernel {kh}x{kw} exceeds {MAX_TAPS}x{MAX_TAPS}")
-    if pad0 < 0:
-        raise ValueError(f"pads must be non-negative, got a front pad of {pad0}")
+    pad_x0 = pad0 if pad_x0 is None else pad_x0
+    if pad0 < 0 or pad_x0 < 0:
+        raise ValueError(f"pads must be non-negative, got front pads {pad0} and {pad_x0}")
+    if (pad0 - pad_x0) % up:
+        raise ValueError(f"front pads {pad0} and {pad_x0} differ in their up-{up} phase")
     if ho < 1 or wo < 1:
         raise ValueError(f"empty output {ho}x{wo} for input {x.shape[2]}x{x.shape[3]}")
 
 
-def _launch(x, taps, up, down, pad0, ho, wo, key):
+def _launch(x, taps, up, down, pad_y0, pad_x0, ho, wo, key):
     """One launch of the kernel of x's dtype, ``ho`` x ``wo`` outputs from
-    front pad ``pad0``, counted under its name in ``cuda.launches`` and
-    under ``key`` in :data:`layout_launches`."""
-    check_launch(x, taps, up, down, pad0, ho, wo)
+    front pads ``pad_y0`` (H) and ``pad_x0`` (W), counted under its name in
+    ``cuda.launches`` and under ``key`` in :data:`layout_launches`."""
+    check_launch(x, taps, up, down, pad_y0, ho, wo, pad_x0)
     if not x.is_cuda:
         raise ValueError(f"upfirdn2d_cuda needs a CUDA tensor, got one on {x.device}")
     n, c, h, w = x.shape
     kh, kw = taps.shape
     y = torch.empty((n, c, ho, wo), dtype=x.dtype, device=x.device)
-    plan = _plan_array(n * c, h, w, up, down, pad0, kh, kw, ho, wo, min_blocks=min_blocks(x.device),
-                       aligned=x.data_ptr() % VEC_BYTES == 0, elem_bytes=x.element_size())
+    plan = _plan_array(n * c, h, w, up, down, pad_y0, kh, kw, ho, wo, min_blocks=min_blocks(x.device),
+                       aligned=x.data_ptr() % COPY_BYTES == 0, elem_bytes=x.element_size())
     name = KERNEL_OF_DTYPE[x.dtype]
     fn = cuda.kernel(name)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), y.data_ptr(), n * c, h, w, ho, wo, up, down, pad0, kh, kw,
+    rc = fn(x.data_ptr(), y.data_ptr(), n * c, h, w, ho, wo, up, down, pad_y0, pad_x0, kh, kw,
             taps.ctypes.data, plan.ctypes.data, x.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"upfirdn2d kernel launch failed: cudaError {rc}")
@@ -456,8 +487,8 @@ def blur3x3_rows(x: torch.Tensor) -> torch.Tensor:
     (``parallel.mesh.halo_rows``: zero rows at the image's edges), so H
     takes no pad and W its 1 and 1. Its launches, forward and adjoint, are
     counted under the TPU kernel of the whole image's blur (whose adjoint is
-    the same blur). Its front pads differ between H and W, so the card's
-    route pads the input in torch before the launch (:func:`_fir_cuda`)."""
+    the same blur). The kernel takes the two axes' front pads apart, so on
+    the card each is one launch on the shard as it is, with no copy."""
     key = tpu_layout(x.shape[1], 1, 1, 3, 3, (1, 1))
     return _fir(x, _BLUR_TAPS, 1, 1, (0, 0, 1, 1), (key, key))
 

@@ -68,7 +68,7 @@ def measure(dev, calls: int = CALLS, say=print) -> dict:
         args = (taps.ravel().tolist(), 3, 3, 1, 1, [1, 1, 1, 1], "B2")
         q, k, v = (torch.randn(*s, device=dev).to(dtype) for s in QKV)
         forms = {
-            "FIR ctypes launch": lambda: upfirdn._launch(x, taps, 1, 1, 1, SHAPE[2], SHAPE[3], "B2"),
+            "FIR ctypes launch": lambda: upfirdn._launch(x, taps, 1, 1, 1, 1, SHAPE[2], SHAPE[3], "B2"),
             "FIR operator": lambda: torch.ops.tpugan_torch.upfirdn2d.default(x, *args),
             "FIR custom_op": lambda: twin(x, *args),
             "FIR upfirdn.blur3x3": lambda: upfirdn.blur3x3(x),
